@@ -1,0 +1,180 @@
+"""The variant-rule registry: each method is ONE h-update (Alg. 1 line 8).
+Port of ``repro.methods.rules``.
+
+DASHA, DASHA-PAGE, DASHA-MVR and DASHA-SYNC-MVR differ only in how node i
+refreshes h_i; MARINA fits the same skeleton with a = 0.  A
+:class:`VariantRule` holds that line plus its analytics:
+
+* ``h_update``   — (sub, rnd, hp, x_new, x_old, h, data) -> (h_new, aux),
+  where ``rnd`` is the round's :class:`repro_torch.core.rng.RoundRandom`;
+* ``sync_update`` — the probability-p dense synchronization round, if any;
+* ``force_a``    — overrides the compressor momentum (MARINA: 0);
+* ``theory_gamma`` — Section 6 stepsize + derived constants;
+* ``extra_payload`` — expected coords/round beyond the compressed message;
+* ``sync_requires_all`` — the sync round is a client-synchronization
+  barrier.
+
+The port's coins are host booleans, so a rule computes only the branch a
+coin selects; the reference computes both and where-selects, with the
+same result.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+
+from repro_torch.core import theory
+
+
+class MvrFusion(NamedTuple):
+    """Fusion hint: h_new = grads_new + (1-b)(h - grads_old) (SARAH is
+    b = 0)."""
+
+    grads_new: Any
+    grads_old: Any
+    b: float
+
+
+def _no_extra_payload(hp, payload: float, dense: float) -> float:
+    return 0.0
+
+
+def _sync_extra_payload(hp, payload: float, dense: float) -> float:
+    """A probability-p round uploads dense instead of compressed coords."""
+    return hp.p * (dense - payload)
+
+
+@dataclasses.dataclass(frozen=True)
+class VariantRule:
+    """One method = one h-update + its analytics (see module docstring)."""
+
+    name: str
+    h_update: Callable[..., Tuple[Any, Any]]
+    sync_update: Optional[Callable[..., Any]] = None
+    force_a: Optional[float] = None
+    theory_gamma: Optional[Callable[..., Tuple[float, Dict[str, Any]]]] = None
+    extra_payload: Callable[..., float] = _no_extra_payload
+    sync_requires_all: bool = False
+
+    @property
+    def has_sync(self) -> bool:
+        return self.sync_update is not None
+
+
+VARIANTS: Dict[str, VariantRule] = {}
+
+
+def register_variant(rule: VariantRule) -> VariantRule:
+    VARIANTS[rule.name] = rule
+    return rule
+
+
+def get_rule(variant) -> VariantRule:
+    if isinstance(variant, VariantRule):
+        return variant
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown method variant {variant!r}; "
+                         f"registered: {sorted(VARIANTS)}")
+    return VARIANTS[variant]
+
+
+# ---------------------------------------------------------------------------
+# h-updates
+# ---------------------------------------------------------------------------
+
+def _h_dasha(sub, rnd, hp, x_new, x_old, h, data):
+    """h_i^{t+1} = grad f_i(x^{t+1}) (the GD-like line)."""
+    return sub.grad(rnd, x_new, data, hp.batch), None
+
+
+def _h_page(sub, rnd, hp, x_new, x_old, h, data):
+    """PAGE: full reset with prob p, else a SARAH increment on a
+    shared-sample minibatch difference (Theorem 6.4)."""
+    if rnd.coin(hp.p, "page"):
+        return sub.grad(rnd, x_new, data, hp.batch), None
+    diff = sub.grad_diff(rnd, x_new, x_old, hp.batch, data)
+    return h + diff, None
+
+
+def _h_mvr(sub, rnd, hp, x_new, x_old, h, data):
+    """Momentum variance reduction with the SAME samples at both points
+    (Theorem 6.7)."""
+    gn, go = sub.grad_pair(rnd, x_new, x_old, hp.batch, data)
+    return gn + (1.0 - hp.b) * (h - go), MvrFusion(gn, go, hp.b)
+
+
+def _h_sarah(sub, rnd, hp, x_new, x_old, h, data):
+    """SYNC-MVR's compressed branch: MVR with b = 0 (SARAH recursion)."""
+    gn, go = sub.grad_pair(rnd, x_new, x_old, hp.batch, data)
+    return gn + (h - go), MvrFusion(gn, go, 0.0)
+
+
+def _h_marina(sub, rnd, hp, x_new, x_old, h, data):
+    """MARINA: telescoped oracle difference; with force_a = 0 the drift is
+    exactly C_i(G_i(x^{t+1}) - G_i(x^t))."""
+    return h + sub.grad_diff(rnd, x_new, x_old, hp.batch, data), None
+
+
+def _sync_megabatch(sub, rnd, hp, x_new, data):
+    """The dense sync round: a fresh uncompressed megabatch gradient (the
+    exact gradient where the oracle has one)."""
+    return sub.megabatch(rnd, x_new, hp.batch_sync, data)
+
+
+# ---------------------------------------------------------------------------
+# theory glue (Section 6)
+# ---------------------------------------------------------------------------
+
+def _theory_dasha(c):
+    return theory.gamma_dasha(c.L, c.L_hat, c.omega, c.n), {}
+
+
+def _theory_page(c):
+    p = theory.page_p(c.B, c.m)
+    return (theory.gamma_dasha_page(c.L, c.L_hat, c.L_max, c.omega, c.n,
+                                    c.B, p),
+            {"p": p, "batch": c.B})
+
+
+def _theory_mvr(c):
+    b = theory.mvr_b(c.omega, c.n, c.B, c.eps, c.sigma2)
+    return (theory.gamma_dasha_mvr(c.L, c.L_hat, c.L_sigma, c.omega, c.n,
+                                   c.B, b),
+            {"b": b, "batch": c.B})
+
+
+def _theory_sync_mvr(c):
+    p = theory.sync_mvr_p(c.zeta, c.d, c.n, c.B, c.eps, c.sigma2)
+    return (theory.gamma_sync_mvr(c.L, c.L_hat, c.L_sigma, c.omega, c.n,
+                                  c.B, p),
+            {"p": p, "batch": c.B})
+
+
+def _theory_marina(c):
+    p = theory.marina_p(c.zeta, c.d)
+    # batch=0: the plain MARINA stepsize assumes exact gradient differences
+    return theory.gamma_marina(c.L, c.omega, c.n, p), {"p": p, "batch": 0}
+
+
+# ---------------------------------------------------------------------------
+# the registry
+# ---------------------------------------------------------------------------
+
+register_variant(VariantRule(
+    name="dasha", h_update=_h_dasha, theory_gamma=_theory_dasha))
+
+register_variant(VariantRule(
+    name="page", h_update=_h_page, theory_gamma=_theory_page))
+
+register_variant(VariantRule(
+    name="mvr", h_update=_h_mvr, theory_gamma=_theory_mvr))
+
+register_variant(VariantRule(
+    name="sync_mvr", h_update=_h_sarah, sync_update=_sync_megabatch,
+    theory_gamma=_theory_sync_mvr, extra_payload=_sync_extra_payload,
+    sync_requires_all=True))
+
+register_variant(VariantRule(
+    name="marina", h_update=_h_marina, sync_update=_sync_megabatch,
+    force_a=0.0, theory_gamma=_theory_marina,
+    extra_payload=_sync_extra_payload, sync_requires_all=True))

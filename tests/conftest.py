@@ -12,3 +12,5 @@ jax.config.update("jax_enable_x64", False)
 def pytest_configure(config):
     config.addinivalue_line("markers",
                             "slow: long-running integration test")
+    config.addinivalue_line("markers",
+                            "cuda: needs a CUDA device; skips without one")

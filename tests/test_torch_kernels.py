@@ -1,0 +1,187 @@
+"""The port's kernels: plain versions against the reference (CPU), the
+CPU/CUDA dispatch, the wrappers' input checks, and — on a card only — each
+CUDA kernel against its plain version.
+
+Tolerances: ``dasha_update``'s plain version repeats the reference's op
+order, one rounding per op, so it matches to rtol 1e-6 (last-ulp drift of
+XLA's fused CPU loop); on the card the kernel must match its plain version
+bit for bit.  ``quantize`` norms are summed in different orders in the
+three implementations, so outputs follow the one-level rule
+(``quantize_agreement``).
+
+On a card (no JAX needed):
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda \
+        tests/test_torch_kernels.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import dasha_update as kern
+from repro_torch.kernels import ops, ref
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture
+def cuda_device():
+    """The card, or a skip: decided when the test runs, never at import."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.fixture
+def reference():
+    """The reference's kernel ops and plain versions.  Imported here, not
+    at the top, so that the card tests of this file run where JAX is not
+    installed."""
+    import jax.numpy as jnp
+    from repro.kernels import ops as jops
+    from repro.kernels import ref as jref
+    return jnp, jops, jref
+
+
+def _arrays(shape, seed=0, mask_p=0.3):
+    rng = np.random.default_rng(seed)
+    grad, h, gl = (rng.standard_normal(shape).astype(np.float32)
+                   for _ in range(3))
+    mask = (rng.random(shape) < mask_p).astype(np.float32)
+    return grad, h, gl, mask
+
+
+@pytest.mark.parametrize("d", [1, 129, 1000, 128 * 3 + 7])
+@pytest.mark.parametrize("a,scale", [(0.1, 32.0), (1.0, 1.0), (0.011, 8.0)])
+def test_dasha_update_plain_matches_reference_kernel(reference, d, a,
+                                                     scale):
+    jnp, jops, _ = reference
+    grad, h, gl, mask = _arrays((d,), seed=d)
+    want = jops.dasha_update(*(jnp.asarray(t) for t in (grad, h, gl, mask)),
+                             a, scale)
+    got = ops.dasha_update(*(torch.as_tensor(t) for t in (grad, h, gl,
+                                                          mask)), a, scale)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6,
+                                   atol=1e-6)
+
+
+def test_dasha_update_plain_matches_reference_ref_on_nodes(reference):
+    jnp, _, jref = reference
+    grad, h, gl, mask = _arrays((5, 300), seed=3)
+    want = jref.dasha_update_ref(*(jnp.asarray(t) for t in (grad, h, gl,
+                                                            mask)), 0.25, 4.0)
+    got = ref.dasha_update_ref(*(torch.as_tensor(t) for t in (grad, h, gl,
+                                                              mask)),
+                               0.25, 4.0)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6,
+                                   atol=1e-6)
+
+
+def test_kernel_invariant_g_local_update():
+    grad, h, gl, mask = (torch.as_tensor(t) for t in _arrays((4, 257), 5))
+    m, h_new, g_new = ops.dasha_update(grad, h, gl, mask, 0.2, 3.0)
+    assert torch.equal(g_new, gl + m)
+    assert torch.equal(h_new, grad)
+    assert bool((m[mask == 0] == 0).all())
+
+
+@pytest.mark.parametrize("rows,cols,levels", [(1, 128, 1), (5, 300, 15),
+                                              (7, 100, 7), (3, 1, 15)])
+def test_quantize_plain_follows_one_level_rule_vs_reference(reference, rows,
+                                                            cols, levels):
+    jnp, jops, _ = reference
+    rng = np.random.default_rng(rows * cols)
+    x = rng.standard_normal((rows, cols)).astype(np.float32)
+    x[0] = 0.0                              # a zero row passes through
+    u = rng.random((rows, cols)).astype(np.float32)
+    want = np.array(jops.quantize_with_u(jnp.asarray(x), jnp.asarray(u),
+                                         levels))
+    got = ops.quantize_with_u(torch.as_tensor(x), torch.as_tensor(u), levels)
+    assert torch.all(got[0] == 0)
+    agree = kern.quantize_agreement(got, torch.as_tensor(want),
+                                    torch.as_tensor(x), torch.as_tensor(u),
+                                    levels)
+    assert agree["ok"], agree
+
+
+def test_quantize_draws_its_own_uniforms_unbiased():
+    x = torch.as_tensor(np.random.default_rng(1).standard_normal(
+        (2, 64)).astype(np.float32))
+    gen = torch.Generator().manual_seed(0)
+    mean = sum(ops.quantize(x, gen, 3) for _ in range(3000)) / 3000
+    level = float(x.norm(dim=1).max()) / 3
+    assert float((mean - x).abs().max()) < 5 * level / np.sqrt(3000)
+
+
+def test_dispatch_rejects_devices_without_a_kernel():
+    t = torch.zeros(4, device="meta")
+    with pytest.raises(ValueError):
+        ops.dasha_update(t, t, t, t, 0.1, 1.0)
+    with pytest.raises(ValueError):
+        ops.quantize_with_u(t.view(1, 4), t.view(1, 4), 3)
+
+
+def test_wrappers_refuse_cpu_tensors_and_launch_nothing():
+    t = torch.zeros(8)
+    kern.reset_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        kern.dasha_update(t, t, t, t, 0.1, 1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        kern.quantize(t.view(2, 4), t.view(2, 4), 3)
+    assert kern.COUNTS == {"dasha_update": 0, "quantize": 0}
+
+
+# ---------------------------------------------------------------------------
+# on the card: kernel vs plain version
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(5, 20958), (3, 4099), (1, 3)])
+@pytest.mark.parametrize("misalign", [False, True])
+def test_cuda_dasha_update_bit_equal_to_plain(cuda_device, shape, misalign):
+    grad, h, gl, mask = _arrays(shape, seed=7)
+
+    def dev(a):
+        off = int(misalign)
+        buf = torch.empty(a.size + off, device=cuda_device)
+        buf[off:] = torch.as_tensor(a.reshape(-1), device=cuda_device)
+        return buf[off:].view(shape)
+
+    args = [dev(t) for t in (grad, h, gl, mask)]
+    before = kern.COUNTS["dasha_update"]
+    got = kern.dasha_update(*args, 0.0024, 209.58)
+    assert kern.COUNTS["dasha_update"] == before + 1
+    want = ref.dasha_update_ref(*args, 0.0024, 209.58)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(5, 20958), (3, 4099), (2, 9000)])
+def test_cuda_quantize_follows_one_level_rule(cuda_device, shape):
+    rng = np.random.default_rng(3)
+    x = torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                        device=cuda_device)
+    x[0] = 0.0
+    u = torch.as_tensor(rng.random(shape).astype(np.float32),
+                        device=cuda_device)
+    got = kern.quantize(x, u, 15)
+    again = kern.quantize(x, u, 15)
+    agree = kern.quantize_agreement(got, ref.quantize_ref(x, u, 15), x, u,
+                                    15)
+    assert agree["ok"], agree
+    assert torch.equal(got, again)
+    assert bool((got[0] == 0).all())
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_reject_bad_inputs(cuda_device):
+    t = torch.zeros((4, 8), device=cuda_device)
+    with pytest.raises(TypeError):
+        kern.dasha_update(t, t, t, t.double(), 0.1, 1.0)
+    with pytest.raises(ValueError):
+        kern.dasha_update(t, t, t.t().contiguous().t(), t[:, :4], 0.1, 1.0)
+    with pytest.raises(ValueError):
+        kern.quantize(t.t(), t.t(), 3)
