@@ -8,25 +8,39 @@ Phases, each fatal on failure:
 1. build — compile every kernel under ``src/repro_torch/kernels/csrc`` with
    nvcc for sm_90a (one nvcc per source, all started together);
 2. kernels vs plain — each kernel against its plain torch version on the
-   card at the main path's shape (5, 20958), at the ResNet-18 width
-   (5, 11173962) and at a ragged shape with misaligned inputs, timed with
-   CUDA events beside its device-memory bound;
-3. main path — DASHA's flat Algorithm-1 round at the LIBSVM real-sim shape
-   (n = 5 nodes x m = 14,461 samples, d = 20,958; synthetic data made on
-   the card from a seed) through Method.build / init / Driver.run: dasha
-   with fused RandK, dasha with fused QDither, page with fused RandK, 200
-   rounds each; the kernels' launch counters must show the path ran
-   through them;
-4. agreement — all 5 variants x dense/sparse/fused on the quickstart
-   problem, on the card and on the CPU with the same injected draws, must
-   give the same ||grad f||^2 and bits_sent traces.
+   card, timed with CUDA events and the profiler beside its device-memory
+   bound: ``dasha_update`` and ``quantize`` at the flat path's (5, 20958),
+   the ResNet-18 width (5, 11173962) and a ragged misaligned (3, 4099);
+   ``dasha_mvr_update`` at (4, 20958), the Mamba2-780M tied embedding
+   leaf (4, 77463552) and the ragged misaligned shape;
+3. flat main path — DASHA's flat Algorithm-1 round at the LIBSVM real-sim
+   shape (n = 5 nodes x m = 14,461 samples, d = 20,958; synthetic data made
+   on the card from a seed) through Method.build / init / Driver.run: dasha
+   with fused RandK, dasha with fused QDither, page with fused RandK;
+4. flat agreement — all 5 variants x dense/sparse/fused on the quickstart
+   problem, on the card and on the CPU with the same injected draws;
+5. trainer main path — ``repro_torch.launch.train.train`` on Mamba2-780M
+   at full width (d_model 1536, vocab 50,432) with the depth cut to
+   ``TRAIN_LAYERS`` of 48 layers (n = 4 nodes of fp32 state, the round's
+   new trees and one node's activations: 32 layers ran out of the card's
+   80 GB), n = 4, batch 2 per node,
+   seq 512, DASHA-MVR with the fused kernel and an Adam server; rounds/s,
+   tokens/s, peak memory, eval loss before and after, kernel launches
+   (= leaves x rounds) and a profiled window;
+6. trainer agreement — a smoke-size float32 Mamba2 trained on the card and
+   on the CPU with the same injected masks, coins and batches, for dasha /
+   mvr / sync_mvr x independent / permk x use_kernel off / on.
 
-Prints one JSON ``kernels`` line, the card's name and power limit, and as
-its last line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
-without the repository beside it, it exits non-zero and prints no result.
+Every phase that drives a main path zeroes the launch counters just before
+it and reads them just after; a kernel of that path that never launched
+fails the run.  Prints one JSON ``kernels`` line, the card's name and power
+limit, and as its last line ``{"ok": true, "device": {...}}``.  Without a
+CUDA device, or without the repository beside it, it exits non-zero and
+prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -45,6 +59,11 @@ N_NODES, M_REALSIM, D_REALSIM = 5, 14461, 20958
 D_RESNET18 = 11173962
 ROUNDS, METRIC_EVERY, K_RANDK, S_QDITHER = 200, 10, 100, 15
 SHAPES = [(N_NODES, D_REALSIM), (N_NODES, D_RESNET18), (3, 4099)]
+# the trainer: Mamba2-780M's widths, its tied embedding leaf, n = 4 nodes
+TRAIN_NODES, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 4, 16, 2, 512
+TRAIN_WARMUP, TRAIN_ROUNDS, TRAIN_PROFILED = 2, 10, 2
+D_EMBED = 50432 * 1536
+MVR_SHAPES = [(TRAIN_NODES, D_REALSIM), (TRAIN_NODES, D_EMBED), (3, 4099)]
 
 
 def log(msg: str) -> None:
@@ -113,7 +132,12 @@ def kernel_device_ms(torch, fn, names, reps: int = 20):
     (None when the profiler records no device activity)."""
     fn()
     torch.cuda.synchronize()
-    table, _ = profiled(torch, lambda: [fn() for _ in range(reps)])
+
+    def run():                       # keeps no outputs alive between calls
+        for _ in range(reps):
+            fn()
+
+    table, _ = profiled(torch, run)
     us = sum(t for k, (_, t) in table.items()
              if any(nm in k for nm in names))
     return us / reps / 1e3 if us > 0 else None
@@ -151,71 +175,109 @@ def _inputs(torch, shape, seed: int, misalign: bool):
     return grad, h, gl, mask, u
 
 
-def phase_kernels(torch):
-    from repro_torch.kernels import dasha_update as kern
-    from repro_torch.kernels import ref
-    a, scale, levels = 1.0 / (2.0 * 208.58 + 1.0), 209.58, S_QDITHER
-    rows = {"dasha_update": [], "quantize": []}
-    log("[kernels] library_ms is null for both: no single PyTorch call "
-        "computes the fused estimator update or row-wise QSGD with external "
-        "uniforms")
-    for i, shape in enumerate(SHAPES):
-        misalign = shape == SHAPES[-1]
-        grad, h, gl, mask, u = _inputs(torch, shape, 100 + i, misalign)
-        x = grad.clone()
-        if misalign:
-            x[0].zero_()                   # a zero row quantizes to zeros
-        numel = math.prod(shape)
-
-        out = kern.dasha_update(grad, h, gl, mask, a, scale)
-        again = kern.dasha_update(grad, h, gl, mask, a, scale)
-        plain = ref.dasha_update_ref(grad, h, gl, mask, a, scale)
-        torch.cuda.synchronize()
-        err = max(float((o - p).abs().max()) for o, p in zip(out, plain))
-        if err != 0.0 or not all(torch.equal(o, p)
-                                 for o, p in zip(out, again)):
-            raise AssertionError(f"dasha_update {shape}: max_abs_err {err} "
-                                 "(must be bit-equal and repeatable)")
-        b, by = bound(7 * 4 * numel, 6 * numel)
-        rows["dasha_update"].append({
-            "shape": list(shape), "misaligned": misalign,
-            "max_abs_err": err,
+def _check_dasha(torch, kern, ref, shape, misalign, seed):
+    a, scale = 1.0 / (2.0 * 208.58 + 1.0), 209.58
+    grad, h, gl, mask, _ = _inputs(torch, shape, seed, misalign)
+    out = kern.dasha_update(grad, h, gl, mask, a, scale)
+    again = kern.dasha_update(grad, h, gl, mask, a, scale)
+    plain = ref.dasha_update_ref(grad, h, gl, mask, a, scale)
+    torch.cuda.synchronize()
+    err = max(float((o - p).abs().max()) for o, p in zip(out, plain))
+    if err != 0.0 or not all(torch.equal(o, p) for o, p in zip(out, again)):
+        raise AssertionError(f"dasha_update {shape}: max_abs_err {err} "
+                             "(must be bit-equal and repeatable)")
+    numel = math.prod(shape)
+    b, by = bound(7 * 4 * numel, 6 * numel)
+    return {"max_abs_err": err,
             "ms": time_ms(torch, lambda: kern.dasha_update(
                 grad, h, gl, mask, a, scale)),
             "plain_ms": time_ms(torch, lambda: ref.dasha_update_ref(
                 grad, h, gl, mask, a, scale)),
             "device_ms": kernel_device_ms(torch, lambda: kern.dasha_update(
                 grad, h, gl, mask, a, scale), ["dasha_update_"]),
-            "bound_ms": b, "bound_by": by})
+            "bound_ms": b, "bound_by": by}
 
-        q = kern.quantize(x, u, levels)
-        q_again = kern.quantize(x, u, levels)
-        q_plain = ref.quantize_ref(x, u, levels)
+
+def _check_mvr(torch, kern, ref, shape, misalign, seed):
+    a, scale = 1.0 / (2.0 * 31.0 + 1.0), 32.0
+    gn, h, gl, mask, _ = _inputs(torch, shape, seed, misalign)
+    go, *_ = _inputs(torch, shape, seed + 50, misalign)
+    err = 0.0
+    for b in (0.1, 0.0):                      # MVR and SARAH (SYNC-MVR)
+        out = kern.dasha_mvr_update(gn, go, h, gl, mask, a, b, scale)
+        again = kern.dasha_mvr_update(gn, go, h, gl, mask, a, b, scale)
+        plain = ref.dasha_mvr_update_ref(gn, go, h, gl, mask, a, b, scale)
         torch.cuda.synchronize()
-        agree = kern.quantize_agreement(q, q_plain, x, u, levels)
-        if not agree["ok"] or not torch.equal(q, q_again):
-            raise AssertionError(f"quantize {shape}: {agree} (one-level "
-                                 "rule and repeatability)")
-        if misalign and bool(q[0].abs().max() != 0):
-            raise AssertionError("quantize: a zero row must give zeros")
-        b, by = bound(3 * 4 * numel, 10 * numel)
-        rows["quantize"].append({
-            "shape": list(shape), "misaligned": misalign,
-            "max_abs_err": agree["max_abs_err"],
+        err = max([err] + [float((o - p).abs().max())
+                           for o, p in zip(out, plain)])
+        if err != 0.0 or not all(torch.equal(o, p)
+                                 for o, p in zip(out, again)):
+            raise AssertionError(f"dasha_mvr_update {shape} b={b}: "
+                                 f"max_abs_err {err} (must be bit-equal "
+                                 "and repeatable)")
+        del out, again, plain
+    numel = math.prod(shape)
+    b_ms, by = bound(8 * 4 * numel, 9 * numel)
+    return {"max_abs_err": err,
+            "ms": time_ms(torch, lambda: kern.dasha_mvr_update(
+                gn, go, h, gl, mask, a, 0.1, scale)),
+            "plain_ms": time_ms(torch, lambda: ref.dasha_mvr_update_ref(
+                gn, go, h, gl, mask, a, 0.1, scale)),
+            "device_ms": kernel_device_ms(torch, lambda: kern.dasha_mvr_update(
+                gn, go, h, gl, mask, a, 0.1, scale), ["dasha_mvr_update_"]),
+            "bound_ms": b_ms, "bound_by": by}
+
+
+def _check_quantize(torch, kern, ref, shape, misalign, seed):
+    levels = S_QDITHER
+    grad, _, _, _, u = _inputs(torch, shape, seed, misalign)
+    x = grad.clone()
+    if misalign:
+        x[0].zero_()                       # a zero row quantizes to zeros
+    q = kern.quantize(x, u, levels)
+    q_again = kern.quantize(x, u, levels)
+    q_plain = ref.quantize_ref(x, u, levels)
+    torch.cuda.synchronize()
+    agree = kern.quantize_agreement(q, q_plain, x, u, levels)
+    if not agree["ok"] or not torch.equal(q, q_again):
+        raise AssertionError(f"quantize {shape}: {agree} (one-level "
+                             "rule and repeatability)")
+    if misalign and bool(q[0].abs().max() != 0):
+        raise AssertionError("quantize: a zero row must give zeros")
+    numel = math.prod(shape)
+    b, by = bound(3 * 4 * numel, 10 * numel)
+    return {"max_abs_err": agree["max_abs_err"],
             "one_level_flips": agree["flips"],
             "ms": time_ms(torch, lambda: kern.quantize(x, u, levels)),
             "plain_ms": time_ms(torch, lambda: ref.quantize_ref(x, u,
                                                                  levels)),
             "device_ms": kernel_device_ms(torch, lambda: kern.quantize(
                 x, u, levels), ["quantize_partials", "quantize_apply"]),
-            "bound_ms": b, "bound_by": by})
-        for name in rows:
-            r = rows[name][-1]
-            log(f"[kernels] {name} {shape}{' misaligned' if misalign else ''}"
-                f": err {r['max_abs_err']:.3g}  call {r['ms']:.4f} ms  "
-                f"device {r['device_ms']} ms  plain {r['plain_ms']:.4f} ms  "
-                f"bound {r['bound_ms']:.4f} ms")
-        del grad, h, gl, mask, u, x, out, again, plain, q, q_again, q_plain
+            "bound_ms": b, "bound_by": by}
+
+
+def phase_kernels(torch):
+    from repro_torch.kernels import dasha_update as kern
+    from repro_torch.kernels import ref
+    checks = {"dasha_update": (_check_dasha, SHAPES),
+              "quantize": (_check_quantize, SHAPES),
+              "dasha_mvr_update": (_check_mvr, MVR_SHAPES)}
+    rows = {name: [] for name in checks}
+    log("[kernels] library_ms is null for all: no single PyTorch call "
+        "computes a fused estimator update or row-wise QSGD with external "
+        "uniforms")
+    for name, (check, shapes) in checks.items():
+        for i, shape in enumerate(shapes):
+            misalign = i == len(shapes) - 1
+            r = check(torch, kern, ref, shape, misalign, 100 + i)
+            r = {"shape": list(shape), "misaligned": misalign, **r}
+            rows[name].append(r)
+            torch.cuda.empty_cache()
+            log(f"[kernels] {name} {shape}"
+                f"{' misaligned' if misalign else ''}: err "
+                f"{r['max_abs_err']:.3g}  call {r['ms']:.4f} ms  device "
+                f"{r['device_ms']} ms  plain {r['plain_ms']:.4f} ms  bound "
+                f"{r['bound_ms']:.4f} ms")
     return rows
 
 
@@ -393,6 +455,197 @@ def phase_agreement(torch):
     return worst
 
 
+def _train_args(extra):
+    from repro_torch.launch.train import build_parser
+    return build_parser().parse_args([
+        "--nodes", str(TRAIN_NODES), "--batch", str(TRAIN_BATCH),
+        "--seq", str(TRAIN_SEQ), "--server-opt", "adam", *extra])
+
+
+def phase_trainer(torch):
+    """The trainer at full width (depth cut), as ``launch.train.main``
+    runs it, with the counters zeroed before and read after."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree
+    from repro_torch.kernels import dasha_update as kern
+    from repro_torch.launch.train import train
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(get_config("mamba2-780m"),
+                              num_layers=TRAIN_LAYERS)
+    rounds = TRAIN_WARMUP + TRAIN_ROUNDS
+    args = _train_args(["--steps", str(rounds), "--log-every",
+                        str(TRAIN_WARMUP), "--variant", "mvr",
+                        "--use-kernel"])
+    torch.cuda.empty_cache()
+    kern.reset_counts()
+    res = train(cfg, args, device="cuda", log=log)
+    torch.cuda.synchronize()
+    counts = dict(kern.COUNTS)
+    peak = max(c["peak_mem_gb"] for c in res.chunks) * 1e9
+    leaves = len(tree.leaves(res.state.x))
+    # memory: the state between rounds, and one node's forward + backward
+    # on top of it (the rest of the peak is the round's per-node trees)
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    batch = {k: v[0] for k, v in res.driver.data_fn(res.data_seed, 0).items()}
+    ps = [p.detach().requires_grad_(True) for p in tree.leaves(res.state.x)]
+    paths = [path for path, _ in tree.items(res.state.x)]
+    loss = lm.loss_fn(cfg, tree.from_items(zip(paths, ps)), batch)[0]
+    torch.autograd.grad(loss, ps)
+    torch.cuda.synchronize()
+    node_pass = torch.cuda.max_memory_allocated() - resident
+    del batch, ps, loss
+    if counts["dasha_mvr_update"] != leaves * rounds or \
+            counts["dasha_update"] or counts["quantize"]:
+        raise AssertionError(f"trainer launches {counts}, expected "
+                             f"{leaves} leaves x {rounds} rounds of "
+                             "dasha_mvr_update only")
+    losses = [c["loss"] for c in res.chunks]
+    if not all(math.isfinite(v) for v in [res.loss0] + losses) or \
+            not losses[-1] < res.loss0:
+        raise AssertionError(f"trainer eval loss {res.loss0} -> {losses}: "
+                             "must be finite and end lower")
+    timed = res.chunks[1:]                      # the first chunk warms up
+    wall = sum(c["seconds"] for c in timed)
+    timed_rounds = rounds - TRAIN_WARMUP
+    tokens = TRAIN_NODES * TRAIN_BATCH * TRAIN_SEQ
+    numel = res.n_params * TRAIN_NODES
+    k3_bound = numel * 32 / HBM_BYTES_PER_S * 1e3
+    # where the time goes: a few more rounds under the profiler (its CPU
+    # tracing slows the host, so the busy share is a lower bound)
+    table, pwall = profiled(torch, lambda: res.driver.run(
+        res.state, TRAIN_PROFILED, data_seed=res.data_seed))
+    busy_s = sum(t for _, t in table.values()) / 1e6
+    k3_us = sum(t for k, (_, t) in table.items() if "dasha_mvr_update" in k)
+    k3_ms = k3_us / 1e3 / TRAIN_PROFILED
+    top = sorted(table.items(), key=lambda kv: -kv[1][1])[:12]
+    out = {"layers": TRAIN_LAYERS, "d_model": cfg.d_model,
+           "vocab_padded": cfg.padded_vocab, "params": res.n_params,
+           "leaves": leaves, "nodes": TRAIN_NODES, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "rounds_timed": timed_rounds,
+           "rounds_per_s": timed_rounds / wall,
+           "tokens_per_s": timed_rounds * tokens / wall,
+           "round_ms": wall / timed_rounds * 1e3,
+           "peak_mem_gb": peak / 1e9, "resident_mem_gb": resident / 1e9,
+           "node_pass_mem_gb": node_pass / 1e9,
+           "eval_loss_start": res.loss0,
+           "eval_loss_end": losses[-1], "launches": counts,
+           "kernel_device_ms_per_round": k3_ms,
+           "kernel_bound_ms_per_round": k3_bound,
+           "kernel_share_of_profiled_round": k3_ms / (pwall * 1e3
+                                                      / TRAIN_PROFILED),
+           "profile": {"rounds": TRAIN_PROFILED, "wall_s": pwall,
+                       "device_busy_s": busy_s, "busy_share": busy_s / pwall,
+                       "top_kernels": [[k[:90], c, us / 1e3]
+                                       for k, (c, us) in top]},
+           "chunks": res.chunks}
+    log(f"[train] mamba2-780m {TRAIN_LAYERS}/48 layers, "
+        f"{res.n_params / 1e6:.1f}M params, {leaves} leaves: "
+        f"{out['rounds_per_s']:.3f} rounds/s, {out['tokens_per_s']:.0f} "
+        f"tokens/s, peak {peak / 1e9:.2f} GB (state between rounds "
+        f"{resident / 1e9:.2f} GB, one node's forward + backward "
+        f"{node_pass / 1e9:.2f} GB), eval loss {res.loss0:.4f} -> "
+        f"{losses[-1]:.4f}, launches {counts}")
+    log(f"[train] dasha_mvr_update {k3_ms:.3f} ms device per round vs a "
+        f"{k3_bound:.3f} ms bound, {out['kernel_share_of_profiled_round']:.3f}"
+        f" of a profiled round; device busy {out['profile']['busy_share']:.3f}")
+    for k, c, ms in out["profile"]["top_kernels"]:
+        log(f"[train]   {ms:9.3f} ms  x{c:<5d} {k}")
+    del res
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def _states_agree(torch, got, want, limit):
+    """Worst leaf error over (x, g, g_local, h_local), as a fraction of
+    each leaf's largest magnitude."""
+    from repro_torch.core import tree
+    worst = 0.0
+    for name in ("x", "g", "g_local", "h_local"):
+        for path, w in tree.items(getattr(want, name)):
+            g = tree.get(getattr(got, name), path).float().cpu()
+            w = w.float()
+            scale = max(float(w.abs().max()), 1e-30)
+            worst = max(worst, float((g - w).abs().max()) / scale)
+    if not worst <= limit:
+        raise AssertionError(f"card and CPU states differ by {worst} of a "
+                             f"leaf's largest magnitude (limit {limit})")
+    return worst
+
+
+def phase_trainer_agreement(torch):
+    """Smoke-size float32 Mamba2 trained on the card and on the CPU with
+    the same CPU-drawn masks, sync coins and batches.  SGD server: Adam's
+    sign-like first steps would turn gradient rounding noise into
+    whole-step differences (see tests/test_torch_train.py)."""
+    from repro_torch.compress import treelevel
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import tree
+    from repro_torch.core.rng import Draws, RoundRandom
+    from repro_torch.data.pipeline import (SyntheticTextConfig,
+                                           make_node_batches)
+    from repro_torch.methods import Driver
+    from repro_torch.models import init_params, lm
+    from repro_torch.optim.distributed import DashaTrainConfig, make_method
+
+    cfg = dataclasses.replace(get_smoke_config("mamba2-780m"),
+                              dtype="float32")
+    n, rounds, limit = TRAIN_NODES, 3, 5e-4
+    text = SyntheticTextConfig(vocab_size=cfg.vocab_size, seq_len=64)
+    batches = [make_node_batches(t, text, n, 2, device="cpu")
+               for t in range(rounds)]
+    params = init_params(cfg, 0, device="cpu")
+    worst = 0.0
+    for variant in ("dasha", "mvr", "sync_mvr"):
+        for mode in ("independent", "permk"):
+            for use_kernel in (False, True):
+                dcfg = DashaTrainConfig(
+                    gamma=0.05, compression=0.25, mode=mode,
+                    variant=variant, b=0.1, p=0.5, n_nodes=n,
+                    server_opt="sgd", use_kernel=use_kernel)
+                zeros = tree.map_leaves(
+                    lambda p: torch.zeros((n,) + tuple(p.shape)), params)
+                draws = []
+                for t in range(rounds):
+                    rnd = RoundRandom(9, t)
+                    masks, _ = treelevel.tree_masks(
+                        rnd, zeros, mode=mode, p=dcfg.compression, n=n)
+                    draws.append(Draws(masks=masks,
+                                       sync_coin=rnd.coin(dcfg.p, "sync")))
+                finals = {}
+                for dev in ("cpu", "cuda"):
+                    method = make_method(
+                        dcfg, lambda p, b: lm.loss_fn(cfg, p, b)[0])
+                    state = method.init(
+                        tree.map_leaves(lambda p: p.to(dev), params), 1,
+                        init_mode="zeros", device=dev)
+                    dev_draws = [d._replace(masks=tree.map_leaves(
+                        lambda m: m.to(dev), d.masks)) for d in draws]
+
+                    def step(s, data, method=method, dev_draws=dev_draws):
+                        return method.step_full(s, data,
+                                                draws=dev_draws[s.t])[0]
+
+                    def data_fn(seed, t, dev=dev):
+                        return {k: v.to(dev) for k, v in batches[t].items()}
+
+                    finals[dev], _ = Driver(step, data_fn=data_fn).run(
+                        state, rounds, data_seed=0)
+                tag = f"{variant}/{mode}/kernel={use_kernel}"
+                try:
+                    err = _states_agree(torch, finals["cuda"],
+                                        finals["cpu"], limit)
+                except AssertionError as e:
+                    raise AssertionError(f"{tag}: {e}") from None
+                worst = max(worst, err)
+    log(f"[train-agree] smoke Mamba2 f32, dasha/mvr/sync_mvr x "
+        f"independent/permk x kernel off/on, {rounds} rounds with injected "
+        f"CPU masks, coins and batches: card vs CPU worst {worst:.3g} of a "
+        f"leaf's largest magnitude (limit {limit})")
+    return worst
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"{SRC / 'repro_torch'} not found: run from a checkout of the "
@@ -414,12 +667,19 @@ def main() -> int:
     per_shape = phase_kernels(torch)
     runs, launches = phase_main_path(torch)
     rel = phase_agreement(torch)
+    trainer, train_launches = phase_trainer(torch)
+    launches["dasha_mvr_update"] = train_launches["dasha_mvr_update"]
+    train_rel = phase_trainer_agreement(torch)
 
     sources = {"dasha_update": "src/repro/kernels/dasha_update.py:70",
+               "dasha_mvr_update": "src/repro/kernels/dasha_update.py:90",
                "quantize": "src/repro/kernels/dasha_update.py:129"}
+    # the row each kernel reports: the flat path's (5, 20958); for the MVR
+    # kernel the trainer's largest leaf, the tied embedding (4, 77463552)
+    headline = {"dasha_update": 0, "quantize": 0, "dasha_mvr_update": 1}
     kernels = []
     for name, rows in per_shape.items():
-        main_shape = rows[0]            # the main path's (5, 20958)
+        main_shape = rows[headline[name]]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/dasha_update.cu",
@@ -429,11 +689,17 @@ def main() -> int:
             "bound_ms": main_shape["bound_ms"],
             "bound_by": main_shape["bound_by"], "library_ms": None,
             "shapes": rows})
+        if name == "dasha_mvr_update":
+            kernels[-1]["per_round"] = {
+                k: trainer[k] for k in ("kernel_device_ms_per_round",
+                                        "kernel_bound_ms_per_round",
+                                        "kernel_share_of_profiled_round")}
         if launches[name] == 0:
             raise AssertionError(f"{name} was never launched on the main "
                                  "path")
     report = {"kernels": kernels, "main_path": runs,
-              "agreement_max_rel_err": rel, "nvidia_smi": smi}
+              "agreement_max_rel_err": rel, "trainer": trainer,
+              "trainer_agreement_worst": train_rel, "nvidia_smi": smi}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))

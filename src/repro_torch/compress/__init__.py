@@ -11,7 +11,7 @@ from repro_torch.compress.backends import (BACKENDS,  # noqa: F401
 from repro_torch.compress.plan import (PAD, Plan, draw_mask,  # noqa: F401
                                        indices_to_masks,
                                        participation_coins, perm_partition,
-                                       randk_indices)
+                                       permk_owner, randk_indices)
 from repro_torch.compress.spec import (MODES, REGISTRY,  # noqa: F401
                                        CompressorDef, CompressorSpec,
                                        make_plan, make_spec, momentum_a,

@@ -8,6 +8,8 @@ here, once per round, through these primitives, each from an explicit
 * :func:`randk_indices`      — uniform K-subsets without replacement (RandK);
 * :func:`perm_partition`     — the cyclic-shift PermK partition into n node
   blocks (flat path);
+* :func:`permk_owner`        — the same cyclic-shift ownership as a map per
+  coordinate (tree path);
 * :func:`participation_coins` — Appendix-D per-node coins.
 
 The :class:`Plan` is backend-agnostic: the dense, sparse and fused
@@ -75,6 +77,22 @@ def perm_partition(generator: torch.Generator, d: int, n: int, *,
     c = (torch.arange(nb, device=device).reshape(n, blk)
          - shift.to(device)) % nb
     return torch.where(c < d, c, torch.full_like(c, PAD))
+
+
+def permk_owner(generator: torch.Generator, shape, n: int, *,
+                device) -> torch.Tensor:
+    """PermK ownership map for one leaf of shape ``shape`` (no node axis):
+    coordinate c belongs to node ``owner(c) = ((c + shift) // blk) % n``,
+    the inverse view of :func:`perm_partition`'s blocks.  ``generator`` is
+    a CPU generator (the shift is a host scalar); the map is int64 on
+    ``device``."""
+    size = 1
+    for s in shape:
+        size *= int(s)
+    blk = -(-size // n)
+    shift = int(torch.randint(0, n * blk, (), generator=generator))
+    owner = ((torch.arange(size, device=device) + shift) // blk) % n
+    return owner.reshape(tuple(shape))
 
 
 def indices_to_masks(indices: torch.Tensor, d: int,

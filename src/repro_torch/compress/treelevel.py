@@ -1,0 +1,155 @@
+"""Parameter-tree adapter of the compression subsystem (port of
+``repro.compress.treelevel``).
+
+Model training thinks in parameter trees whose leaves carry a leading node
+axis.  This module bridges them to the compressors:
+
+* :func:`leaf_mask` / :func:`tree_masks` — the per-leaf (n, *shape) {0,1}
+  masks and the unbiasedness scale;
+* :func:`bernoulli_compress` — tree-level independent / shared_coords;
+* :func:`permk_compress`     — tree-level PermK with its exact aggregate;
+* :func:`fused_leaf_updates` / :func:`fused_tree_update` — the CUDA kernel
+  path for every mode x variant (dasha | mvr).
+
+Every mask comes from the round's :class:`repro_torch.core.rng.RoundRandom`
+(one generator per leaf, tagged with the leaf's path, or the injected
+``Draws.masks``), so the dense and fused paths see the same randomness.
+"""
+from __future__ import annotations
+
+from typing import Any, Iterator, Optional, Tuple
+
+import torch
+
+from repro_torch.compress.plan import draw_mask, permk_owner
+from repro_torch.core import tree
+from repro_torch.kernels import ops as kops
+
+Tree = Any
+
+
+def _node_ids(x: torch.Tensor) -> torch.Tensor:
+    n = x.shape[0]
+    return torch.arange(n, device=x.device).reshape((n,) + (1,) *
+                                                    (x.dim() - 1))
+
+
+def leaf_mask(rnd, path: str, x: torch.Tensor, *, mode: str, p: float,
+              n: int) -> torch.Tensor:
+    """The (n, *shape) float32 {0,1} mask of leaf ``x`` (shape (n, ...)).
+
+    ``permk``: node i keeps the coordinates it owns under the leaf's
+    cyclic-shift partition; ``shared_coords``: one Bernoulli(p) mask per
+    leaf, the same for every node; ``independent``: Bernoulli(p) per node
+    and coordinate."""
+    if mode == "permk":
+        # the scale is the tree-wide n: a leaf whose node axis disagrees
+        # would be silently mis-scaled (a biased estimator)
+        if x.shape[0] != n:
+            raise ValueError(f"permk leaf {path!r} has node axis "
+                             f"{x.shape[0]} != n={n}")
+
+        def draw(gen):
+            owner = permk_owner(gen, x.shape[1:], n, device=x.device)
+            return (owner[None] == _node_ids(x)).to(torch.float32)
+        return rnd.leaf_mask(path, "cpu", draw)
+    if mode == "shared_coords":
+        def draw(gen):
+            return draw_mask(gen, x.shape[1:], p)[None].expand(x.shape) \
+                .to(torch.float32)
+        return rnd.leaf_mask(path, x.device, draw)
+    if mode != "independent":
+        raise ValueError(f"unknown tree compression mode {mode!r}")
+    return rnd.leaf_mask(path, x.device, lambda gen: draw_mask(
+        gen, x.shape, p).to(torch.float32))
+
+
+def mask_scale(mode: str, p: float, n: int) -> float:
+    return float(n) if mode == "permk" else 1.0 / p
+
+
+def tree_masks(rnd, per_node: Tree, *, mode: str, p: float, n: int
+               ) -> Tuple[Tree, float]:
+    """One (n, *shape) float32 {0,1} mask per leaf, and the scale."""
+    masks = tree.from_items(
+        (path, leaf_mask(rnd, path, x, mode=mode, p=p, n=n))
+        for path, x in tree.items(per_node))
+    return masks, mask_scale(mode, p, n)
+
+
+# ---------------------------------------------------------------------------
+# dense tree-level execution
+# ---------------------------------------------------------------------------
+
+def bernoulli_compress(rnd, delta: Tree, p: float,
+                       shared: bool = False) -> Tree:
+    """delta leaves: (n, *shape).  An independent Bernoulli(p) mask per
+    node and coordinate; ``shared=True`` draws one mask per leaf for all
+    nodes (the ``shared_coords`` mode).  Kept values are scaled by 1/p."""
+    mode = "shared_coords" if shared else "independent"
+
+    def leaf(path, x):
+        mask = leaf_mask(rnd, path, x, mode=mode, p=p, n=x.shape[0])
+        return torch.where(mask != 0, x / p, torch.zeros_like(x)).to(x.dtype)
+
+    return tree.from_items((path, leaf(path, x))
+                           for path, x in tree.items(delta))
+
+
+def permk_compress(rnd, delta: Tree, n: int) -> Tuple[Tree, Tree]:
+    """Returns (messages m_i (n, *shape), exact aggregate mean_i m_i
+    (*shape)): node i keeps the coordinates it owns, times n."""
+    ms, aggs = [], []
+    for path, x in tree.items(delta):
+        mask = leaf_mask(rnd, path, x, mode="permk", p=1.0, n=n)
+        m = x * mask.to(x.dtype) * x.shape[0]
+        ms.append((path, m))
+        aggs.append((path, torch.mean(m.to(torch.float32), 0)))
+    return tree.from_items(ms), tree.from_items(aggs)
+
+
+# ---------------------------------------------------------------------------
+# fused (CUDA kernel) tree-level execution
+# ---------------------------------------------------------------------------
+
+def fused_leaf_updates(rnd, grads_new: Tree, h: Tree, g_local: Tree, *,
+                       mode: str, a: float, p: float, n: int,
+                       variant: str = "dasha", b: float = 0.0,
+                       grads_old: Optional[Tree] = None
+                       ) -> Iterator[Tuple[str, torch.Tensor, torch.Tensor,
+                                           torch.Tensor]]:
+    """Alg. 1 lines 8-10 leaf by leaf, one kernel launch per leaf: yields
+    ``(path, m, h_new, g_local_new)``.  A leaf's mask lives only while its
+    kernel runs, so the masks of the whole tree never exist at once.
+
+    ``variant="dasha"``: h_new = grads_new.  ``variant="mvr"``: the kernel
+    fuses the momentum h-update h_new = gn + (1-b)(h - go) as well
+    (``grads_old`` required)."""
+    if variant == "mvr" and grads_old is None:
+        raise ValueError("the mvr fused path needs grads_old")
+    if variant not in ("dasha", "mvr"):
+        raise ValueError(f"unknown fused variant {variant!r}")
+    scale = mask_scale(mode, p, n)
+    for path, gn in tree.items(grads_new):
+        mask = leaf_mask(rnd, path, gn, mode=mode, p=p, n=n)
+        hh, gl = tree.get(h, path), tree.get(g_local, path)
+        if variant == "mvr":
+            out = kops.dasha_mvr_update(gn, tree.get(grads_old, path), hh,
+                                        gl, mask, a, b, scale)
+        else:
+            out = kops.dasha_update(gn, hh, gl, mask, a, scale)
+        yield (path, *out)
+
+
+def fused_tree_update(rnd, grads_new: Tree, h: Tree, g_local: Tree, *,
+                      mode: str, a: float, p: float, n: int,
+                      variant: str = "dasha", b: float = 0.0,
+                      grads_old: Optional[Tree] = None
+                      ) -> Tuple[Tree, Tree, Tree]:
+    """:func:`fused_leaf_updates` gathered into (m, h_new, g_local_new)
+    trees."""
+    outs = list(fused_leaf_updates(rnd, grads_new, h, g_local, mode=mode,
+                                   a=a, p=p, n=n, variant=variant, b=b,
+                                   grads_old=grads_old))
+    return tuple(tree.from_items((o[0], o[i]) for o in outs)
+                 for i in (1, 2, 3))

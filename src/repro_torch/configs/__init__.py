@@ -1,0 +1,35 @@
+"""Architecture registry (port of ``repro.configs``): one module per
+architecture, each holding the full config ``CONFIG`` and its reduced
+same-family ``SMOKE`` variant.  Only the Mamba2 family is ported so far;
+the other ids of the reference raise (ROADMAP.md lists them)."""
+from __future__ import annotations
+
+import importlib
+from typing import List
+
+from repro_torch.models.common import ArchConfig
+
+ARCHS: List[str] = ["mamba2_780m"]
+
+# CLI ids (assignment spelling) -> module name
+ALIASES = {"mamba2-780m": "mamba2_780m"}
+
+
+def _module(name: str):
+    mod = ALIASES.get(name, name).replace("-", "_").replace(".", "_")
+    if mod not in ARCHS:
+        raise ValueError(f"architecture {name!r} is not ported to "
+                         f"repro_torch yet; ported: {sorted(ALIASES)}")
+    return importlib.import_module(f"repro_torch.configs.{mod}")
+
+
+def get_config(name: str) -> ArchConfig:
+    return _module(name).CONFIG
+
+
+def get_smoke_config(name: str) -> ArchConfig:
+    return _module(name).SMOKE
+
+
+def all_arch_ids() -> List[str]:
+    return list(ALIASES.keys())

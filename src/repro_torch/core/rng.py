@@ -14,9 +14,11 @@ arrays with the reference and hand them over.
 from __future__ import annotations
 
 import hashlib
-from typing import Any, NamedTuple, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
+
+from repro_torch.core import tree
 
 
 def derive_seed(*parts) -> int:
@@ -47,7 +49,9 @@ class Draws(NamedTuple):
     * ``samples``      — the h-update's samples: (n, B) indices for a
       finite-sum problem, (n, B, ...) xi for a stochastic one;
     * ``sync_coin``    — the sync-round coin (sync_mvr / marina);
-    * ``sync_samples`` — the sync megabatch's xi (stochastic problems).
+    * ``sync_samples`` — the sync megabatch's xi (stochastic problems);
+    * ``masks``        — the tree path's per-leaf (n, *shape) float32 {0,1}
+      compression masks, as a tree shaped like the parameters.
 
     A field left None is drawn from the round's own generators.
     """
@@ -57,6 +61,7 @@ class Draws(NamedTuple):
     samples: Any = None
     sync_coin: Optional[bool] = None
     sync_samples: Any = None
+    masks: Any = None
 
 
 _SAMPLE_FIELD = {"h": "samples", "sync": "sync_samples"}
@@ -88,6 +93,16 @@ class RoundRandom:
             return bool(injected)
         gen = generator("cpu", self.seed, self.t, "coin", tag)
         return bool(torch.rand((), generator=gen) < p)
+
+    def leaf_mask(self, path: str, gen_device,
+                  draw: Callable[[torch.Generator], torch.Tensor]
+                  ) -> torch.Tensor:
+        """The compression mask of the parameter leaf at ``path``: the
+        injected one, else ``draw`` of a generator on ``gen_device`` seeded
+        by ``(seed, t, "mask", path)``."""
+        if self.draws.masks is not None:
+            return tree.get(self.draws.masks, path)
+        return draw(generator(gen_device, self.seed, self.t, "mask", path))
 
     def plan(self, rc):
         """The round's compression plan, drawn once and shared by every

@@ -1,14 +1,16 @@
 """Deterministic synthetic data (port of ``repro.data.pipeline``).
 
 The paper's LIBSVM data is not in the repository, so the GLM experiments
-run on a synthetic stand-in with the same statistical role (DESIGN.md §9).
+run on a synthetic stand-in with the same statistical role (DESIGN.md §9);
+LM training runs on a synthetic token stream with a copy structure.
 Data is made on ``device`` (default the card) from explicit generators
 seeded by ``seed``, so a full-size problem never crosses the host link.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -49,3 +51,40 @@ def synthetic_quadratic(seed: int, d: int, *, mu: float = 1.0,
     A = (q * eigs) @ q.T
     b = torch.randn((d,), device=dev, generator=generator(dev, seed, "b"))
     return A, b
+
+
+@dataclasses.dataclass(frozen=True)
+class SyntheticTextConfig:
+    vocab_size: int
+    seq_len: int
+    copy_period: int = 16     # tokens repeat with this period => learnable
+
+
+def make_lm_batch(seed: int, cfg: SyntheticTextConfig, batch: int, *,
+                  device=DEFAULT_DEVICE) -> Dict[str, torch.Tensor]:
+    """Next-token LM batch ``{"tokens", "labels"}`` of (batch, seq_len)
+    int64: a period-``copy_period`` stream with 10% of tokens replaced by
+    noise (the reference's recipe; the modality stubs come with the VLM and
+    audio slices)."""
+    dev = resolve_device(device)
+    S, V = cfg.seq_len, cfg.vocab_size
+    base = torch.randint(1, V, (batch, cfg.copy_period), device=dev,
+                         generator=generator(dev, seed, "base"))
+    reps = -(-S // cfg.copy_period) + 1
+    stream = base.repeat(1, reps)
+    noise = torch.randint(1, V, (batch, S + 1), device=dev,
+                          generator=generator(dev, seed, "noise"))
+    noisy = torch.rand((batch, S + 1), device=dev,
+                       generator=generator(dev, seed, "noisy")) < 0.1
+    seq = torch.where(noisy, noise, stream[:, :S + 1])
+    return {"tokens": seq[:, :S], "labels": seq[:, 1:]}
+
+
+def make_node_batches(seed: int, cfg: SyntheticTextConfig, n_nodes: int,
+                      per_node_batch: int, *,
+                      device=DEFAULT_DEVICE) -> Dict[str, torch.Tensor]:
+    """Batch with a leading node axis (n, b, seq_len) for DASHA training."""
+    batch = make_lm_batch(seed, cfg, n_nodes * per_node_batch,
+                          device=device)
+    return {k: v.reshape((n_nodes, per_node_batch) + v.shape[1:])
+            for k, v in batch.items()}

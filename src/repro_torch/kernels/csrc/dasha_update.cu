@@ -1,11 +1,14 @@
-// Hand-written Hopper (sm_90a) kernels of the flat DASHA round.
+// Hand-written Hopper (sm_90a) kernels of the DASHA round.
 //
-//   dasha_update  — the fused estimator update, one elementwise pass
-//                   (replaces repro/kernels/dasha_update.py:dasha_update_pallas)
-//   quantize_rows — row-wise QSGD with external uniforms, two passes
-//                   (replaces repro/kernels/dasha_update.py:quantize_pallas)
+//   dasha_update     — the fused estimator update, one elementwise pass
+//                      (replaces repro/kernels/dasha_update.py:dasha_update_pallas)
+//   dasha_mvr_update — the same pass with the MVR h-update fused in
+//                      (replaces repro/kernels/dasha_update.py:
+//                      dasha_mvr_update_pallas)
+//   quantize_rows    — row-wise QSGD with external uniforms, two passes
+//                      (replaces repro/kernels/dasha_update.py:quantize_pallas)
 //
-// Both are bound by device-memory bytes (see dasha_update.py for the
+// All are bound by device-memory bytes (see dasha_update.py for the
 // numbers).  Plain C interface for ctypes: pointers and the stream come in
 // as void*, each entry launches on the caller's stream, never synchronizes,
 // allocates nothing and returns cudaGetLastError().
@@ -104,6 +107,70 @@ dasha_update_scalar(const float* __restrict__ grad,
   }
 }
 
+// t = h - go; h_new = gn + c * t (c = 1 - b, rounded to fp32 by the caller
+// exactly as the plain version rounds it); then dasha_one on h_new.  Every
+// op rounded on its own, in the plain version's order.
+__device__ __forceinline__ void mvr_one(float gn, float go, float h,
+                                        float gl, float mk, float a,
+                                        float c, float scale, float* hn,
+                                        float* m, float* gout) {
+  const float hnew = __fadd_rn(gn, __fmul_rn(c, __fsub_rn(h, go)));
+  *hn = hnew;
+  dasha_one(hnew, h, gl, mk, a, scale, m, gout);
+}
+
+__global__ void __launch_bounds__(kThreads)
+dasha_mvr_update_vec4(const float4* __restrict__ gn,
+                      const float4* __restrict__ go,
+                      const float4* __restrict__ h,
+                      const float4* __restrict__ gl,
+                      const float4* __restrict__ mask,
+                      float4* __restrict__ m, float4* __restrict__ h_out,
+                      float4* __restrict__ gl_out, float a, float c,
+                      float scale, long long n4) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < n4; i += stride) {
+    const float4 n = gn[i];
+    const float4 o = go[i];
+    const float4 hh = h[i];
+    const float4 l = gl[i];
+    const float4 k = mask[i];
+    float4 ho, mo, go4;
+    mvr_one(n.x, o.x, hh.x, l.x, k.x, a, c, scale, &ho.x, &mo.x, &go4.x);
+    mvr_one(n.y, o.y, hh.y, l.y, k.y, a, c, scale, &ho.y, &mo.y, &go4.y);
+    mvr_one(n.z, o.z, hh.z, l.z, k.z, a, c, scale, &ho.z, &mo.z, &go4.z);
+    mvr_one(n.w, o.w, hh.w, l.w, k.w, a, c, scale, &ho.w, &mo.w, &go4.w);
+    m[i] = mo;
+    h_out[i] = ho;
+    gl_out[i] = go4;
+  }
+}
+
+// elements [start, n): the tail after the float4 body, or everything when
+// a pointer is not 16-byte aligned
+__global__ void __launch_bounds__(kThreads)
+dasha_mvr_update_scalar(const float* __restrict__ gn,
+                        const float* __restrict__ go,
+                        const float* __restrict__ h,
+                        const float* __restrict__ gl,
+                        const float* __restrict__ mask,
+                        float* __restrict__ m, float* __restrict__ h_out,
+                        float* __restrict__ gl_out, float a, float c,
+                        float scale, long long start, long long n) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = start + static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < n; i += stride) {
+    float ho, mo, go1;
+    mvr_one(gn[i], go[i], h[i], gl[i], mask[i], a, c, scale, &ho, &mo, &go1);
+    m[i] = mo;
+    h_out[i] = ho;
+    gl_out[i] = go1;
+  }
+}
+
 // Sum over the block in a fixed order (shuffle tree, then warps in index
 // order), so every block that sums the same values gets the same bits.
 __device__ float block_sum(float v) {
@@ -196,6 +263,36 @@ int dasha_update(const void* grad, const void* h, const void* g_local,
         static_cast<const float*>(g_local), static_cast<const float*>(mask),
         static_cast<float*>(m), static_cast<float*>(h_out),
         static_cast<float*>(g_out), a, scale, start, n);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// (m, h_out, g_out) <- fused MVR update of n fp32 elements; c = 1 - b
+int dasha_mvr_update(const void* gn, const void* go, const void* h,
+                     const void* g_local, const void* mask, void* m,
+                     void* h_out, void* g_out, float a, float c, float scale,
+                     long long n, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool vec = aligned16(gn) && aligned16(go) && aligned16(h) &&
+                   aligned16(g_local) && aligned16(mask) && aligned16(m) &&
+                   aligned16(h_out) && aligned16(g_out);
+  const long long n4 = vec ? n / 4 : 0;
+  if (n4 > 0) {
+    dasha_mvr_update_vec4<<<grid_for(n4), kThreads, 0, st>>>(
+        static_cast<const float4*>(gn), static_cast<const float4*>(go),
+        static_cast<const float4*>(h), static_cast<const float4*>(g_local),
+        static_cast<const float4*>(mask), static_cast<float4*>(m),
+        static_cast<float4*>(h_out), static_cast<float4*>(g_out), a, c, scale,
+        n4);
+  }
+  const long long start = n4 * 4;
+  if (start < n) {
+    dasha_mvr_update_scalar<<<grid_for(n - start), kThreads, 0, st>>>(
+        static_cast<const float*>(gn), static_cast<const float*>(go),
+        static_cast<const float*>(h), static_cast<const float*>(g_local),
+        static_cast<const float*>(mask), static_cast<float*>(m),
+        static_cast<float*>(h_out), static_cast<float*>(g_out), a, c, scale,
+        start, n);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,4 +1,4 @@
-"""Dispatch of the flat round's kernels (port of ``repro.kernels.ops``).
+"""Dispatch of the DASHA round's kernels (port of ``repro.kernels.ops``).
 
 A CPU tensor takes the plain torch version (:mod:`repro_torch.kernels.ref`);
 a CUDA tensor launches the hand-written kernel
@@ -30,6 +30,18 @@ def dasha_update(grad: torch.Tensor, h: torch.Tensor, g_local: torch.Tensor,
     if _on_cpu("dasha_update", grad):
         return ref.dasha_update_ref(grad, h, g_local, mask, a, scale)
     return cuda_kernels.dasha_update(grad, h, g_local, mask, a, scale)
+
+
+def dasha_mvr_update(grad_new: torch.Tensor, grad_old: torch.Tensor,
+                     h: torch.Tensor, g_local: torch.Tensor,
+                     mask: torch.Tensor, a: float, b: float, scale: float
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused DASHA-MVR update; returns (m, h_new, g_local_new)."""
+    if _on_cpu("dasha_mvr_update", grad_new):
+        return ref.dasha_mvr_update_ref(grad_new, grad_old, h, g_local, mask,
+                                        a, b, scale)
+    return cuda_kernels.dasha_mvr_update(grad_new, grad_old, h, g_local,
+                                         mask, a, b, scale)
 
 
 def quantize_with_u(x: torch.Tensor, u: torch.Tensor,

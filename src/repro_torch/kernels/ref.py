@@ -30,6 +30,24 @@ def dasha_update_ref(grad: torch.Tensor, h: torch.Tensor,
     return m, h_new, g_local + m
 
 
+def dasha_mvr_update_ref(grad_new: torch.Tensor, grad_old: torch.Tensor,
+                         h: torch.Tensor, g_local: torch.Tensor,
+                         mask: torch.Tensor, a: float, b: float, scale: float
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused DASHA-MVR node update (Alg. 1 line 8 MVR + lines 9-10):
+
+        h_new = grad_new + (1-b) * (h - grad_old)
+        delta = h_new - h - a * (g_local - h)
+        m     = mask * delta * scale
+        g_new = g_local + m
+
+    Returns (m, h_new, g_new)."""
+    h_new = grad_new + (1.0 - b) * (h - grad_old)
+    delta = h_new - h - a * (g_local - h)
+    m = mask * delta * scale
+    return m, h_new, g_local + m
+
+
 def quantize_ref(x: torch.Tensor, u: torch.Tensor,
                  levels: int) -> torch.Tensor:
     """Per-row unbiased stochastic quantization (QSGD, s = levels):

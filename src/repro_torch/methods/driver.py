@@ -63,15 +63,18 @@ class Driver:
         self.metric_every = int(metric_every)
         self.chunk = chunk
 
-    def _run_chunk(self, state, length: int, data_seed: Optional[int],
+    def _run_chunk(self, box: list, length: int, data_seed: Optional[int],
                    last: Dict[str, torch.Tensor]):
+        """Advance ``box[0]`` by ``length`` rounds.  The state lives only
+        in ``box``, so a round's input state is freed as soon as the next
+        one exists (a trainer's state is tens of GB)."""
         vals = {name: [] for name in self.metrics}
         bits = []
         for _ in range(length):
-            t = state.t
+            t = box[0].t
             d = self.data if self.data_fn is None else \
                 self.data_fn(derive_seed(data_seed, t, "data"), t)
-            state = self.step(state, d)
+            state = box[0] = self.step(box[0], d)
             for name, fn in self.metrics.items():
                 if t % self.metric_every == 0:
                     last[name] = fn(state, d)
@@ -81,7 +84,7 @@ class Driver:
             bits.append(state.bits_sent)
         traces = {name: _to_host(v) for name, v in vals.items()}
         traces["bits_sent"] = np.asarray(bits, dtype=np.float32)
-        return state, traces
+        return traces
 
     def run(self, state, rounds: int, *, data_seed: Optional[int] = None,
             checkpoint: Optional[Callable] = None,
@@ -97,15 +100,20 @@ class Driver:
         chunk = self.chunk or min(max(rounds, 1), DEFAULT_CHUNK)
         last: Dict[str, torch.Tensor] = {}
         done, n_chunk, parts = 0, 0, []
+        # hold no reference of our own to the initial state: a caller that
+        # passes it as a temporary lets it go after the first round
+        box = [state]
+        del state
         while done < rounds:
             length = min(chunk, rounds - done)
-            state, tr = self._run_chunk(state, length, data_seed, last)
+            tr = self._run_chunk(box, length, data_seed, last)
             done += length
             n_chunk += 1
             parts.append(tr)
             if checkpoint is not None and \
                     (done >= rounds or n_chunk % checkpoint_every == 0):
-                checkpoint(state, done, tr)
+                checkpoint(box[0], done, tr)
+        state = box[0]
         if not parts:
             traces = {name: np.zeros((0,), np.float32)
                       for name in self.metrics}

@@ -51,13 +51,15 @@ class StepInfo(NamedTuple):
 
 
 class MethodState(NamedTuple):
-    """Unified method state: (n, d) tensors and a (d,) iterate on the
-    device; the round seed, round index and payload count on the host."""
+    """Unified method state.  The substrate decides what the device fields
+    hold: (n, d) tensors and a (d,) iterate, or node-axis trees and a
+    parameter tree.  The round seed, round index and payload count live on
+    the host."""
 
-    x: torch.Tensor           # server iterate
-    g: torch.Tensor           # server gradient estimator
-    g_local: torch.Tensor     # per-node g_i
-    h_local: torch.Tensor     # per-node h_i
+    x: Any                    # server iterate
+    g: Any                    # server gradient estimator
+    g_local: Any              # per-node g_i
+    h_local: Any              # per-node h_i
     opt_state: Any            # server optimizer state (() for plain SGD)
     seed: int                 # root of every round's generators
     t: int                    # global round index
@@ -112,8 +114,7 @@ class Method(NamedTuple):
 
     @classmethod
     def build(cls, variant, compressor, substrate, hyper: Hyper) -> "Method":
-        """One entrypoint for every variant x compressor on the flat
-        substrate."""
+        """One entrypoint for every variant x substrate x compressor."""
         rule: VariantRule = get_rule(variant)
         sub = substrate.with_compressor(compressor)
         hp = hyper
@@ -125,12 +126,13 @@ class Method(NamedTuple):
             """Cor. 6.2/6.5: g_i^0 = h_i^0 = grad f_i(x^0); Cor. 6.8/6.10:
             a size-B_init minibatch; zeros also allowed (PL setting)."""
             dev = resolve_device(device)
-            x0 = torch.as_tensor(x0, dtype=torch.float32, device=dev)
+            x0 = sub.place(x0, dev)
             rnd = RoundRandom(seed, -1)
             if grads0 is not None:
-                h0 = torch.as_tensor(grads0, dtype=torch.float32, device=dev)
+                h0 = sub.place_per_node(grads0, dev)
                 bits0 = sub.dense_coords(h0)
-            elif init_mode == "zeros" or sub.problem is None:
+            elif init_mode == "zeros" or \
+                    getattr(sub, "problem", True) is None:
                 h0 = sub.zeros_per_node(x0)
                 bits0 = 0.0
             elif init_mode == "exact":

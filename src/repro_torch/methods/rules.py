@@ -6,7 +6,11 @@ refreshes h_i; MARINA fits the same skeleton with a = 0.  A
 :class:`VariantRule` holds that line plus its analytics:
 
 * ``h_update``   — (sub, rnd, hp, x_new, x_old, h, data) -> (h_new, aux),
-  where ``rnd`` is the round's :class:`repro_torch.core.rng.RoundRandom`;
+  where ``rnd`` is the round's :class:`repro_torch.core.rng.RoundRandom`.
+  The arithmetic goes through ``sub.lin``, so one rule serves the flat and
+  the tree substrates.  ``aux`` may be an :class:`MvrFusion`; when the
+  substrate's kernel recomputes the MVR h-update in its own pass
+  (``sub.fuses_mvr``), ``h_new`` is None and is never materialised;
 * ``sync_update`` — the probability-p dense synchronization round, if any;
 * ``force_a``    — overrides the compressor momentum (MARINA: 0);
 * ``theory_gamma`` — Section 6 stepsize + derived constants;
@@ -14,9 +18,10 @@ refreshes h_i; MARINA fits the same skeleton with a = 0.  A
 * ``sync_requires_all`` — the sync round is a client-synchronization
   barrier.
 
-The port's coins are host booleans, so a rule computes only the branch a
-coin selects; the reference computes both and where-selects, with the
-same result.
+The port's coins are host booleans, so a rule (and the engine's sync
+round) computes only the branch a coin selects; the reference computes
+both and where-selects (``sub.where``), with the same result, so the port's
+substrates need no ``where``.
 """
 from __future__ import annotations
 
@@ -93,26 +98,34 @@ def _h_page(sub, rnd, hp, x_new, x_old, h, data):
     if rnd.coin(hp.p, "page"):
         return sub.grad(rnd, x_new, data, hp.batch), None
     diff = sub.grad_diff(rnd, x_new, x_old, hp.batch, data)
-    return h + diff, None
+    return sub.lin(lambda h_, d_: h_ + d_, h, diff), None
 
 
 def _h_mvr(sub, rnd, hp, x_new, x_old, h, data):
     """Momentum variance reduction with the SAME samples at both points
     (Theorem 6.7)."""
     gn, go = sub.grad_pair(rnd, x_new, x_old, hp.batch, data)
-    return gn + (1.0 - hp.b) * (h - go), MvrFusion(gn, go, hp.b)
+    fusion = MvrFusion(gn, go, hp.b)
+    if sub.fuses_mvr:
+        return None, fusion
+    return sub.lin(lambda gn_, h_, go_: gn_ + (1.0 - hp.b) * (h_ - go_),
+                   gn, h, go), fusion
 
 
 def _h_sarah(sub, rnd, hp, x_new, x_old, h, data):
     """SYNC-MVR's compressed branch: MVR with b = 0 (SARAH recursion)."""
     gn, go = sub.grad_pair(rnd, x_new, x_old, hp.batch, data)
-    return gn + (h - go), MvrFusion(gn, go, 0.0)
+    fusion = MvrFusion(gn, go, 0.0)
+    if sub.fuses_mvr:
+        return None, fusion
+    return sub.lin(lambda gn_, h_, go_: gn_ + (h_ - go_), gn, h, go), fusion
 
 
 def _h_marina(sub, rnd, hp, x_new, x_old, h, data):
     """MARINA: telescoped oracle difference; with force_a = 0 the drift is
     exactly C_i(G_i(x^{t+1}) - G_i(x^t))."""
-    return h + sub.grad_diff(rnd, x_new, x_old, hp.batch, data), None
+    diff = sub.grad_diff(rnd, x_new, x_old, hp.batch, data)
+    return sub.lin(lambda h_, d_: h_ + d_, h, diff), None
 
 
 def _sync_megabatch(sub, rnd, hp, x_new, data):

@@ -49,7 +49,12 @@ def test_import_scan_covers_the_slice():
                 "core/theory.py", "core/oracles.py", "core/rng.py",
                 "data/pipeline.py", "methods/accounting.py",
                 "methods/rules.py", "methods/substrates.py",
-                "methods/engine.py", "methods/driver.py", "convert.py"):
+                "methods/engine.py", "methods/driver.py", "convert.py",
+                "core/tree.py", "compress/treelevel.py",
+                "configs/__init__.py", "configs/mamba2_780m.py",
+                "models/common.py", "models/init.py", "models/ssm.py",
+                "models/blocks.py", "models/lm.py", "optim/base.py",
+                "optim/distributed.py", "launch/train.py"):
         assert mod in names
     assert (ROOT / "src/repro_torch/kernels/csrc/dasha_update.cu").exists()
 
@@ -65,7 +70,12 @@ def _entry_points():
     from repro_torch.core.oracles import FiniteSumProblem, StochasticProblem
     from repro_torch.data.pipeline import (synthetic_classification,
                                            synthetic_quadratic)
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import (SyntheticTextConfig, make_lm_batch,
+                                           make_node_batches)
+    from repro_torch.launch import train as train_mod
     from repro_torch.methods import FlatSubstrate, Hyper, Method
+    from repro_torch.models import init_params
 
     def method_init():
         feats = torch.zeros((2, 3, 4))
@@ -93,13 +103,32 @@ def _entry_points():
             None, np.zeros((2, 3, 4)), np.zeros((2, 3))),
         "convert.plan_from_numpy": lambda: convert.plan_from_numpy(
             "passthrough", 1.0),
+        "convert.params_from_numpy": lambda: convert.params_from_numpy(
+            {"w": np.zeros(3, np.float32)}),
+        "convert.tree_state_from_numpy": lambda:
+            convert.tree_state_from_numpy(
+                {k: ({"w": np.zeros(3)} if k in ("x", "g", "g_local",
+                                                  "h_local") else v)
+                 for k, v in state.items()}, seed=0),
+        "init_params": lambda: init_params(
+            get_smoke_config("mamba2-780m"), 0),
+        "make_lm_batch": lambda: make_lm_batch(
+            0, SyntheticTextConfig(vocab_size=16, seq_len=8), 2),
+        "make_node_batches": lambda: make_node_batches(
+            0, SyntheticTextConfig(vocab_size=16, seq_len=8), 2, 1),
+        "launch.train": lambda: train_mod.train(
+            get_smoke_config("mamba2-780m"),
+            train_mod.build_parser().parse_args([])),
     }
 
 
 ENTRY_POINTS = ["Method.init", "StochasticProblem",
-                "convert.plan_from_numpy", "convert.problem_from_numpy",
-                "convert.state_from_numpy", "make_round_compressor",
-                "synthetic_classification", "synthetic_quadratic"]
+                "convert.params_from_numpy", "convert.plan_from_numpy",
+                "convert.problem_from_numpy", "convert.state_from_numpy",
+                "convert.tree_state_from_numpy", "init_params",
+                "launch.train", "make_lm_batch", "make_node_batches",
+                "make_round_compressor", "synthetic_classification",
+                "synthetic_quadratic"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

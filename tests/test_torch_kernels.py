@@ -2,10 +2,10 @@
 CPU/CUDA dispatch, the wrappers' input checks, and — on a card only — each
 CUDA kernel against its plain version.
 
-Tolerances: ``dasha_update``'s plain version repeats the reference's op
-order, one rounding per op, so it matches to rtol 1e-6 (last-ulp drift of
-XLA's fused CPU loop); on the card the kernel must match its plain version
-bit for bit.  ``quantize`` norms are summed in different orders in the
+Tolerances: ``dasha_update``'s and ``dasha_mvr_update``'s plain versions
+repeat the reference's op order, one rounding per op, so they match to
+rtol 1e-6 (last-ulp drift of XLA's fused CPU loop); on the card each
+kernel must match its plain version bit for bit.  ``quantize`` norms are summed in different orders in the
 three implementations, so outputs follow the one-level rule
 (``quantize_agreement``).
 
@@ -78,6 +78,61 @@ def test_dasha_update_plain_matches_reference_ref_on_nodes(reference):
                                    atol=1e-6)
 
 
+def _mvr_arrays(shape, seed=0, mask_p=0.3):
+    grad, h, gl, mask = _arrays(shape, seed, mask_p)
+    go = np.random.default_rng(seed + 1).standard_normal(shape) \
+        .astype(np.float32)
+    return grad, go, h, gl, mask
+
+
+@pytest.mark.parametrize("d", [1, 129, 1000, 128 * 3 + 7])
+@pytest.mark.parametrize("a,b,scale", [(0.1, 0.1, 32.0), (1.0, 1.0, 1.0),
+                                       (0.011, 0.0, 8.0)])
+def test_dasha_mvr_update_plain_matches_reference_kernel(reference, d, a, b,
+                                                         scale):
+    """Against ``repro.kernels.ops.dasha_mvr_update`` (the Pallas kernel in
+    interpret mode, as the reference's tests run it); b = 0 is SARAH.
+    rtol 1e-6: the Pallas body forms 1 - b in fp32, the plain version in
+    double before one rounding, so the two may differ in the last ulp."""
+    jnp, jops, _ = reference
+    arrs = _mvr_arrays((d,), seed=d)
+    want = jops.dasha_mvr_update(*(jnp.asarray(t) for t in arrs), a, b,
+                                 scale)
+    got = ops.dasha_mvr_update(*(torch.as_tensor(t) for t in arrs), a, b,
+                               scale)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6,
+                                   atol=1e-6)
+
+
+@pytest.mark.parametrize("b", [0.3, 0.0])
+def test_dasha_mvr_update_plain_matches_reference_ref_on_nodes(reference, b):
+    jnp, _, jref = reference
+    arrs = _mvr_arrays((4, 300), seed=11)
+    want = jref.dasha_mvr_update_ref(*(jnp.asarray(t) for t in arrs), 0.25,
+                                     b, 4.0)
+    got = ref.dasha_mvr_update_ref(*(torch.as_tensor(t) for t in arrs),
+                                   0.25, b, 4.0)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6,
+                                   atol=1e-6)
+
+
+def test_mvr_kernel_invariants():
+    gn, go, h, gl, mask = (torch.as_tensor(t)
+                           for t in _mvr_arrays((4, 257), 5))
+    m, h_new, g_new = ops.dasha_mvr_update(gn, go, h, gl, mask, 0.2, 0.0,
+                                           3.0)
+    assert torch.equal(g_new, gl + m)
+    assert torch.equal(h_new, gn + (h - go))       # b = 0: SARAH
+    assert bool((m[mask == 0] == 0).all())
+    # b = 1 is the plain DASHA update
+    want = ops.dasha_update(gn, h, gl, mask, 0.2, 3.0)
+    for g, w in zip(ops.dasha_mvr_update(gn, go, h, gl, mask, 0.2, 1.0,
+                                         3.0), want):
+        assert torch.equal(g, w)
+
+
 def test_kernel_invariant_g_local_update():
     grad, h, gl, mask = (torch.as_tensor(t) for t in _arrays((4, 257), 5))
     m, h_new, g_new = ops.dasha_update(grad, h, gl, mask, 0.2, 3.0)
@@ -119,6 +174,8 @@ def test_dispatch_rejects_devices_without_a_kernel():
     with pytest.raises(ValueError):
         ops.dasha_update(t, t, t, t, 0.1, 1.0)
     with pytest.raises(ValueError):
+        ops.dasha_mvr_update(t, t, t, t, t, 0.1, 0.5, 1.0)
+    with pytest.raises(ValueError):
         ops.quantize_with_u(t.view(1, 4), t.view(1, 4), 3)
 
 
@@ -128,8 +185,11 @@ def test_wrappers_refuse_cpu_tensors_and_launch_nothing():
     with pytest.raises(ValueError, match="CUDA"):
         kern.dasha_update(t, t, t, t, 0.1, 1.0)
     with pytest.raises(ValueError, match="CUDA"):
+        kern.dasha_mvr_update(t, t, t, t, t, 0.1, 0.5, 1.0)
+    with pytest.raises(ValueError, match="CUDA"):
         kern.quantize(t.view(2, 4), t.view(2, 4), 3)
-    assert kern.COUNTS == {"dasha_update": 0, "quantize": 0}
+    assert kern.COUNTS == {"dasha_update": 0, "dasha_mvr_update": 0,
+                           "quantize": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -153,6 +213,29 @@ def test_cuda_dasha_update_bit_equal_to_plain(cuda_device, shape, misalign):
     got = kern.dasha_update(*args, 0.0024, 209.58)
     assert kern.COUNTS["dasha_update"] == before + 1
     want = ref.dasha_update_ref(*args, 0.0024, 209.58)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 20958), (4, 1536), (3, 4099),
+                                   (1, 3)])
+@pytest.mark.parametrize("misalign", [False, True])
+@pytest.mark.parametrize("b", [0.1, 0.0])
+def test_cuda_dasha_mvr_update_bit_equal_to_plain(cuda_device, shape,
+                                                  misalign, b):
+    def dev(a):
+        off = int(misalign)
+        buf = torch.empty(a.size + off, device=cuda_device)
+        buf[off:] = torch.as_tensor(a.reshape(-1), device=cuda_device)
+        return buf[off:].view(shape)
+
+    args = [dev(t) for t in _mvr_arrays(shape, seed=9)]
+    before = kern.COUNTS["dasha_mvr_update"]
+    got = kern.dasha_mvr_update(*args, 0.0024, b, 32.0)
+    assert kern.COUNTS["dasha_mvr_update"] == before + 1
+    want = ref.dasha_mvr_update_ref(*args, 0.0024, b, 32.0)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -183,5 +266,7 @@ def test_cuda_wrappers_reject_bad_inputs(cuda_device):
         kern.dasha_update(t, t, t, t.double(), 0.1, 1.0)
     with pytest.raises(ValueError):
         kern.dasha_update(t, t, t.t().contiguous().t(), t[:, :4], 0.1, 1.0)
+    with pytest.raises(ValueError):
+        kern.dasha_mvr_update(t, t, t, t, t[:, :4], 0.1, 0.5, 1.0)
     with pytest.raises(ValueError):
         kern.quantize(t.t(), t.t(), 3)

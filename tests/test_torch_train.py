@@ -1,0 +1,369 @@
+"""The port's DASHA trainer path against the reference (CPU).
+
+* tree-level compression (``compress/treelevel.py``) with the reference's
+  masks injected: Bernoulli, shared-coords and PermK messages, the fused
+  tree update for dasha and mvr;
+* the port's own mask draws by distribution;
+* one-to-three ``TreeSubstrate`` rounds per variant x mode x use_kernel on
+  a small two-layer tree model, with the reference's masks and sync coins
+  replayed (``Draws.masks`` / ``Draws.sync_coin``);
+* the whole slice: 5 rounds of ``make_method`` + ``Driver`` on the
+  ``mamba2-smoke`` config (float32), DASHA-MVR with the fused kernel path,
+  the reference's batches and masks replayed;
+* the port's ``launch/train.py`` library function on the CPU.
+
+Tolerances: messages and masked updates are computed by the same
+elementwise ops in both packages and agree to rtol 1e-6 (last-ulp drift
+of XLA's fused loops); states after three rounds of the small model agree
+to rtol 1e-5; after five Mamba2 rounds to 2e-4 of each leaf's largest
+magnitude (gradients through two SSD layers differ in summation order;
+see the whole-slice test for why it runs SGD).
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.compress import treelevel as jtl
+from repro.configs import get_smoke_config as j_smoke
+from repro.data.pipeline import SyntheticTextConfig as JText
+from repro.data.pipeline import make_node_batches as j_node_batches
+from repro.methods.driver import Driver as JDriver
+from repro.models import init_params as j_init
+from repro.models import lm as jlm
+from repro.optim import distributed as jdist
+from repro_torch import convert
+from repro_torch.compress import treelevel as ttl
+from repro_torch.configs import get_smoke_config as t_smoke
+from repro_torch.core import tree
+from repro_torch.core.rng import Draws, RoundRandom
+from repro_torch.launch import train as ttrain
+from repro_torch.methods import Driver as TDriver
+from repro_torch.models import lm as tlm
+from repro_torch.optim import distributed as tdist
+
+torch.set_num_threads(1)
+
+N = 4
+
+
+def _np(t):
+    return jax.tree_util.tree_map(np.asarray, t)
+
+
+def _port(t):
+    return convert.params_from_numpy(_np(t), device="cpu")
+
+
+def _assert_trees_close(got, want, rtol, atol, what="", of_max=False):
+    """Leaf-wise closeness; ``of_max`` makes ``atol`` a fraction of each
+    leaf's largest magnitude."""
+    flat_w = {"/".join(p.key for p in path): np.asarray(v) for path, v in
+              jax.tree_util.tree_leaves_with_path(want)}
+    flat_g = dict(tree.items(got))
+    assert sorted(flat_g) == sorted(flat_w), what
+    for name, g in flat_g.items():
+        w = flat_w[name].astype(np.float32)
+        scale = max(float(np.abs(w).max()), 1e-30) if of_max else 1.0
+        np.testing.assert_allclose(g.to(torch.float32).numpy(), w,
+                                   rtol=rtol, atol=atol * scale,
+                                   err_msg=f"{what} {name}")
+
+
+def _per_node_tree(seed, shapes):
+    rng = np.random.default_rng(seed)
+    return {k: (rng.standard_normal((N,) + s).astype(np.float32)
+                if isinstance(s, tuple) else _per_node_tree(seed + 1, s))
+            for k, s in shapes.items()}
+
+
+SHAPES = {"w": (6, 4), "layers": {"a": (2, 4, 4), "b": (2, 4)}, "c": (5,)}
+
+
+# ---------------------------------------------------------------------------
+# tree-level compression with injected masks
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mode", ["independent", "shared_coords", "permk"])
+def test_tree_masks_replay_and_dense_messages_match_reference(mode):
+    delta = _per_node_tree(0, SHAPES)
+    jdelta = jax.tree_util.tree_map(jnp.asarray, delta)
+    key = jax.random.PRNGKey(3)
+    p = 0.3
+    jmasks, jscale = jtl.tree_masks(key, jdelta, mode=mode, p=p, n=N)
+    rnd = RoundRandom(0, 0, Draws(masks=_port(jmasks)))
+    tmasks, tscale = ttl.tree_masks(rnd, _port(jdelta), mode=mode, p=p, n=N)
+    assert tscale == jscale
+    _assert_trees_close(tmasks, jmasks, 0, 0, "masks")
+    if mode == "permk":
+        jm, jagg = jtl.permk_compress(key, jdelta, N)
+        tm, tagg = ttl.permk_compress(rnd, _port(jdelta), N)
+        _assert_trees_close(tagg, jagg, 1e-6, 1e-6, "aggregate")
+    else:
+        jm = jtl.bernoulli_compress(key, jdelta, p,
+                                    shared=mode == "shared_coords")
+        tm = ttl.bernoulli_compress(rnd, _port(jdelta), p,
+                                    shared=mode == "shared_coords")
+    _assert_trees_close(tm, jm, 1e-6, 1e-6, "messages")
+
+
+@pytest.mark.parametrize("variant,b", [("dasha", 0.0), ("mvr", 0.1),
+                                       ("mvr", 0.0)])
+@pytest.mark.parametrize("mode", ["independent", "permk"])
+def test_fused_tree_update_matches_reference(variant, b, mode):
+    gn, go, h, gl = (_per_node_tree(s, SHAPES) for s in (1, 2, 3, 4))
+    j = [jax.tree_util.tree_map(jnp.asarray, t) for t in (gn, go, h, gl)]
+    key = jax.random.PRNGKey(5)
+    kw = dict(mode=mode, a=0.2, p=0.25, n=N, variant=variant, b=b)
+    want = jtl.fused_tree_update(key, j[0], j[2], j[3], grads_old=j[1],
+                                 **kw)
+    jmasks, _ = jtl.tree_masks(key, j[0], mode=mode, p=0.25, n=N)
+    rnd = RoundRandom(0, 0, Draws(masks=_port(jmasks)))
+    got = ttl.fused_tree_update(rnd, *(_port(t) for t in (j[0], j[2], j[3])),
+                                grads_old=_port(j[1]), **kw)
+    for g, w, name in zip(got, want, ("m", "h_new", "g_new")):
+        _assert_trees_close(g, w, 1e-6, 1e-6, name)
+
+
+def test_port_mask_draws_by_distribution():
+    x = torch.zeros((N, 300, 100))
+    per_node = {"big": x, "small": torch.zeros((N, 7))}
+    rnd = RoundRandom(11, 4)
+    masks, scale = ttl.tree_masks(rnd, per_node, mode="independent", p=0.2,
+                                  n=N)
+    dens = float(masks["big"].mean())
+    assert abs(dens - 0.2) < 4 * np.sqrt(0.2 * 0.8 / x.numel())
+    assert scale == 5.0
+    # every leaf has its own stream, and a round's draw repeats exactly
+    again, _ = ttl.tree_masks(RoundRandom(11, 4), per_node,
+                              mode="independent", p=0.2, n=N)
+    assert torch.equal(again["big"], masks["big"])
+    other, _ = ttl.tree_masks(RoundRandom(11, 5), per_node,
+                              mode="independent", p=0.2, n=N)
+    assert not torch.equal(other["big"], masks["big"])
+    shared, _ = ttl.tree_masks(rnd, per_node, mode="shared_coords", p=0.2,
+                               n=N)
+    assert all(torch.equal(shared["big"][i], shared["big"][0])
+               for i in range(N))
+    perm, pscale = ttl.tree_masks(rnd, per_node, mode="permk", p=1.0, n=N)
+    assert pscale == float(N)
+    for leaf in perm.values():      # a partition: each coordinate once
+        assert torch.equal(leaf.sum(0), torch.ones_like(leaf[0]))
+    counts = perm["big"].reshape(N, -1).sum(1)
+    assert int(counts.max() - counts.min()) <= 1
+
+
+def test_permk_rejects_a_mismatched_node_axis():
+    with pytest.raises(ValueError, match="node axis"):
+        ttl.tree_masks(RoundRandom(0, 0), {"w": torch.zeros((3, 5))},
+                       mode="permk", p=1.0, n=N)
+
+
+# ---------------------------------------------------------------------------
+# TreeSubstrate rounds on a small tree model
+# ---------------------------------------------------------------------------
+
+def _toy_params(seed=0):
+    rng = np.random.default_rng(seed)
+    return {"w": (rng.standard_normal((6, 4)) * 0.5).astype(np.float32),
+            "layers": {"a": (rng.standard_normal((2, 4, 4)) * 0.5)
+                       .astype(np.float32),
+                       "b": np.zeros((2, 4), np.float32)},
+            "c": rng.standard_normal(5).astype(np.float32) * 0.1}
+
+
+def _toy_batch(t):
+    rng = np.random.default_rng(100 + t)
+    return {"x": rng.standard_normal((N, 8, 6)).astype(np.float32),
+            "y": rng.standard_normal((N, 8, 4)).astype(np.float32)}
+
+
+def _toy_loss_j(p, b):
+    h = jnp.tanh(b["x"] @ p["w"])
+    for i in range(2):
+        h = jnp.tanh(h @ p["layers"]["a"][i] + p["layers"]["b"][i])
+    return jnp.mean((h - b["y"]) ** 2) + jnp.sum(p["c"] ** 2)
+
+
+def _toy_loss_t(p, b):
+    h = torch.tanh(b["x"] @ p["w"])
+    for i in range(2):
+        h = torch.tanh(h @ p["layers"]["a"][i] + p["layers"]["b"][i])
+    return torch.mean((h - b["y"]) ** 2) + torch.sum(p["c"] ** 2)
+
+
+def _reference_draws(state, cfg):
+    """The reference's masks and sync coin for the round it runs from
+    ``state`` (``key, k_h, k_c, k_coin = split(key, 4)``)."""
+    _, _, k_c, k_coin = jax.random.split(state.key, 4)
+    masks, _ = jtl.tree_masks(k_c, state.h_local, mode=cfg.mode,
+                              p=cfg.compression, n=cfg.n_nodes)
+    coin = bool(jax.random.bernoulli(k_coin, cfg.p)) \
+        if cfg.variant == "sync_mvr" else None
+    return Draws(masks=_port(masks), sync_coin=coin)
+
+
+def _state_arrays(s):
+    opt = s.opt_state
+    opt = {"mu": _np(opt.mu), "nu": _np(opt.nu), "count": np.asarray(
+        opt.count)} if hasattr(opt, "mu") else ()
+    return {"x": _np(s.x), "g": _np(s.g), "g_local": _np(s.g_local),
+            "h_local": _np(s.h_local), "opt_state": opt,
+            "t": np.asarray(s.t), "bits_sent": np.asarray(s.bits_sent)}
+
+
+def _assert_state_close(got, want, rtol, atol, of_max=False):
+    for name in ("x", "g", "g_local", "h_local"):
+        _assert_trees_close(getattr(got, name), getattr(want, name), rtol,
+                            atol, name, of_max)
+    if hasattr(want.opt_state, "mu"):
+        _assert_trees_close(got.opt_state.mu, want.opt_state.mu, rtol, atol,
+                            "mu", of_max)
+        assert got.opt_state.count == int(want.opt_state.count)
+    assert got.t == int(want.t)
+    assert got.bits_sent == np.float32(want.bits_sent)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+@pytest.mark.parametrize("mode", ["independent", "permk"])
+@pytest.mark.parametrize("variant,server_opt", [("dasha", "sgd"),
+                                                ("mvr", "adam"),
+                                                ("sync_mvr", "adam")])
+def test_tree_substrate_rounds_match_reference(variant, server_opt, mode,
+                                               use_kernel):
+    kw = dict(gamma=0.05, compression=0.5, mode=mode, variant=variant,
+              b=0.3, p=0.5, n_nodes=N, server_opt=server_opt,
+              use_kernel=use_kernel)
+    jcfg, tcfg = jdist.DashaTrainConfig(**kw), tdist.DashaTrainConfig(**kw)
+    jmethod = jdist.make_method(jcfg, _toy_loss_j)
+    tmethod = tdist.make_method(tcfg, _toy_loss_t)
+    params = _toy_params()
+    jstate = jmethod.init(jax.tree_util.tree_map(jnp.asarray, params),
+                          jax.random.PRNGKey(2), init_mode="zeros")
+    tstate = convert.tree_state_from_numpy(_state_arrays(jstate), seed=0,
+                                           device="cpu")
+    jstep = jax.jit(jmethod.step)
+    for t in range(3):
+        batch = _toy_batch(t)
+        draws = _reference_draws(jstate, jcfg)
+        jstate = jstep(jstate, {k: jnp.asarray(v) for k, v in batch.items()})
+        tstate, info = tmethod.step_full(
+            tstate, {k: torch.as_tensor(v) for k, v in batch.items()},
+            draws=draws)
+        _assert_state_close(tstate, jstate, 1e-5, 1e-6)
+        assert info.coin == draws.sync_coin and info.messages is None
+    assert tdist.payload_frac(tcfg) == jdist.payload_frac(jcfg)
+
+
+def test_trainer_config_matches_reference_and_refuses_mesh_knobs():
+    for mode in ("independent", "shared_coords", "permk"):
+        for variant in ("dasha", "mvr", "page", "sync_mvr"):
+            kw = dict(gamma=0.1, mode=mode, variant=variant, n_nodes=4)
+            j, t = jdist.DashaTrainConfig(**kw), tdist.DashaTrainConfig(**kw)
+            assert (t.omega, t.a) == (j.omega, j.a)
+            assert tdist.payload_frac(t) == jdist.payload_frac(j)
+    for knob in (dict(seq_shard=True), dict(fsdp=True),
+                 dict(spmd_axes=("data",))):
+        with pytest.raises(NotImplementedError):
+            tdist.DashaTrainConfig(gamma=0.1, **knob)
+
+
+def test_params_and_state_carry_bit_for_bit():
+    jcfg = j_smoke("mamba2-780m")
+    jparams = j_init(jcfg, jax.random.PRNGKey(4))
+    tparams = convert.params_from_numpy(_np(jparams), device="cpu")
+    for (path, w), (gpath, g) in zip(
+            jax.tree_util.tree_leaves_with_path(jparams),
+            tree.items(tparams)):
+        assert gpath == "/".join(p.key for p in path)
+        assert g.dtype == (torch.bfloat16 if w.dtype == jnp.bfloat16
+                           else torch.float32)
+        assert np.array_equal(g.to(torch.float32).numpy(),
+                              np.asarray(w, np.float32))
+
+
+# ---------------------------------------------------------------------------
+# the whole slice on mamba2-smoke
+# ---------------------------------------------------------------------------
+
+ROUNDS, SEQ = 5, 64
+
+
+def test_whole_slice_mamba2_matches_reference():
+    """make_method + Driver, DASHA-MVR with the fused kernel path, n = 4,
+    5 rounds: the reference's batches and masks are replayed into the
+    port, and the final states must agree to 2e-4 of each leaf's largest
+    magnitude (measured: 7e-5 on g, 1.3e-6 on the iterate).
+
+    The server is SGD here.  Under Adam the same runs part after two
+    rounds: its step is about sign(g) * lr wherever |g| is near the
+    gradients' rounding noise (~1e-5 of a leaf's largest entry), so such
+    coordinates move a whole step apart.  Adam's arithmetic is held to
+    the reference on the small model above, where gradients agree to the
+    last few ulp."""
+    jcfg = dataclasses.replace(j_smoke("mamba2-780m"), dtype="float32")
+    tcfg = dataclasses.replace(t_smoke("mamba2-780m"), dtype="float32")
+    kw = dict(gamma=0.05, compression=0.25, mode="independent",
+              variant="mvr", b=0.1, n_nodes=N, server_opt="sgd",
+              use_kernel=True)
+    jtc, ttc = jdist.DashaTrainConfig(**kw), tdist.DashaTrainConfig(**kw)
+    jmethod = jdist.make_method(jtc, lambda p, b: jlm.loss_fn(jcfg, p, b)[0])
+    tmethod = tdist.make_method(ttc, lambda p, b: tlm.loss_fn(tcfg, p, b)[0])
+    jparams = j_init(jcfg, jax.random.PRNGKey(0))
+    jstate = jmethod.init(jparams, jax.random.PRNGKey(1), init_mode="zeros")
+    tstate = convert.tree_state_from_numpy(_state_arrays(jstate), seed=0,
+                                           device="cpu")
+    text = JText(vocab_size=jcfg.vocab_size, seq_len=SEQ)
+    data_key = jax.random.PRNGKey(2)
+
+    def j_data(k, t):
+        return j_node_batches(k, text, N, 2)
+
+    batches, draws, s = [], [], jstate
+    for t in range(ROUNDS):
+        b = j_node_batches(jax.random.fold_in(data_key, t), text, N, 2)
+        batches.append({k: torch.as_tensor(np.array(v), dtype=torch.int64)
+                        for k, v in b.items()})
+        draws.append(_reference_draws(s, jtc))
+        s = s._replace(key=jax.random.split(s.key, 4)[0])
+    jfinal, _ = JDriver(jmethod, data_fn=j_data, chunk=ROUNDS).run(
+        jstate, ROUNDS, data_key=data_key)
+
+    def step(st, data):
+        return tmethod.step_full(st, data, draws=draws[st.t])[0]
+
+    tfinal, traces = TDriver(step, data_fn=lambda seed, t: batches[t]).run(
+        tstate, ROUNDS, data_seed=0)
+    _assert_state_close(tfinal, jfinal, 0.0, 2e-4, of_max=True)
+    assert traces["bits_sent"].shape == (ROUNDS,)
+
+
+# ---------------------------------------------------------------------------
+# the trainer entry point
+# ---------------------------------------------------------------------------
+
+def test_train_library_function_runs_on_the_cpu():
+    args = ttrain.build_parser().parse_args(
+        ["--steps", "4", "--log-every", "2", "--seq", "64", "--variant",
+         "mvr", "--use-kernel"])
+    lines = []
+    res = ttrain.train(t_smoke("mamba2-780m"), args, device="cpu",
+                       log=lines.append)
+    assert [c["rounds"] for c in res.chunks] == [2, 4]
+    assert all(np.isfinite(c["loss"]) and c["seconds"] > 0
+               for c in res.chunks)
+    assert res.state.t == 4 and np.isfinite(res.loss0)
+    assert res.chunks[-1]["loss"] < res.loss0
+    assert lines[0].startswith("[train] arch=mamba2-smoke")
+    # the driver can go on from where train stopped
+    more, _ = res.driver.run(res.state, 1, data_seed=res.data_seed)
+    assert more.t == 5
+
+
+def test_train_refuses_checkpoint_flags_until_ported():
+    args = ttrain.build_parser().parse_args(["--ckpt", "somewhere"])
+    with pytest.raises(NotImplementedError, match="checkpoint"):
+        ttrain.train(t_smoke("mamba2-780m"), args, device="cpu")
