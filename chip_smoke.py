@@ -29,7 +29,26 @@ Phases, each fatal on failure:
    (= leaves x rounds) and a profiled window;
 6. trainer agreement — a smoke-size float32 Mamba2 trained on the card and
    on the CPU with the same injected masks, coins and batches, for dasha /
-   mvr / sync_mvr x independent / permk x use_kernel off / on.
+   mvr / sync_mvr x independent / permk x use_kernel off / on;
+7. ssd_chunk vs plain — the SSD intra-chunk kernel against its plain torch
+   version in bf16 and fp32 at one layer of the serving prefill (x (4,
+   32768, 48, 64) as a view of the conv output, b/c (4, 32768, 128), Q =
+   256), at the smoke model's (2, 64, 8, 32, 16), Q = 32, and at ragged
+   (1, 128, 4, 16, 8), Q = 32 and (2, 32, 3, 4, 5), Q = 8; each output
+   within 1e-4 of the plain version's largest magnitude, timed beside its
+   bound;
+8. serve main path — ``repro_torch.launch.serve`` on Mamba2-780M at full
+   width and full depth (48 layers, bf16, random weights from a seed):
+   (a) ``prefill_logits`` at batch 4 x 32,768 tokens, 1 warm-up + 2 timed
+   calls and a profiled one (``ssd_chunk`` launches = 48 a call: the
+   kernel's launches on the main path); (b) ``serve`` at batch 128, a
+   256-token prompt stepped through ``decode_step`` and 64 new tokens
+   (the recurrence, no kernel); (c) ``prefill_logits`` against the 512th
+   decode step of ``serve`` on a 512-token prompt at batch 2 in float32;
+9. serve agreement — the smoke Mamba2 in float32 prefilled (kernel on
+   the card, plain version on the CPU) and served on the card and on the
+   CPU with the same params and prompt: logits within 1e-4 of the largest
+   magnitude, equal tokens.
 
 Every phase that drives a main path zeroes the launch counters just before
 it and reads them just after; a kernel of that path that never launched
@@ -64,6 +83,16 @@ TRAIN_NODES, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 4, 16, 2, 512
 TRAIN_WARMUP, TRAIN_ROUNDS, TRAIN_PROFILED = 2, 10, 2
 D_EMBED = 50432 * 1536
 MVR_SHAPES = [(TRAIN_NODES, D_REALSIM), (TRAIN_NODES, D_EMBED), (3, 4099)]
+# serving: Mamba2-780M's SSD (H = 48 heads x P = 64, state N = 128, chunk
+# 256) at the prefill_32k sequence length, batch cut from 32 to 4; then
+# the smoke model's, and ragged shapes (B, S, H, P, N, chunk)
+SSD_SHAPES = [(4, 32768, 48, 64, 128, 256), (2, 64, 8, 32, 16, 32),
+              (1, 128, 4, 16, 8, 32), (2, 32, 3, 4, 5, 8)]
+SSD_LIMIT = 1e-4
+PREFILL_BATCH, PREFILL_SEQ, PREFILL_TIMED = 4, 32768, 2
+DECODE_BATCH, DECODE_PROMPT, DECODE_NEW, DECODE_PROFILED = 128, 256, 64, 4
+PARITY_BATCH, PARITY_PROMPT, PARITY_LIMIT = 2, 512, 5e-3
+PROFILE_WARMUP_LAUNCHES, PROFILE_WARMUP_S = 32, 0.2
 
 
 def log(msg: str) -> None:
@@ -102,11 +131,12 @@ def bound(nbytes: float, flops: float):
 
 
 def device_kernels(torch, prof):
-    """Device time (us) and count of every CUDA kernel in a profile."""
+    """Device time (us) and count of every CUDA kernel in a profile, but
+    the warm-up's spin kernels."""
     from torch.autograd import DeviceType
     out = {}
     for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key:
             us = getattr(e, "self_device_time_total", None)
             if us is None:
                 us = e.self_cuda_time_total
@@ -115,10 +145,18 @@ def device_kernels(torch, prof):
 
 
 def profiled(torch, fn):
-    """Run ``fn`` under torch.profiler: (kernel table, wall seconds)."""
+    """Run ``fn`` under torch.profiler: (kernel table, wall seconds).  The
+    profiler records no launch of its first moments (without a warm-up, a
+    window of one call recorded none, and one of 20 short calls 13), so
+    a few spin kernels and a pause come first, outside the wall and the
+    table."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_WARMUP_LAUNCHES):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_WARMUP_S)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -128,19 +166,33 @@ def profiled(torch, fn):
 
 def kernel_device_ms(torch, fn, names, reps: int = 20):
     """Device time of one call of ``fn`` from the profiler: the summed
-    time of the CUDA kernels whose names contain one of ``names``
-    (None when the profiler records no device activity)."""
+    time of the CUDA kernels whose names contain one of ``names``.  None
+    when the windows' launches do not add up: a profiled single call gives
+    the launches a call makes, and the ``reps``-call window must hold
+    exactly ``reps`` times as many (a window that missed launches measures
+    nothing)."""
     fn()
     torch.cuda.synchronize()
+
+    def matching(table):
+        hits = [(c, t) for k, (c, t) in table.items()
+                if any(nm in k for nm in names)]
+        return sum(c for c, _ in hits), sum(t for _, t in hits)
 
     def run():                       # keeps no outputs alive between calls
         for _ in range(reps):
             fn()
 
+    per_call, _ = matching(profiled(torch, fn)[0])
     table, _ = profiled(torch, run)
-    us = sum(t for k, (_, t) in table.items()
-             if any(nm in k for nm in names))
-    return us / reps / 1e3 if us > 0 else None
+    n, us = matching(table)
+    if per_call == 0 or n != per_call * reps:
+        top = sorted(table.items(), key=lambda kv: -kv[1][1])[:4]
+        log(f"[profile] {names}: {per_call} launches in one profiled call, "
+            f"{n} in {reps} calls: no device time; {len(table)} kernels "
+            f"recorded, the longest {[(k[:60], c, t) for k, (c, t) in top]}")
+        return None
+    return us / reps / 1e3
 
 
 def phase_build():
@@ -264,8 +316,8 @@ def phase_kernels(torch):
               "dasha_mvr_update": (_check_mvr, MVR_SHAPES)}
     rows = {name: [] for name in checks}
     log("[kernels] library_ms is null for all: no single PyTorch call "
-        "computes a fused estimator update or row-wise QSGD with external "
-        "uniforms")
+        "computes a fused estimator update, row-wise QSGD with external "
+        "uniforms or the SSD intra-chunk block")
     for name, (check, shapes) in checks.items():
         for i, shape in enumerate(shapes):
             misalign = i == len(shapes) - 1
@@ -646,6 +698,340 @@ def phase_trainer_agreement(torch):
     return worst
 
 
+def _ssd_inputs(torch, shape, dtype, seed):
+    """x, dt, A, b, c of the mixer's layout on the card: x, b and c are
+    views of one (B, S, H*P + 2N) conv output, as the model hands them."""
+    B, S, H, P, N, _ = shape
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    xbc = torch.randn((B, S, H * P + 2 * N), device="cuda", generator=g)
+    dt = torch.nn.functional.softplus(torch.randn(
+        (B, S, H), device="cuda", generator=g))
+    A = -torch.exp(0.3 * torch.randn((H,), device="cuda", generator=g))
+    xbc, dt = xbc.to(dtype), dt.to(dtype)
+    x = xbc[..., :H * P].view(B, S, H, P)
+    return x, dt, A, xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+
+
+def ssd_bound(shape, itemsize: int):
+    """The least time of one intra-chunk pass: its float32 work counting
+    only what the inputs need (the lower triangle; c b^T once per (batch,
+    chunk), since it does not depend on the head), against its bytes
+    (inputs read once, float32 outputs written once)."""
+    B, S, H, P, N, Q = shape
+    G, nc = B * H, S // Q
+    tri = Q * (Q + 1) // 2
+    flops = (2 * B * nc * tri * N            # scores c b^T
+             + 2 * G * nc * tri * P          # y_diag
+             + 2 * G * nc * Q * N * P        # states
+             + 2 * G * nc * tri              # exp and the L * scores product
+             + 2 * G * S * P)                # x dt and its decay weight
+    nbytes = (itemsize * (B * S * H * P + B * S * H + 2 * B * S * N) + 4 * H
+              + 4 * G * nc * (Q * P + N * P + 1 + Q))
+    return bound(nbytes, flops), flops, nbytes
+
+
+def phase_ssd_kernel(torch, smi: str):
+    """ssd_chunk against its plain version on the card (phase 7)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssd_chunk as kern
+    rows = []
+    for i, shape in enumerate(SSD_SHAPES):
+        for dtype in (torch.bfloat16, torch.float32):
+            torch.cuda.empty_cache()
+            x, dt, A, b, c = _ssd_inputs(torch, shape, dtype, 200 + i)
+            Q = shape[-1]
+            got = kern.ssd_chunk(x, dt, A, b, c, Q)
+            again = kern.ssd_chunk(x, dt, A, b, c, Q)
+
+            def plain():
+                return ref.ssd_chunk_ref(*ops.chunk_layout(x, dt, A, b, c, Q))
+
+            want = plain()
+            torch.cuda.synchronize()
+            errs = {}
+            for name, gg, ww in zip(("y_diag", "states", "decays", "acs"),
+                                    got, want):
+                scale = float(ww.abs().max())
+                err = float((gg - ww).abs().max())
+                errs[name] = {"max_abs_err": err, "max_abs_plain": scale}
+                if not err <= SSD_LIMIT * scale:
+                    raise AssertionError(
+                        f"ssd_chunk {shape} {dtype}: {name} max_abs_err "
+                        f"{err} > {SSD_LIMIT} x {scale}")
+            if not all(torch.equal(a, w) for a, w in zip(got, again)):
+                raise AssertionError(f"ssd_chunk {shape} {dtype}: two "
+                                     "launches differ")
+            del got, again, want
+            (b_ms, by), flops, nbytes = ssd_bound(shape, x.element_size())
+            reps = 5 if shape[1] > 4096 else 20
+            r = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
+                 "errors": errs,
+                 "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+                 "ms": time_ms(torch, lambda: kern.ssd_chunk(
+                     x, dt, A, b, c, Q), reps=reps),
+                 "plain_ms": time_ms(torch, plain, reps=reps),
+                 "device_ms": kernel_device_ms(torch, lambda: kern.ssd_chunk(
+                     x, dt, A, b, c, Q), ["ssd_chunk_kernel"], reps=reps),
+                 "bound_ms": b_ms, "bound_by": by, "flops": flops,
+                 "bytes": nbytes}
+            rows.append(r)
+            log(f"[ssd] {shape} {r['dtype']}: err {r['max_abs_err']:.3g} "
+                f"(y_diag {errs['y_diag']['max_abs_err']:.3g} of "
+                f"{errs['y_diag']['max_abs_plain']:.3g})  call "
+                f"{r['ms']:.4f} ms  device {r['device_ms']} ms  plain "
+                f"{r['plain_ms']:.4f} ms  bound {b_ms:.4f} ms ({by})  "
+                f"[{smi}]")
+            del x, dt, A, b, c
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_serve(torch, smi: str):
+    """Mamba2-780M at full width and depth through the port's serving entry
+    points (phase 8), each part with the launch count zeroed before it and
+    read after it."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree
+    from repro_torch.data.pipeline import SyntheticTextConfig, make_lm_batch
+    from repro_torch.kernels import ssd_chunk as kern
+    from repro_torch.launch import serve as S
+    from repro_torch.models import init_params
+
+    cfg = get_config("mamba2-780m")
+    L = cfg.num_layers
+    torch.cuda.empty_cache()
+    params = init_params(cfg, 0, device="cuda")
+    n_params = sum(int(x.numel()) for x in tree.leaves(params))
+    out = {"layers": L, "params": n_params, "card": smi}
+
+    # (a) prefill: the last position's logits of 4 x 32,768 tokens
+    text = SyntheticTextConfig(vocab_size=cfg.vocab_size,
+                               seq_len=PREFILL_SEQ)
+    tokens = make_lm_batch(1, text, PREFILL_BATCH, device="cuda")["tokens"]
+    kern.reset_counts()
+    logits = S.prefill_logits(cfg, params, tokens)            # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(PREFILL_TIMED):
+        t0 = time.perf_counter()
+        logits = S.prefill_logits(cfg, params, tokens)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    calls = 1 + PREFILL_TIMED
+    launches = kern.COUNTS["ssd_chunk"]
+    peak = torch.cuda.max_memory_allocated()
+    if launches != L * calls:
+        raise AssertionError(f"prefill: ssd_chunk launches {launches}, "
+                             f"expected {L} layers x {calls} calls")
+    if tuple(logits.shape) != (PREFILL_BATCH, 1, cfg.padded_vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} are "
+                             "misshapen or not finite")
+    table, pwall = profiled(torch, lambda: S.prefill_logits(cfg, params,
+                                                            tokens))
+    busy_s = sum(t for _, t in table.values()) / 1e6
+    k_count = sum(c for k, (c, _) in table.items() if "ssd_chunk_kernel" in k)
+    k_ms = sum(t for k, (_, t) in table.items()
+               if "ssd_chunk_kernel" in k) / 1e3
+    if k_count != L:
+        # a window that missed launches measures nothing
+        log(f"[serve] the profiled prefill call recorded {k_count} "
+            f"ssd_chunk launches, not {L}: no device time for it")
+        k_ms = None
+    (b_ms, by), _, _ = ssd_bound((PREFILL_BATCH, PREFILL_SEQ,
+                                  cfg.ssm_nheads, cfg.ssm_headdim,
+                                  cfg.ssm_state, cfg.ssd_chunk), 2)
+    top = sorted(table.items(), key=lambda kv: -kv[1][1])[:12]
+    wall = sum(walls) / len(walls)
+    ntok = PREFILL_BATCH * PREFILL_SEQ
+    out["prefill"] = {
+        "batch": PREFILL_BATCH, "seq": PREFILL_SEQ, "walls_s": walls,
+        "tokens_per_s": ntok / wall, "peak_mem_gb": peak / 1e9,
+        "ssd_chunk_launches": launches,
+        "ssd_chunk_profiled_launches": k_count,
+        "ssd_chunk_device_ms_per_layer": None if k_ms is None else k_ms / L,
+        "ssd_chunk_bound_ms_per_layer": b_ms, "bound_by": by,
+        "ssd_chunk_share_of_call": None if k_ms is None
+        else k_ms / (pwall * 1e3),
+        "profile": {"wall_s": pwall, "device_busy_s": busy_s,
+                    "busy_share": busy_s / pwall,
+                    "top_kernels": [[k[:90], c, us / 1e3]
+                                    for k, (c, us) in top]}}
+    log(f"[serve] mamba2-780m {L}/48 layers, {n_params / 1e6:.1f}M params, "
+        f"bf16 ({smi}): prefill {PREFILL_BATCH}x{PREFILL_SEQ} in "
+        f"{walls} s, {ntok / wall:.0f} tokens/s, peak {peak / 1e9:.2f} GB, "
+        f"ssd_chunk launches {launches}; profiled call {pwall:.3f} s, device "
+        f"busy {busy_s / pwall:.3f}, ssd_chunk "
+        f"{out['prefill']['ssd_chunk_device_ms_per_layer']} ms a layer vs "
+        f"a {b_ms:.3f} ms bound ({by}), "
+        f"{out['prefill']['ssd_chunk_share_of_call']} of the call")
+    for k, c, ms in out["prefill"]["profile"]["top_kernels"]:
+        log(f"[serve]   {ms:9.3f} ms  x{c:<5d} {k}")
+    del logits, tokens
+    torch.cuda.empty_cache()
+
+    # (b) serve: a 256-token prompt stepped through decode_step, 64 new
+    # (the recurrence: no ssd_chunk launch)
+    args = S.build_parser().parse_args([
+        "--batch", str(DECODE_BATCH), "--prompt-len", str(DECODE_PROMPT),
+        "--new-tokens", str(DECODE_NEW)])
+    torch.cuda.reset_peak_memory_stats()
+    kern.reset_counts()
+    res = S.serve(cfg, args, device="cuda", params=params, log=log)
+    torch.cuda.synchronize()
+    launches_b = kern.COUNTS["ssd_chunk"]
+    peak = torch.cuda.max_memory_allocated()
+    if res.tokens.shape != (DECODE_BATCH, DECODE_NEW) or \
+            not ((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all():
+        raise AssertionError(f"serve tokens {res.tokens.shape} misshapen "
+                             "or out of the vocabulary")
+    cache_gb = sum(t.numel() * t.element_size()
+                   for t in res.state.cache.values()) / 1e9
+    # not a gate: the bf16 kernel prefill of the same prompt against the
+    # last prompt step (tests/test_torch_serve.py holds this gap to the
+    # reference's own)
+    gap, agree = _logit_gap(S, cfg, S.prefill_logits(
+        cfg, params, res.prompt)[:, 0], res.last_logits)
+    out["decode"] = {
+        "batch": DECODE_BATCH, "prompt": DECODE_PROMPT, "new": DECODE_NEW,
+        "decode_s": res.decode_s,
+        "decode_tokens_per_s": DECODE_BATCH * DECODE_NEW / res.decode_s,
+        "ms_per_step": res.decode_s / DECODE_NEW * 1e3,
+        "prompt_steps_s": res.prefill_s,
+        "prompt_ms_per_step": res.prefill_s / DECODE_PROMPT * 1e3,
+        "cache_gb": cache_gb,
+        "peak_mem_gb": peak / 1e9, "ssd_chunk_launches": launches_b,
+        "bf16_prefill_vs_step_err": gap, "bf16_first_token_agree": agree,
+        "first_row": res.tokens[0].tolist()}
+    log(f"[serve] bf16 kernel prefill of the {DECODE_BATCH} x "
+        f"{DECODE_PROMPT} prompt vs its last decode step (not a gate): "
+        f"{gap:.3e} of max |logit|, greedy tokens agree on {agree:.3f} of "
+        "rows")
+    # where a decode step's time goes: a few more steps under the profiler
+    # (its CPU tracing slows the host, so the busy share is a lower bound)
+    from repro_torch.models import lm
+    state = res.state
+
+    def steps():
+        with torch.inference_mode():
+            tok = state.tok
+            for i in range(DECODE_PROFILED):
+                logits, _ = lm.decode_step(S.kernel_config(cfg), params,
+                                           state.cache, tok, state.t + i)
+                tok = S.greedy(cfg, logits)
+
+    table, pwall = profiled(torch, steps)
+    busy_s = sum(t for _, t in table.values()) / 1e6
+    n_kernels = sum(c for c, _ in table.values())
+    top = sorted(table.items(), key=lambda kv: -kv[1][1])[:8]
+    out["decode_profile"] = {
+        "steps": DECODE_PROFILED, "wall_s": pwall, "device_busy_s": busy_s,
+        "busy_share": busy_s / pwall,
+        "device_ms_per_step": busy_s / DECODE_PROFILED * 1e3,
+        "kernels_per_step": n_kernels / DECODE_PROFILED,
+        "top_kernels": [[k[:90], c, us / 1e3] for k, (c, us) in top]}
+    log(f"[serve] decode profile ({smi}), {DECODE_PROFILED} steps: "
+        f"{pwall / DECODE_PROFILED * 1e3:.2f} ms a step under the profiler, "
+        f"device busy {busy_s / pwall:.3f} "
+        f"({busy_s / DECODE_PROFILED * 1e3:.2f} ms of device work a step), "
+        f"{n_kernels / DECODE_PROFILED:.0f} kernels a step")
+    for k, c, ms in out["decode_profile"]["top_kernels"]:
+        log(f"[serve]   {ms:9.3f} ms  x{c:<5d} {k}")
+    log(f"[serve] decode batch {DECODE_BATCH} ({smi}): {DECODE_NEW} steps in "
+        f"{res.decode_s:.3f} s, {out['decode']['ms_per_step']:.2f} ms a step, "
+        f"{out['decode']['decode_tokens_per_s']:.0f} tokens/s; prompt "
+        f"{out['decode']['prompt_ms_per_step']:.2f} ms a step; cache "
+        f"{cache_gb:.2f} GB, peak {peak / 1e9:.2f} GB; first row "
+        f"{res.tokens[0][:16].tolist()}")
+    del res, params, state
+    torch.cuda.empty_cache()
+
+    # (c) kernel prefill vs decode recurrence at full width, float32
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = init_params(cfg32, 0, device="cuda")
+    args = S.build_parser().parse_args([
+        "--batch", str(PARITY_BATCH), "--prompt-len", str(PARITY_PROMPT),
+        "--new-tokens", "4"])
+    res = S.serve(cfg32, args, device="cuda", params=params, log=log)
+    kern.reset_counts()
+    first = S.prefill_logits(cfg32, params, res.prompt)[:, 0]
+    torch.cuda.synchronize()
+    if kern.COUNTS["ssd_chunk"] != L:
+        raise AssertionError(f"parity: ssd_chunk launches "
+                             f"{kern.COUNTS['ssd_chunk']}, expected {L}")
+    err, agree = _logit_gap(S, cfg32, first, res.last_logits)
+    if not err <= PARITY_LIMIT:
+        raise AssertionError(f"kernel prefill vs decode recurrence: "
+                             f"{err} of max |logit| > {PARITY_LIMIT}")
+    out["parity_f32"] = {"batch": PARITY_BATCH, "prompt": PARITY_PROMPT,
+                         "err_of_max_logit": err, "limit": PARITY_LIMIT,
+                         "greedy_agree": agree,
+                         "max_logit": float(res.last_logits.abs().max())}
+    log(f"[serve] float32 full width ({smi}), {PARITY_BATCH} x "
+        f"{PARITY_PROMPT}: kernel prefill vs the {PARITY_PROMPT}th decode "
+        f"step {err:.3e} of max |logit| (limit {PARITY_LIMIT}), greedy "
+        f"tokens agree on {agree:.3f} of rows")
+    del res, params, first
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def _logit_gap(S, cfg, got, want):
+    """The largest |got - want| as a fraction of max |want|, and the share
+    of rows whose greedy tokens agree."""
+    scale = max(float(want.abs().max()), 1e-30)
+    err = float((got.float() - want.float()).abs().max()) / scale
+    agree = float((S.greedy(cfg, got) == S.greedy(cfg, want)).float().mean())
+    return err, agree
+
+
+def phase_serve_agreement(torch):
+    """The smoke Mamba2 in float32 prefilled and served on the card and on
+    the CPU with the same params and prompt (phase 9)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import tree
+    from repro_torch.kernels import ssd_chunk as kern
+    from repro_torch.launch import serve as S
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(get_smoke_config("mamba2-780m"),
+                              dtype="float32")
+    args = S.build_parser().parse_args(["--batch", "4", "--prompt-len", "64",
+                                        "--new-tokens", "16"])
+    params = init_params(cfg, 0, device="cpu")
+    prompt = torch.randint(1, cfg.vocab_size, (4, 64),
+                           generator=torch.Generator().manual_seed(5))
+    res, first = {}, {}
+    for dev in ("cuda", "cpu"):
+        dev_params = tree.map_leaves(lambda p, d=dev: p.to(d), params)
+        res[dev] = S.serve(cfg, args, device=dev, params=dev_params,
+                           prompt=prompt, log=lambda _: None)
+        kern.reset_counts()
+        first[dev] = S.prefill_logits(cfg, dev_params,
+                                      prompt.to(dev))[:, 0].cpu()
+        if kern.COUNTS["ssd_chunk"] != (cfg.num_layers if dev == "cuda"
+                                        else 0):
+            raise AssertionError(f"smoke prefill on {dev}: ssd_chunk "
+                                 f"launches {kern.COUNTS['ssd_chunk']}")
+    worst = 0.0
+    for card, cpu in ((first["cuda"], first["cpu"]),
+                      (res["cuda"].last_logits.cpu(),
+                       res["cpu"].last_logits)):
+        worst = max(worst, float((card - cpu).abs().max())
+                    / float(cpu.abs().max()))
+    if not worst <= 1e-4:
+        raise AssertionError(f"smoke serve: card and CPU logits differ by "
+                             f"{worst} of the largest magnitude")
+    if not (res["cuda"].tokens == res["cpu"].tokens).all():
+        raise AssertionError("smoke serve: card and CPU tokens differ")
+    log(f"[serve-agree] smoke Mamba2 f32, 4 x 64 prompt + 16 tokens: card "
+        f"vs CPU prefill (kernel vs plain) and last-step logits {worst:.3g} "
+        "of the largest magnitude (limit 1e-4), greedy tokens equal")
+    return worst
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"{SRC / 'repro_torch'} not found: run from a checkout of the "
@@ -670,6 +1056,9 @@ def main() -> int:
     trainer, train_launches = phase_trainer(torch)
     launches["dasha_mvr_update"] = train_launches["dasha_mvr_update"]
     train_rel = phase_trainer_agreement(torch)
+    ssd_rows = phase_ssd_kernel(torch, smi)
+    serving, launches["ssd_chunk"] = phase_serve(torch, smi)
+    serve_rel = phase_serve_agreement(torch)
 
     sources = {"dasha_update": "src/repro/kernels/dasha_update.py:70",
                "dasha_mvr_update": "src/repro/kernels/dasha_update.py:90",
@@ -694,12 +1083,30 @@ def main() -> int:
                 k: trainer[k] for k in ("kernel_device_ms_per_round",
                                         "kernel_bound_ms_per_round",
                                         "kernel_share_of_profiled_round")}
-        if launches[name] == 0:
-            raise AssertionError(f"{name} was never launched on the main "
-                                 "path")
+    # the SSD kernel's row: one layer of the serving prefill in bf16
+    main_shape = ssd_rows[0]
+    kernels.append({
+        "name": "ssd_chunk", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+        "replaces": "src/repro/kernels/ssd_chunk.py:62",
+        "launches": launches["ssd_chunk"],
+        "max_abs_err": max(r["max_abs_err"] for r in ssd_rows),
+        "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
+        "bound_ms": main_shape["bound_ms"],
+        "bound_by": main_shape["bound_by"], "library_ms": None,
+        "shapes": ssd_rows,
+        # its device time in the profiled 48-layer prefill call (phase 8a)
+        "per_layer": {k: serving["prefill"][k] for k in (
+            "ssd_chunk_profiled_launches", "ssd_chunk_device_ms_per_layer",
+            "ssd_chunk_bound_ms_per_layer", "ssd_chunk_share_of_call")}})
+    for row in kernels:
+        if row["launches"] == 0:
+            raise AssertionError(f"{row['name']} was never launched on the "
+                                 "main path")
     report = {"kernels": kernels, "main_path": runs,
               "agreement_max_rel_err": rel, "trainer": trainer,
-              "trainer_agreement_worst": train_rel, "nvidia_smi": smi}
+              "trainer_agreement_worst": train_rel, "serve": serving,
+              "serve_agreement_worst": serve_rel, "nvidia_smi": smi}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))

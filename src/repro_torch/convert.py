@@ -1,5 +1,5 @@
-"""Carry state, parameters, problems and plans across from the reference
-package.
+"""Carry state, parameters, decode caches, problems and plans across from
+the reference package.
 
 Everything arrives as numpy arrays (the reference's arrays through
 ``np.asarray``; bfloat16 arrays keep their ``ml_dtypes`` bfloat16 dtype),
@@ -96,6 +96,15 @@ def params_from_numpy(params: Mapping[str, Any], *,
     for dtype and bit for bit."""
     dev = resolve_device(device)
     return tree.map_leaves(lambda a: _exact(a, dev), dict(params))
+
+
+def cache_from_numpy(cache: Mapping[str, Any], *,
+                     device=DEFAULT_DEVICE) -> dict:
+    """The port's decode cache from the reference's (``lm.init_cache`` or
+    a ``decode_step`` output, as numpy arrays): the conv window in its
+    dtype (bfloat16 by its bits) and the float32 SSM state, exactly."""
+    dev = resolve_device(device)
+    return tree.map_leaves(lambda a: _exact(a, dev), dict(cache))
 
 
 def _opt_state_from_numpy(opt, dev):

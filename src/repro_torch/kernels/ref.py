@@ -64,3 +64,39 @@ def quantize_ref(x: torch.Tensor, u: torch.Tensor,
     q = lo + (u < (y - lo)).to(torch.float32)
     out = torch.sign(xf) * q * safe / levels
     return torch.where(norm > 0, out, torch.zeros_like(out)).to(x.dtype)
+
+
+def ssd_chunk_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                  b: torch.Tensor, c: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                             torch.Tensor]:
+    """Mamba2 SSD intra-chunk block (the body of the reference's
+    ``_ssd_chunk_kernel``), batched over (G, nc) = (batch * heads, chunks):
+
+        acs    = cumsum(dt * A)                         inclusive
+        L      = tril(exp(acs_q - acs_k))
+        y_diag = (L * (c b^T)) (x * dt)
+        state  = b^T (exp(acs_end - acs) * x * dt)
+        decay  = exp(acs_end)
+
+    ``x``: (G, nc, Q, P), ``dt``: (G, nc, Q), ``A``: (G,), ``b``/``c``:
+    (G, nc, Q, N), any float type; each is read as float32 before any
+    product, as the Pallas body does.  Returns float32 ``(y_diag (G,nc,Q,P),
+    states (G,nc,N,P), decays (G,nc), acs (G,nc,Q))``."""
+    f32 = torch.float32
+    x, dt, b, c = (t.to(f32) for t in (x, dt, b, c))
+    xdt = x * dt[..., None]
+    acs = torch.cumsum(dt * A.to(f32)[:, None, None], -1)
+    q = acs.shape[-1]
+    above = torch.triu(torch.ones((q, q), dtype=torch.bool,
+                                  device=x.device), 1)
+    # mask before exp: above the diagonal acs_q - acs_k > 0 can overflow,
+    # and inf * 0 is NaN; exp(-inf) is the 0 of the reference's select.
+    # In place: at the serving shape each (G, nc, Q, Q) tensor is 6.4 GB.
+    L = (acs[..., :, None] - acs[..., None, :]).masked_fill_(
+        above, float("-inf")).exp_()
+    y_diag = L.mul_(c @ b.transpose(-1, -2)) @ xdt
+    del L
+    decay_end = torch.exp(acs[..., -1:] - acs)
+    states = b.transpose(-1, -2) @ (decay_end[..., None] * xdt)
+    return y_diag, states, torch.exp(acs[..., -1]), acs

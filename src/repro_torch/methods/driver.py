@@ -19,7 +19,8 @@ Key contracts:
   (zeros before the first evaluation of a run).
 
 ``method`` may be a :class:`repro_torch.methods.Method` or a bare
-``step(state, data) -> state`` callable.
+``step(state, data) -> state`` callable.  ``bits_sent`` is traced only when
+the state carries it (a serving state does not).
 """
 from __future__ import annotations
 
@@ -81,9 +82,11 @@ class Driver:
                 elif name not in last:
                     last[name] = torch.zeros_like(fn(state, d))
                 vals[name].append(last[name])
-            bits.append(state.bits_sent)
+            if hasattr(state, "bits_sent"):
+                bits.append(state.bits_sent)
         traces = {name: _to_host(v) for name, v in vals.items()}
-        traces["bits_sent"] = np.asarray(bits, dtype=np.float32)
+        if bits:
+            traces["bits_sent"] = np.asarray(bits, dtype=np.float32)
         return traces
 
     def run(self, state, rounds: int, *, data_seed: Optional[int] = None,
@@ -91,7 +94,7 @@ class Driver:
             checkpoint_every: int = 1):
         """Drive ``rounds`` rounds; returns ``(final_state, traces)`` with
         ``traces`` a dict of length-``rounds`` numpy arrays (the named
-        metrics plus ``bits_sent``).
+        metrics plus ``bits_sent`` when the state carries it).
 
         ``checkpoint(state, rounds_done, chunk_traces)`` fires after every
         ``checkpoint_every``-th chunk and after the final one."""
@@ -117,7 +120,8 @@ class Driver:
         if not parts:
             traces = {name: np.zeros((0,), np.float32)
                       for name in self.metrics}
-            traces["bits_sent"] = np.zeros((0,), np.float32)
+            if hasattr(state, "bits_sent"):
+                traces["bits_sent"] = np.zeros((0,), np.float32)
             return state, traces
         return state, {k: np.concatenate([p[k] for p in parts])
                        for k in parts[0]}

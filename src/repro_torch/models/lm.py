@@ -1,14 +1,18 @@
 """Language-model assembly (port of ``repro.models.lm``, the ``ssm``
-family's training forward and loss).
+family): the training / prefill forward and loss, and the serving cache and
+decode step.
 
-    forward(cfg, params, tokens) -> (logits (B,S,V_padded), aux)
+    forward(cfg, params, tokens, last_only=False) -> (logits, aux)
     loss_fn(cfg, params, batch) -> (scalar, metrics)
+    init_cache(cfg, batch, seq, device=...) -> cache (decode)
+    decode_step(cfg, params, cache, token, t) -> (logits (B,V), cache)
 
 The reference scans the stacked layers under ``jax.checkpoint``; the port
 loops over them and keeps every activation for the backward pass (no
 rematerialisation, so no ``remat`` argument: it would change memory, not
 the numbers).  Each stacked leaf is ``unbind``-ed once, so its gradient is
-assembled by one stack rather than one full-size scatter per layer.
+assembled by one stack rather than one full-size scatter per layer.  The
+decode step updates the stacked cache in place, layer by layer.
 """
 from __future__ import annotations
 
@@ -17,7 +21,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.blocks import mamba_block_prefill
+from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.models.blocks import mamba_block_decode, mamba_block_prefill
 from repro_torch.models.common import ArchConfig, rms_norm
 
 
@@ -33,18 +38,31 @@ def _logits(cfg: ArchConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
     return x @ params["lm_head"]
 
 
-def forward(cfg: ArchConfig, params: Dict, tokens: torch.Tensor
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits (B,S,V_padded), aux_loss scalar)."""
+def _require_ssm(cfg: ArchConfig) -> None:
     if cfg.arch_type != "ssm":
         raise NotImplementedError(
             f"arch_type {cfg.arch_type!r} is not ported to repro_torch yet")
+
+
+def _per_layer(tree: Dict, n: int):
+    """The stacked leaves of ``tree`` as one dict per layer (one
+    ``unbind`` per leaf)."""
+    per = {k: v.unbind(0) for k, v in tree.items()}
+    return [{k: v[i] for k, v in per.items()} for i in range(n)]
+
+
+def forward(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
+            last_only: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (logits (B,S,V_padded), aux_loss scalar).  ``last_only``
+    slices the hidden states to the final position BEFORE the vocab
+    projection (serving prefill: no (B,S,V) logits)."""
+    _require_ssm(cfg)
     x = _embed(cfg, params, tokens)
-    per_layer = {k: v.unbind(0) for k, v in params["layers"].items()}
-    for i in range(cfg.num_layers):
-        x = mamba_block_prefill({k: v[i] for k, v in per_layer.items()}, x,
-                                cfg)
+    for lp in _per_layer(params["layers"], cfg.num_layers):
+        x = mamba_block_prefill(lp, x, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if last_only:
+        x = x[:, -1:]
     return _logits(cfg, params, x), aux
 
 
@@ -62,3 +80,35 @@ def loss_fn(cfg: ArchConfig, params: Dict, batch: Dict
     loss = torch.sum(nll) / torch.clamp(torch.sum(mask), min=1)
     total = loss + 0.01 * aux
     return total, {"loss": loss, "aux": aux}
+
+
+def _ssm_cache(cfg: ArchConfig, B: int, dev: torch.device) -> Dict:
+    H, P, N, W = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state, cfg.conv_width
+    cd = H * P + 2 * N
+    L = cfg.num_layers
+    return {"conv": torch.zeros((L, B, W - 1, cd), dtype=cfg.torch_dtype,
+                                device=dev),
+            "ssm": torch.zeros((L, B, H, N, P), dtype=torch.float32,
+                               device=dev)}
+
+
+def init_cache(cfg: ArchConfig, batch: int, seq: int, *,
+               device=DEFAULT_DEVICE) -> Dict:
+    """The decode cache for ``seq`` total positions on ``device``: for the
+    ``ssm`` family a conv window (L,B,W-1,Cd) in the model dtype and a
+    float32 state (L,B,H,N,P), neither of which grows with ``seq``."""
+    _require_ssm(cfg)
+    return _ssm_cache(cfg, batch, resolve_device(device))
+
+
+def decode_step(cfg: ArchConfig, params: Dict, cache: Dict,
+                token: torch.Tensor, t) -> Tuple[torch.Tensor, Dict]:
+    """token: (B,) int; t: the absolute position (an SSM does not read it).
+    Returns (logits (B, V_padded), cache); the cache's tensors are updated
+    in place and returned."""
+    _require_ssm(cfg)
+    x = _embed(cfg, params, token[:, None])
+    caches = _per_layer(cache, cfg.num_layers)
+    for lp, lc in zip(_per_layer(params["layers"], cfg.num_layers), caches):
+        x, _ = mamba_block_decode(lp, x, lc, cfg)
+    return _logits(cfg, params, x)[:, 0], cache

@@ -1,10 +1,13 @@
-"""Mamba2 / SSD (state-space duality, arXiv:2405.21060) in plain torch
-(port of ``repro.models.ssm``, the training / prefill path).
+"""Mamba2 / SSD (state-space duality, arXiv:2405.21060) in torch (port of
+``repro.models.ssm``).
 
-Chunked SSD: intra-chunk attention-like products plus a loop over chunk
-states, written as explicit broadcasts and batched matmuls.  The
-``use_ssd_kernel`` path (the hand-written ``ssd_chunk`` kernel) and the
-recurrent decode step come with the serving slice.
+Chunked SSD for training / prefill: intra-chunk attention-like products
+plus a loop over chunk states, written as explicit broadcasts and batched
+matmuls (``ssd_chunked``), or, with ``cfg.use_ssd_kernel``, the
+hand-written ``ssd_chunk`` kernel through ``kernels.ops.ssd_chunk_scan``
+(forward only).  And an O(1)-per-token recurrent decode step, which
+updates the caller's SSM state and conv window in place (the serving
+cache is ~76 MB a sequence at 780M, so no second copy is made).
 
 Layout: d_inner = H * P (heads x headdim); B/C are single-group (state
 size N); the scalar-per-head A follows Mamba2.
@@ -16,6 +19,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.ops import ssd_chunk_scan
 from repro_torch.models.common import ArchConfig, rms_norm
 
 
@@ -78,6 +82,23 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y.to(x.dtype), s
 
 
+def ssd_decode(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+               b: torch.Tensor, c: torch.Tensor, D: torch.Tensor,
+               state: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One token: x (B,H,P), dt (B,H), b/c (B,N), state (B,H,N,P) float32,
+    updated in place (``state * exp(dt A) + b (x dt)``) and returned."""
+    f32 = torch.float32
+    a = torch.exp((dt * A[None, :]).to(f32))                # (B,H)
+    xdt = (x * dt[..., None]).to(f32)                       # (B,H,P)
+    state.mul_(a[..., None, None])
+    state.addcmul_(b.to(f32)[:, None, :, None], xdt[:, :, None, :])
+    # c (B,1,1,N) @ state (B,H,N,P): a batched matmul over the state as it
+    # lies (an einsum would permute a copy of it)
+    y = (c.to(f32)[:, None, None, :] @ state)[:, :, 0]
+    y = y + x.to(f32) * D[None, :, None]
+    return y.to(x.dtype), state
+
+
 # ---------------------------------------------------------------------------
 # full Mamba2 mixer layer
 # ---------------------------------------------------------------------------
@@ -91,9 +112,11 @@ def _conv1d_prefill(xbc: torch.Tensor, w: torch.Tensor,
     return F.silu(out + bias[None, None])
 
 
-def mamba_mixer_prefill(p: Dict, x: torch.Tensor,
-                        cfg: ArchConfig) -> torch.Tensor:
-    """x: (B,S,d) -> (B,S,d)."""
+def mamba_mixer_prefill(p: Dict, x: torch.Tensor, cfg: ArchConfig,
+                        s0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x: (B,S,d) -> (B,S,d).  The kernel path runs under the reference's
+    condition: ``use_ssd_kernel``, no initial state and S a multiple of
+    the chunk."""
     B, S, d = x.shape
     H, P, N = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state
     z = (x @ p["w_z"].reshape(d, H * P)).reshape(B, S, H, P)
@@ -104,9 +127,36 @@ def mamba_mixer_prefill(p: Dict, x: torch.Tensor,
     bmat = xbc[..., H * P:H * P + N]
     cmat = xbc[..., H * P + N:]
     A = -torch.exp(p["A_log"].to(torch.float32))
-    if cfg.use_ssd_kernel:
-        raise NotImplementedError("ssd_chunk kernel: next slice")
-    y, _ = ssd_chunked(xs, dt, A, bmat, cmat, p["D"], min(cfg.ssd_chunk, S))
+    chunk = min(cfg.ssd_chunk, S)
+    if cfg.use_ssd_kernel and s0 is None and S % chunk == 0:
+        y, _ = ssd_chunk_scan(xs, dt, A, bmat, cmat, p["D"], chunk)
+    else:
+        y, _ = ssd_chunked(xs, dt, A, bmat, cmat, p["D"], chunk, s0)
     y = y * F.silu(z)
     y = rms_norm(y.reshape(B, S, H * P), p["norm"], cfg.norm_eps)
     return y @ p["w_out"]
+
+
+def mamba_mixer_decode(p: Dict, x: torch.Tensor, cache: Dict,
+                       cfg: ArchConfig) -> Tuple[torch.Tensor, Dict]:
+    """x: (B,1,d); cache: {"conv": (B,W-1,Cd), "ssm": (B,H,N,P) float32},
+    both updated in place and returned."""
+    B, _, d = x.shape
+    H, P, N = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state
+    xt = x[:, 0]
+    z = (xt @ p["w_z"].reshape(d, H * P)).reshape(B, H, P)
+    xbc = xt @ p["w_xbc"]
+    dt = F.softplus(xt @ p["w_dt"] + p["dt_bias"])          # (B,H)
+    # conv cache: the window of the last W-1 inputs
+    conv_in = torch.cat([cache["conv"], xbc[:, None]], 1)   # (B,W,Cd)
+    conv_out = F.silu(torch.einsum("bwc,wc->bc", conv_in, p["conv_w"])
+                      + p["conv_b"])
+    cache["conv"].copy_(conv_in[:, 1:])
+    xs = conv_out[:, :H * P].reshape(B, H, P)
+    bmat = conv_out[:, H * P:H * P + N]
+    cmat = conv_out[:, H * P + N:]
+    A = -torch.exp(p["A_log"].to(torch.float32))
+    y, _ = ssd_decode(xs, dt, A, bmat, cmat, p["D"], cache["ssm"])
+    y = y * F.silu(z)
+    y = rms_norm(y.reshape(B, 1, H * P), p["norm"], cfg.norm_eps)
+    return y @ p["w_out"], cache

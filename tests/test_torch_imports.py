@@ -54,9 +54,11 @@ def test_import_scan_covers_the_slice():
                 "configs/__init__.py", "configs/mamba2_780m.py",
                 "models/common.py", "models/init.py", "models/ssm.py",
                 "models/blocks.py", "models/lm.py", "optim/base.py",
-                "optim/distributed.py", "launch/train.py"):
+                "optim/distributed.py", "launch/train.py",
+                "kernels/ssd_chunk.py", "launch/serve.py"):
         assert mod in names
-    assert (ROOT / "src/repro_torch/kernels/csrc/dasha_update.cu").exists()
+    for src in ("dasha_update.cu", "ssd_chunk.cu"):
+        assert (ROOT / "src/repro_torch/kernels/csrc" / src).exists()
 
 
 @pytest.fixture
@@ -73,9 +75,10 @@ def _entry_points():
     from repro_torch.configs import get_smoke_config
     from repro_torch.data.pipeline import (SyntheticTextConfig, make_lm_batch,
                                            make_node_batches)
+    from repro_torch.launch import serve as serve_mod
     from repro_torch.launch import train as train_mod
     from repro_torch.methods import FlatSubstrate, Hyper, Method
-    from repro_torch.models import init_params
+    from repro_torch.models import init_params, lm
 
     def method_init():
         feats = torch.zeros((2, 3, 4))
@@ -119,14 +122,22 @@ def _entry_points():
         "launch.train": lambda: train_mod.train(
             get_smoke_config("mamba2-780m"),
             train_mod.build_parser().parse_args([])),
+        "convert.cache_from_numpy": lambda: convert.cache_from_numpy(
+            {"conv": np.zeros((1, 2, 3, 4), np.float32)}),
+        "lm.init_cache": lambda: lm.init_cache(
+            get_smoke_config("mamba2-780m"), 1, 8),
+        "launch.serve": lambda: serve_mod.serve(
+            get_smoke_config("mamba2-780m"),
+            serve_mod.build_parser().parse_args([])),
     }
 
 
 ENTRY_POINTS = ["Method.init", "StochasticProblem",
-                "convert.params_from_numpy", "convert.plan_from_numpy",
-                "convert.problem_from_numpy", "convert.state_from_numpy",
-                "convert.tree_state_from_numpy", "init_params",
-                "launch.train", "make_lm_batch", "make_node_batches",
+                "convert.cache_from_numpy", "convert.params_from_numpy",
+                "convert.plan_from_numpy", "convert.problem_from_numpy",
+                "convert.state_from_numpy", "convert.tree_state_from_numpy",
+                "init_params", "launch.serve", "launch.train",
+                "lm.init_cache", "make_lm_batch", "make_node_batches",
                 "make_round_compressor", "synthetic_classification",
                 "synthetic_quadratic"]
 

@@ -222,13 +222,21 @@ def test_loss_gradients_match_jax_grad():
                                    err_msg=name)
 
 
-def test_ssd_kernel_path_raises_until_ported():
-    _, tcfg = _cfgs("float32")
-    cfg = dataclasses.replace(tcfg, use_ssd_kernel=True)
-    params = t_init(cfg, 0, device="cpu")
-    tokens = torch.ones((1, 32), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        tlm.forward(cfg, params, tokens)
+def test_ssd_kernel_forward_matches_reference_kernel_path():
+    """The ``use_ssd_kernel`` forward (the kernel's plain version on the
+    CPU) against the reference's kernel-path forward (Pallas in interpret
+    mode), float32 smoke model with an 8-token chunk: rtol and atol 1e-4,
+    as the reference's test_full_mixer_kernel_parity."""
+    jcfg, tcfg = (dataclasses.replace(c, ssd_chunk=8, use_ssd_kernel=True)
+                  for c in _cfgs("float32"))
+    jparams = j_init(jcfg, jax.random.PRNGKey(0))
+    tparams = convert.params_from_numpy(_np(jparams), device="cpu")
+    tokens = np.random.default_rng(6).integers(1, jcfg.vocab_size, (2, 32))
+    want, _ = jlm.forward(jcfg, jparams, jnp.asarray(tokens, jnp.int32),
+                          remat=False)
+    got, _ = tlm.forward(tcfg, tparams, torch.as_tensor(tokens))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
 
 
 def test_init_params_match_reference_layout():
