@@ -48,7 +48,32 @@ Phases, each fatal on failure:
 9. serve agreement — the smoke Mamba2 in float32 prefilled (kernel on
    the card, plain version on the CPU) and served on the card and on the
    CPU with the same params and prompt: logits within 1e-4 of the largest
-   magnitude, equal tokens.
+   magnitude, equal tokens;
+10. slab_writeback vs plain — the slab-writeback kernel against its plain
+    version, set and accumulate bit for bit, at the cross-device cell's
+    chunk slab (U 8,192 rows with its realized sentinel tail into n =
+    100,000 x d = 20,958), at (U 64, n 110,000, d 20,958) with ids at the
+    end (n*d > 2^31), ragged (U 37 with 5 sentinels, n 1,000, d 4,099) on
+    an offset view, all-sentinel and U = n, timed beside its bound and one
+    ``index_copy_`` / ``index_add_`` call;
+11. federated main path — ``repro_torch.fed.VecFedSim`` on
+    ``SampledFlatSubstrate``: cross-device DASHA with n = 100,000 clients
+    x m = 1 x d = 20,958 (synthetic data made on the card), C = 64, fused
+    RandK K = 100, a lognormal-straggler uplink, 1,000 rounds in chunks of
+    128 on the slab store after a warm-up chunk.  A timed run with no
+    check inside it gives rounds/s and peak memory (the caller's state is
+    kept on the host) and gates on the launches (16 slab writebacks, 1,000
+    fused updates), participants and bytes; a second, gated run from the
+    same state watches every writeback (untouched and written store rows)
+    and must repeat the first bit for bit; the caller's state must be
+    unchanged; then a profiled chunk, and ``dasha_update`` against its
+    plain version at the cohort's (64, 20958) with a real round's RandK
+    mask and the plan scale d/K * n/C;
+12. federated agreement — the example's shape (n = 256, m = 8, d = 40,
+    K = 8, C in 256/64/16) for dasha/page x randk sparse/fused and mvr on
+    a stochastic problem, card vs CPU with the same injected draws (exact
+    byte traces, metrics within 1e-4); slab vs scatter bit for bit on the
+    card at n = 10,000, C = 64, d = 20,958, 128 rounds.
 
 Every phase that drives a main path zeroes the launch counters just before
 it and reads them just after; a kernel of that path that never launched
@@ -93,6 +118,11 @@ PREFILL_BATCH, PREFILL_SEQ, PREFILL_TIMED = 4, 32768, 2
 DECODE_BATCH, DECODE_PROMPT, DECODE_NEW, DECODE_PROFILED = 128, 256, 64, 4
 PARITY_BATCH, PARITY_PROMPT, PARITY_LIMIT = 2, 512, 5e-3
 PROFILE_WARMUP_LAUNCHES, PROFILE_WARMUP_S = 32, 0.2
+# the cross-device campaign: fed_scale_bench's largest (n = 10^5 clients,
+# C = 64, 1,000 rounds) at real-sim's width, chunks of 128 rounds; and a
+# store past 2^31 elements for the kernel's 64-bit offsets
+FED_N, FED_C, FED_ROUNDS, FED_CHUNK, FED_BIG_N = 100000, 64, 1000, 128, \
+    110000
 
 
 def log(msg: str) -> None:
@@ -227,9 +257,13 @@ def _inputs(torch, shape, seed: int, misalign: bool):
     return grad, h, gl, mask, u
 
 
-def _check_dasha(torch, kern, ref, shape, misalign, seed):
-    a, scale = 1.0 / (2.0 * 208.58 + 1.0), 209.58
-    grad, h, gl, mask, _ = _inputs(torch, shape, seed, misalign)
+def _check_dasha(torch, kern, ref, shape, misalign, seed,
+                 a=1.0 / (2.0 * 208.58 + 1.0), scale=209.58, mask=None):
+    """Kernel 1 against its plain version; by default the flat round's
+    RandK scale d/K on a Bernoulli mask, else the given ``a``, ``scale``
+    and (shape-sized) ``mask``."""
+    grad, h, gl, bern, _ = _inputs(torch, shape, seed, misalign)
+    mask = bern if mask is None else mask
     out = kern.dasha_update(grad, h, gl, mask, a, scale)
     again = kern.dasha_update(grad, h, gl, mask, a, scale)
     plain = ref.dasha_update_ref(grad, h, gl, mask, a, scale)
@@ -1032,6 +1066,461 @@ def phase_serve_agreement(torch):
     return worst
 
 
+# ---------------------------------------------------------------------------
+# the federated slice: kernel 4, the cross-device campaign, agreement
+# ---------------------------------------------------------------------------
+
+def _slab_inputs(torch, n, d, idx, seed, offset=0):
+    """A random (n, d) store (a view ``offset`` columns into a wider
+    buffer when offset > 0) and a random (len(idx), d) slab on the card."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    buf = torch.randn((n, d + 2 * offset), device="cuda", generator=g)
+    rows = torch.randn((len(idx), d), device="cuda", generator=g)
+    idx_t = torch.as_tensor(idx, dtype=torch.int32, device="cuda")
+    return buf, buf[:, offset:offset + d], idx_t, rows
+
+
+def _slab_shapes():
+    """Phase 10's (label, n, d, idx, offset) cases; the cell's ids are a
+    real chunk's: the union of 128 rounds of 64-of-100,000 cohorts, with
+    its realized sentinel tail."""
+    import numpy as np
+    from repro_torch.core.rng import cohort_schedule
+    from repro_torch.methods.substrates import slab_layout
+    n, d = FED_N, D_REALSIM
+    cell, _ = slab_layout(cohort_schedule(0, 0, FED_CHUNK, n, FED_C), n)
+    big = FED_BIG_N
+    ragged = np.concatenate([np.sort(np.random.default_rng(3).choice(
+        1000, 32, replace=False)), np.full(5, 1000)])
+    return [("cell", n, d, cell, 0),
+            ("past_2^31", big, d, np.arange(big - 64, big), 0),
+            ("ragged_view", 1000, 4099, ragged, 1),
+            ("all_sentinel", 1000, d, np.full(64, 1000), 0),
+            ("u_equals_n", 1000, d, np.arange(1000), 0)]
+
+
+def phase_slab_kernel(torch, smi: str):
+    """slab_writeback against its plain version on the card (phase 10):
+    set and accumulate bit-equal at each shape, timed beside its bound and
+    beside one ``index_copy_`` / ``index_add_`` call over the valid
+    rows."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import slab_writeback as kern
+    torch.cuda.empty_cache()
+    rows_out = []
+    for i, (label, n, d, idx, offset) in enumerate(_slab_shapes()):
+        u = int((idx < n).sum())
+        for accumulate in (False, True):
+            buf, full, idx_t, rows = _slab_inputs(torch, n, d, idx, 40 + i,
+                                                  offset)
+            plain_buf = buf.clone()
+            plain = plain_buf[:, offset:offset + d]
+            kern.slab_writeback(full, idx_t, rows, accumulate=accumulate)
+            ref.slab_writeback_ref(plain, idx_t, rows, accumulate=accumulate)
+            torch.cuda.synchronize()
+            if not torch.equal(buf, plain_buf):
+                raise AssertionError(
+                    f"slab_writeback {label} accumulate={accumulate}: "
+                    "not bit-equal to the plain version")
+            del plain_buf, plain
+            width = kern.vec_width(full, rows)
+            idx_l = idx_t[:u].to(torch.int64)
+            valid = rows[:u]
+            if accumulate:
+                def lib(full=full, idx_l=idx_l, valid=valid):
+                    full.index_add_(0, idx_l, valid)
+            else:
+                def lib(full=full, idx_l=idx_l, valid=valid):
+                    full.index_copy_(0, idx_l, valid)
+
+            def call(full=full, idx_t=idx_t, rows=rows, acc=accumulate):
+                kern.slab_writeback(full, idx_t, rows, accumulate=acc)
+
+            def plain_call(full=full, idx_t=idx_t, rows=rows,
+                           acc=accumulate):
+                ref.slab_writeback_ref(full, idx_t, rows, accumulate=acc)
+
+            b, by = bound((3 if accumulate else 2) * 4 * u * d + 4 * len(idx),
+                          u * d if accumulate else 0)
+            r = {"shape": label, "n": n, "d": d, "U": len(idx),
+                 "valid_rows": u, "accumulate": accumulate,
+                 "vec_width": width, "max_abs_err": 0.0,
+                 "ms": time_ms(torch, call),
+                 "device_ms": kernel_device_ms(
+                     torch, call, ["slab_writeback_kernel"]) if u else None,
+                 "plain_ms": time_ms(torch, plain_call),
+                 "library_ms": time_ms(torch, lib),
+                 "bound_ms": b, "bound_by": by}
+            rows_out.append(r)
+            del buf, full, rows, idx_t, idx_l, valid, lib, call, plain_call
+            torch.cuda.empty_cache()
+            log(f"[slab] {label} (U {len(idx)}, {u} valid, n {n}, d {d}"
+                f"{', offset view' if offset else ''}) "
+                f"{'accumulate' if accumulate else 'set'}: bit-equal, "
+                f"float{width} access; call {r['ms']:.4f} ms  device "
+                f"{r['device_ms']} ms  plain {r['plain_ms']:.4f} ms  "
+                f"index_{'add' if accumulate else 'copy'}_ "
+                f"{r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms"
+                f"  | {smi}")
+    return rows_out
+
+
+def _fed_sim(problem, n, d, c, *, variant="dasha", backend="fused",
+             device="cuda", store="auto", k=K_RANDK, hyper_kw=None,
+             chunk=None, gamma_mult=16):
+    from repro_torch.compress import make_round_compressor
+    from repro_torch.fed import LinkModel, Lognormal, VecFedSim
+    from repro_torch.fed.sim import DEFAULT_CHUNK
+    from repro_torch.methods import Hyper, SampledFlatSubstrate
+    comp = make_round_compressor("randk", d, n, k=k, backend=backend,
+                                 device=device)
+    sub = SampledFlatSubstrate(problem, n, d, c=c)
+    omega = sub.with_compressor(comp).effective_omega()
+    hyper = Hyper.from_theory(variant, omega, n, gamma_mult=gamma_mult,
+                              **(hyper_kw or {}))
+    uplink = LinkModel(latency_s=0.02, bandwidth_Bps=1e5,
+                       straggler=Lognormal(1.0))
+    return VecFedSim(variant, comp, sub, hyper, uplink=uplink, seed=0,
+                     store=store, chunk=chunk or DEFAULT_CHUNK)
+
+
+def phase_fed_main(torch, smi: str):
+    """Cross-device DASHA at fed_scale_bench's largest campaign and
+    real-sim's width (phase 11): VecFedSim on SampledFlatSubstrate over
+    n = 100,000 clients x m = 1 x d = 20,958, C = 64, RandK K = 100 on the
+    fused backend, 1,000 rounds in chunks of 128 on the slab store, after
+    a warm-up chunk.  Gates: launches, participants, bytes, untouched and
+    written store rows, the caller's state, finite traces."""
+    import numpy as np
+    from repro_torch.core.oracles import FiniteSumProblem
+    from repro_torch.data.pipeline import synthetic_classification
+    from repro_torch.fed.net import campaign_streams
+    from repro_torch.kernels import dasha_update as kern
+    from repro_torch.kernels import slab_writeback as slab_kern
+    from repro_torch.kernels import ssd_chunk as ssd_kern
+
+    n, m, d, c, rounds = FED_N, 1, D_REALSIM, FED_C, FED_ROUNDS
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    feats, labels = synthetic_classification(0, n, m, d, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[fed] ({n}, {m}, {d}) client data = {feats.numel() * 4 / 1e9:.2f}"
+        f" GB made on the card in {time.perf_counter() - t0:.2f} s")
+    problem = FiniteSumProblem(_glm_loss(torch), feats, labels)
+    L = float((feats.norm(dim=-1) ** 2).mean() * 2)
+    sim = _fed_sim(problem, n, d, c, hyper_kw=dict(L=L),
+                   chunk=FED_CHUNK)
+    if not sim.slab:
+        raise AssertionError("store='auto' did not take the slab store")
+    state = sim.init(torch.zeros(d, device="cuda"), 1, device="cuda")
+    g0 = float(torch.sum(state.g ** 2))            # g^0 = grad f(x^0)
+
+    def metric(s):
+        return torch.sum(s.g ** 2)
+
+    sim.run(state, FED_CHUNK, metric_fn=metric)       # warm-up chunk
+    torch.cuda.synchronize()
+    # the caller's state, kept on the host so that the card's peak memory
+    # is the campaign's own
+    shared = state.g_local is state.h_local
+    before = {f: getattr(state, f).cpu() for f in ("x", "g", "h_local")
+              + (() if shared else ("g_local",))}
+
+    # the timed run: nothing but the campaign
+    torch.cuda.reset_peak_memory_stats()
+    kern.reset_counts()
+    slab_kern.reset_counts()
+    ssd_kern.reset_counts()
+    t0 = time.perf_counter()
+    res = sim.run(state, rounds, metric_fn=metric)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {**kern.COUNTS, **slab_kern.COUNTS, **ssd_kern.COUNTS}
+    peak = torch.cuda.max_memory_allocated()
+
+    tr = res.traces
+    chunks = -(-rounds // FED_CHUNK)
+    want = {"dasha_update": rounds, "slab_writeback": 2 * chunks}
+    if any(counts[k] != v for k, v in want.items()) or \
+            sum(counts.values()) != sum(want.values()):
+        raise AssertionError(f"[fed] launches {counts}, expected {want}")
+    if not np.all(tr["participants"] == c):
+        raise AssertionError("[fed] a round without 64 participants")
+    up = c * (20 + 8 * K_RANDK)
+    if not np.all(tr["bytes_up"] == up) or \
+            not np.all(tr["bytes_down"] == c * 4 * d):
+        raise AssertionError(f"[fed] bytes: up {set(tr['bytes_up'])} != "
+                             f"{up} or down {set(tr['bytes_down'])}")
+    for k in ("metric", "sim_wall_clock", "bits_sent"):
+        if not np.all(np.isfinite(tr[k])) or tr[k].shape != (rounds,):
+            raise AssertionError(f"[fed] trace {k} non-finite/misshapen")
+
+    # the gated run, from the same state: it watches every writeback (the
+    # union rows it touched, and that each written store row equals its
+    # slab row) and must repeat the timed run bit for bit
+    touched = torch.zeros(n, dtype=torch.bool, device="cuda")
+    written_ok = []
+    exit_orig = sim._slab_exit
+
+    def watched_exit(st, idx, full_h, full_g):
+        out = exit_orig(st, idx, full_h, full_g)
+        u = int((idx < n).sum())
+        rows = idx[:u].to(torch.int64)
+        touched[rows] = True
+        written_ok.append(
+            torch.equal(out.h_local.index_select(0, rows), st.h_local[:u])
+            and torch.equal(out.g_local.index_select(0, rows),
+                            st.g_local[:u]))
+        return out
+
+    sim._slab_exit = watched_exit
+    gated = sim.run(state, rounds, metric_fn=metric)
+    sim._slab_exit = exit_orig
+    if not written_ok or not all(written_ok):
+        raise AssertionError("[fed] a written store row differs from its "
+                             "slab row")
+    for key in tr:
+        if not np.array_equal(tr[key], gated.traces[key]):
+            raise AssertionError(f"[fed] the gated run's {key} differs")
+    for f in ("x", "g", "h_local", "g_local"):
+        if not torch.equal(getattr(res.state, f), getattr(gated.state, f)):
+            raise AssertionError(f"[fed] the gated run's {f} differs")
+    del gated
+    for f, t in before.items():
+        if not torch.equal(getattr(state, f).cpu(), t):
+            raise AssertionError(f"[fed] run wrote the caller's {f}")
+    del before
+    untouched_rows = 0
+    for f in ("h_local", "g_local"):
+        final, start = getattr(res.state, f), getattr(state, f)
+        for lo in range(0, n, 8192):
+            diff = (final[lo:lo + 8192] != start[lo:lo + 8192]).any(1)
+            if bool((diff & ~touched[lo:lo + 8192]).any()):
+                raise AssertionError(f"[fed] an untouched {f} row changed")
+        untouched_rows = int((~touched).sum())
+    del state
+    torch.cuda.empty_cache()
+
+    # where a chunk's time goes: one more chunk from the final state (the
+    # simulator's own copy, so the in-place writeback is allowed)
+    t0 = time.perf_counter()
+    md, mu = sim._chunk_multipliers(
+        campaign_streams(np.random.default_rng(5), FED_CHUNK), 0, FED_CHUNK)
+    draw_s = time.perf_counter() - t0              # the host's numpy draws
+    table, pwall = profiled(torch, lambda: sim._chunk_slab(
+        res.state, FED_CHUNK, md, mu, metric, None))
+    busy_s = sum(t for _, t in table.values()) / 1e6
+    slab_hits = [(cnt, us) for key, (cnt, us) in table.items()
+                 if "slab_writeback_kernel" in key]
+    slab_launches = sum(cnt for cnt, _ in slab_hits)
+    slab_ms = sum(us for _, us in slab_hits) / 1e3 \
+        if slab_launches == 2 else None
+    sels = sim.substrate.cohort_schedule(res.state.seed, res.state.t,
+                                         FED_CHUNK)
+    u = int(np.unique(sels).size)
+    slab_bound, _ = bound(2 * 2 * 4 * u * d, 0)
+    top = sorted(table.items(), key=lambda kv: -kv[1][1])[:8]
+    gf = float(torch.sum(problem.grad_f(res.state.x) ** 2))
+    out = {"n": n, "m": m, "d": d, "C": c, "K": K_RANDK,
+           "rounds": rounds, "chunk": FED_CHUNK, "store": "slab",
+           "rounds_per_s": rounds / wall, "wall_s": wall,
+           "peak_mem_gb": peak / 1e9, "grad_sq_x0": g0,
+           "grad_sq_final": gf, "gamma": sim.hyper.gamma,
+           "effective_omega": sim._bound.effective_omega(),
+           "sim_wall_clock_s": res.summary["wall_clock_s"],
+           "bytes_up_per_round": up, "launches": counts,
+           "untouched_rows": untouched_rows,
+           "multipliers_s_per_chunk": draw_s,
+           "profiled_chunk": {
+               "rounds": FED_CHUNK, "wall_s": pwall,
+               "device_busy_s": busy_s, "busy_share": busy_s / pwall,
+               "slab_writeback_launches": slab_launches,
+               "slab_writeback_device_ms": slab_ms,
+               "slab_writeback_bound_ms": slab_bound,
+               "union_rows": u,
+               "top_kernels": [[k[:90], cnt, us / 1e3]
+                               for k, (cnt, us) in top]},
+           "nvidia_smi": smi}
+    log(f"[fed] dasha, randk K={K_RANDK} fused, n={n} C={c} d={d}: "
+        f"{rounds} rounds in {wall:.2f} s = {rounds / wall:.1f} rounds/s, "
+        f"peak {peak / 1e9:.2f} GB, ||grad f||^2 {g0:.6e} -> {gf:.6e}, "
+        f"simulated wall clock {res.summary['wall_clock_s']:.2f} s, "
+        f"launches {counts}, {untouched_rows} rows never touched | {smi}")
+    log(f"[fed] a chunk's straggler multipliers (numpy, 2 x {FED_CHUNK} x "
+        f"{n} draws): {draw_s * 1e3:.1f} ms on the host")
+    log(f"[fed] profiled chunk: {pwall * 1e3:.1f} ms wall, device busy "
+        f"{busy_s / pwall:.3f}; slab_writeback {slab_launches} launches, "
+        f"{slab_ms} ms device a chunk against {slab_bound:.4f} ms bound "
+        f"({u} union rows) | {smi}")
+    for k, cnt, ms in out["profiled_chunk"]["top_kernels"]:
+        log(f"[fed]   {ms:9.3f} ms  x{cnt:<5d} {k}")
+    del res, problem, feats, labels
+    torch.cuda.empty_cache()
+    return out, counts, _check_dasha_fed(torch, sim, smi)
+
+
+def _check_dasha_fed(torch, sim, smi: str):
+    """Kernel 1 against its plain version at the federated path's shape
+    and scale: the (C, d) cohort, a real round's RandK mask, the plan
+    scale d/K * n/C (the n/C inflation folded in, as the cohort round
+    does) and the campaign's own momentum a."""
+    from repro_torch.compress.plan import indices_to_masks
+    from repro_torch.core.rng import RoundRandom
+    from repro_torch.kernels import dasha_update as kern
+    from repro_torch.kernels import ref
+    sub = sim._bound
+    c, d = int(sub.c), int(sim.comp.spec.d)
+    plan = RoundRandom(0, 0).plan(sub.cohort_rc)
+    scale = float(plan.scale) * (sub.n / float(c))
+    mask = plan.mask.to(torch.float32).contiguous() if plan.mask is not None \
+        else indices_to_masks(plan.indices, d)
+    if int(mask.sum()) != c * K_RANDK:
+        raise AssertionError("[fed] the cohort plan's mask is not RandK")
+    r = _check_dasha(torch, kern, ref, (c, d), False, 160, a=sim.hyper.a,
+                     scale=scale, mask=mask)
+    r = {"shape": [c, d], "misaligned": False, "path": "fed", "a": sim.hyper.a,
+         "scale": scale, **r}
+    log(f"[kernels] dasha_update ({c}, {d}) at the federated scale "
+        f"{scale:.6g}, a {sim.hyper.a:.6g}: err {r['max_abs_err']:.3g}  call "
+        f"{r['ms']:.4f} ms  device {r['device_ms']} ms  plain "
+        f"{r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms | {smi}")
+    return r
+
+
+def _fed_draws(sim, problem_cpu, variant, hp, rounds, seed):
+    """Every round's randomness drawn on the CPU (cohort, the cohort's
+    plan, PAGE's coin, samples), for injection into both devices."""
+    from repro_torch.core.rng import Draws, RoundRandom
+    sub = sim._bound
+    out = []
+    for t in range(rounds):
+        rnd = RoundRandom(seed, t)
+        cohort = rnd.cohort(sub.n, sub.c) if sub.samples_clients else None
+        rc = sub.cohort_rc if cohort is not None else sub.rc
+        clients = cohort if cohort is not None else list(range(sub.n))
+        samples = page_coin = None
+        if variant == "page":
+            page_coin = rnd.coin(hp.p, "page")
+            rows = problem_cpu if cohort is None else dataclasses.replace(
+                problem_cpu, features=problem_cpu.features[cohort],
+                labels=problem_cpu.labels[cohort])
+            samples = rnd.samples(rows, hp.batch)
+        elif hasattr(problem_cpu, "stoch_grad"):
+            samples = rnd.client_samples(problem_cpu, hp.batch, clients)
+        out.append(Draws(plan=rnd.plan(rc), page_coin=page_coin,
+                         samples=samples, cohort=cohort))
+    return out
+
+
+def phase_fed_agreement(torch):
+    """The example's shape on the card and on the CPU with the same
+    injected CPU draws (phase 12a): exact byte and participant traces,
+    metrics within 1e-4; then slab vs scatter on the card, bit for bit, at
+    n = 10,000, C = 64, d = 20,958 over 128 rounds (phase 12b)."""
+    import numpy as np
+    from repro_torch.core.oracles import FiniteSumProblem, StochasticProblem
+    from repro_torch.data.pipeline import (synthetic_classification,
+                                           synthetic_quadratic)
+
+    n, m, d, k, rounds, seed = 256, 8, 40, 8, 60, 7
+    feats, labels = synthetic_classification(0, n, m, d, device="cpu")
+    L = float(torch.mean(torch.sum(feats ** 2, -1)) * 2)
+    glm = {dev: FiniteSumProblem(_glm_loss(torch), feats.to(dev),
+                                 labels.to(dev)) for dev in ("cpu", "cuda")}
+    A, b = synthetic_quadratic(0, d, device="cpu")
+
+    def stoch(dev):
+        Ad, bd = A.to(dev), b.to(dev)
+
+        def loss(x, xi, i):
+            return 0.5 * x @ Ad @ x - bd @ x + xi @ x
+
+        def sample(gen, i, batch):
+            return 0.3 * torch.randn((batch, d), generator=gen,
+                                     device=gen.device)
+
+        return StochasticProblem(loss=loss, sample=sample, n=n, device=dev,
+                                 true_grad=lambda x: Ad @ x - bd)
+
+    quad = {dev: stoch(dev) for dev in ("cpu", "cuda")}
+    cases = [(v, be, c) for v in ("dasha", "page")
+             for be in ("sparse", "fused") for c in (256, 64, 16)] + \
+        [("mvr", "sparse", c) for c in (256, 64, 16)]
+    hkw = {"dasha": dict(L=L), "page": dict(L=L, B=2, m=m),
+           "mvr": dict(L=2.0, B=4, sigma2=0.09 * d)}
+    worst = 0.0
+    for variant, backend, c in cases:
+        probs = quad if variant == "mvr" else glm
+        res, draws = {}, None
+        for dev in ("cpu", "cuda"):
+            # the quadratic's L = 2 leaves no room for the 16x fine-tune
+            sim = _fed_sim(probs[dev], n, d, c, variant=variant,
+                           backend=backend, device=dev, k=k,
+                           hyper_kw=hkw[variant], chunk=16,
+                           gamma_mult=1 if variant == "mvr" else 16)
+            if draws is None:
+                draws = _fed_draws(sim, probs["cpu"], variant,
+                                   sim.hyper, rounds, seed)
+                # one initial state: a stochastic init draws its samples
+                # from the device's own generator
+                state0 = sim.init(torch.zeros(d), 1, device="cpu")
+            dev_draws = [_draws_to(dr, dev) for dr in draws]
+            state = state0._replace(**{
+                f: getattr(state0, f).to(dev)
+                for f in ("x", "g", "g_local", "h_local")})
+            res[dev] = sim.run(state, rounds, draws=lambda t: dev_draws[t])
+        tag = f"{variant}/{backend}/C={c}"
+        for key in ("bytes_up", "value_bytes", "bytes_down",
+                    "participants", "bits_sent"):
+            if not np.array_equal(res["cuda"].traces[key],
+                                  res["cpu"].traces[key]):
+                raise AssertionError(f"[fed-agree] {tag}: {key} differs")
+        wall_rel = float(np.max(np.abs(
+            res["cuda"].traces["sim_wall_clock"]
+            / res["cpu"].traces["sim_wall_clock"] - 1)))
+        a, b_ = res["cuda"].traces["metric"], res["cpu"].traces["metric"]
+        if not (np.all(np.isfinite(a)) and np.all(np.isfinite(b_))):
+            raise AssertionError(f"[fed-agree] {tag}: non-finite metric")
+        rel = float(np.max(np.abs(a - b_) / np.abs(b_)))
+        worst = max(worst, rel)
+        if not (rel <= 1e-4 and wall_rel <= 1e-6):
+            raise AssertionError(f"[fed-agree] {tag}: metric rel err {rel}"
+                                 f", wall clock rel err {wall_rel}")
+    log(f"[fed-agree] dasha/page x randk sparse/fused and mvr (stochastic)"
+        f" x C in (256, 64, 16), n={n} d={d}, {rounds} rounds with "
+        f"injected CPU draws: bytes/participants/bits equal, metric max "
+        f"rel err {worst:.3g} (limit 1e-4)")
+
+    # slab vs scatter on the card, the port's own draws
+    n2, c2, rounds2 = 10000, 64, 128
+    feats2, labels2 = synthetic_classification(1, n2, 1, D_REALSIM,
+                                               device="cuda")
+    prob2 = FiniteSumProblem(_glm_loss(torch), feats2, labels2)
+    L2 = float((feats2.norm(dim=-1) ** 2).mean() * 2)
+    runs = {}
+    for store in ("slab", "scatter"):
+        sim = _fed_sim(prob2, n2, D_REALSIM, c2, store=store,
+                       hyper_kw=dict(L=L2), chunk=FED_CHUNK)
+        state = sim.init(torch.zeros(D_REALSIM, device="cuda"), 3,
+                         device="cuda")
+        runs[store] = sim.run(state, rounds2,
+                              metric_fn=lambda s: torch.sum(s.g ** 2))
+        del state
+    a, b_ = runs["slab"], runs["scatter"]
+    for key in a.traces:
+        if not np.array_equal(a.traces[key], b_.traces[key]):
+            raise AssertionError(f"[fed-agree] slab vs scatter: {key}")
+    for f in ("x", "g", "g_local", "h_local"):
+        if not torch.equal(getattr(a.state, f), getattr(b_.state, f)):
+            raise AssertionError(f"[fed-agree] slab vs scatter: {f}")
+    log(f"[fed-agree] slab == scatter bit for bit on the card: n={n2} "
+        f"C={c2} d={D_REALSIM}, {rounds2} rounds (traces and final state)")
+    del runs, a, b_, feats2, labels2, prob2
+    torch.cuda.empty_cache()
+    return worst
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"{SRC / 'repro_torch'} not found: run from a checkout of the "
@@ -1059,6 +1548,15 @@ def main() -> int:
     ssd_rows = phase_ssd_kernel(torch, smi)
     serving, launches["ssd_chunk"] = phase_serve(torch, smi)
     serve_rel = phase_serve_agreement(torch)
+    slab_rows = phase_slab_kernel(torch, smi)
+    fed, fed_launches, fed_dasha = phase_fed_main(torch, smi)
+    per_shape["dasha_update"].append(fed_dasha)
+    fed_rel = phase_fed_agreement(torch)
+    launches["slab_writeback"] = fed_launches["slab_writeback"]
+    # kernel 1 runs on two main paths: the flat round and the federated
+    # cohort round (each counted from zero around its own run)
+    flat_dasha = launches["dasha_update"]
+    launches["dasha_update"] += fed_launches["dasha_update"]
 
     sources = {"dasha_update": "src/repro/kernels/dasha_update.py:70",
                "dasha_mvr_update": "src/repro/kernels/dasha_update.py:90",
@@ -1099,6 +1597,25 @@ def main() -> int:
         "per_layer": {k: serving["prefill"][k] for k in (
             "ssd_chunk_profiled_launches", "ssd_chunk_device_ms_per_layer",
             "ssd_chunk_bound_ms_per_layer", "ssd_chunk_share_of_call")}})
+    next(r for r in kernels if r["name"] == "dasha_update")[
+        "launches_by_path"] = {"flat": flat_dasha,
+                               "fed": fed_launches["dasha_update"]}
+    # the slab kernel's row: the cell's chunk slab, set
+    main_shape = slab_rows[0]
+    kernels.append({
+        "name": "slab_writeback", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/slab_writeback.cu",
+        "replaces": "src/repro/kernels/slab_writeback.py:38",
+        "launches": launches["slab_writeback"],
+        "max_abs_err": max(r["max_abs_err"] for r in slab_rows),
+        "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
+        "bound_ms": main_shape["bound_ms"],
+        "bound_by": main_shape["bound_by"],
+        "library_ms": main_shape["library_ms"], "shapes": slab_rows,
+        # its device time in phase 11's profiled chunk (two launches)
+        "per_chunk": {k: fed["profiled_chunk"][k] for k in (
+            "slab_writeback_launches", "slab_writeback_device_ms",
+            "slab_writeback_bound_ms", "union_rows")}})
     for row in kernels:
         if row["launches"] == 0:
             raise AssertionError(f"{row['name']} was never launched on the "
@@ -1106,7 +1623,8 @@ def main() -> int:
     report = {"kernels": kernels, "main_path": runs,
               "agreement_max_rel_err": rel, "trainer": trainer,
               "trainer_agreement_worst": train_rel, "serve": serving,
-              "serve_agreement_worst": serve_rel, "nvidia_smi": smi}
+              "serve_agreement_worst": serve_rel, "fed": fed,
+              "fed_agreement_worst": fed_rel, "nvidia_smi": smi}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))

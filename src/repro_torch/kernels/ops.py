@@ -3,9 +3,10 @@
 A CPU tensor takes the plain torch version (:mod:`repro_torch.kernels.ref`);
 a CUDA tensor launches the hand-written kernel
 (:mod:`repro_torch.kernels.dasha_update`, :mod:`repro_torch.kernels.
-ssd_chunk`) or raises.  No lane padding: the DASHA kernels walk the flat
-storage with a 1-D grid.  :func:`ssd_chunk_scan` is the SSD forward that
-``models.ssm`` calls with ``use_ssd_kernel``.
+ssd_chunk`, :mod:`repro_torch.kernels.slab_writeback`) or raises.  No lane
+padding: the DASHA kernels walk the flat storage with a 1-D grid.
+:func:`ssd_chunk_scan` is the SSD forward that ``models.ssm`` calls with
+``use_ssd_kernel``.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import torch
 
 from repro_torch.kernels import dasha_update as cuda_kernels
 from repro_torch.kernels import ref
+from repro_torch.kernels import slab_writeback as slab_kernel
 from repro_torch.kernels import ssd_chunk as ssd_kernel
 
 
@@ -62,6 +64,19 @@ def quantize(x: torch.Tensor, generator: torch.Generator,
     uniforms from ``generator`` (on x's device)."""
     u = torch.rand(x.shape, generator=generator, device=x.device)
     return quantize_with_u(x, u, levels)
+
+
+def slab_writeback(full: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor,
+                   *, accumulate: bool = False) -> torch.Tensor:
+    """Write a chunk slab back into the persistent (n, d) store, in place,
+    and return the store.  ``idx`` (U,) int32: sorted unique global row
+    ids padded with the sentinel ``n`` (dropped); ``rows`` (U, d): the
+    slab.  Unlike the reference's wrapper, which is jitted without
+    donation and returns a new array, this writes into ``full``: callers
+    pass a store they own."""
+    if _on_cpu("slab_writeback", full):
+        return ref.slab_writeback_ref(full, idx, rows, accumulate=accumulate)
+    return slab_kernel.slab_writeback(full, idx, rows, accumulate=accumulate)
 
 
 def chunk_layout(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

@@ -100,3 +100,24 @@ def ssd_chunk_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     decay_end = torch.exp(acs[..., -1:] - acs)
     states = b.transpose(-1, -2) @ (decay_end[..., None] * xdt)
     return y_diag, states, torch.exp(acs[..., -1]), acs
+
+
+def slab_writeback_ref(full: torch.Tensor, idx: torch.Tensor,
+                       rows: torch.Tensor, *,
+                       accumulate: bool = False) -> torch.Tensor:
+    """The federated slab store's per-chunk writeback (the reference's
+    ``full.at[idx].set/add(rows, mode="drop")``), in place:
+
+        full[idx[j]]  = rows[j]     (or += with ``accumulate``)
+
+    for every j with ``idx[j]`` in [0, n); the pad sentinel ``n`` is
+    dropped.  ``idx`` holds unique row ids, so each store row receives
+    one copy, or one float32 add.  Returns ``full``."""
+    n = full.shape[0]
+    keep = (idx >= 0) & (idx < n)
+    at = idx[keep].to(torch.int64)
+    if accumulate:
+        full[at] += rows[keep]
+    else:
+        full[at] = rows[keep]
+    return full

@@ -119,6 +119,15 @@ class Method(NamedTuple):
         sub = substrate.with_compressor(compressor)
         hp = hyper
         a_eff = rule.force_a if rule.force_a is not None else hp.a
+        # the sampled-client substrate (DESIGN.md §13) windows each round
+        # onto a cohort; a C-of-n cohort can never answer an all-client
+        # dense synchronization round, so barrier rules are rejected
+        samples = bool(getattr(sub, "samples_clients", False))
+        if samples and rule.sync_requires_all:
+            raise ValueError(
+                f"variant {rule.name!r} has a client-synchronization "
+                "barrier (sync_requires_all): it cannot run on a sampled-"
+                "client substrate; every client must answer sync rounds")
 
         def init(x0, seed: int, *, device=DEFAULT_DEVICE,
                  init_mode: str = "exact", batch_init: int = 1,
@@ -153,29 +162,61 @@ class Method(NamedTuple):
                       window=None, faults=None
                       ) -> Tuple[MethodState, StepInfo]:
             """One round, returning the round's internals too.  ``draws``
-            injects the round's randomness (plan, coins, samples); fields
-            left None are drawn from the round's own generators.
+            injects the round's randomness (plan, coins, samples, cohort);
+            fields left None are drawn from the round's own generators.
+            A state handed in is never written.
 
-            The asynchronous ``deficit=``, slab-store ``window=`` and
-            fault-injection ``faults=`` hooks belong to the federated
-            layer, which is not ported yet."""
-            if deficit is not None or window is not None or \
-                    faults is not None:
+            ``window`` is the slab-store hook (DESIGN.md §16): a
+            ``(clients, sel, loc)`` triple of (C,) index vectors replacing
+            the round's own cohort draw.  ``clients`` must hold the global
+            ids the round would draw, on the host (the campaign driver
+            takes them from the substrate's ``cohort_schedule``), ``sel``
+            the same ids on the device (int64), and ``loc`` their rows
+            (int64) inside the chunk slab that ``state.h_local`` / ``state.g_local`` then hold in
+            place of the (n, d) store.  The cohort rows are written back
+            into that slab in place: it belongs to the caller's chunk.
+
+            The asynchronous ``deficit=`` and fault-injection ``faults=``
+            hooks belong to parts of the federated layer that are not
+            ported yet."""
+            if deficit is not None or faults is not None:
                 raise NotImplementedError(
-                    "deficit= / window= / faults= belong to the federated "
-                    "simulators, which repro_torch does not port yet")
+                    "deficit= (asynchronous rounds) and faults= (fault "
+                    "injection) belong to later slices of the port of "
+                    "the federated layer")
             rnd = RoundRandom(state.seed, state.t, draws)
             # line 4 (server) + broadcast
             x_new, opt_state = sub.server_update(state.x, state.g,
                                                  state.opt_state, hp)
+            # a sampled-client substrate windows the round onto its (C, d)
+            # cohort slice: the h-update and estimator run at O(C*d), then
+            # scatter back; at C == n round_view returns the substrate
+            # itself and the round takes the unsliced path
+            if window is not None:
+                if not samples:
+                    raise ValueError("window= requires a sampled-client "
+                                     "substrate (samples_clients)")
+                rsub = sub.window_view(*window)
+            elif samples:
+                rsub = sub.round_view(rnd)
+            else:
+                rsub = sub
+            if rsub is sub:
+                h_prev, g_prev = state.h_local, state.g_local
+            else:
+                h_prev = rsub.gather_nodes(state.h_local)
+                g_prev = rsub.gather_nodes(state.g_local)
             # line 8: THE variant-specific line
-            h_prev, g_prev = state.h_local, state.g_local
-            h_new, aux = rule.h_update(sub, rnd, hp, x_new, state.x,
+            h_new, aux = rule.h_update(rsub, rnd, hp, x_new, state.x,
                                        h_prev, data)
             # lines 9-10: m_i = C_i(drift); g_i <- g_i + m_i
             agg, h_out, g_local, payload, msgs, present = \
-                sub.estimator_update_full(rnd, h_new, h_prev, g_prev,
-                                          a_eff, aux)
+                rsub.estimator_update_full(rnd, h_new, h_prev, g_prev,
+                                           a_eff, aux)
+            if rsub is not sub:
+                # unsampled rows freeze: offline clients compute nothing
+                h_out = rsub.scatter_nodes(state.h_local, h_out)
+                g_local = rsub.scatter_nodes(state.g_local, g_local)
             g = sub.add_server(state.g, agg)                   # line 14
             coin = h_sync = None
             if rule.has_sync:

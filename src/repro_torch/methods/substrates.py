@@ -3,6 +3,10 @@
 * :class:`FlatSubstrate` holds stacked ``(n, d)`` per-node state on one
   device and compresses through a
   :class:`repro_torch.compress.RoundCompressor` (dense | sparse | fused);
+* :class:`SampledFlatSubstrate` is the cross-device flat substrate: each
+  round a c-of-n cohort is gathered, stepped and scattered back
+  (DESIGN.md §13), and under the federated slab store the round runs on
+  a compact chunk slab instead of the (n, d) store (§16);
 * :class:`TreeSubstrate` holds parameter-shaped trees with a leading node
   axis (the LM trainer), with per-node gradients from a
   :class:`BatchLossOracle` and compression through
@@ -16,14 +20,18 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
+from torch.func import grad as func_grad
+from torch.func import vmap
 
 from repro_torch.compress.backends import (RoundCompressor,
                                            estimator_update_with_plan)
+from repro_torch.compress.spec import omega_participation
 from repro_torch.compress.treelevel import (bernoulli_compress,
                                             fused_leaf_updates,
                                             permk_compress)
-from repro_torch.core import tree
+from repro_torch.core import rng, tree
 from repro_torch.methods.rules import MvrFusion
 from repro_torch.optim.base import apply_updates
 
@@ -159,6 +167,18 @@ class FlatSubstrate:
         return (msgs.mean(), h_out, gl, self.rc.payload_per_node, msgs,
                 present)
 
+    def round_wire_counts(self, rnd):
+        """(n,) int32 shipped value scalars per node for the round whose
+        randomness is ``rnd`` (the plan the engine draws).  Only mask
+        (Bernoulli) plans have data-dependent counts; every other format's
+        count is static (:func:`repro_torch.fed.wire.wire_schema`)."""
+        plan = rnd.plan(self.rc)
+        if plan.mask is None:
+            raise ValueError("round_wire_counts is only defined for mask "
+                             "(Bernoulli) plans; static-count formats come "
+                             "from repro_torch.fed.wire.wire_schema")
+        return torch.sum(plan.mask != 0, dim=1).to(torch.int32)
+
     # -- metrics -----------------------------------------------------------
     def default_metric(self):
         """||grad f(x)||^2 from whichever exact gradient the problem has."""
@@ -168,6 +188,245 @@ class FlatSubstrate:
         if getattr(p, "true_grad", None) is not None:
             return lambda s: torch.sum(p.true_grad(s.x) ** 2)
         return lambda s: torch.zeros((), device=s.x.device)
+
+
+# ---------------------------------------------------------------------------
+# SampledFlatSubstrate: the cross-device O(C*d) round (DESIGN.md §13)
+# ---------------------------------------------------------------------------
+
+def gather_slab_rows(full: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Slab gather: rows of ``full`` at ``idx`` (a new tensor); the pad
+    sentinel (== n, one past the end) reads as zeros."""
+    n = full.shape[0]
+    out = full.index_select(0, idx.clamp(max=n - 1))
+    return out.masked_fill_((idx >= n)[:, None], 0.0)
+
+
+def slab_layout(sels: np.ndarray, n: int):
+    """The chunk's slab layout from its (length, C) cohort schedule.
+
+    Returns ``(uniq_pad, loc)``: ``uniq_pad`` (U_pad,) int32, the sorted
+    union of touched global rows padded to the static length ``U_pad =
+    min(length * C, n)`` with the sentinel ``n``; ``loc`` (length, C)
+    int32, each round's cohort as slab rows (``uniq_pad[loc[t]] ==
+    sels[t]``)."""
+    length, c = sels.shape
+    u_pad = min(length * c, n)
+    uniq = np.unique(sels)
+    loc = np.searchsorted(uniq, sels).astype(np.int32)
+    uniq_pad = np.full((u_pad,), n, np.int32)
+    uniq_pad[:uniq.size] = uniq
+    return uniq_pad, loc
+
+
+def _rows_stoch_grad(problem, x, xi, rows):
+    """Row-restricted ``StochasticProblem.stoch_grad``: each cohort row's
+    gradient with its global client id as the node index (the same xi give
+    the same-sample pair of MVR)."""
+    return vmap(func_grad(problem._node_mean), in_dims=(None, 0, 0))(
+        x, xi, rows)
+
+
+class _CohortView:
+    """One round's (C, d) window onto a :class:`SampledFlatSubstrate`.
+
+    It exposes the ops the variant rules consume, but every oracle call and
+    the estimator update run on the cohort's rows only, so the round costs
+    O(C*d) while the (n, d) client state stays put.  ``scatter_nodes``
+    writes the cohort rows back; unsampled rows freeze (an offline client
+    computes nothing).
+
+    ``clients`` holds the cohort's global client ids on the host and
+    ``sel`` the same ids on the problem's device: every data gather,
+    sample draw and participation mask is keyed by them.  Under the slab
+    store the view also gets ``loc``, the cohort's rows inside the chunk's
+    (U, d) slab, which ``gather_nodes`` / ``scatter_nodes`` then address
+    instead of the (n, d) store.  The slab belongs to the simulator's
+    chunk, so it is written in place; the (n, d) store of a state handed
+    to ``step_full`` never is."""
+
+    fuses_mvr = False
+
+    def __init__(self, base: "SampledFlatSubstrate", clients: np.ndarray,
+                 sel: torch.Tensor, loc: Optional[torch.Tensor] = None):
+        self.base = base
+        self.clients = clients
+        self.sel = sel
+        self.loc = loc
+        self._rows = None
+
+    # -- node-axis windowing ----------------------------------------------
+    def gather_nodes(self, per_node):
+        idx = self.sel if self.loc is None else self.loc
+        return per_node.index_select(0, idx)
+
+    def scatter_nodes(self, full, rows):
+        if self.loc is None:
+            return full.index_copy(0, self.sel, rows)
+        return full.index_copy_(0, self.loc, rows)
+
+    def _rows_problem(self):
+        """The finite-sum problem restricted to the cohort's data rows."""
+        if self._rows is None:
+            p = self.base.problem
+            self._rows = dataclasses.replace(
+                p, features=p.features.index_select(0, self.sel),
+                labels=p.labels.index_select(0, self.sel))
+        return self._rows
+
+    def _stoch(self, rnd, x, size, tag):
+        p = self.base.problem
+        xi = rnd.client_samples(p, size, self.clients, tag)
+        return _rows_stoch_grad(p, x, xi, self.sel)
+
+    # -- oracle ops (cohort rows only) ------------------------------------
+    def grad(self, rnd, x, data=None, size: int = 1):
+        if hasattr(self.base.problem, "full_grad"):
+            return self._rows_problem().full_grad(x)
+        return self._stoch(rnd, x, size, "h")
+
+    def grad_pair(self, rnd, x_new, x_old, size: int, data=None):
+        p = self.base.problem
+        if hasattr(p, "stoch_grad_pair"):
+            xi = rnd.client_samples(p, size, self.clients)
+            return (_rows_stoch_grad(p, x_new, xi, self.sel),
+                    _rows_stoch_grad(p, x_old, xi, self.sel))
+        return _problem_grad_pair(self._rows_problem(), rnd, x_new, x_old,
+                                  size)
+
+    def grad_diff(self, rnd, x_new, x_old, size: int, data=None):
+        if hasattr(self.base.problem, "minibatch_diff"):
+            return _problem_grad_diff(self._rows_problem(), rnd, x_new,
+                                      x_old, size)
+        gn, go = self.grad_pair(rnd, x_new, x_old, size, data)
+        return gn - go
+
+    def megabatch(self, rnd, x, size: int, data=None):
+        if hasattr(self.base.problem, "full_grad"):
+            return self._rows_problem().full_grad(x)
+        return self._stoch(rnd, x, size, "sync")
+
+    def grad_minibatch(self, rnd, x, size: int, data=None):
+        if hasattr(self.base.problem, "stoch_grad"):
+            return self._stoch(rnd, x, size, "init")
+        return _problem_grad_minibatch(self._rows_problem(), rnd, x, size)
+
+    # -- arithmetic ---------------------------------------------------------
+    def lin(self, fn: Callable, *tensors):
+        return fn(*tensors)
+
+    # -- compression (cohort slice; inflation folded into the plan) --------
+    def estimator_update_full(self, rnd, h_new, h, g_local, a: float,
+                              aux=None):
+        base = self.base
+        rc = base.cohort_rc
+        # the unbiasedness inflation n/C (Theorem D.1 with p' = C/n) folds
+        # into the plan scale: messages carry it, so g_i += m_i keeps
+        # g = mean_i(g_i)
+        plan = rnd.plan(rc)
+        plan = plan._replace(scale=plan.scale * (base.n / float(base.c)))
+        msgs, h_out, gl = estimator_update_with_plan(
+            rc.backend, plan, h_new, h, g_local, a)
+        # server aggregate (1/n) sum_{i in S} m_i = (C/n) * mean_S(m_i)
+        agg = msgs.mean() * (float(base.c) / base.n)
+        present = torch.zeros((base.n,), dtype=torch.bool,
+                              device=self.sel.device).index_fill_(
+            0, self.sel, True)
+        payload = rc.payload_per_node * (float(base.c) / base.n)
+        return agg, h_out, gl, payload, msgs, present
+
+
+@dataclasses.dataclass(frozen=True)
+class SampledFlatSubstrate(FlatSubstrate):
+    """Cross-device FlatSubstrate: each round a uniform cohort of ``c`` of
+    the ``n`` clients is gathered, stepped and scattered back.
+
+    Gradients, compression and estimator updates touch only the (c, d)
+    cohort slice while unsampled clients freeze (they compute and send
+    nothing; the variance cost is the Theorem-D.1 omega inflation with
+    p' = c/n).  With ``c == n`` the substrate is FlatSubstrate
+    (``round_view`` returns ``self``), the bit-identical anchor.  Rules
+    with a client-synchronization barrier (``sync_requires_all``) are
+    rejected by ``Method.build``."""
+
+    c: int = 0
+
+    def __post_init__(self):
+        if not 0 < self.c <= self.n:
+            raise ValueError(f"cohort size c={self.c} must be in [1, "
+                             f"n={self.n}]")
+        if self.rc is not None and self.rc.spec.p_participate < 1.0:
+            raise ValueError(
+                "SampledFlatSubstrate IS the participation model: combine "
+                "it with a p_participate < 1 compressor and clients would "
+                "be sampled twice; use one or the other")
+
+    @property
+    def samples_clients(self) -> bool:
+        return self.c < self.n
+
+    @property
+    def participation_frac(self) -> float:
+        return self.c / float(self.n)
+
+    @property
+    def cohort_rc(self) -> RoundCompressor:
+        """The round's compressor over the cohort: same spec, mode, backend
+        and device, re-dimensioned to c nodes (PermK partitions [d] over
+        the active cohort, so its collection omega becomes c - 1)."""
+        rc = self.rc
+        spec = rc.spec
+        if spec.name == "permk":
+            spec = dataclasses.replace(spec, n=self.c)
+        return RoundCompressor(spec, self.c, rc.mode, rc.backend, rc.device)
+
+    def effective_omega(self) -> float:
+        """Theorem-D.1 inflated omega for ``Hyper.from_theory``:
+        (omega_cohort + 1) / (c/n) - 1."""
+        return omega_participation(self.cohort_rc.omega,
+                                   self.participation_frac)
+
+    def round_view(self, rnd):
+        """The engine's per-round window: ``self`` at c == n (the
+        bit-identical full path), else a :class:`_CohortView` over the
+        round's cohort (:meth:`repro_torch.core.rng.RoundRandom.cohort`)."""
+        if self.c >= self.n:
+            return self
+        clients = rnd.cohort(self.n, self.c)
+        return _CohortView(self, clients, torch.as_tensor(
+            clients, device=self.problem.device))
+
+    def window_view(self, clients, sel, loc) -> _CohortView:
+        """The slab-store round window (DESIGN.md §16): ``clients`` is the
+        round's global cohort on the host, the same ids :meth:`round_view`
+        would draw, taken from :meth:`cohort_schedule` ahead of the chunk;
+        ``sel`` is that row already on the device (int64) and ``loc`` its
+        rows inside the chunk slab (int64)."""
+        return _CohortView(self, np.asarray(clients, np.int64), sel, loc)
+
+    def cohort_schedule(self, seed: int, t0: int, length: int,
+                        draws=None) -> np.ndarray:
+        """The cohorts of rounds ``t0 .. t0 + length - 1``, (length, c)
+        int32 on the host: the same draws :meth:`round_view` makes."""
+        return rng.cohort_schedule(seed, t0, length, self.n, self.c, draws)
+
+    def cohort_counts(self, rnd):
+        """(c,) per-cohort Bernoulli wire counts: the slab round's form of
+        :meth:`round_wire_counts` (the same plan, no (n,) scatter)."""
+        plan = rnd.plan(self.cohort_rc)
+        if plan.mask is None:
+            raise ValueError("cohort_counts is only defined for mask "
+                             "(Bernoulli) plans")
+        return torch.sum(plan.mask != 0, dim=1).to(torch.int32)
+
+    def round_wire_counts(self, rnd):
+        if not self.samples_clients:
+            return FlatSubstrate.round_wire_counts(self, rnd)
+        sel = torch.as_tensor(rnd.cohort(self.n, self.c),
+                              device=self.rc.device)
+        cnt = self.cohort_counts(rnd)
+        return torch.zeros((self.n,), dtype=torch.int32,
+                           device=cnt.device).index_copy_(0, sel, cnt)
 
 
 # ---------------------------------------------------------------------------

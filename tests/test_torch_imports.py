@@ -55,10 +55,26 @@ def test_import_scan_covers_the_slice():
                 "models/common.py", "models/init.py", "models/ssm.py",
                 "models/blocks.py", "models/lm.py", "optim/base.py",
                 "optim/distributed.py", "launch/train.py",
-                "kernels/ssd_chunk.py", "launch/serve.py"):
+                "kernels/ssd_chunk.py", "launch/serve.py",
+                "kernels/slab_writeback.py", "fed/__init__.py", "fed/net.py",
+                "fed/wire.py", "fed/sim.py", "fed/vecsim.py"):
         assert mod in names
-    for src in ("dasha_update.cu", "ssd_chunk.cu"):
+    for src in ("dasha_update.cu", "ssd_chunk.cu", "slab_writeback.cu"):
         assert (ROOT / "src/repro_torch/kernels/csrc" / src).exists()
+
+
+def test_fed_package_imports_neither_jax_nor_the_reference():
+    """Importing the federated slice (and through it the methods layer and
+    the kernels) loads no module of JAX or of the reference package."""
+    code = ("import sys; import repro_torch.fed; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')); print(bad); "
+            "sys.exit(1 if bad else 0)")
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert run.returncode == 0, run.stdout + run.stderr
 
 
 @pytest.fixture
@@ -77,7 +93,9 @@ def _entry_points():
                                            make_node_batches)
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch import train as train_mod
-    from repro_torch.methods import FlatSubstrate, Hyper, Method
+    from repro_torch.fed import VecFedSim
+    from repro_torch.methods import (FlatSubstrate, Hyper, Method,
+                                     SampledFlatSubstrate)
     from repro_torch.models import init_params, lm
 
     def method_init():
@@ -88,6 +106,16 @@ def _entry_points():
         m = Method.build("dasha", rc, FlatSubstrate(problem, 2, 4),
                          Hyper(gamma=0.1, a=1.0))
         return m.init(torch.zeros(4), 0)
+
+    def vecsim_init():
+        feats = torch.zeros((4, 3, 4))
+        problem = FiniteSumProblem(lambda x, a, y: (a @ x) ** 2, feats,
+                                   torch.zeros((4, 3)))
+        rc = make_round_compressor("identity", 4, 4, device="cpu")
+        sim = VecFedSim("dasha", rc, SampledFlatSubstrate(problem, 4, 4,
+                                                          c=2),
+                        Hyper(gamma=0.1, a=1.0))
+        return sim.init(torch.zeros(4), 0)
 
     state = {"x": np.zeros(4), "g": np.zeros(4), "g_local": np.zeros((2, 4)),
              "h_local": np.zeros((2, 4)), "t": 0, "bits_sent": 0.0}
@@ -100,6 +128,7 @@ def _entry_points():
         "StochasticProblem": lambda: StochasticProblem(
             loss=None, sample=None, n=2),
         "Method.init": method_init,
+        "VecFedSim.init": vecsim_init,
         "convert.state_from_numpy": lambda: convert.state_from_numpy(
             state, seed=0),
         "convert.problem_from_numpy": lambda: convert.problem_from_numpy(
@@ -132,7 +161,7 @@ def _entry_points():
     }
 
 
-ENTRY_POINTS = ["Method.init", "StochasticProblem",
+ENTRY_POINTS = ["Method.init", "StochasticProblem", "VecFedSim.init",
                 "convert.cache_from_numpy", "convert.params_from_numpy",
                 "convert.plan_from_numpy", "convert.problem_from_numpy",
                 "convert.state_from_numpy", "convert.tree_state_from_numpy",

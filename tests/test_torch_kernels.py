@@ -11,7 +11,10 @@ three implementations, so outputs follow the one-level rule
 in another order than torch's matmul and cumsum: each output agrees with
 the plain version to 1e-4 of its largest magnitude (the reference's
 ``tests/test_ssd_kernel.py`` tolerance).  Its plain version is held
-against the reference in ``tests/test_torch_serve.py``.
+against the reference in ``tests/test_torch_serve.py``.  ``slab_writeback``
+only moves rows (one copy, or one float32 add, an element): its plain
+version equals the reference's drop-mode scatter exactly, and the kernel
+equals the plain version bit for bit.
 
 On a card (no JAX needed):
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda \
@@ -23,6 +26,7 @@ import torch
 
 from repro_torch.kernels import dasha_update as kern
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import slab_writeback as slab_kern
 from repro_torch.kernels import ssd_chunk as ssd_kern
 
 torch.set_num_threads(1)
@@ -423,3 +427,100 @@ def test_cuda_ssd_chunk_rejects_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="at most"):
         big = torch.zeros((1, 8, 1, 256), device=cuda_device)
         ssd_kern.ssd_chunk(big, dt[:, :8, :1], A[:1], b[:, :8], c[:, :8], 8)
+
+
+# ---------------------------------------------------------------------------
+# slab_writeback (kernel 4): the plain version is held exactly against the
+# reference's drop-mode scatter (its Pallas kernel does not run on this
+# JAX), and on the card the kernel bit-equal to the plain version
+# ---------------------------------------------------------------------------
+
+def _slab_case(n, d, u, sentinels, seed=0, offset=0):
+    """A store (as a view at ``offset`` columns into a wider buffer when
+    offset > 0), sorted unique ids padded with ``sentinels`` x n, and
+    the slab."""
+    rng = np.random.default_rng(seed)
+    buf = rng.standard_normal((n, d + 2 * offset)).astype(np.float32)
+    full = buf[:, offset:offset + d]
+    ids = np.sort(rng.choice(n, u - sentinels, replace=False))
+    idx = np.concatenate([ids, np.full(sentinels, n)]).astype(np.int32)
+    rows = rng.standard_normal((u, d)).astype(np.float32)
+    return buf, full, idx, rows
+
+
+SLAB_CASES = [(10, 7, 1, 0), (10, 7, 4, 1), (10, 7, 10, 0), (10, 7, 6, 6),
+              (64, 40, 13, 3), (50, 4099, 37, 5)]
+
+
+@pytest.mark.parametrize("accumulate", [False, True])
+@pytest.mark.parametrize("n,d,u,sentinels", SLAB_CASES)
+def test_slab_writeback_plain_equals_reference(reference, n, d, u,
+                                               sentinels, accumulate):
+    jnp, jops, _ = reference
+    offset = 3 if d == 4099 else 0          # a misaligned view
+    buf, full, idx, rows = _slab_case(n, d, u, sentinels, offset=offset)
+    want = np.asarray(jops.slab_writeback(
+        jnp.asarray(np.ascontiguousarray(full)), jnp.asarray(idx),
+        jnp.asarray(rows), accumulate=accumulate, use_kernel=False))
+    tbuf = torch.as_tensor(buf.copy())
+    tfull = tbuf[:, offset:offset + d]
+    got = ops.slab_writeback(tfull, torch.as_tensor(idx),
+                             torch.as_tensor(rows), accumulate=accumulate)
+    assert got is tfull                      # in place, into the view
+    assert np.array_equal(got.numpy(), want)
+    # columns outside the view are not touched
+    assert np.array_equal(tbuf[:, :offset].numpy(), buf[:, :offset])
+    assert np.array_equal(tbuf[:, offset + d:].numpy(), buf[:, offset + d:])
+
+
+def test_slab_writeback_wrapper_refuses_cpu_tensors_and_launches_nothing():
+    slab_kern.reset_counts()
+    full = torch.zeros((4, 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        slab_kern.slab_writeback(full, torch.zeros(2, dtype=torch.int32),
+                                 torch.zeros((2, 3)))
+    assert slab_kern.COUNTS == {"slab_writeback": 0}
+    with pytest.raises(ValueError):
+        ops.slab_writeback(full.to("meta"), torch.zeros(2, dtype=torch.int32,
+                                                        device="meta"),
+                           torch.zeros((2, 3), device="meta"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accumulate", [False, True])
+@pytest.mark.parametrize("n,d,u,sentinels,offset,width", [
+    (300, 2048, 64, 5, 0, 4), (300, 20958, 40, 3, 0, 2),
+    (1000, 4099, 37, 5, 1, 1), (50, 64, 50, 0, 0, 4), (20, 8, 6, 6, 0, 4)])
+def test_cuda_slab_writeback_bit_equal_to_plain(cuda_device, n, d, u,
+                                                sentinels, offset, width,
+                                                accumulate):
+    buf, _, idx, rows = _slab_case(n, d, u, sentinels, seed=7,
+                                   offset=offset)
+    tbuf = torch.as_tensor(buf, device=cuda_device)
+    plain_buf = tbuf.clone()
+    tidx = torch.as_tensor(idx, device=cuda_device)
+    trows = torch.as_tensor(rows, device=cuda_device)
+    view = tbuf[:, offset:offset + d]
+    assert slab_kern.vec_width(view, trows) == width
+    slab_kern.reset_counts()
+    slab_kern.slab_writeback(view, tidx, trows, accumulate=accumulate)
+    ref.slab_writeback_ref(plain_buf[:, offset:offset + d], tidx, trows,
+                           accumulate=accumulate)
+    torch.cuda.synchronize()
+    assert slab_kern.COUNTS["slab_writeback"] == 1
+    assert torch.equal(tbuf, plain_buf)
+
+
+@pytest.mark.cuda
+def test_cuda_slab_writeback_rejects_bad_inputs(cuda_device):
+    full = torch.zeros((8, 4), device=cuda_device)
+    idx = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    rows = torch.zeros((2, 4), device=cuda_device)
+    with pytest.raises(TypeError):
+        slab_kern.slab_writeback(full.double(), idx, rows.double())
+    with pytest.raises(TypeError):
+        slab_kern.slab_writeback(full, idx.long(), rows)
+    with pytest.raises(ValueError):
+        slab_kern.slab_writeback(full.t(), idx, rows[:, :2].t())
+    with pytest.raises(ValueError):
+        slab_kern.slab_writeback(full, idx, rows[:, :3])

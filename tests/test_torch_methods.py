@@ -109,12 +109,17 @@ def test_step_info_and_participation():
 
 @pytest.mark.parametrize("hook", ["deficit", "window", "faults"])
 def test_federated_hooks_are_not_ported_yet(hook):
+    """deficit= (asynchronous rounds) and faults= belong to later slices of
+    the federated port and raise NotImplementedError; window= (the slab
+    store's hook) is ported and needs a sampled-client substrate, so the
+    flat one refuses it, as the reference does."""
     _, tp, _ = _problems("dasha")
     trc = t_make_rc("randk", D, N, k=6, device="cpu")
     method = tm.Method.build("dasha", trc, tm.FlatSubstrate(tp, N, D),
                              _hyper(tm.Hyper, "dasha", 1.0))
     st = method.init(torch.zeros(D), 0, device="cpu")
-    with pytest.raises(NotImplementedError):
+    expected = ValueError if hook == "window" else NotImplementedError
+    with pytest.raises(expected):
         method.step_full(st, **{hook: object()})
 
 

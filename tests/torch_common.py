@@ -121,3 +121,51 @@ def assert_state_close(port_state, ref_state, rtol=1e-5, atol=1e-6):
             err_msg=name)
     assert port_state.t == int(ref_state.t)
     assert port_state.bits_sent == np.float32(ref_state.bits_sent)
+
+
+def reference_sampled_draws(state_key, bound, problem, hp, variant) -> Draws:
+    """The sampled counterpart of :func:`reference_draws`: the draws a
+    round of the reference's ``SampledFlatSubstrate`` (``bound``, with its
+    compressor) makes from ``state_key`` — the cohort
+    (``permutation(fold_in(k_c, COHORT_TAG), n)[:c]``), the cohort's plan
+    before the n/C scale, PAGE's coin and the cohort rows' samples (a
+    finite-sum problem draws them for the row-restricted problem; a
+    stochastic one per client id, ``split(k_h, n)[client]``).  At c == n
+    the round is the flat one."""
+    import dataclasses
+
+    from repro.methods.substrates import cohort_indices
+    if not bound.samples_clients:
+        return reference_draws(state_key, bound.rc, problem, hp, variant)
+    _, k_h, k_c, _ = jax.random.split(state_key, 4)
+    sel = np.asarray(cohort_indices(k_c, bound.n, bound.c))
+    plan = port_plan(bound.cohort_rc.plan(k_c))
+    page_coin = samples = None
+    stochastic = hasattr(problem, "stoch_grad")
+
+    def rows_problem():
+        return dataclasses.replace(problem, features=problem.features[sel],
+                                   labels=problem.labels[sel])
+
+    if variant == "page":
+        k_p, k_batch = jax.random.split(k_h)
+        page_coin = bool(jax.random.bernoulli(k_p, hp.p))
+        samples = np.array(rows_problem()._sample_idx(k_batch, hp.batch))
+    elif stochastic:
+        keys = jax.random.split(k_h, problem.n)
+        samples = np.stack([np.asarray(problem.sample(keys[i], i, hp.batch))
+                            for i in sel])
+    elif variant == "mvr" and hp.batch > 0:
+        samples = np.array(rows_problem()._sample_idx(k_h, hp.batch))
+    return Draws(plan=plan, page_coin=page_coin, samples=samples,
+                 cohort=sel)
+
+
+def key_chain(key, rounds):
+    """The reference engine's per-round state keys from ``key``: round t's
+    pre-step key (each round keeps ``split(key, 4)[0]``)."""
+    keys = []
+    for _ in range(rounds):
+        keys.append(key)
+        key = jax.random.split(key, 4)[0]
+    return keys
