@@ -35,8 +35,11 @@ Phases, each fatal on failure:
    32768, 48, 64) as a view of the conv output, b/c (4, 32768, 128), Q =
    256), at the smoke model's (2, 64, 8, 32, 16), Q = 32, and at ragged
    (1, 128, 4, 16, 8), Q = 32 and (2, 32, 3, 4, 5), Q = 8; each output
-   within 1e-4 of the plain version's largest magnitude, timed beside its
-   bound;
+   within 1e-4 of the plain version's largest magnitude, two launches
+   bit-identical, timed beside two bounds: the float32 CUDA-core one of
+   the work the inputs need, and that of the tensor-core arithmetic the
+   kernel runs (passes counted); the built library's SASS must hold
+   tensor-core instructions (HMMA/HGMMA, counted with cuobjdump);
 8. serve main path — ``repro_torch.launch.serve`` on Mamba2-780M at full
    width and full depth (48 layers, bf16, random weights from a seed):
    (a) ``prefill_logits`` at batch 4 x 32,768 tokens, 1 warm-up + 2 timed
@@ -87,6 +90,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -98,6 +102,7 @@ SRC = ROOT / "src"
 # H100 SXM published peaks (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S, BF16_FLOPS_PER_S = 495e12, 989e12
 
 N_NODES, M_REALSIM, D_REALSIM = 5, 14461, 20958
 D_RESNET18 = 11173962
@@ -118,6 +123,7 @@ PREFILL_BATCH, PREFILL_SEQ, PREFILL_TIMED = 4, 32768, 2
 DECODE_BATCH, DECODE_PROMPT, DECODE_NEW, DECODE_PROFILED = 128, 256, 64, 4
 PARITY_BATCH, PARITY_PROMPT, PARITY_LIMIT = 2, 512, 5e-3
 PROFILE_WARMUP_LAUNCHES, PROFILE_WARMUP_S = 32, 0.2
+PROFILE_RETRIES = 2
 # the cross-device campaign: fed_scale_bench's largest (n = 10^5 clients,
 # C = 64, 1,000 rounds) at real-sim's width, chunks of 128 rounds; and a
 # store past 2^31 elements for the kernel's 64-bit offsets
@@ -194,13 +200,15 @@ def profiled(torch, fn):
     return device_kernels(torch, prof), wall
 
 
-def kernel_device_ms(torch, fn, names, reps: int = 20):
+def kernel_device_ms(torch, fn, names, reps: int = 20,
+                     retries: int = PROFILE_RETRIES):
     """Device time of one call of ``fn`` from the profiler: the summed
-    time of the CUDA kernels whose names contain one of ``names``.  None
-    when the windows' launches do not add up: a profiled single call gives
-    the launches a call makes, and the ``reps``-call window must hold
-    exactly ``reps`` times as many (a window that missed launches measures
-    nothing)."""
+    time of the CUDA kernels whose names contain one of ``names``.  A
+    profiled single call gives the launches a call makes, and the
+    ``reps``-call window must hold exactly ``reps`` times as many (a window
+    that missed launches measures nothing): such a window is profiled
+    again, at most ``retries`` times, each attempt logged, before the
+    result is None."""
     fn()
     torch.cuda.synchronize()
 
@@ -214,15 +222,41 @@ def kernel_device_ms(torch, fn, names, reps: int = 20):
             fn()
 
     per_call, _ = matching(profiled(torch, fn)[0])
-    table, _ = profiled(torch, run)
-    n, us = matching(table)
-    if per_call == 0 or n != per_call * reps:
+    for attempt in range(1 + retries):
+        table, _ = profiled(torch, run)
+        n, us = matching(table)
+        if per_call > 0 and n == per_call * reps:
+            if attempt:
+                log(f"[profile] {names}: attempt {attempt + 1} recorded "
+                    f"all {n} launches")
+            return us / reps / 1e3
         top = sorted(table.items(), key=lambda kv: -kv[1][1])[:4]
-        log(f"[profile] {names}: {per_call} launches in one profiled call, "
-            f"{n} in {reps} calls: no device time; {len(table)} kernels "
-            f"recorded, the longest {[(k[:60], c, t) for k, (c, t) in top]}")
-        return None
-    return us / reps / 1e3
+        log(f"[profile] {names}: attempt {attempt + 1} of {1 + retries}: "
+            f"{per_call} launches in one profiled call, {n} in {reps} "
+            f"calls; {len(table)} kernels recorded, the longest "
+            f"{[(k[:60], c, t) for k, (c, t) in top]}")
+        if per_call == 0:
+            per_call, _ = matching(profiled(torch, fn)[0])
+    log(f"[profile] {names}: no device time after {1 + retries} attempts")
+    return None
+
+
+def sass_mma_count(name: str):
+    """HMMA/HGMMA instructions (tensor-core products) in the SASS of the
+    built ``csrc/<name>.cu``, from ``cuobjdump -sass``; None, with the
+    reason, where the toolkit has no cuobjdump."""
+    import shutil
+    from repro_torch.kernels import build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return {"hmma": None, "hgmma": None,
+                "note": "no cuobjdump in this toolkit"}
+    sass = subprocess.run([tool, "-sass", str(build.library_path(name))],
+                          check=True, capture_output=True, text=True,
+                          timeout=300).stdout
+    ops = re.findall(r"\b(HMMA|HGMMA)\.", sass)
+    return {"hmma": ops.count("HMMA"), "hgmma": ops.count("HGMMA"),
+            "note": None}
 
 
 def phase_build():
@@ -765,10 +799,40 @@ def ssd_bound(shape, itemsize: int):
     return bound(nbytes, flops), flops, nbytes
 
 
+def ssd_tc_bound(shape, itemsize: int):
+    """The least time of the arithmetic the tensor-core kernel runs, passes
+    counted, against the same bytes as :func:`ssd_bound`.  bf16 inputs:
+    c b^T once per (batch, chunk) and head group (``ssd_chunk.plan``) in
+    one bf16 pass; y_diag's lower triangle and the states in 3 bf16 passes
+    each (A split in three parts, x exact), at 989 TFLOP/s.  float32
+    inputs: all three products in 3 TF32 passes, at 495 TFLOP/s.  Returns
+    ((ms, by), flops, peak FLOP/s)."""
+    from repro_torch.kernels import ssd_chunk as kern
+    B, S, H, P, N, Q = shape
+    G, nc = B * H, S // Q
+    tri = Q * (Q + 1) // 2
+    hg, _ = kern.plan(itemsize, H, Q, N)
+    scores = 2 * B * nc * -(-H // hg) * tri * N
+    products = 3 * (2 * G * nc * tri * P + 2 * G * nc * Q * N * P)
+    if itemsize == 2:
+        flops, rate = scores + products, BF16_FLOPS_PER_S
+    else:
+        flops, rate = 3 * scores + products, TF32_FLOPS_PER_S
+    _, _, nbytes = ssd_bound(shape, itemsize)
+    t_ops = flops / rate * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return by, flops, rate
+
+
 def phase_ssd_kernel(torch, smi: str):
     """ssd_chunk against its plain version on the card (phase 7)."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import ssd_chunk as kern
+    sass = sass_mma_count("ssd_chunk")
+    log(f"[ssd] tensor-core instructions in the built library: {sass}")
+    if sass["hmma"] is not None and sass["hmma"] + sass["hgmma"] == 0:
+        raise AssertionError("ssd_chunk: no HMMA/HGMMA in the library")
     rows = []
     for i, shape in enumerate(SSD_SHAPES):
         for dtype in (torch.bfloat16, torch.float32):
@@ -798,6 +862,8 @@ def phase_ssd_kernel(torch, smi: str):
                                      "launches differ")
             del got, again, want
             (b_ms, by), flops, nbytes = ssd_bound(shape, x.element_size())
+            (tc_ms, tc_by), tc_flops, tc_rate = ssd_tc_bound(
+                shape, x.element_size())
             reps = 5 if shape[1] > 4096 else 20
             r = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
                  "errors": errs,
@@ -808,14 +874,17 @@ def phase_ssd_kernel(torch, smi: str):
                  "device_ms": kernel_device_ms(torch, lambda: kern.ssd_chunk(
                      x, dt, A, b, c, Q), ["ssd_chunk_kernel"], reps=reps),
                  "bound_ms": b_ms, "bound_by": by, "flops": flops,
-                 "bytes": nbytes}
+                 "bytes": nbytes, "tc_bound_ms": tc_ms, "tc_bound_by": tc_by,
+                 "tc_flops": tc_flops, "tc_peak_flops_per_s": tc_rate,
+                 "head_group": kern.plan(x.element_size(), shape[2],
+                                         Q, shape[4])[0], "sass_mma": sass}
             rows.append(r)
             log(f"[ssd] {shape} {r['dtype']}: err {r['max_abs_err']:.3g} "
                 f"(y_diag {errs['y_diag']['max_abs_err']:.3g} of "
                 f"{errs['y_diag']['max_abs_plain']:.3g})  call "
                 f"{r['ms']:.4f} ms  device {r['device_ms']} ms  plain "
-                f"{r['plain_ms']:.4f} ms  bound {b_ms:.4f} ms ({by})  "
-                f"[{smi}]")
+                f"{r['plain_ms']:.4f} ms  bound {b_ms:.4f} ms ({by}, float32)"
+                f"  tensor-core bound {tc_ms:.4f} ms ({tc_by})  [{smi}]")
             del x, dt, A, b, c
     torch.cuda.empty_cache()
     return rows
@@ -874,9 +943,10 @@ def phase_serve(torch, smi: str):
         log(f"[serve] the profiled prefill call recorded {k_count} "
             f"ssd_chunk launches, not {L}: no device time for it")
         k_ms = None
-    (b_ms, by), _, _ = ssd_bound((PREFILL_BATCH, PREFILL_SEQ,
-                                  cfg.ssm_nheads, cfg.ssm_headdim,
-                                  cfg.ssm_state, cfg.ssd_chunk), 2)
+    layer = (PREFILL_BATCH, PREFILL_SEQ, cfg.ssm_nheads, cfg.ssm_headdim,
+             cfg.ssm_state, cfg.ssd_chunk)
+    (b_ms, by), _, _ = ssd_bound(layer, 2)
+    (tc_ms, tc_by), _, _ = ssd_tc_bound(layer, 2)
     top = sorted(table.items(), key=lambda kv: -kv[1][1])[:12]
     wall = sum(walls) / len(walls)
     ntok = PREFILL_BATCH * PREFILL_SEQ
@@ -887,6 +957,7 @@ def phase_serve(torch, smi: str):
         "ssd_chunk_profiled_launches": k_count,
         "ssd_chunk_device_ms_per_layer": None if k_ms is None else k_ms / L,
         "ssd_chunk_bound_ms_per_layer": b_ms, "bound_by": by,
+        "ssd_chunk_tc_bound_ms_per_layer": tc_ms, "tc_bound_by": tc_by,
         "ssd_chunk_share_of_call": None if k_ms is None
         else k_ms / (pwall * 1e3),
         "profile": {"wall_s": pwall, "device_busy_s": busy_s,
@@ -899,7 +970,8 @@ def phase_serve(torch, smi: str):
         f"ssd_chunk launches {launches}; profiled call {pwall:.3f} s, device "
         f"busy {busy_s / pwall:.3f}, ssd_chunk "
         f"{out['prefill']['ssd_chunk_device_ms_per_layer']} ms a layer vs "
-        f"a {b_ms:.3f} ms bound ({by}), "
+        f"a {b_ms:.3f} ms float32 bound ({by}) and a {tc_ms:.3f} ms "
+        f"tensor-core bound ({tc_by}), "
         f"{out['prefill']['ssd_chunk_share_of_call']} of the call")
     for k, c, ms in out["prefill"]["profile"]["top_kernels"]:
         log(f"[serve]   {ms:9.3f} ms  x{c:<5d} {k}")
@@ -1581,7 +1653,9 @@ def main() -> int:
                 k: trainer[k] for k in ("kernel_device_ms_per_round",
                                         "kernel_bound_ms_per_round",
                                         "kernel_share_of_profiled_round")}
-    # the SSD kernel's row: one layer of the serving prefill in bf16
+    # the SSD kernel's row: one layer of the serving prefill in bf16; its
+    # bound is that of the tensor-core arithmetic it runs, with the float32
+    # CUDA-core bound of the same work beside it
     main_shape = ssd_rows[0]
     kernels.append({
         "name": "ssd_chunk", "route": "cuda",
@@ -1590,13 +1664,17 @@ def main() -> int:
         "launches": launches["ssd_chunk"],
         "max_abs_err": max(r["max_abs_err"] for r in ssd_rows),
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
-        "bound_ms": main_shape["bound_ms"],
-        "bound_by": main_shape["bound_by"], "library_ms": None,
-        "shapes": ssd_rows,
+        "bound_ms": main_shape["tc_bound_ms"],
+        "bound_by": main_shape["tc_bound_by"], "library_ms": None,
+        "float32_bound_ms": main_shape["bound_ms"],
+        "float32_bound_by": main_shape["bound_by"],
+        "device_ms": main_shape["device_ms"],
+        "sass_mma": main_shape["sass_mma"], "shapes": ssd_rows,
         # its device time in the profiled 48-layer prefill call (phase 8a)
         "per_layer": {k: serving["prefill"][k] for k in (
             "ssd_chunk_profiled_launches", "ssd_chunk_device_ms_per_layer",
-            "ssd_chunk_bound_ms_per_layer", "ssd_chunk_share_of_call")}})
+            "ssd_chunk_bound_ms_per_layer", "ssd_chunk_tc_bound_ms_per_layer",
+            "ssd_chunk_share_of_call")}})
     next(r for r in kernels if r["name"] == "dasha_update")[
         "launches_by_path"] = {"flat": flat_dasha,
                                "fed": fed_launches["dasha_update"]}

@@ -11,7 +11,9 @@ three implementations, so outputs follow the one-level rule
 in another order than torch's matmul and cumsum: each output agrees with
 the plain version to 1e-4 of its largest magnitude (the reference's
 ``tests/test_ssd_kernel.py`` tolerance).  Its plain version is held
-against the reference in ``tests/test_torch_serve.py``.  ``slab_writeback``
+against the reference in ``tests/test_torch_serve.py``; its split
+tensor-core arithmetic is emulated on the CPU and held to a tenth of that
+tolerance.  ``slab_writeback``
 only moves rows (one copy, or one float32 add, an element): its plain
 version equals the reference's drop-mode scatter exactly, and the kernel
 equals the plain version bit for bit.
@@ -273,6 +275,115 @@ def test_ssd_chunk_wrapper_rejects_bad_inputs_and_launches_nothing():
     assert ssd_kern.COUNTS == {"ssd_chunk": 0}
 
 
+def test_ssd_chunk_wrapper_refuses_a_chunk_past_the_score_panel():
+    """The kernel keeps a 64 x Q float32 score panel in shared memory, so
+    the wrapper takes chunks up to ``MAX_CHUNK`` and raises beyond."""
+    Q = ssd_kern.MAX_CHUNK * 2
+    x, dt, A, b, c = _ssd_tensors((1, Q, 1, 4, 8))
+    ssd_kern.reset_counts()
+    with pytest.raises(ValueError, match="exceeds"):
+        ssd_kern.ssd_chunk(x, dt, A, b, c, Q)
+    assert ssd_kern.COUNTS == {"ssd_chunk": 0}
+
+
+@pytest.mark.parametrize("elem", [2, 4])
+@pytest.mark.parametrize("H", [1, 3, 5, 16, 48, 49])
+@pytest.mark.parametrize("Q,N", [(8, 5), (32, 16), (100, 100), (256, 128)])
+def test_ssd_chunk_plan_groups_heads_within_shared_memory(elem, H, Q, N):
+    """The wrapper's host-side choice: at most MAX_GROUP heads a block, as
+    many as the shared memory holds, split evenly (no group is emptier
+    than one head short of the others)."""
+    hg, smem = ssd_kern.plan(elem, H, Q, N)
+    assert 1 <= hg <= min(H, ssd_kern.MAX_GROUP)
+    assert smem == ssd_kern.smem_bytes(elem, Q, N, hg) <= ssd_kern.MAX_SMEM
+    groups = -(-H // hg)
+    assert (groups - 1) * hg < H <= groups * hg
+    cap = max(k for k in range(1, ssd_kern.MAX_GROUP + 1)
+              if ssd_kern.smem_bytes(elem, Q, N, k) <= ssd_kern.MAX_SMEM)
+    assert groups == -(-H // cap)            # no more groups than needed
+
+
+def test_ssd_chunk_plan_at_the_serving_shape():
+    """Mamba2-780M's prefill layer (H 48, Q 256, N 128): bf16 runs three
+    groups of 16 heads (1,536 blocks for 4 x 128 (batch, chunk) pairs);
+    float32, with twice the staged bytes, seven groups of 7."""
+    assert ssd_kern.plan(2, 48, 256, 128) == (16, 227328)
+    assert ssd_kern.plan(4, 48, 256, 128)[0] == 7
+    assert ssd_kern.plan(2, 49, 256, 128)[0] == 13
+
+
+def _emulate_ssd_split(xg, dtg, Ag, bg, cg, scheme):
+    """The kernel's arithmetic on chunk-layout float32 tensors (torch's
+    cumsum and exp stand in for the kernel's: the point is the products;
+    each product of parts is exact in float32, and the sums are float32).
+    ``bf16``: the bf16 path (c b^T exact; dt folded into y's A and w dt
+    into the states' A, each split into three bf16 parts; x exact in bf16:
+    3 passes); ``float32``: the float32 path (both operands split into
+    TF32 hi/lo, hi*lo + lo*hi + hi*hi); ``tf32``: one TF32 pass of each
+    product."""
+    from torch_common import bf16_split3, tf32_round, tf32_split
+    acs = torch.cumsum(dtg * Ag[:, None, None], -1)
+    q = acs.shape[-1]
+    above = torch.triu(torch.ones((q, q), dtype=torch.bool), 1)
+    L = (acs[..., :, None] - acs[..., None, :]).masked_fill(
+        above, float("-inf")).exp()
+    w = torch.exp(acs[..., -1:] - acs)
+    xdt = xg * dtg[..., None]
+    if scheme == "bf16":
+        S = cg @ bg.transpose(-1, -2)              # exact products
+        y = sum(part @ xg for part in
+                bf16_split3((L * S) * dtg[..., None, :]))
+        states = sum(part.transpose(-1, -2) @ xg for part in
+                     bf16_split3(bg * (w * dtg)[..., None]))
+    elif scheme == "float32":
+        def prod(a, b):
+            (ah, al), (bh, bl) = tf32_split(a), tf32_split(b)
+            return al @ bh + ah @ bl + ah @ bh
+        S = prod(cg, bg.transpose(-1, -2))
+        y = prod(L * S, xdt)
+        states = prod(bg.transpose(-1, -2), w[..., None] * xdt)
+    else:
+        S = tf32_round(cg) @ tf32_round(bg).transpose(-1, -2)
+        y = tf32_round(L * S) @ tf32_round(xdt)
+        states = tf32_round(bg).transpose(-1, -2) @ \
+            tf32_round(w[..., None] * xdt)
+    return y, states
+
+
+SSD_LIMIT = 1e-4       # chip_smoke.py's gate: 1e-4 of the largest |output|
+
+
+@pytest.mark.parametrize("scheme,inputs,within", [
+    ("bf16", torch.bfloat16, True), ("float32", torch.float32, True),
+    ("tf32", torch.float32, False)])
+def test_ssd_split_arithmetic_meets_the_gate_with_room(scheme, inputs,
+                                                       within):
+    """One chunk at the serving widths (Q 256, N 128, P 64, H 4), inputs
+    made as chip_smoke's phase 7 makes them (x, b, c slices of a normal
+    conv output, dt = softplus(normal), A = -exp(0.3 normal)): the kernel's
+    split scheme for each input type is within SSD_LIMIT / 10 of the plain
+    version, and one TF32 pass is not within SSD_LIMIT."""
+    B, S, H, P, N = 1, 256, 4, 64, 128
+    rng = np.random.default_rng(7)
+    xbc = torch.as_tensor(rng.standard_normal((B, S, H * P + 2 * N))
+                          .astype(np.float32)).to(inputs).float()
+    dt = torch.nn.functional.softplus(torch.as_tensor(
+        rng.standard_normal((B, S, H)).astype(np.float32))).to(inputs).float()
+    A = -torch.exp(0.3 * torch.as_tensor(
+        rng.standard_normal(H).astype(np.float32)))
+    x = xbc[..., :H * P].reshape(B, S, H, P)
+    b, c = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    args = ops.chunk_layout(x, dt, A, b, c, S)
+    want = ref.ssd_chunk_ref(*args)
+    got = _emulate_ssd_split(*args, scheme)
+    errs = [float((g - w).abs().max()) / float(w.abs().max())
+            for g, w in zip(got, want[:2])]
+    if within:
+        assert max(errs) <= SSD_LIMIT / 10, errs
+    else:
+        assert min(errs) > SSD_LIMIT, errs
+
+
 # ---------------------------------------------------------------------------
 # on the card: kernel vs plain version
 # ---------------------------------------------------------------------------
@@ -368,7 +479,14 @@ def _ssd_agree(got, want):
     ((1, 16, 1, 2, 3), 4), ((2, 32, 3, 4, 5), 8), ((1, 64, 2, 8, 16), 16),
     ((2, 24, 2, 4, 4), 24), ((1, 128, 4, 16, 8), 32),
     ((2, 64, 4, 32, 16), 32), ((1, 512, 3, 64, 128), 256),
-    ((1, 256, 2, 128, 128), 128), ((1, 200, 2, 72, 100), 100)])
+    ((1, 256, 2, 128, 128), 128), ((1, 200, 2, 72, 100), 100),
+    # head groups (ssd_chunk.plan): H 5 in one group smaller than 16, H 49
+    # in groups of 13 (the last of 10), the serving widths in 3 groups;
+    # N 24 and P 40, not multiples of an mma tile; a ragged Q of 200 at
+    # the serving widths
+    ((1, 512, 5, 64, 128), 256), ((1, 256, 49, 64, 128), 256),
+    ((2, 512, 48, 64, 128), 256), ((1, 256, 3, 40, 24), 128),
+    ((1, 400, 4, 64, 128), 200)])
 def test_cuda_ssd_chunk_matches_plain(cuda_device, shape, chunk, dtype):
     x, dt, A, b, c = _ssd_tensors(shape, cuda_device, dtype, seed=3)
     before = ssd_kern.COUNTS["ssd_chunk"]

@@ -169,3 +169,41 @@ def key_chain(key, rounds):
         keys.append(key)
         key = jax.random.split(key, 4)[0]
     return keys
+
+
+# ---------------------------------------------------------------------------
+# the SSD kernel's split arithmetic, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """float32 ``t`` rounded to TF32 (10 mantissa bits) to nearest, ties
+    away from zero: the kernel's ``hi`` of a split."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_trunc(t: torch.Tensor) -> torch.Tensor:
+    """float32 ``t`` with its 13 low mantissa bits cleared: what a TF32
+    tensor-core product reads of an operand that was not rounded (the
+    kernel's ``lo``)."""
+    return (t.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def bf16_round(t: torch.Tensor) -> torch.Tensor:
+    """float32 ``t`` rounded to bf16 and back."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def bf16_split3(t: torch.Tensor):
+    """(hi, mid, lo) as the kernel splits a float32 operand into three bf16
+    parts, each what the previous ones leave (exact subtractions)."""
+    hi = bf16_round(t)
+    mid = bf16_round(t - hi)
+    return hi, mid, bf16_round(t - hi - mid)
+
+
+def tf32_split(t: torch.Tensor):
+    """(hi, lo) as the kernel splits a float32 operand: hi = tf32(t), lo =
+    t - hi, of which the tensor core reads the TF32 part."""
+    hi = tf32_round(t)
+    return hi, tf32_trunc(t - hi)
