@@ -76,7 +76,22 @@ Phases, each fatal on failure:
     K = 8, C in 256/64/16) for dasha/page x randk sparse/fused and mvr on
     a stochastic problem, card vs CPU with the same injected draws (exact
     byte traces, metrics within 1e-4); slab vs scatter bit for bit on the
-    card at n = 10,000, C = 64, d = 20,958, 128 rounds.
+    card at n = 10,000, C = 64, d = 20,958, 128 rounds;
+13. heap oracle — ``repro_torch.fed.FedSim``, every upload through the
+    byte codec: (a) fed_bench's straggler_curves at the real-sim shape
+    (data made on the card once): dasha, dasha with Appendix-D
+    participation p' = 0.5 and marina (p = max(zeta/d, 8/200)), fused
+    RandK K = 100, uplink 1e6 B/s with a lognormal straggler sigma in
+    (0, 1, 2), 200 rounds each, and dasha with fused QDither s = 15 at
+    sigma = 1; gates: every upload verified and decoded to its message
+    rows, exact bytes, bytes equal across sigma, metric traces equal to a
+    plain Driver run bit for bit, MARINA's wall clock degrading more than
+    DASHA's, launches (1,800 of kernel 1, 200 of kernel 2); rounds/s, host
+    ms a round in the engine, the codec and the heap, a profiled chunk;
+    (b) the sampled heap campaign on the slab store, n = 10,000, C = 64,
+    sparse RandK, 256 rounds (4 writebacks), equal to VecFedSim in bytes
+    and participants; (c) n = 5, d = 2,048, dasha and marina, card vs CPU
+    with injected CPU draws.
 
 Every phase that drives a main path zeroes the launch counters just before
 it and reads them just after; a kernel of that path that never launched
@@ -129,6 +144,13 @@ PROFILE_RETRIES = 2
 # store past 2^31 elements for the kernel's 64-bit offsets
 FED_N, FED_C, FED_ROUNDS, FED_CHUNK, FED_BIG_N = 100000, 64, 1000, 128, \
     110000
+# the heap oracle: benchmarks/fed_bench.py straggler_curves' links (uplink
+# 1e6 B/s with a lognormal straggler, downlink 1e8 B/s, 1 ms latency, no
+# compute time, network seed 7) at the real-sim shape, 200 rounds in chunks
+# of 128; then the sampled heap campaign at phase 12b's n = 10,000, C = 64
+HEAP_ROUNDS, HEAP_SIGMAS, HEAP_SEED = 200, (0.0, 1.0, 2.0), 7
+HEAP_UP_BPS, HEAP_DOWN_BPS, HEAP_LATENCY = 1e6, 1e8, 1e-3
+HEAP_N, HEAP_SAMPLED_ROUNDS = 10000, 256
 
 
 def log(msg: str) -> None:
@@ -1240,9 +1262,9 @@ def phase_slab_kernel(torch, smi: str):
 
 def _fed_sim(problem, n, d, c, *, variant="dasha", backend="fused",
              device="cuda", store="auto", k=K_RANDK, hyper_kw=None,
-             chunk=None, gamma_mult=16):
+             chunk=None, gamma_mult=16, engine="vec"):
     from repro_torch.compress import make_round_compressor
-    from repro_torch.fed import LinkModel, Lognormal, VecFedSim
+    from repro_torch.fed import FedSim, LinkModel, Lognormal, VecFedSim
     from repro_torch.fed.sim import DEFAULT_CHUNK
     from repro_torch.methods import Hyper, SampledFlatSubstrate
     comp = make_round_compressor("randk", d, n, k=k, backend=backend,
@@ -1253,8 +1275,9 @@ def _fed_sim(problem, n, d, c, *, variant="dasha", backend="fused",
                               **(hyper_kw or {}))
     uplink = LinkModel(latency_s=0.02, bandwidth_Bps=1e5,
                        straggler=Lognormal(1.0))
-    return VecFedSim(variant, comp, sub, hyper, uplink=uplink, seed=0,
-                     store=store, chunk=chunk or DEFAULT_CHUNK)
+    cls = FedSim if engine == "heap" else VecFedSim
+    return cls(variant, comp, sub, hyper, uplink=uplink, seed=0,
+               store=store, chunk=chunk or DEFAULT_CHUNK)
 
 
 def phase_fed_main(torch, smi: str):
@@ -1593,6 +1616,468 @@ def phase_fed_agreement(torch):
     return worst
 
 
+def _heap_links(sigma: float):
+    from repro_torch.fed import Constant, LinkModel, Lognormal
+    strag = Lognormal(sigma) if sigma > 0 else Constant()
+    return dict(uplink=LinkModel(latency_s=HEAP_LATENCY,
+                                 bandwidth_Bps=HEAP_UP_BPS, straggler=strag),
+                downlink=LinkModel(latency_s=HEAP_LATENCY,
+                                   bandwidth_Bps=HEAP_DOWN_BPS))
+
+
+def _watch_heap(sim, rounds: int, gate: bool = True):
+    """Instrument one FedSim instance (its attributes, not the class): the
+    host seconds spent in the engine's chunks (the device rounds and the
+    chunk's one transfer) and in the codec (encoding and billing a round),
+    and, with ``gate``, the decode gate on the first and the last chunk:
+    every upload passes ``wire.verify`` and ``decode_round`` equals the
+    round's dense message rows (the dense sync upload on a coin round) bit
+    for bit, but for the sign of a zero: a mask multiply leaves -0.0 at a
+    dropped coordinate, which the wire does not carry."""
+    import numpy as np
+    from repro_torch.fed import wire
+    clock = {"engine_s": 0.0, "codec_s": 0.0, "gate_s": 0.0,
+             "gated_rounds": 0, "gated_uploads": 0}
+    run_chunk, round_wire = sim._run_chunk, sim._round_wire
+    last0 = (rounds - 1) // sim.chunk * sim.chunk
+    d = int(sim.comp.spec.d)
+
+    def timed_chunk(*args):
+        t0 = time.perf_counter()
+        out = run_chunk(*args)
+        clock["engine_s"] += time.perf_counter() - t0
+        return out
+
+    def timed_wire(ys, j, t):
+        t0 = time.perf_counter()
+        out = round_wire(ys, j, t)
+        t1 = time.perf_counter()
+        clock["codec_s"] += t1 - t0
+        if gate and (t < sim.chunk or t >= last0):
+            coin, _active, _rb, bufs, (vals, idxs) = out
+            for b in bufs:
+                if b is not None:
+                    wire.verify(b)
+            rows = ys["sync"][j] if coin else sim._dense_rows(vals, idxs)
+            dec = wire.decode_round(bufs, d)
+            nz = rows != 0
+            if not (np.array_equal(dec, rows)
+                    and dec[nz].tobytes() == rows[nz].tobytes()):
+                raise AssertionError(f"[heap] round {t}: the decoded "
+                                     "uploads differ from the messages")
+            clock["gated_rounds"] += 1
+            clock["gated_uploads"] += sum(b is not None for b in bufs)
+            clock["gate_s"] += time.perf_counter() - t1
+        return out
+
+    sim._run_chunk, sim._round_wire = timed_chunk, timed_wire
+    return clock
+
+
+def _host_split(wall: float, clock, rounds: int):
+    """Host ms a round: the engine's chunks, the codec, and the rest of
+    the host loop (the arrival heap, link times and traces)."""
+    rest = wall - clock["engine_s"] - clock["codec_s"] - clock["gate_s"]
+    return {"engine_ms_per_round": clock["engine_s"] / rounds * 1e3,
+            "codec_ms_per_round": clock["codec_s"] / rounds * 1e3,
+            "heap_ms_per_round": rest / rounds * 1e3,
+            "decode_gate_s": clock["gate_s"],
+            "gated_rounds": clock["gated_rounds"],
+            "gated_uploads": clock["gated_uploads"]}
+
+
+def _heap_campaigns(torch, smi: str):
+    """Phase 13a: the heap oracle at the real-sim shape, as fed_bench's
+    straggler_curves runs it, on the card: dasha, dasha with Appendix-D
+    participation (p' = 0.5) and marina (p = max(zeta/d, 8/200)), each
+    with fused RandK K = 100 (kernel 1) at sigma in (0, 1, 2), and dasha
+    with fused QDither s = 15 (kernel 2) at sigma = 1.  Gates: decoded
+    uploads, exact bytes, bytes equal across sigma, metric traces equal to
+    a plain Driver run of the same Method bit for bit, MARINA degrading
+    more than DASHA, launches."""
+    import numpy as np
+    from repro_torch.compress import make_round_compressor
+    from repro_torch.core.oracles import FiniteSumProblem
+    from repro_torch.data.pipeline import synthetic_classification
+    from repro_torch.fed import FedSim
+    from repro_torch.kernels import dasha_update as kern
+    from repro_torch.kernels import slab_writeback as slab_kern
+    from repro_torch.kernels import ssd_chunk as ssd_kern
+    from repro_torch.methods import Driver, FlatSubstrate, Hyper
+
+    n, m, d, k, rounds = N_NODES, M_REALSIM, D_REALSIM, K_RANDK, HEAP_ROUNDS
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    feats, labels = synthetic_classification(0, n, m, d, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[heap] real-sim-shaped data ({n}, {m}, {d}) = "
+        f"{feats.numel() * 4 / 1e9:.2f} GB made on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    problem = FiniteSumProblem(_glm_loss(torch), feats, labels)
+    L = float(torch.mean(torch.sum(feats ** 2, -1)) * 2)
+    sub = FlatSubstrate(problem, n, d)
+
+    def comp(name, **kw):
+        return make_round_compressor(name, d, n, backend="fused",
+                                     device="cuda", **kw)
+
+    def hyper(variant, rc):
+        # benchmarks/common.py theory_hyper: gamma x4, zeta/d for MARINA
+        kw = dict(zeta=float(k), d=d) if variant == "marina" else {}
+        return Hyper.from_theory(variant, rc.omega, n, L=L, gamma_mult=4.0,
+                                 **kw)
+
+    rc, rc_pp = comp("randk", k=k), comp("randk", k=k, p_participate=0.5)
+    rc_q = comp("qdither", s=S_QDITHER)
+    hp_m = hyper("marina", rc)
+    hp_m = dataclasses.replace(hp_m, p=max(hp_m.p, 8.0 / rounds))
+    methods = {"dasha": ("dasha", rc, hyper("dasha", rc)),
+               "dasha_pp": ("dasha", rc_pp, hyper("dasha", rc_pp)),
+               "marina": ("marina", rc, hp_m),
+               "dasha_qdither": ("dasha", rc_q, hyper("dasha", rc_q))}
+    campaigns = [(name, s) for s in HEAP_SIGMAS
+                 for name in ("dasha", "dasha_pp", "marina")] + \
+        [("dasha_qdither", 1.0)]
+
+    def metric(s):
+        return torch.sum(s.g ** 2)
+
+    def make(name, sigma):
+        variant, rc_, hp = methods[name]
+        return FedSim(variant, rc_, sub, hp, compute_s=0.0, seed=HEAP_SEED,
+                      chunk=FED_CHUNK, **_heap_links(sigma))
+
+    state = make("dasha", 0.0).init(torch.zeros(d, device="cuda"), 1,
+                                    device="cuda")
+    for name in methods:                           # warm-up, not counted
+        make(name, 1.0).run(state, 4, metric_fn=metric)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in (kern, slab_kern, ssd_kern):
+        mod.reset_counts()
+    runs = {}
+    for name, sigma in campaigns:
+        sim = make(name, sigma)
+        clock = _watch_heap(sim, rounds)
+        t0 = time.perf_counter()
+        res = sim.run(state, rounds, metric_fn=metric)
+        wall = time.perf_counter() - t0
+        runs[name, sigma] = (res, wall, clock, sim)
+    counts = {**kern.COUNTS, **slab_kern.COUNTS, **ssd_kern.COUNTS}
+    peak = torch.cuda.max_memory_allocated()
+
+    fused_randk = sum(1 for name, _ in campaigns if name != "dasha_qdither")
+    want = {"dasha_update": fused_randk * rounds, "quantize": rounds}
+    if any(counts[kk] != v for kk, v in want.items()) or \
+            sum(counts.values()) != sum(want.values()):
+        raise AssertionError(f"[heap] launches {counts}, expected {want}")
+    per_randk, per_dense = n * (20 + 8 * k), n * (20 + 4 * d)
+    for (name, sigma), (res, _, clock, _) in runs.items():
+        tr = res.traces
+        sync = tr["sync_round"].astype(bool)
+        part = tr["participants"]
+        want_up = {"dasha": np.full(rounds, per_randk),
+                   "marina": np.where(sync, per_dense, per_randk),
+                   "dasha_qdither": np.full(rounds, per_dense),
+                   "dasha_pp": part * (20 + 8 * k)}[name]
+        tag = f"[heap] {name} sigma={sigma}"
+        if not np.array_equal(tr["bytes_up"], want_up):
+            raise AssertionError(f"{tag}: bytes up {tr['bytes_up'][:8]} "
+                                 f"!= {want_up[:8]}")
+        if name == "marina" and not (sync.any() and not sync.all()):
+            raise AssertionError(f"{tag}: no sync round or no other")
+        if name == "dasha_pp" and not ((part < n).any() and
+                                       (part > 0).any()):
+            raise AssertionError(f"{tag}: participation never varied")
+        if name != "marina" and sync.any():
+            raise AssertionError(f"{tag}: a sync round")
+        for key in ("metric", "sim_wall_clock", "bits_sent"):
+            if not np.all(np.isfinite(tr[key])) or \
+                    tr[key].shape != (rounds,):
+                raise AssertionError(f"{tag}: trace {key} non-finite or "
+                                     "misshapen")
+        last0 = (rounds - 1) // FED_CHUNK * FED_CHUNK
+        gated = sum(1 for t in range(rounds)
+                    if t < FED_CHUNK or t >= last0)
+        if clock["gated_rounds"] != gated:
+            raise AssertionError(f"{tag}: {clock['gated_rounds']} rounds "
+                                 f"went through the decode gate, not "
+                                 f"{gated}")
+    # common random numbers: the same method's bytes, coins, participants
+    # and math at every sigma
+    for name in ("dasha", "dasha_pp", "marina"):
+        a = runs[name, HEAP_SIGMAS[0]][0].traces
+        for sigma in HEAP_SIGMAS[1:]:
+            b = runs[name, sigma][0].traces
+            for key in ("bytes_up", "participants", "sync_round", "metric",
+                        "bits_sent"):
+                if not np.array_equal(a[key], b[key]):
+                    raise AssertionError(f"[heap] {name}: {key} differs "
+                                         f"between sigma 0 and {sigma}")
+    # the simulator's math is the engine's: a plain Driver run of the same
+    # Method gives the same metric trace and bits, bit for bit
+    for name in methods:
+        sigma = 1.0 if name == "dasha_qdither" else HEAP_SIGMAS[0]
+        res, _, _, sim = runs[name, sigma]
+        _, tr = Driver(sim.method, metrics={
+            "metric": lambda s, _d: metric(s)}).run(state, rounds)
+        if not (np.array_equal(res.traces["metric"],
+                               tr["metric"].astype(np.float64))
+                and np.array_equal(res.traces["bits_sent"],
+                                   tr["bits_sent"].astype(np.float64))):
+            raise AssertionError(f"[heap] {name}: the metric or bits trace "
+                                 "differs from the Driver's")
+    wall_clock = {name: [float(runs[name, s][0].summary["wall_clock_s"])
+                         for s in HEAP_SIGMAS]
+                  for name in ("dasha", "dasha_pp", "marina")}
+    degradation = {name: [w - c[0] for w in c]
+                   for name, c in wall_clock.items()}
+    gaps = [mw - dw for mw, dw in zip(wall_clock["marina"],
+                                      wall_clock["dasha"])]
+    no_sync_ok = all(degradation["marina"][i] > degradation["dasha"][i]
+                     for i in range(1, len(HEAP_SIGMAS)))
+    if not no_sync_ok:
+        raise AssertionError(f"[heap] MARINA's wall clock degraded no more "
+                             f"than DASHA's: {degradation}")
+
+    # where a chunk's time goes: one more dasha chunk at sigma = 1
+    sim = make("dasha", 1.0)
+    table, pwall = profiled(torch, lambda: sim.run(state, FED_CHUNK,
+                                                   metric_fn=metric))
+    busy_s = sum(t for _, t in table.values()) / 1e6
+    top = sorted(table.items(), key=lambda kv: -kv[1][1])[:8]
+    out = {"n": n, "m": m, "d": d, "K": k, "s_qdither": S_QDITHER,
+           "rounds": rounds, "chunk": FED_CHUNK, "sigmas": list(HEAP_SIGMAS),
+           "links": {"up_Bps": HEAP_UP_BPS, "down_Bps": HEAP_DOWN_BPS,
+                     "latency_s": HEAP_LATENCY, "compute_s": 0.0,
+                     "seed": HEAP_SEED},
+           "marina_p": hp_m.p, "launches": counts, "peak_mem_gb": peak / 1e9,
+           "wall_clock_s": wall_clock, "degradation_s": degradation,
+           "marina_minus_dasha_s": gaps, "no_sync_advantage_ok": no_sync_ok,
+           "gaps_widen": all(gaps[i] > gaps[i - 1]
+                             for i in range(1, len(gaps))),
+           "campaigns": [], "nvidia_smi": smi,
+           "profiled_chunk": {
+               "campaign": "dasha sigma=1", "rounds": FED_CHUNK,
+               "wall_s": pwall, "device_busy_s": busy_s,
+               "busy_share": busy_s / pwall,
+               "top_kernels": [[kk[:90], cnt, us / 1e3]
+                               for kk, (cnt, us) in top]}}
+    for (name, sigma), (res, wall, clock, _) in runs.items():
+        tr = res.traces
+        row = {"campaign": name, "sigma": sigma, "wall_s": wall,
+               "rounds_per_s": rounds / wall,
+               "rounds_per_s_without_gate":
+                   rounds / (wall - clock["gate_s"]),
+               **_host_split(wall, clock, rounds),
+               "sim_wall_clock_s": float(res.summary["wall_clock_s"]),
+               "bytes_up": res.summary["bytes_up"],
+               "sync_rounds": res.summary["sync_rounds"],
+               "mean_participants": res.summary["mean_participants"],
+               "metric_first": float(tr["metric"][0]),
+               "metric_last": float(tr["metric"][-1])}
+        out["campaigns"].append(row)
+        log(f"[heap] {name} sigma={sigma:g}: {rounds} rounds in {wall:.3f} s"
+            f" = {row['rounds_per_s']:.1f} rounds/s "
+            f"({row['rounds_per_s_without_gate']:.1f} without the decode "
+            f"gate); host ms a round: engine "
+            f"{row['engine_ms_per_round']:.3f}, codec "
+            f"{row['codec_ms_per_round']:.3f}, heap and loop "
+            f"{row['heap_ms_per_round']:.3f}; simulated "
+            f"{row['sim_wall_clock_s']:.3f} s, {int(row['sync_rounds'])} "
+            f"sync rounds, {row['bytes_up']:.0f} bytes up, "
+            f"{clock['gated_uploads']} uploads decoded | {smi}")
+    log(f"[heap] wall clock by sigma {list(HEAP_SIGMAS)}: {wall_clock}; "
+        f"MARINA - DASHA {gaps}; no-sync advantage "
+        f"{no_sync_ok}; launches {counts}; peak {peak / 1e9:.2f} GB")
+    log(f"[heap] profiled dasha chunk: {pwall * 1e3:.1f} ms wall, device "
+        f"busy {busy_s / pwall:.3f} | {smi}")
+    for kk, cnt, ms in out["profiled_chunk"]["top_kernels"]:
+        log(f"[heap]   {ms:9.3f} ms  x{cnt:<5d} {kk}")
+    del runs, sim, state, problem, sub, feats, labels
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def _heap_sampled(torch, smi: str):
+    """Phase 13b: the sampled heap campaign on the slab store at phase
+    12b's shape (n = 10,000 x m = 1 x d = 20,958, C = 64, sparse RandK
+    K = 100, phase 11's uplink, 256 rounds in chunks of 128), against
+    VecFedSim on the same seed and links."""
+    import numpy as np
+    from repro_torch.core.oracles import FiniteSumProblem
+    from repro_torch.data.pipeline import synthetic_classification
+    from repro_torch.kernels import dasha_update as kern
+    from repro_torch.kernels import slab_writeback as slab_kern
+    from repro_torch.kernels import ssd_chunk as ssd_kern
+
+    n, c, d, rounds = HEAP_N, FED_C, D_REALSIM, HEAP_SAMPLED_ROUNDS
+    feats, labels = synthetic_classification(1, n, 1, d, device="cuda")
+    problem = FiniteSumProblem(_glm_loss(torch), feats, labels)
+    L = float((feats.norm(dim=-1) ** 2).mean() * 2)
+    kw = dict(backend="sparse", k=K_RANDK, hyper_kw=dict(L=L),
+              chunk=FED_CHUNK)
+    heap = _fed_sim(problem, n, d, c, engine="heap", **kw)
+    vec = _fed_sim(problem, n, d, c, **kw)
+    if not heap.slab:
+        raise AssertionError("[heap] store='auto' did not take the slab "
+                             "store")
+    state = heap.init(torch.zeros(d, device="cuda"), 3, device="cuda")
+
+    def metric(s):
+        return torch.sum(s.g ** 2)
+
+    heap.run(state, 4, metric_fn=metric)              # warm-up
+    torch.cuda.synchronize()
+    for mod in (kern, slab_kern, ssd_kern):
+        mod.reset_counts()
+    clock = _watch_heap(heap, rounds, gate=False)
+    t0 = time.perf_counter()
+    rh = heap.run(state, rounds, metric_fn=metric, log_events=True)
+    wall = time.perf_counter() - t0
+    counts = {**kern.COUNTS, **slab_kern.COUNTS, **ssd_kern.COUNTS}
+    chunks = -(-rounds // FED_CHUNK)
+    if counts["slab_writeback"] != 2 * chunks or \
+            sum(counts.values()) != 2 * chunks:
+        raise AssertionError(f"[heap] sampled launches {counts}, expected "
+                             f"{2 * chunks} slab writebacks only")
+    tr = rh.traces
+    up, down = c * (20 + 8 * K_RANDK), c * 4 * d
+    if not (np.all(tr["participants"] == c) and np.all(tr["bytes_up"] == up)
+            and np.all(tr["bytes_down"] == down)):
+        raise AssertionError(f"[heap] sampled: participants "
+                             f"{set(tr['participants'])}, bytes up "
+                             f"{set(tr['bytes_up'])} != {up}, down "
+                             f"{set(tr['bytes_down'])} != {down}")
+    applied = sum(e.kind == "apply" for e in rh.events)
+    if applied != c * rounds:
+        raise AssertionError(f"[heap] sampled: {applied} uploads applied")
+    t0 = time.perf_counter()
+    rv = vec.run(state, rounds, metric_fn=metric)
+    vec_wall = time.perf_counter() - t0
+    for key in ("bytes_up", "value_bytes", "bytes_down", "participants",
+                "sync_round"):
+        if not np.array_equal(rh.traces[key], rv.traces[key]):
+            raise AssertionError(f"[heap] heap vs vec: {key} differs")
+    # tests/test_fed_scale.py::_assert_equivalent's tolerances
+    limits = {"sim_wall_clock": (2e-6, 0.0), "bits_sent": (1e-6, 0.0),
+              "metric": (1e-4, 1e-9)}
+    errs = {}
+    for key, (rtol, atol) in limits.items():
+        a, b = rv.traces[key], rh.traces[key]
+        errs[key] = float(np.max(np.abs(a - b) / np.maximum(np.abs(b),
+                                                            1e-30)))
+        if not np.allclose(a, b, rtol=rtol, atol=atol):
+            raise AssertionError(f"[heap] heap vs vec: {key} rel err "
+                                 f"{errs[key]} (rtol {rtol})")
+    for key in ("bytes_up", "bytes_down", "sync_rounds",
+                "mean_participants"):
+        if rh.summary[key] != rv.summary[key]:
+            raise AssertionError(f"[heap] heap vs vec: summary {key}")
+    out = {"n": n, "C": c, "d": d, "K": K_RANDK, "rounds": rounds,
+           "chunk": FED_CHUNK, "store": "slab", "backend": "sparse",
+           "wall_s": wall, "rounds_per_s": rounds / wall,
+           **_host_split(wall, clock, rounds),
+           "vec_wall_s": vec_wall, "vec_rounds_per_s": rounds / vec_wall,
+           "sim_wall_clock_s": float(rh.summary["wall_clock_s"]),
+           "bytes_up_per_round": up, "bytes_down_per_round": down,
+           "launches": counts, "heap_vs_vec_rel_err": errs,
+           "nvidia_smi": smi}
+    log(f"[heap] sampled dasha, sparse RandK K={K_RANDK}, n={n} C={c} "
+        f"d={d}, slab store: {rounds} rounds in {wall:.3f} s = "
+        f"{rounds / wall:.1f} rounds/s (VecFedSim {rounds / vec_wall:.1f});"
+        f" host ms a round: engine {out['engine_ms_per_round']:.3f}, codec "
+        f"{out['codec_ms_per_round']:.3f}, heap and loop "
+        f"{out['heap_ms_per_round']:.3f}; launches {counts}; bytes "
+        f"{up}/{down} up/down a round; heap == vec in bytes and "
+        f"participants, rel err {errs} | {smi}")
+    del heap, vec, rh, rv, state, problem, feats, labels
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def _heap_agreement(torch):
+    """Phase 13c: FedSim at n = 5, d = 2,048 for 64 rounds, dasha and
+    marina with fused RandK, on the card and on the CPU with the same
+    CPU-drawn plans and coins: byte, participant and clock traces equal,
+    the metric within 1e-4 relative."""
+    import numpy as np
+    from repro_torch.compress import make_round_compressor
+    from repro_torch.core.oracles import FiniteSumProblem
+    from repro_torch.core.rng import Draws, RoundRandom
+    from repro_torch.data.pipeline import synthetic_classification
+    from repro_torch.fed import FedSim
+    from repro_torch.methods import FlatSubstrate, Hyper
+
+    n, m, d, k, rounds, seed = 5, 64, 2048, 32, 64, 11
+    feats, labels = synthetic_classification(0, n, m, d, device="cpu")
+    L = float(torch.mean(torch.sum(feats ** 2, -1)) * 2)
+    worst = 0.0
+    for variant in ("dasha", "marina"):
+        res, draws = {}, None
+        for dev in ("cpu", "cuda"):
+            problem = FiniteSumProblem(_glm_loss(torch), feats.to(dev),
+                                       labels.to(dev))
+            rc = make_round_compressor("randk", d, n, k=k, backend="fused",
+                                       device=dev)
+            kw = dict(zeta=float(k), d=d) if variant == "marina" else {}
+            hp = Hyper.from_theory(variant, rc.omega, n, L=L,
+                                   gamma_mult=4.0, **kw)
+            if variant == "marina":
+                hp = dataclasses.replace(hp, p=0.2)
+            sim = FedSim(variant, rc, FlatSubstrate(problem, n, d), hp,
+                         compute_s=0.0, seed=HEAP_SEED, chunk=16,
+                         **_heap_links(1.0))
+            if draws is None:
+                draws = [Draws(plan=RoundRandom(seed, t).plan(rc),
+                               sync_coin=RoundRandom(seed, t).coin(
+                                   hp.p, "sync")
+                               if variant == "marina" else None)
+                         for t in range(rounds)]
+                state0 = sim.init(torch.zeros(d), seed, device="cpu")
+            dev_draws = [_draws_to(dr, dev) for dr in draws]
+            state = state0._replace(**{
+                f: getattr(state0, f).to(dev)
+                for f in ("x", "g", "g_local", "h_local")})
+            res[dev] = sim.run(state, rounds, draws=lambda t: dev_draws[t])
+        a, b = res["cuda"].traces, res["cpu"].traces
+        for key in ("bytes_up", "value_bytes", "bytes_down", "participants",
+                    "sync_round", "bits_sent", "sim_wall_clock"):
+            if not np.array_equal(a[key], b[key]):
+                raise AssertionError(f"[heap-agree] {variant}: {key} "
+                                     "differs")
+        if variant == "marina" and not a["sync_round"].any():
+            raise AssertionError("[heap-agree] marina: no sync round")
+        if not (np.all(np.isfinite(a["metric"]))
+                and np.all(np.isfinite(b["metric"]))):
+            raise AssertionError(f"[heap-agree] {variant}: non-finite "
+                                 "metric")
+        rel = float(np.max(np.abs(a["metric"] - b["metric"])
+                           / np.abs(b["metric"])))
+        worst = max(worst, rel)
+        if not rel <= 1e-4:
+            raise AssertionError(f"[heap-agree] {variant}: metric rel err "
+                                 f"{rel}")
+    log(f"[heap-agree] FedSim dasha/marina, fused RandK K={k}, n={n} "
+        f"d={d}, {rounds} rounds, card vs CPU with injected CPU draws: "
+        f"bytes/participants/clock equal, metric max rel err {worst:.3g} "
+        "(limit 1e-4)")
+    return worst
+
+
+def phase_heap(torch, smi: str):
+    """Phase 13: the heap-oracle FedSim on the card (13a, 13b, 13c), each
+    part with the launch counts zeroed before its timed run."""
+    flat, flat_counts = _heap_campaigns(torch, smi)
+    sampled, sampled_counts = _heap_sampled(torch, smi)
+    worst = _heap_agreement(torch)
+    return ({"real_sim": flat, "sampled": sampled,
+             "agreement_worst": worst},
+            {"dasha_update": flat_counts["dasha_update"],
+             "quantize": flat_counts["quantize"],
+             "slab_writeback": sampled_counts["slab_writeback"]})
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"{SRC / 'repro_torch'} not found: run from a checkout of the "
@@ -1624,11 +2109,20 @@ def main() -> int:
     fed, fed_launches, fed_dasha = phase_fed_main(torch, smi)
     per_shape["dasha_update"].append(fed_dasha)
     fed_rel = phase_fed_agreement(torch)
-    launches["slab_writeback"] = fed_launches["slab_writeback"]
-    # kernel 1 runs on two main paths: the flat round and the federated
-    # cohort round (each counted from zero around its own run)
-    flat_dasha = launches["dasha_update"]
-    launches["dasha_update"] += fed_launches["dasha_update"]
+    heap, heap_launches = phase_heap(torch, smi)
+    # kernels 1, 2 and 4 run on several main paths: the flat round, the
+    # federated cohort round and the heap oracle (each counted from zero
+    # around its own run)
+    by_path = {
+        "dasha_update": {"flat": launches["dasha_update"],
+                         "fed": fed_launches["dasha_update"],
+                         "heap": heap_launches["dasha_update"]},
+        "quantize": {"flat": launches["quantize"],
+                     "heap": heap_launches["quantize"]},
+        "slab_writeback": {"fed": fed_launches["slab_writeback"],
+                           "heap": heap_launches["slab_writeback"]}}
+    for name, paths in by_path.items():
+        launches[name] = sum(paths.values())
 
     sources = {"dasha_update": "src/repro/kernels/dasha_update.py:70",
                "dasha_mvr_update": "src/repro/kernels/dasha_update.py:90",
@@ -1675,9 +2169,6 @@ def main() -> int:
             "ssd_chunk_profiled_launches", "ssd_chunk_device_ms_per_layer",
             "ssd_chunk_bound_ms_per_layer", "ssd_chunk_tc_bound_ms_per_layer",
             "ssd_chunk_share_of_call")}})
-    next(r for r in kernels if r["name"] == "dasha_update")[
-        "launches_by_path"] = {"flat": flat_dasha,
-                               "fed": fed_launches["dasha_update"]}
     # the slab kernel's row: the cell's chunk slab, set
     main_shape = slab_rows[0]
     kernels.append({
@@ -1695,6 +2186,8 @@ def main() -> int:
             "slab_writeback_launches", "slab_writeback_device_ms",
             "slab_writeback_bound_ms", "union_rows")}})
     for row in kernels:
+        if row["name"] in by_path:
+            row["launches_by_path"] = by_path[row["name"]]
         if row["launches"] == 0:
             raise AssertionError(f"{row['name']} was never launched on the "
                                  "main path")
@@ -1702,7 +2195,8 @@ def main() -> int:
               "agreement_max_rel_err": rel, "trainer": trainer,
               "trainer_agreement_worst": train_rel, "serve": serving,
               "serve_agreement_worst": serve_rel, "fed": fed,
-              "fed_agreement_worst": fed_rel, "nvidia_smi": smi}
+              "fed_agreement_worst": fed_rel, "heap": heap,
+              "nvidia_smi": smi}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))

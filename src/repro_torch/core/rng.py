@@ -142,6 +142,12 @@ class RoundRandom:
             return tree.get(self.draws.masks, path)
         return draw(generator(gen_device, self.seed, self.t, "mask", path))
 
+    @property
+    def drawn_plan(self):
+        """The plan :meth:`plan` has given this round, or None before its
+        first call."""
+        return self._plan
+
     def plan(self, rc):
         """The round's compression plan, drawn once and shared by every
         consumer of the round."""

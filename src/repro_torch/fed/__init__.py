@@ -1,16 +1,28 @@
 """Federated transport layer (port of ``repro.fed``, DESIGN.md §12):
 
-* :mod:`repro_torch.fed.wire`   — the wire formats' constants and static
-  byte schema (the byte codec is not ported yet);
+* :mod:`repro_torch.fed.wire`   — the byte-exact wire codec (five record
+  formats, crc32-sealed 20-byte headers) and the static byte schema;
 * :mod:`repro_torch.fed.net`    — latency / bandwidth / straggler link
   models and the per-round common-random-number streams, numpy as in the
   reference;
+* :mod:`repro_torch.fed.sim`    — the event-driven heap oracle
+  :class:`FedSim`, which bills every upload through the codec, and
+  :func:`simulate`;
 * :mod:`repro_torch.fed.vecsim` — the vectorized simulator with round
   barriers, on the scatter and the slab client stores.
 """
 from repro_torch.fed.net import (Constant, LinkModel,  # noqa: F401
                                  Lognormal, Pareto, Straggler,
-                                 campaign_streams, round_multipliers)
-from repro_torch.fed.sim import SimResult  # noqa: F401
+                                 campaign_multipliers, campaign_streams,
+                                 round_multipliers, severity_grid)
+from repro_torch.fed.sim import (FedEvent, FedSim, SimResult,  # noqa: F401
+                                 simulate)
 from repro_torch.fed.vecsim import VecFedSim  # noqa: F401
-from repro_torch.fed.wire import WireSchema, wire_schema  # noqa: F401
+from repro_torch.fed.wire import (FMT_DENSE, FMT_PERMK,  # noqa: F401
+                                  FMT_PERMK_SLOT, FMT_SPARSE_IDX,
+                                  FMT_SPARSE_SEED, HEADER_BYTES, RoundBytes,
+                                  WireCorruptionError, WireDecodeError,
+                                  WireMessage, WireSchema,
+                                  WireTruncatedError, decode, decode_round,
+                                  encode_round, measured_bytes, round_bytes,
+                                  topk_messages, verify, wire_schema)

@@ -1,19 +1,555 @@
-"""What the federated simulators share (port of the shared part of
-``repro.fed.sim``): the result type and the campaign constants.  The
-event-driven heap oracle ``FedSim`` is not ported yet."""
+"""Layer 3 of the federated transport subsystem: the event-driven
+client/server simulator (port of ``repro.fed.sim``, DESIGN.md §12), the
+small-n oracle, and what both simulators share.
+
+The method math is exactly the engine's: every round executes
+``Method.step_full``, so the simulated run's iterates, randomness and
+``bits_sent`` are those of the lockstep driver.  What the simulator adds
+is time and bytes:
+
+* each client's upload is encoded onto the byte-exact wire
+  (:mod:`repro_torch.fed.wire`) and shipped through a
+  :class:`~repro_torch.fed.net.LinkModel` (latency + bytes / bandwidth x
+  straggler multiplier);
+* the server applies client i's message the moment it lands, an ordered
+  event log: DASHA's server state is the sum ``g^{t+1} = g^t + (1/n)
+  sum_i m_i``, so arrival order never changes the math (the paper's "no
+  client synchronization");
+* a round completes when the server has everything it needs: the
+  participating clients only for DASHA / PAGE / MVR (Appendix-D absentees
+  send nothing and nobody waits for them); for rules with
+  ``sync_requires_all`` (SYNC-MVR, MARINA) a sync-coin round is a barrier
+  that all n clients' dense uploads must reach, so the slowest straggler
+  gates it.
+
+Participation is the engine's own randomness (the plan's Appendix-D
+coins, or the sampled substrate's C-of-n cohort), so the bytes billed and
+the math run agree about who was absent.  Straggler draws are common
+random numbers drawn per campaign through
+:func:`~repro_torch.fed.net.campaign_multipliers` (downlink, then uplink,
+float64), the streams the vectorized simulator draws too.
+
+Execution is chunked: a chunk's rounds run on the device and their
+observables (messages, the plan's support, coins, participation, metric)
+leave it in one transfer at the chunk's end; the byte-exact encoding and
+the arrival heap replay them on the host.  MARINA's dense sync upload is
+kept only for its coin rounds.
+
+Not ported yet: fault injection (``faults=``), asynchronous pipelined
+rounds (``tau=``) and the observability handle (``obs=``); each raises.
+"""
 from __future__ import annotations
 
-from typing import Any, Dict, List, NamedTuple, Optional
+import dataclasses
+import heapq
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
+import torch
+
+from repro_torch.core.rng import Draws
+from repro_torch.fed import wire
+from repro_torch.fed.net import LinkModel, campaign_multipliers
+from repro_torch.kernels import ops
+from repro_torch.methods.accounting import downlink_receivers
+from repro_torch.methods.engine import Hyper, Method
+from repro_torch.methods.rules import get_rule
+from repro_torch.methods.substrates import gather_slab_rows, slab_layout
 
 X_BYTES_PER_COORD = 4                  # the server broadcast is dense fp32
 
 DEFAULT_CHUNK = 128                    # rounds per chunk (memory knob)
 
+DrawsFn = Callable[[int], Optional[Draws]]
+
+
+class FedEvent(NamedTuple):
+    """One server-side event: ``m_i`` applied the moment it lands."""
+
+    time: float
+    kind: str                          # "apply" | "round"
+    client: int
+    round: int
+    nbytes: int
+
 
 class SimResult(NamedTuple):
     state: Any                         # final MethodState
     traces: Dict[str, np.ndarray]      # driver-style named metric traces
-    events: Optional[List[Any]]        # the heap oracle's event log
+    events: Optional[List[FedEvent]]   # the heap oracle's event log
     summary: Dict[str, float]
+
+
+# ---------------------------------------------------------------------------
+# the slab store's chunk plumbing (both simulators)
+# ---------------------------------------------------------------------------
+
+def slab_enter(state, idx: torch.Tensor):
+    """Gather the chunk's touched rows into the slab.  Returns
+    (slab_state, full_h, full_g): the (n, d) stores wait untouched until
+    :func:`slab_exit`."""
+    st = state._replace(h_local=gather_slab_rows(state.h_local, idx),
+                        g_local=gather_slab_rows(state.g_local, idx))
+    return st, state.h_local, state.g_local
+
+
+def slab_exit(state, idx: torch.Tensor, full_h, full_g):
+    """Per-chunk writeback: one O(U*d) in-place scatter into each store
+    through the slab-writeback kernel."""
+    return state._replace(
+        h_local=ops.slab_writeback(full_h, idx, state.h_local),
+        g_local=ops.slab_writeback(full_g, idx, state.g_local))
+
+
+def snapshot(state):
+    """A copy of the state's stores that the campaign will not write."""
+    return state._replace(h_local=state.h_local.clone(),
+                          g_local=state.g_local.clone())
+
+
+def draws_at(draws: Optional[DrawsFn], t: int) -> Optional[Draws]:
+    return None if draws is None else draws(t)
+
+
+# ---------------------------------------------------------------------------
+# the heap oracle
+# ---------------------------------------------------------------------------
+
+class _HostMessages(NamedTuple):
+    """Host-side stand-in for the backend message containers: the codec
+    reads only ``.values`` / ``.indices``."""
+
+    values: np.ndarray
+    indices: Optional[np.ndarray]
+
+
+class _HostPlan(NamedTuple):
+    """The part of a round's plan the codec reads: its support."""
+
+    indices: Optional[np.ndarray]
+    mask: Optional[np.ndarray]
+
+
+def _expand_cohort(arr: np.ndarray, sel: np.ndarray, n: int) -> np.ndarray:
+    """Scatter a (C, ...) cohort array onto (n, ...) rows (absent rows 0:
+    they are never encoded)."""
+    out = np.zeros((n,) + arr.shape[1:], arr.dtype)
+    out[sel] = arr
+    return out
+
+
+def _to_host(tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """One device-to-host copy for a dict of tensors: each is viewed as
+    bytes, the views are concatenated on the device and copied at once,
+    and the host buffer is split back into typed arrays.  Wider elements
+    go first, so every array starts aligned to its own width."""
+    if not tensors:
+        return {}
+    items = sorted(tensors.items(), key=lambda kv: -kv[1].element_size())
+    flat = [t.contiguous().reshape(-1).view(torch.uint8) for _, t in items]
+    host = torch.cat(flat).cpu().numpy()
+    out, off = {}, 0
+    for (name, t), f in zip(items, flat):
+        dtype = torch.empty((), dtype=t.dtype).numpy().dtype
+        out[name] = host[off:off + f.numel()].view(dtype).reshape(
+            tuple(t.shape))
+        off += f.numel()
+    return out
+
+
+@dataclasses.dataclass
+class FedSim:
+    """Event-driven federated run of one variant x compressor x substrate.
+
+    ``uplink`` / ``downlink`` are :class:`repro_torch.fed.net.LinkModel`;
+    ``compute_s`` is the per-client local compute time a round.  Traces
+    use the driver's named-metric convention, with ``bytes_up`` /
+    ``bytes_down`` / ``sim_wall_clock`` next to ``bits_sent``.
+    """
+
+    variant: str
+    comp: Any                          # RoundCompressor
+    substrate: Any                     # FlatSubstrate / SampledFlatSubstrate
+    hyper: Hyper
+    uplink: LinkModel = LinkModel()
+    downlink: LinkModel = LinkModel()
+    compute_s: float = 0.01
+    seed: int = 0
+    chunk: int = DEFAULT_CHUNK
+    #: staleness bound of asynchronous pipelined rounds: not ported yet
+    tau: Optional[int] = None
+    #: client-state store for sampled substrates (DESIGN.md §16): "slab",
+    #: "scatter", or "auto" (slab exactly when the substrate samples
+    #: clients, c < n); both are bit-identical
+    store: str = "auto"
+    #: fault injection: not ported yet
+    faults: Any = None
+
+    def __post_init__(self):
+        self.rule = get_rule(self.variant)
+        if self.rule.sync_requires_all and self.comp.spec.p_participate < 1:
+            raise ValueError(
+                f"{self.rule.name!r} has a client-synchronization barrier "
+                "(sync_requires_all): Appendix-D partial participation "
+                "does not apply; every client must answer sync rounds")
+        if not hasattr(self.substrate, "estimator_update_full"):
+            raise ValueError(
+                "FedSim needs a substrate exposing estimator_update_full "
+                f"(per-node wire messages), got "
+                f"{type(self.substrate).__name__}")
+        if self.tau is not None:
+            raise NotImplementedError(
+                "tau= (asynchronous pipelined rounds) belongs to a later "
+                "slice of the port; run with round barriers (tau=None)")
+        if self.faults is not None:
+            raise NotImplementedError(
+                "faults= (fault injection) belongs to a later slice of the "
+                "port")
+        self.sampled = bool(getattr(self.substrate, "samples_clients",
+                                    False))
+        if self.store not in ("auto", "scatter", "slab"):
+            raise ValueError(f"store={self.store!r} must be 'auto', "
+                             "'scatter' or 'slab'")
+        if self.store == "slab" and not self.sampled:
+            raise ValueError("store='slab' needs a sampled-client "
+                             "substrate (c < n); at c == n the scatter "
+                             "store IS the degenerate slab")
+        self.slab = self.sampled and self.store != "scatter"
+        self.n = int(getattr(self.substrate, "n", self.comp.n))
+        self.method: Method = Method.build(self.variant, self.comp,
+                                           self.substrate, self.hyper)
+        # the codec reads the plan only when the support is not already in
+        # the message records (PermK slice headers, shared seeds, the
+        # dense and fused backends' masks): skip moving it otherwise
+        spec = self.comp.spec
+        self._need_plan = not (spec.name == "randk"
+                               and self.comp.mode == "independent"
+                               and self.comp.backend == "sparse")
+        self._default_metric = None
+
+    def init(self, x0, seed: int, **kw):
+        return self.method.init(x0, seed, **kw)
+
+    def _metric_fn(self, metric_fn):
+        if metric_fn is not None:
+            return metric_fn
+        if self._default_metric is None:
+            self._default_metric = self.substrate.default_metric()
+        return self._default_metric
+
+    # ------------------------------------------------------------------
+    # one chunk on the device
+    # ------------------------------------------------------------------
+
+    def _observe(self, rows: Dict[str, list], syncs: Dict[int, Any], j: int,
+                 new, info, metric_fn) -> None:
+        """Keep round j's observables, on the device, for the chunk's one
+        transfer."""
+        rows["metric"].append(torch.as_tensor(metric_fn(new)))
+        rows["values"].append(info.messages.values)
+        if getattr(info.messages, "indices", None) is not None:
+            rows["indices"].append(info.messages.indices)
+        if info.present is not None:
+            rows["present"].append(info.present)
+        if self._need_plan:
+            for field in ("indices", "mask"):
+                arr = getattr(info.plan, field)
+                if arr is not None:
+                    rows["plan_" + field].append(arr)
+        if info.coin:
+            syncs[j] = info.sync_dense
+        rows["coin"].append(bool(info.coin))
+        rows["bits"].append(new.bits_sent)
+
+    def _run_chunk(self, state, length: int, metric_fn,
+                   draws: Optional[DrawsFn]):
+        """``length`` engine rounds on the active store; returns (state,
+        the chunk's observables on the host).  The slab store gathers the
+        rows the chunk's cohorts touch, runs the rounds on that slab and
+        writes it back once; the cohort schedule (the substrate's
+        ``cohort_schedule``) is the one each round would draw."""
+        rows: Dict[str, list] = {k: [] for k in (
+            "metric", "values", "indices", "present", "plan_indices",
+            "plan_mask", "coin", "bits")}
+        syncs: Dict[int, Any] = {}
+        sels = None
+        if self.sampled:
+            sels = self.substrate.cohort_schedule(state.seed, state.t,
+                                                  length, draws)
+        if self.slab:
+            dev = state.x.device
+            uniq, loc = slab_layout(sels, self.n)
+            idx = torch.as_tensor(uniq, device=dev)
+            sels_t = torch.as_tensor(sels, device=dev).to(torch.int64)
+            loc_t = torch.as_tensor(loc, device=dev).to(torch.int64)
+            st, full_h, full_g = slab_enter(state, idx)
+            for j in range(length):
+                new, info = self.method.step_full(
+                    st, None, draws=draws_at(draws, st.t),
+                    window=(sels[j], sels_t[j], loc_t[j]))
+                self._observe(rows, syncs, j, new, info, metric_fn)
+                st = new
+            state = slab_exit(st, idx, full_h, full_g)
+        else:
+            for j in range(length):
+                new, info = self.method.step_full(
+                    state, None, draws=draws_at(draws, state.t))
+                self._observe(rows, syncs, j, new, info, metric_fn)
+                state = new
+        dev_rows = {k: torch.stack(v) for k, v in rows.items()
+                    if v and k not in ("coin", "bits")}
+        if syncs:
+            dev_rows["sync"] = torch.stack(list(syncs.values()))
+        ys = _to_host(dev_rows)
+        if syncs:
+            ys["sync"] = dict(zip(syncs, ys["sync"]))
+        ys["coin"] = np.asarray(rows["coin"], bool)
+        ys["bits"] = np.asarray(rows["bits"], np.float32)
+        if sels is not None:
+            ys["sel"] = sels.astype(np.int64)
+        return state, ys
+
+    # ------------------------------------------------------------------
+    # one round on the wire
+    # ------------------------------------------------------------------
+
+    def _expand_plan(self, plan: _HostPlan, sel: np.ndarray,
+                     n: int) -> _HostPlan:
+        """Re-key a cohort plan's per-row support by client id so
+        :func:`~repro_torch.fed.wire.encode_round` (which walks client
+        rows) reads the right support: shared supports broadcast (every
+        row is the same), private ones scatter through the cohort."""
+        shared = (self.comp.mode == "shared_coords"
+                  and self.comp.spec.name != "permk")
+        rep = {}
+        for field in ("indices", "mask"):
+            arr = getattr(plan, field)
+            if arr is None:
+                continue
+            if shared:
+                rep[field] = np.broadcast_to(arr[0], (n,) + arr.shape[1:])
+            else:
+                # PermK rows are per slot even under a shared permutation
+                # seed: each cohort slot owns a different block
+                rep[field] = _expand_cohort(arr, sel, n)
+        return plan._replace(**rep)
+
+    def _round_wire(self, ys, j: int, t: int):
+        """Encode round ``t`` (chunk slot ``j``) onto the wire: returns
+        (coin, active, RoundBytes, raw buffers, (values, indices)), the
+        message rows re-keyed by client."""
+        n = self.n
+        coin = bool(ys["coin"][j])
+        if "present" in ys:
+            present = ys["present"][j].astype(bool)
+        else:
+            present = np.ones(n, bool)
+        if coin and self.rule.sync_requires_all:
+            active = np.ones(n, bool)        # the barrier: all answer
+        else:
+            active = present
+        vals = ys["values"][j]
+        idxs = ys["indices"][j] if "indices" in ys else None
+        plan = None
+        if self._need_plan:
+            plan = _HostPlan(
+                ys["plan_indices"][j] if "plan_indices" in ys else None,
+                ys["plan_mask"][j] if "plan_mask" in ys else None)
+        slots = None
+        if self.sampled:
+            sel = ys["sel"][j]
+            vals = _expand_cohort(vals, sel, n)
+            if idxs is not None:
+                idxs = _expand_cohort(idxs, sel, n)
+            if plan is not None:
+                plan = self._expand_plan(plan, sel, n)
+            # slot-keyed headers: under sampling every record carries the
+            # client's slot in this round's cohort (bounded by C, so
+            # u16-safe at any n; the global id follows from the round's
+            # replayable cohort draw)
+            slots = np.full(n, -1, np.int64)
+            slots[sel] = np.arange(sel.size)
+        bufs = wire.encode_round(
+            self.comp, plan, _HostMessages(vals, idxs), t, coin=coin,
+            sync_values=ys["sync"][j] if coin else None,
+            present=active, slots=slots)
+        return coin, active, wire.round_bytes(bufs), bufs, (vals, idxs)
+
+    def _dense_rows(self, vals, idxs) -> np.ndarray:
+        """The (n, d) dense view of one round's messages: scatter-ADD for
+        the sparse backend, mirroring ``SparseMessages.dense()``; PAD
+        indices (>= d) drop."""
+        d = int(self.comp.spec.d)
+        if idxs is None:
+            return np.asarray(vals, np.float32)
+        out = np.zeros((self.n, d), np.float32)
+        keep = idxs < d
+        rows = np.broadcast_to(np.arange(self.n)[:, None], idxs.shape)
+        np.add.at(out, (rows[keep], idxs[keep].astype(np.int64)),
+                  np.asarray(vals, np.float32)[keep])
+        return out
+
+    # ------------------------------------------------------------------
+    # the campaign
+    # ------------------------------------------------------------------
+
+    def run(self, state, rounds: int, *,
+            metric_fn: Optional[Callable] = None,
+            log_events: bool = False, max_events: int = 100_000,
+            obs=None, start_round: int = 0, clock0: float = 0.0,
+            checkpoint: Optional[Callable] = None,
+            draws: Optional[DrawsFn] = None) -> SimResult:
+        """Run campaign rounds ``start_round .. rounds - 1`` from
+        ``state``.
+
+        ``start_round`` / ``clock0`` resume a campaign mid-way: the
+        per-round network streams are keyed by the absolute round, so a
+        restored campaign replays the exact tail an uninterrupted one
+        would, its wall clock starting at ``clock0``; traces cover the
+        resumed segment only.  ``checkpoint(state, next_round,
+        wall_clock)`` fires after every chunk with a state the campaign no
+        longer writes.  ``draws(t)`` injects round t's randomness (plan,
+        coins, samples, cohort) for the parity tests; None draws it.
+        ``log_events`` keeps the server's event log (at most
+        ``max_events``).  ``state`` is never written."""
+        if obs is not None:
+            raise NotImplementedError(
+                "obs= (the observability handle) belongs to a later slice "
+                "of the port")
+        metric_fn = self._metric_fn(metric_fn)
+        if not (0 <= int(start_round) <= rounds):
+            raise ValueError(f"start_round={start_round} outside "
+                             f"[0, {rounds}]")
+        return self._run_barrier(state, rounds, metric_fn, log_events,
+                                 max_events, start_round, clock0,
+                                 checkpoint, draws)
+
+    def _run_barrier(self, state, rounds: int, metric_fn,
+                     log_events: bool, max_events: int,
+                     start_round: int = 0, clock0: float = 0.0,
+                     checkpoint: Optional[Callable] = None,
+                     draws: Optional[DrawsFn] = None) -> SimResult:
+        rng = np.random.default_rng(self.seed)
+        n = self.n
+        d = int(self.comp.spec.d)
+        x_bytes = X_BYTES_PER_COORD * d
+        md_all, mu_all = campaign_multipliers(
+            rng, rounds, self.downlink, self.uplink, n)
+        # the dense broadcast reaches every client that computes this
+        # round: the sampled cohort only (unsampled rows freeze), all n
+        # otherwise (Appendix-D absentees still refresh h_i locally)
+        recv = downlink_receivers(n, self.substrate.c if self.sampled
+                                  else None)
+
+        names = ("metric", "bits_sent", "bytes_up", "value_bytes",
+                 "bytes_down", "sim_wall_clock", "bcast_clock",
+                 "sync_round", "participants")
+        n_run = rounds - start_round
+        tr = {k: np.zeros(n_run) for k in names}
+        events: List[FedEvent] = []
+        now = float(clock0)
+        bytes_up_total = 0
+        sync_rounds = 0
+        if self.slab and n_run > 0:
+            # the campaign's own copy of the two stores, made once: every
+            # chunk's slab is written back into it in place
+            state = snapshot(state)
+
+        done = start_round
+        while done < rounds:
+            length = min(self.chunk, rounds - done)
+            state, ys = self._run_chunk(state, length, metric_fn, draws)
+            for j in range(length):
+                t = done + j
+                rel = t - start_round
+                coin, active, rb, _bufs, _ = self._round_wire(ys, j, t)
+                up_bytes = np.asarray(rb.per_node, np.float64)
+                down_bytes = np.where(active, x_bytes, 0) \
+                    .astype(np.float64)
+                # common random numbers: every client holds a draw on both
+                # links this round, participant or not
+                t_down = self.downlink.transfer_s(down_bytes, md_all[t])
+                t_up = self.uplink.transfer_s(up_bytes, mu_all[t])
+                delay = t_down + self.compute_s + t_up
+                tr["bcast_clock"][rel] = now
+                heap = [(now + delay[i], int(i))
+                        for i in np.flatnonzero(active)]
+                heapq.heapify(heap)
+                # drain arrivals in time order: the server applies m_i the
+                # moment it lands; the last required arrival completes the
+                # round
+                completion = now + self.downlink.latency_s
+                while heap:
+                    at, i = heapq.heappop(heap)
+                    completion = at
+                    if log_events and len(events) < max_events:
+                        events.append(FedEvent(at, "apply", i, t,
+                                               rb.per_node[i]))
+                if log_events and len(events) < max_events:
+                    events.append(FedEvent(completion, "round", -1, t,
+                                           rb.total_bytes))
+                now = completion
+
+                bytes_up_total += rb.total_bytes
+                sync_rounds += int(coin)
+                tr["metric"][rel] = float(ys["metric"][j])
+                tr["bits_sent"][rel] = float(ys["bits"][j])
+                tr["bytes_up"][rel] = rb.total_bytes
+                tr["value_bytes"][rel] = rb.value_bytes
+                tr["bytes_down"][rel] = recv * x_bytes
+                tr["sim_wall_clock"][rel] = now
+                tr["sync_round"][rel] = float(coin)
+                tr["participants"][rel] = float(active.sum())
+            done += length
+            if checkpoint is not None:
+                checkpoint(snapshot(state) if self.slab else state, done,
+                           now)
+
+        summary = {
+            "rounds": float(n_run),
+            "wall_clock_s": float(now),
+            "bytes_up": float(bytes_up_total),
+            "bytes_down": float(tr["bytes_down"].sum()),
+            "sync_rounds": float(sync_rounds),
+            "mean_participants": float(tr["participants"].mean())
+            if n_run else 0.0,
+            "mean_bytes_up_per_round":
+                float(bytes_up_total) / max(n_run, 1),
+        }
+        return SimResult(state=state, traces=tr,
+                         events=events if log_events else None,
+                         summary=summary)
+
+
+def simulate(variant: str, comp, substrate, hyper: Hyper, x0,
+             init_seed: int, *, rounds: int,
+             uplink: Optional[LinkModel] = None,
+             downlink: Optional[LinkModel] = None, compute_s: float = 0.01,
+             seed: int = 0, init_kw: Optional[dict] = None,
+             metric_fn=None, log_events: bool = False,
+             engine: str = "heap", tau: Optional[int] = None,
+             store: str = "auto", obs=None, faults=None) -> SimResult:
+    """One-shot convenience: build the simulator, init the method from
+    ``x0`` and ``init_seed`` (the port's counterpart of the reference's
+    init key), run it.
+
+    ``engine="heap"`` (default) is this module's event-driven oracle;
+    ``engine="vec"`` runs :class:`repro_torch.fed.vecsim.VecFedSim`: the
+    same bytes and network draws, billed analytically.  ``seed`` seeds the
+    network.  ``store`` picks the client-state store on sampled
+    substrates; ``tau``, ``faults`` and ``obs`` raise until ported.
+    ``init_kw`` goes to ``Method.init`` (``device=`` among them)."""
+    if engine == "vec":
+        from repro_torch.fed.vecsim import VecFedSim
+        cls = VecFedSim
+    elif engine == "heap":
+        cls = FedSim
+    else:
+        raise ValueError(f"unknown sim engine {engine!r}")
+    sim = cls(variant=variant, comp=comp, substrate=substrate,
+              hyper=hyper, uplink=uplink or LinkModel(),
+              downlink=downlink or LinkModel(), compute_s=compute_s,
+              seed=seed, tau=tau, store=store, faults=faults)
+    state = sim.init(x0, init_seed, **(init_kw or {}))
+    kw = {} if engine == "vec" else {"log_events": log_events}
+    return sim.run(state, rounds, metric_fn=metric_fn, obs=obs, **kw)

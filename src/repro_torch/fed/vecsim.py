@@ -42,17 +42,16 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.rng import Draws, RoundRandom
+from repro_torch.core.rng import RoundRandom
 from repro_torch.fed import wire
 from repro_torch.fed.net import LinkModel, campaign_streams, round_multipliers
-from repro_torch.fed.sim import DEFAULT_CHUNK, X_BYTES_PER_COORD, SimResult
-from repro_torch.kernels import ops
+from repro_torch.fed.sim import (DEFAULT_CHUNK, X_BYTES_PER_COORD, DrawsFn,
+                                 SimResult, draws_at, slab_enter, slab_exit,
+                                 snapshot)
 from repro_torch.methods.accounting import downlink_receivers
 from repro_torch.methods.engine import Hyper, Method
 from repro_torch.methods.rules import get_rule
-from repro_torch.methods.substrates import gather_slab_rows, slab_layout
-
-DrawsFn = Callable[[int], Optional[Draws]]
+from repro_torch.methods.substrates import slab_layout
 
 #: the per-round device scalars a chunk stacks, in column order
 _DEVICE_YS = ("metric", "participants", "counts_sum", "round_t")
@@ -227,10 +226,6 @@ class VecFedSim:
         return md, mu
 
     @staticmethod
-    def _draws_at(draws: Optional[DrawsFn], t: int) -> Optional[Draws]:
-        return None if draws is None else draws(t)
-
-    @staticmethod
     def _chunk_ys(rows, coins, bits) -> Dict[str, np.ndarray]:
         """The chunk's per-round outputs on the host: the device scalars
         stacked into one (length, 4) float64 tensor (exact for float32
@@ -250,7 +245,7 @@ class VecFedSim:
         rows, coins, bits = [], [], []
         for j in range(length):
             state, coin, vals = self._round_scatter(
-                state, m_down[j], m_up[j], self._draws_at(draws, state.t),
+                state, m_down[j], m_up[j], draws_at(draws, state.t),
                 metric_fn)
             rows.append(vals)
             coins.append(coin)
@@ -269,22 +264,10 @@ class VecFedSim:
         mu_c = np.take_along_axis(mu, sels, axis=1)
         return sels, uniq_pad, loc, md_c, mu_c
 
-    @staticmethod
-    def _slab_enter(state, idx: torch.Tensor):
-        """Gather the chunk's touched rows into the slab.  Returns
-        (slab_state, full_h, full_g): the (n, d) stores wait untouched
-        until :meth:`_slab_exit`."""
-        st = state._replace(h_local=gather_slab_rows(state.h_local, idx),
-                            g_local=gather_slab_rows(state.g_local, idx))
-        return st, state.h_local, state.g_local
-
-    @staticmethod
-    def _slab_exit(state, idx: torch.Tensor, full_h, full_g):
-        """Per-chunk writeback: one O(U*d) in-place scatter into each
-        store through the slab-writeback kernel."""
-        return state._replace(
-            h_local=ops.slab_writeback(full_h, idx, state.h_local),
-            g_local=ops.slab_writeback(full_g, idx, state.g_local))
+    # the slab store's gather and writeback (an instance attribute may
+    # wrap the writeback to watch it)
+    _slab_enter = staticmethod(slab_enter)
+    _slab_exit = staticmethod(slab_exit)
 
     def _chunk_slab(self, state, length: int, md, mu, metric_fn, draws):
         dev = state.x.device
@@ -300,7 +283,7 @@ class VecFedSim:
         for j in range(length):
             st, coin, vals = self._round_slab(
                 st, m_down[j], m_up[j], (sels[j], sels_t[j], loc_t[j]),
-                self._draws_at(draws, st.t), metric_fn)
+                draws_at(draws, st.t), metric_fn)
             rows.append(vals)
             coins.append(coin)
             bits.append(st.bits_sent)
@@ -350,12 +333,6 @@ class VecFedSim:
             out[i] = c
         return out
 
-    @staticmethod
-    def _snapshot(state):
-        """A copy of the state's stores that the campaign will not write."""
-        return state._replace(h_local=state.h_local.clone(),
-                              g_local=state.g_local.clone())
-
     def _run_barrier(self, state, rounds: int, metric_fn,
                      start_round: int = 0, clock0: float = 0.0,
                      checkpoint: Optional[Callable] = None,
@@ -369,7 +346,7 @@ class VecFedSim:
         if self.slab:
             # the campaign's own copy of the two stores, made once: every
             # chunk's slab is written back into it in place
-            state = self._snapshot(state)
+            state = snapshot(state)
         parts = []
         now = float(clock0)
         done = start_round
@@ -383,7 +360,7 @@ class VecFedSim:
             done += length
             if checkpoint is not None:
                 now = float(self._seq_wall(part["round_t"], now)[-1])
-                checkpoint(self._snapshot(state) if self.slab else state,
+                checkpoint(snapshot(state) if self.slab else state,
                            done, now)
         ys = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
 

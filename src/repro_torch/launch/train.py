@@ -12,10 +12,12 @@ form: it takes the config itself, so a caller can cut the depth of a full
 config, and a device (the card unless ``device="cpu"``).
 
 Rounds run through the chunked :class:`~repro_torch.methods.driver.Driver`
-with a fresh node batch each round (``data_fn``, seeded per round).  After
-every ``--log-every`` rounds the host waits for the device, logs the
-held-out eval loss, ``||g||^2`` and the payload, and records the chunk's
-wall time; the eval loss is also taken before the first round.
+with a fresh node batch each round (``data_fn``, seeded per round), in
+chunks of ``--log-every`` rounds.  After every ``--ckpt-every``-th chunk
+and after the last, as the reference's hook fires, the host waits for the
+device, logs the held-out eval loss, ``||g||^2`` and the payload, and
+records the wall time since the previous log; the eval loss is also taken
+before the first round.
 """
 from __future__ import annotations
 
@@ -181,7 +183,8 @@ def train(cfg: ArchConfig, args: argparse.Namespace,
     # per parameter)
     state, _ = drv.run(method.init(params, derive_seed(args.seed, "state"),
                                    init_mode="zeros", device=dev),
-                       args.steps, data_seed=data_seed, checkpoint=hook)
+                       args.steps, data_seed=data_seed, checkpoint=hook,
+                       checkpoint_every=args.ckpt_every)
     return TrainResult(state=state, driver=drv, data_seed=data_seed,
                        loss0=loss0, chunks=chunks, n_params=n_params)
 

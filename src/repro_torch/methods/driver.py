@@ -10,7 +10,8 @@ Key contracts:
 
 * **Chunking is invisible**: the method's randomness is keyed on the
   global round index ``state.t``, so ``chunk`` only sets how often traces
-  leave the device and how often the hook may fire.
+  leave the device and how often the hook may fire.  A state without a
+  ``t`` is indexed by the driver's own per-run counter.
 * **Data seeds are stateless**: ``data_fn(seed, t)`` gets
   ``derive_seed(data_seed, t, "data")``, so a resumed run regenerates the
   same data stream as an uninterrupted one.
@@ -45,6 +46,13 @@ def _to_host(values) -> np.ndarray:
     return torch.stack(values).cpu().numpy()
 
 
+def _round_index(state, i: int) -> int:
+    """The global round index: ``state.t`` when the state carries one (it
+    survives a resume), else the driver's own per-run counter ``i``."""
+    t = getattr(state, "t", None)
+    return i if t is None else int(t)
+
+
 class Driver:
     """Reusable runner for one (method, data, metrics) configuration."""
 
@@ -64,17 +72,21 @@ class Driver:
         self.metric_every = int(metric_every)
         self.chunk = chunk
 
-    def _run_chunk(self, box: list, length: int, data_seed: Optional[int],
-                   last: Dict[str, torch.Tensor]):
-        """Advance ``box[0]`` by ``length`` rounds.  The state lives only
-        in ``box``, so a round's input state is freed as soon as the next
-        one exists (a trainer's state is tens of GB)."""
+    def _data(self, data_seed: Optional[int], t: int):
+        return self.data if self.data_fn is None else \
+            self.data_fn(derive_seed(data_seed, t, "data"), t)
+
+    def _run_chunk(self, box: list, i0: int, length: int,
+                   data_seed: Optional[int], last: Dict[str, torch.Tensor]):
+        """Advance ``box[0]`` by ``length`` rounds, the first being the
+        run's round ``i0``.  The state lives only in ``box``, so a round's
+        input state is freed as soon as the next one exists (a trainer's
+        state is tens of GB)."""
         vals = {name: [] for name in self.metrics}
         bits = []
-        for _ in range(length):
-            t = box[0].t
-            d = self.data if self.data_fn is None else \
-                self.data_fn(derive_seed(data_seed, t, "data"), t)
+        for j in range(length):
+            t = _round_index(box[0], i0 + j)
+            d = self._data(data_seed, t)
             state = box[0] = self.step(box[0], d)
             for name, fn in self.metrics.items():
                 if t % self.metric_every == 0:
@@ -109,7 +121,7 @@ class Driver:
         del state
         while done < rounds:
             length = min(chunk, rounds - done)
-            tr = self._run_chunk(box, length, data_seed, last)
+            tr = self._run_chunk(box, done, length, data_seed, last)
             done += length
             n_chunk += 1
             parts.append(tr)
@@ -118,13 +130,22 @@ class Driver:
                 checkpoint(box[0], done, tr)
         state = box[0]
         if not parts:
-            traces = {name: np.zeros((0,), np.float32)
-                      for name in self.metrics}
-            if hasattr(state, "bits_sent"):
-                traces["bits_sent"] = np.zeros((0,), np.float32)
-            return state, traces
+            return state, self._empty_traces(state, data_seed)
         return state, {k: np.concatenate([p[k] for p in parts])
                        for k in parts[0]}
+
+    def _empty_traces(self, state, data_seed: Optional[int]):
+        """A zero-round run's traces: each metric's ``(0,) + shape`` in its
+        dtype, from one evaluation on the initial state (with the data of
+        its round), as a run of any length would trace it."""
+        d = self._data(data_seed, _round_index(state, 0))
+        traces = {}
+        for name, fn in self.metrics.items():
+            v = torch.as_tensor(fn(state, d)).cpu().numpy()
+            traces[name] = np.zeros((0,) + v.shape, v.dtype)
+        if hasattr(state, "bits_sent"):
+            traces["bits_sent"] = np.zeros((0,), np.float32)
+        return traces
 
 
 def run(method, state, rounds: int, *, data_fn=None, data=None,

@@ -40,7 +40,11 @@ class StepInfo(NamedTuple):
       a sync round);
     * ``present``   — (n,) Appendix-D participation (None when
       p_participate == 1);
-    * ``payload``   — the compressed branch's payload coords per node.
+    * ``payload``   — the compressed branch's payload coords per node;
+    * ``plan``      — the compression plan the round used (injected or
+      drawn; a sampled round's is the cohort's, before the n/C scale), or
+      None when the substrate draws no round plan (the tree path).  The
+      wire codec reads a message's support from it.
     """
 
     messages: Any = None
@@ -48,6 +52,7 @@ class StepInfo(NamedTuple):
     sync_dense: Any = None
     present: Optional[torch.Tensor] = None
     payload: float = 0.0
+    plan: Any = None
 
 
 class MethodState(NamedTuple):
@@ -235,7 +240,8 @@ class Method(NamedTuple):
                               bits_sent=np.float32(state.bits_sent)
                               + np.float32(round_pay))
             return new, StepInfo(messages=msgs, coin=coin, sync_dense=h_sync,
-                                 present=present, payload=payload)
+                                 present=present, payload=payload,
+                                 plan=rnd.drawn_plan)
 
         def step(state: MethodState, data=None) -> MethodState:
             return step_full(state, data)[0]

@@ -168,3 +168,64 @@ def test_driver_rejects_bad_configs():
     _, tr = tdriver.run(_toy_step, _Toy(torch.zeros(()), 0, np.float32(0)),
                         0, metrics={"x": lambda s, d: s.x})
     assert tr["x"].shape == (0,) and tr["bits_sent"].shape == (0,)
+
+
+# ---------------------------------------------------------------------------
+# a state without ``t``, zero-round traces: the reference's contracts
+# ---------------------------------------------------------------------------
+
+class _Bare(NamedTuple):
+    x: torch.Tensor
+
+
+class _JBare(NamedTuple):
+    x: jax.Array
+
+
+def test_state_without_t_is_indexed_by_the_run_counter():
+    """A state without ``t``: the round index (and with it the data_fn
+    round and the metric cadence) is the driver's per-run counter, as the
+    reference's ``_round_index`` falls back to."""
+    metrics = {"x": lambda s, d: s.x, "t": lambda s, d: d}
+    st, tr = tdriver.run(lambda s, d: _Bare(s.x + 1), _Bare(torch.zeros(())),
+                         3, data_fn=lambda seed, t: torch.tensor(t),
+                         data_seed=0, metrics=metrics, chunk=2)
+    _, jtr = jdriver.run(lambda s, d: _JBare(s.x + 1), _JBare(jnp.zeros(())),
+                         3, data_fn=lambda k, t: t,
+                         data_key=jax.random.PRNGKey(0), metrics=metrics)
+    assert float(st.x) == 3.0
+    np.testing.assert_array_equal(tr["x"], [1.0, 2.0, 3.0])
+    for k in ("x", "t"):
+        np.testing.assert_array_equal(tr[k], np.asarray(jtr[k]))
+    assert "bits_sent" not in tr
+
+
+@pytest.mark.parametrize("shape,dtype", [((3,), torch.float32),
+                                         ((2, 2), torch.int64), ((), None)])
+def test_zero_round_traces_keep_the_metric_shape_and_dtype(shape, dtype):
+    metrics = {"m": lambda s, d: torch.ones(shape, dtype=dtype)}
+    _, tr = tdriver.run(_toy_step, _Toy(torch.zeros(()), 0, np.float32(0)),
+                        0, data=torch.ones(()), metrics=metrics)
+    jdtype = None if dtype is None else \
+        {torch.float32: jnp.float32, torch.int64: jnp.int32}[dtype]
+    _, jtr = jdriver.run(
+        lambda s, d: s, (jnp.zeros(()),), 0,
+        metrics={"m": lambda s, d: jnp.ones(shape, jdtype)})
+    assert tr["m"].shape == np.asarray(jtr["m"]).shape == (0,) + shape
+    assert tr["m"].dtype == (np.float32 if dtype in (None, torch.float32)
+                             else np.int64)
+    assert tr["bits_sent"].shape == (0,)
+    assert tr["bits_sent"].dtype == np.float32
+
+
+def test_zero_round_traces_evaluate_the_metric_on_that_rounds_data():
+    seen = []
+
+    def data_fn(seed, t):
+        seen.append(t)
+        return torch.zeros(4)
+
+    _, tr = tdriver.run(_toy_step, _Toy(torch.zeros(()), 5, np.float32(0)),
+                        0, data_fn=data_fn, data_seed=1,
+                        metrics={"d": lambda s, d: d})
+    assert seen == [5] and tr["d"].shape == (0, 4)

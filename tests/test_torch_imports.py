@@ -93,7 +93,7 @@ def _entry_points():
                                            make_node_batches)
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch import train as train_mod
-    from repro_torch.fed import VecFedSim
+    from repro_torch.fed import FedSim, VecFedSim, simulate
     from repro_torch.methods import (FlatSubstrate, Hyper, Method,
                                      SampledFlatSubstrate)
     from repro_torch.models import init_params, lm
@@ -107,15 +107,19 @@ def _entry_points():
                          Hyper(gamma=0.1, a=1.0))
         return m.init(torch.zeros(4), 0)
 
-    def vecsim_init():
+    def fed_args():
         feats = torch.zeros((4, 3, 4))
         problem = FiniteSumProblem(lambda x, a, y: (a @ x) ** 2, feats,
                                    torch.zeros((4, 3)))
         rc = make_round_compressor("identity", 4, 4, device="cpu")
-        sim = VecFedSim("dasha", rc, SampledFlatSubstrate(problem, 4, 4,
-                                                          c=2),
-                        Hyper(gamma=0.1, a=1.0))
-        return sim.init(torch.zeros(4), 0)
+        return ("dasha", rc, SampledFlatSubstrate(problem, 4, 4, c=2),
+                Hyper(gamma=0.1, a=1.0))
+
+    def vecsim_init():
+        return VecFedSim(*fed_args()).init(torch.zeros(4), 0)
+
+    def fedsim_init():
+        return FedSim(*fed_args()).init(torch.zeros(4), 0)
 
     state = {"x": np.zeros(4), "g": np.zeros(4), "g_local": np.zeros((2, 4)),
              "h_local": np.zeros((2, 4)), "t": 0, "bits_sent": 0.0}
@@ -129,6 +133,9 @@ def _entry_points():
             loss=None, sample=None, n=2),
         "Method.init": method_init,
         "VecFedSim.init": vecsim_init,
+        "FedSim.init": fedsim_init,
+        "simulate": lambda: simulate(*fed_args(), torch.zeros(4), 0,
+                                     rounds=1),
         "convert.state_from_numpy": lambda: convert.state_from_numpy(
             state, seed=0),
         "convert.problem_from_numpy": lambda: convert.problem_from_numpy(
@@ -161,14 +168,15 @@ def _entry_points():
     }
 
 
-ENTRY_POINTS = ["Method.init", "StochasticProblem", "VecFedSim.init",
+ENTRY_POINTS = ["FedSim.init", "Method.init", "StochasticProblem",
+                "VecFedSim.init",
                 "convert.cache_from_numpy", "convert.params_from_numpy",
                 "convert.plan_from_numpy", "convert.problem_from_numpy",
                 "convert.state_from_numpy", "convert.tree_state_from_numpy",
                 "init_params", "launch.serve", "launch.train",
                 "lm.init_cache", "make_lm_batch", "make_node_batches",
-                "make_round_compressor", "synthetic_classification",
-                "synthetic_quadratic"]
+                "make_round_compressor", "simulate",
+                "synthetic_classification", "synthetic_quadratic"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

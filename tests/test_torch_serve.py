@@ -450,6 +450,23 @@ def test_serve_matches_reference_serve_loop():
         res.tokens[:, 0], tserve.greedy(tcfg, first[:, 0]).numpy())
 
 
+def test_serve_of_zero_new_tokens_returns_a_batch_of_empty_rows():
+    """``new_tokens=0``: the generated tokens keep the batch axis, (B, 0),
+    as the reference's loop gives (its driver's zero-round trace keeps the
+    metric's shape)."""
+    jcfg, tcfg = _cfgs()
+    jparams = j_init(jcfg, jax.random.PRNGKey(3))
+    tparams = convert.params_from_numpy(_np(jparams), device="cpu")
+    args = tserve.build_parser().parse_args(
+        ["--batch", "3", "--prompt-len", "8", "--new-tokens", "0"])
+    prompt = np.random.default_rng(13).integers(1, tcfg.vocab_size, (3, 8))
+    want = _reference_serve(jcfg, jparams, prompt, 0)
+    res = tserve.serve(tcfg, args, device="cpu", params=tparams,
+                       prompt=torch.as_tensor(prompt), log=lambda _: None)
+    assert res.tokens.shape == want.shape == (3, 0)
+    assert res.state.t == 8
+
+
 def test_prefill_logits_is_the_kernel_forward(smoke):
     _, tcfg, _, tparams = smoke
     toks = torch.as_tensor(np.random.default_rng(14).integers(

@@ -363,6 +363,25 @@ def test_train_library_function_runs_on_the_cpu():
     assert more.t == 5
 
 
+def test_ckpt_every_sets_the_hook_cadence_as_the_reference_driver():
+    """``--ckpt-every 2`` with ``--log-every 1``: the hook (log line and
+    chunk record) fires after every second chunk and after the last, the
+    chunk boundaries at which the reference's ``Driver.run`` calls the
+    hook that its ``train`` passes ``checkpoint_every=args.ckpt_every``."""
+    args = ttrain.build_parser().parse_args(
+        ["--steps", "6", "--log-every", "1", "--ckpt-every", "2", "--seq",
+         "32"])
+    res = ttrain.train(t_smoke("mamba2-780m"), args, device="cpu",
+                       log=lambda _: None)
+    seen = []
+    JDriver(lambda s, d: s + 1, chunk=args.log_every).run(
+        jnp.zeros((), jnp.int32), args.steps,
+        checkpoint=lambda s, done, tr: seen.append(done),
+        checkpoint_every=args.ckpt_every)
+    assert [c["rounds"] for c in res.chunks] == seen == [2, 4, 6]
+    assert res.state.t == 6
+
+
 def test_train_refuses_checkpoint_flags_until_ported():
     args = ttrain.build_parser().parse_args(["--ckpt", "somewhere"])
     with pytest.raises(NotImplementedError, match="checkpoint"):
