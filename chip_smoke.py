@@ -91,7 +91,29 @@ Phases, each fatal on failure:
     (b) the sampled heap campaign on the slab store, n = 10,000, C = 64,
     sparse RandK, 256 rounds (4 writebacks), equal to VecFedSim in bytes
     and participants; (c) n = 5, d = 2,048, dasha and marina, card vs CPU
-    with injected CPU draws.
+    with injected CPU draws;
+14. stepsize sweep at real-sim — ``repro_torch.methods.Sweeper`` on
+    phase 3's data (made on the card): benchmarks/fig1_gradient.py's
+    protocol, dasha and marina (batch 0, p = marina_p(K, d)) with fused
+    RandK K = 100, 8 stepsizes gamma_dasha(L, L, omega, n) * 2^i as one
+    sweep of 8 lanes each, 200 rounds with ||grad f||^2 every round
+    through the lane oracles; gates: the lowest-gamma lane and the best
+    finite lane each equal a sequential Driver run over 50 rounds
+    (bits_sent exactly, ||grad f||^2 within 1e-4 relative, non-finite
+    entries in the same places) and, from a sweep of the 8 gammas plus a
+    fast ninth lane gamma_dasha * 2^16 over 50 rounds, the final iterate
+    of each (and the fast lane's h_i) within 1e-2 of the sequential one
+    relative to its move from x0, where planted faults (a lane frozen at
+    x0, two lanes swapped, h_i left at x0) must fail; kernel 1 launched
+    once a round for all 8 lanes and nothing else launched, peak memory
+    <= 8 GB, the best lane ending below its x0 ||grad f||^2; reported:
+    rounds/s and lane-rounds/s against the sequential runs, a profiled
+    window's busy share and top kernels, each method's best gamma and
+    coords to eps; then kernel 1
+    against its plain version at the sweep's (40, 20958) rows, and the
+    port's fig1, fig5 and table1 at the reference's rounds, fig2 at half
+    and fig3 at a tenth of theirs (``FIG_ROUNDS_SCALE``), their rows printed
+    (gates: fig1's DASHA-over-MARINA speedup > 1, fig5's floor ordering).
 
 Every phase that drives a main path zeroes the launch counters just before
 it and reads them just after; a kernel of that path that never launched
@@ -103,6 +125,7 @@ prints no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -116,6 +139,8 @@ SRC = ROOT / "src"
 
 # H100 SXM published peaks (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
+# written between timed launches to evict the 50 MB L2 cache
+L2_FLUSH_BYTES = 128 << 20
 FP32_FLOPS_PER_S = 67e12
 TF32_FLOPS_PER_S, BF16_FLOPS_PER_S = 495e12, 989e12
 
@@ -151,6 +176,31 @@ FED_N, FED_C, FED_ROUNDS, FED_CHUNK, FED_BIG_N = 100000, 64, 1000, 128, \
 HEAP_ROUNDS, HEAP_SIGMAS, HEAP_SEED = 200, (0.0, 1.0, 2.0), 7
 HEAP_UP_BPS, HEAP_DOWN_BPS, HEAP_LATENCY = 1e6, 1e8, 1e-3
 HEAP_N, HEAP_SAMPLED_ROUNDS = 10000, 256
+# the stepsize sweep (phase 14): benchmarks/fig1_gradient.py's protocol at
+# the real-sim shape — dasha and marina (batch 0, p = marina_p(K, d)), 8
+# stepsizes gamma_dasha * 2^i as one sweep of 8 lanes, fused RandK K = 100,
+# ||grad f||^2 every round; lane equality against sequential Driver runs
+# over the first 50 rounds; the peak-memory gate against 6.06 GB of
+# features (the lanes outside the nodes would need ~55 GB)
+SWEEP_G, SWEEP_ROUNDS, SWEEP_EQ_ROUNDS, SWEEP_EQ_RTOL = 8, 200, 50, 1e-4
+SWEEP_PEAK_GB, SWEEP_PROFILED = 8.0, 10
+# the lane-equality sweep adds a ninth lane, gamma_dasha * 2^SWEEP_FAST,
+# whose iterate moves the node gradients by at least SWEEP_FAST_MOVE of
+# their norm in 50 rounds (fig1's 8 lanes move them by ~1e-4 at most);
+# each checked lane's final iterate, and the fast lane's h_i, must lie
+# within SWEEP_STATE_RTOL of the sequential run's, relative to how far
+# that run moved them from x0's state: the gemm-vs-gemv summation order
+# leaves ~1.2e-4 there, a lane frozen at x0 or run at its neighbour's
+# gamma is ~1 off
+SWEEP_FAST, SWEEP_FAST_MOVE, SWEEP_STATE_RTOL = 16, 1e-2, 1e-2
+SWEEP_STATE = ("x", "g", "g_local", "h_local")
+# the port's figures on the card: fig1, fig5 and table1 at the reference's
+# rounds; fig2 at half its rounds and fig3 at a tenth (its stochastic
+# rounds draw every node's samples on the host: ~4 minutes at full
+# length), so that the whole script stays near half its time limit
+FIG_ROUNDS_SCALE = {"fig1_gradient": 1.0, "fig2_finite_sum": 0.5,
+                    "fig3_stochastic": 0.1, "fig5_quadratic_pl": 1.0,
+                    "table1_complexity": 1.0}
 
 
 def log(msg: str) -> None:
@@ -314,10 +364,13 @@ def _inputs(torch, shape, seed: int, misalign: bool):
 
 
 def _check_dasha(torch, kern, ref, shape, misalign, seed,
-                 a=1.0 / (2.0 * 208.58 + 1.0), scale=209.58, mask=None):
+                 a=1.0 / (2.0 * 208.58 + 1.0), scale=209.58, mask=None,
+                 cold: bool = False):
     """Kernel 1 against its plain version; by default the flat round's
     RandK scale d/K on a Bernoulli mask, else the given ``a``, ``scale``
-    and (shape-sized) ``mask``."""
+    and (shape-sized) ``mask``.  ``cold`` adds the device time with the
+    L2 cache flushed before every launch (``device_ms_cold``), as a main
+    path that streams gigabytes between launches finds it."""
     grad, h, gl, bern, _ = _inputs(torch, shape, seed, misalign)
     mask = bern if mask is None else mask
     out = kern.dasha_update(grad, h, gl, mask, a, scale)
@@ -330,14 +383,23 @@ def _check_dasha(torch, kern, ref, shape, misalign, seed,
                              "(must be bit-equal and repeatable)")
     numel = math.prod(shape)
     b, by = bound(7 * 4 * numel, 6 * numel)
-    return {"max_abs_err": err,
-            "ms": time_ms(torch, lambda: kern.dasha_update(
-                grad, h, gl, mask, a, scale)),
-            "plain_ms": time_ms(torch, lambda: ref.dasha_update_ref(
-                grad, h, gl, mask, a, scale)),
-            "device_ms": kernel_device_ms(torch, lambda: kern.dasha_update(
-                grad, h, gl, mask, a, scale), ["dasha_update_"]),
-            "bound_ms": b, "bound_by": by}
+    out = {"max_abs_err": err,
+           "ms": time_ms(torch, lambda: kern.dasha_update(
+               grad, h, gl, mask, a, scale)),
+           "plain_ms": time_ms(torch, lambda: ref.dasha_update_ref(
+               grad, h, gl, mask, a, scale)),
+           "device_ms": kernel_device_ms(torch, lambda: kern.dasha_update(
+               grad, h, gl, mask, a, scale), ["dasha_update_"]),
+           "bound_ms": b, "bound_by": by}
+    if cold:
+        flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+
+        def launch_cold():
+            flush.zero_()
+            kern.dasha_update(grad, h, gl, mask, a, scale)
+        out["device_ms_cold"] = kernel_device_ms(torch, launch_cold,
+                                                 ["dasha_update_"])
+    return out
 
 
 def _check_mvr(torch, kern, ref, shape, misalign, seed):
@@ -1674,6 +1736,13 @@ def _watch_heap(sim, rounds: int, gate: bool = True):
     return clock
 
 
+def _unwatch_heap(sim):
+    """Undo :func:`_watch_heap`: its closures hold the sim they are
+    attributes of, a reference cycle that kept the heap phase's 6.06 GB of
+    features on the card until the next garbage collection."""
+    del sim._run_chunk, sim._round_wire
+
+
 def _host_split(wall: float, clock, rounds: int):
     """Host ms a round: the engine's chunks, the codec, and the rest of
     the host loop (the arrival heap, link times and traces)."""
@@ -1762,6 +1831,7 @@ def _heap_campaigns(torch, smi: str):
         t0 = time.perf_counter()
         res = sim.run(state, rounds, metric_fn=metric)
         wall = time.perf_counter() - t0
+        _unwatch_heap(sim)
         runs[name, sigma] = (res, wall, clock, sim)
     counts = {**kern.COUNTS, **slab_kern.COUNTS, **ssd_kern.COUNTS}
     peak = torch.cuda.max_memory_allocated()
@@ -1935,6 +2005,7 @@ def _heap_sampled(torch, smi: str):
     t0 = time.perf_counter()
     rh = heap.run(state, rounds, metric_fn=metric, log_events=True)
     wall = time.perf_counter() - t0
+    _unwatch_heap(heap)
     counts = {**kern.COUNTS, **slab_kern.COUNTS, **ssd_kern.COUNTS}
     chunks = -(-rounds // FED_CHUNK)
     if counts["slab_writeback"] != 2 * chunks or \
@@ -2078,6 +2149,331 @@ def phase_heap(torch, smi: str):
              "slab_writeback": sampled_counts["slab_writeback"]})
 
 
+def _lanes_agree(got, want, rtol: float):
+    """Largest relative error of a sweep lane's trace against a sequential
+    run's; raises if their non-finite entries fall in other places."""
+    import numpy as np
+    bad_got, bad_want = ~np.isfinite(got), ~np.isfinite(want)
+    if not np.array_equal(bad_got, bad_want):
+        raise AssertionError("non-finite entries in other places: sweep "
+                             f"{np.nonzero(bad_got)[0][:5]}, sequential "
+                             f"{np.nonzero(bad_want)[0][:5]}")
+    ok = ~bad_want
+    rel = np.abs(got[ok] - want[ok]) / np.maximum(np.abs(want[ok]), 1e-30)
+    worst = float(rel.max()) if rel.size else 0.0
+    if worst > rtol:
+        raise AssertionError(f"lane and sequential run differ by {worst:.3g}"
+                             f" (limit {rtol})")
+    return worst
+
+
+def _state_errors(torch, got, want, init) -> dict:
+    """Each state field's distance between a sweep lane's final state and
+    a sequential run's, relative to how far the sequential run moved that
+    field from the init state: a lane frozen at x0's state is 1 off, a lane
+    run at its neighbour's gamma (2x apart) about 1."""
+    out = {}
+    for f in SWEEP_STATE:
+        a, b, c = (getattr(s, f).double() for s in (got, want, init))
+        out[f] = float(torch.linalg.vector_norm(a - b)
+                       / torch.linalg.vector_norm(b - c))
+    return out
+
+
+def _state_fault(errs: dict, fields) -> dict:
+    """The fields of ``errs`` past SWEEP_STATE_RTOL (NaN counts as past)."""
+    return {f: errs[f] for f in fields if not errs[f] <= SWEEP_STATE_RTOL}
+
+
+def _lane_of(state, j: int):
+    """Lane ``j``'s state fields of a sweep's final state."""
+    return state._replace(**{f: getattr(state, f)[j] for f in SWEEP_STATE})
+
+
+def _sweep_equality(torch, variant, sweeper, method_fn, problem, state,
+                    gammas, tr, best):
+    """Lane equality of one method's sweep against sequential Driver runs
+    over SWEEP_EQ_ROUNDS rounds.  Checked: the lowest-gamma lane, the best
+    lane and a fast ninth lane (gamma_dasha * 2^SWEEP_FAST) that a sweep of
+    the 8 gammas plus it runs.  Each must send the same bits and trace
+    ||grad f||^2 within SWEEP_EQ_RTOL; each final iterate must lie within
+    SWEEP_STATE_RTOL of the sequential one relative to its move from x0,
+    and the fast lane's h_i too (the 8 lanes barely move the gradients, so
+    there only x is above the rounding).  g and g_local are reported, not
+    gated: they sum the compressed messages, which scale a gradient's
+    rounding by d/K.  Then planted faults, a lane frozen at x0, lanes 0
+    and 1 swapped and the fast lane's h_i left at x0's, must each fail
+    that state gate."""
+    import numpy as np
+    from repro_torch.methods import Driver
+    G, R = len(gammas), SWEEP_EQ_ROUNDS
+    fast_gamma = float(gammas[0]) * 2 ** SWEEP_FAST
+    eq_gammas = np.append(gammas, fast_gamma)
+    fin_eq, tr_eq = sweeper.run(eq_gammas, state, R, device="cuda")
+    checks, seq_states = [], {}
+    for j in sorted({0, best, G}):
+        src = tr if j < G else tr_eq
+        drv = Driver(method_fn(float(eq_gammas[j])), metrics={
+            "grad_sq": lambda s, _d: torch.sum(problem.grad_f(s.x) ** 2)})
+        drv.run(state, 3)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        seq, tj = drv.run(state, R)
+        torch.cuda.synchronize()
+        seq_wall = time.perf_counter() - t1
+        seq_states[j] = seq
+        if not np.array_equal(src["bits_sent"][j, :R], tj["bits_sent"]):
+            raise AssertionError(f"[sweep] {variant} lane {j}: bits_sent "
+                                 "differ from the sequential run")
+        rel = _lanes_agree(src["grad_sq"][j, :R], tj["grad_sq"],
+                           SWEEP_EQ_RTOL)
+        errs = _state_errors(torch, _lane_of(fin_eq, j), seq, state)
+        fields = ("x", "h_local") if j == G else ("x",)
+        bad = _state_fault(errs, fields)
+        if bad:
+            raise AssertionError(f"[sweep] {variant} lane {j}: final state "
+                                 f"off the sequential run's by {bad} of its "
+                                 f"move from x0 (limit {SWEEP_STATE_RTOL})")
+        move = float(torch.linalg.vector_norm(seq.h_local - state.h_local)
+                     / torch.linalg.vector_norm(state.h_local))
+        checks.append({"lane": j, "gamma": float(eq_gammas[j]),
+                       "rounds": R, "wall_s": seq_wall,
+                       "rounds_per_s": R / seq_wall, "max_rel_err": rel,
+                       "state_rel_err": errs, "gated": list(fields),
+                       "h_moved": move})
+    if not checks[-1]["h_moved"] >= SWEEP_FAST_MOVE:
+        raise AssertionError(f"[sweep] {variant}: the fast lane moved its "
+                             f"h_i by {checks[-1]['h_moved']:.3g} of their "
+                             f"norm, under {SWEEP_FAST_MOVE}")
+    fast = _lane_of(fin_eq, G)
+    planted = {
+        "lane 0 frozen at x0": (state, seq_states[0], ("x",)),
+        "lanes 0 and 1 swapped": (_lane_of(fin_eq, 1), seq_states[0],
+                                  ("x",)),
+        "fast lane's h_i left at x0": (
+            fast._replace(h_local=state.h_local), seq_states[G],
+            ("x", "h_local"))}
+    caught = {}
+    for name, (got, want, fields) in planted.items():
+        errs = _state_errors(torch, got, want, state)
+        if not _state_fault(errs, fields):
+            raise AssertionError(f"[sweep] {variant}: planted fault "
+                                 f"'{name}' passes the state gate ({errs})")
+        caught[name] = {f: errs[f] for f in fields}
+    return checks, caught
+
+
+def _sweep_method(torch, smi: str, variant, problem, comp, gammas, g0):
+    """One fig1 method swept over ``gammas`` at the real-sim shape: the
+    timed, counted sweep and its gates, lane equality against sequential
+    Driver runs (:func:`_sweep_equality`), and a profiled window.  The
+    peak gate is on everything the card holds during the sweep."""
+    import numpy as np
+    from repro_torch.bench import common as bc
+    from repro_torch.bench.fig1_gradient import TARGET_FRAC, bits_to_target
+    from repro_torch.core import theory
+    from repro_torch.kernels import dasha_update as kern
+    from repro_torch.kernels import slab_writeback as slab_kern
+    from repro_torch.kernels import ssd_chunk as ssd_kern
+    from repro_torch.methods import Hyper, Sweeper
+
+    d, k, G, rounds = comp.spec.d, K_RANDK, len(gammas), SWEEP_ROUNDS
+    kw = dict(p=theory.marina_p(k, d), batch=0) if variant == "marina" \
+        else {}
+
+    def method_fn(gamma):
+        return bc.build_method(variant, problem, comp, Hyper(
+            gamma=gamma, a=theory.momentum_a(comp.omega), variant=variant,
+            **kw))
+
+    state = method_fn(0.0).init(torch.zeros(d, device="cuda"), 1,
+                                device="cuda")
+    sweeper = Sweeper(method_fn, metrics={
+        "grad_sq": bc.metric_of_state(bc.problem_metric(problem))})
+    sweeper.run(gammas, state, 3, device="cuda")     # warm-up: cuBLAS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = (kern, slab_kern, ssd_kern)
+    for mod in counters:
+        mod.reset_counts()
+    t0 = time.perf_counter()
+    _, tr = sweeper.run(gammas, state, rounds, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {name: c for mod in counters for name, c in mod.COUNTS.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    gs, bits = tr["grad_sq"], tr["bits_sent"]
+    if gs.shape != (G, rounds) or bits.shape != (G, rounds):
+        raise AssertionError(f"[sweep] {variant}: traces {gs.shape} / "
+                             f"{bits.shape}, expected ({G}, {rounds})")
+    if counts["dasha_update"] != rounds or sum(counts.values()) != rounds:
+        raise AssertionError(f"[sweep] {variant}: launches {counts}, "
+                             f"expected {rounds} of dasha_update only (one "
+                             "a round for all lanes)")
+    if peak > SWEEP_PEAK_GB:
+        raise AssertionError(f"[sweep] {variant}: peak {peak:.2f} GB over "
+                             f"{SWEEP_PEAK_GB} GB")
+    finals = gs[:, -1]
+    finite = np.isfinite(finals)
+    if not finite.any():
+        raise AssertionError(f"[sweep] {variant}: no lane ended finite")
+    best = int(np.argmin(np.where(finite, finals, np.inf)))
+    if not finals[best] < g0:
+        raise AssertionError(f"[sweep] {variant}: the best lane's "
+                             f"||grad f||^2 {finals[best]} is not below its "
+                             f"x0 value {g0}")
+    seq, caught = _sweep_equality(torch, variant, sweeper, method_fn,
+                                  problem, state, gammas, tr, best)
+    table, pwall = profiled(torch, lambda: sweeper.run(
+        gammas, state, SWEEP_PROFILED, device="cuda"))
+    busy = sum(t for _, t in table.values()) / 1e6
+    top = sorted(table.items(), key=lambda kv: -kv[1][1])[:8]
+    seq_rps = sum(r["rounds_per_s"] for r in seq) / len(seq)
+    out = {"variant": variant, "lanes": G, "rounds": rounds,
+           "wall_s": wall, "rounds_per_s": rounds / wall,
+           "lane_rounds_per_s": G * rounds / wall,
+           "sequential": seq, "sequential_lane_rounds_per_s": seq_rps,
+           "speedup_lane_rounds": G * rounds / wall / seq_rps,
+           "planted_faults_caught": caught,
+           "peak_mem_gb": peak, "launches": counts,
+           "gammas": [float(g) for g in gammas],
+           "grad_sq_final": [float(v) for v in finals],
+           "best_lane": best, "best_gamma": float(gammas[best]),
+           "coords_to_eps": bits_to_target(gs[best], bits[best],
+                                           TARGET_FRAC * g0),
+           "profile": {"rounds": SWEEP_PROFILED, "wall_s": pwall,
+                       "device_busy_s": busy, "busy_share": busy / pwall,
+                       "top_kernels": [[k_[:90], c, us / 1e3]
+                                       for k_, (c, us) in top]}}
+    log(f"[sweep] {variant}: {G} lanes x {rounds} rounds in {wall:.2f} s = "
+        f"{out['rounds_per_s']:.1f} rounds/s, {out['lane_rounds_per_s']:.1f}"
+        f" lane-rounds/s; sequential Driver {seq_rps:.1f} rounds/s "
+        f"({out['speedup_lane_rounds']:.2f}x in lane-rounds/s); peak "
+        f"{peak:.2f} GB; launches {counts}; best gamma {gammas[best]:.6g} "
+        f"(lane {best}), ||grad f||^2 {g0:.6e} -> {finals[best]:.6e}, "
+        f"coords to eps {out['coords_to_eps']}; busy "
+        f"{out['profile']['busy_share']:.3f} of a profiled "
+        f"{SWEEP_PROFILED}-round window | {smi}")
+    for r in seq:
+        log(f"[sweep]   lane {r['lane']} gamma {r['gamma']:.6g}: "
+            f"||grad f||^2 rel err {r['max_rel_err']:.3g}, state rel err "
+            f"{ {f: float(f'{e:.3g}') for f, e in r['state_rel_err'].items()} }"
+            f" (gated {r['gated']}), h_i moved {r['h_moved']:.3g}")
+    for name, errs in caught.items():
+        log(f"[sweep]   planted fault '{name}' fails the state gate: "
+            f"{ {f: float(f'{e:.3g}') for f, e in errs.items()} }")
+    for k_, c, ms in out["profile"]["top_kernels"]:
+        log(f"[sweep]   {ms:9.3f} ms  x{c:<5d} {k_}")
+    return out, counts["dasha_update"]
+
+
+def _sweep_kernel_row(torch, comp, smi: str):
+    """Kernel 1 against its plain version at the sweep's (G * n, d) rows: a
+    real round's RandK mask broadcast over the lanes, the plan scale d/K
+    and the sweep's momentum a."""
+    from repro_torch.compress.plan import indices_to_masks
+    from repro_torch.core import theory
+    from repro_torch.core.rng import RoundRandom
+    from repro_torch.kernels import dasha_update as kern
+    from repro_torch.kernels import ref
+    n, d, G = comp.n, comp.spec.d, SWEEP_G
+    plan = RoundRandom(1, 0).plan(comp)
+    mask = indices_to_masks(plan.indices, d).expand(G, n, d) \
+        .reshape(G * n, d).contiguous()
+    a = theory.momentum_a(comp.omega)
+    r = _check_dasha(torch, kern, ref, (G * n, d), False, 170, a=a,
+                     scale=float(plan.scale), mask=mask, cold=True)
+    # the sweep's update reads three and writes three (G * n, d) tensors
+    # but needs only the plan's (n, d) mask: the bound counts that, not
+    # the (G * n, d) copy of it the kernel is handed
+    b, by = bound(6 * 4 * G * n * d + 4 * n * d, 6 * G * n * d)
+    r = {"shape": [G * n, d], "misaligned": False, "path": "sweep", "a": a,
+         "scale": float(plan.scale), **r, "bound_ms": b, "bound_by": by,
+         "bound_ms_expanded_mask": r["bound_ms"]}
+    log(f"[kernels] dasha_update ({G * n}, {d}), the sweep's {G} lanes x "
+        f"{n} nodes: err {r['max_abs_err']:.3g}  call {r['ms']:.4f} ms  "
+        f"device {r['device_ms']} ms (L2 flushed before each launch: "
+        f"{r['device_ms_cold']} ms)  plain {r['plain_ms']:.4f} ms  bound "
+        f"{r['bound_ms']:.4f} ms | {smi}")
+    return r
+
+
+def _figures(torch, smi: str):
+    """The port's figures and table on the card (``repro_torch.bench``),
+    their rows printed; fig1's speedup must exceed 1 and fig5's floors
+    must order as the analysis says."""
+    import importlib
+    from repro_torch.bench import run as bench_run
+    from repro_torch.bench.common import emit
+    out = {}
+    for name in bench_run.BENCHES:
+        mod = importlib.import_module(f"repro_torch.bench.{name}")
+        t0 = time.perf_counter()
+        rows = mod.run(device="cuda", rounds_scale=FIG_ROUNDS_SCALE[name])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        log(f"[figures] {name} at {FIG_ROUNDS_SCALE[name]} x its rounds: "
+            f"{dt:.2f} s | {smi}")
+        emit(rows)
+        out[name] = {"rounds_scale": FIG_ROUNDS_SCALE[name], "wall_s": dt,
+                     "rows": rows}
+    speedup = out["fig1_gradient"]["rows"][-1]["coords_to_eps"]
+    if not speedup > 1.0:
+        raise AssertionError(f"[figures] fig1 speedup_dasha_over_marina "
+                             f"{speedup} is not above 1")
+    floor = out["fig5_quadratic_pl"]["rows"][-1]["grad_sq_floor"]
+    if floor != "ok":
+        raise AssertionError(f"[figures] fig5 floor_ordering {floor!r}")
+    return out
+
+
+def phase_sweep(torch, smi: str):
+    """Phase 14: the stepsize sweep at the real-sim shape (fig1's protocol
+    as one sweep of 8 lanes per method), kernel 1 at the sweep's rows, and
+    the port's figures on the card.  Returns the report, kernel 1's
+    launches on the sweeps and its (G * n, d) row."""
+    import numpy as np
+    from repro_torch.bench import common as bc
+    from repro_torch.core import theory
+    from repro_torch.core.oracles import FiniteSumProblem
+    from repro_torch.data.pipeline import synthetic_classification
+
+    n, m, d = N_NODES, M_REALSIM, D_REALSIM
+    held = torch.cuda.memory_allocated()
+    gc.collect()                    # earlier phases' reference cycles
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    feats, labels = synthetic_classification(0, n, m, d, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[sweep] real-sim-shaped data ({n}, {m}, {d}) = "
+        f"{feats.numel() * 4 / 1e9:.2f} GB made on the card in "
+        f"{time.perf_counter() - t0:.2f} s; earlier phases hold "
+        f"{base / 1e9:.2f} GB ({held / 1e9:.2f} GB before collecting "
+        "garbage)")
+    problem = FiniteSumProblem(bc.glm_loss, feats, labels)
+    L = bc.lipschitz_glm(problem)
+    comp = bc.randk_compressor(d, K_RANDK, n, backend="fused",
+                               device="cuda")
+    g0 = float(torch.sum(problem.grad_f(torch.zeros(d, device="cuda")) ** 2))
+    gammas = np.array([theory.gamma_dasha(L, L, comp.omega, n) * 2 ** i
+                       for i in range(SWEEP_G)])
+    runs, launches = {}, 0
+    for variant in ("dasha", "marina"):
+        runs[variant], count = _sweep_method(torch, smi, variant, problem,
+                                             comp, gammas, g0)
+        launches += count
+    row = _sweep_kernel_row(torch, comp, smi)
+    del feats, labels, problem
+    torch.cuda.empty_cache()
+    figures = _figures(torch, smi)
+    return {"real_sim": runs, "grad_sq_x0": g0,
+            "features_gb": n * m * d * 4 / 1e9,
+            "held_by_earlier_phases_gb": base / 1e9,
+            "held_before_gc_gb": held / 1e9, "figures": figures}, \
+        launches, row
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"{SRC / 'repro_torch'} not found: run from a checkout of the "
@@ -2110,13 +2506,16 @@ def main() -> int:
     per_shape["dasha_update"].append(fed_dasha)
     fed_rel = phase_fed_agreement(torch)
     heap, heap_launches = phase_heap(torch, smi)
+    sweep, sweep_launches, sweep_dasha = phase_sweep(torch, smi)
+    per_shape["dasha_update"].append(sweep_dasha)
     # kernels 1, 2 and 4 run on several main paths: the flat round, the
-    # federated cohort round and the heap oracle (each counted from zero
-    # around its own run)
+    # federated cohort round, the heap oracle and the sweep (each counted
+    # from zero around its own run)
     by_path = {
         "dasha_update": {"flat": launches["dasha_update"],
                          "fed": fed_launches["dasha_update"],
-                         "heap": heap_launches["dasha_update"]},
+                         "heap": heap_launches["dasha_update"],
+                         "sweep": sweep_launches},
         "quantize": {"flat": launches["quantize"],
                      "heap": heap_launches["quantize"]},
         "slab_writeback": {"fed": fed_launches["slab_writeback"],
@@ -2196,7 +2595,7 @@ def main() -> int:
               "trainer_agreement_worst": train_rel, "serve": serving,
               "serve_agreement_worst": serve_rel, "fed": fed,
               "fed_agreement_worst": fed_rel, "heap": heap,
-              "nvidia_smi": smi}
+              "sweep": sweep, "nvidia_smi": smi}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))

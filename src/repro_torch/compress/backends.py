@@ -8,6 +8,11 @@ Port of ``repro.compress.backends``.  Three ways to execute the same
   its values are bit-identical to ``dense`` under the same plan;
 * ``fused``  — the CUDA kernel path (:mod:`repro_torch.kernels.ops`): the
   whole estimator update (Alg. 1 lines 8-10) in one device-memory pass.
+
+Lanes: a sweep's message matrices carry a leading lane axis, (G, n, d)
+(:class:`repro_torch.methods.substrates.LaneFlatSubstrate`).  The plan
+stays (n, d): every lane shares it, and the backends broadcast it over the
+lanes.  Reductions run over the node axis, which is then axis -2.
 """
 from __future__ import annotations
 
@@ -27,7 +32,8 @@ BACKENDS = ("dense", "sparse", "fused")
 
 
 class DenseMessages(NamedTuple):
-    """n per-node messages, materialized as (n, d) dense rows."""
+    """n per-node messages, materialized as (n, d) dense rows ((G, n, d)
+    with a lane axis)."""
 
     values: torch.Tensor          # (n, d)
     payload_coords: float
@@ -35,14 +41,14 @@ class DenseMessages(NamedTuple):
 
     @property
     def n(self) -> int:
-        return self.values.shape[0]
+        return self.values.shape[-2]
 
     def dense(self) -> torch.Tensor:
         return self.values
 
     def mean(self) -> torch.Tensor:
         """Server aggregate (1/n) sum_i m_i, fp32."""
-        return self.values.to(torch.float32).mean(0)
+        return self.values.to(torch.float32).mean(-2)
 
     def add_to(self, g_local: torch.Tensor) -> torch.Tensor:
         """g_i <- g_i + m_i (Alg. 1 line 10)."""
@@ -51,18 +57,22 @@ class DenseMessages(NamedTuple):
 
 def _scatter_rows(base: torch.Tensor, indices: torch.Tensor,
                   values: torch.Tensor) -> torch.Tensor:
-    """``base`` (n, d) plus ``values`` at each row's ``indices``; PAD slots
-    land in a dropped extra column.  Indices are distinct within a row, so
-    no two additions meet: the result does not depend on their order."""
-    n, d = base.shape
-    wide = torch.cat([base, base.new_zeros((n, 1))], dim=1)
-    wide.scatter_add_(1, indices.clamp(max=d), values.to(base.dtype))
-    return wide[:, :d].contiguous()
+    """``base`` (..., n, d) plus ``values`` (..., n, k) at each row's
+    ``indices`` (n, k); PAD slots land in a dropped extra column.  Indices
+    are distinct within a row, so no two additions meet: the result does
+    not depend on their order."""
+    d = base.shape[-1]
+    wide = torch.cat([base, base.new_zeros(base.shape[:-1] + (1,))], dim=-1)
+    wide.scatter_add_(-1, indices.clamp(max=d).expand(values.shape),
+                      values.to(base.dtype))
+    return wide[..., :d].contiguous()
 
 
 class SparseMessages(NamedTuple):
     """n per-node messages in wire format: (indices, values) pairs;
-    ``indices`` (n, k) PAD-padded (pad slots carry zero values)."""
+    ``indices`` (n, k) PAD-padded (pad slots carry zero values).  With a
+    lane axis the values are (G, n, k) and every lane shares the
+    indices."""
 
     indices: torch.Tensor         # (n, k) int64
     values: torch.Tensor          # (n, k)
@@ -72,23 +82,23 @@ class SparseMessages(NamedTuple):
 
     @property
     def n(self) -> int:
-        return self.values.shape[0]
+        return self.values.shape[-2]
 
     def dense(self) -> torch.Tensor:
-        base = self.values.new_zeros((self.n, self.d))
+        base = self.values.new_zeros(self.values.shape[:-1] + (self.d,))
         return _scatter_rows(base, self.indices, self.values)
 
     def mean(self) -> torch.Tensor:
         """Server aggregate, node by node in index order (the reference's
         flat scatter order; deterministic on the card, unlike one
         scatter with colliding indices)."""
-        out = torch.zeros((self.d + 1,), dtype=torch.float32,
-                          device=self.values.device)
+        out = torch.zeros(self.values.shape[:-2] + (self.d + 1,),
+                          dtype=torch.float32, device=self.values.device)
         vals = self.values.to(torch.float32) / self.n
         idx = self.indices.clamp(max=self.d)
         for i in range(self.n):
-            out.index_add_(0, idx[i], vals[i])
-        return out[:self.d]
+            out.index_add_(-1, idx[i], vals[..., i, :])
+        return out[..., :self.d]
 
     def add_to(self, g_local: torch.Tensor) -> torch.Tensor:
         return _scatter_rows(g_local, self.indices, self.values)
@@ -126,7 +136,8 @@ def apply_sparse(plan: Plan, deltas: torch.Tensor) -> Messages:
     d = deltas.shape[-1]
     idx = plan.indices
     valid = (idx < d).to(deltas.dtype)
-    vals = torch.gather(deltas, 1, idx.clamp(max=d - 1)) * valid * plan.scale
+    support = idx.clamp(max=d - 1).expand(deltas.shape[:-1] + idx.shape[-1:])
+    vals = torch.gather(deltas, -1, support) * valid * plan.scale
     return SparseMessages(indices=idx, values=vals, d=d,
                           payload_coords=plan.payload_coords,
                           wire_coords=plan.wire_coords)
@@ -138,12 +149,18 @@ def fused_estimator_update(plan: Plan, h_new: torch.Tensor, h: torch.Tensor,
     """Alg. 1 lines 9-10 through the fused kernel, one device-memory pass:
     m = C(h_new - h - a (g_local - h)); g_i <- g_i + m_i.
 
+    With a lane axis, (G, n, d) inputs, the plan's (n, d) support (or
+    uniforms) is broadcast over the lanes and the kernel runs once on the
+    G * n rows.
+
     Returns (messages, h_out, g_local_new)."""
     d = float(h_new.shape[-1])            # fused messages stay dense
     if plan.kind == "dither":
         delta = h_new - h - a * (g_local - h)
-        m = kops.quantize_with_u(delta, plan.dither_u,
-                                 plan.levels) * plan.scale
+        rows = delta.reshape(-1, delta.shape[-1])
+        u = plan.dither_u.expand(delta.shape).reshape(rows.shape)
+        m = kops.quantize_with_u(rows, u, plan.levels).view(delta.shape) \
+            * plan.scale
         return (DenseMessages(m, plan.payload_coords, d),
                 h_new, g_local + m)
 
@@ -160,6 +177,9 @@ def fused_estimator_update(plan: Plan, h_new: torch.Tensor, h: torch.Tensor,
         kscale = 1.0
     else:
         kscale = float(plan.scale)
+    if mask.shape != h_new.shape:
+        # lanes: one plan for every lane, the kernel's mask per element
+        mask = mask.expand(h_new.shape).contiguous()
     m, h_out, gl_new = kops.dasha_update(h_new.contiguous(), h.contiguous(),
                                          g_local.contiguous(), mask, a,
                                          kscale)

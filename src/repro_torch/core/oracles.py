@@ -16,6 +16,16 @@ per-sample tensor: under vmap the loss becomes one matrix-vector product
 and its backward one more, so the intermediate is (n, m).  At the real-sim
 shape (n = 5, m = 14,461, d = 20,958) the per-sample form would put a
 second 6 GB tensor beside the features.
+
+Lanes: every oracle has a ``*_lanes`` form that takes G iterates, (G, d),
+and returns (G, n, d), for the hyperparameter sweep
+(:class:`repro_torch.methods.driver.Sweeper`).  Every lane uses the same
+samples.  The lane vmap sits *inside* the node vmap, so at the lane level
+the features are unbatched: a node's loss over its samples becomes one
+(m, d) @ (d, G) product and its backward one (d, m) @ (m, G) product,
+which read the features once for all G lanes.  With the lanes outside the
+nodes, the backward would copy the features once per lane (8 x 6.06 GB at
+real-sim with G = 8).
 """
 from __future__ import annotations
 
@@ -62,6 +72,12 @@ class FiniteSumProblem:
         """(n, d): gradient of each node's mean loss over its samples."""
         return vmap(grad(self._node_mean), in_dims=(None, 0, 0))(x, a, y)
 
+    def _lane_grads(self, X: torch.Tensor, a: torch.Tensor,
+                    y: torch.Tensor) -> torch.Tensor:
+        """(G, n, d): :meth:`_grads` at each of the G iterates of X, the
+        lane vmap inside the node vmap (see the module docstring)."""
+        return _lanes_inside(grad(self._node_mean), X, a, y)
+
     # -- function values -------------------------------------------------
     def f(self, x: torch.Tensor) -> torch.Tensor:
         """Global objective f(x) = (1/n) sum_i f_i(x)."""
@@ -75,6 +91,14 @@ class FiniteSumProblem:
 
     def grad_f(self, x: torch.Tensor) -> torch.Tensor:
         return self.full_grad(x).mean(0)
+
+    def full_grad_lanes(self, X: torch.Tensor) -> torch.Tensor:
+        """(G, n, d): :meth:`full_grad` at each row of X (G, d)."""
+        return self._lane_grads(X, self.features, self.labels)
+
+    def grad_f_lanes(self, X: torch.Tensor) -> torch.Tensor:
+        """(G, d): :meth:`grad_f` at each row of X."""
+        return self.full_grad_lanes(X).mean(-2)
 
     def draw_samples(self, generator: torch.Generator,
                      batch: int) -> torch.Tensor:
@@ -101,6 +125,18 @@ class FiniteSumProblem:
         (PAGE / MARINA)."""
         a, y = self._gather(idx)
         return self._grads(x_new, a, y) - self._grads(x_old, a, y)
+
+    def minibatch_grad_lanes(self, X: torch.Tensor,
+                             idx: torch.Tensor) -> torch.Tensor:
+        """(G, n, d): :meth:`minibatch_grad` at each row of X."""
+        return self._lane_grads(X, *self._gather(idx))
+
+    def minibatch_diff_lanes(self, X_new: torch.Tensor, X_old: torch.Tensor,
+                             idx: torch.Tensor) -> torch.Tensor:
+        """(G, n, d): :meth:`minibatch_diff` for each lane's two
+        iterates."""
+        a, y = self._gather(idx)
+        return self._lane_grads(X_new, a, y) - self._lane_grads(X_old, a, y)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,3 +182,31 @@ class StochasticProblem:
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Gradients at x_new and x_old with the SAME xi samples (MVR)."""
         return self._grads(x_new, xi), self._grads(x_old, xi)
+
+    def _lane_grads(self, X: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
+        nodes = torch.arange(self.n, device=self.device)
+        return _lanes_inside(grad(self._node_mean), X, xi, nodes)
+
+    def stoch_grad_lanes(self, X: torch.Tensor,
+                         xi: torch.Tensor) -> torch.Tensor:
+        """(G, n, d): :meth:`stoch_grad` at each row of X."""
+        return self._lane_grads(X, xi)
+
+    def stoch_grad_pair_lanes(self, X_new: torch.Tensor, X_old: torch.Tensor,
+                              xi: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`stoch_grad_pair` for each lane's two iterates."""
+        return self._lane_grads(X_new, xi), self._lane_grads(X_old, xi)
+
+    def true_grad_lanes(self, X: torch.Tensor) -> torch.Tensor:
+        """(G, d): ``true_grad`` at each row of X."""
+        return vmap(self.true_grad)(X)
+
+
+def _lanes_inside(node_grad, X: torch.Tensor, *per_node) -> torch.Tensor:
+    """``node_grad(x, *node_args)`` for every node (the outer vmap, over
+    the leading axis of ``per_node``) and every row of X (the inner vmap),
+    as a contiguous (G, n, d)."""
+    inner = vmap(node_grad, in_dims=(0,) + (None,) * len(per_node))
+    outer = vmap(inner, in_dims=(None,) + (0,) * len(per_node), out_dims=1)
+    return outer(X, *per_node).contiguous()

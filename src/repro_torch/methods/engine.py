@@ -14,6 +14,13 @@ Randomness is stateless: round t draws from generators seeded by
 ``(state.seed, state.t, tag)`` (:mod:`repro_torch.core.rng`), or takes the
 arrays passed as ``draws=``.  ``t`` and ``bits_sent`` live on the host, so
 a round never waits for the device.
+
+A :class:`Hyper` whose ``gamma``, ``a`` or ``b`` holds G per-lane values
+(:class:`repro_torch.methods.lanes.Lanes`, or a 1-D array) builds a method
+of G lanes on the substrate's lane view (a sweep; see
+:class:`repro_torch.methods.driver.Sweeper`).  It only steps: its state is
+a one-lane method's ``init`` that the Sweeper broadcasts, so its device
+fields carry a leading (G,) axis and ``bits_sent`` is a (G,) float32 array.
 """
 from __future__ import annotations
 
@@ -28,7 +35,46 @@ from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.core.rng import Draws, RoundRandom
 from repro_torch.core.theory import ProblemConstants
 from repro_torch.methods import accounting
+from repro_torch.methods.lanes import Lanes
 from repro_torch.methods.rules import VariantRule, get_rule
+
+#: Hyper fields that may not vary by lane, and why
+_LANE_FIXED = {
+    "p": "its coins are host booleans, so every lane shares one coin",
+    "batch": "it sets the samples' shape",
+    "batch_sync": "it sets the sync megabatch's shape",
+}
+
+
+def _lane_hyper(hp: "Hyper", rule: VariantRule, backend: str):
+    """``hp`` with its per-lane fields as :class:`Lanes`, and the lane
+    count G (None when no field varies by lane).  Raises ValueError, naming
+    the field, for a field that cannot vary by lane."""
+    lanes = {}
+    for f in dataclasses.fields(hp):
+        v = getattr(hp, f.name)
+        if isinstance(v, Lanes) or (
+                isinstance(v, (np.ndarray, torch.Tensor)) and v.ndim == 1):
+            lanes[f.name] = v if isinstance(v, Lanes) else Lanes(v)
+    if not lanes:
+        return hp, None
+    for name, why in _LANE_FIXED.items():
+        if name in lanes:
+            raise ValueError(f"Hyper.{name} cannot vary by lane: {why}")
+    if "a" in lanes and backend == "fused" and rule.force_a is None:
+        raise ValueError("Hyper.a cannot vary by lane on the fused backend: "
+                         "it is a scalar argument of the kernel")
+    counts = {len(v) for v in lanes.values()}
+    if len(counts) != 1:
+        raise ValueError(f"per-lane Hyper fields of different lengths: "
+                         f"{ {k: len(v) for k, v in lanes.items()} }")
+    return dataclasses.replace(hp, **lanes), counts.pop()
+
+
+def _sweep_only(*args, **kwargs):
+    raise ValueError("a method of G lanes has no init or run of its own: "
+                     "sweep it (repro_torch.methods.sweep broadcasts the "
+                     "one-lane method's init state to the lanes)")
 
 
 class StepInfo(NamedTuple):
@@ -68,7 +114,7 @@ class MethodState(NamedTuple):
     opt_state: Any            # server optimizer state (() for plain SGD)
     seed: int                 # root of every round's generators
     t: int                    # global round index
-    bits_sent: np.float32     # cumulative coords sent per node
+    bits_sent: np.float32     # cumulative coords sent per node ((G,) lanes)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,7 +168,10 @@ class Method(NamedTuple):
         """One entrypoint for every variant x substrate x compressor."""
         rule: VariantRule = get_rule(variant)
         sub = substrate.with_compressor(compressor)
-        hp = hyper
+        hp, lanes = _lane_hyper(hyper, rule,
+                                getattr(compressor, "backend", None))
+        if lanes is not None:
+            sub = sub.with_lanes(lanes)
         a_eff = rule.force_a if rule.force_a is not None else hp.a
         # the sampled-client substrate (DESIGN.md §13) windows each round
         # onto a cohort; a C-of-n cohort can never answer an all-client
@@ -237,7 +286,8 @@ class Method(NamedTuple):
             new = MethodState(x=x_new, g=g, g_local=g_local,
                               h_local=h_out, opt_state=opt_state,
                               seed=state.seed, t=state.t + 1,
-                              bits_sent=np.float32(state.bits_sent)
+                              bits_sent=np.asarray(state.bits_sent,
+                                                   np.float32)
                               + np.float32(round_pay))
             return new, StepInfo(messages=msgs, coin=coin, sync_dense=h_sync,
                                  present=present, payload=payload,
@@ -262,4 +312,6 @@ class Method(NamedTuple):
                 checkpoint=checkpoint, checkpoint_every=checkpoint_every)
             return final, traces["metric"], traces["bits_sent"]
 
+        if lanes is not None:
+            init = run = _sweep_only
         return cls(init=init, step=step, run=run, step_full=step_full)

@@ -40,50 +40,60 @@ from repro_torch.optim.base import apply_updates
 # shared oracle semantics over the Section 1.2 problem classes
 # ---------------------------------------------------------------------------
 
-def _problem_grad(problem, rnd, x, size):
+def _oracle(problem, name: str, lanes: bool):
+    """The problem's oracle ``name``, or its ``*_lanes`` form (G iterates
+    in, (G, n, d) out) for a lane substrate."""
+    return getattr(problem, name + "_lanes" if lanes else name)
+
+
+def _problem_grad(problem, rnd, x, size, lanes=False):
     """Finite-sum: the exact nabla f_i; stochastic: a fresh size-B batch."""
     if hasattr(problem, "full_grad"):
-        return problem.full_grad(x)
-    return problem.stoch_grad(x, rnd.samples(problem, size))
+        return _oracle(problem, "full_grad", lanes)(x)
+    return _oracle(problem, "stoch_grad", lanes)(x, rnd.samples(problem,
+                                                                size))
 
 
-def _problem_grad_pair(problem, rnd, x_new, x_old, size):
+def _problem_grad_pair(problem, rnd, x_new, x_old, size, lanes=False):
     """Same-sample gradients at two points (MVR / SARAH)."""
     samples = rnd.samples(problem, size)
     if hasattr(problem, "stoch_grad_pair"):
-        return problem.stoch_grad_pair(x_new, x_old, samples)
-    return (problem.minibatch_grad(x_new, samples),
-            problem.minibatch_grad(x_old, samples))
+        return _oracle(problem, "stoch_grad_pair", lanes)(x_new, x_old,
+                                                          samples)
+    minibatch_grad = _oracle(problem, "minibatch_grad", lanes)
+    return minibatch_grad(x_new, samples), minibatch_grad(x_old, samples)
 
 
-def _problem_grad_diff(problem, rnd, x_new, x_old, size):
+def _problem_grad_diff(problem, rnd, x_new, x_old, size, lanes=False):
     """Shared-sample difference (PAGE / MARINA).  ``size == 0`` requests the
     exact full-gradient difference (plain MARINA on finite sums)."""
     if hasattr(problem, "minibatch_diff"):
         if size == 0:
-            return problem.full_grad(x_new) - problem.full_grad(x_old)
-        return problem.minibatch_diff(x_new, x_old,
-                                      rnd.samples(problem, size))
-    gn, go = problem.stoch_grad_pair(x_new, x_old,
-                                     rnd.samples(problem, size))
+            full_grad = _oracle(problem, "full_grad", lanes)
+            return full_grad(x_new) - full_grad(x_old)
+        return _oracle(problem, "minibatch_diff", lanes)(
+            x_new, x_old, rnd.samples(problem, size))
+    gn, go = _oracle(problem, "stoch_grad_pair", lanes)(
+        x_new, x_old, rnd.samples(problem, size))
     return gn - go
 
 
-def _problem_megabatch(problem, rnd, x, size):
+def _problem_megabatch(problem, rnd, x, size, lanes=False):
     """The sync round's dense upload: exact gradient when the oracle has
     one, else a fresh B' megabatch."""
     if hasattr(problem, "full_grad"):
-        return problem.full_grad(x)
-    return problem.stoch_grad(x, rnd.samples(problem, size, tag="sync"))
+        return _oracle(problem, "full_grad", lanes)(x)
+    return _oracle(problem, "stoch_grad", lanes)(
+        x, rnd.samples(problem, size, tag="sync"))
 
 
-def _problem_grad_minibatch(problem, rnd, x, size):
+def _problem_grad_minibatch(problem, rnd, x, size, lanes=False):
     """An honest size-B minibatch gradient on either oracle (the Cor.
     6.8/6.10 B_init initialisation)."""
     samples = rnd.samples(problem, size, tag="init")
     if hasattr(problem, "stoch_grad"):
-        return problem.stoch_grad(x, samples)
-    return problem.minibatch_grad(x, samples)
+        return _oracle(problem, "stoch_grad", lanes)(x, samples)
+    return _oracle(problem, "minibatch_grad", lanes)(x, samples)
 
 
 # ---------------------------------------------------------------------------
@@ -101,9 +111,17 @@ class FlatSubstrate:
 
     #: the flat fused backend takes h_new as it is, so rules materialise it
     fuses_mvr = False
+    #: oracles take one iterate; a :class:`LaneFlatSubstrate` takes G
+    _lanes = False
 
     def with_compressor(self, comp: RoundCompressor) -> "FlatSubstrate":
         return dataclasses.replace(self, rc=comp)
+
+    def with_lanes(self, lanes: int) -> "LaneFlatSubstrate":
+        """This substrate with a leading lane axis of ``lanes`` on every
+        device field (a sweep's G lanes; see :class:`LaneFlatSubstrate`)."""
+        return LaneFlatSubstrate(self.problem, self.n, self.d, self.rc,
+                                 lanes=int(lanes))
 
     def place(self, x, device) -> torch.Tensor:
         """An iterate (or per-node rows) as float32 on ``device``."""
@@ -113,19 +131,22 @@ class FlatSubstrate:
 
     # -- oracle ops --------------------------------------------------------
     def grad(self, rnd, x, data=None, size: int = 1):
-        return _problem_grad(self.problem, rnd, x, size)
+        return _problem_grad(self.problem, rnd, x, size, self._lanes)
 
     def grad_pair(self, rnd, x_new, x_old, size: int, data=None):
-        return _problem_grad_pair(self.problem, rnd, x_new, x_old, size)
+        return _problem_grad_pair(self.problem, rnd, x_new, x_old, size,
+                                  self._lanes)
 
     def grad_diff(self, rnd, x_new, x_old, size: int, data=None):
-        return _problem_grad_diff(self.problem, rnd, x_new, x_old, size)
+        return _problem_grad_diff(self.problem, rnd, x_new, x_old, size,
+                                  self._lanes)
 
     def megabatch(self, rnd, x, size: int, data=None):
-        return _problem_megabatch(self.problem, rnd, x, size)
+        return _problem_megabatch(self.problem, rnd, x, size, self._lanes)
 
     def grad_minibatch(self, rnd, x, size: int, data=None):
-        return _problem_grad_minibatch(self.problem, rnd, x, size)
+        return _problem_grad_minibatch(self.problem, rnd, x, size,
+                                       self._lanes)
 
     # -- arithmetic --------------------------------------------------------
     def lin(self, fn: Callable, *tensors):
@@ -188,6 +209,33 @@ class FlatSubstrate:
         if getattr(p, "true_grad", None) is not None:
             return lambda s: torch.sum(p.true_grad(s.x) ** 2)
         return lambda s: torch.zeros((), device=s.x.device)
+
+
+@dataclasses.dataclass(frozen=True)
+class LaneFlatSubstrate(FlatSubstrate):
+    """G lanes of a :class:`FlatSubstrate` side by side, for a sweep: the
+    iterate and server estimator are (G, d), the per-node fields (G, n, d).
+
+    * the oracles are the problem's ``*_lanes`` entry points, which read
+      the features once for all lanes (:mod:`repro_torch.core.oracles`);
+      every lane shares the round's samples, as G sequential runs from
+      one seed draw the same ones;
+    * the round draws ONE compression plan, shared by every lane, and the
+      backends broadcast its (n, d) support over the lane axis: the fused
+      backend updates all G * n rows in one kernel launch;
+    * a hyperparameter that varies by lane is a
+      :class:`repro_torch.methods.lanes.Lanes`, which meets lane j's rows
+      with lane j's value (the server step ``x - gamma * g`` included).
+    """
+
+    lanes: int = 1
+    _lanes = True
+
+    def with_lanes(self, lanes: int) -> "LaneFlatSubstrate":
+        return dataclasses.replace(self, lanes=int(lanes))
+
+    def mean_nodes(self, per_node):
+        return per_node.mean(-2)
 
 
 # ---------------------------------------------------------------------------
@@ -364,6 +412,11 @@ class SampledFlatSubstrate(FlatSubstrate):
     @property
     def samples_clients(self) -> bool:
         return self.c < self.n
+
+    def with_lanes(self, lanes: int):
+        raise NotImplementedError(
+            "sweeps (a lane axis) on the sampled-client substrate are not "
+            "ported yet; sweep a FlatSubstrate")
 
     @property
     def participation_frac(self) -> float:
@@ -581,6 +634,11 @@ class TreeSubstrate:
                 "LeafSpecCompressor) are not ported yet; pass a "
                 "TreeCompression")
         return dataclasses.replace(self, comp=comp)
+
+    def with_lanes(self, lanes: int):
+        raise NotImplementedError(
+            "sweeps (a lane axis) on the tree substrate are not ported yet; "
+            "sweep a FlatSubstrate")
 
     @property
     def fuses_mvr(self) -> bool:

@@ -1,0 +1,125 @@
+"""The port's paper benchmarks (``repro_torch.bench``) on the CPU.
+
+* ``table1`` equals the reference's ``benchmarks.table1_complexity.run()``
+  row for row, string for string;
+* fig1 at its full 800 rounds: DASHA reaches eps in fewer coords than
+  MARINA (``speedup_dasha_over_marina`` > 1);
+* fig5 at its full 3,000 rounds: the larger momentum's floor lies above
+  the theory momentum's (``floor_ordering == "ok"``);
+* fig2, fig3 and ``run.py --only`` smoke-run at reduced rounds, with
+  finite rows of the reference's columns;
+* the quickstart at 50 rounds ends below its x0 ||grad f||^2;
+* ``sweep_tune`` keeps the best finite lane.
+"""
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from benchmarks import table1_complexity as ref_table1
+from repro_torch.bench import (common, fig1_gradient, fig2_finite_sum,
+                               fig3_stochastic, fig5_quadratic_pl,
+                               quickstart, table1_complexity)
+from repro_torch.bench import run as bench_run
+from repro_torch.methods import Hyper
+
+torch.set_num_threads(1)
+
+
+def _finite(rows, column):
+    return all(math.isfinite(float(r[column])) for r in rows)
+
+
+def test_table1_equals_the_reference_row_for_row():
+    got = table1_complexity.run()
+    want = ref_table1.run()
+    assert [{k: str(v) for k, v in r.items()} for r in got] == \
+        [{k: str(v) for k, v in r.items()} for r in want]
+
+
+def test_fig1_dasha_reaches_eps_in_fewer_coords_than_marina():
+    rows = fig1_gradient.run(device="cpu")
+    assert list(rows[0]) == ["bench", "method", "gamma", "grad_sq_final",
+                             "coords_to_eps", "rounds", "k", "d", "n"]
+    assert [r["method"] for r in rows] == ["dasha", "marina",
+                                          "speedup_dasha_over_marina"]
+    assert _finite(rows[:2], "coords_to_eps")
+    assert rows[2]["coords_to_eps"] > 1.0
+
+
+def test_fig5_floors_order_as_the_analysis_says():
+    rows = fig5_quadratic_pl.run(device="cpu")
+    assert list(rows[0]) == ["bench", "momentum", "b", "gamma",
+                             "grad_sq_floor"]
+    assert _finite(rows[:2], "grad_sq_floor")
+    assert rows[2]["momentum"] == "floor_ordering"
+    assert rows[2]["grad_sq_floor"] == "ok"
+
+
+def test_fig2_smoke_run():
+    rows = fig2_finite_sum.run(device="cpu", rounds_scale=0.05)
+    assert list(rows[0]) == ["bench", "k", "method", "gamma",
+                             "grad_sq_tail", "coords_sent"]
+    assert [(r["k"], r["method"]) for r in rows] == [
+        (k, m) for k in (2, 10, 30) for m in ("dasha_page", "vr_marina")]
+    assert _finite(rows, "grad_sq_tail") and _finite(rows, "coords_sent")
+
+
+def test_fig3_smoke_run():
+    rows = fig3_stochastic.run(device="cpu", rounds_scale=0.02)
+    assert list(rows[0]) == ["bench", "ratio", "k", "method", "gamma",
+                             "grad_sq_tail", "coords_sent"]
+    assert len(rows) == 12
+    assert {r["method"] for r in rows} == {"dasha_mvr", "dasha_sync_mvr",
+                                           "vr_marina_online"}
+    assert _finite(rows, "grad_sq_tail") and _finite(rows, "coords_sent")
+
+
+def test_run_only_selects_by_prefix_and_prints_csv(capsys):
+    assert bench_run.main(["--only", "table1,fig5", "--device", "cpu",
+                           "--rounds-scale", "0.01"]) == 0
+    out = capsys.readouterr().out
+    assert "=== fig5_quadratic_pl ===" in out
+    assert "=== table1_complexity ===" in out
+    assert "=== fig1_gradient ===" not in out
+    assert "bench,momentum,b,gamma,grad_sq_floor" in out
+    assert "bench,eps,omega,method,rounds,comm_coords" in out
+    with pytest.raises(SystemExit, match="no bench matches"):
+        bench_run.main(["--only", "fig9", "--device", "cpu"])
+
+
+def test_quickstart_ends_below_its_start(monkeypatch, capsys):
+    monkeypatch.setenv("REPRO_EXAMPLE_ROUNDS", "50")
+    out = quickstart.main(["--device", "cpu"])
+    assert out["rounds"] == 50
+    assert out["grad_sq_final"] < out["grad_sq_x0"]
+    assert out["bits_sent"] == 60 + 50 * 10
+    assert "final ||grad f||^2" in capsys.readouterr().out
+
+
+def test_sweep_tune_keeps_the_best_finite_lane():
+    """A grid whose largest stepsizes diverge: the tune keeps the lane with
+    the smallest finite final metric, and reports its gamma."""
+    problem = common.glm_problem(20, 16, device="cpu")
+    comp = common.randk_compressor(20, 4, device="cpu")
+    metric = common.problem_metric(problem)
+
+    def method_fn(gamma):
+        return common.build_method("dasha", problem, comp,
+                                   Hyper(gamma=gamma, a=0.2))
+
+    gammas = np.array([0.5, 2.0, 1e4, 1e8])
+    st = method_fn(0.0).init(torch.zeros(20), 1, device="cpu")
+    best = common.sweep_tune(method_fn, gammas, st, 30, metric_fn=metric)
+    finals = []
+    for g in gammas:
+        _, tr = common.Sweeper(method_fn, metrics={
+            "m": common.metric_of_state(metric)}).run(
+            np.array([g]), st, 30, device="cpu")
+        finals.append(float(tr["m"][0, -1]))
+    finite = [f if math.isfinite(f) else math.inf for f in finals]
+    assert best["index"] == int(np.argmin(finite))
+    assert best["gamma"] == gammas[best["index"]]
+    assert best["final"] == pytest.approx(min(finite), rel=1e-6)
+    assert best["bits"].shape == (30,)

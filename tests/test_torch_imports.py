@@ -57,7 +57,12 @@ def test_import_scan_covers_the_slice():
                 "optim/distributed.py", "launch/train.py",
                 "kernels/ssd_chunk.py", "launch/serve.py",
                 "kernels/slab_writeback.py", "fed/__init__.py", "fed/net.py",
-                "fed/wire.py", "fed/sim.py", "fed/vecsim.py"):
+                "fed/wire.py", "fed/sim.py", "fed/vecsim.py",
+                "methods/lanes.py", "bench/__init__.py", "bench/common.py",
+                "bench/fig1_gradient.py", "bench/fig2_finite_sum.py",
+                "bench/fig3_stochastic.py", "bench/fig5_quadratic_pl.py",
+                "bench/table1_complexity.py", "bench/quickstart.py",
+                "bench/run.py"):
         assert mod in names
     for src in ("dasha_update.cu", "ssd_chunk.cu", "slab_writeback.cu"):
         assert (ROOT / "src/repro_torch/kernels/csrc" / src).exists()
@@ -91,11 +96,14 @@ def _entry_points():
     from repro_torch.configs import get_smoke_config
     from repro_torch.data.pipeline import (SyntheticTextConfig, make_lm_batch,
                                            make_node_batches)
+    from repro_torch.bench import common as bench_common
+    from repro_torch.bench import quickstart
+    from repro_torch.bench import run as bench_run
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch import train as train_mod
     from repro_torch.fed import FedSim, VecFedSim, simulate
     from repro_torch.methods import (FlatSubstrate, Hyper, Method,
-                                     SampledFlatSubstrate)
+                                     SampledFlatSubstrate, Sweeper)
     from repro_torch.models import init_params, lm
 
     def method_init():
@@ -132,6 +140,13 @@ def _entry_points():
         "StochasticProblem": lambda: StochasticProblem(
             loss=None, sample=None, n=2),
         "Method.init": method_init,
+        "Sweeper.run": lambda: Sweeper(lambda v: None).run(
+            np.array([0.1, 0.2]), {"x": torch.zeros(4)}, 1),
+        "bench.glm_problem": lambda: bench_common.glm_problem(),
+        "bench.logreg_nonconvex_problem": lambda:
+            bench_common.logreg_nonconvex_problem(),
+        "bench.quickstart": lambda: quickstart.main([]),
+        "bench.run": lambda: bench_run.main(["--only", "table1"]),
         "VecFedSim.init": vecsim_init,
         "FedSim.init": fedsim_init,
         "simulate": lambda: simulate(*fed_args(), torch.zeros(4), 0,
@@ -169,7 +184,9 @@ def _entry_points():
 
 
 ENTRY_POINTS = ["FedSim.init", "Method.init", "StochasticProblem",
-                "VecFedSim.init",
+                "Sweeper.run", "VecFedSim.init", "bench.glm_problem",
+                "bench.logreg_nonconvex_problem", "bench.quickstart",
+                "bench.run",
                 "convert.cache_from_numpy", "convert.params_from_numpy",
                 "convert.plan_from_numpy", "convert.problem_from_numpy",
                 "convert.state_from_numpy", "convert.tree_state_from_numpy",
