@@ -113,7 +113,37 @@ Phases, each fatal on failure:
     against its plain version at the sweep's (40, 20958) rows, and the
     port's fig1, fig5 and table1 at the reference's rounds, fig2 at half
     and fig3 at a tenth of theirs (``FIG_ROUNDS_SCALE``), their rows printed
-    (gates: fig1's DASHA-over-MARINA speedup > 1, fig5's floor ordering).
+    (gates: fig1's DASHA-over-MARINA speedup > 1, fig5's floor ordering);
+15. faulted campaigns at the real-sim width — ``repro_torch.fed.faults``
+    through the engine's ``faults=`` hook, with benchmarks/
+    fed_faults_bench.py's configuration widened to real-sim's features: n =
+    20 clients x m = 3,615 samples x d = 20,958 (data made on the card),
+    fused RandK K = 100, uplink 1e6 B/s, downlink 1e8 B/s, 1 ms latency,
+    no compute time, p_crash 0.02 for 2 rounds, deadline 3x, fault seed 7.
+    (a) ``bench.fed_faults.degradation_sweep`` through VecFedSim: the drop
+    grid {0, 0.05, 0.1, 0.2} x {dasha, marina}, 240 rounds each, with the
+    bench's four gates (MARINA's metric and final x bit-identical across
+    the grid, DASHA finite and within 10x of its fault-free metric, DASHA's
+    wall-clock inflation <= 3, MARINA paying more time, bytes and > 0
+    retries at 20% loss), every campaign dropping some round, kernel 1
+    once a round, and a profiled chunk; (b) heap == vec, 40 rounds each:
+    dasha under the tests' FM_MIXED (reset rejoins) and marina under
+    FM_SYNC, every arriving upload verified and every corrupted one caught
+    by the wire checksum; gates: integer traces equal, wall clock within
+    2e-6 and metric within 1e-4 relative, ||g - mean g_i|| <= 1e-5 ||g||
+    after the reset campaign, and a planted fault (drop_up one round
+    late) failing the integer gate; (c) the same for dasha with fused
+    QDither s = 15 (kernel 2); (e) the dasha FM_MIXED campaign once more,
+    each engine step held against the faulted DASHA round written out by
+    hand on the step's own input state and masks (x, g, g_local, h_local
+    within 1e-3 of how far the round could move each row; a planted
+    fault, a dropped client's round committed, must fail it); the absolute
+    peak gated at 8 GB; kernels 1 (the campaigns' a and d/K on a real RandK
+    mask, bit-equal) and 2 (s = 15, the one-level rule) against their
+    plain versions at the campaigns' (20, 20958) rows; (d) card vs CPU at
+    n = 5, m = 32, d = 40: faulted dasha and marina through both
+    simulators with the same injected draws (integer traces equal, metric,
+    wall clock and final x within 1e-4).
 
 Every phase that drives a main path zeroes the launch counters just before
 it and reads them just after; a kernel of that path that never launched
@@ -201,6 +231,21 @@ SWEEP_STATE = ("x", "g", "g_local", "h_local")
 FIG_ROUNDS_SCALE = {"fig1_gradient": 1.0, "fig2_finite_sum": 0.5,
                     "fig3_stochastic": 0.1, "fig5_quadratic_pl": 1.0,
                     "table1_complexity": 1.0}
+# the faulted campaigns (phase 15): benchmarks/fed_faults_bench.py's
+# configuration widened to real-sim's features — n = 20 clients (the
+# bench's N) x m = 3,615 samples (72,300 of real-sim's 72,309 rows), d =
+# 20,958, fused RandK K = 100, the bench's links, crash process and
+# deadline; its drop grid at its 240 rounds, then heap == vec campaigns
+# of 40 rounds, and card vs CPU at (n, m, d) = FAULT_SMALL
+FAULT_N, FAULT_M, FAULT_ROUNDS, FAULT_EQ_ROUNDS = 20, 3615, 240, 40
+FAULT_PEAK_GB, FAULT_SMALL, FAULT_SMALL_K = 8.0, (5, 32, 40), 6
+# heap against vec: wall clock (the vec's float32 delays) and metric, the
+# reference's tests' tolerances; the reset campaign's server invariant
+FAULT_WALL_RTOL, FAULT_METRIC_RTOL, FAULT_INVARIANT = 2e-6, 1e-4, 1e-5
+# the faulted DASHA round against the one written out by hand: each row's
+# error in units of the most that round could move the row (a dropped
+# client's round committed, or a reset missed, is ~1 there)
+FAULT_HAND_LIMIT = 1e-3
 
 
 def log(msg: str) -> None:
@@ -1353,9 +1398,6 @@ def phase_fed_main(torch, smi: str):
     from repro_torch.core.oracles import FiniteSumProblem
     from repro_torch.data.pipeline import synthetic_classification
     from repro_torch.fed.net import campaign_streams
-    from repro_torch.kernels import dasha_update as kern
-    from repro_torch.kernels import slab_writeback as slab_kern
-    from repro_torch.kernels import ssd_chunk as ssd_kern
 
     n, m, d, c, rounds = FED_N, 1, D_REALSIM, FED_C, FED_ROUNDS
     torch.cuda.empty_cache()
@@ -1386,14 +1428,12 @@ def phase_fed_main(torch, smi: str):
 
     # the timed run: nothing but the campaign
     torch.cuda.reset_peak_memory_stats()
-    kern.reset_counts()
-    slab_kern.reset_counts()
-    ssd_kern.reset_counts()
+    _reset_launch_counts()
     t0 = time.perf_counter()
     res = sim.run(state, rounds, metric_fn=metric)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {**kern.COUNTS, **slab_kern.COUNTS, **ssd_kern.COUNTS}
+    counts = _launch_counts()
     peak = torch.cuda.max_memory_allocated()
 
     tr = res.traces
@@ -1769,9 +1809,6 @@ def _heap_campaigns(torch, smi: str):
     from repro_torch.core.oracles import FiniteSumProblem
     from repro_torch.data.pipeline import synthetic_classification
     from repro_torch.fed import FedSim
-    from repro_torch.kernels import dasha_update as kern
-    from repro_torch.kernels import slab_writeback as slab_kern
-    from repro_torch.kernels import ssd_chunk as ssd_kern
     from repro_torch.methods import Driver, FlatSubstrate, Hyper
 
     n, m, d, k, rounds = N_NODES, M_REALSIM, D_REALSIM, K_RANDK, HEAP_ROUNDS
@@ -1822,8 +1859,7 @@ def _heap_campaigns(torch, smi: str):
         make(name, 1.0).run(state, 4, metric_fn=metric)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for mod in (kern, slab_kern, ssd_kern):
-        mod.reset_counts()
+    _reset_launch_counts()
     runs = {}
     for name, sigma in campaigns:
         sim = make(name, sigma)
@@ -1833,7 +1869,7 @@ def _heap_campaigns(torch, smi: str):
         wall = time.perf_counter() - t0
         _unwatch_heap(sim)
         runs[name, sigma] = (res, wall, clock, sim)
-    counts = {**kern.COUNTS, **slab_kern.COUNTS, **ssd_kern.COUNTS}
+    counts = _launch_counts()
     peak = torch.cuda.max_memory_allocated()
 
     fused_randk = sum(1 for name, _ in campaigns if name != "dasha_qdither")
@@ -1977,9 +2013,6 @@ def _heap_sampled(torch, smi: str):
     import numpy as np
     from repro_torch.core.oracles import FiniteSumProblem
     from repro_torch.data.pipeline import synthetic_classification
-    from repro_torch.kernels import dasha_update as kern
-    from repro_torch.kernels import slab_writeback as slab_kern
-    from repro_torch.kernels import ssd_chunk as ssd_kern
 
     n, c, d, rounds = HEAP_N, FED_C, D_REALSIM, HEAP_SAMPLED_ROUNDS
     feats, labels = synthetic_classification(1, n, 1, d, device="cuda")
@@ -1999,14 +2032,13 @@ def _heap_sampled(torch, smi: str):
 
     heap.run(state, 4, metric_fn=metric)              # warm-up
     torch.cuda.synchronize()
-    for mod in (kern, slab_kern, ssd_kern):
-        mod.reset_counts()
+    _reset_launch_counts()
     clock = _watch_heap(heap, rounds, gate=False)
     t0 = time.perf_counter()
     rh = heap.run(state, rounds, metric_fn=metric, log_events=True)
     wall = time.perf_counter() - t0
     _unwatch_heap(heap)
-    counts = {**kern.COUNTS, **slab_kern.COUNTS, **ssd_kern.COUNTS}
+    counts = _launch_counts()
     chunks = -(-rounds // FED_CHUNK)
     if counts["slab_writeback"] != 2 * chunks or \
             sum(counts.values()) != 2 * chunks:
@@ -2272,9 +2304,6 @@ def _sweep_method(torch, smi: str, variant, problem, comp, gammas, g0):
     from repro_torch.bench import common as bc
     from repro_torch.bench.fig1_gradient import TARGET_FRAC, bits_to_target
     from repro_torch.core import theory
-    from repro_torch.kernels import dasha_update as kern
-    from repro_torch.kernels import slab_writeback as slab_kern
-    from repro_torch.kernels import ssd_chunk as ssd_kern
     from repro_torch.methods import Hyper, Sweeper
 
     d, k, G, rounds = comp.spec.d, K_RANDK, len(gammas), SWEEP_ROUNDS
@@ -2293,14 +2322,12 @@ def _sweep_method(torch, smi: str, variant, problem, comp, gammas, g0):
     sweeper.run(gammas, state, 3, device="cuda")     # warm-up: cuBLAS
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    counters = (kern, slab_kern, ssd_kern)
-    for mod in counters:
-        mod.reset_counts()
+    _reset_launch_counts()
     t0 = time.perf_counter()
     _, tr = sweeper.run(gammas, state, rounds, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {name: c for mod in counters for name, c in mod.COUNTS.items()}
+    counts = _launch_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
     gs, bits = tr["grad_sq"], tr["bits_sent"]
     if gs.shape != (G, rounds) or bits.shape != (G, rounds):
@@ -2403,10 +2430,11 @@ def _figures(torch, smi: str):
     their rows printed; fig1's speedup must exceed 1 and fig5's floors
     must order as the analysis says."""
     import importlib
-    from repro_torch.bench import run as bench_run
     from repro_torch.bench.common import emit
     out = {}
-    for name in bench_run.BENCHES:
+    # the fault bench (bench_run.BENCHES' last) runs in phase 15, at the
+    # real-sim width
+    for name in FIG_ROUNDS_SCALE:
         mod = importlib.import_module(f"repro_torch.bench.{name}")
         t0 = time.perf_counter()
         rows = mod.run(device="cuda", rounds_scale=FIG_ROUNDS_SCALE[name])
@@ -2474,6 +2502,587 @@ def phase_sweep(torch, smi: str):
         launches, row
 
 
+def _gate_launches(tag: str, counts: dict, want: dict) -> None:
+    """Every wanted kernel launched exactly as often as wanted, and no
+    other kernel at all."""
+    if any(counts[k] != v for k, v in want.items()) or \
+            sum(counts.values()) != sum(want.values()):
+        raise AssertionError(f"[{tag}] launches {counts}, expected {want}")
+
+
+def _launch_counts():
+    from repro_torch.kernels import dasha_update as kern
+    from repro_torch.kernels import slab_writeback as slab_kern
+    from repro_torch.kernels import ssd_chunk as ssd_kern
+    return {**kern.COUNTS, **slab_kern.COUNTS, **ssd_kern.COUNTS}
+
+
+def _reset_launch_counts():
+    from repro_torch.kernels import dasha_update as kern
+    from repro_torch.kernels import slab_writeback as slab_kern
+    from repro_torch.kernels import ssd_chunk as ssd_kern
+    for mod in (kern, slab_kern, ssd_kern):
+        mod.reset_counts()
+
+
+def _fault_models(clock):
+    """Two FaultModel subclasses: one that adds the host seconds of its
+    campaign draw to ``clock["faults_s"]``, and the planted fault, whose
+    campaign has its ``drop_up`` shifted by one round."""
+    import numpy as np
+    from repro_torch.fed import FaultModel
+
+    @dataclasses.dataclass(frozen=True)
+    class Timed(FaultModel):
+        def draw_campaign(self, rounds, n, *, retries=False):
+            t0 = time.perf_counter()
+            out = super().draw_campaign(rounds, n, retries=retries)
+            clock["faults_s"] += time.perf_counter() - t0
+            return out
+
+    @dataclasses.dataclass(frozen=True)
+    class Shifted(FaultModel):
+        def draw_campaign(self, rounds, n, *, retries=False):
+            fc = super().draw_campaign(rounds, n, retries=retries)
+            return fc._replace(drop_up=np.roll(fc.drop_up, 1, axis=0))
+
+    return Timed, Shifted
+
+
+def _watch_faulted_heap(sim, clock):
+    """Instrument one faulted FedSim instance: host seconds in the engine's
+    chunks and in the codec plus the integrity drill, and the uploads the
+    drill verified and the corrupted ones it caught (it raises on a miss).
+    :func:`_unwatch_heap`'s counterpart removes the attributes again."""
+    run_chunk, round_wire = sim._run_chunk, sim._round_wire
+    verify = sim._verify_round_buffers
+
+    def timed_chunk(*args):
+        t0 = time.perf_counter()
+        out = run_chunk(*args)
+        clock["engine_s"] += time.perf_counter() - t0
+        return out
+
+    def timed_wire(*args, **kw):
+        t0 = time.perf_counter()
+        out = round_wire(*args, **kw)
+        clock["codec_s"] += time.perf_counter() - t0
+        return out
+
+    def timed_verify(bufs, t, senders, fc):
+        t0 = time.perf_counter()
+        verify(bufs, t, senders, fc)
+        clock["codec_s"] += time.perf_counter() - t0
+        arrive = senders & ~fc.drop_up[t]
+        clock["verified"] += int(arrive.sum())
+        clock["caught"] += int((arrive & fc.corrupt[t]).sum())
+
+    sim._run_chunk, sim._round_wire = timed_chunk, timed_wire
+    sim._verify_round_buffers = timed_verify
+
+
+def _unwatch_faulted_heap(sim):
+    del sim._run_chunk, sim._round_wire, sim._verify_round_buffers
+
+
+def _faults_sweep(torch, smi: str, problem):
+    """Phase 15a: fed_faults_bench's degradation sweep through VecFedSim at
+    the real-sim width, fused RandK K = 100 (kernel 1): the drop grid
+    {0, 0.05, 0.1, 0.2} x {dasha, marina}, 240 rounds each, ||grad f||^2
+    every round.  Gates: the bench's four, every campaign dropped some
+    round, kernel 1 once a round; then a profiled 128-round chunk."""
+    from repro_torch.bench import common as bc
+    from repro_torch.bench import fed_faults as ff
+    from repro_torch.compress import make_round_compressor
+    from repro_torch.methods import FlatSubstrate
+
+    n, m, d = (int(v) for v in problem.features.shape)
+    rounds, k = FAULT_ROUNDS, K_RANDK
+    kw = dict(k=k, backend="fused", device="cuda")
+    ff.degradation_sweep(problem, rounds=2, **kw)   # warm-up, not counted
+    torch.cuda.synchronize()
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = ff.degradation_sweep(problem, rounds=rounds, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _launch_counts()
+    campaigns = len(ff.DROP_GRID) * 2
+    _gate_launches("faults", counts, {"dasha_update": campaigns * rounds})
+    gates = ("marina_math_invariant", "dasha_metric_within_factor",
+             "dasha_wall_bounded_by_deadline",
+             "marina_pays_in_time_and_bytes", "graceful_degradation_ok")
+    failed = [g for g in gates if rep[g] is not True]
+    if failed:
+        raise AssertionError(f"[faults] degradation gates failed: {failed}; "
+                             f"wall inflation {rep['wall_inflation']}")
+    rows = []
+    for g in rep["grid"]:
+        for v in ("dasha", "marina"):
+            r = g[v]
+            if not r["dropped_rounds"] > 0:
+                raise AssertionError(f"[faults] {v} at p_drop "
+                                     f"{g['p_drop_up']}: no round dropped "
+                                     "a client")
+            rows.append({"variant": v, "p_drop_up": g["p_drop_up"],
+                         "rounds_per_s": rounds / r["host_s"], **r})
+    # where a chunk's time goes: a dasha chunk at 10% loss
+    sub = FlatSubstrate(problem, n, d)
+    rc = make_round_compressor("randk", d, n, **kw)
+    hp = bc.theory_hyper("dasha", rc.omega, bc.lipschitz_glm(problem), d=d,
+                         k=k, n=n, m=m)
+    table, pwall = profiled(torch, lambda: ff.run_campaign(
+        "dasha", rc, sub, hp, ff.fault_model(0.1), FED_CHUNK))
+    busy = sum(t for _, t in table.values()) / 1e6
+    top = sorted(table.items(), key=lambda kv: -kv[1][1])[:8]
+    out = {**{k_: v for k_, v in rep.items() if k_ != "grid"},
+           "campaigns": rows, "wall_s": wall, "launches": counts,
+           "profiled_chunk": {
+               "campaign": "dasha p_drop_up=0.1", "rounds": FED_CHUNK,
+               "wall_s": pwall, "device_busy_s": busy,
+               "busy_share": busy / pwall,
+               "top_kernels": [[k_[:90], c, us / 1e3]
+                               for k_, (c, us) in top]}}
+    for r in rows:
+        log(f"[faults] {r['variant']} p_drop_up={r['p_drop_up']}: {rounds} "
+            f"rounds in {r['host_s']:.3f} s = {r['rounds_per_s']:.1f} "
+            f"rounds/s; simulated {r['wall_clock_s']:.4f} s, "
+            f"{r['bytes_up']} bytes up ({r['wasted_bytes_up']} wasted), "
+            f"{r['dropped_rounds']} rounds dropped a client, "
+            f"{r['retries']} retries, final ||grad f||^2 "
+            f"{r['final_metric']:.6e} | {smi}")
+    log(f"[faults] wall inflation {rep['wall_inflation']}; gates "
+        f"{ {g: rep[g] for g in gates} }; launches {counts}")
+    log(f"[faults] profiled dasha chunk: {pwall * 1e3:.1f} ms wall, device "
+        f"busy {busy / pwall:.3f} | {smi}")
+    for k_, c, ms in out["profiled_chunk"]["top_kernels"]:
+        log(f"[faults]   {ms:9.3f} ms  x{c:<5d} {k_}")
+    return out, counts
+
+
+def _faults_heap_vec(torch, smi: str, problem):
+    """Phase 15b and 15c: heap == vec at the real-sim width, 40 rounds a
+    campaign: dasha under the tests' FM_MIXED (reset rejoins) and marina
+    under FM_SYNC with fused RandK (kernel 1), and dasha under FM_MIXED
+    with fused QDither s = 15 (kernel 2).  Every arriving upload is
+    verified and every corrupted one caught (FedSim's drill raises on a
+    miss).  Gates: the integer traces equal, the wall clock within 2e-6
+    and the metric within 1e-4 relative, ||g - mean_i g_i|| <= 1e-5 ||g||
+    after a reset campaign; a planted fault (drop_up shifted by a round)
+    must fail the integer gate."""
+    from repro_torch.bench import common as bc
+    from repro_torch.bench import fed_faults as ff
+    from repro_torch.compress import make_round_compressor
+    from repro_torch.fed import FedSim, VecFedSim
+    from repro_torch.methods import FlatSubstrate
+
+    n, m, d = (int(v) for v in problem.features.shape)
+    rounds, k = FAULT_EQ_ROUNDS, K_RANDK
+    sub = FlatSubstrate(problem, n, d)
+    L = bc.lipschitz_glm(problem)
+    clock = {"faults_s": 0.0, "engine_s": 0.0, "codec_s": 0.0,
+             "verified": 0, "caught": 0}
+    Timed, Shifted = _fault_models(clock)
+    comps = {"randk": make_round_compressor("randk", d, n, k=k,
+                                            backend="fused", device="cuda"),
+             "qdither": make_round_compressor("qdither", d, n, s=S_QDITHER,
+                                              backend="fused",
+                                              device="cuda")}
+    campaigns = [("dasha", "randk", "dasha"), ("marina", "randk", "marina"),
+                 ("dasha", "qdither", "dasha")]
+
+    def make(cls, variant, comp, fm):
+        hp = bc.theory_hyper(variant, comps[comp].omega, L, d=d, k=k, n=n,
+                             m=m)
+        return cls(variant, comps[comp], sub, hp, compute_s=0.0,
+                   seed=ff.NET_SEED, faults=fm, **ff.links())
+
+    state = make(FedSim, "dasha", "randk", None).init(
+        torch.zeros(d, device="cuda"), 1, device="cuda")
+    for variant, comp, fkey in campaigns:            # warm-up, not counted
+        for cls in (FedSim, VecFedSim):
+            make(cls, variant, comp,
+                 Timed(**ff.EQUIV_FAULTS[fkey])).run(state, 2)
+    torch.cuda.synchronize()
+    _reset_launch_counts()
+    rows, results = [], {}
+    for variant, comp, fkey in campaigns:
+        fkw = ff.EQUIV_FAULTS[fkey]
+        for key in clock:
+            clock[key] = 0 if isinstance(clock[key], int) else 0.0
+        heap = make(FedSim, variant, comp, Timed(**fkw))
+        _watch_faulted_heap(heap, clock)
+        t0 = time.perf_counter()
+        rh = heap.run(state, rounds)
+        hwall = time.perf_counter() - t0
+        _unwatch_faulted_heap(heap)
+        split = dict(clock)
+        t0 = time.perf_counter()
+        rv = make(VecFedSim, variant, comp, Timed(**fkw)).run(state, rounds)
+        torch.cuda.synchronize()
+        vwall = time.perf_counter() - t0
+        cmp = ff.compare_heap_vec(rh, rv)
+        tag = f"[faults] heap vs vec {variant} {comp}"
+        if not cmp["integer_traces_bit_exact"]:
+            bad = [t for t, ok in cmp["integer_traces"].items() if not ok]
+            raise AssertionError(f"{tag}: integer traces differ: {bad}")
+        if not (cmp["wall_clock_rel_err"] <= FAULT_WALL_RTOL
+                and cmp["metric_rel_err"] <= FAULT_METRIC_RTOL):
+            raise AssertionError(f"{tag}: wall clock rel err "
+                                 f"{cmp['wall_clock_rel_err']}, metric "
+                                 f"{cmp['metric_rel_err']}")
+        if not (rh.summary["dropped_rounds"] > 0 and split["caught"] > 0):
+            raise AssertionError(f"{tag}: no dropped round or no corrupted "
+                                 f"upload caught ({split})")
+        invariant = {}
+        if fkw.get("rejoin") == "reset":
+            if not rh.traces["rejoins"].sum() > 0:
+                raise AssertionError(f"{tag}: no reset rejoin")
+            for eng, res in (("heap", rh), ("vec", rv)):
+                g = res.state.g
+                gap = float(torch.linalg.vector_norm(
+                    g - res.state.g_local.mean(0))
+                    / torch.linalg.vector_norm(g))
+                invariant[eng] = gap
+                if not gap <= FAULT_INVARIANT:
+                    raise AssertionError(f"{tag}: ||g - mean g_i|| = "
+                                         f"{gap:.3g} ||g|| on the {eng}")
+        results[variant, comp] = rh
+        row = {"variant": variant, "compressor": comp, "faults": fkw,
+               "rounds": rounds, "heap_wall_s": hwall,
+               "heap_rounds_per_s": rounds / hwall,
+               "vec_wall_s": vwall, "vec_rounds_per_s": rounds / vwall,
+               "heap_ms_per_round": {
+                   "fault_realization": split["faults_s"] / rounds * 1e3,
+                   "engine": split["engine_s"] / rounds * 1e3,
+                   "codec_and_verify": split["codec_s"] / rounds * 1e3,
+                   "rest": (hwall - split["faults_s"] - split["engine_s"]
+                            - split["codec_s"]) / rounds * 1e3},
+               "uploads_verified": split["verified"],
+               "corrupted_caught": split["caught"],
+               "dropped_rounds": rh.summary["dropped_rounds"],
+               "retries": rh.summary["retries"],
+               "sim_wall_clock_s": rh.summary["wall_clock_s"],
+               "wall_clock_rel_err": cmp["wall_clock_rel_err"],
+               "metric_rel_err": cmp["metric_rel_err"],
+               "server_invariant": invariant}
+        rows.append(row)
+        hm = row["heap_ms_per_round"]
+        log(f"{tag}: {rounds} rounds, heap {row['heap_rounds_per_s']:.1f} "
+            f"rounds/s (host ms a round: faults "
+            f"{hm['fault_realization']:.3f}, engine {hm['engine']:.3f}, "
+            f"codec+verify {hm['codec_and_verify']:.3f}, rest "
+            f"{hm['rest']:.3f}), vec {row['vec_rounds_per_s']:.1f} rounds/s;"
+            f" integer traces equal, wall rel err "
+            f"{cmp['wall_clock_rel_err']:.3g}, metric rel err "
+            f"{cmp['metric_rel_err']:.3g}; {split['verified']} uploads "
+            f"verified, {split['caught']} corrupted caught; "
+            f"{int(rh.summary['dropped_rounds'])} rounds dropped a client, "
+            f"{int(rh.summary['retries'])} retries; invariant {invariant} "
+            f"| {smi}")
+    # the planted fault: the vec simulator on a campaign whose drop_up is
+    # one round late must fail the integer gate
+    planted = make(VecFedSim, "dasha", "randk",
+                   Shifted(**ff.EQUIV_FAULTS["dasha"])).run(state, rounds)
+    cmp = ff.compare_heap_vec(results["dasha", "randk"], planted)
+    if cmp["integer_traces_bit_exact"]:
+        raise AssertionError("[faults] the planted fault (drop_up one "
+                             "round late) passed the integer-trace gate")
+    caught = sorted(t for t, ok in cmp["integer_traces"].items() if not ok)
+    log(f"[faults] planted fault (drop_up one round late) fails the "
+        f"integer gate on {caught}")
+    counts = _launch_counts()
+    fused_randk = 2 * 2 + 1            # heap and vec x 2, and the planted
+    _gate_launches("faults", counts, {"dasha_update": fused_randk * rounds,
+                                      "quantize": 2 * rounds})
+    return {"campaigns": rows, "planted_fault_fails_on": caught,
+            "launches": counts}, counts
+
+
+def _faults_kernel_rows(torch, smi: str, problem):
+    """Phase 15 kernel rows: kernels 1 and 2 against their plain versions
+    at the faulted campaigns' (n, d) rows, gated as phase 2 gates them
+    (kernel 1 bit-equal, kernel 2 the one-level rule): kernel 1 on a real
+    round's RandK mask at the plan scale d/K with the campaigns' momentum
+    a, kernel 2 at s = 15."""
+    from repro_torch.bench import common as bc
+    from repro_torch.compress import make_round_compressor
+    from repro_torch.compress.plan import indices_to_masks
+    from repro_torch.core.rng import RoundRandom
+    from repro_torch.kernels import dasha_update as kern
+    from repro_torch.kernels import ref
+
+    n, m, d = (int(v) for v in problem.features.shape)
+    rc = make_round_compressor("randk", d, n, k=K_RANDK, backend="fused",
+                               device="cuda")
+    a = bc.theory_hyper("dasha", rc.omega, bc.lipschitz_glm(problem), d=d,
+                        k=K_RANDK, n=n, m=m).a
+    plan = RoundRandom(1, 0).plan(rc)
+    mask = plan.mask.to(torch.float32).contiguous() if plan.mask is not None \
+        else indices_to_masks(plan.indices, d)
+    if int(mask.sum()) != n * K_RANDK:
+        raise AssertionError("[faults] the round's plan mask is not RandK")
+    scale = float(plan.scale)
+    r1 = _check_dasha(torch, kern, ref, (n, d), False, 180, a=a,
+                      scale=scale, mask=mask, cold=True)
+    r1 = {"shape": [n, d], "misaligned": False, "path": "faults", "a": a,
+          "scale": scale, **r1}
+    r2 = _check_quantize(torch, kern, ref, (n, d), False, 181)
+    r2 = {"shape": [n, d], "misaligned": False, "path": "faults",
+          "levels": S_QDITHER, **r2}
+    for name, r in (("dasha_update", r1), ("quantize", r2)):
+        cold = f" (L2 flushed before each launch: {r['device_ms_cold']} ms)" \
+            if "device_ms_cold" in r else ""
+        log(f"[kernels] {name} ({n}, {d}) at the faulted campaigns' rows: "
+            f"err {r['max_abs_err']:.3g}  call {r['ms']:.4f} ms  device "
+            f"{r['device_ms']} ms{cold}  plain {r['plain_ms']:.4f} ms  bound "
+            f"{r['bound_ms']:.4f} ms | {smi}")
+    return {"dasha_update": r1, "quantize": r2}
+
+
+def _dasha_round_by_hand(torch, problem, rc, hp, st, drop, reset):
+    """One faulted DASHA round with RandK, written out in plain tensor ops
+    apart from the engine: x+ = x - gamma g, h_i+ = grad f_i(x+); a reset
+    client starts from h_i = g_i = 0 and the server forgets its g_i / n;
+    m_i = mask_i (h_i+ - h_i - a (g_i - h_i)) d/K reaches the server and
+    commits only where the client is not dropped.  Returns the round's
+    state and, for each field, how far the round could move it: the step
+    for x, the magnitudes summed into g, and per row max |h_i+ - h_i| and
+    max |m_i|."""
+    from repro_torch.compress.plan import indices_to_masks
+    from repro_torch.core.rng import RoundRandom
+
+    n, d = st.g_local.shape
+    x = st.x - hp.gamma * st.g
+    grads = problem.full_grad(x)
+    plan = RoundRandom(st.seed, st.t).plan(rc)
+    mask = plan.mask.to(torch.float32) if plan.mask is not None \
+        else indices_to_masks(plan.indices, d)
+    rst = (torch.zeros_like(drop) if reset is None else reset)[:, None]
+    keep = ~drop[:, None]
+    zero = torch.zeros_like(st.g_local)
+    h = torch.where(rst, zero, st.h_local)
+    gl = torch.where(rst, zero, st.g_local)
+    msg = mask * (grads - h - hp.a * (gl - h)) * plan.scale
+    sent = torch.where(keep, msg, zero).sum(0) / n
+    forgot = torch.where(rst, st.g_local, zero).sum(0) / n
+    want = {"x": x, "g": st.g + sent - forgot,
+            "h_local": torch.where(keep, grads, h),
+            "g_local": torch.where(keep, gl + msg, gl)}
+    reach = {"x": (x - st.x).abs().max(),
+             "g": (st.g.abs() + sent.abs() + forgot.abs()).max(),
+             "h_local": (grads - h).abs().amax(1),
+             "g_local": msg.abs().amax(1)}
+    return want, reach
+
+
+def _faults_by_hand(torch, smi: str, problem):
+    """Phase 15e: the faulted DASHA arithmetic at the real-sim width held
+    against :func:`_dasha_round_by_hand`.  15b's dasha campaign (FM_MIXED,
+    reset rejoins, fused RandK) runs through VecFedSim once more, and each
+    engine step's output is compared with the hand-written round on that
+    step's own input state and fault masks: x, g, g_local and h_local
+    within FAULT_HAND_LIMIT of how far the round could move them (per row
+    for the node tensors).  Rounds with drops and with resets must occur;
+    a planted fault, the first dropped client's round committed, must
+    fail the limit."""
+    from repro_torch.bench import common as bc
+    from repro_torch.bench import fed_faults as ff
+    from repro_torch.compress import make_round_compressor
+    from repro_torch.fed import FaultModel, VecFedSim
+    from repro_torch.methods import FlatSubstrate
+
+    n, m, d = (int(v) for v in problem.features.shape)
+    rc = make_round_compressor("randk", d, n, k=K_RANDK, backend="fused",
+                               device="cuda")
+    hp = bc.theory_hyper("dasha", rc.omega, bc.lipschitz_glm(problem), d=d,
+                         k=K_RANDK, n=n, m=m)
+    sim = VecFedSim("dasha", rc, FlatSubstrate(problem, n, d), hp,
+                    compute_s=0.0, seed=ff.NET_SEED,
+                    faults=FaultModel(**ff.EQUIV_FAULTS["dasha"]),
+                    **ff.links())
+    fields = ("x", "g", "g_local", "h_local")
+    worst = dict.fromkeys(fields, 0.0)
+    seen = {"rounds": 0, "drop_rounds": 0, "reset_rounds": 0}
+    planted = {}
+
+    def errors(got, want, reach):
+        out = {}
+        for f in fields:
+            diff = (getattr(got, f) - want[f]).abs()
+            if diff.dim() == 2:            # per row, in that row's reach
+                diff = diff.amax(1) / reach[f].clamp_min(1e-30)
+            else:
+                diff = diff / reach[f]
+            out[f] = float(diff.max())
+        return out
+
+    method = sim.method
+
+    class HandChecked:
+        def __getattr__(self, name):
+            return getattr(method, name)
+
+        def step_full(self, st, data, **kw):
+            new, info = method.step_full(st, data, **kw)
+            f = kw["faults"]
+            want, reach = _dasha_round_by_hand(torch, problem, rc, sim.hyper,
+                                               st, f.drop, f.reset)
+            for k_, e in errors(new, want, reach).items():
+                worst[k_] = max(worst[k_], e)
+            seen["rounds"] += 1
+            seen["drop_rounds"] += int(bool(f.drop.any()))
+            seen["reset_rounds"] += int(f.reset is not None
+                                        and bool(f.reset.any()))
+            if not planted and bool(f.drop.any()):
+                wrong = f.drop.clone()
+                wrong[int(torch.nonzero(f.drop)[0])] = False
+                planted.update(errors(new, *_dasha_round_by_hand(
+                    torch, problem, rc, sim.hyper, st, wrong, f.reset)))
+            return new, info
+
+    sim.method = HandChecked()
+    sim.run(sim.init(torch.zeros(d, device="cuda"), 1, device="cuda"),
+            FAULT_EQ_ROUNDS)
+    sim.method = method
+    tag = "[faults-hand]"
+    if not (seen["rounds"] == FAULT_EQ_ROUNDS and seen["drop_rounds"] > 0
+            and seen["reset_rounds"] > 0):
+        raise AssertionError(f"{tag} rounds checked {seen}: want every "
+                             "round, some with drops and some with resets")
+    if not all(e <= FAULT_HAND_LIMIT for e in worst.values()):
+        raise AssertionError(f"{tag} engine against the hand-written "
+                             f"round: {worst} (limit {FAULT_HAND_LIMIT})")
+    if max(planted.values()) <= FAULT_HAND_LIMIT:
+        raise AssertionError(f"{tag} the planted fault (a dropped client's "
+                             f"round committed) passed: {planted}")
+    log(f"{tag} dasha FM_MIXED fused RandK ({n}, {m}, {d}), {seen}: "
+        f"worst error in units of the round's reach {worst} (limit "
+        f"{FAULT_HAND_LIMIT}); the planted fault gives {planted} | {smi}")
+    return {"rounds": seen, "worst": worst, "planted": planted,
+            "limit": FAULT_HAND_LIMIT}
+
+
+def _faults_agreement(torch):
+    """Phase 15d: at n = 5, m = 32, d = 40, fused RandK K = 6, a faulted
+    dasha (FM_MIXED, reset rejoins) and a faulted marina (FM_SYNC), each
+    through FedSim and VecFedSim on the card and on the CPU with the same
+    CPU-drawn plans and coins: integer traces equal, the metric, the wall
+    clock and the final x within 1e-4 relative."""
+    import numpy as np
+    from repro_torch.bench import common as bc
+    from repro_torch.bench import fed_faults as ff
+    from repro_torch.compress import make_round_compressor
+    from repro_torch.core.oracles import FiniteSumProblem
+    from repro_torch.core.rng import Draws, RoundRandom
+    from repro_torch.data.pipeline import synthetic_classification
+    from repro_torch.fed import FaultModel, FedSim, VecFedSim
+    from repro_torch.methods import FlatSubstrate
+
+    n, m, d = FAULT_SMALL
+    k, rounds, seed = FAULT_SMALL_K, FAULT_EQ_ROUNDS, 11
+    feats, labels = synthetic_classification(0, n, m, d, device="cpu")
+    L = bc.lipschitz_glm(FiniteSumProblem(bc.glm_loss, feats, labels))
+    worst = 0.0
+    for variant in ("dasha", "marina"):
+        for cls in (FedSim, VecFedSim):
+            res, draws = {}, None
+            for dev in ("cpu", "cuda"):
+                problem = FiniteSumProblem(bc.glm_loss, feats.to(dev),
+                                           labels.to(dev))
+                rc = make_round_compressor("randk", d, n, k=k,
+                                           backend="fused", device=dev)
+                hp = bc.theory_hyper(variant, rc.omega, L, d=d, k=k, n=n,
+                                     m=m)
+                sim = cls(variant, rc, FlatSubstrate(problem, n, d), hp,
+                          compute_s=0.0, seed=ff.NET_SEED, chunk=16,
+                          faults=FaultModel(**ff.EQUIV_FAULTS[variant]),
+                          **ff.links())
+                if draws is None:
+                    draws = [Draws(plan=RoundRandom(seed, t).plan(rc),
+                                   sync_coin=RoundRandom(seed, t).coin(
+                                       hp.p, "sync")
+                                   if variant == "marina" else None)
+                             for t in range(rounds)]
+                    state0 = sim.init(torch.zeros(d), seed, device="cpu")
+                dev_draws = [_draws_to(dr, dev) for dr in draws]
+                state = state0._replace(**{
+                    f: getattr(state0, f).to(dev)
+                    for f in ("x", "g", "g_local", "h_local")})
+                res[dev] = sim.run(state, rounds,
+                                   draws=lambda t: dev_draws[t])
+            a, b = res["cuda"], res["cpu"]
+            tag = f"[faults-agree] {variant} {cls.__name__}"
+            for key in ff.INT_TRACES:
+                if not np.array_equal(a.traces[key], b.traces[key]):
+                    raise AssertionError(f"{tag}: {key} differs")
+            if not b.summary["dropped_rounds"] > 0:
+                raise AssertionError(f"{tag}: no round dropped a client")
+            errs = {key: float(np.max(np.abs(a.traces[key] - b.traces[key])
+                                      / np.abs(b.traces[key])))
+                    for key in ("metric", "sim_wall_clock")}
+            x_a, x_b = a.state.x.cpu(), b.state.x
+            errs["x"] = float(torch.max(torch.abs(x_a - x_b))
+                              / torch.max(torch.abs(x_b)))
+            if not all(np.isfinite(e) and e <= 1e-4 for e in errs.values()):
+                raise AssertionError(f"{tag}: rel errs {errs} (limit 1e-4)")
+            worst = max(worst, *errs.values())
+    log(f"[faults-agree] FedSim/VecFedSim dasha (reset) and marina, fused "
+        f"RandK K={k}, n={n} d={d}, {rounds} rounds, card vs CPU with "
+        f"injected CPU draws: integer traces equal, worst rel err "
+        f"{worst:.3g} (limit 1e-4)")
+    return worst
+
+
+def phase_faults(torch, smi: str):
+    """Phase 15: faulted campaigns at the real-sim width (15a the
+    degradation sweep, 15b/c heap == vec with kernels 1 and 2, 15e the
+    engine's faulted rounds against hand-written ones), the absolute peak
+    gated at 8 GB, kernels 1 and 2 against their plain versions at the
+    campaigns' rows, then card vs CPU at a small shape (15d).  Returns
+    the report, the faulted path's launches of kernels 1 and 2, and their
+    kernel rows."""
+    from repro_torch.bench import fed_faults as ff
+
+    n, m, d = FAULT_N, FAULT_M, D_REALSIM
+    gc.collect()                    # earlier phases' reference cycles
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    problem = ff.make_problem(d, n, m, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[faults] real-sim-width data ({n}, {m}, {d}) = "
+        f"{problem.features.numel() * 4 / 1e9:.2f} GB made on the card in "
+        f"{time.perf_counter() - t0:.2f} s; earlier phases hold "
+        f"{base / 1e9:.2f} GB")
+    torch.cuda.reset_peak_memory_stats()
+    sweep, sweep_counts = _faults_sweep(torch, smi, problem)
+    equiv, equiv_counts = _faults_heap_vec(torch, smi, problem)
+    by_hand = _faults_by_hand(torch, smi, problem)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if peak > FAULT_PEAK_GB:
+        raise AssertionError(f"[faults] peak {peak:.2f} GB over "
+                             f"{FAULT_PEAK_GB} GB")
+    log(f"[faults] peak {peak:.2f} GB with all that the card holds "
+        f"(gate {FAULT_PEAK_GB} GB) | {smi}")
+    kernel_rows = _faults_kernel_rows(torch, smi, problem)
+    del problem
+    torch.cuda.empty_cache()
+    worst = _faults_agreement(torch)
+    launches = {"dasha_update": sweep_counts["dasha_update"]
+                + equiv_counts["dasha_update"],
+                "quantize": equiv_counts["quantize"]}
+    return {"n": n, "m": m, "d": d, "K": K_RANDK, "s_qdither": S_QDITHER,
+            "features_gb": n * m * d * 4 / 1e9,
+            "held_by_earlier_phases_gb": base / 1e9, "peak_mem_gb": peak,
+            "links": {"up_Bps": ff.UP_BW, "down_Bps": ff.DOWN_BW,
+                      "latency_s": ff.LATENCY, "compute_s": 0.0,
+                      "net_seed": ff.NET_SEED},
+            "sweep": sweep, "heap_vs_vec": equiv, "by_hand": by_hand,
+            "agreement_worst": worst, "launches": launches,
+            "nvidia_smi": smi}, launches, kernel_rows
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"{SRC / 'repro_torch'} not found: run from a checkout of the "
@@ -2508,16 +3117,21 @@ def main() -> int:
     heap, heap_launches = phase_heap(torch, smi)
     sweep, sweep_launches, sweep_dasha = phase_sweep(torch, smi)
     per_shape["dasha_update"].append(sweep_dasha)
+    faults, fault_launches, fault_rows = phase_faults(torch, smi)
+    for name, row in fault_rows.items():
+        per_shape[name].append(row)
     # kernels 1, 2 and 4 run on several main paths: the flat round, the
-    # federated cohort round, the heap oracle and the sweep (each counted
-    # from zero around its own run)
+    # federated cohort round, the heap oracle, the sweep and the faulted
+    # campaigns (each counted from zero around its own run)
     by_path = {
         "dasha_update": {"flat": launches["dasha_update"],
                          "fed": fed_launches["dasha_update"],
                          "heap": heap_launches["dasha_update"],
-                         "sweep": sweep_launches},
+                         "sweep": sweep_launches,
+                         "faults": fault_launches["dasha_update"]},
         "quantize": {"flat": launches["quantize"],
-                     "heap": heap_launches["quantize"]},
+                     "heap": heap_launches["quantize"],
+                     "faults": fault_launches["quantize"]},
         "slab_writeback": {"fed": fed_launches["slab_writeback"],
                            "heap": heap_launches["slab_writeback"]}}
     for name, paths in by_path.items():
@@ -2595,7 +3209,7 @@ def main() -> int:
               "trainer_agreement_worst": train_rel, "serve": serving,
               "serve_agreement_worst": serve_rel, "fed": fed,
               "fed_agreement_worst": fed_rel, "heap": heap,
-              "sweep": sweep, "nvidia_smi": smi}
+              "sweep": sweep, "faults": faults, "nvidia_smi": smi}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -97,8 +97,12 @@ def logreg_nonconvex_problem(d: int = 60, m: int = 64, key: int = 1,
 
 
 def lipschitz_glm(problem: FiniteSumProblem) -> float:
+    """2 x the mean squared feature norm, ``sum(a * a)`` over each row,
+    squared one node at a time: the temporary is one node's features, not
+    all of them (6.06 GB at the real-sim shape)."""
     a = problem.features
-    return float(torch.mean(torch.sum(a * a, -1)) * 2.0)
+    sq = torch.stack([torch.sum(node * node, -1) for node in a])
+    return float(torch.mean(sq) * 2.0)
 
 
 def theory_hyper(variant: str, omega: float, L: float, *, d: int, k: int,

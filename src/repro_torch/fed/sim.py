@@ -35,8 +35,14 @@ leave it in one transfer at the chunk's end; the byte-exact encoding and
 the arrival heap replay them on the host.  MARINA's dense sync upload is
 kept only for its coin rounds.
 
-Not ported yet: fault injection (``faults=``), asynchronous pipelined
-rounds (``tau=``) and the observability handle (``obs=``); each raises.
+With ``faults=`` (a :class:`repro_torch.fed.faults.FaultModel`) the
+campaign is faulted (DESIGN.md §18): seeded crashes with stale or reset
+rejoins, lossy links, corruption (a byte really flipped, caught by the
+wire checksum), a deadline and, for ``sync_requires_all`` rules, bounded
+backoff retries; see :meth:`FedSim._run_faulted`.
+
+Not ported yet: asynchronous pipelined rounds (``tau=``) and the
+observability handle (``obs=``); each raises.
 """
 from __future__ import annotations
 
@@ -47,12 +53,13 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.rng import Draws
+from repro_torch.core.rng import Draws, RoundRandom
+from repro_torch.fed import faults as faultslib
 from repro_torch.fed import wire
 from repro_torch.fed.net import LinkModel, campaign_multipliers
 from repro_torch.kernels import ops
 from repro_torch.methods.accounting import downlink_receivers
-from repro_torch.methods.engine import Hyper, Method
+from repro_torch.methods.engine import FaultStep, Hyper, Method
 from repro_torch.methods.rules import get_rule
 from repro_torch.methods.substrates import gather_slab_rows, slab_layout
 
@@ -61,6 +68,14 @@ X_BYTES_PER_COORD = 4                  # the server broadcast is dense fp32
 DEFAULT_CHUNK = 128                    # rounds per chunk (memory knob)
 
 DrawsFn = Callable[[int], Optional[Draws]]
+
+#: extra per-round traces of faulted campaigns (DESIGN.md §18): both
+#: simulators fill all of them (graceful rules keep the retry columns at
+#: zero; sync rules keep ``dropped`` = the pre-retry missing set, every
+#: member of which the retries then recover)
+FAULT_TRACES = ("senders", "dropped", "late", "lost", "offline",
+                "rejoins", "retries", "retry_bytes_up",
+                "retry_bytes_down", "wasted_bytes_up", "retry_capped")
 
 
 class FedEvent(NamedTuple):
@@ -109,6 +124,77 @@ def snapshot(state):
 
 def draws_at(draws: Optional[DrawsFn], t: int) -> Optional[Draws]:
     return None if draws is None else draws(t)
+
+
+# ---------------------------------------------------------------------------
+# fault masks (both simulators)
+# ---------------------------------------------------------------------------
+
+class ChunkFaults(NamedTuple):
+    """One chunk's fault inputs, (length, n) booleans on the host or on
+    the device: ``crash_off`` (crashed, or missed the broadcast),
+    ``lostx`` (the upload is dropped or corrupted), ``slow`` (the uplink
+    multiplier exceeds the deadline's cap) and ``reset`` (a reset rejoin;
+    None under rejoin="stale")."""
+
+    crash_off: Any
+    lostx: Any
+    slow: Any
+    reset: Any = None
+
+    def at(self, j: int) -> "ChunkFaults":
+        return ChunkFaults(*(None if a is None else a[j] for a in self))
+
+
+def chunk_faults(fc, sl: slice, mu32: np.ndarray, cap,
+                 reset_mode: bool) -> ChunkFaults:
+    """A chunk's fault inputs on the host from the campaign ``fc`` and the
+    chunk's float32 uplink multipliers: the one float comparison
+    ``mu32 > cap`` is made here, once, for both simulators."""
+    slow = mu32 > cap if cap is not None else np.zeros(mu32.shape, bool)
+    return ChunkFaults(crash_off=fc.crashed[sl] | fc.drop_down[sl],
+                       lostx=fc.drop_up[sl] | fc.corrupt[sl], slow=slow,
+                       reset=fc.rejoin[sl] if reset_mode else None)
+
+
+def faults_to(cf: ChunkFaults, device) -> ChunkFaults:
+    """A host :class:`ChunkFaults` on ``device``, in one transfer."""
+    host = np.stack([a for a in cf if a is not None])
+    return ChunkFaults(*torch.as_tensor(host).to(device).unbind(0))
+
+
+def fault_masks(present, f: ChunkFaults):
+    """One round's (senders, late, lost, drop) from its participation and
+    fault inputs; numpy arrays or tensors alike (booleans only)."""
+    senders = present & ~f.crash_off
+    late = senders & f.slow
+    lost = senders & f.lostx
+    return senders, late, lost, f.crash_off | lost | late
+
+
+def round_fault_step(bound, state, draws: Optional[Draws],
+                     f: ChunkFaults) -> FaultStep:
+    """The engine's :class:`FaultStep` for the round ``state`` is about to
+    run: its participation is the plan that round draws (or is handed),
+    read by the bound substrate's ``round_present``."""
+    present = bound.round_present(RoundRandom(state.seed, state.t, draws))
+    return FaultStep(drop=fault_masks(present, f)[3], reset=f.reset)
+
+
+def check_faults(sim) -> None:
+    """The scope of fault injection, shared by both simulators: round
+    barriers on dense substrates."""
+    if sim.faults is None:
+        return
+    if sim.tau is not None:
+        raise ValueError(
+            "faults= does not compose with asynchronous pipelined rounds "
+            "(tau): the deadline and retry policies are defined against "
+            "the round barrier")
+    if sim.sampled:
+        raise ValueError(
+            "faults= does not compose with sampled-client substrates: "
+            "cohort sampling already models absence")
 
 
 # ---------------------------------------------------------------------------
@@ -182,8 +268,13 @@ class FedSim:
     #: "scatter", or "auto" (slab exactly when the substrate samples
     #: clients, c < n); both are bit-identical
     store: str = "auto"
-    #: fault injection: not ported yet
-    faults: Any = None
+    #: fault injection (DESIGN.md §18): a :class:`repro_torch.fed.faults.
+    #: FaultModel` realizes seeded client crashes (stale or reset rejoin),
+    #: lossy links, corruption (really flipped bytes, caught by the wire
+    #: checksum), a deadline and, for ``sync_requires_all`` rules,
+    #: bounded-backoff retries.  None leaves every path untouched.  Round
+    #: barriers (``tau=None``) and dense substrates only.
+    faults: Optional[faultslib.FaultModel] = None
 
     def __post_init__(self):
         self.rule = get_rule(self.variant)
@@ -197,16 +288,13 @@ class FedSim:
                 "FedSim needs a substrate exposing estimator_update_full "
                 f"(per-node wire messages), got "
                 f"{type(self.substrate).__name__}")
+        self.sampled = bool(getattr(self.substrate, "samples_clients",
+                                    False))
+        check_faults(self)
         if self.tau is not None:
             raise NotImplementedError(
                 "tau= (asynchronous pipelined rounds) belongs to a later "
                 "slice of the port; run with round barriers (tau=None)")
-        if self.faults is not None:
-            raise NotImplementedError(
-                "faults= (fault injection) belongs to a later slice of the "
-                "port")
-        self.sampled = bool(getattr(self.substrate, "samples_clients",
-                                    False))
         if self.store not in ("auto", "scatter", "slab"):
             raise ValueError(f"store={self.store!r} must be 'auto', "
                              "'scatter' or 'slab'")
@@ -216,6 +304,7 @@ class FedSim:
                              "store IS the degenerate slab")
         self.slab = self.sampled and self.store != "scatter"
         self.n = int(getattr(self.substrate, "n", self.comp.n))
+        self._bound = self.substrate.with_compressor(self.comp)
         self.method: Method = Method.build(self.variant, self.comp,
                                            self.substrate, self.hyper)
         # the codec reads the plan only when the support is not already in
@@ -262,12 +351,17 @@ class FedSim:
         rows["bits"].append(new.bits_sent)
 
     def _run_chunk(self, state, length: int, metric_fn,
-                   draws: Optional[DrawsFn]):
+                   draws: Optional[DrawsFn],
+                   faults: Optional[ChunkFaults] = None):
         """``length`` engine rounds on the active store; returns (state,
         the chunk's observables on the host).  The slab store gathers the
         rows the chunk's cohorts touch, runs the rounds on that slab and
         writes it back once; the cohort schedule (the substrate's
-        ``cohort_schedule``) is the one each round would draw."""
+        ``cohort_schedule``) is the one each round would draw.
+        ``faults`` (the chunk's fault inputs on the device; dense
+        substrates only) gates each round's commit with the
+        :class:`~repro_torch.methods.engine.FaultStep` that
+        :func:`round_fault_step` builds from the round's participation."""
         rows: Dict[str, list] = {k: [] for k in (
             "metric", "values", "indices", "present", "plan_indices",
             "plan_mask", "coin", "bits")}
@@ -292,8 +386,11 @@ class FedSim:
             state = slab_exit(st, idx, full_h, full_g)
         else:
             for j in range(length):
-                new, info = self.method.step_full(
-                    state, None, draws=draws_at(draws, state.t))
+                dr = draws_at(draws, state.t)
+                fs = None if faults is None else round_fault_step(
+                    self._bound, state, dr, faults.at(j))
+                new, info = self.method.step_full(state, None, draws=dr,
+                                                  faults=fs)
                 self._observe(rows, syncs, j, new, info, metric_fn)
                 state = new
         dev_rows = {k: torch.stack(v) for k, v in rows.items()
@@ -334,17 +431,21 @@ class FedSim:
                 rep[field] = _expand_cohort(arr, sel, n)
         return plan._replace(**rep)
 
-    def _round_wire(self, ys, j: int, t: int):
+    def _round_wire(self, ys, j: int, t: int, sender_mask=None):
         """Encode round ``t`` (chunk slot ``j``) onto the wire: returns
         (coin, active, RoundBytes, raw buffers, (values, indices)), the
-        message rows re-keyed by client."""
+        message rows re-keyed by client.  ``sender_mask`` (faulted
+        graceful rounds) overrides the encoded set: only the clients that
+        actually upload get a record."""
         n = self.n
         coin = bool(ys["coin"][j])
         if "present" in ys:
             present = ys["present"][j].astype(bool)
         else:
             present = np.ones(n, bool)
-        if coin and self.rule.sync_requires_all:
+        if sender_mask is not None:
+            active = np.asarray(sender_mask, bool)
+        elif coin and self.rule.sync_requires_all:
             active = np.ones(n, bool)        # the barrier: all answer
         else:
             active = present
@@ -420,9 +521,10 @@ class FedSim:
         if not (0 <= int(start_round) <= rounds):
             raise ValueError(f"start_round={start_round} outside "
                              f"[0, {rounds}]")
-        return self._run_barrier(state, rounds, metric_fn, log_events,
-                                 max_events, start_round, clock0,
-                                 checkpoint, draws)
+        run = self._run_faulted if self.faults is not None \
+            else self._run_barrier
+        return run(state, rounds, metric_fn, log_events, max_events,
+                   start_round, clock0, checkpoint, draws)
 
     def _run_barrier(self, state, rounds: int, metric_fn,
                      log_events: bool, max_events: int,
@@ -520,6 +622,236 @@ class FedSim:
                          events=events if log_events else None,
                          summary=summary)
 
+    # ------------------------------------------------------------------
+    # the faulted campaign (DESIGN.md §18)
+    # ------------------------------------------------------------------
+
+    def _verify_round_buffers(self, bufs, t: int, senders: np.ndarray,
+                              fc) -> None:
+        """The heap oracle's wire-integrity drill: every upload that
+        reaches the server is checksum-verified
+        (:func:`repro_torch.fed.wire.verify`), and a corrupted one has a
+        byte really flipped first
+        (:func:`repro_torch.fed.faults.corrupt_bytes`), so the crc must
+        catch exactly the corrupt set and pass the pristine one.  A miss
+        either way is a simulator bug, not a fault: RuntimeError."""
+        arrive = senders & ~fc.drop_up[t]
+        for i in np.flatnonzero(arrive):
+            buf = bufs[i]
+            if buf is None:
+                raise RuntimeError(f"round {t}: sender {i} produced no "
+                                   "wire record")
+            if fc.corrupt[t, i]:
+                mangled = faultslib.corrupt_bytes(buf, t, int(i))
+                try:
+                    wire.verify(mangled)
+                except wire.WireDecodeError:
+                    continue               # caught: treated as dropped
+                raise RuntimeError(
+                    f"round {t}: corrupted record from client {i} passed "
+                    "wire.verify: the checksum missed a real bit flip")
+            wire.verify(buf)               # pristine must pass
+
+    def _run_faulted(self, state, rounds: int, metric_fn,
+                     log_events: bool, max_events: int,
+                     start_round: int = 0, clock0: float = 0.0,
+                     checkpoint: Optional[Callable] = None,
+                     draws: Optional[DrawsFn] = None) -> SimResult:
+        """The faulted barrier campaign.
+
+        The fault realization is drawn on the host for the whole campaign
+        (:meth:`repro_torch.fed.faults.FaultModel.draw_campaign`, keyed by
+        absolute round, so chunking and kill/restore cannot move it) and
+        split by rule family:
+
+        * gracefully degrading rules (DASHA / PAGE / MVR): each round's
+          drop mask (crashes, downlink losses, uplink losses, checksum-
+          caught corruption, deadline-cut stragglers) gates the engine's
+          commit (``Method.step_full(..., faults=FaultStep)``); the server
+          proceeds with whatever was delivered.  Only actual senders are
+          encoded and billed; a short-handed round costs the deadline.
+        * ``sync_requires_all`` rules (MARINA / SYNC-MVR): the method's
+          math never sees a fault.  The server re-requests every missing
+          client with exponential backoff until its upload lands
+          (re-paying the downlink ``x`` and the uplink record per
+          attempt), so the state trace is the fault-free run's and the
+          whole fault cost lands in bytes and wall clock.
+
+        The masks are pure functions of pre-drawn booleans and of the one
+        comparison ``m_up > deadline_mult`` (:func:`chunk_faults`), so
+        :class:`repro_torch.fed.vecsim.VecFedSim` realizes the identical
+        masks and the integer byte traces match bit for bit."""
+        fm = self.faults
+        rng = np.random.default_rng(self.seed)
+        n = self.n
+        d = int(self.comp.spec.d)
+        x_bytes = X_BYTES_PER_COORD * d
+        md_all, mu_all = campaign_multipliers(
+            rng, rounds, self.downlink, self.uplink, n)
+        sync = self.rule.sync_requires_all
+        reset_mode = fm.rejoin == "reset"
+        fc = fm.draw_campaign(rounds, n, retries=sync)
+        cap = fm.late_cap()
+        deadline = fm.deadline_s(self.downlink, self.uplink,
+                                 self.compute_s, d)
+        cumbk = fm.backoff_cumsum() if sync else None
+        lat_d = self.downlink.latency_s
+
+        names = ("metric", "bits_sent", "bytes_up", "value_bytes",
+                 "bytes_down", "sim_wall_clock", "bcast_clock",
+                 "sync_round", "participants") + FAULT_TRACES
+        n_run = rounds - start_round
+        tr = {k: np.zeros(n_run) for k in names}
+        events: List[FedEvent] = []
+        now = float(clock0)
+        bytes_up_total = 0
+        bytes_down_total = 0
+        sync_rounds = 0
+
+        done = start_round
+        while done < rounds:
+            length = min(self.chunk, rounds - done)
+            sl = slice(done, done + length)
+            cf = chunk_faults(fc, sl, mu_all[sl].astype(np.float32), cap,
+                              reset_mode)
+            if sync:
+                # retries recover every message: the engine runs the
+                # fault-free rounds, states equal to no faults
+                state, ys = self._run_chunk(state, length, metric_fn, draws)
+            else:
+                state, ys = self._run_chunk(state, length, metric_fn, draws,
+                                            faults_to(cf, state.x.device))
+            for j in range(length):
+                t = done + j
+                rel = t - start_round
+                if sync:
+                    coin, active, rb, bufs, _ = self._round_wire(ys, j, t)
+                    present_j = active          # all n answer
+                    senders, late, lost, _ = fault_masks(active, cf.at(j))
+                else:
+                    present_j = ys["present"][j].astype(bool) \
+                        if "present" in ys else np.ones(n, bool)
+                    senders, late, lost, _ = fault_masks(present_j,
+                                                         cf.at(j))
+                    coin, active, rb, bufs, _ = self._round_wire(
+                        ys, j, t, sender_mask=senders)
+                delivered = senders & ~lost & ~late
+                self._verify_round_buffers(bufs, t, senders, fc)
+
+                up_bytes = np.asarray(rb.per_node, np.float64)
+                down_bytes = np.where(senders, x_bytes, 0) \
+                    .astype(np.float64)
+                t_down = self.downlink.transfer_s(down_bytes, md_all[t])
+                t_up = self.uplink.transfer_s(up_bytes, mu_all[t])
+                delay = t_down + self.compute_s + t_up
+                tr["bcast_clock"][rel] = now
+
+                if sync:
+                    miss = ~delivered           # all n must land
+                else:
+                    miss = present_j & ~delivered
+                any_miss = bool(miss.any())
+
+                # round close: the normal drain over what was delivered,
+                # or the deadline when the server had to cut someone
+                if delivered.any():
+                    base = max(now + delay[i]
+                               for i in np.flatnonzero(delivered))
+                else:
+                    base = now + lat_d
+                if any_miss and deadline is not None:
+                    close = now + float(deadline)
+                else:
+                    close = base
+
+                retries_n = capped_n = 0
+                retry_up_b = retry_down_b = 0
+                if sync and any_miss:
+                    # bounded-backoff re-requests: client i's recovered
+                    # upload lands at close + backoff(first_success) + one
+                    # nominal round trip of its own record
+                    land = close
+                    for i in np.flatnonzero(miss):
+                        fs = int(fc.first_success[t, i])
+                        ua = int(fc.up_attempts[t, i])
+                        nb = len(bufs[i])
+                        rt = self.downlink.latency_s \
+                            + x_bytes / self.downlink.bandwidth_Bps \
+                            + self.compute_s + self.uplink.latency_s \
+                            + nb / self.uplink.bandwidth_Bps
+                        land = max(land, close + cumbk[fs] + rt)
+                        retries_n += fs
+                        retry_up_b += ua * nb
+                        retry_down_b += fs * x_bytes
+                        capped_n += int(fc.capped[t, i])
+                    completion = land
+                else:
+                    completion = close
+
+                sent_b = int(up_bytes[senders].sum())
+                wasted_b = int(up_bytes[lost | late].sum())
+                round_up = sent_b + retry_up_b
+                round_down = n * x_bytes + retry_down_b
+
+                if log_events:
+                    for i in np.flatnonzero(delivered):
+                        if len(events) >= max_events:
+                            break
+                        events.append(FedEvent(float(now + delay[i]),
+                                               "apply", int(i), t,
+                                               rb.per_node[i]))
+                    if len(events) < max_events:
+                        events.append(FedEvent(completion, "round", -1,
+                                               t, round_up))
+                now = completion
+
+                bytes_up_total += round_up
+                bytes_down_total += round_down
+                sync_rounds += int(coin)
+                tr["metric"][rel] = float(ys["metric"][j])
+                tr["bits_sent"][rel] = float(ys["bits"][j])
+                tr["bytes_up"][rel] = round_up
+                tr["value_bytes"][rel] = rb.value_bytes
+                tr["bytes_down"][rel] = round_down
+                tr["sim_wall_clock"][rel] = now
+                tr["sync_round"][rel] = float(coin)
+                tr["participants"][rel] = float(n if sync
+                                                else delivered.sum())
+                tr["senders"][rel] = float(senders.sum())
+                tr["dropped"][rel] = float(miss.sum())
+                tr["late"][rel] = float(late.sum())
+                tr["lost"][rel] = float(lost.sum())
+                tr["offline"][rel] = float((present_j
+                                            & cf.crash_off[j]).sum())
+                tr["rejoins"][rel] = float(fc.rejoin[t].sum())
+                tr["retries"][rel] = float(retries_n)
+                tr["retry_bytes_up"][rel] = float(retry_up_b)
+                tr["retry_bytes_down"][rel] = float(retry_down_b)
+                tr["wasted_bytes_up"][rel] = float(wasted_b)
+                tr["retry_capped"][rel] = float(capped_n)
+            done += length
+            if checkpoint is not None:
+                checkpoint(state, done, now)
+
+        summary = {
+            "rounds": float(n_run),
+            "wall_clock_s": float(now),
+            "bytes_up": float(bytes_up_total),
+            "bytes_down": float(bytes_down_total),
+            "sync_rounds": float(sync_rounds),
+            "mean_participants": float(tr["participants"].mean())
+            if n_run else 0.0,
+            "mean_bytes_up_per_round":
+                float(bytes_up_total) / max(n_run, 1),
+            "dropped_rounds": float((tr["dropped"] > 0).sum()),
+            "retries": float(tr["retries"].sum()),
+            "retry_capped": float(tr["retry_capped"].sum()),
+            "wasted_bytes_up": float(tr["wasted_bytes_up"].sum()),
+        }
+        return SimResult(state=state, traces=tr,
+                         events=events if log_events else None,
+                         summary=summary)
+
 
 def simulate(variant: str, comp, substrate, hyper: Hyper, x0,
              init_seed: int, *, rounds: int,
@@ -528,7 +860,8 @@ def simulate(variant: str, comp, substrate, hyper: Hyper, x0,
              seed: int = 0, init_kw: Optional[dict] = None,
              metric_fn=None, log_events: bool = False,
              engine: str = "heap", tau: Optional[int] = None,
-             store: str = "auto", obs=None, faults=None) -> SimResult:
+             store: str = "auto", obs=None,
+             faults: Optional[faultslib.FaultModel] = None) -> SimResult:
     """One-shot convenience: build the simulator, init the method from
     ``x0`` and ``init_seed`` (the port's counterpart of the reference's
     init key), run it.
@@ -537,7 +870,10 @@ def simulate(variant: str, comp, substrate, hyper: Hyper, x0,
     ``engine="vec"`` runs :class:`repro_torch.fed.vecsim.VecFedSim`: the
     same bytes and network draws, billed analytically.  ``seed`` seeds the
     network.  ``store`` picks the client-state store on sampled
-    substrates; ``tau``, ``faults`` and ``obs`` raise until ported.
+    substrates; ``faults`` injects a seeded
+    :class:`repro_torch.fed.faults.FaultModel` (crashes, lossy links,
+    corruption, deadlines and retries); ``tau`` and ``obs`` raise until
+    ported.
     ``init_kw`` goes to ``Method.init`` (``device=`` among them)."""
     if engine == "vec":
         from repro_torch.fed.vecsim import VecFedSim

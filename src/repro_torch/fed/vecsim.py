@@ -31,8 +31,15 @@ writes the slab back once per chunk with the slab-writeback kernel
 into the campaign's own copy of the (n, d) store, made once at the start
 of :meth:`VecFedSim.run`: the caller's state is never written.
 
-Not ported yet: asynchronous pipelined rounds (``tau=``), fault injection
-(``faults=``) and the observability handle (``obs=``); each raises.
+With ``faults=`` the campaign is faulted (DESIGN.md §18) on the heap
+oracle's own host-drawn :class:`repro_torch.fed.faults.FaultCampaign`:
+each chunk's fault booleans go to the device in one transfer, each
+round's masks are pure boolean functions of them and of the round's
+participation (:func:`repro_torch.fed.sim.fault_masks`), and the byte
+traces equal the heap's bit for bit (:meth:`VecFedSim._run_faulted`).
+
+Not ported yet: asynchronous pipelined rounds (``tau=``) and the
+observability handle (``obs=``); each raises.
 """
 from __future__ import annotations
 
@@ -45,16 +52,25 @@ import torch
 from repro_torch.core.rng import RoundRandom
 from repro_torch.fed import wire
 from repro_torch.fed.net import LinkModel, campaign_streams, round_multipliers
+from repro_torch.fed import faults as faultslib
 from repro_torch.fed.sim import (DEFAULT_CHUNK, X_BYTES_PER_COORD, DrawsFn,
-                                 SimResult, draws_at, slab_enter, slab_exit,
-                                 snapshot)
+                                 SimResult, check_faults, chunk_faults,
+                                 draws_at, fault_masks, faults_to, slab_enter,
+                                 slab_exit, snapshot)
 from repro_torch.methods.accounting import downlink_receivers
-from repro_torch.methods.engine import Hyper, Method
+from repro_torch.methods.engine import FaultStep, Hyper, Method
 from repro_torch.methods.rules import get_rule
 from repro_torch.methods.substrates import slab_layout
 
 #: the per-round device scalars a chunk stacks, in column order
 _DEVICE_YS = ("metric", "participants", "counts_sum", "round_t")
+#: ... and those of a faulted chunk, gracefully degrading or sync rules
+_GRACEFUL_YS = _DEVICE_YS + ("senders", "dropped", "late", "lost",
+                             "offline", "wasted_n", "wasted_counts")
+_SYNC_YS = _DEVICE_YS + ("senders", "counts_send", "dropped", "late",
+                         "lost", "offline", "retries", "retry_up_n",
+                         "retry_counts", "capped", "wasted_n",
+                         "wasted_counts")
 
 
 @dataclasses.dataclass
@@ -78,8 +94,10 @@ class VecFedSim:
     #: "scatter", or "auto" (slab exactly when the substrate samples
     #: clients, c < n)
     store: str = "auto"
-    #: fault injection: not ported yet
-    faults: Any = None
+    #: fault injection (DESIGN.md §18): the same seeded
+    #: :class:`repro_torch.fed.faults.FaultModel` the heap oracle takes;
+    #: round barriers (``tau=None``) and dense substrates only
+    faults: Optional[faultslib.FaultModel] = None
 
     def __post_init__(self):
         self.rule = get_rule(self.variant)
@@ -92,16 +110,13 @@ class VecFedSim:
             raise ValueError(
                 "VecFedSim needs a substrate exposing estimator_update_full"
                 f", got {type(self.substrate).__name__}")
+        self.sampled = bool(getattr(self.substrate, "samples_clients",
+                                    False))
+        check_faults(self)
         if self.tau is not None:
             raise NotImplementedError(
                 "tau= (asynchronous pipelined rounds) belongs to a later "
                 "slice of the port; run with round barriers (tau=None)")
-        if self.faults is not None:
-            raise NotImplementedError(
-                "faults= (fault injection) belongs to a later slice of the "
-                "port")
-        self.sampled = bool(getattr(self.substrate, "samples_clients",
-                                    False))
         if self.store not in ("auto", "scatter", "slab"):
             raise ValueError(f"store={self.store!r} must be 'auto', "
                              "'scatter' or 'slab'")
@@ -141,44 +156,61 @@ class VecFedSim:
             + self.uplink.latency_s \
             + up_b / self.uplink.bandwidth_Bps * m_up
 
+    def _close(self, delay, mask):
+        """(how many clients ``mask`` holds, the latest of their arrival
+        times ``delay``; the downlink latency when it holds none)."""
+        masked = torch.where(mask, delay,
+                             torch.full_like(delay, float("-inf")))
+        count = torch.sum(mask.to(torch.int64))
+        return count, torch.where(count > 0, torch.max(masked),
+                                  torch.full_like(masked[0],
+                                                  self.downlink.latency_s))
+
     def _comp_bytes(self, counts):
         schema = self.schema
         return schema.header_bytes \
             + schema.bytes_per_value * counts.to(torch.float32)
 
-    def _round_scatter(self, st, m_down, m_up, draws, metric_fn):
-        """One round on the (n, d) store; returns (state, coin, device
-        scalars in :data:`_DEVICE_YS` order)."""
+    def _step_active(self, st, draws, dev):
+        """The engine's fault-free step and who answers it: (state, coin,
+        the (n,) active set, its shipped value counts (zero outside it),
+        each client's float32 upload record bytes).  Every client answers
+        at full participation and on a coin round of a
+        ``sync_requires_all`` rule; the record is dense on a coin
+        round."""
         n, d = self.n, int(self.comp.spec.d)
         new, info = self.method.step_full(st, None, draws=draws)
         coin = bool(info.coin) if info.coin is not None else False
-        dev = m_down.device
         if info.present is not None and not (
                 coin and self.rule.sync_requires_all):
             active = info.present
         else:
-            # full participation, or the barrier: every client answers
             active = torch.ones((n,), dtype=torch.bool, device=dev)
-        if self.schema.static_count is None:
-            counts = self._bound.round_wire_counts(
-                RoundRandom(st.seed, st.t, draws))
-        else:
-            counts = torch.full((n,), self.schema.static_count,
-                                dtype=torch.int32, device=dev)
-        counts = counts * active                           # absent: 0
-        act = active.to(torch.float32)
+        counts = self._counts(RoundRandom(st.seed, st.t, draws), active,
+                              dev)
         if coin:
-            up_b = float(wire.HEADER_BYTES + 4 * d) * act
+            record = torch.full((n,), float(wire.HEADER_BYTES + 4 * d),
+                                dtype=torch.float32, device=dev)
         else:
-            up_b = self._comp_bytes(counts) * act
-        down_b = float(X_BYTES_PER_COORD * d) * act
-        delay = self._delay(down_b, up_b, m_down, m_up)
-        masked = torch.where(active, delay,
-                             torch.full_like(delay, float("-inf")))
-        n_active = torch.sum(active.to(torch.int64))
-        round_t = torch.where(n_active > 0, torch.max(masked),
-                              torch.full_like(masked[0],
-                                              self.downlink.latency_s))
+            record = self._comp_bytes(counts)
+        return new, coin, active, counts, record
+
+    def _link_bytes(self, record, mask):
+        """(uplink, downlink) float32 bytes a client moves this round: its
+        upload record and the broadcast iterate, zero outside ``mask``."""
+        m = mask.to(torch.float32)
+        return record * m, \
+            float(X_BYTES_PER_COORD * int(self.comp.spec.d)) * m
+
+    def _round_scatter(self, st, m_down, m_up, draws, metric_fn):
+        """One round on the (n, d) store; returns (state, coin, device
+        scalars in :data:`_DEVICE_YS` order)."""
+        dev = m_down.device
+        new, coin, active, counts, record = self._step_active(st, draws,
+                                                              dev)
+        up_b, down_b = self._link_bytes(record, active)
+        n_active, round_t = self._close(
+            self._delay(down_b, up_b, m_down, m_up), active)
         return new, coin, (torch.as_tensor(metric_fn(new), device=dev),
                            n_active, torch.sum(counts), round_t)
 
@@ -226,14 +258,16 @@ class VecFedSim:
         return md, mu
 
     @staticmethod
-    def _chunk_ys(rows, coins, bits) -> Dict[str, np.ndarray]:
+    def _chunk_ys(rows, coins, bits,
+                  names=_DEVICE_YS) -> Dict[str, np.ndarray]:
         """The chunk's per-round outputs on the host: the device scalars
-        stacked into one (length, 4) float64 tensor (exact for float32
-        values and the integer counts) and moved in one transfer."""
+        stacked into one (length, len(names)) float64 tensor (exact for
+        float32 values and the integer counts) and moved in one
+        transfer."""
         cols = [torch.stack([r[k] for r in rows]).to(torch.float64)
-                for k in range(len(_DEVICE_YS))]
+                for k in range(len(names))]
         host = torch.stack(cols, dim=1).cpu().numpy()
-        ys = {name: host[:, k] for k, name in enumerate(_DEVICE_YS)}
+        ys = {name: host[:, k] for k, name in enumerate(names)}
         ys["coin"] = np.asarray(coins, bool)
         ys["bits"] = np.asarray(bits, np.float32)
         return ys
@@ -318,8 +352,10 @@ class VecFedSim:
         if not (0 <= int(start_round) <= rounds):
             raise ValueError(f"start_round={start_round} outside "
                              f"[0, {rounds}]")
-        return self._run_barrier(state, rounds, metric_fn, start_round,
-                                 clock0, checkpoint, draws)
+        run = self._run_faulted if self.faults is not None \
+            else self._run_barrier
+        return run(state, rounds, metric_fn, start_round, clock0,
+                   checkpoint, draws)
 
     @staticmethod
     def _seq_wall(round_t: np.ndarray, clock0: float) -> np.ndarray:
@@ -390,6 +426,17 @@ class VecFedSim:
                                   else None)
         bytes_down = np.full(rounds, X_BYTES_PER_COORD * d * recv,
                              np.int64)
+        return self._traces_summary(ys, rounds, bytes_up, value_bytes,
+                                    bytes_down, wall, bcast, wall_clock_s)
+
+    @staticmethod
+    def _traces_summary(ys, rounds: int, bytes_up, value_bytes, bytes_down,
+                        wall: np.ndarray, bcast: np.ndarray,
+                        wall_clock_s: float):
+        """The traces and summary keys every campaign reports, from its
+        per-round outputs and its int64 byte arrays."""
+        coin = ys["coin"].astype(bool)
+        part = ys["participants"].astype(np.int64)
         traces = {
             "metric": ys["metric"].astype(np.float64),
             "bits_sent": ys["bits"].astype(np.float64),
@@ -410,4 +457,252 @@ class VecFedSim:
             "mean_participants": float(part.mean()),
             "mean_bytes_up_per_round": float(bytes_up.sum()) / rounds,
         }
+        return traces, summary
+
+    # ------------------------------------------------------------------
+    # fault injection (DESIGN.md §18)
+    # ------------------------------------------------------------------
+
+    def _counts(self, rnd, mask, dev):
+        """(n,) int32 shipped value counts of the round's plan, zero
+        outside ``mask``."""
+        if self.schema.static_count is None:
+            counts = self._bound.round_wire_counts(rnd)
+        else:
+            counts = torch.full((self.n,), self.schema.static_count,
+                                dtype=torch.int32, device=dev)
+        return counts * mask
+
+    def _round_graceful_faulted(self, st, m_down, m_up, f, dl, draws,
+                                metric_fn):
+        """One faulted round of a gracefully degrading rule: the round's
+        masks from its participation (the plan the engine then draws) and
+        the chunk's fault booleans, the engine's commit gated by them, and
+        the byte and time scalars summed over the sender set; a
+        short-handed round costs the static float32 deadline ``dl``."""
+        dev = m_down.device
+        rnd = RoundRandom(st.seed, st.t, draws)
+        present = self._bound.round_present(rnd)
+        senders, late, lost, drop = fault_masks(present, f)
+        new, _info = self.method.step_full(
+            st, None, draws=draws, faults=FaultStep(drop=drop,
+                                                    reset=f.reset))
+        delivered = senders & ~lost & ~late
+        miss = present & ~delivered
+        counts = self._counts(rnd, senders, dev)       # only senders ship
+        up_b, down_b = self._link_bytes(self._comp_bytes(counts), senders)
+        n_del, base = self._close(self._delay(down_b, up_b, m_down, m_up),
+                                  delivered)
+        if dl is not None:
+            round_t = torch.where(torch.any(miss),
+                                  torch.full_like(base, float(dl)), base)
+        else:
+            round_t = base
+        waste = lost | late
+        i64 = torch.int64
+        return new, False, (
+            torch.as_tensor(metric_fn(new), device=dev), n_del,
+            torch.sum(counts), round_t, torch.sum(senders.to(i64)),
+            torch.sum(miss.to(i64)), torch.sum(late.to(i64)),
+            torch.sum(lost.to(i64)),
+            torch.sum((present & f.crash_off).to(i64)),
+            torch.sum(waste.to(i64)), torch.sum(counts * waste))
+
+    def _round_sync_faulted(self, st, m_down, m_up, f, retry, dl, cumbk,
+                            draws, metric_fn):
+        """One faulted round of a ``sync_requires_all`` rule (MARINA /
+        SYNC-MVR): the fault-free engine step (the server's backoff
+        re-requests recover every missing upload, so the math is the
+        fault-free campaign's), and the faults in bytes and wall clock:
+        the round closes at the deadline, then each missing client's
+        recovered upload lands after its backoff plus one nominal round
+        trip, every attempt billed (downlink ``x`` per attempt, the uplink
+        record per attempt that reaches a live client).  ``cumbk`` is the
+        float32 cumulative backoff on the device."""
+        d = int(self.comp.spec.d)
+        dev = m_down.device
+        fs, ua, capped = retry
+        new, coin, active, counts, nb = self._step_active(st, draws, dev)
+        senders, late, lost, _ = fault_masks(active, f)
+        delivered = senders & ~lost & ~late
+        miss = ~delivered                              # all n must land
+        f32 = np.float32
+        up_b, down_b = self._link_bytes(nb, senders)
+        _, base = self._close(self._delay(down_b, up_b, m_down, m_up),
+                              delivered)
+        any_miss = torch.any(miss)
+        close = base if dl is None else torch.where(
+            any_miss, torch.full_like(base, float(dl)), base)
+        # recovered upload of client i: close + backoff(first success) +
+        # one nominal round trip of its own record, in float32
+        rt0 = f32(self.downlink.latency_s) \
+            + f32(X_BYTES_PER_COORD * d) / f32(self.downlink.bandwidth_Bps) \
+            + f32(self.compute_s) + f32(self.uplink.latency_s)
+        rt = float(rt0) + nb / float(f32(self.uplink.bandwidth_Bps))
+        land = torch.where(miss, close + cumbk[fs.to(torch.int64)] + rt,
+                           torch.full_like(rt, float("-inf")))
+        round_t = torch.where(any_miss, torch.maximum(close, torch.max(land)),
+                              close)
+        i64 = torch.int64
+        mi = miss.to(i64)
+        waste = lost | late
+        return new, coin, (
+            torch.as_tensor(metric_fn(new), device=dev),
+            torch.sum(active.to(i64)), torch.sum(counts), round_t,
+            torch.sum(senders.to(i64)), torch.sum(counts * senders),
+            torch.sum(mi), torch.sum(late.to(i64)), torch.sum(lost.to(i64)),
+            torch.sum(f.crash_off.to(i64)), torch.sum(fs * mi),
+            torch.sum(ua * mi), torch.sum(counts * ua * mi),
+            torch.sum((capped & miss).to(i64)), torch.sum(waste.to(i64)),
+            torch.sum(counts * waste))
+
+    def _chunk_faulted(self, state, length: int, md, mu, fc, sl, cap,
+                       metric_fn, draws):
+        """One faulted chunk: its fault booleans (and, for sync rules, the
+        retry matrices) go to the device in one transfer each, the rounds
+        run as a Python loop whose scalars stay on the device, and one
+        transfer brings them back."""
+        fm, dev = self.faults, state.x.device
+        sync = self.rule.sync_requires_all
+        cf = faults_to(chunk_faults(fc, sl, mu, cap, fm.rejoin == "reset"),
+                       dev)
+        m_down = torch.as_tensor(md, device=dev)
+        m_up = torch.as_tensor(mu, device=dev)
+        dl = fm.deadline_s(self.downlink, self.uplink, self.compute_s,
+                           int(self.comp.spec.d))
+        if sync:
+            retry = torch.as_tensor(np.stack([
+                fc.first_success[sl], fc.up_attempts[sl],
+                fc.capped[sl].astype(np.int32)])).to(dev)
+            cumbk = torch.as_tensor(fm.backoff_cumsum().astype(np.float32),
+                                    device=dev)
+        rows, coins, bits = [], [], []
+        for j in range(length):
+            dr = draws_at(draws, state.t)
+            if sync:
+                fs, ua, capped = retry[:, j]
+                state, coin, vals = self._round_sync_faulted(
+                    state, m_down[j], m_up[j], cf.at(j),
+                    (fs, ua, capped.to(torch.bool)), dl, cumbk, dr,
+                    metric_fn)
+            else:
+                state, coin, vals = self._round_graceful_faulted(
+                    state, m_down[j], m_up[j], cf.at(j), dl, dr, metric_fn)
+            rows.append(vals)
+            coins.append(coin)
+            bits.append(state.bits_sent)
+        return state, self._chunk_ys(rows, coins, bits,
+                                     _SYNC_YS if sync else _GRACEFUL_YS)
+
+    def _run_faulted(self, state, rounds: int, metric_fn,
+                     start_round: int = 0, clock0: float = 0.0,
+                     checkpoint: Optional[Callable] = None,
+                     draws: Optional[DrawsFn] = None) -> SimResult:
+        """The faulted barrier campaign, vectorized: the fault realization
+        is the heap oracle's own host-drawn
+        :class:`repro_torch.fed.faults.FaultCampaign` (keyed by absolute
+        round, so chunking and kill-and-restore cannot move it), handed to
+        each chunk's rounds as device booleans."""
+        fm = self.faults
+        rng = np.random.default_rng(self.seed)
+        streams = campaign_streams(rng, rounds)
+        if rounds <= 0 or start_round >= rounds:
+            return SimResult(state=state, traces={}, events=None,
+                             summary={"rounds": 0.0,
+                                      "wall_clock_s": float(clock0)})
+        sync = self.rule.sync_requires_all
+        fc = fm.draw_campaign(rounds, self.n, retries=sync)
+        cap = fm.late_cap()
+        parts = []
+        now = float(clock0)
+        done = start_round
+        while done < rounds:
+            length = min(self.chunk, rounds - done)
+            md, mu = self._chunk_multipliers(streams, done, length)
+            state, part = self._chunk_faulted(
+                state, length, md, mu, fc, slice(done, done + length), cap,
+                metric_fn, draws)
+            parts.append(part)
+            done += length
+            if checkpoint is not None:
+                now = float(self._seq_wall(part["round_t"], now)[-1])
+                checkpoint(state, done, now)
+        ys = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+        n_run = rounds - start_round
+        wall = self._seq_wall(ys["round_t"], clock0)
+        bcast = np.concatenate([[clock0], wall[:-1]])
+        traces, summary = self._bill_round_bytes_faulted(
+            ys, fc, sync, n_run, start_round, wall, bcast,
+            wall_clock_s=float(wall[-1]))
+        return SimResult(state=state, traces=traces, events=None,
+                         summary=summary)
+
+    def _bill_round_bytes_faulted(self, ys, fc, sync: bool, n_run: int,
+                                  start_round: int, wall: np.ndarray,
+                                  bcast: np.ndarray, wall_clock_s: float):
+        """Faulted-campaign billing from the per-round outputs: the exact
+        integer formulas the heap oracle realizes from its raw buffers
+        (``len(buf_i) = header + bytes_per_value * count_i``, or the dense
+        record on a coin round) summed over the sender set, plus the sync
+        rules' retry re-payments.  Every operand is an int64 host array of
+        per-round integer sums, so heap and vec byte traces are
+        bit-exact."""
+        n, d = self.n, int(self.comp.spec.d)
+        x_bytes = X_BYTES_PER_COORD * d
+        head, bpv = self.schema.header_bytes, self.schema.bytes_per_value
+        dense_up = wire.HEADER_BYTES + 4 * d
+        i64 = np.int64
+        coin = ys["coin"].astype(bool)
+        senders = ys["senders"].astype(i64)
+        csum = ys["counts_sum"].astype(i64)
+        csend = ys["counts_send"].astype(i64) if sync else csum
+        wasted_n = ys["wasted_n"].astype(i64)
+        wasted_c = ys["wasted_counts"].astype(i64)
+        sl = slice(start_round, start_round + n_run)
+
+        if sync:
+            retries = ys["retries"].astype(i64)
+            retry_up_n = ys["retry_up_n"].astype(i64)
+            retry_c = ys["retry_counts"].astype(i64)
+            capped = ys["capped"].astype(i64)
+            sent = np.where(coin, dense_up * senders,
+                            head * senders + bpv * csend)
+            retry_up_b = np.where(coin, dense_up * retry_up_n,
+                                  head * retry_up_n + bpv * retry_c)
+            retry_down_b = retries * x_bytes
+            value_bytes = np.where(coin, n * 4 * d, 4 * csum)
+            wasted_b = np.where(coin, dense_up * wasted_n,
+                                head * wasted_n + bpv * wasted_c)
+        else:
+            retries = capped = np.zeros(n_run, i64)
+            retry_up_b = retry_down_b = np.zeros(n_run, i64)
+            sent = head * senders + bpv * csend
+            value_bytes = 4 * csend
+            wasted_b = head * wasted_n + bpv * wasted_c
+        bytes_up = sent + retry_up_b
+        bytes_down = n * x_bytes + retry_down_b
+
+        traces, summary = self._traces_summary(
+            ys, n_run, bytes_up, value_bytes, bytes_down, wall, bcast,
+            wall_clock_s)
+        traces.update({
+            "senders": senders.astype(np.float64),
+            "dropped": ys["dropped"].astype(np.float64),
+            "late": ys["late"].astype(np.float64),
+            "lost": ys["lost"].astype(np.float64),
+            "offline": ys["offline"].astype(np.float64),
+            "rejoins": fc.rejoin[sl].sum(axis=1).astype(np.float64),
+            "retries": retries.astype(np.float64),
+            "retry_bytes_up": retry_up_b.astype(np.float64),
+            "retry_bytes_down": retry_down_b.astype(np.float64),
+            "wasted_bytes_up": wasted_b.astype(np.float64),
+            "retry_capped": capped.astype(np.float64),
+        })
+        summary.update({
+            "dropped_rounds": float((traces["dropped"] > 0).sum()),
+            "retries": float(retries.sum()),
+            "retry_capped": float(capped.sum()),
+            "wasted_bytes_up": float(wasted_b.sum()),
+        })
         return traces, summary

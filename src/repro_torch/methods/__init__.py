@@ -5,8 +5,8 @@ from repro_torch.methods.accounting import (  # noqa: F401
     expected_payload_frac, expected_wire_coords, round_payload,
     sampled_per_node)
 from repro_torch.methods.driver import Driver, Sweeper, sweep  # noqa: F401
-from repro_torch.methods.engine import (Hyper, Method,  # noqa: F401
-                                        MethodState, StepInfo)
+from repro_torch.methods.engine import (FaultStep, Hyper,  # noqa: F401
+                                        Method, MethodState, StepInfo)
 from repro_torch.methods.lanes import Lanes, lane_metric  # noqa: F401
 from repro_torch.methods.rules import (VARIANTS, MvrFusion,  # noqa: F401
                                        VariantRule, get_rule,

@@ -101,6 +101,34 @@ class StepInfo(NamedTuple):
     plan: Any = None
 
 
+class FaultStep(NamedTuple):
+    """Per-round fault gating for ``Method.step_full`` (DESIGN.md §18),
+    realized on the host by :mod:`repro_torch.fed.faults` and handed in as
+    (n,) boolean tensors on the state's device.
+
+    * ``drop``  — client i's round is discarded end to end: its message
+      never reaches the server (``g`` loses the ``m_i / n`` term) and the
+      client keeps its pre-round ``(h_i, g_i)``.  Crashes, lost or
+      corrupted uploads, missed broadcasts and deadline cuts all land
+      here.  The gating runs after the estimator, so the round's math and
+      its randomness are the fault-free round's; only the commit is
+      masked.
+    * ``reset`` — client i rebooted with blank state this round
+      (rejoin="reset"): its ``(h_i, g_i)`` are zeroed before the
+      h-update, and the server subtracts the forgotten ``g_i / n`` (a
+      reliable out-of-band reset notice), so ``g = mean_i(g_local_i)``
+      survives.  None means rejoin="stale": the outage freezes state.
+
+    ``bits_sent`` still counts dropped uploads: the client did transmit;
+    the wire lost it.  Only gracefully degrading rules accept faults:
+    ``sync_requires_all`` rules recover every message through the
+    simulators' billed retries, so their math never sees a fault.
+    """
+
+    drop: torch.Tensor
+    reset: Optional[torch.Tensor] = None
+
+
 class MethodState(NamedTuple):
     """Unified method state.  The substrate decides what the device fields
     hold: (n, d) tensors and a (d,) iterate, or node-axis trees and a
@@ -230,14 +258,34 @@ class Method(NamedTuple):
             place of the (n, d) store.  The cohort rows are written back
             into that slab in place: it belongs to the caller's chunk.
 
-            The asynchronous ``deficit=`` and fault-injection ``faults=``
-            hooks belong to parts of the federated layer that are not
-            ported yet."""
-            if deficit is not None or faults is not None:
+            ``faults`` is the fault-injection hook (DESIGN.md §18): a
+            :class:`FaultStep` of (n,) masks.  Reset rows are zeroed
+            before the h-update (with the matching server correction);
+            drop rows are reverted after the estimator, so the round's
+            math up to the commit is untouched and ``faults=None`` is the
+            fault-free round.  The reverted rows are taken from the
+            pre-round tensors with ``torch.where``: the state handed in
+            is still never written.
+
+            The asynchronous ``deficit=`` hook belongs to a later slice of
+            the port of the federated layer."""
+            if deficit is not None:
                 raise NotImplementedError(
-                    "deficit= (asynchronous rounds) and faults= (fault "
-                    "injection) belong to later slices of the port of "
-                    "the federated layer")
+                    "deficit= (asynchronous rounds) belongs to a later "
+                    "slice of the port of the federated layer")
+            if faults is not None:
+                if rule.sync_requires_all:
+                    raise ValueError(
+                        f"variant {rule.name!r} synchronizes all clients "
+                        "(sync_requires_all): the simulator recovers its "
+                        "missing messages by retries, so its math never "
+                        "sees a fault; faults= is for gracefully "
+                        "degrading rules")
+                if samples or window is not None:
+                    raise ValueError(
+                        "faults= is not supported on sampled-client "
+                        "substrates (cohort sampling already models "
+                        "absence; composing both is future work)")
             rnd = RoundRandom(state.seed, state.t, draws)
             # line 4 (server) + broadcast
             x_new, opt_state = sub.server_update(state.x, state.g,
@@ -260,6 +308,16 @@ class Method(NamedTuple):
             else:
                 h_prev = rsub.gather_nodes(state.h_local)
                 g_prev = rsub.gather_nodes(state.g_local)
+            reset_corr = None
+            if faults is not None and faults.reset is not None:
+                # rejoin="reset": the client reboots blank before this
+                # round's h-update, and the server forgets its g_i/n term
+                rmask = faults.reset[:, None]
+                zeros = torch.zeros_like(g_prev)
+                reset_corr = sub.mean_nodes(torch.where(rmask, g_prev,
+                                                        zeros))
+                h_prev = torch.where(rmask, zeros, h_prev)
+                g_prev = torch.where(rmask, zeros, g_prev)
             # line 8: THE variant-specific line
             h_new, aux = rule.h_update(rsub, rnd, hp, x_new, state.x,
                                        h_prev, data)
@@ -272,6 +330,18 @@ class Method(NamedTuple):
                 h_out = rsub.scatter_nodes(state.h_local, h_out)
                 g_local = rsub.scatter_nodes(state.g_local, g_local)
             g = sub.add_server(state.g, agg)                   # line 14
+            if faults is not None:
+                # drop = discard the round: the server never receives m_i
+                # (un-add its mean term) and client i reverts to its
+                # pre-round, post-reset (h_i, g_i)
+                dmask = faults.drop[:, None]
+                dense = msgs.dense()
+                g = g - sub.mean_nodes(torch.where(
+                    dmask, dense, torch.zeros_like(dense)))
+                h_out = torch.where(dmask, h_prev, h_out)
+                g_local = torch.where(dmask, g_prev, g_local)
+                if reset_corr is not None:
+                    g = g - reset_corr
             coin = h_sync = None
             if rule.has_sync:
                 # Alg. 2 lines 9-11 / MARINA: with prob p ALL nodes upload

@@ -188,6 +188,19 @@ class FlatSubstrate:
         return (msgs.mean(), h_out, gl, self.rc.payload_per_node, msgs,
                 present)
 
+    def round_present(self, rnd):
+        """(n,) Appendix-D participation of the round whose randomness is
+        ``rnd``: the plan :meth:`estimator_update_full` then uses (drawn
+        once per round, or injected), read without running the step.
+        All ones at full participation, with no plan drawn.  The fault
+        layer needs it to tell a crashed absentee (nothing expected,
+        nothing lost) from a crashed participant (the server waits, then
+        degrades)."""
+        if self.rc.spec.p_participate >= 1.0:
+            return torch.ones((self.n,), dtype=torch.bool,
+                              device=self.rc.device)
+        return torch.ravel(rnd.plan(self.rc).scale) != 0
+
     def round_wire_counts(self, rnd):
         """(n,) int32 shipped value scalars per node for the round whose
         randomness is ``rnd`` (the plan the engine draws).  Only mask

@@ -9,18 +9,24 @@
 * fig2, fig3 and ``run.py --only`` smoke-run at reduced rounds, with
   finite rows of the reference's columns;
 * the quickstart at 50 rounds ends below its x0 ||grad f||^2;
-* ``sweep_tune`` keeps the best finite lane.
+* ``sweep_tune`` keeps the best finite lane;
+* the fault bench's degradation sweep at the reference's quick size
+  reproduces ``BENCH_faults.json`` wherever the number depends only on
+  the numpy fault and link draws, with every gate true.
 """
+import json
 import math
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 from benchmarks import table1_complexity as ref_table1
-from repro_torch.bench import (common, fig1_gradient, fig2_finite_sum,
-                               fig3_stochastic, fig5_quadratic_pl,
-                               quickstart, table1_complexity)
+from repro_torch.bench import (common, fed_faults, fig1_gradient,
+                               fig2_finite_sum, fig3_stochastic,
+                               fig5_quadratic_pl, quickstart,
+                               table1_complexity)
 from repro_torch.bench import run as bench_run
 from repro_torch.methods import Hyper
 
@@ -123,3 +129,49 @@ def test_sweep_tune_keeps_the_best_finite_lane():
     assert best["gamma"] == gammas[best["index"]]
     assert best["final"] == pytest.approx(min(finite), rel=1e-6)
     assert best["bits"].shape == (30,)
+
+
+def test_fed_faults_reproduces_the_reference_bench():
+    """``degradation_sweep`` at the reference's quick configuration (d =
+    256, n = 20, 96 rounds, sparse RandK) against ``BENCH_faults.json``.
+    DASHA's bytes, waste, fault counts and participants depend only on the
+    numpy fault and link draws: equal exactly, its simulated wall clock to
+    1e-6 relative (float32 round times).  MARINA's fault counts likewise;
+    its bytes and clock also follow its sync coins, which the port draws
+    itself, so they are compared only where draws are injected
+    (``tests/test_torch_faults.py``).  Every gate holds."""
+    want = json.loads((Path(__file__).resolve().parents[1]
+                       / "BENCH_faults.json").read_text())["degradation"]
+    got = fed_faults.degradation_sweep(d=256, n=20, m=8, rounds=96,
+                                       backend="sparse", device="cpu")
+    assert (got["k"], got["rounds"]) == (8, want["rounds"])
+    assert got["drop_grid"] == want["drop_grid"]
+    exact = {"dasha": ("bytes_up", "wasted_bytes_up", "dropped_rounds",
+                       "retries", "retry_capped", "mean_participants"),
+             "marina": ("dropped_rounds", "retries", "retry_capped",
+                        "mean_participants")}
+    for g, w in zip(got["grid"], want["grid"]):
+        assert g["p_drop_up"] == w["p_drop_up"]
+        for variant, keys in exact.items():
+            for key in keys:
+                assert g[variant][key] == w[variant][key], (variant, key)
+        assert g["dasha"]["wall_clock_s"] == pytest.approx(
+            w["dasha"]["wall_clock_s"], rel=1e-6)
+    for gate in ("marina_math_invariant", "dasha_metric_within_factor",
+                 "dasha_wall_bounded_by_deadline",
+                 "marina_pays_in_time_and_bytes",
+                 "graceful_degradation_ok"):
+        assert got[gate] is True, gate
+        assert want[gate] is True, gate
+
+
+def test_fed_faults_equivalence_check_holds():
+    """The bench's second experiment: the heap oracle and the vectorized
+    simulator realize the same faulted campaign (mixed faults with reset
+    rejoins for DASHA, the sync model for MARINA), integer traces bit for
+    bit, and the faults fired."""
+    out = fed_faults.equivalence_check(device="cpu")
+    assert out["ok"] is True
+    for variant in ("dasha", "marina"):
+        assert out[variant]["integer_traces_bit_exact"] is True
+        assert out[variant]["dropped_rounds"] > 0

@@ -475,8 +475,10 @@ def test_resume_from_a_checkpoint_continues_bit_identically(store):
 def test_vecsim_rejections():
     with pytest.raises(NotImplementedError, match="tau"):
         _port_sim(tau=1)
-    with pytest.raises(NotImplementedError, match="faults"):
-        _port_sim(faults=object())
+    # faults= is ported (tests/test_torch_faults.py) but, as in the
+    # reference, refuses a sampled-client substrate
+    with pytest.raises(ValueError, match="sampled"):
+        _port_sim(faults=tfed.FaultModel())
     sim = _port_sim()
     st = sim.init(torch.zeros(D), 0, device="cpu")
     with pytest.raises(NotImplementedError, match="obs"):

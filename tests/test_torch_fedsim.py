@@ -442,8 +442,10 @@ def test_rejections():
     args = ("dasha", heap.comp, heap.substrate, heap.hyper)
     with pytest.raises(NotImplementedError, match="tau"):
         tfed.FedSim(*args, tau=1)
-    with pytest.raises(NotImplementedError, match="faults"):
-        tfed.FedSim(*args, faults=object())
+    # faults= is ported (tests/test_torch_faults.py) but, as in the
+    # reference, refuses asynchronous rounds
+    with pytest.raises(ValueError, match="tau"):
+        tfed.FedSim(*args, tau=1, faults=tfed.FaultModel())
     with pytest.raises(NotImplementedError, match="obs"):
         heap.run(st, 3, obs=object())
     with pytest.raises(ValueError, match="slab"):

@@ -109,15 +109,24 @@ def test_step_info_and_participation():
 
 @pytest.mark.parametrize("hook", ["deficit", "window", "faults"])
 def test_federated_hooks_are_not_ported_yet(hook):
-    """deficit= (asynchronous rounds) and faults= belong to later slices of
-    the federated port and raise NotImplementedError; window= (the slab
+    """deficit= (asynchronous rounds) belongs to a later slice of the
+    federated port and raises NotImplementedError; window= (the slab
     store's hook) is ported and needs a sampled-client substrate, so the
-    flat one refuses it, as the reference does."""
+    flat one refuses it, as the reference does; faults= is ported, and a
+    FaultStep that drops no one leaves the round bit for bit the
+    fault-free one (tests/test_torch_faults.py holds the rest)."""
     _, tp, _ = _problems("dasha")
     trc = t_make_rc("randk", D, N, k=6, device="cpu")
     method = tm.Method.build("dasha", trc, tm.FlatSubstrate(tp, N, D),
                              _hyper(tm.Hyper, "dasha", 1.0))
     st = method.init(torch.zeros(D), 0, device="cpu")
+    if hook == "faults":
+        got, _ = method.step_full(st, faults=tm.FaultStep(
+            drop=torch.zeros(N, dtype=torch.bool)))
+        want, _ = method.step_full(st)
+        for k in ("x", "g", "g_local", "h_local"):
+            assert torch.equal(getattr(got, k), getattr(want, k)), k
+        return
     expected = ValueError if hook == "window" else NotImplementedError
     with pytest.raises(expected):
         method.step_full(st, **{hook: object()})
