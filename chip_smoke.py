@@ -143,7 +143,31 @@ Phases, each fatal on failure:
     plain versions at the campaigns' (20, 20958) rows; (d) card vs CPU at
     n = 5, m = 32, d = 40: faulted dasha and marina through both
     simulators with the same injected draws (integer traces equal, metric,
-    wall clock and final x within 1e-4).
+    wall clock and final x within 1e-4);
+16. asynchronous pipelined rounds (``tau=``) — benchmarks/
+    fed_async_bench.py's configuration widened to real-sim's features as
+    in phase 15 (n = 20 x m = 3,615 x d = 20,958, fused RandK K = 100, the
+    bench's links: uplink 1e6 B/s with a lognormal straggler, downlink
+    1e8 B/s, 1 ms latency, no compute time, network seed 7).  (a) its
+    severity sweep through VecFedSim: tau = 2, sigma in {0, 1, 2}, dasha
+    and marina (p = 0.15), barrier and async, 300 rounds each, and its
+    tau sweep (0, 1, 2, 4 at sigma = 2, 150 rounds); gates: the bench's
+    five booleans, the tau sweep monotone, kernel 1 once a round, tau = 0
+    == the barrier on the card bit for bit (every trace, the final
+    state); rounds/s async against barrier and a profiled async chunk's
+    busy share; (b) 24 rounds of the async dasha campaign at sigma = 2,
+    each round's x held against x_t - gamma (g_t - deficit_t) with the
+    in-flight set and the deficit recomputed in float64 from the ring
+    (two planted faults, the mask shifted by one slot and the sign
+    flipped, must fail), and heap == vec over 40 rounds for dasha and
+    marina with fused RandK and dasha with fused QDither (kernel 2): the
+    integer traces equal, clocks within 2e-5, metric and x within 1e-4,
+    every heap upload decoded against its message; the peak gated at
+    phase 15's plus the ring; (c) phase 11's campaign (n = 100,000, C =
+    64, the slab store and kernel 4) at tau = 2 and with barriers, 256
+    rounds each, the async peak within phase 11's plus 1 GB, and slab ==
+    scatter bit for bit at n = 10,000 over 64 rounds at tau 0 and 2.
+    ``ASYNC_CUTS`` lists the cuts.
 
 Every phase that drives a main path zeroes the launch counters just before
 it and reads them just after; a kernel of that path that never launched
@@ -246,6 +270,38 @@ FAULT_WALL_RTOL, FAULT_METRIC_RTOL, FAULT_INVARIANT = 2e-6, 1e-4, 1e-5
 # error in units of the most that round could move the row (a dropped
 # client's round committed, or a reset missed, is ~1 there)
 FAULT_HAND_LIMIT = 1e-3
+# asynchronous pipelined rounds (phase 16): benchmarks/fed_async_bench.py's
+# configuration widened to real-sim's features as phase 15 widens its own
+# (n = 20 clients, the bench's N, x m = 3,615 x d = 20,958), fused RandK K
+# = 100, the bench's links, tau = 2, dasha and marina (p = 0.15), barrier
+# and async, 300 rounds (the bench's); its tau sweep at sigma = 2 over 150
+# rounds; then heap == vec over 40 rounds and phase 11's campaign at tau =
+# 2.  ASYNC_CUTS lists what is cut from the bench and from phase 11.
+ASYNC_N, ASYNC_TAU, ASYNC_SIGMAS, ASYNC_ROUNDS = 20, 2, (0.0, 1.0, 2.0), 300
+ASYNC_CHECK_ROUNDS, ASYNC_EQ_ROUNDS = 24, 40
+# 16b: each round's x against x_t - gamma (g_t - deficit_t), the deficit
+# recomputed in float64 from the ring: each coordinate within
+# ASYNC_DEFICIT_LIMIT x gamma max|deficit_t| plus ASYNC_ULPS float32 ulps
+# of the terms the card rounds (|x_t| + gamma |g_t| + gamma |deficit_t|),
+# the error reported in units of that bound (a planted fault, which moves
+# x by ~gamma max|deficit_t|, is ~1 / ASYNC_DEFICIT_LIMIT there); heap
+# against vec
+ASYNC_DEFICIT_LIMIT, ASYNC_ULPS = 1e-3, 4
+ASYNC_WALL_RTOL, ASYNC_METRIC_RTOL, ASYNC_X_RTOL = 2e-5, 1e-4, 1e-4
+# 16a/b's peak: phase 15's (6.35 GB on the H100) plus the (tau, n, d) ring
+# and a margin; 16c's: phase 11's (35.02 GB) plus 1 GB, well under the 8.4
+# GB an (n, d) deficit transient would add
+ASYNC_PEAK_MARGIN_GB, FED_PEAK_GB, ASYNC_PEAK_SLACK_GB = 0.25, 35.02, 1.0
+ASYNC_SCALE_ROUNDS, ASYNC_SS_N, ASYNC_SS_ROUNDS = 256, 10000, 64
+ASYNC_CUTS = {
+    "sigmas": "fed_async_bench's (0, 0.5, 1, 1.5, 2) cut to (0, 1, 2), its "
+              "quick grid",
+    "equivalence": "fed_async_bench's n = 5, d = 64 replaced by the "
+                   "real-sim width, n = 20, 40 rounds",
+    "scale_rounds": "phase 11's 1,000 rounds cut to 256 at tau = 2 and "
+                    "with barriers",
+    "slab_vs_scatter": "n = 10,000 over 64 rounds (phase 12b: 128)",
+}
 
 
 def log(msg: str) -> None:
@@ -1369,7 +1425,7 @@ def phase_slab_kernel(torch, smi: str):
 
 def _fed_sim(problem, n, d, c, *, variant="dasha", backend="fused",
              device="cuda", store="auto", k=K_RANDK, hyper_kw=None,
-             chunk=None, gamma_mult=16, engine="vec"):
+             chunk=None, gamma_mult=16, engine="vec", tau=None):
     from repro_torch.compress import make_round_compressor
     from repro_torch.fed import FedSim, LinkModel, Lognormal, VecFedSim
     from repro_torch.fed.sim import DEFAULT_CHUNK
@@ -1384,7 +1440,7 @@ def _fed_sim(problem, n, d, c, *, variant="dasha", backend="fused",
                        straggler=Lognormal(1.0))
     cls = FedSim if engine == "heap" else VecFedSim
     return cls(variant, comp, sub, hyper, uplink=uplink, seed=0,
-               store=store, chunk=chunk or DEFAULT_CHUNK)
+               store=store, chunk=chunk or DEFAULT_CHUNK, tau=tau)
 
 
 def phase_fed_main(torch, smi: str):
@@ -1744,9 +1800,9 @@ def _watch_heap(sim, rounds: int, gate: bool = True):
     last0 = (rounds - 1) // sim.chunk * sim.chunk
     d = int(sim.comp.spec.d)
 
-    def timed_chunk(*args):
+    def timed_chunk(*args, **kw):
         t0 = time.perf_counter()
-        out = run_chunk(*args)
+        out = run_chunk(*args, **kw)
         clock["engine_s"] += time.perf_counter() - t0
         return out
 
@@ -3083,6 +3139,447 @@ def phase_faults(torch, smi: str):
             "nvidia_smi": smi}, launches, kernel_rows
 
 
+def _async_sweep(torch, smi: str, problem):
+    """Phase 16a: fed_async_bench's severity sweep and tau sweep through
+    VecFedSim at the real-sim width, fused RandK K = 100 (kernel 1): tau =
+    2, sigma in {0, 1, 2}, dasha and marina (p = 0.15), barrier and
+    async, 300 rounds each; tau in {0, 1, 2, 4} at sigma = 2 over 150
+    rounds.  Gates: the bench's five, the tau sweep monotone, kernel 1
+    once a round and nothing else; then tau = 0 against the sweep's
+    sigma = 2 barrier runs bit for bit (every trace and the final state)
+    for both variants, and a profiled 128-round async dasha chunk."""
+    import numpy as np
+    from repro_torch.bench import fed_async as fa
+
+    n, m, d = (int(v) for v in problem.features.shape)
+    kw = dict(k=K_RANDK, backend="fused", device="cuda")
+    fa.severity_sweep(problem, rounds=2, sigmas=(0.0,), **kw)  # warm-up
+    torch.cuda.synchronize()
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    sev = fa.severity_sweep(problem, rounds=ASYNC_ROUNDS,
+                            sigmas=ASYNC_SIGMAS, tau=ASYNC_TAU,
+                            keep_runs=True, **kw)
+    depth = fa.tau_sweep(problem, rounds=ASYNC_ROUNDS,
+                         sigma=max(ASYNC_SIGMAS), **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _launch_counts()
+    runs = sev.pop("runs")
+    rounds = 2 * 2 * len(ASYNC_SIGMAS) * ASYNC_ROUNDS \
+        + len(depth["taus"]) * depth["rounds"]
+    _gate_launches("async", counts, {"dasha_update": rounds})
+    gates = ("dasha_async_strictly_faster", "advantage_widens_with_severity",
+             "marina_capped_by_coin_flush",
+             "bytes_up_bit_identical_async_vs_barrier", "payload_reconciles")
+    failed = [g for g in gates if sev[g] is not True]
+    if not depth["monotone_nonincreasing"]:
+        failed.append("tau_sweep_monotone_nonincreasing")
+    if failed:
+        raise AssertionError(f"[async] gates failed: {failed}; ratios "
+                             f"{sev['async_over_barrier_ratio']}, tau sweep "
+                             f"{depth['wall_clock_s']}")
+    if sev["sync_rounds_async"]["dasha"] != 0 or \
+            not sev["sync_rounds_async"]["marina"] > 0:
+        raise AssertionError(f"[async] sync rounds "
+                             f"{sev['sync_rounds_async']}")
+    for v in runs:
+        for r in runs[v]["barrier"] + runs[v]["async"]:
+            tr = r.traces
+            if not all(np.isfinite(tr[k]).all() and tr[k].shape ==
+                       (ASYNC_ROUNDS,) for k in ("metric", "sim_wall_clock",
+                                                 "bcast_clock")):
+                raise AssertionError(f"[async] {v}: a non-finite or "
+                                     "misshapen trace")
+
+    # tau = 0 is the barrier on the card, bit for bit
+    k, sub, rc, L = fa.campaign_setup(problem, "fused", K_RANDK)[3:]
+    hyper = {v: fa.bench_hyper(v, rc.omega, L, d=d, k=k, n=n, m=m)
+             for v in ("dasha", "marina")}
+    top = len(ASYNC_SIGMAS) - 1
+    for v, hp in hyper.items():
+        r0, _ = fa.run_campaign(v, rc, sub, hp, ASYNC_SIGMAS[top], 0,
+                                ASYNC_ROUNDS)
+        if not fa.same_run(runs[v]["barrier"][top], r0):
+            raise AssertionError(f"[async] {v}: tau = 0 differs from the "
+                                 "barrier run on the card")
+    del runs
+
+    rates = {v: {mode: [ASYNC_ROUNDS / s for s in sev["host_s"][v][mode]]
+                 for mode in ("barrier", "async")} for v in hyper}
+    table, pwall = profiled(torch, lambda: fa.run_campaign(
+        "dasha", rc, sub, hyper["dasha"], ASYNC_SIGMAS[top], ASYNC_TAU,
+        FED_CHUNK))
+    busy = sum(t for _, t in table.values()) / 1e6
+    top_k = sorted(table.items(), key=lambda kv: -kv[1][1])[:8]
+    out = {**sev, "tau_sweep": depth, "rounds_per_s": rates,
+           "wall_s": wall, "launches": counts,
+           "tau0_equals_barrier_on_the_card": True,
+           "profiled_chunk": {
+               "campaign": f"dasha tau={ASYNC_TAU} "
+                           f"sigma={ASYNC_SIGMAS[top]}",
+               "rounds": FED_CHUNK, "wall_s": pwall,
+               "device_busy_s": busy, "busy_share": busy / pwall,
+               "top_kernels": [[k_[:90], c, us / 1e3]
+                               for k_, (c, us) in top_k]}}
+    for v in hyper:
+        for i, s in enumerate(ASYNC_SIGMAS):
+            log(f"[async] {v} sigma={s}: barrier "
+                f"{rates[v]['barrier'][i]:.1f} rounds/s, async "
+                f"{rates[v]['async'][i]:.1f} rounds/s; wall to target "
+                f"{sev['wall_to_target_s'][v]['barrier'][i]:.4f} -> "
+                f"{sev['wall_to_target_s'][v]['async'][i]:.4f} s (ratio "
+                f"{sev['async_over_barrier_ratio'][v][i]:.4f}) | {smi}")
+    log(f"[async] tau sweep at sigma {depth['sigma']}: "
+        f"{dict(zip(depth['taus'], depth['wall_clock_s']))}; gates "
+        f"{ {g: sev[g] for g in gates} }; tau = 0 == barrier bit for bit "
+        f"(dasha, marina); launches {counts}")
+    log(f"[async] profiled async dasha chunk: {pwall * 1e3:.1f} ms wall, "
+        f"device busy {busy / pwall:.3f} | {smi}")
+    for k_, c, ms in out["profiled_chunk"]["top_kernels"]:
+        log(f"[async]   {ms:9.3f} ms  x{c:<5d} {k_}")
+    return out, counts
+
+
+def _deficit_by_hand(torch, snap, x_t, g_t, gamma: float, n: int,
+                     plant=None):
+    """x_{t+1} = x_t - gamma (g_t - deficit_t) in float64 on the host from
+    a snapshot of the pipeline before the round: the broadcast's advance,
+    the in-flight set (landings after it) and the deficit, recomputed from
+    the ring.  ``plant`` corrupts it on purpose: "shift" takes each ring
+    slot's in-flight mask from its neighbour, "sign" adds the deficit."""
+    adv = max(max(float(snap["floors"][0]), float(snap["flush"])), 0.0)
+    in_flight = (snap["arrivals"][1:] - adv) > 0.0          # (tau, n)
+    mask = torch.gather(in_flight, 1, snap["ids"])          # (tau, C)
+    if plant == "shift":
+        mask = torch.roll(mask, 1, 0)
+    deficit = torch.where(mask[..., None], snap["msgs"],
+                          torch.zeros((), dtype=torch.float64)).sum((0, 1))
+    deficit = deficit / n
+    sign = -1.0 if plant == "sign" else 1.0
+    return x_t - gamma * (g_t - sign * deficit), deficit
+
+
+def _async_deficit_check(torch, smi: str, problem):
+    """Phase 16b, first part: 16a's async dasha campaign (tau = 2, sigma =
+    2) for ASYNC_CHECK_ROUNDS rounds through VecFedSim, each round's x
+    held against :func:`_deficit_by_hand` on a float64 snapshot of the
+    pipeline taken before it, every coordinate within ASYNC_DEFICIT_LIMIT
+    x gamma max|deficit_t| plus ASYNC_ULPS float32 ulps of the terms the
+    card rounds, over the rounds with a deficit, which must occur.  The
+    error is reported in units of that bound.  Two planted faults, the
+    in-flight mask shifted by one ring slot and the deficit's sign
+    flipped, must each exceed it."""
+    from repro_torch.bench import fed_async as fa
+    from repro_torch.fed import VecFedSim
+
+    n, m, d = (int(v) for v in problem.features.shape)
+    k, sub, rc, L = fa.campaign_setup(problem, "fused", K_RANDK)[3:]
+    hp = fa.bench_hyper("dasha", rc.omega, L, d=d, k=k, n=n, m=m)
+    sim = VecFedSim("dasha", rc, sub, hp, compute_s=0.0, seed=fa.SEED,
+                    tau=ASYNC_TAU, **fa.links(max(ASYNC_SIGMAS)))
+    worst = {"engine": 0.0, "shift": 0.0, "sign": 0.0}
+    seen = {"rounds": 0, "with_deficit": 0}
+    orig = sim._round_scatter
+
+    def checked(st, m_down, m_up, draws, metric_fn, pipe=None, ids=None):
+        f64 = torch.float64
+        snap = {f: getattr(pipe, f).to(f64).cpu()
+                for f in ("floors", "flush", "arrivals", "msgs")}
+        snap["ids"] = pipe.ids.cpu()
+        x_t, g_t = st.x.to(f64).cpu(), st.g.to(f64).cpu()
+        new, coin, vals = orig(st, m_down, m_up, draws, metric_fn, pipe,
+                               ids)
+        x_card = new.x.to(f64).cpu()
+        seen["rounds"] += 1
+        want, deficit = _deficit_by_hand(torch, snap, x_t, g_t, hp.gamma, n)
+        reach = hp.gamma * float(deficit.abs().max())
+        if reach > 0:
+            seen["with_deficit"] += 1
+            ulps = ASYNC_ULPS * 2.0 ** -24 * (
+                x_t.abs() + hp.gamma * (g_t.abs() + deficit.abs()))
+            bound = ASYNC_DEFICIT_LIMIT * reach + ulps
+            worst["engine"] = max(worst["engine"], float(
+                ((x_card - want).abs() / bound).max()))
+            for plant in ("shift", "sign"):
+                bad, _ = _deficit_by_hand(torch, snap, x_t, g_t, hp.gamma,
+                                          n, plant)
+                worst[plant] = max(worst[plant], float(
+                    ((x_card - bad).abs() / bound).max()))
+        return new, coin, vals
+
+    sim._round_scatter = checked
+    sim.run(sim.init(torch.zeros(d, device="cuda"), 1, device="cuda"),
+            ASYNC_CHECK_ROUNDS)
+    del sim._round_scatter
+    tag = "[async-deficit]"
+    if not (seen["rounds"] == ASYNC_CHECK_ROUNDS
+            and seen["with_deficit"] > 0):
+        raise AssertionError(f"{tag} rounds checked {seen}: want every "
+                             "round, some with messages in flight")
+    if not worst["engine"] <= 1.0:
+        raise AssertionError(f"{tag} x_(t+1) against x_t - gamma (g_t - "
+                             f"deficit_t) in float64: {worst['engine']:.3g}"
+                             " of the bound")
+    for plant in ("shift", "sign"):
+        if not worst[plant] > 1.0:
+            raise AssertionError(f"{tag} the planted fault {plant!r} "
+                                 f"passed: {worst[plant]:.3g}")
+    log(f"{tag} dasha tau={ASYNC_TAU} sigma={max(ASYNC_SIGMAS)} fused RandK "
+        f"({n}, {m}, {d}), {seen['rounds']} rounds ({seen['with_deficit']} "
+        f"with messages in flight): worst error {worst['engine']:.3g} of the "
+        f"bound ({ASYNC_DEFICIT_LIMIT} gamma max|deficit| + {ASYNC_ULPS} "
+        f"ulps); planted faults give shift {worst['shift']:.3g}, sign "
+        f"{worst['sign']:.3g} | {smi}")
+    return {"rounds": seen, "worst_in_units_of_the_bound": worst,
+            "limit": ASYNC_DEFICIT_LIMIT, "ulps": ASYNC_ULPS}
+
+
+def _async_heap_vec(torch, smi: str, problem):
+    """Phase 16b, second part: heap == vec at the real-sim width, tau = 2,
+    sigma = 2, ASYNC_EQ_ROUNDS rounds: dasha and marina with fused RandK
+    (kernel 1), dasha with fused QDither s = 15 (kernel 2).  Every heap
+    upload is verified and decoded to its message rows.  Gates: the
+    integer traces (bytes, coins, participants) and bits equal, the clocks
+    within 2e-5 and the metric within 1e-4 relative, the final x within
+    1e-4 of its largest magnitude."""
+    import numpy as np
+    from repro_torch.bench import fed_async as fa
+    from repro_torch.compress import make_round_compressor
+    from repro_torch.fed import FedSim, VecFedSim
+
+    n, m, d = (int(v) for v in problem.features.shape)
+    k, sub, _, L = fa.campaign_setup(problem, "fused", K_RANDK)[3:]
+    comps = {"randk": make_round_compressor("randk", d, n, k=k,
+                                            backend="fused", device="cuda"),
+             "qdither": make_round_compressor("qdither", d, n, s=S_QDITHER,
+                                              backend="fused",
+                                              device="cuda")}
+    campaigns = [("dasha", "randk"), ("marina", "randk"),
+                 ("dasha", "qdither")]
+    sigma, rounds = max(ASYNC_SIGMAS), ASYNC_EQ_ROUNDS
+
+    def run(cls, variant, comp, r, watch=False):
+        rc = comps[comp]
+        hp = fa.bench_hyper(variant, rc.omega, L, d=d, k=k, n=n, m=m)
+        sim = cls(variant, rc, sub, hp, compute_s=0.0, seed=fa.SEED,
+                  tau=ASYNC_TAU, **fa.links(sigma))
+        clock = _watch_heap(sim, r) if watch else None
+        t0 = time.perf_counter()
+        res = sim.run(sim.init(torch.zeros(d, device="cuda"), 1,
+                               device="cuda"), r)
+        torch.cuda.synchronize()
+        if watch:
+            _unwatch_heap(sim)
+        return res, time.perf_counter() - t0, clock
+
+    for variant, comp in campaigns:                  # warm-up, not counted
+        for cls in (FedSim, VecFedSim):
+            run(cls, variant, comp, 2)
+    torch.cuda.synchronize()
+    _reset_launch_counts()
+    rows = []
+    for variant, comp in campaigns:
+        rh, hwall, clock = run(FedSim, variant, comp, rounds, watch=True)
+        rv, vwall, _ = run(VecFedSim, variant, comp, rounds)
+        cmp = fa.compare_heap_vec(rh, rv, fa.INT_TRACES)
+        x_err = float((rv.state.x - rh.state.x).abs().max()
+                      / rh.state.x.abs().max())
+        tag = f"[async] heap vs vec {variant} {comp}"
+        if not (cmp["integer_traces_bit_exact"] and np.array_equal(
+                rh.traces["bits_sent"], rv.traces["bits_sent"])):
+            bad = [t for t, ok in cmp["integer_traces"].items() if not ok]
+            raise AssertionError(f"{tag}: integer traces differ: {bad}")
+        if not (cmp["wall_clock_rel_err"] <= ASYNC_WALL_RTOL
+                and cmp["metric_rel_err"] <= ASYNC_METRIC_RTOL
+                and x_err <= ASYNC_X_RTOL):
+            raise AssertionError(f"{tag}: clock rel err "
+                                 f"{cmp['wall_clock_rel_err']}, metric "
+                                 f"{cmp['metric_rel_err']}, x {x_err}")
+        if clock["gated_rounds"] != rounds:
+            raise AssertionError(f"{tag}: {clock['gated_rounds']} of "
+                                 f"{rounds} rounds decoded")
+        if variant == "marina" and not rh.summary["sync_rounds"] > 0:
+            raise AssertionError(f"{tag}: no coin round")
+        row = {"variant": variant, "compressor": comp, "rounds": rounds,
+               "heap_rounds_per_s": rounds / hwall,
+               "vec_rounds_per_s": rounds / vwall,
+               "uploads_decoded": clock["gated_uploads"],
+               "sync_rounds": rh.summary["sync_rounds"],
+               "sim_wall_clock_s": rh.summary["wall_clock_s"],
+               "wall_clock_rel_err": cmp["wall_clock_rel_err"],
+               "metric_rel_err": cmp["metric_rel_err"], "x_rel_err": x_err,
+               **_host_split(hwall, clock, rounds)}
+        rows.append(row)
+        log(f"{tag}: {rounds} rounds, heap {row['heap_rounds_per_s']:.1f} "
+            f"rounds/s, vec {row['vec_rounds_per_s']:.1f} rounds/s; integer "
+            f"traces equal, clock rel err {cmp['wall_clock_rel_err']:.3g}, "
+            f"metric {cmp['metric_rel_err']:.3g}, x {x_err:.3g}; "
+            f"{clock['gated_uploads']} uploads decoded | {smi}")
+    counts = _launch_counts()
+    _gate_launches("async", counts, {"dasha_update": 2 * 2 * rounds,
+                                     "quantize": 2 * rounds})
+    return {"campaigns": rows, "launches": counts}, counts
+
+
+def _async_scale(torch, smi: str, fed_peak_gb: float):
+    """Phase 16c: phase 11's cross-device campaign (n = 100,000, C = 64, m =
+    1, d = 20,958, fused RandK on the cohort, the slab store and kernel 4)
+    at tau = 2 for ASYNC_SCALE_ROUNDS rounds, then with round barriers at
+    the same configuration.  Gates: the async run's peak within phase 11's
+    plus ASYNC_PEAK_SLACK_GB (an (n, d) deficit transient would be 8.4
+    GB), launches (kernel 1 once a round, kernel 4 twice a chunk), 64
+    participants and finite traces.  Then slab == scatter bit for bit at
+    n = 10,000, 64 rounds, tau in {0, 2}."""
+    import numpy as np
+    from repro_torch.bench.fed_async import same_run
+    from repro_torch.core.oracles import FiniteSumProblem
+    from repro_torch.data.pipeline import synthetic_classification
+
+    n, d, c, rounds = FED_N, D_REALSIM, FED_C, ASYNC_SCALE_ROUNDS
+    gc.collect()
+    torch.cuda.empty_cache()
+    feats, labels = synthetic_classification(0, n, 1, d, device="cuda")
+    problem = FiniteSumProblem(_glm_loss(torch), feats, labels)
+    L = float((feats.norm(dim=-1) ** 2).mean() * 2)
+
+    def metric(s):
+        return torch.sum(s.g ** 2)
+
+    out, counts = {}, {}
+    for mode, tau in (("async", ASYNC_TAU), ("barrier", None)):
+        sim = _fed_sim(problem, n, d, c, hyper_kw=dict(L=L),
+                       chunk=FED_CHUNK, tau=tau)
+        state = sim.init(torch.zeros(d, device="cuda"), 1, device="cuda")
+        sim.run(state, 2, metric_fn=metric)            # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        res = sim.run(state, rounds, metric_fn=metric)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[mode] = _launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        tr = res.traces
+        want = {"dasha_update": rounds,
+                "slab_writeback": 2 * -(-rounds // FED_CHUNK)}
+        _gate_launches(f"async-scale {mode}", counts[mode], want)
+        if not (np.all(tr["participants"] == c) and all(
+                np.isfinite(tr[k]).all() for k in ("metric",
+                                                   "sim_wall_clock"))):
+            raise AssertionError(f"[async-scale] {mode}: participants or "
+                                 "non-finite traces")
+        out[mode] = {"rounds_per_s": rounds / wall, "wall_s": wall,
+                     "peak_mem_gb": peak,
+                     "sim_wall_clock_s": res.summary["wall_clock_s"],
+                     "grad_sq_final": float(tr["metric"][-1]),
+                     "launches": counts[mode]}
+        del res, state, sim
+        torch.cuda.empty_cache()
+    limit = fed_peak_gb + ASYNC_PEAK_SLACK_GB
+    if not out["async"]["peak_mem_gb"] <= limit:
+        raise AssertionError(f"[async-scale] peak "
+                             f"{out['async']['peak_mem_gb']:.2f} GB over "
+                             f"phase 11's {fed_peak_gb:.2f} + "
+                             f"{ASYNC_PEAK_SLACK_GB} GB")
+    log(f"[async-scale] dasha fused RandK n={n} C={c} d={d}, {rounds} "
+        f"rounds: async tau={ASYNC_TAU} {out['async']['rounds_per_s']:.1f} "
+        f"rounds/s, peak {out['async']['peak_mem_gb']:.2f} GB (gate "
+        f"{limit:.2f}); barrier {out['barrier']['rounds_per_s']:.1f} "
+        f"rounds/s, peak {out['barrier']['peak_mem_gb']:.2f} GB; simulated "
+        f"{out['async']['sim_wall_clock_s']:.2f} vs "
+        f"{out['barrier']['sim_wall_clock_s']:.2f} s | {smi}")
+    del problem, feats, labels
+    torch.cuda.empty_cache()
+
+    # slab == scatter at n = 10,000 on the card, tau in {0, 2}
+    n2 = ASYNC_SS_N
+    feats2, labels2 = synthetic_classification(1, n2, 1, d, device="cuda")
+    prob2 = FiniteSumProblem(_glm_loss(torch), feats2, labels2)
+    L2 = float((feats2.norm(dim=-1) ** 2).mean() * 2)
+    for tau in (0, ASYNC_TAU):
+        runs = {}
+        for store in ("slab", "scatter"):
+            sim = _fed_sim(prob2, n2, d, c, store=store,
+                           hyper_kw=dict(L=L2), chunk=FED_CHUNK, tau=tau)
+            state = sim.init(torch.zeros(d, device="cuda"), 3,
+                             device="cuda")
+            runs[store] = sim.run(state, ASYNC_SS_ROUNDS, metric_fn=metric)
+            del state
+        a, b = runs["slab"], runs["scatter"]
+        if not same_run(a, b):
+            raise AssertionError(f"[async-scale] slab vs scatter differ at "
+                                 f"tau={tau}")
+        del runs, a, b
+    log(f"[async-scale] slab == scatter bit for bit on the card: n={n2} "
+        f"C={c} d={d}, {ASYNC_SS_ROUNDS} rounds, tau in (0, {ASYNC_TAU})")
+    del feats2, labels2, prob2
+    torch.cuda.empty_cache()
+    out["slab_equals_scatter"] = {"n": n2, "rounds": ASYNC_SS_ROUNDS,
+                                  "taus": [0, ASYNC_TAU], "ok": True}
+    return out, counts["async"]
+
+
+def phase_async(torch, smi: str, fault_peak_gb=None, fed_peak_gb=None):
+    """Phase 16: asynchronous pipelined rounds.  16a the severity and tau
+    sweeps at the real-sim width with tau = 0 == barrier on the card, 16b
+    the deficit arithmetic against float64 by hand (with two planted
+    faults) and heap == vec with kernels 1 and 2, both under a peak gate
+    of phase 15's peak plus the ring; 16c the cross-device slab campaign
+    at tau = 2 under phase 11's peak plus 1 GB, and slab == scatter.
+    Returns the report and the async path's launches of kernels 1, 2
+    and 4."""
+    from repro_torch.bench import fed_async as fa
+
+    n, m, d = ASYNC_N, FAULT_M, D_REALSIM
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    problem = fa.make_problem(d, n, m, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[async] cuts: {ASYNC_CUTS}")
+    log(f"[async] real-sim-width data ({n}, {m}, {d}) = "
+        f"{problem.features.numel() * 4 / 1e9:.2f} GB made on the card in "
+        f"{time.perf_counter() - t0:.2f} s; earlier phases hold "
+        f"{base / 1e9:.2f} GB")
+    torch.cuda.reset_peak_memory_stats()
+    sweep, sweep_counts = _async_sweep(torch, smi, problem)
+    deficit = _async_deficit_check(torch, smi, problem)
+    equiv, equiv_counts = _async_heap_vec(torch, smi, problem)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ring_gb = ASYNC_TAU * n * d * 4 / 1e9
+    limit = (FAULT_PEAK_GB if fault_peak_gb is None else fault_peak_gb) \
+        + ring_gb + ASYNC_PEAK_MARGIN_GB
+    if peak > limit:
+        raise AssertionError(f"[async] peak {peak:.2f} GB over {limit:.2f}"
+                             f" GB (phase 15's peak, the ring and "
+                             f"{ASYNC_PEAK_MARGIN_GB} GB)")
+    log(f"[async] peak {peak:.2f} GB with all that the card holds (gate "
+        f"{limit:.2f} GB: phase 15's peak + the {ring_gb * 1e3:.1f} MB ring "
+        f"+ {ASYNC_PEAK_MARGIN_GB} GB) | {smi}")
+    del problem
+    torch.cuda.empty_cache()
+    scale, scale_counts = _async_scale(
+        torch, smi, FED_PEAK_GB if fed_peak_gb is None else fed_peak_gb)
+    launches = {"dasha_update": sweep_counts["dasha_update"]
+                + equiv_counts["dasha_update"]
+                + scale_counts["dasha_update"],
+                "quantize": equiv_counts["quantize"],
+                "slab_writeback": scale_counts["slab_writeback"]}
+    return {"n": n, "m": m, "d": d, "K": K_RANDK, "tau": ASYNC_TAU,
+            "features_gb": n * m * d * 4 / 1e9,
+            "held_by_earlier_phases_gb": base / 1e9, "peak_mem_gb": peak,
+            "peak_gate_gb": limit,
+            "links": {"up_Bps": fa.UP_BW, "down_Bps": fa.DOWN_BW,
+                      "latency_s": fa.LATENCY, "compute_s": 0.0,
+                      "net_seed": fa.SEED},
+            "cuts": ASYNC_CUTS, "sweep": sweep, "deficit_by_hand": deficit,
+            "heap_vs_vec": equiv, "scale": scale, "launches": launches,
+            "nvidia_smi": smi}, launches
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"{SRC / 'repro_torch'} not found: run from a checkout of the "
@@ -3120,20 +3617,27 @@ def main() -> int:
     faults, fault_launches, fault_rows = phase_faults(torch, smi)
     for name, row in fault_rows.items():
         per_shape[name].append(row)
+    asyncr, async_launches = phase_async(
+        torch, smi, fault_peak_gb=faults["peak_mem_gb"],
+        fed_peak_gb=fed["peak_mem_gb"])
     # kernels 1, 2 and 4 run on several main paths: the flat round, the
-    # federated cohort round, the heap oracle, the sweep and the faulted
-    # campaigns (each counted from zero around its own run)
+    # federated cohort round, the heap oracle, the sweep, the faulted
+    # campaigns and the asynchronous ones (each counted from zero around
+    # its own run)
     by_path = {
         "dasha_update": {"flat": launches["dasha_update"],
                          "fed": fed_launches["dasha_update"],
                          "heap": heap_launches["dasha_update"],
                          "sweep": sweep_launches,
-                         "faults": fault_launches["dasha_update"]},
+                         "faults": fault_launches["dasha_update"],
+                         "async": async_launches["dasha_update"]},
         "quantize": {"flat": launches["quantize"],
                      "heap": heap_launches["quantize"],
-                     "faults": fault_launches["quantize"]},
+                     "faults": fault_launches["quantize"],
+                     "async": async_launches["quantize"]},
         "slab_writeback": {"fed": fed_launches["slab_writeback"],
-                           "heap": heap_launches["slab_writeback"]}}
+                           "heap": heap_launches["slab_writeback"],
+                           "async": async_launches["slab_writeback"]}}
     for name, paths in by_path.items():
         launches[name] = sum(paths.values())
 
@@ -3209,7 +3713,8 @@ def main() -> int:
               "trainer_agreement_worst": train_rel, "serve": serving,
               "serve_agreement_worst": serve_rel, "fed": fed,
               "fed_agreement_worst": fed_rel, "heap": heap,
-              "sweep": sweep, "faults": faults, "nvidia_smi": smi}
+              "sweep": sweep, "faults": faults, "async": asyncr,
+              "nvidia_smi": smi}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))

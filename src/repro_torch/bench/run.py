@@ -1,5 +1,6 @@
 """Harness of the port's paper benchmarks (port of ``benchmarks/run.py``
-over the figures, the table and the fault bench ported so far).
+over the figures, the table, the fault bench and the async bench
+ported so far).
 
     PYTHONPATH=src python -m repro_torch.bench.run [--only fig1,table1]
         [--device cpu] [--rounds-scale 0.1]
@@ -19,7 +20,8 @@ from repro_torch.bench.common import emit
 from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
 
 BENCHES = ["fig1_gradient", "fig2_finite_sum", "fig3_stochastic",
-           "fig5_quadratic_pl", "table1_complexity", "fed_faults"]
+           "fig5_quadratic_pl", "table1_complexity", "fed_faults",
+           "fed_async"]
 
 
 def select(only) -> list:

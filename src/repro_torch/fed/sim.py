@@ -41,11 +41,16 @@ rejoins, lossy links, corruption (a byte really flipped, caught by the
 wire checksum), a deadline and, for ``sync_requires_all`` rules, bounded
 backoff retries; see :meth:`FedSim._run_faulted`.
 
-Not ported yet: asynchronous pipelined rounds (``tau=``) and the
-observability handle (``obs=``); each raises.
+With ``tau=`` the rounds are asynchronous and pipelined (DESIGN.md §14):
+per-client clocks replace the round barrier, the server broadcasts round t
+once the rounds older than t - tau have landed, and its step subtracts the
+messages still in flight; see :meth:`FedSim._run_async`.
+
+Not ported yet: the observability handle (``obs=``), which raises.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import heapq
 from typing import Any, Callable, Dict, List, NamedTuple, Optional
@@ -79,10 +84,11 @@ FAULT_TRACES = ("senders", "dropped", "late", "lost", "offline",
 
 
 class FedEvent(NamedTuple):
-    """One server-side event: ``m_i`` applied the moment it lands."""
+    """One server-side event: ``m_i`` applied the moment it lands, a
+    round's completion, or (asynchronous rounds) a broadcast."""
 
     time: float
-    kind: str                          # "apply" | "round"
+    kind: str                          # "bcast" | "apply" | "round"
     client: int
     round: int
     nbytes: int
@@ -197,6 +203,37 @@ def check_faults(sim) -> None:
             "cohort sampling already models absence")
 
 
+def check_tau(sim) -> None:
+    """The staleness bound of asynchronous rounds, shared by both
+    simulators: None (round barriers) or an integer >= 0."""
+    if sim.tau is not None and (int(sim.tau) != sim.tau or sim.tau < 0):
+        raise ValueError(f"tau={sim.tau!r} must be None or an integer >= 0")
+
+
+def check_resume(start_round: int, clock0: float, checkpoint) -> None:
+    """Kill-and-restore is defined for round barriers only: an
+    asynchronous campaign's in-flight ring is not part of a checkpoint."""
+    if start_round or clock0 or checkpoint is not None:
+        raise ValueError("checkpoint/resume is barrier-only (tau=None)")
+
+
+def host_deficit(ring, bcast: float, n: int, d: int) -> np.ndarray:
+    """The heap oracle's in-flight deficit at a broadcast at ``bcast``:
+    the (1/n)-scaled float32 sum, on the host, of the messages of ring
+    slots 1..tau whose client lands after it.  Each slot holds its
+    clients' absolute landings (``arr``) and float32 message rows
+    (``msgs``) in client order, or None when empty; the rows are summed
+    slot by slot in that order, the reference's arithmetic."""
+    deficit = np.zeros(d, np.float32)
+    for e in list(ring)[1:]:
+        if e["arr"] is None:
+            continue
+        in_flight = e["arr"] > bcast
+        if in_flight.any():
+            deficit += e["msgs"][in_flight].sum(0)
+    return deficit / np.float32(n)
+
+
 # ---------------------------------------------------------------------------
 # the heap oracle
 # ---------------------------------------------------------------------------
@@ -262,7 +299,9 @@ class FedSim:
     compute_s: float = 0.01
     seed: int = 0
     chunk: int = DEFAULT_CHUNK
-    #: staleness bound of asynchronous pipelined rounds: not ported yet
+    #: staleness bound of asynchronous pipelined rounds (DESIGN.md §14):
+    #: None keeps the round barrier; tau >= 0 lets rounds t - tau .. t - 1
+    #: still be in flight when round t is broadcast
     tau: Optional[int] = None
     #: client-state store for sampled substrates (DESIGN.md §16): "slab",
     #: "scatter", or "auto" (slab exactly when the substrate samples
@@ -291,10 +330,7 @@ class FedSim:
         self.sampled = bool(getattr(self.substrate, "samples_clients",
                                     False))
         check_faults(self)
-        if self.tau is not None:
-            raise NotImplementedError(
-                "tau= (asynchronous pipelined rounds) belongs to a later "
-                "slice of the port; run with round barriers (tau=None)")
+        check_tau(self)
         if self.store not in ("auto", "scatter", "slab"):
             raise ValueError(f"store={self.store!r} must be 'auto', "
                              "'scatter' or 'slab'")
@@ -352,7 +388,7 @@ class FedSim:
 
     def _run_chunk(self, state, length: int, metric_fn,
                    draws: Optional[DrawsFn],
-                   faults: Optional[ChunkFaults] = None):
+                   faults: Optional[ChunkFaults] = None, deficit=None):
         """``length`` engine rounds on the active store; returns (state,
         the chunk's observables on the host).  The slab store gathers the
         rows the chunk's cohorts touch, runs the rounds on that slab and
@@ -361,7 +397,9 @@ class FedSim:
         ``faults`` (the chunk's fault inputs on the device; dense
         substrates only) gates each round's commit with the
         :class:`~repro_torch.methods.engine.FaultStep` that
-        :func:`round_fault_step` builds from the round's participation."""
+        :func:`round_fault_step` builds from the round's participation.
+        ``deficit`` (a one-round chunk of an asynchronous campaign) is the
+        engine's in-flight correction of the round's server step."""
         rows: Dict[str, list] = {k: [] for k in (
             "metric", "values", "indices", "present", "plan_indices",
             "plan_mask", "coin", "bits")}
@@ -380,7 +418,7 @@ class FedSim:
             for j in range(length):
                 new, info = self.method.step_full(
                     st, None, draws=draws_at(draws, st.t),
-                    window=(sels[j], sels_t[j], loc_t[j]))
+                    window=(sels[j], sels_t[j], loc_t[j]), deficit=deficit)
                 self._observe(rows, syncs, j, new, info, metric_fn)
                 st = new
             state = slab_exit(st, idx, full_h, full_g)
@@ -390,7 +428,7 @@ class FedSim:
                 fs = None if faults is None else round_fault_step(
                     self._bound, state, dr, faults.at(j))
                 new, info = self.method.step_full(state, None, draws=dr,
-                                                  faults=fs)
+                                                  faults=fs, deficit=deficit)
                 self._observe(rows, syncs, j, new, info, metric_fn)
                 state = new
         dev_rows = {k: torch.stack(v) for k, v in rows.items()
@@ -477,15 +515,16 @@ class FedSim:
         return coin, active, wire.round_bytes(bufs), bufs, (vals, idxs)
 
     def _dense_rows(self, vals, idxs) -> np.ndarray:
-        """The (n, d) dense view of one round's messages: scatter-ADD for
-        the sparse backend, mirroring ``SparseMessages.dense()``; PAD
-        indices (>= d) drop."""
+        """The dense float32 rows of one round's messages, one per row of
+        ``vals`` (the asynchronous in-flight ledger): scatter-ADD for the
+        sparse backend, mirroring ``SparseMessages.dense()``; PAD indices
+        (>= d) drop."""
         d = int(self.comp.spec.d)
         if idxs is None:
             return np.asarray(vals, np.float32)
-        out = np.zeros((self.n, d), np.float32)
+        out = np.zeros((len(vals), d), np.float32)
         keep = idxs < d
-        rows = np.broadcast_to(np.arange(self.n)[:, None], idxs.shape)
+        rows = np.broadcast_to(np.arange(len(vals))[:, None], idxs.shape)
         np.add.at(out, (rows[keep], idxs[keep].astype(np.int64)),
                   np.asarray(vals, np.float32)[keep])
         return out
@@ -512,7 +551,9 @@ class FedSim:
         longer writes.  ``draws(t)`` injects round t's randomness (plan,
         coins, samples, cohort) for the parity tests; None draws it.
         ``log_events`` keeps the server's event log (at most
-        ``max_events``).  ``state`` is never written."""
+        ``max_events``).  ``state`` is never written.  With ``tau`` set the
+        campaign is asynchronous (:meth:`_run_async`), and the resume
+        arguments raise ValueError."""
         if obs is not None:
             raise NotImplementedError(
                 "obs= (the observability handle) belongs to a later slice "
@@ -521,6 +562,10 @@ class FedSim:
         if not (0 <= int(start_round) <= rounds):
             raise ValueError(f"start_round={start_round} outside "
                              f"[0, {rounds}]")
+        if self.tau is not None:
+            check_resume(start_round, clock0, checkpoint)
+            return self._run_async(state, rounds, metric_fn, log_events,
+                                   max_events, draws)
         run = self._run_faulted if self.faults is not None \
             else self._run_barrier
         return run(state, rounds, metric_fn, log_events, max_events,
@@ -852,6 +897,163 @@ class FedSim:
                          events=events if log_events else None,
                          summary=summary)
 
+    # ------------------------------------------------------------------
+    # asynchronous pipelined rounds (DESIGN.md §14)
+    # ------------------------------------------------------------------
+
+    def _run_async(self, state, rounds: int, metric_fn, log_events: bool,
+                   max_events: int,
+                   draws: Optional[DrawsFn] = None) -> SimResult:
+        """The asynchronous pipelined replay: per-client next-free clocks,
+        messages in flight across rounds, and a staleness-bounded
+        broadcast gate, in float64 absolute time on the host.
+
+        Round t is broadcast at ``T = max(T, completion(t - 1 - tau),
+        flush)`` and the server steps from ``g - deficit``, the deficit
+        being the (1/n)-scaled sum of the messages still in flight at T
+        (:func:`host_deficit`, numpy float32).  Client i starts round t
+        at ``max(T + downlink_i, free_i)`` and lands at ``start + compute
+        + uplink_i``; the server applies each message as it lands (g is a
+        sum, so landings commute), and a slow client's round-t message
+        may land after round t + k was broadcast.
+
+        At tau = 0 nothing is ever in flight and no client is ever busy,
+        so the engine runs the barrier's own chunks (states bit-identical)
+        and the clock arithmetic repeats the barrier's float64 chain term
+        for term.  At tau >= 1 every round is a one-round chunk with its
+        deficit.  A coin round of a ``pipeline_coin_flush`` rule (MARINA,
+        SYNC-MVR) discards every message in flight and makes the next
+        broadcast wait for all n dense sync uploads."""
+        tau = int(self.tau)
+        n = self.n
+        d = int(self.comp.spec.d)
+        x_bytes = X_BYTES_PER_COORD * d
+        md_all, mu_all = campaign_multipliers(
+            np.random.default_rng(self.seed), rounds, self.downlink,
+            self.uplink, n)
+        recv = downlink_receivers(n, self.substrate.c if self.sampled
+                                  else None)
+        flush_rule = self.rule.pipeline_coin_flush
+        lat_d = self.downlink.latency_s
+        dev = state.x.device
+
+        names = ("metric", "bits_sent", "bytes_up", "value_bytes",
+                 "bytes_down", "sim_wall_clock", "bcast_clock",
+                 "sync_round", "participants")
+        tr = {k: np.zeros(rounds) for k in names}
+        events: List[FedEvent] = []
+
+        def empty():
+            return {"floor": -np.inf, "arr": None, "msgs": None}
+
+        T = 0.0                         # the latest broadcast
+        free = np.zeros(n)              # per-client next-free clocks
+        flush_T = -np.inf               # a pending sync flush's gate
+        # the last tau + 1 rounds: slot 0 (round t - 1 - tau) gates the
+        # broadcast, slots 1..tau may still be in flight; each keeps its
+        # active clients' landings and message rows in client order
+        ring = collections.deque([empty() for _ in range(tau + 1)],
+                                 maxlen=tau + 1)
+        if self.slab and rounds > 0:
+            state = snapshot(state)
+        buf = None
+        buf_off = buf_len = 0
+        bytes_up_total = 0
+        sync_rounds = 0
+
+        for t in range(rounds):
+            T_new = max(T, ring[0]["floor"], flush_T)
+            if tau == 0:
+                # nothing can be in flight: the barrier's own chunks
+                if buf_off == buf_len:
+                    buf_len = min(self.chunk, rounds - t)
+                    state, buf = self._run_chunk(state, buf_len, metric_fn,
+                                                 draws)
+                    buf_off = 0
+                ys, j = buf, buf_off
+                buf_off += 1
+            else:
+                deficit = host_deficit(ring, T_new, n, d)
+                state, ys = self._run_chunk(
+                    state, 1, metric_fn, draws,
+                    deficit=torch.as_tensor(deficit, device=dev))
+                j = 0
+
+            coin, active, rb, _bufs, (vals, idxs) = self._round_wire(ys, j,
+                                                                     t)
+            up_bytes = np.asarray(rb.per_node, np.float64)
+            down_bytes = np.where(active, x_bytes, 0).astype(np.float64)
+            t_down = self.downlink.transfer_s(down_bytes, md_all[t])
+            t_up = self.uplink.transfer_s(up_bytes, mu_all[t])
+            # a client starts once the broadcast reaches it and its last
+            # upload is done; the not-busy branch is the barrier's float64
+            # chain (tau = 0 parity)
+            busy = free > T_new + t_down
+            arr = np.where(busy, (free + self.compute_s) + t_up,
+                           T_new + (t_down + self.compute_s + t_up))
+            floor_t = float(arr[active].max()) if active.any() \
+                else T_new + lat_d
+            free = np.where(active, arr, free)
+
+            if log_events:
+                if len(events) < max_events:
+                    events.append(FedEvent(T_new, "bcast", -1, t,
+                                           recv * x_bytes))
+                act_idx = np.flatnonzero(active)
+                for i in act_idx[np.argsort(arr[act_idx], kind="stable")]:
+                    if len(events) >= max_events:
+                        break
+                    events.append(FedEvent(float(arr[i]), "apply", int(i),
+                                           t, rb.per_node[i]))
+                if len(events) < max_events:
+                    events.append(FedEvent(floor_t, "round", -1, t,
+                                           rb.total_bytes))
+
+            ring.popleft()
+            if coin and flush_rule:
+                # the sync reset g <- mean(h_sync) discards every message
+                # in flight; the next broadcast waits for this round
+                flush_T = max(flush_T, floor_t)
+                for e in ring:
+                    e.update(empty())
+                ring.append(empty())
+            else:
+                ring.append({
+                    "floor": floor_t, "arr": arr[active],
+                    "msgs": self._dense_rows(
+                        vals[active], None if idxs is None
+                        else idxs[active]) if tau >= 1 else None})
+            T = T_new
+
+            bytes_up_total += rb.total_bytes
+            sync_rounds += int(coin)
+            tr["metric"][t] = float(ys["metric"][j])
+            tr["bits_sent"][t] = float(ys["bits"][j])
+            tr["bytes_up"][t] = rb.total_bytes
+            tr["value_bytes"][t] = rb.value_bytes
+            tr["bytes_down"][t] = recv * x_bytes
+            tr["sim_wall_clock"][t] = floor_t
+            tr["bcast_clock"][t] = T_new
+            tr["sync_round"][t] = float(coin)
+            tr["participants"][t] = float(active.sum())
+
+        summary = {
+            "rounds": float(rounds),
+            "wall_clock_s": float(tr["sim_wall_clock"].max())
+            if rounds else 0.0,
+            "bytes_up": float(bytes_up_total),
+            "bytes_down": float(tr["bytes_down"].sum()),
+            "sync_rounds": float(sync_rounds),
+            "mean_participants": float(tr["participants"].mean())
+            if rounds else 0.0,
+            "mean_bytes_up_per_round":
+                float(bytes_up_total) / max(rounds, 1),
+            "tau": float(tau),
+        }
+        return SimResult(state=state, traces=tr,
+                         events=events if log_events else None,
+                         summary=summary)
+
 
 def simulate(variant: str, comp, substrate, hyper: Hyper, x0,
              init_seed: int, *, rounds: int,
@@ -872,7 +1074,8 @@ def simulate(variant: str, comp, substrate, hyper: Hyper, x0,
     network.  ``store`` picks the client-state store on sampled
     substrates; ``faults`` injects a seeded
     :class:`repro_torch.fed.faults.FaultModel` (crashes, lossy links,
-    corruption, deadlines and retries); ``tau`` and ``obs`` raise until
+    corruption, deadlines and retries); ``tau`` runs asynchronous
+    pipelined rounds of that staleness bound; ``obs`` raises until
     ported.
     ``init_kw`` goes to ``Method.init`` (``device=`` among them)."""
     if engine == "vec":

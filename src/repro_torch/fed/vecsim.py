@@ -38,8 +38,12 @@ round's masks are pure boolean functions of them and of the round's
 participation (:func:`repro_torch.fed.sim.fault_masks`), and the byte
 traces equal the heap's bit for bit (:meth:`VecFedSim._run_faulted`).
 
-Not ported yet: asynchronous pipelined rounds (``tau=``) and the
-observability handle (``obs=``); each raises.
+With ``tau=`` the rounds are asynchronous and pipelined (DESIGN.md §14):
+the server broadcasts round t once every round older than t - tau has
+landed, and steps from ``g`` minus the messages still in flight
+(:class:`_Pipeline`, :meth:`VecFedSim._run_async`).
+
+Not ported yet: the observability handle (``obs=``), which raises.
 """
 from __future__ import annotations
 
@@ -54,8 +58,9 @@ from repro_torch.fed import wire
 from repro_torch.fed.net import LinkModel, campaign_streams, round_multipliers
 from repro_torch.fed import faults as faultslib
 from repro_torch.fed.sim import (DEFAULT_CHUNK, X_BYTES_PER_COORD, DrawsFn,
-                                 SimResult, check_faults, chunk_faults,
-                                 draws_at, fault_masks, faults_to, slab_enter,
+                                 SimResult, check_faults, check_resume,
+                                 check_tau, chunk_faults, draws_at,
+                                 fault_masks, faults_to, slab_enter,
                                  slab_exit, snapshot)
 from repro_torch.methods.accounting import downlink_receivers
 from repro_torch.methods.engine import FaultStep, Hyper, Method
@@ -71,6 +76,85 @@ _SYNC_YS = _DEVICE_YS + ("senders", "counts_send", "dropped", "late",
                          "lost", "offline", "retries", "retry_up_n",
                          "retry_counts", "capped", "wasted_n",
                          "wasted_counts")
+#: ... and those of an asynchronous chunk: how far each round's broadcast
+#: moved the clock, and when the round's own uploads finished after it
+_ASYNC_YS = ("metric", "participants", "counts_sum", "bcast_rel",
+             "land_rel")
+
+
+class _Pipeline:
+    """The device state of an asynchronous campaign (DESIGN.md §14), every
+    clock float32 and relative to the latest broadcast, rebased each round
+    as the reference's scan carry is:
+
+    * ``free`` (n,): when each client finishes its last upload;
+    * ``arrivals`` (tau + 1, n) and ``floors`` (tau + 1,): each of the
+      last tau + 1 rounds' per-client landings (-inf for a client that
+      sent nothing) and its completion; slot 0 is round t - 1 - tau, whose
+      completion gates broadcast t;
+    * ``flush``: a ``pipeline_coin_flush`` rule's pending gate, the
+      completion of its last coin round;
+    * for tau >= 1, ``msgs`` (tau, C, d) and ``ids`` (tau, C): the message
+      rows of rounds t - tau .. t - 1 and their clients' global ids (C = n
+      and the ids ``arange(n)`` on a dense store, the cohort under
+      sampling).
+
+    The deficit is one masked ``torch.sum`` over ``msgs`` with the
+    in-flight landings gathered at ``ids``: the same tensors and the same
+    reduction on the scatter and the slab store, so the two stores agree
+    bit for bit, and no (n, d) transient is ever built."""
+
+    def __init__(self, tau: int, n: int, c: int, d: int, dev):
+        f32, inf = torch.float32, float("-inf")
+        self.tau = int(tau)
+        self.free = torch.zeros((n,), dtype=f32, device=dev)
+        self.arrivals = torch.full((tau + 1, n), inf, dtype=f32, device=dev)
+        self.floors = torch.full((tau + 1,), inf, dtype=f32, device=dev)
+        self.flush = torch.full((), inf, dtype=f32, device=dev)
+        self.msgs = self.ids = None
+        if tau >= 1:
+            self.msgs = torch.zeros((tau, c, d), dtype=f32, device=dev)
+            self.ids = torch.zeros((tau, c), dtype=torch.int64, device=dev)
+
+    def rebase(self):
+        """Broadcast the next round: wait for slot 0's completion and any
+        pending flush, and move every clock so that the broadcast is 0.
+        Returns how far the broadcast advanced (a device scalar, >= 0)."""
+        adv = torch.clamp_min(torch.maximum(self.floors[0], self.flush), 0.0)
+        self.free = self.free - adv
+        self.arrivals = self.arrivals - adv
+        self.floors = self.floors - adv
+        self.flush = torch.full_like(self.flush, float("-inf"))
+        return adv
+
+    def deficit(self, n: int):
+        """(1/n) times the sum of the ring's messages still in flight at the
+        broadcast (landing after it), or None at tau = 0."""
+        if self.tau == 0:
+            return None
+        in_flight = torch.gather(self.arrivals[1:] > 0.0, 1, self.ids)
+        return torch.sum(torch.where(in_flight[..., None], self.msgs, 0.0),
+                         dim=(0, 1)) / n
+
+    def push(self, landed, close, rows, ids) -> None:
+        """Retire slot 0 and append the round just broadcast: its (n,)
+        landings, its completion and (tau >= 1) its message rows."""
+        self.arrivals = torch.cat([self.arrivals[1:], landed[None]])
+        self.floors = torch.cat([self.floors[1:], close[None]])
+        if self.tau >= 1:
+            self.msgs = torch.cat([self.msgs[1:], rows[None]])
+            self.ids = torch.cat([self.ids[1:], ids[None]])
+
+    def flush_at(self, close) -> None:
+        """A coin round of a ``pipeline_coin_flush`` rule: the sync reset
+        discards every message in flight, and the next broadcast waits for
+        this round's completion."""
+        inf = float("-inf")
+        self.flush = close
+        self.arrivals = torch.full_like(self.arrivals, inf)
+        self.floors = torch.full_like(self.floors, inf)
+        if self.tau >= 1:
+            self.msgs = torch.zeros_like(self.msgs)
 
 
 @dataclasses.dataclass
@@ -88,7 +172,9 @@ class VecFedSim:
     compute_s: float = 0.01
     seed: int = 0
     chunk: int = DEFAULT_CHUNK
-    #: staleness bound of asynchronous pipelined rounds: not ported yet
+    #: staleness bound of asynchronous pipelined rounds (DESIGN.md §14):
+    #: None keeps the round barrier; tau >= 0 lets rounds t - tau .. t - 1
+    #: still be in flight when round t is broadcast
     tau: Optional[int] = None
     #: client-state store for sampled substrates (DESIGN.md §16): "slab",
     #: "scatter", or "auto" (slab exactly when the substrate samples
@@ -113,10 +199,7 @@ class VecFedSim:
         self.sampled = bool(getattr(self.substrate, "samples_clients",
                                     False))
         check_faults(self)
-        if self.tau is not None:
-            raise NotImplementedError(
-                "tau= (asynchronous pipelined rounds) belongs to a later "
-                "slice of the port; run with round barriers (tau=None)")
+        check_tau(self)
         if self.store not in ("auto", "scatter", "slab"):
             raise ValueError(f"store={self.store!r} must be 'auto', "
                              "'scatter' or 'slab'")
@@ -171,15 +254,29 @@ class VecFedSim:
         return schema.header_bytes \
             + schema.bytes_per_value * counts.to(torch.float32)
 
-    def _step_active(self, st, draws, dev):
-        """The engine's fault-free step and who answers it: (state, coin,
-        the (n,) active set, its shipped value counts (zero outside it),
-        each client's float32 upload record bytes).  Every client answers
-        at full participation and on a coin round of a
-        ``sync_requires_all`` rule; the record is dense on a coin
+    def _arrivals(self, free, down_b, up_b, m_down, m_up):
+        """Per-client float32 landings of an asynchronous round, relative
+        to its broadcast: a client starts once the broadcast reaches it and
+        its previous upload is done.  The not-busy branch is
+        :meth:`_delay` itself, so at tau = 0 (where no client is ever
+        busy) the landings are the barrier round's bit for bit."""
+        reach = self.downlink.latency_s \
+            + down_b / self.downlink.bandwidth_Bps * m_down
+        busy = free + self.compute_s + self.uplink.latency_s \
+            + up_b / self.uplink.bandwidth_Bps * m_up
+        return torch.where(free > reach, busy,
+                           self._delay(down_b, up_b, m_down, m_up))
+
+    def _step_active(self, st, draws, dev, deficit=None):
+        """The engine's fault-free step and who answers it: (state, the
+        step's info, coin, the (n,) active set, its shipped value counts
+        (zero outside it), each client's float32 upload record bytes).
+        Every client answers at full participation and on a coin round of
+        a ``sync_requires_all`` rule; the record is dense on a coin
         round."""
         n, d = self.n, int(self.comp.spec.d)
-        new, info = self.method.step_full(st, None, draws=draws)
+        new, info = self.method.step_full(st, None, draws=draws,
+                                          deficit=deficit)
         coin = bool(info.coin) if info.coin is not None else False
         if info.present is not None and not (
                 coin and self.rule.sync_requires_all):
@@ -193,7 +290,7 @@ class VecFedSim:
                                 dtype=torch.float32, device=dev)
         else:
             record = self._comp_bytes(counts)
-        return new, coin, active, counts, record
+        return new, info, coin, active, counts, record
 
     def _link_bytes(self, record, mask):
         """(uplink, downlink) float32 bytes a client moves this round: its
@@ -202,25 +299,61 @@ class VecFedSim:
         return record * m, \
             float(X_BYTES_PER_COORD * int(self.comp.spec.d)) * m
 
-    def _round_scatter(self, st, m_down, m_up, draws, metric_fn):
+    def _round_scatter(self, st, m_down, m_up, draws, metric_fn,
+                       pipe: Optional[_Pipeline] = None, ids=None):
         """One round on the (n, d) store; returns (state, coin, device
-        scalars in :data:`_DEVICE_YS` order)."""
+        scalars in :data:`_DEVICE_YS` order).  With ``pipe`` the round is
+        asynchronous: broadcast at the pipeline's gate, stepped with its
+        deficit, its landings and messages (clients ``ids``) pushed into
+        it; the scalars are then :data:`_ASYNC_YS`."""
         dev = m_down.device
-        new, coin, active, counts, record = self._step_active(st, draws,
-                                                              dev)
+        adv = deficit = None
+        if pipe is not None:
+            adv = pipe.rebase()
+            deficit = pipe.deficit(self.n)
+        new, info, coin, active, counts, record = self._step_active(
+            st, draws, dev, deficit)
         up_b, down_b = self._link_bytes(record, active)
-        n_active, round_t = self._close(
-            self._delay(down_b, up_b, m_down, m_up), active)
-        return new, coin, (torch.as_tensor(metric_fn(new), device=dev),
-                           n_active, torch.sum(counts), round_t)
+        metric = torch.as_tensor(metric_fn(new), device=dev)
+        if pipe is None:
+            n_active, round_t = self._close(
+                self._delay(down_b, up_b, m_down, m_up), active)
+            return new, coin, (metric, n_active, torch.sum(counts), round_t)
+        land = self._arrivals(pipe.free, down_b, up_b, m_down, m_up)
+        n_active, close = self._close(land, active)
+        pipe.free = torch.where(active, land, pipe.free)
+        landed = torch.where(active, land, torch.full_like(land,
+                                                           float("-inf")))
+        self._pipe_commit(pipe, coin, landed, close, info, ids)
+        return new, coin, (metric, n_active, torch.sum(counts), adv, close)
 
-    def _round_slab(self, st, m_down_c, m_up_c, window, draws, metric_fn):
+    def _pipe_commit(self, pipe: _Pipeline, coin: bool, landed, close, info,
+                     ids) -> None:
+        """The round's entry into the pipeline: a flush on a coin round of
+        a ``pipeline_coin_flush`` rule, else its landings, completion and
+        (tau >= 1) float32 message rows."""
+        if coin and self.rule.pipeline_coin_flush:
+            pipe.flush_at(close)
+        else:
+            rows = None if pipe.tau == 0 else \
+                info.messages.dense().to(torch.float32)
+            pipe.push(landed, close, rows, ids)
+
+    def _round_slab(self, st, m_down_c, m_up_c, window, draws, metric_fn,
+                    pipe: Optional[_Pipeline] = None):
         """One round on the chunk slab: every quantity in (C,) space,
         bit-equal to the scatter round's (n,)-masked one (integer sums and
-        a max over the same per-client float32 values)."""
+        a max over the same per-client float32 values).  ``pipe`` makes it
+        asynchronous, as in :meth:`_round_scatter`: the cohort's clocks
+        are read from and written to the pipeline's (n,) ones at the
+        cohort's ids."""
         c, d = int(self.substrate.c), int(self.comp.spec.d)
+        adv = deficit = None
+        if pipe is not None:
+            adv = pipe.rebase()
+            deficit = pipe.deficit(self.n)
         new, info = self.method.step_full(st, None, draws=draws,
-                                          window=window)
+                                          window=window, deficit=deficit)
         # sampled-capable variants have no sync coin (Method.build rejects
         # sync_requires_all on sampled substrates)
         coin = bool(info.coin) if info.coin is not None else False
@@ -237,10 +370,21 @@ class VecFedSim:
         else:
             up_b = self._comp_bytes(counts) * ones
         down_b = float(X_BYTES_PER_COORD * d) * ones
-        delay = self._delay(down_b, up_b, m_down_c, m_up_c)
-        return new, coin, (torch.as_tensor(metric_fn(new), device=dev),
-                           torch.full((), c, dtype=torch.int64, device=dev),
-                           torch.sum(counts), torch.max(delay))
+        metric = torch.as_tensor(metric_fn(new), device=dev)
+        part = torch.full((), c, dtype=torch.int64, device=dev)
+        if pipe is None:
+            delay = self._delay(down_b, up_b, m_down_c, m_up_c)
+            return new, coin, (metric, part, torch.sum(counts),
+                               torch.max(delay))
+        sel = window[1]
+        land = self._arrivals(pipe.free.index_select(0, sel), down_b, up_b,
+                              m_down_c, m_up_c)
+        close = torch.max(land)                # C >= 1 clients answer
+        pipe.free = pipe.free.index_copy(0, sel, land)
+        landed = torch.full((self.n,), float("-inf"), dtype=torch.float32,
+                            device=dev).index_copy_(0, sel, land)
+        self._pipe_commit(pipe, coin, landed, close, info, sel)
+        return new, coin, (metric, part, torch.sum(counts), adv, close)
 
     # ------------------------------------------------------------------
     # one chunk
@@ -272,19 +416,32 @@ class VecFedSim:
         ys["bits"] = np.asarray(bits, np.float32)
         return ys
 
-    def _chunk_scatter(self, state, length: int, md, mu, metric_fn, draws):
+    def _chunk_scatter(self, state, length: int, md, mu, metric_fn, draws,
+                       pipe: Optional[_Pipeline] = None):
         dev = state.x.device
         m_down = torch.as_tensor(md, device=dev)
         m_up = torch.as_tensor(mu, device=dev)
+        ids = None
+        if pipe is not None and pipe.tau >= 1:
+            # the clients behind each round's message rows: the cohorts
+            # under sampling (the draws each round makes), else all n
+            if self.sampled:
+                ids = torch.as_tensor(self.substrate.cohort_schedule(
+                    state.seed, state.t, length, draws),
+                    device=dev).to(torch.int64)
+            else:
+                ids = torch.arange(self.n, device=dev).expand(length, -1)
         rows, coins, bits = [], [], []
         for j in range(length):
             state, coin, vals = self._round_scatter(
                 state, m_down[j], m_up[j], draws_at(draws, state.t),
-                metric_fn)
+                metric_fn, pipe, None if ids is None else ids[j])
             rows.append(vals)
             coins.append(coin)
             bits.append(state.bits_sent)
-        return state, self._chunk_ys(rows, coins, bits)
+        return state, self._chunk_ys(rows, coins, bits,
+                                     _DEVICE_YS if pipe is None
+                                     else _ASYNC_YS)
 
     def _slab_chunk_xs(self, state, length: int, md: np.ndarray,
                        mu: np.ndarray, draws: Optional[DrawsFn] = None):
@@ -303,7 +460,8 @@ class VecFedSim:
     _slab_enter = staticmethod(slab_enter)
     _slab_exit = staticmethod(slab_exit)
 
-    def _chunk_slab(self, state, length: int, md, mu, metric_fn, draws):
+    def _chunk_slab(self, state, length: int, md, mu, metric_fn, draws,
+                    pipe: Optional[_Pipeline] = None):
         dev = state.x.device
         sels, uniq, loc, md_c, mu_c = self._slab_chunk_xs(
             state, length, md, mu, draws)
@@ -317,12 +475,14 @@ class VecFedSim:
         for j in range(length):
             st, coin, vals = self._round_slab(
                 st, m_down[j], m_up[j], (sels[j], sels_t[j], loc_t[j]),
-                draws_at(draws, st.t), metric_fn)
+                draws_at(draws, st.t), metric_fn, pipe)
             rows.append(vals)
             coins.append(coin)
             bits.append(st.bits_sent)
         state = self._slab_exit(st, idx, full_h, full_g)
-        return state, self._chunk_ys(rows, coins, bits)
+        return state, self._chunk_ys(rows, coins, bits,
+                                     _DEVICE_YS if pipe is None
+                                     else _ASYNC_YS)
 
     # ------------------------------------------------------------------
     # the campaign
@@ -343,7 +503,9 @@ class VecFedSim:
         fires after each chunk with a snapshot the campaign no longer
         writes.  ``draws(t)`` injects round t's randomness (plan, coins,
         samples, cohort) for the parity tests; None draws it.  ``state``
-        is never written."""
+        is never written.  With ``tau`` set the campaign is asynchronous
+        (:meth:`_run_async`), and the resume arguments raise ValueError:
+        the pipeline's ring is not part of a checkpoint."""
         if obs is not None:
             raise NotImplementedError(
                 "obs= (the observability handle) belongs to a later slice "
@@ -352,6 +514,9 @@ class VecFedSim:
         if not (0 <= int(start_round) <= rounds):
             raise ValueError(f"start_round={start_round} outside "
                              f"[0, {rounds}]")
+        if self.tau is not None and rounds > 0:
+            check_resume(start_round, clock0, checkpoint)
+            return self._run_async(state, rounds, metric_fn, draws)
         run = self._run_faulted if self.faults is not None \
             else self._run_barrier
         return run(state, rounds, metric_fn, start_round, clock0,
@@ -405,6 +570,40 @@ class VecFedSim:
         bcast = np.concatenate([[clock0], wall[:-1]])
         traces, summary = self._bill_round_bytes(
             ys, n_run, wall, bcast, wall_clock_s=float(wall[-1]))
+        return SimResult(state=state, traces=traces, events=None,
+                         summary=summary)
+
+    def _run_async(self, state, rounds: int, metric_fn,
+                   draws: Optional[DrawsFn] = None) -> SimResult:
+        """The asynchronous campaign (DESIGN.md §14): the barrier's chunks
+        with a :class:`_Pipeline` threaded through their rounds.  Absolute
+        clocks are rebuilt on the host: the broadcasts are the float64
+        cumsum of the per-round advances, and a round's completion lands
+        ``land_rel`` after its broadcast.  At tau = 0 the advance is the
+        previous round's completion exactly, so both clocks reproduce the
+        barrier's float64 chain bit for bit."""
+        n, d, tau = self.n, int(self.comp.spec.d), int(self.tau)
+        streams = campaign_streams(np.random.default_rng(self.seed), rounds)
+        if self.slab:
+            state = snapshot(state)
+        c = int(self.substrate.c) if self.sampled else n
+        pipe = _Pipeline(tau, n, c, d, state.x.device)
+        run_chunk = self._chunk_slab if self.slab else self._chunk_scatter
+        parts = []
+        done = 0
+        while done < rounds:
+            length = min(self.chunk, rounds - done)
+            md, mu = self._chunk_multipliers(streams, done, length)
+            state, part = run_chunk(state, length, md, mu, metric_fn, draws,
+                                    pipe)
+            parts.append(part)
+            done += length
+        ys = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+        bcast = np.cumsum(ys["bcast_rel"])
+        wall = bcast + ys["land_rel"]
+        traces, summary = self._bill_round_bytes(
+            ys, rounds, wall, bcast, wall_clock_s=float(wall.max()))
+        summary["tau"] = float(tau)
         return SimResult(state=state, traces=traces, events=None,
                          summary=summary)
 
@@ -522,7 +721,8 @@ class VecFedSim:
         d = int(self.comp.spec.d)
         dev = m_down.device
         fs, ua, capped = retry
-        new, coin, active, counts, nb = self._step_active(st, draws, dev)
+        new, _, coin, active, counts, nb = self._step_active(st, draws,
+                                                             dev)
         senders, late, lost, _ = fault_masks(active, f)
         delivered = senders & ~lost & ~late
         miss = ~delivered                              # all n must land

@@ -267,12 +267,14 @@ class Method(NamedTuple):
             pre-round tensors with ``torch.where``: the state handed in
             is still never written.
 
-            The asynchronous ``deficit=`` hook belongs to a later slice of
-            the port of the federated layer."""
-            if deficit is not None:
-                raise NotImplementedError(
-                    "deficit= (asynchronous rounds) belongs to a later "
-                    "slice of the port of the federated layer")
+            ``deficit`` is the asynchronous-rounds hook (DESIGN.md §14):
+            the (1/n)-scaled sum of the compressed messages that ``state.g``
+            already counts but the server has not yet received.  The server
+            step then uses ``g - deficit`` (the substrate's
+            ``sub_deficit``), which is what an asynchronous server holds,
+            since g is a sum and every landing adds its term back.  Clients
+            are unaffected: their recursions depend only on the broadcast
+            iterates.  ``deficit=None`` is the synchronous round."""
             if faults is not None:
                 if rule.sync_requires_all:
                     raise ValueError(
@@ -288,7 +290,9 @@ class Method(NamedTuple):
                         "absence; composing both is future work)")
             rnd = RoundRandom(state.seed, state.t, draws)
             # line 4 (server) + broadcast
-            x_new, opt_state = sub.server_update(state.x, state.g,
+            g_vis = state.g if deficit is None \
+                else sub.sub_deficit(state.g, deficit)
+            x_new, opt_state = sub.server_update(state.x, g_vis,
                                                  state.opt_state, hp)
             # a sampled-client substrate windows the round onto its (C, d)
             # cohort slice: the h-update and estimator run at O(C*d), then

@@ -65,6 +65,17 @@ class VariantRule:
     def has_sync(self) -> bool:
         return self.sync_update is not None
 
+    @property
+    def pipeline_coin_flush(self) -> bool:
+        """Whether a sync-coin round flushes an asynchronous pipeline
+        (DESIGN.md §14): true exactly for ``sync_requires_all`` rules.
+        Their coin round overwrites the server estimator with the
+        all-client dense mean (``g <- mean(h_sync)``), so every pre-coin
+        in-flight message is discarded, and the next broadcast waits until
+        all n dense sync uploads have landed.  DASHA / PAGE / MVR never
+        flush."""
+        return self.sync_requires_all
+
 
 VARIANTS: Dict[str, VariantRule] = {}
 

@@ -158,6 +158,13 @@ class FlatSubstrate:
     def add_server(self, g, agg):
         return g + agg
 
+    def sub_deficit(self, g, deficit):
+        """g minus the in-flight message sum (asynchronous rounds,
+        DESIGN.md §14): what the server has actually received.  Exact
+        because g is a sum: subtracting the unlanded terms commutes with
+        every landing."""
+        return g - deficit
+
     def zeros_per_node(self, x0):
         return torch.zeros((self.n, self.d), dtype=x0.dtype,
                            device=x0.device)
@@ -249,6 +256,10 @@ class LaneFlatSubstrate(FlatSubstrate):
 
     def mean_nodes(self, per_node):
         return per_node.mean(-2)
+
+    def sub_deficit(self, g, deficit):
+        raise ValueError("deficit= (asynchronous rounds) has no lane form: "
+                         "the simulators run one method, not a sweep")
 
 
 # ---------------------------------------------------------------------------
@@ -695,6 +706,11 @@ class TreeSubstrate:
 
     def add_server(self, g, agg):
         return tree.map_leaves(torch.add, g, agg)
+
+    def sub_deficit(self, g, deficit):
+        """Leaf-wise g - deficit (the asynchronous in-flight correction,
+        DESIGN.md §14)."""
+        return tree.map_leaves(torch.subtract, g, deficit)
 
     def zeros_per_node(self, x0):
         return tree.map_leaves(lambda p: torch.zeros(

@@ -12,7 +12,9 @@
 * ``sweep_tune`` keeps the best finite lane;
 * the fault bench's degradation sweep at the reference's quick size
   reproduces ``BENCH_faults.json`` wherever the number depends only on
-  the numpy fault and link draws, with every gate true.
+  the numpy fault and link draws, with every gate true;
+* the async bench at the reference's quick size reproduces
+  ``BENCH_async.json``'s DASHA clocks, with every gate true.
 """
 import json
 import math
@@ -23,7 +25,7 @@ import pytest
 import torch
 
 from benchmarks import table1_complexity as ref_table1
-from repro_torch.bench import (common, fed_faults, fig1_gradient,
+from repro_torch.bench import (common, fed_async, fed_faults, fig1_gradient,
                                fig2_finite_sum, fig3_stochastic,
                                fig5_quadratic_pl, quickstart,
                                table1_complexity)
@@ -175,3 +177,56 @@ def test_fed_faults_equivalence_check_holds():
     for variant in ("dasha", "marina"):
         assert out[variant]["integer_traces_bit_exact"] is True
         assert out[variant]["dropped_rounds"] > 0
+
+
+def test_fed_async_reproduces_the_reference_bench():
+    """``severity_sweep`` and ``tau_sweep`` at the reference's quick
+    configuration (d = 512, n = 20, 120 rounds, sigma in {0, 1, 2}, sparse
+    RandK) against ``BENCH_async.json``.  DASHA's clocks depend only on the
+    numpy link draws and its static byte counts: its wall clock to target
+    at every severity, barrier and async, and the tau sweep's four
+    campaign wall clocks equal the file's to 1e-6 relative (float32
+    landings), and it never flushes.  MARINA's numbers follow its own coin
+    draws, which the port makes itself, so they are compared only where
+    draws are injected (``tests/test_torch_async.py``).  Every gate
+    holds."""
+    want = json.loads((Path(__file__).resolve().parents[1]
+                       / "BENCH_async.json").read_text())
+    ws = want["severity"]
+    assert want["config"]["quick"] is True
+    sev = fed_async.severity_sweep(d=512, n=20, m=8, rounds=120,
+                                   sigmas=ws["sigmas"], backend="sparse",
+                                   device="cpu")
+    assert (sev["k"], sev["rounds"], sev["tau"], sev["sigmas"]) == \
+        (want["config"]["k"], ws["rounds"], ws["tau"], ws["sigmas"])
+    for mode in ("barrier", "async"):
+        assert sev["wall_to_target_s"]["dasha"][mode] == pytest.approx(
+            ws["wall_to_target_s"]["dasha"][mode], rel=1e-6), mode
+    assert sev["sync_rounds_async"]["dasha"] == 0.0 \
+        == ws["sync_rounds_async"]["dasha"]
+    assert sev["sync_rounds_async"]["marina"] > 0
+    assert sev["payload_reconciliation"]["dasha"] == \
+        ws["payload_reconciliation"]["dasha"]
+    for gate in ("dasha_async_strictly_faster",
+                 "advantage_widens_with_severity",
+                 "marina_capped_by_coin_flush",
+                 "bytes_up_bit_identical_async_vs_barrier",
+                 "payload_reconciles"):
+        assert sev[gate] is True, gate
+        assert ws[gate] is True, gate
+    depth = fed_async.tau_sweep(d=512, n=20, m=8, rounds=120,
+                                backend="sparse", device="cpu")
+    assert depth["taus"] == want["tau_sweep"]["taus"]
+    assert depth["wall_clock_s"] == pytest.approx(
+        want["tau_sweep"]["wall_clock_s"], rel=1e-6)
+    assert depth["monotone_nonincreasing"] is True
+
+
+def test_fed_async_equivalence_check_holds():
+    """The bench's last experiment: heap == vec at n = 5, tau = 2 (integer
+    traces bit for bit, clocks within 2e-5), and tau = 0 == the barrier in
+    both simulators, bit for bit."""
+    out = fed_async.equivalence_check(device="cpu")
+    assert out == dict(out, ok=True, heap_vec_integer_traces_bit_exact=True,
+                       heap_vec_wall_clock_close=True,
+                       tau0_reproduces_barrier_bit_exact=True)

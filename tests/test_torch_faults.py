@@ -317,7 +317,8 @@ def test_faults_reject_async_and_sampled(cls):
 def test_engine_takes_faults_only_where_the_reference_does():
     """MARINA / SYNC-MVR recover missing messages by the simulators'
     retries, so the engine refuses a fault mask for them; a sampled
-    substrate refuses one too, and ``deficit=`` still raises."""
+    substrate refuses one too, and takes ``deficit=`` (asynchronous
+    rounds), a zero deficit leaving its round bit for bit."""
     _, tp = _problems()
     rc = _comps()[1]
     drop = tm.FaultStep(drop=torch.zeros(N, dtype=torch.bool))
@@ -333,8 +334,10 @@ def test_engine_takes_faults_only_where_the_reference_does():
     st = m.init(torch.zeros(D), 0, device="cpu")
     with pytest.raises(ValueError, match="sampled"):
         m.step_full(st, None, faults=drop)
-    with pytest.raises(NotImplementedError, match="deficit"):
-        m.step_full(st, None, deficit=torch.zeros(D))
+    got, _ = m.step_full(st, None, deficit=torch.zeros(D))
+    want, _ = m.step_full(st, None)
+    for k in ("x", "g", "g_local", "h_local"):
+        assert torch.equal(getattr(got, k), getattr(want, k)), k
 
 
 @pytest.mark.parametrize("cls", [tfed.FedSim, tfed.VecFedSim])

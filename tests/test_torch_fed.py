@@ -473,8 +473,13 @@ def test_resume_from_a_checkpoint_continues_bit_identically(store):
 
 
 def test_vecsim_rejections():
-    with pytest.raises(NotImplementedError, match="tau"):
-        _port_sim(tau=1)
+    # tau= is ported (tests/test_torch_async.py): it composes with the
+    # sampled substrate and, as in the reference, refuses a resume
+    asim = _port_sim(tau=1)
+    ast = asim.init(torch.zeros(D), 0, device="cpu")
+    assert asim.run(ast, 3).summary["tau"] == 1.0
+    with pytest.raises(ValueError, match="barrier-only"):
+        asim.run(ast, 3, start_round=1)
     # faults= is ported (tests/test_torch_faults.py) but, as in the
     # reference, refuses a sampled-client substrate
     with pytest.raises(ValueError, match="sampled"):

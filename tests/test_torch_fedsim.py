@@ -440,8 +440,12 @@ def test_simulate_runs_both_engines():
 def test_rejections():
     heap, _, st, _ = _port_pair("dasha", dict(name="randk", k=K))
     args = ("dasha", heap.comp, heap.substrate, heap.hyper)
-    with pytest.raises(NotImplementedError, match="tau"):
-        tfed.FedSim(*args, tau=1)
+    # tau= is ported (tests/test_torch_async.py): it composes with the
+    # heap oracle and, as in the reference, refuses a resume
+    asim = tfed.FedSim(*args, tau=1)
+    assert asim.run(st, 3).summary["tau"] == 1.0
+    with pytest.raises(ValueError, match="barrier-only"):
+        asim.run(st, 3, clock0=1.0)
     # faults= is ported (tests/test_torch_faults.py) but, as in the
     # reference, refuses asynchronous rounds
     with pytest.raises(ValueError, match="tau"):

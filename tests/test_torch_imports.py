@@ -58,7 +58,7 @@ def test_import_scan_covers_the_slice():
                 "kernels/ssd_chunk.py", "launch/serve.py",
                 "kernels/slab_writeback.py", "fed/__init__.py", "fed/net.py",
                 "fed/wire.py", "fed/sim.py", "fed/vecsim.py",
-                "fed/faults.py", "bench/fed_faults.py",
+                "fed/faults.py", "bench/fed_faults.py", "bench/fed_async.py",
                 "methods/lanes.py", "bench/__init__.py", "bench/common.py",
                 "bench/fig1_gradient.py", "bench/fig2_finite_sum.py",
                 "bench/fig3_stochastic.py", "bench/fig5_quadratic_pl.py",
@@ -98,7 +98,7 @@ def _entry_points():
     from repro_torch.data.pipeline import (SyntheticTextConfig, make_lm_batch,
                                            make_node_batches)
     from repro_torch.bench import common as bench_common
-    from repro_torch.bench import fed_faults
+    from repro_torch.bench import fed_async, fed_faults
     from repro_torch.bench import quickstart
     from repro_torch.bench import run as bench_run
     from repro_torch.launch import serve as serve_mod
@@ -148,6 +148,12 @@ def _entry_points():
         "bench.logreg_nonconvex_problem": lambda:
             bench_common.logreg_nonconvex_problem(),
         "bench.quickstart": lambda: quickstart.main([]),
+        "bench.fed_async.equivalence_check": lambda:
+            fed_async.equivalence_check(rounds=1),
+        "bench.fed_async.severity_sweep": lambda:
+            fed_async.severity_sweep(d=64, rounds=1),
+        "bench.fed_async.tau_sweep": lambda: fed_async.tau_sweep(d=64,
+                                                                 rounds=1),
         "bench.fed_faults.degradation_sweep": lambda:
             fed_faults.degradation_sweep(d=64, rounds=1),
         "bench.fed_faults.equivalence_check": lambda:
@@ -191,6 +197,8 @@ def _entry_points():
 
 ENTRY_POINTS = ["FedSim.init", "Method.init", "StochasticProblem",
                 "Sweeper.run", "VecFedSim.init",
+                "bench.fed_async.equivalence_check",
+                "bench.fed_async.severity_sweep", "bench.fed_async.tau_sweep",
                 "bench.fed_faults.degradation_sweep",
                 "bench.fed_faults.equivalence_check", "bench.glm_problem",
                 "bench.logreg_nonconvex_problem", "bench.quickstart",

@@ -109,27 +109,27 @@ def test_step_info_and_participation():
 
 @pytest.mark.parametrize("hook", ["deficit", "window", "faults"])
 def test_federated_hooks_are_not_ported_yet(hook):
-    """deficit= (asynchronous rounds) belongs to a later slice of the
-    federated port and raises NotImplementedError; window= (the slab
-    store's hook) is ported and needs a sampled-client substrate, so the
-    flat one refuses it, as the reference does; faults= is ported, and a
-    FaultStep that drops no one leaves the round bit for bit the
-    fault-free one (tests/test_torch_faults.py holds the rest)."""
+    """window= (the slab store's hook) is ported and needs a
+    sampled-client substrate, so the flat one refuses it, as the
+    reference does; faults= and deficit= (asynchronous rounds) are
+    ported, and a FaultStep that drops no one, or a zero deficit, leaves
+    the round bit for bit the plain one (tests/test_torch_faults.py and
+    tests/test_torch_async.py hold the rest)."""
     _, tp, _ = _problems("dasha")
     trc = t_make_rc("randk", D, N, k=6, device="cpu")
     method = tm.Method.build("dasha", trc, tm.FlatSubstrate(tp, N, D),
                              _hyper(tm.Hyper, "dasha", 1.0))
     st = method.init(torch.zeros(D), 0, device="cpu")
-    if hook == "faults":
-        got, _ = method.step_full(st, faults=tm.FaultStep(
-            drop=torch.zeros(N, dtype=torch.bool)))
+    if hook != "window":
+        neutral = {"faults": tm.FaultStep(drop=torch.zeros(
+            N, dtype=torch.bool)), "deficit": torch.zeros(D)}[hook]
+        got, _ = method.step_full(st, **{hook: neutral})
         want, _ = method.step_full(st)
         for k in ("x", "g", "g_local", "h_local"):
             assert torch.equal(getattr(got, k), getattr(want, k)), k
         return
-    expected = ValueError if hook == "window" else NotImplementedError
-    with pytest.raises(expected):
-        method.step_full(st, **{hook: object()})
+    with pytest.raises(ValueError):
+        method.step_full(st, window=object())
 
 
 @pytest.mark.parametrize("variant,kw", [
