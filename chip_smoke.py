@@ -167,7 +167,37 @@ Phases, each fatal on failure:
     64, the slab store and kernel 4) at tau = 2 and with barriers, 256
     rounds each, the async peak within phase 11's plus 1 GB, and slab ==
     scatter bit for bit at n = 10,000 over 64 rounds at tau 0 and 2.
-    ``ASYNC_CUTS`` lists the cuts.
+    ``ASYNC_CUTS`` lists the cuts;
+17. campaign telemetry (``repro_torch.obs``) — (a) the heap oracle on
+    phase 16's data and links at sigma = 1 with ``Obs.full()``: dasha and
+    marina (p = 0.15) with round barriers, dasha at tau = 2 and under the
+    tests' FM_MIXED faults, 120 rounds each, and dasha with fused QDither
+    (kernel 2) over 40, each run plain and with the handle in turn; gates:
+    the two runs bit-identical with no kernel build and equal launches,
+    every timeline valid, its per-round byte sums equal to the traced
+    bytes, every round blamed once (sync rounds at sync barriers), the
+    faulted timeline's crash / drop_up / drop_down / deadline_cut / rejoin
+    instants counting what the campaign counts, and two planted faults
+    (an upload's bytes plus one, a fault instant removed) failing those
+    checks; each timeline written as Perfetto JSON into ``chiprun_out/``;
+    (b) the barrier dasha and marina campaigns through VecFedSim, their
+    timelines rebuilt by ``reconstruct_vec_timeline`` equal to (a)'s live
+    heap timelines event for event, timestamps bit for bit (a timestamp
+    moved by one ulp and a dropped event must fail); (c)
+    fed_scale_bench's obs gate on phase 12b's campaign (n = 10,000, C =
+    64, slab store, kernels 1 and 4), 1,000 rounds, 7 turns of plain /
+    ``Obs.metrics_only`` / plain, each turn's order rotated: the handle's
+    run against the turn's plain run under 3% (the median over the
+    turns; the best of 7 reported), no build,
+    every run bit-identical with equal launches, a profiled chunk
+    launching as many kernels either way, name for name (the most of
+    three windows an arm), the peak within 0.05 GB; then
+    phase 11's n = 100,000 campaign with and without the handle over 256
+    rounds, reported; (d) the build phase inside
+    ``Obs.full().compile_spans()``: one ``backend_compile`` span per
+    library that was missing (none on the warm cache), then once more
+    into an empty build directory, where every source must be recorded.
+    ``OBS_CUTS`` lists the cuts.
 
 Every phase that drives a main path zeroes the launch counters just before
 it and reads them just after; a kernel of that path that never launched
@@ -179,10 +209,13 @@ prints no result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import json
 import math
+import operator
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -301,6 +334,32 @@ ASYNC_CUTS = {
     "scale_rounds": "phase 11's 1,000 rounds cut to 256 at tau = 2 and "
                     "with barriers",
     "slab_vs_scatter": "n = 10,000 over 64 rounds (phase 12b: 128)",
+}
+# campaign telemetry (phase 17): 17a/b on phase 16's data (n = 20 x m =
+# 3,615 x d = 20,958, fused RandK K = 100) and the async bench's links at
+# sigma = OBS_SIGMA, OBS_HEAP_ROUNDS rounds a campaign (the fused QDither
+# one OBS_QDITHER_ROUNDS); 17c benchmarks/fed_scale_bench.py's obs gate
+# (n = 10,000, C = 64, 1,000 rounds, the handle under 3% of the wall
+# clock) on phase 12b's campaign over OBS_REPS turns, each turn's arms in
+# a rotated order, read as the median over the turns of the handle's run
+# against the same turn's plain run (the reference's best of ``reps``, 3
+# there, is reported: on the H100's host its plain-against-plain control
+# read +5.25% at 3 and +3.12% at 7, more than the gate), the handle's
+# peak within
+# OBS_PEAK_SLACK_GB of the plain run's, a profiled chunk's launches equal
+# name for name (each arm the most of OBS_PROFILE_WINDOWS windows: the
+# profiler can lose records), and phase 11's n = 100,000 over
+# OBS_SCALE_ROUNDS rounds.  OBS_CUTS lists what is cut.
+OBS_SIGMA, OBS_HEAP_ROUNDS, OBS_QDITHER_ROUNDS = 1.0, 120, 40
+OBS_GATE_ROUNDS, OBS_REPS, OBS_OVERHEAD = 1000, 7, 0.03
+OBS_SCALE_ROUNDS, OBS_PEAK_SLACK_GB = 256, 0.05
+OBS_PROFILE_WINDOWS = 3
+OBS_CUTS = {
+    "heap_rounds": "17a's campaigns 120 rounds (the async bench: 300)",
+    "overhead_width": "fed_scale_bench's gated case (d = 64, m = 2, K = 8) "
+                      "widened to phase 12b's d = 20,958, m = 1, K = 100",
+    "scale_rounds": "phase 11's 1,000 rounds cut to 256 at n = 100,000, "
+                    "as 16c",
 }
 
 
@@ -3580,6 +3639,584 @@ def phase_async(torch, smi: str, fault_peak_gb=None, fed_peak_gb=None):
             "nvidia_smi": smi}, launches
 
 
+def _obs_sim_events(tl):
+    """A timeline's simulated-time events (client and server tracks)."""
+    from repro_torch.obs import COMPILER, HOST
+    return [e for e in tl.events if e.track not in (HOST, COMPILER)]
+
+
+def _obs_timeline_problems(tl, res, fc=None):
+    """Phase 17a's checks on one live heap timeline, as problem strings
+    (none: it passes): the schema, the per-round byte sums against the
+    traced ``bytes_up`` / ``bytes_down``, every round and every sync round
+    blamed once, and on a faulted campaign each kind of fault instant
+    counted as the campaign's traces (``lost``, ``late``, ``rejoins``) or
+    its fault draw (``crash_start``, ``drop_down``) count it."""
+    import numpy as np
+    from repro_torch.obs import attribute
+    tr = res.traces
+    rounds = len(tr["bytes_up"])
+    probs = list(tl.validate())
+    sums = tl.round_byte_sums()
+    if not (np.array_equal(sums["round"], np.arange(rounds))
+            and np.array_equal(sums["bytes_up"],
+                               tr["bytes_up"].astype(np.int64))
+            and np.array_equal(sums["bytes_down"],
+                               tr["bytes_down"].astype(np.int64))):
+        bad = np.flatnonzero(sums["bytes_up"] != tr["bytes_up"]) \
+            if len(sums["bytes_up"]) == rounds else "all"
+        probs.append(f"round byte sums differ from the traced bytes "
+                     f"(up at rounds {bad})")
+    at = attribute(tl)
+    blamed = sum(c.blamed for c in at.clients.values())
+    blamed_sync = sum(c.blamed_sync for c in at.clients.values())
+    empty = at.critical_path.count(-1)      # rounds nobody uploaded in
+    if not (at.rounds == blamed + empty == rounds
+            and blamed_sync == at.sync_rounds
+            == int(tr["sync_round"].sum())):
+        probs.append(f"attribution: {at.rounds} rounds, {blamed} blamed "
+                     f"and {empty} empty, {blamed_sync} blamed at "
+                     f"{at.sync_rounds} sync rounds of "
+                     f"{int(tr['sync_round'].sum())}")
+    if fc is not None:
+        names = ("crash", "drop_down", "drop_up", "deadline_cut", "rejoin")
+        marks = {k: 0 for k in names}
+        for e in tl.events:
+            if e.kind == "instant" and e.name in marks:
+                marks[e.name] += 1
+        want = {"crash": int(fc.crash_start[:rounds].sum()),
+                "drop_down": int(fc.drop_down[:rounds].sum()),
+                "drop_up": int(tr["lost"].sum()),
+                "deadline_cut": int(tr["late"].sum()),
+                "rejoin": int(tr["rejoins"].sum())}
+        if marks != want:
+            probs.append(f"fault marks {marks}, the campaign's {want}")
+    return probs
+
+
+def _obs_events_differ(want_tl, got_tl):
+    """The first difference between two timelines' simulated-time events
+    (tracks, names, kinds, args, float64 timestamps bit for bit), or
+    None."""
+    want, got = _obs_sim_events(want_tl), _obs_sim_events(got_tl)
+    if len(want) != len(got):
+        return f"{len(got)} events, not {len(want)}"
+    for i, (a, b) in enumerate(zip(want, got)):
+        if (a.track, a.name, a.kind, a.t0, a.t1, a.args or {}) != \
+                (b.track, b.name, b.kind, b.t0, b.t1, b.args or {}):
+            return f"event {i}: {b} against {a}"
+    return None
+
+
+def _obs_heap(torch, smi: str, problem, out_dir):
+    """Phase 17a: the heap oracle at the real-sim width with ``Obs.full()``
+    attached, each campaign run plain and then with the handle, in turn:
+    dasha and marina (p = 0.15) with round barriers, dasha at tau = 2, a
+    faulted dasha (FM_MIXED), OBS_HEAP_ROUNDS rounds each, and a fused
+    QDither dasha over OBS_QDITHER_ROUNDS (kernel 2); fused RandK K = 100
+    (kernel 1), the async bench's links at sigma = 1.  Gates: each
+    handle's run equal to the plain one bit for bit with no kernel build,
+    the launches of both arms equal, and :func:`_obs_timeline_problems`
+    empty on every timeline; two planted faults (an ``up`` span's bytes
+    plus one, a fault instant removed) must fail those checks.  Each
+    timeline is written as a Perfetto file into ``out_dir``."""
+    from repro_torch.bench import fed_async as fa
+    from repro_torch.bench import fed_faults as ff
+    from repro_torch.compress import make_round_compressor
+    from repro_torch.fed import FaultModel, FedSim
+    from repro_torch.obs import Obs, attribute, merge
+
+    n, m, d = (int(v) for v in problem.features.shape)
+    k, sub, rc, L = fa.campaign_setup(problem, "fused", K_RANDK)[3:]
+    comps = {"randk": rc,
+             "qdither": make_round_compressor("qdither", d, n, s=S_QDITHER,
+                                              backend="fused",
+                                              device="cuda")}
+    fm = FaultModel(**ff.EQUIV_FAULTS["dasha"])
+    campaigns = [("dasha", "dasha", "randk", {}, OBS_HEAP_ROUNDS),
+                 ("marina", "marina", "randk", {}, OBS_HEAP_ROUNDS),
+                 ("dasha_tau2", "dasha", "randk", {"tau": ASYNC_TAU},
+                  OBS_HEAP_ROUNDS),
+                 ("dasha_faulted", "dasha", "randk", {"faults": fm},
+                  OBS_HEAP_ROUNDS),
+                 ("dasha_qdither", "dasha", "qdither", {},
+                  OBS_QDITHER_ROUNDS)]
+
+    def sim_of(variant, comp, kw):
+        c = comps[comp]
+        hp = fa.bench_hyper(variant, c.omega, L, d=d, k=k, n=n, m=m)
+        return FedSim(variant, c, sub, hp, compute_s=0.0, seed=fa.SEED,
+                      **fa.links(OBS_SIGMA), **kw)
+
+    def run(sim, rounds, obs=None):
+        st = sim.init(torch.zeros(d, device="cuda"), 1, device="cuda")
+        torch.cuda.synchronize()
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        res = sim.run(st, rounds, obs=obs)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, _launch_counts()
+
+    for _, variant, comp, kw, _ in campaigns:          # warm-up
+        run(sim_of(variant, comp, kw), 2)
+    arms = {"plain": {}, "obs": {}}
+    rows, timelines, results = {}, {}, {}
+    for label, variant, comp, kw, rounds in campaigns:
+        sim = sim_of(variant, comp, kw)
+        plain, pwall, pc = run(sim, rounds)
+        obs = Obs.full(label=f"{label} n={n} d={d}")
+        res, owall, oc = run(sim, rounds, obs)
+        for arm, counts in (("plain", pc), ("obs", oc)):
+            for name, v in counts.items():
+                arms[arm][name] = arms[arm].get(name, 0) + v
+        if not ff.same_run(plain, res):
+            raise AssertionError(f"[obs] {label}: the run with the handle "
+                                 "differs from the plain run")
+        builds = obs.metrics.counter("compiles").value
+        if builds:
+            raise AssertionError(f"[obs] {label}: {builds} kernel builds "
+                                 "with the handle attached")
+        tl = obs.timeline
+        fc = fm.draw_campaign(rounds, n) if "faults" in kw else None
+        probs = _obs_timeline_problems(tl, res, fc)
+        if probs:
+            raise AssertionError(f"[obs] {label}: {probs}")
+        doc = tl.to_perfetto(str(out_dir / f"obs_{label}.json"))
+        at = attribute(tl)
+        sync_s = sum(e.t1 - e.t0 for e in tl.events
+                     if e.name == "sync_round")
+        blamed_sync = sum(c.blamed_sync for c in at.clients.values())
+        rows[label] = {
+            "variant": variant, "compressor": comp, "rounds": rounds,
+            "tau": kw.get("tau"), "faulted": "faults" in kw,
+            "plain_rounds_per_s": rounds / pwall,
+            "obs_rounds_per_s": rounds / owall,
+            "obs_host_ms_per_round": (owall - pwall) / rounds * 1e3,
+            "timeline_events": len(tl.events),
+            "perfetto_events": len(doc["traceEvents"]),
+            "sim_wall_clock_s": res.summary["wall_clock_s"],
+            "barrier_s": at.barrier_s, "sync_rounds": at.sync_rounds,
+            "sync_barrier_share": sync_s / at.barrier_s,
+            "sync_blame_share": blamed_sync / at.rounds,
+            "distinct_critical_clients": len(set(at.critical_path)),
+            "launches_plain": pc, "launches_obs": oc}
+        timelines[label], results[label] = tl, res
+        log(f"[obs] heap {label}: {rounds} rounds, plain "
+            f"{rows[label]['plain_rounds_per_s']:.1f} rounds/s, Obs.full() "
+            f"{rows[label]['obs_rounds_per_s']:.1f} rounds/s; "
+            f"{len(tl.events)} events, {len(doc['traceEvents'])} in "
+            f"obs_{label}.json; barrier {at.barrier_s:.4f} s, "
+            f"{at.sync_rounds} sync rounds ({sync_s:.4f} s, blame share "
+            f"{rows[label]['sync_blame_share']:.3f}); bytes reconcile | "
+            f"{smi}")
+    if arms["plain"] != arms["obs"]:
+        raise AssertionError(f"[obs] launches differ: plain "
+                             f"{arms['plain']}, obs {arms['obs']}")
+    want = {"dasha_update": sum(r for _, _, c, _, r in campaigns
+                                if c == "randk"),
+            "quantize": OBS_QDITHER_ROUNDS}
+    _gate_launches("obs heap", arms["obs"], want)
+
+    # planted faults: each must fail the checks
+    planted = {}
+    bad = merge([timelines["dasha"]], "planted")
+    i = next(j for j, e in enumerate(bad.events) if e.name == "up")
+    e = bad.events[i]
+    bad.events[i] = e._replace(args={**e.args, "bytes": e.args["bytes"] + 1})
+    planted["up_bytes_plus_one"] = _obs_timeline_problems(
+        bad, results["dasha"])
+    bad = merge([timelines["dasha_faulted"]], "planted")
+    i = next(j for j, e in enumerate(bad.events)
+             if e.kind == "instant" and e.name in ("drop_up", "crash"))
+    del bad.events[i]
+    planted["fault_instant_removed"] = _obs_timeline_problems(
+        bad, results["dasha_faulted"],
+        fm.draw_campaign(OBS_HEAP_ROUNDS, n))
+    missed = [p for p, probs in planted.items() if not probs]
+    if missed:
+        raise AssertionError(f"[obs] planted faults passed: {missed}")
+    log(f"[obs] planted faults fail as they must: "
+        f"{ {p: v[0][:90] for p, v in planted.items()} }")
+    d_at, m_at = rows["dasha"], rows["marina"]
+    log(f"[obs] barrier seconds: MARINA {m_at['barrier_s']:.4f} "
+        f"({m_at['sync_rounds']} sync rounds, {m_at['sync_barrier_share']:.3f}"
+        f" of its barrier time, blame share {m_at['sync_blame_share']:.3f})"
+        f" vs DASHA {d_at['barrier_s']:.4f} ({d_at['sync_rounds']} sync "
+        f"rounds); launches {arms['obs']} in each arm")
+    return {"campaigns": rows, "launches": arms,
+            "planted": {p: v[:2] for p, v in planted.items()},
+            "sigma": OBS_SIGMA}, timelines, arms["obs"]
+
+
+def _obs_vec(torch, smi: str, problem, heap_timelines):
+    """Phase 17b: the barrier dasha and marina campaigns of 17a through
+    VecFedSim (``Obs.full()`` attached: chunk spans), their per-client
+    timelines rebuilt by ``reconstruct_vec_timeline`` and held event for
+    event against 17a's live heap timelines (tracks, names, kinds, args,
+    float64 timestamps bit for bit).  Planted faults (one timestamp moved
+    by one ulp, one event dropped) must fail that check."""
+    import numpy as np
+    from repro_torch.bench import fed_async as fa
+    from repro_torch.fed import VecFedSim
+    from repro_torch.obs import Obs, merge, reconstruct_vec_timeline
+
+    n, m, d = (int(v) for v in problem.features.shape)
+    k, sub, rc, L = fa.campaign_setup(problem, "fused", K_RANDK)[3:]
+    out, counts = {}, {}
+    for variant in ("dasha", "marina"):
+        hp = fa.bench_hyper(variant, rc.omega, L, d=d, k=k, n=n, m=m)
+        sim = VecFedSim(variant, rc, sub, hp, compute_s=0.0, seed=fa.SEED,
+                        **fa.links(OBS_SIGMA))
+        st = sim.init(torch.zeros(d, device="cuda"), 1, device="cuda")
+        sim.run(st, 2)                                  # warm-up
+        torch.cuda.synchronize()
+        _reset_launch_counts()
+        obs = Obs.full(label=f"vec {variant}")
+        t0 = time.perf_counter()
+        res = sim.run(st, OBS_HEAP_ROUNDS, obs=obs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for name, v in _launch_counts().items():
+            counts[name] = counts.get(name, 0) + v
+        t1 = time.perf_counter()
+        tl = reconstruct_vec_timeline(sim, st, res)
+        rebuild_s = time.perf_counter() - t1
+        diff = _obs_events_differ(heap_timelines[variant], tl)
+        if diff is not None:
+            raise AssertionError(f"[obs] vec {variant}: {diff}")
+        chunks = sum(e.name == "chunk" for e in obs.timeline.events)
+        planted = {}
+        bad = merge([tl], "planted")
+        i = len(bad.events) // 2
+        e = bad.events[i]
+        bad.events[i] = e._replace(t0=float(np.nextafter(e.t0, np.inf)))
+        planted["one_ulp"] = _obs_events_differ(heap_timelines[variant], bad)
+        bad = merge([tl], "planted")
+        del bad.events[i]
+        planted["event_dropped"] = _obs_events_differ(
+            heap_timelines[variant], bad)
+        if not all(planted.values()):
+            raise AssertionError(f"[obs] vec {variant}: a planted fault "
+                                 f"passed: {planted}")
+        out[variant] = {"rounds": OBS_HEAP_ROUNDS,
+                        "rounds_per_s": OBS_HEAP_ROUNDS / wall,
+                        "events": len(tl.events), "chunk_spans": chunks,
+                        "rebuild_s": rebuild_s,
+                        "planted": {p: v[:120] for p, v in planted.items()}}
+        log(f"[obs] vec {variant}: {OBS_HEAP_ROUNDS} rounds at "
+            f"{out[variant]['rounds_per_s']:.1f} rounds/s, {chunks} chunk "
+            f"spans; rebuilt {len(tl.events)} events in {rebuild_s:.3f} s, "
+            f"equal to the heap's event for event (timestamps bit for "
+            f"bit); planted faults fail: {list(planted)} | {smi}")
+    _gate_launches("obs vec", counts, {"dasha_update": 2 * OBS_HEAP_ROUNDS})
+    out["launches"] = counts
+    return out, counts
+
+
+def _obs_launches_profiled(torch, fn):
+    """The device records (kernels, copies, sets) of ``fn`` by name, from
+    a profiled window that two marker spin kernels bracket on the stream:
+    only a record that starts after the opening marker ends and before the
+    closing one starts is counted.  The warm-up before the opening marker
+    issues each kind of record a campaign chunk does (kernels, and copies
+    to and from the card), since the profiler can lose the first records
+    of a kind in a window.  It can lose records all the same, never add
+    any: the caller takes the most of several windows.  Only the card's
+    records are taken (a third of the time of a window with the host's
+    too)."""
+    from collections import Counter
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    probe = torch.arange(8, dtype=torch.float32)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_WARMUP_LAUNCHES):
+            torch.cuda._sleep(1000)
+            probe.to("cuda").to(torch.float64).cpu()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_WARMUP_S)
+        torch.cuda._sleep(1000)                          # opening marker
+        fn()
+        torch.cuda._sleep(1000)                          # closing marker
+        torch.cuda.synchronize()
+    records = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    marks = sorted((e.time_range for e in records
+                    if "spin_kernel" in e.name), key=lambda r: r.start)
+    if len(marks) < 2:
+        return Counter()
+    lo, hi = marks[-2].end, marks[-1].start
+    return Counter(e.name for e in records if "spin_kernel" not in e.name
+                   and lo <= e.time_range.start < hi)
+
+
+def _obs_overhead(torch, smi: str):
+    """Phase 17c: fed_scale_bench's obs gate (n = 10,000, C = 64, 1,000
+    rounds) at real-sim's width: phase 12b's sampled
+    VecFedSim, m = 1, fused RandK K = 100 (kernel 1), the slab store
+    (kernel 4).  One warm-up chunk, then OBS_REPS turns of (plain,
+    ``Obs.metrics_only(MemorySink())``, plain again: the control), each
+    turn's order rotated by one, the objects the earlier phases left
+    frozen out of the collector's way and a collection before every run,
+    outside its time.  Gates: the median over the turns of the handle's
+    run against the turn's plain run within OBS_OVERHEAD (the plain-again
+    control read the same way, and both as the reference's best of the
+    turns, are reported); no kernel build with the
+    handle; every run's final state and traces bit-identical; kernels 1
+    and 4 launched equally in every run; one profiled chunk launching as
+    many CUDA kernels with the handle as without, name for name, each arm
+    the most of OBS_PROFILE_WINDOWS windows; the handle's peak within
+    OBS_PEAK_SLACK_GB of the plain run's.  Then phase 11's n = 100,000
+    campaign over OBS_SCALE_ROUNDS rounds with and without the handle,
+    reported without a gate.  Returns the report and one run's launches."""
+    from repro_torch.bench.fed_faults import same_run
+    from repro_torch.core.oracles import FiniteSumProblem
+    from repro_torch.data.pipeline import synthetic_classification
+    from repro_torch.obs import MemorySink, Obs
+
+    n, d, c, rounds = HEAP_N, D_REALSIM, FED_C, OBS_GATE_ROUNDS
+    gc.collect()
+    torch.cuda.empty_cache()
+    feats, labels = synthetic_classification(1, n, 1, d, device="cuda")
+    problem = FiniteSumProblem(_glm_loss(torch), feats, labels)
+    L = float((feats.norm(dim=-1) ** 2).mean() * 2)
+
+    def metric(s):
+        return torch.sum(s.g ** 2)
+
+    sim = _fed_sim(problem, n, d, c, hyper_kw=dict(L=L), chunk=FED_CHUNK)
+    state = sim.init(torch.zeros(d, device="cuda"), 3, device="cuda")
+    sim.run(state, FED_CHUNK, metric_fn=metric)          # warm-up
+    torch.cuda.synchronize()
+
+    def one(obs):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        res = sim.run(state, rounds, metric_fn=metric, obs=obs)
+        torch.cuda.synchronize()
+        return (res, time.perf_counter() - t0,
+                torch.cuda.max_memory_allocated() / 1e9, _launch_counts())
+
+    walls = {"plain": [], "obs": [], "control": []}
+    peaks = {"plain": [], "obs": [], "control": []}
+    first = None
+    # the earlier phases' objects out of the collector's way: a full
+    # collection over them inside one 2 s run and not the next would
+    # weigh as much as the gate
+    gc.collect()
+    gc.freeze()
+    turn = ("plain", "obs", "control")
+    for i in range(OBS_REPS):
+        for arm in turn[i % 3:] + turn[:i % 3]:
+            obs = Obs.metrics_only(MemorySink()) if arm == "obs" else None
+            res, wall, peak, counts = one(obs)
+            walls[arm].append(wall)
+            peaks[arm].append(peak)
+            if first is None:
+                first = (res, counts)
+            elif not same_run(first[0], res) or counts != first[1]:
+                raise AssertionError(f"[obs] overhead {arm}: the run or its "
+                                     f"launches {counts} differ from the "
+                                     f"first run's {first[1]}")
+            if obs is not None:
+                builds = obs.metrics.counter("compiles").value
+                fed_rounds = obs.metrics.counter("fed.rounds").value
+                if builds or fed_rounds != rounds:
+                    raise AssertionError(f"[obs] overhead: {builds} builds, "
+                                         f"{fed_rounds} rounds counted")
+            del res
+    gc.unfreeze()
+    want = {"dasha_update": rounds,
+            "slab_writeback": 2 * -(-rounds // FED_CHUNK)}
+    _gate_launches("obs overhead", first[1], want)
+    # the gate reads each turn's run against the plain run of the same
+    # turn and takes the median over the turns: the host drifts between
+    # turns by more than the gate, and a pair of runs seconds apart shares
+    # its state.  The reference's best-of fractions are reported beside.
+    def paired(arm):
+        return statistics.median(
+            w / p for w, p in zip(walls[arm], walls["plain"])) - 1.0
+
+    best = {arm: min(w) for arm, w in walls.items()}
+    frac, control = paired("obs"), paired("control")
+    best_frac = best["obs"] / best["plain"] - 1.0
+    best_control = best["control"] / best["plain"] - 1.0
+    peak_gap = max(peaks["obs"]) - max(peaks["plain"])
+
+    # one profiled chunk with and without the handle: equal launches,
+    # name for name.  The profiler loses records now and then (on the
+    # H100 a window of this chunk read 7 of its 10,909 records short) and
+    # never adds any, so each arm's count is the most of
+    # OBS_PROFILE_WINDOWS windows, the arms in turn, and a short window is
+    # logged with what it missed.
+    arms = {"plain": lambda: sim.run(state, FED_CHUNK, metric_fn=metric),
+            "obs": lambda: sim.run(state, FED_CHUNK, metric_fn=metric,
+                                   obs=Obs.metrics_only(MemorySink()))}
+    windows = {arm: [] for arm in arms}
+    for _ in range(OBS_PROFILE_WINDOWS):
+        for arm, fn in arms.items():
+            windows[arm].append(_obs_launches_profiled(torch, fn))
+    most = {arm: functools.reduce(operator.or_, ws)
+            for arm, ws in windows.items()}
+    launches = {arm: sum(t.values()) for arm, t in most.items()}
+    window_counts = {arm: [sum(t.values()) for t in ws]
+                     for arm, ws in windows.items()}
+    for arm, ws in windows.items():
+        for i, t in enumerate(ws):
+            if t != most[arm]:
+                log(f"[obs] profiled chunk, {arm} window {i + 1}: "
+                    f"{sum(t.values())} records, short of "
+                    f"{dict(most[arm] - t)}")
+    diff = {k: (most["plain"][k], most["obs"][k])
+            for k in most["plain"].keys() | most["obs"].keys()
+            if most["plain"][k] != most["obs"][k]}
+    out = {"n": n, "c": c, "d": d, "rounds": rounds, "reps": OBS_REPS,
+           "walls_s": walls, "best_s": best, "overhead_frac": frac,
+           "control_frac": control, "best_of_overhead_frac": best_frac,
+           "best_of_control_frac": best_control, "peak_gb": peaks,
+           "peak_gap_gb": peak_gap, "launches": first[1],
+           "profiled_chunk_launches": launches,
+           "profiled_window_launches": window_counts,
+           "obs_host_ms_per_round": statistics.median(
+               o - p for o, p in zip(walls["obs"], walls["plain"]))
+           / rounds * 1e3}
+    log(f"[obs] overhead n={n} C={c} d={d}, {rounds} rounds, {OBS_REPS} "
+        f"turns: the handle's run against the turn's plain run, median "
+        f"{frac * 100:+.2f}% (gate < {OBS_OVERHEAD * 100:.0f}%), plain "
+        f"again {control * 100:+.2f}% (control); best of {OBS_REPS}: plain "
+        f"{best['plain']:.4f} s, Obs.metrics_only {best['obs']:.4f} s "
+        f"({best_frac * 100:+.2f}%), plain again {best['control']:.4f} s "
+        f"({best_control * 100:+.2f}%); peaks plain "
+        f"{max(peaks['plain']):.4f} GB, obs {max(peaks['obs']):.4f} GB; "
+        f"profiled chunk launches {launches} (most of the windows "
+        f"{window_counts}); kernel launches a run "
+        f"{first[1]} | {smi}")
+    if abs(control) >= OBS_OVERHEAD:
+        log(f"[obs] the plain-against-plain control reads "
+            f"{control * 100:+.2f}%: the host spreads by more than the gate")
+    if not frac < OBS_OVERHEAD:
+        raise AssertionError(f"[obs] overhead {frac * 100:.2f}% not under "
+                             f"{OBS_OVERHEAD * 100:.0f}% (control "
+                             f"{control * 100:+.2f}%)")
+    if not abs(peak_gap) <= OBS_PEAK_SLACK_GB:
+        raise AssertionError(f"[obs] peak with the handle {peak_gap:+.4f} GB"
+                             f" from the plain run's")
+    if diff or launches["plain"] == 0:
+        raise AssertionError(f"[obs] profiled chunk launches {launches}, "
+                             f"differing (plain, obs) by name {diff}")
+    per_run = first[1]
+    del sim, state, problem, feats, labels, first
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 11's n = 100,000 campaign with and without the handle
+    n2, r2 = FED_N, OBS_SCALE_ROUNDS
+    feats, labels = synthetic_classification(0, n2, 1, d, device="cuda")
+    problem = FiniteSumProblem(_glm_loss(torch), feats, labels)
+    L = float((feats.norm(dim=-1) ** 2).mean() * 2)
+    sim = _fed_sim(problem, n2, d, c, hyper_kw=dict(L=L), chunk=FED_CHUNK)
+    state = sim.init(torch.zeros(d, device="cuda"), 1, device="cuda")
+    sim.run(state, 2, metric_fn=metric)                 # warm-up
+    scale = {}
+    for arm in ("plain", "obs", "plain_again"):
+        obs = Obs.metrics_only(MemorySink()) if arm == "obs" else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.run(state, r2, metric_fn=metric, obs=obs)
+        torch.cuda.synchronize()
+        scale[arm] = r2 / (time.perf_counter() - t0)
+    out["scale"] = {"n": n2, "rounds": r2, "rounds_per_s": scale}
+    log(f"[obs] n={n2} C={c} d={d}, {r2} rounds: plain "
+        f"{scale['plain']:.1f}, Obs.metrics_only {scale['obs']:.1f}, plain "
+        f"again {scale['plain_again']:.1f} rounds/s (no gate) | {smi}")
+    del sim, state, problem, feats, labels
+    torch.cuda.empty_cache()
+    return out, per_run
+
+
+def _obs_build_spans():
+    """Phase 17d: the build phase inside ``Obs.full().compile_spans()``
+    records one ``backend_compile`` span (and one ``compiles`` count) for
+    each library whose ``.so`` was missing before it: none on the warm
+    cache phase 1 left.  Then the same into an empty build directory under
+    ``build/``, where every source is built again and each must be
+    recorded."""
+    import shutil
+    from repro_torch.kernels import build
+    from repro_torch.obs import COMPILER, Obs
+
+    def spans_of(label):
+        missing = sorted(s for s in build.sources()
+                         if not build.library_path(s).exists())
+        obs = Obs.full(label=label)
+        t0 = time.perf_counter()
+        with obs.compile_spans():
+            phase_build()
+        wall = time.perf_counter() - t0
+        spans = [e for e in obs.timeline.events
+                 if e.track == COMPILER and e.name == "backend_compile"]
+        got = sorted(e.args["kernel"] for e in spans)
+        if got != missing or obs.metrics.counter("compiles").value != \
+                len(missing):
+            raise AssertionError(f"[obs] {label}: build spans {got}, "
+                                 f"missing libraries {missing}")
+        return {"missing_before": missing, "spans": len(spans),
+                "span_s": {e.args["kernel"]: e.args["duration_s"]
+                           for e in spans}, "wall_s": wall}
+
+    out = {"warm": spans_of("warm cache")}
+    cold_dir = build.BUILD_DIR.parent / "kernels_obs_check"
+    shutil.rmtree(cold_dir, ignore_errors=True)
+    saved = build.BUILD_DIR
+    build.BUILD_DIR = cold_dir
+    try:
+        out["cold"] = spans_of("cold cache")
+    finally:
+        build.BUILD_DIR = saved
+        shutil.rmtree(cold_dir, ignore_errors=True)
+    log(f"[obs] build spans: warm cache {out['warm']['spans']} (libraries "
+        f"missing before: {out['warm']['missing_before']}); an empty build "
+        f"directory {out['cold']['spans']} spans for "
+        f"{out['cold']['missing_before']}, seconds {out['cold']['span_s']}")
+    return out
+
+
+def phase_obs(torch, smi: str):
+    """Phase 17: campaign telemetry (``repro_torch.obs``).  17a the heap
+    oracle with ``Obs.full()`` at the real-sim width, 17b vec replay equal
+    to the heap, 17c the handle's cost and invariance at n = 10,000 (and
+    n = 100,000 reported), 17d the build spans.  Returns the report and
+    the launches of kernels 1, 2 and 4 in the runs with a handle."""
+    from repro_torch.bench import fed_async as fa
+
+    n, m, d = ASYNC_N, FAULT_M, D_REALSIM
+    t_phase = time.perf_counter()
+    log(f"[obs] cuts: {OBS_CUTS}")
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    problem = fa.make_problem(d, n, m, device="cuda")
+    heap, timelines, heap_counts = _obs_heap(torch, smi, problem, out_dir)
+    vec, vec_counts = _obs_vec(torch, smi, problem, timelines)
+    del problem, timelines
+    overhead, over_counts = _obs_overhead(torch, smi)
+    builds = _obs_build_spans()
+    launches = {"dasha_update": heap_counts["dasha_update"]
+                + vec_counts["dasha_update"]
+                + OBS_REPS * over_counts["dasha_update"],
+                "quantize": heap_counts["quantize"],
+                "slab_writeback": OBS_REPS * over_counts["slab_writeback"]}
+    wall = time.perf_counter() - t_phase
+    log(f"[obs] phase 17 in {wall:.1f} s; launches with a handle "
+        f"{launches} | {smi}")
+    return {"n": n, "m": m, "d": d, "K": K_RANDK, "cuts": OBS_CUTS,
+            "heap": heap, "vec_replay": vec, "overhead": overhead,
+            "build_spans": builds, "launches": launches, "wall_s": wall,
+            "nvidia_smi": smi}, launches
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"{SRC / 'repro_torch'} not found: run from a checkout of the "
@@ -3620,24 +4257,28 @@ def main() -> int:
     asyncr, async_launches = phase_async(
         torch, smi, fault_peak_gb=faults["peak_mem_gb"],
         fed_peak_gb=fed["peak_mem_gb"])
+    obsr, obs_launches = phase_obs(torch, smi)
     # kernels 1, 2 and 4 run on several main paths: the flat round, the
     # federated cohort round, the heap oracle, the sweep, the faulted
-    # campaigns and the asynchronous ones (each counted from zero around
-    # its own run)
+    # campaigns, the asynchronous ones and the runs with an observability
+    # handle (each counted from zero around its own run)
     by_path = {
         "dasha_update": {"flat": launches["dasha_update"],
                          "fed": fed_launches["dasha_update"],
                          "heap": heap_launches["dasha_update"],
                          "sweep": sweep_launches,
                          "faults": fault_launches["dasha_update"],
-                         "async": async_launches["dasha_update"]},
+                         "async": async_launches["dasha_update"],
+                         "obs": obs_launches["dasha_update"]},
         "quantize": {"flat": launches["quantize"],
                      "heap": heap_launches["quantize"],
                      "faults": fault_launches["quantize"],
-                     "async": async_launches["quantize"]},
+                     "async": async_launches["quantize"],
+                     "obs": obs_launches["quantize"]},
         "slab_writeback": {"fed": fed_launches["slab_writeback"],
                            "heap": heap_launches["slab_writeback"],
-                           "async": async_launches["slab_writeback"]}}
+                           "async": async_launches["slab_writeback"],
+                           "obs": obs_launches["slab_writeback"]}}
     for name, paths in by_path.items():
         launches[name] = sum(paths.values())
 
@@ -3714,7 +4355,7 @@ def main() -> int:
               "serve_agreement_worst": serve_rel, "fed": fed,
               "fed_agreement_worst": fed_rel, "heap": heap,
               "sweep": sweep, "faults": faults, "async": asyncr,
-              "nvidia_smi": smi}
+              "obs": obsr, "nvidia_smi": smi}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -48,7 +48,8 @@ import torch
 
 from repro_torch.bench.common import (emit, glm_problem, lipschitz_glm,
                                       theory_hyper)
-from repro_torch.bench.fed_faults import compare_heap_vec, make_problem
+from repro_torch.bench.fed_faults import (compare_heap_vec, make_problem,
+                                          same_run)
 from repro_torch.compress import make_round_compressor
 from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.core.oracles import FiniteSumProblem
@@ -254,14 +255,6 @@ def tau_sweep(problem: Optional[FiniteSumProblem] = None, *,
             "host_s": host,
             "monotone_nonincreasing": bool(
                 all(b <= a * (1 + 1e-9) for a, b in zip(walls, walls[1:])))}
-
-
-def same_run(a, b) -> bool:
-    """Two results equal bit for bit: every trace and the final state."""
-    return set(a.traces) == set(b.traces) \
-        and all(np.array_equal(a.traces[k], b.traces[k]) for k in a.traces) \
-        and all(torch.equal(getattr(a.state, f), getattr(b.state, f))
-                for f in ("x", "g", "g_local", "h_local"))
 
 
 def equivalence_check(*, n: int = 5, d: int = 64, k: int = 8, m: int = 8,

@@ -21,9 +21,14 @@ amplification (port of ``benchmarks/fed_faults_bench.py``, DESIGN.md §18).
    campaign: every integer byte and fault trace bit-exact, clocks to carry
    tolerance.
 
-The reference's third experiment (obs overhead under faults) waits for the
-port of ``repro.obs``.  The shape, compressor backend, rounds and device
-are parameters with the reference's values as defaults; the data are the
+3. **Observability is build-free** (:func:`obs_compile_check`).  A warmed
+   faulted campaign run again with ``Obs.metrics_only(MemorySink())``
+   attached builds no kernel (the handle's ``compiles`` counter, fed by
+   :func:`repro_torch.kernels.build.subscribe`, stays 0), and its final
+   state and traces equal the plain run's bit for bit: the port's form of
+   the reference's zero-recompile gate (``faulted_obs_compile_free``).
+
+The shape, compressor backend, rounds and device are parameters with the reference's values as defaults; the data are the
 port's own synthetic draw from the reference's seed, so only quantities
 that depend on the fault and link draws alone can equal the reference's
 numbers (DASHA's bytes, clocks and fault counts; MARINA's fault counts).
@@ -48,6 +53,7 @@ from repro_torch.data.pipeline import synthetic_classification
 from repro_torch.fed import FAULT_TRACES, FaultModel, FedSim, LinkModel, \
     VecFedSim
 from repro_torch.methods import FlatSubstrate
+from repro_torch.obs import MemorySink, Obs
 
 D = 1024                 # the reference's full size (its quick size: 256)
 N = 20
@@ -89,9 +95,10 @@ def links() -> Dict[str, LinkModel]:
 
 
 def run_campaign(variant, rc, sub, hp, fm, rounds, *, cls=VecFedSim,
-                 metric_fn=None, compute_s: float = 0.0, **kw):
-    """One campaign from x0 = 0 (init seed 1) on the bench's links;
-    returns (result, host seconds of ``run``)."""
+                 metric_fn=None, compute_s: float = 0.0, obs=None, **kw):
+    """One campaign from x0 = 0 (init seed 1) on the bench's links, with
+    the observability handle ``obs`` attached; returns (result, host
+    seconds of ``run``)."""
     sim = cls(variant, rc, sub, hp, compute_s=compute_s, seed=NET_SEED,
               faults=fm, **links(), **kw)
     dev = rc.device
@@ -99,7 +106,7 @@ def run_campaign(variant, rc, sub, hp, fm, rounds, *, cls=VecFedSim,
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    res = sim.run(st, rounds, metric_fn=metric_fn)
+    res = sim.run(st, rounds, metric_fn=metric_fn, obs=obs)
     return res, time.perf_counter() - t0
 
 
@@ -251,12 +258,69 @@ def equivalence_check(*, n: int = 5, d: int = 64, k: int = 8, m: int = 8,
     return out
 
 
-def run(*, device=DEFAULT_DEVICE, rounds_scale: float = 1.0):
-    """Both experiments at the reference's full size (``rounds_scale``
-    multiplies the sweep's rounds); CSV rows as the reference's."""
+def same_run(a, b) -> bool:
+    """Two results equal bit for bit: every trace and the final state."""
+    return set(a.traces) == set(b.traces) \
+        and all(np.array_equal(a.traces[k], b.traces[k]) for k in a.traces) \
+        and all(torch.equal(getattr(a.state, f), getattr(b.state, f))
+                for f in ("x", "g", "g_local", "h_local"))
+
+
+def obs_compile_check(problem: Optional[FiniteSumProblem] = None, *,
+                      d: int = D, n: int = N, m: int = M,
+                      k: Optional[int] = None, backend: str = "sparse",
+                      rounds: int = ROUNDS, device=DEFAULT_DEVICE) -> Dict:
+    """Experiment 3: a faulted DASHA campaign (the grid's 10% drop model)
+    run plain, which warms every kernel it needs, then again with a
+    metrics handle attached: the second run builds nothing (the handle's
+    ``compiles`` counter) and equals the plain one bit for bit."""
+    dev = resolve_device(device)
+    if problem is None:
+        problem = make_problem(d, n, m, device=dev)
+    n, m, d = (int(s) for s in problem.features.shape)
+    k = max(d // 64, 8) if k is None else int(k)
+    sub = FlatSubstrate(problem, n, d)
+    rc = make_round_compressor("randk", d, n, k=k, backend=backend,
+                               device=dev)
+    hp = theory_hyper("dasha", rc.omega, lipschitz_glm(problem), d=d, k=k,
+                      n=n, m=m)
+    fm = fault_model(0.1)
+    plain, _ = run_campaign("dasha", rc, sub, hp, fm, rounds)
+    obs = Obs.metrics_only(MemorySink())
+    res, _ = run_campaign("dasha", rc, sub, hp, fm, rounds, obs=obs)
+    builds = int(obs.metrics.counter("compiles").value)
+    identical = same_run(plain, res)
+    return {"steady_state_compiles": builds,
+            "bit_identical": bool(identical),
+            "fed_rounds_counted": int(obs.metrics.counter(
+                "fed.rounds").value),
+            "compile_free": bool(builds == 0 and identical)}
+
+
+def report(*, device=DEFAULT_DEVICE, rounds_scale: float = 1.0) -> Dict:
+    """The three experiments at the reference's full size (``rounds_scale``
+    multiplies the sweep's rounds), in the layout of the reference's
+    ``BENCH_faults.json``."""
     rounds = max(int(ROUNDS * rounds_scale), 1)
     sweep = degradation_sweep(rounds=rounds, device=device)
     equiv = equivalence_check(device=device)
+    obs = obs_compile_check(rounds=rounds, device=device)
+    return {
+        "config": {"d": D, "k": sweep["k"], "n": N, "rounds": rounds,
+                   "p_crash": P_CRASH, "crash_rounds": CRASH_ROUNDS,
+                   "deadline_mult": DEADLINE_MULT, "uplink_Bps": UP_BW,
+                   "downlink_Bps": DOWN_BW},
+        "degradation": sweep, "equivalence": equiv, "obs": obs,
+        "graceful_degradation_ok": sweep["graceful_degradation_ok"],
+        "faulted_heap_vec_bit_exact": equiv["ok"],
+        "faulted_obs_compile_free": obs["compile_free"],
+    }
+
+
+def run(*, device=DEFAULT_DEVICE, rounds_scale: float = 1.0):
+    """:func:`report` as CSV rows, the reference's."""
+    rep = report(device=device, rounds_scale=rounds_scale)
+    sweep = rep["degradation"]
     cols = ["bench", "p_drop", "wall_dasha_s", "wall_marina_s",
             "metric_dasha", "retries_marina", "ok"]
     blank = {c: "" for c in cols}
@@ -270,8 +334,11 @@ def run(*, device=DEFAULT_DEVICE, rounds_scale: float = 1.0):
             metric_dasha=float(f"{g['dasha']['final_metric']:.3e}"),
             retries_marina=g["marina"]["retries"]))
     rows.append(dict(blank, bench="fed_faults_gates",
-                     ok=sweep["graceful_degradation_ok"]))
-    rows.append(dict(blank, bench="fed_faults_equiv", ok=equiv["ok"]))
+                     ok=rep["graceful_degradation_ok"]))
+    rows.append(dict(blank, bench="fed_faults_equiv",
+                     ok=rep["faulted_heap_vec_bit_exact"]))
+    rows.append(dict(blank, bench="fed_faults_obs",
+                     ok=rep["faulted_obs_compile_free"]))
     return rows
 
 

@@ -46,7 +46,11 @@ per-client clocks replace the round barrier, the server broadcasts round t
 once the rounds older than t - tau have landed, and its step subtracts the
 messages still in flight; see :meth:`FedSim._run_async`.
 
-Not ported yet: the observability handle (``obs=``), which raises.
+With ``obs=`` (a :class:`repro_torch.obs.Obs`, DESIGN.md §17) the host
+loop records each round's per-client message lifetimes on a timeline
+(:func:`repro_torch.obs.timeline.record_fed_round`), a faulted round's
+marks, the slab store's gather and writeback as HOST spans, and the
+campaign's counters, all from arrays the loop already holds on the host.
 """
 from __future__ import annotations
 
@@ -67,6 +71,8 @@ from repro_torch.methods.accounting import downlink_receivers
 from repro_torch.methods.engine import FaultStep, Hyper, Method
 from repro_torch.methods.rules import get_rule
 from repro_torch.methods.substrates import gather_slab_rows, slab_layout
+from repro_torch.obs.handle import NULL, host_span, maybe as _obs_scope
+from repro_torch.obs.timeline import SERVER, client_track, record_fed_round
 
 X_BYTES_PER_COORD = 4                  # the server broadcast is dense fp32
 
@@ -99,6 +105,77 @@ class SimResult(NamedTuple):
     traces: Dict[str, np.ndarray]      # driver-style named metric traces
     events: Optional[List[FedEvent]]   # the heap oracle's event log
     summary: Dict[str, float]
+
+
+# ---------------------------------------------------------------------------
+# observability (both simulators, DESIGN.md §17)
+# ---------------------------------------------------------------------------
+
+def _obs_fault_metrics(h, tr) -> None:
+    """Flush a faulted campaign's event totals into the obs metrics
+    registry (shared with :class:`repro_torch.fed.vecsim.VecFedSim`):
+    counters ``fed.faults.offline`` / ``dropped`` / ``late`` / ``lost`` /
+    ``rejoins`` / ``retries`` / ``retry_capped`` (client-round events) and
+    ``fed.faults.retry_bytes_up`` / ``wasted_bytes_up``."""
+    if h.metrics is None:
+        return
+    m = h.metrics
+    for name in ("offline", "dropped", "late", "lost", "rejoins",
+                 "retries", "retry_capped", "retry_bytes_up",
+                 "wasted_bytes_up"):
+        m.counter(f"fed.faults.{name}").inc(float(tr[name].sum()))
+
+
+def _record_fault_marks(tl, *, t, bcast, completion, arrivals,
+                        crash_start, rejoin, rejoin_mode, drop_down,
+                        lost, late, miss=None, retries=None,
+                        retry_capped=None) -> None:
+    """One faulted round's timeline marks (heap oracle only: the vec
+    engine's per-client view is reconstructed post hoc): ``crash`` /
+    ``rejoin`` instants at the broadcast, ``drop_down`` at the broadcast
+    (the client never heard it), ``drop_up`` at the would-have-landed
+    arrival, ``deadline_cut`` at the round close, and, for sync rules, one
+    SERVER ``retries`` span over the backoff window."""
+    for i in np.flatnonzero(crash_start):
+        tl.instant(client_track(i), "crash", bcast, round=t)
+    for i in np.flatnonzero(rejoin):
+        tl.instant(client_track(i), "rejoin", bcast, round=t,
+                   mode=rejoin_mode)
+    for i in np.flatnonzero(drop_down):
+        tl.instant(client_track(i), "drop_down", bcast, round=t)
+    for i in np.flatnonzero(lost):
+        tl.instant(client_track(i), "drop_up", float(arrivals[i]),
+                   round=t)
+    for i in np.flatnonzero(late):
+        tl.instant(client_track(i), "deadline_cut", completion, round=t)
+    if retries is not None and miss is not None and miss.any():
+        tl.span(SERVER, "retries", bcast, completion, round=t,
+                clients=int(miss.sum()),
+                attempts=int(retries[miss].sum()),
+                capped=int(retry_capped[miss].sum()))
+
+
+def _obs_fed_metrics(h, tr, summary) -> None:
+    """Flush one finished campaign's aggregates into the obs metrics
+    registry (no-op on a metrics-less handle).  Shared with
+    :class:`repro_torch.fed.vecsim.VecFedSim` so both engines emit the
+    same instrument names: ``fed.rounds`` / ``fed.bytes_up`` /
+    ``fed.bytes_down`` / ``fed.sync_rounds`` counters, the
+    ``fed.round_wall_s`` histogram (per-round barrier span, completion
+    minus broadcast), and ``fed.sim_wall_clock_s`` /
+    ``fed.mean_participants`` gauges."""
+    if h.metrics is None:
+        return
+    m = h.metrics
+    m.counter("fed.rounds").inc(summary["rounds"])
+    m.counter("fed.bytes_up").inc(summary["bytes_up"])
+    m.counter("fed.bytes_down").inc(summary["bytes_down"])
+    m.counter("fed.sync_rounds").inc(summary["sync_rounds"])
+    hist = m.histogram("fed.round_wall_s")
+    for w in tr["sim_wall_clock"] - tr["bcast_clock"]:
+        hist.observe(float(w))
+    m.gauge("fed.sim_wall_clock_s").set(summary["wall_clock_s"])
+    m.gauge("fed.mean_participants").set(summary["mean_participants"])
 
 
 # ---------------------------------------------------------------------------
@@ -388,7 +465,8 @@ class FedSim:
 
     def _run_chunk(self, state, length: int, metric_fn,
                    draws: Optional[DrawsFn],
-                   faults: Optional[ChunkFaults] = None, deficit=None):
+                   faults: Optional[ChunkFaults] = None, deficit=None,
+                   tl=None):
         """``length`` engine rounds on the active store; returns (state,
         the chunk's observables on the host).  The slab store gathers the
         rows the chunk's cohorts touch, runs the rounds on that slab and
@@ -399,7 +477,9 @@ class FedSim:
         :class:`~repro_torch.methods.engine.FaultStep` that
         :func:`round_fault_step` builds from the round's participation.
         ``deficit`` (a one-round chunk of an asynchronous campaign) is the
-        engine's in-flight correction of the round's server step."""
+        engine's in-flight correction of the round's server step.  A live
+        timeline ``tl`` gets the slab gather and writeback as HOST
+        spans."""
         rows: Dict[str, list] = {k: [] for k in (
             "metric", "values", "indices", "present", "plan_indices",
             "plan_mask", "coin", "bits")}
@@ -414,14 +494,16 @@ class FedSim:
             idx = torch.as_tensor(uniq, device=dev)
             sels_t = torch.as_tensor(sels, device=dev).to(torch.int64)
             loc_t = torch.as_tensor(loc, device=dev).to(torch.int64)
-            st, full_h, full_g = slab_enter(state, idx)
+            with host_span(tl, "slab_gather", rows=int(uniq.size)):
+                st, full_h, full_g = slab_enter(state, idx)
             for j in range(length):
                 new, info = self.method.step_full(
                     st, None, draws=draws_at(draws, st.t),
                     window=(sels[j], sels_t[j], loc_t[j]), deficit=deficit)
                 self._observe(rows, syncs, j, new, info, metric_fn)
                 st = new
-            state = slab_exit(st, idx, full_h, full_g)
+            with host_span(tl, "slab_writeback", rows=int(uniq.size)):
+                state = slab_exit(st, idx, full_h, full_g)
         else:
             for j in range(length):
                 dr = draws_at(draws, state.t)
@@ -553,29 +635,31 @@ class FedSim:
         ``log_events`` keeps the server's event log (at most
         ``max_events``).  ``state`` is never written.  With ``tau`` set the
         campaign is asynchronous (:meth:`_run_async`), and the resume
-        arguments raise ValueError."""
-        if obs is not None:
-            raise NotImplementedError(
-                "obs= (the observability handle) belongs to a later slice "
-                "of the port")
+        arguments raise ValueError.
+
+        ``obs`` is an optional :class:`repro_torch.obs.Obs` handle: a live
+        timeline gets every round's per-client message lifetimes (and a
+        faulted round's marks), a metrics registry the campaign counters,
+        both recorded by this host loop on arrays it already holds."""
         metric_fn = self._metric_fn(metric_fn)
         if not (0 <= int(start_round) <= rounds):
             raise ValueError(f"start_round={start_round} outside "
                              f"[0, {rounds}]")
-        if self.tau is not None:
-            check_resume(start_round, clock0, checkpoint)
-            return self._run_async(state, rounds, metric_fn, log_events,
-                                   max_events, draws)
-        run = self._run_faulted if self.faults is not None \
-            else self._run_barrier
-        return run(state, rounds, metric_fn, log_events, max_events,
-                   start_round, clock0, checkpoint, draws)
+        with _obs_scope(obs) as h:
+            if self.tau is not None:
+                check_resume(start_round, clock0, checkpoint)
+                return self._run_async(state, rounds, metric_fn,
+                                       log_events, max_events, draws, h)
+            run = self._run_faulted if self.faults is not None \
+                else self._run_barrier
+            return run(state, rounds, metric_fn, log_events, max_events,
+                       start_round, clock0, checkpoint, draws, h)
 
     def _run_barrier(self, state, rounds: int, metric_fn,
                      log_events: bool, max_events: int,
                      start_round: int = 0, clock0: float = 0.0,
                      checkpoint: Optional[Callable] = None,
-                     draws: Optional[DrawsFn] = None) -> SimResult:
+                     draws: Optional[DrawsFn] = None, h=NULL) -> SimResult:
         rng = np.random.default_rng(self.seed)
         n = self.n
         d = int(self.comp.spec.d)
@@ -605,7 +689,8 @@ class FedSim:
         done = start_round
         while done < rounds:
             length = min(self.chunk, rounds - done)
-            state, ys = self._run_chunk(state, length, metric_fn, draws)
+            state, ys = self._run_chunk(state, length, metric_fn, draws,
+                                        tl=h.timeline)
             for j in range(length):
                 t = done + j
                 rel = t - start_round
@@ -635,6 +720,15 @@ class FedSim:
                 if log_events and len(events) < max_events:
                     events.append(FedEvent(completion, "round", -1, t,
                                            rb.total_bytes))
+                if h.timeline is not None:
+                    record_fed_round(
+                        h.timeline, round=t, bcast=now,
+                        completion=completion, active=active,
+                        arrivals=now + delay, t_down=t_down, t_up=t_up,
+                        per_node_bytes=np.asarray(rb.per_node),
+                        down_bytes=down_bytes, compute_s=self.compute_s,
+                        coin=coin, server_down_bytes=recv * x_bytes,
+                        cohort=ys["sel"][j] if self.sampled else None)
                 now = completion
 
                 bytes_up_total += rb.total_bytes
@@ -663,6 +757,7 @@ class FedSim:
             "mean_bytes_up_per_round":
                 float(bytes_up_total) / max(n_run, 1),
         }
+        _obs_fed_metrics(h, tr, summary)
         return SimResult(state=state, traces=tr,
                          events=events if log_events else None,
                          summary=summary)
@@ -701,7 +796,7 @@ class FedSim:
                      log_events: bool, max_events: int,
                      start_round: int = 0, clock0: float = 0.0,
                      checkpoint: Optional[Callable] = None,
-                     draws: Optional[DrawsFn] = None) -> SimResult:
+                     draws: Optional[DrawsFn] = None, h=NULL) -> SimResult:
         """The faulted barrier campaign.
 
         The fault realization is drawn on the host for the whole campaign
@@ -848,6 +943,23 @@ class FedSim:
                     if len(events) < max_events:
                         events.append(FedEvent(completion, "round", -1,
                                                t, round_up))
+                if h.timeline is not None:
+                    record_fed_round(
+                        h.timeline, round=t, bcast=now,
+                        completion=completion, active=senders,
+                        arrivals=now + delay, t_down=t_down, t_up=t_up,
+                        per_node_bytes=np.asarray(rb.per_node),
+                        down_bytes=down_bytes, compute_s=self.compute_s,
+                        coin=coin, server_down_bytes=n * x_bytes)
+                    _record_fault_marks(
+                        h.timeline, t=t, bcast=now, completion=completion,
+                        arrivals=now + delay,
+                        crash_start=fc.crash_start[t], rejoin=fc.rejoin[t],
+                        rejoin_mode=fm.rejoin, drop_down=fc.drop_down[t],
+                        lost=lost, late=late,
+                        miss=miss if sync else None,
+                        retries=fc.first_success[t] if sync else None,
+                        retry_capped=fc.capped[t] if sync else None)
                 now = completion
 
                 bytes_up_total += round_up
@@ -893,6 +1005,8 @@ class FedSim:
             "retry_capped": float(tr["retry_capped"].sum()),
             "wasted_bytes_up": float(tr["wasted_bytes_up"].sum()),
         }
+        _obs_fed_metrics(h, tr, summary)
+        _obs_fault_metrics(h, tr)
         return SimResult(state=state, traces=tr,
                          events=events if log_events else None,
                          summary=summary)
@@ -902,8 +1016,8 @@ class FedSim:
     # ------------------------------------------------------------------
 
     def _run_async(self, state, rounds: int, metric_fn, log_events: bool,
-                   max_events: int,
-                   draws: Optional[DrawsFn] = None) -> SimResult:
+                   max_events: int, draws: Optional[DrawsFn] = None,
+                   h=NULL) -> SimResult:
         """The asynchronous pipelined replay: per-client next-free clocks,
         messages in flight across rounds, and a staleness-bounded
         broadcast gate, in float64 absolute time on the host.
@@ -968,7 +1082,7 @@ class FedSim:
                 if buf_off == buf_len:
                     buf_len = min(self.chunk, rounds - t)
                     state, buf = self._run_chunk(state, buf_len, metric_fn,
-                                                 draws)
+                                                 draws, tl=h.timeline)
                     buf_off = 0
                 ys, j = buf, buf_off
                 buf_off += 1
@@ -976,7 +1090,8 @@ class FedSim:
                 deficit = host_deficit(ring, T_new, n, d)
                 state, ys = self._run_chunk(
                     state, 1, metric_fn, draws,
-                    deficit=torch.as_tensor(deficit, device=dev))
+                    deficit=torch.as_tensor(deficit, device=dev),
+                    tl=h.timeline)
                 j = 0
 
             coin, active, rb, _bufs, (vals, idxs) = self._round_wire(ys, j,
@@ -1008,6 +1123,17 @@ class FedSim:
                 if len(events) < max_events:
                     events.append(FedEvent(floor_t, "round", -1, t,
                                            rb.total_bytes))
+            if h.timeline is not None:
+                # async rounds interleave in wall time; the per-track
+                # round ids still advance monotonically, which is the
+                # invariant Timeline.validate() checks
+                record_fed_round(
+                    h.timeline, round=t, bcast=T_new, completion=floor_t,
+                    active=active, arrivals=arr, t_down=t_down, t_up=t_up,
+                    per_node_bytes=np.asarray(rb.per_node),
+                    down_bytes=down_bytes, compute_s=self.compute_s,
+                    coin=coin, server_down_bytes=recv * x_bytes,
+                    cohort=ys["sel"][j] if self.sampled else None)
 
             ring.popleft()
             if coin and flush_rule:
@@ -1050,6 +1176,7 @@ class FedSim:
                 float(bytes_up_total) / max(rounds, 1),
             "tau": float(tau),
         }
+        _obs_fed_metrics(h, tr, summary)
         return SimResult(state=state, traces=tr,
                          events=events if log_events else None,
                          summary=summary)
@@ -1075,8 +1202,8 @@ def simulate(variant: str, comp, substrate, hyper: Hyper, x0,
     substrates; ``faults`` injects a seeded
     :class:`repro_torch.fed.faults.FaultModel` (crashes, lossy links,
     corruption, deadlines and retries); ``tau`` runs asynchronous
-    pipelined rounds of that staleness bound; ``obs`` raises until
-    ported.
+    pipelined rounds of that staleness bound; ``obs`` (a
+    :class:`repro_torch.obs.Obs`) records the campaign.
     ``init_kw`` goes to ``Method.init`` (``device=`` among them)."""
     if engine == "vec":
         from repro_torch.fed.vecsim import VecFedSim

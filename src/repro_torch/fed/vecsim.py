@@ -43,11 +43,17 @@ the server broadcasts round t once every round older than t - tau has
 landed, and steps from ``g`` minus the messages still in flight
 (:class:`_Pipeline`, :meth:`VecFedSim._run_async`).
 
-Not ported yet: the observability handle (``obs=``), which raises.
+With ``obs=`` (a :class:`repro_torch.obs.Obs`, DESIGN.md §17) a live
+timeline gets each chunk and the slab store's gather and writeback as
+HOST spans, and a metrics registry the campaign counters the heap oracle
+emits; the per-client view is rebuilt after the run by
+:func:`repro_torch.obs.reconstruct_vec_timeline`.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import time
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
@@ -58,14 +64,17 @@ from repro_torch.fed import wire
 from repro_torch.fed.net import LinkModel, campaign_streams, round_multipliers
 from repro_torch.fed import faults as faultslib
 from repro_torch.fed.sim import (DEFAULT_CHUNK, X_BYTES_PER_COORD, DrawsFn,
-                                 SimResult, check_faults, check_resume,
-                                 check_tau, chunk_faults, draws_at,
-                                 fault_masks, faults_to, slab_enter,
+                                 SimResult, _obs_fault_metrics,
+                                 _obs_fed_metrics, check_faults,
+                                 check_resume, check_tau, chunk_faults,
+                                 draws_at, fault_masks, faults_to, slab_enter,
                                  slab_exit, snapshot)
 from repro_torch.methods.accounting import downlink_receivers
 from repro_torch.methods.engine import FaultStep, Hyper, Method
 from repro_torch.methods.rules import get_rule
 from repro_torch.methods.substrates import slab_layout
+from repro_torch.obs.handle import (NULL, host_span, maybe as _obs_scope,
+                                    record_chunk)
 
 #: the per-round device scalars a chunk stacks, in column order
 _DEVICE_YS = ("metric", "participants", "counts_sum", "round_t")
@@ -455,13 +464,20 @@ class VecFedSim:
         mu_c = np.take_along_axis(mu, sels, axis=1)
         return sels, uniq_pad, loc, md_c, mu_c
 
+    def _chunk_runner(self, h):
+        """The chunk function of the active store; the slab store's gets
+        the handle's timeline for its gather and writeback spans."""
+        if self.slab:
+            return functools.partial(self._chunk_slab, tl=h.timeline)
+        return self._chunk_scatter
+
     # the slab store's gather and writeback (an instance attribute may
     # wrap the writeback to watch it)
     _slab_enter = staticmethod(slab_enter)
     _slab_exit = staticmethod(slab_exit)
 
     def _chunk_slab(self, state, length: int, md, mu, metric_fn, draws,
-                    pipe: Optional[_Pipeline] = None):
+                    pipe: Optional[_Pipeline] = None, tl=None):
         dev = state.x.device
         sels, uniq, loc, md_c, mu_c = self._slab_chunk_xs(
             state, length, md, mu, draws)
@@ -470,7 +486,8 @@ class VecFedSim:
         loc_t = torch.as_tensor(loc, device=dev).to(torch.int64)
         m_down = torch.as_tensor(md_c, device=dev)
         m_up = torch.as_tensor(mu_c, device=dev)
-        st, full_h, full_g = self._slab_enter(state, idx)
+        with host_span(tl, "slab_gather", rows=int(uniq.size)):
+            st, full_h, full_g = self._slab_enter(state, idx)
         rows, coins, bits = [], [], []
         for j in range(length):
             st, coin, vals = self._round_slab(
@@ -479,7 +496,8 @@ class VecFedSim:
             rows.append(vals)
             coins.append(coin)
             bits.append(st.bits_sent)
-        state = self._slab_exit(st, idx, full_h, full_g)
+        with host_span(tl, "slab_writeback", rows=int(uniq.size)):
+            state = self._slab_exit(st, idx, full_h, full_g)
         return state, self._chunk_ys(rows, coins, bits,
                                      _DEVICE_YS if pipe is None
                                      else _ASYNC_YS)
@@ -505,22 +523,27 @@ class VecFedSim:
         samples, cohort) for the parity tests; None draws it.  ``state``
         is never written.  With ``tau`` set the campaign is asynchronous
         (:meth:`_run_async`), and the resume arguments raise ValueError:
-        the pipeline's ring is not part of a checkpoint."""
-        if obs is not None:
-            raise NotImplementedError(
-                "obs= (the observability handle) belongs to a later slice "
-                "of the port")
+        the pipeline's ring is not part of a checkpoint.
+
+        ``obs`` is an optional :class:`repro_torch.obs.Obs` handle.  The
+        chunks bring per-round scalars to the host only, so a live
+        timeline here gets HOST-track chunk and slab spans (wall time)
+        plus kernel-build spans; the per-client simulated-time view is
+        rebuilt after the run by
+        :func:`repro_torch.obs.reconstruct_vec_timeline`.  A metrics
+        registry gets the campaign aggregates the heap oracle emits."""
         metric_fn = self._metric_fn(metric_fn)
         if not (0 <= int(start_round) <= rounds):
             raise ValueError(f"start_round={start_round} outside "
                              f"[0, {rounds}]")
-        if self.tau is not None and rounds > 0:
-            check_resume(start_round, clock0, checkpoint)
-            return self._run_async(state, rounds, metric_fn, draws)
-        run = self._run_faulted if self.faults is not None \
-            else self._run_barrier
-        return run(state, rounds, metric_fn, start_round, clock0,
-                   checkpoint, draws)
+        with _obs_scope(obs) as h:
+            if self.tau is not None and rounds > 0:
+                check_resume(start_round, clock0, checkpoint)
+                return self._run_async(state, rounds, metric_fn, draws, h)
+            run = self._run_faulted if self.faults is not None \
+                else self._run_barrier
+            return run(state, rounds, metric_fn, start_round, clock0,
+                       checkpoint, draws, h)
 
     @staticmethod
     def _seq_wall(round_t: np.ndarray, clock0: float) -> np.ndarray:
@@ -537,7 +560,7 @@ class VecFedSim:
     def _run_barrier(self, state, rounds: int, metric_fn,
                      start_round: int = 0, clock0: float = 0.0,
                      checkpoint: Optional[Callable] = None,
-                     draws: Optional[DrawsFn] = None) -> SimResult:
+                     draws: Optional[DrawsFn] = None, h=NULL) -> SimResult:
         rng = np.random.default_rng(self.seed)
         streams = campaign_streams(rng, rounds)
         if rounds <= 0 or start_round >= rounds:
@@ -550,14 +573,16 @@ class VecFedSim:
             state = snapshot(state)
         parts = []
         now = float(clock0)
+        run_chunk = self._chunk_runner(h)
         done = start_round
         while done < rounds:
             length = min(self.chunk, rounds - done)
             md, mu = self._chunk_multipliers(streams, done, length)
-            run_chunk = self._chunk_slab if self.slab else \
-                self._chunk_scatter
+            t0 = time.perf_counter() if h else 0.0
             state, part = run_chunk(state, length, md, mu, metric_fn, draws)
             parts.append(part)
+            if h:
+                record_chunk(h, t0, done, length, "vec.chunk_s")
             done += length
             if checkpoint is not None:
                 now = float(self._seq_wall(part["round_t"], now)[-1])
@@ -570,11 +595,12 @@ class VecFedSim:
         bcast = np.concatenate([[clock0], wall[:-1]])
         traces, summary = self._bill_round_bytes(
             ys, n_run, wall, bcast, wall_clock_s=float(wall[-1]))
+        _obs_fed_metrics(h, traces, summary)
         return SimResult(state=state, traces=traces, events=None,
                          summary=summary)
 
     def _run_async(self, state, rounds: int, metric_fn,
-                   draws: Optional[DrawsFn] = None) -> SimResult:
+                   draws: Optional[DrawsFn] = None, h=NULL) -> SimResult:
         """The asynchronous campaign (DESIGN.md §14): the barrier's chunks
         with a :class:`_Pipeline` threaded through their rounds.  Absolute
         clocks are rebuilt on the host: the broadcasts are the float64
@@ -588,15 +614,18 @@ class VecFedSim:
             state = snapshot(state)
         c = int(self.substrate.c) if self.sampled else n
         pipe = _Pipeline(tau, n, c, d, state.x.device)
-        run_chunk = self._chunk_slab if self.slab else self._chunk_scatter
+        run_chunk = self._chunk_runner(h)
         parts = []
         done = 0
         while done < rounds:
             length = min(self.chunk, rounds - done)
             md, mu = self._chunk_multipliers(streams, done, length)
+            t0 = time.perf_counter() if h else 0.0
             state, part = run_chunk(state, length, md, mu, metric_fn, draws,
                                     pipe)
             parts.append(part)
+            if h:
+                record_chunk(h, t0, done, length, "vec.chunk_s")
             done += length
         ys = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
         bcast = np.cumsum(ys["bcast_rel"])
@@ -604,6 +633,7 @@ class VecFedSim:
         traces, summary = self._bill_round_bytes(
             ys, rounds, wall, bcast, wall_clock_s=float(wall.max()))
         summary["tau"] = float(tau)
+        _obs_fed_metrics(h, traces, summary)
         return SimResult(state=state, traces=traces, events=None,
                          summary=summary)
 
@@ -797,7 +827,7 @@ class VecFedSim:
     def _run_faulted(self, state, rounds: int, metric_fn,
                      start_round: int = 0, clock0: float = 0.0,
                      checkpoint: Optional[Callable] = None,
-                     draws: Optional[DrawsFn] = None) -> SimResult:
+                     draws: Optional[DrawsFn] = None, h=NULL) -> SimResult:
         """The faulted barrier campaign, vectorized: the fault realization
         is the heap oracle's own host-drawn
         :class:`repro_torch.fed.faults.FaultCampaign` (keyed by absolute
@@ -819,10 +849,13 @@ class VecFedSim:
         while done < rounds:
             length = min(self.chunk, rounds - done)
             md, mu = self._chunk_multipliers(streams, done, length)
+            t0 = time.perf_counter() if h else 0.0
             state, part = self._chunk_faulted(
                 state, length, md, mu, fc, slice(done, done + length), cap,
                 metric_fn, draws)
             parts.append(part)
+            if h:
+                record_chunk(h, t0, done, length, "vec.chunk_s")
             done += length
             if checkpoint is not None:
                 now = float(self._seq_wall(part["round_t"], now)[-1])
@@ -835,6 +868,8 @@ class VecFedSim:
         traces, summary = self._bill_round_bytes_faulted(
             ys, fc, sync, n_run, start_round, wall, bcast,
             wall_clock_s=float(wall[-1]))
+        _obs_fed_metrics(h, traces, summary)
+        _obs_fault_metrics(h, traces)
         return SimResult(state=state, traces=traces, events=None,
                          summary=summary)
 

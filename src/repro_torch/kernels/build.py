@@ -6,6 +6,9 @@ headers, so a build takes seconds).  Libraries go to ``build/kernels/`` at
 the repository root, named by a hash of their source, so an edited source
 is rebuilt and a stale library is never loaded.  Nothing is built when this
 module is imported: the first launch builds, or :func:`build_all` does.
+Each library actually built is reported as ``(name, seconds)`` to the
+listeners of :func:`subscribe` (the observability handle's build spans,
+``repro_torch.obs.Obs.compile_spans``); an up-to-date one reports nothing.
 """
 from __future__ import annotations
 
@@ -14,8 +17,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Callable, Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -23,6 +27,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_LISTENERS: List[Callable[[str, float], None]] = []
+
+
+def subscribe(fn: Callable[[str, float], None]) -> None:
+    """Call ``fn(name, seconds)`` after each library this process builds."""
+    _LISTENERS.append(fn)
+
+
+def unsubscribe(fn: Callable[[str, float], None]) -> None:
+    _LISTENERS.remove(fn)
 
 
 def _nvcc() -> str:
@@ -54,21 +68,26 @@ def _start(name: str):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, out
+    return proc, tmp, out, t0
 
 
 def _finish(name: str, started) -> str:
     if started is None:
         return ""
-    proc, tmp, out = started
+    proc, tmp, out, t0 = started
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu "
                            f"(exit {proc.returncode}):\n{log}")
-    os.replace(tmp, out)           # atomic: concurrent builders never see
-    return log                     # a half-written library
+    # atomic: concurrent builders never see a half-written library
+    os.replace(tmp, out)
+    seconds = time.perf_counter() - t0
+    for fn in list(_LISTENERS):
+        fn(name, seconds)
+    return log
 
 
 def build_all() -> Dict[str, str]:

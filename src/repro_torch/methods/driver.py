@@ -26,9 +26,15 @@ the state carries it (a serving state does not).
 ``sweep(method_fn, values, state, rounds, ...)`` runs G hyperparameter
 values side by side as one run of G lanes (the Appendix-A powers-of-two
 stepsize tunes; :class:`Sweeper`).
+
+``obs=`` (a :class:`repro_torch.obs.Obs`) records each chunk as a HOST
+span and in the ``driver.chunk_s`` histogram, closed once the chunk's
+traces are on the host, and the run's rounds in ``driver.rounds``: host
+work between chunks, no launch and no device synchronization of its own.
 """
 from __future__ import annotations
 
+import time
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
@@ -37,6 +43,7 @@ import torch
 from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.core.rng import derive_seed
 from repro_torch.methods.lanes import as_lanes
+from repro_torch.obs.handle import maybe as _obs_scope, record_chunk
 
 MetricFn = Callable[[Any, Any], torch.Tensor]     # (state, data) -> scalar
 
@@ -52,6 +59,12 @@ def _to_host(values) -> np.ndarray:
     return torch.stack(values).cpu().numpy()
 
 
+def _obs_driver_done(h, rounds: int) -> None:
+    c = h.counter("driver.rounds")
+    if c is not None:
+        c.inc(int(rounds))
+
+
 def _round_index(state, i: int) -> int:
     """The global round index: ``state.t`` when the state carries one (it
     survives a resume), else the driver's own per-run counter ``i``."""
@@ -61,6 +74,9 @@ def _round_index(state, i: int) -> int:
 
 class Driver:
     """Reusable runner for one (method, data, metrics) configuration."""
+
+    #: rounds a round bills to the ``driver.rounds`` counter (a sweep's G)
+    lanes = 1
 
     def __init__(self, method, *, data_fn=None, data=None,
                  metrics: Optional[Dict[str, MetricFn]] = None,
@@ -112,13 +128,16 @@ class Driver:
 
     def run(self, state, rounds: int, *, data_seed: Optional[int] = None,
             checkpoint: Optional[Callable] = None,
-            checkpoint_every: int = 1):
+            checkpoint_every: int = 1, obs=None):
         """Drive ``rounds`` rounds; returns ``(final_state, traces)`` with
         ``traces`` a dict of length-``rounds`` numpy arrays (the named
         metrics plus ``bits_sent`` when the state carries it).
 
         ``checkpoint(state, rounds_done, chunk_traces)`` fires after every
-        ``checkpoint_every``-th chunk and after the final one."""
+        ``checkpoint_every``-th chunk and after the final one.  ``obs`` is
+        an optional :class:`repro_torch.obs.Obs` handle: per-chunk
+        HOST-track wall spans, kernel-build spans and ``driver.*``
+        metrics, recorded between chunks."""
         if self.data_fn is not None and data_seed is None:
             raise ValueError("data_fn requires an explicit data_seed")
         chunk = self.chunk or min(max(rounds, 1), DEFAULT_CHUNK)
@@ -128,15 +147,23 @@ class Driver:
         # passes it as a temporary lets it go after the first round
         box = [state]
         del state
-        while done < rounds:
-            length = min(chunk, rounds - done)
-            tr = self._run_chunk(box, done, length, data_seed, last)
-            done += length
-            n_chunk += 1
-            parts.append(tr)
-            if checkpoint is not None and \
-                    (done >= rounds or n_chunk % checkpoint_every == 0):
-                checkpoint(box[0], done, tr)
+        with _obs_scope(obs) as h:
+            while done < rounds:
+                length = min(chunk, rounds - done)
+                t0 = time.perf_counter() if h else 0.0
+                # the chunk's traces are on the host when it returns
+                tr = self._run_chunk(box, done, length, data_seed, last)
+                done += length
+                n_chunk += 1
+                parts.append(tr)
+                if h:
+                    record_chunk(h, t0, done - length, length,
+                                 "driver.chunk_s")
+                if checkpoint is not None and \
+                        (done >= rounds or n_chunk % checkpoint_every == 0):
+                    checkpoint(box[0], done, tr)
+            if h and rounds > 0:
+                _obs_driver_done(h, rounds * self.lanes)
         state = box[0]
         if not parts:
             return state, self._empty_traces(state, data_seed)
@@ -226,7 +253,7 @@ class _LaneDriver(Driver):
 
 class Sweeper:
     """Runner of one hyperparameter sweep configuration (port of the
-    reference's ``Sweeper``; no ``donate``, ``host_traces`` or ``obs``).
+    reference's ``Sweeper``; no ``donate`` or ``host_traces``).
 
     ``method_fn(values) -> Method`` (or a bare lane step) is called once a
     run with the G values as :class:`repro_torch.methods.lanes.Lanes` (a
@@ -269,12 +296,15 @@ class Sweeper:
         self.chunk = chunk
 
     def run(self, values, state, rounds: int, *,
-            data_seed: Optional[int] = None, device=DEFAULT_DEVICE):
+            data_seed: Optional[int] = None, device=DEFAULT_DEVICE,
+            obs=None):
         """Run ``rounds`` rounds of every lane from ``state`` (one state,
         broadcast to the G lanes); returns ``(final_states, traces)`` with
         a leading (G,) axis on every tensor leaf and ``bits_sent``, and
         (G, rounds) traces.  The lanes' state is made on ``device``
-        (default the card; raises without one)."""
+        (default the card; raises without one).  ``obs`` as in
+        :meth:`Driver.run` (the ``driver.rounds`` counter bills rounds x
+        lanes)."""
         dev = resolve_device(device)
         lanes, G = as_lanes(values)
         step = _resolve_step(self.method_fn(lanes))
@@ -282,7 +312,7 @@ class Sweeper:
                           metrics=self.metrics,
                           metric_every=self.metric_every, chunk=self.chunk)
         final, traces = drv.run(_broadcast_lanes(state, G, dev), rounds,
-                                data_seed=data_seed)
+                                data_seed=data_seed, obs=obs)
         return final, {k: np.moveaxis(v, 0, 1) for k, v in traces.items()}
 
 

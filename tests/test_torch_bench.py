@@ -14,7 +14,12 @@
   reproduces ``BENCH_faults.json`` wherever the number depends only on
   the numpy fault and link draws, with every gate true;
 * the async bench at the reference's quick size reproduces
-  ``BENCH_async.json``'s DASHA clocks, with every gate true.
+  ``BENCH_async.json``'s DASHA clocks, with every gate true;
+* the fault bench's third experiment: a warmed faulted campaign with a
+  metrics handle builds no kernel and equals the plain run bit for bit
+  (``faulted_obs_compile_free``, the reference's field, true in both);
+* the obs tour (``bench/obs_trace.py``) at 6 rounds writes its four files,
+  and its timelines validate and reconcile with the campaigns' bytes.
 """
 import json
 import math
@@ -27,10 +32,11 @@ import torch
 from benchmarks import table1_complexity as ref_table1
 from repro_torch.bench import (common, fed_async, fed_faults, fig1_gradient,
                                fig2_finite_sum, fig3_stochastic,
-                               fig5_quadratic_pl, quickstart,
+                               fig5_quadratic_pl, obs_trace, quickstart,
                                table1_complexity)
 from repro_torch.bench import run as bench_run
 from repro_torch.methods import Hyper
+from repro_torch.obs import read_jsonl
 
 torch.set_num_threads(1)
 
@@ -177,6 +183,56 @@ def test_fed_faults_equivalence_check_holds():
     for variant in ("dasha", "marina"):
         assert out[variant]["integer_traces_bit_exact"] is True
         assert out[variant]["dropped_rounds"] > 0
+
+
+def test_fed_faults_report_has_the_reference_fields_and_is_obs_free(
+        capsys):
+    """``fed_faults.run`` at a twentieth of its rounds: its report carries
+    the reference's top-level fields, ``faulted_obs_compile_free`` true as
+    in ``BENCH_faults.json`` (no kernel build, bit-identical results with
+    the handle attached), and its CSV the reference's ``fed_faults_obs``
+    row."""
+    want = json.loads((Path(__file__).resolve().parents[1]
+                       / "BENCH_faults.json").read_text())
+    rep = fed_faults.report(device="cpu", rounds_scale=0.05)
+    assert set(rep) == set(want)
+    assert set(want["config"]) - set(rep["config"]) == {"quick"}
+    assert rep["faulted_obs_compile_free"] is True
+    assert want["faulted_obs_compile_free"] is True
+    assert rep["obs"]["steady_state_compiles"] == \
+        want["obs"]["steady_state_compiles"] == 0
+    assert rep["obs"]["bit_identical"] is True
+    assert rep["obs"]["fed_rounds_counted"] == rep["config"]["rounds"] == 12
+    rows = fed_faults.run(device="cpu", rounds_scale=0.05)
+    assert [r["ok"] for r in rows if r["bench"] == "fed_faults_obs"] == \
+        [True]
+
+
+def test_obs_trace_writes_its_files_and_its_timelines_validate(
+        monkeypatch, tmp_path, capsys):
+    monkeypatch.setenv("REPRO_EXAMPLE_ROUNDS", "6")
+    monkeypatch.chdir(tmp_path)
+    out = obs_trace.main(["--device", "cpu"])
+    assert out["rounds"] == 6
+    for name in obs_trace.FILES:
+        assert (tmp_path / name).stat().st_size > 0, name
+    for variant in ("dasha", "marina"):
+        tl, res = out["timelines"][variant], out["results"][variant]
+        assert tl.validate() == []
+        sums = tl.round_byte_sums()
+        assert np.array_equal(sums["bytes_up"],
+                              res.traces["bytes_up"].astype(np.int64))
+        doc = json.loads((tmp_path / f"obs_trace_{variant}.json")
+                         .read_text())
+        assert len(doc["traceEvents"]) > 3 * 6
+    assert out["sync_rounds"]["dasha"] == 0
+    recs = read_jsonl(str(tmp_path / "obs_trace_metrics.jsonl"))
+    last = {(r["labels"]["variant"], r["name"]): r for r in recs}
+    assert last[("dasha", "fed.rounds")]["value"] == 6
+    assert last[("marina", "fed.rounds")]["value"] == 6
+    md = (tmp_path / "obs_trace_stragglers.md").read_text()
+    assert "## dasha" in md and "## marina" in md
+    assert "no-client-synchronization" in capsys.readouterr().out
 
 
 def test_fed_async_reproduces_the_reference_bench():

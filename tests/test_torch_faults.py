@@ -43,6 +43,7 @@ from repro_torch import methods as tm
 from repro_torch.compress import make_round_compressor as t_make_rc
 from repro_torch.fed import faults as tfaults
 from repro_torch.fed import wire as twire
+from repro_torch.obs import Obs
 
 torch.set_num_threads(1)
 
@@ -342,9 +343,24 @@ def test_engine_takes_faults_only_where_the_reference_does():
 
 @pytest.mark.parametrize("cls", [tfed.FedSim, tfed.VecFedSim])
 def test_faulted_run_still_refuses_obs(cls):
+    """A faulted run used to refuse ``obs=``; the handle is ported now
+    (``tests/test_torch_obs.py``), so this holds the opposite: a faulted
+    run takes a handle, returns what it returns without one, and bills
+    every fault trace into its ``fed.faults.*`` counters.  An object that
+    is not a handle still raises."""
     sim = _port_sim(cls, "dasha", 1.0, FM_MIXED, tm.Hyper(gamma=0.1, a=0.5))
     st = sim.init(torch.zeros(D), 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="obs"):
+    plain = sim.run(st, 6)
+    obs = Obs.metrics_only()
+    res = sim.run(st, 6, obs=obs)
+    for k in plain.traces:
+        assert np.array_equal(res.traces[k], plain.traces[k]), k
+    assert torch.equal(res.state.x, plain.state.x)
+    snap = obs.metrics.snapshot()
+    for name in ("offline", "dropped", "late", "lost", "rejoins"):
+        assert snap[f"fed.faults.{name}"]["value"] == \
+            plain.traces[name].sum(), name
+    with pytest.raises(AttributeError):
         sim.run(st, 2, obs=object())
 
 

@@ -41,6 +41,7 @@ from repro_torch import methods as tm
 from repro_torch.compress import make_round_compressor as t_make_rc
 from repro_torch.core import rng as trng
 from repro_torch.methods import substrates as tsubs
+from repro_torch.obs import Obs
 
 torch.set_num_threads(1)
 
@@ -486,7 +487,10 @@ def test_vecsim_rejections():
         _port_sim(faults=tfed.FaultModel())
     sim = _port_sim()
     st = sim.init(torch.zeros(D), 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="obs"):
+    # obs= is ported (tests/test_torch_obs.py): a handle is taken, an
+    # object that is not one raises
+    assert sim.run(st, 3, obs=Obs.metrics_only()).summary["rounds"] == 3
+    with pytest.raises(AttributeError):
         sim.run(st, 3, obs=object())
     with pytest.raises(ValueError, match="slab"):
         _port_sim(store="slab", n=8, c=8)

@@ -42,6 +42,7 @@ from repro_torch import methods as tm
 from repro_torch.compress import make_round_compressor as t_make_rc
 from repro_torch.fed import sim as tsim
 from repro_torch.fed import wire as twire
+from repro_torch.obs import Obs
 
 torch.set_num_threads(1)
 
@@ -450,7 +451,10 @@ def test_rejections():
     # reference, refuses asynchronous rounds
     with pytest.raises(ValueError, match="tau"):
         tfed.FedSim(*args, tau=1, faults=tfed.FaultModel())
-    with pytest.raises(NotImplementedError, match="obs"):
+    # obs= is ported (tests/test_torch_obs.py): a handle is taken, an
+    # object that is not one raises
+    assert heap.run(st, 3, obs=Obs.metrics_only()).summary["rounds"] == 3
+    with pytest.raises(AttributeError):
         heap.run(st, 3, obs=object())
     with pytest.raises(ValueError, match="slab"):
         tfed.FedSim(*args, store="slab")

@@ -63,7 +63,9 @@ def test_import_scan_covers_the_slice():
                 "bench/fig1_gradient.py", "bench/fig2_finite_sum.py",
                 "bench/fig3_stochastic.py", "bench/fig5_quadratic_pl.py",
                 "bench/table1_complexity.py", "bench/quickstart.py",
-                "bench/run.py"):
+                "bench/run.py", "bench/obs_trace.py", "obs/__init__.py",
+                "obs/timeline.py", "obs/metrics.py", "obs/handle.py",
+                "obs/attrib.py", "obs/vecreplay.py"):
         assert mod in names
     for src in ("dasha_update.cu", "ssd_chunk.cu", "slab_writeback.cu"):
         assert (ROOT / "src/repro_torch/kernels/csrc" / src).exists()
@@ -99,7 +101,7 @@ def _entry_points():
                                            make_node_batches)
     from repro_torch.bench import common as bench_common
     from repro_torch.bench import fed_async, fed_faults
-    from repro_torch.bench import quickstart
+    from repro_torch.bench import obs_trace, quickstart
     from repro_torch.bench import run as bench_run
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch import train as train_mod
@@ -158,6 +160,9 @@ def _entry_points():
             fed_faults.degradation_sweep(d=64, rounds=1),
         "bench.fed_faults.equivalence_check": lambda:
             fed_faults.equivalence_check(rounds=1),
+        "bench.fed_faults.obs_compile_check": lambda:
+            fed_faults.obs_compile_check(d=64, rounds=1),
+        "bench.obs_trace": lambda: obs_trace.main([]),
         "bench.run": lambda: bench_run.main(["--only", "table1"]),
         "VecFedSim.init": vecsim_init,
         "FedSim.init": fedsim_init,
@@ -200,8 +205,10 @@ ENTRY_POINTS = ["FedSim.init", "Method.init", "StochasticProblem",
                 "bench.fed_async.equivalence_check",
                 "bench.fed_async.severity_sweep", "bench.fed_async.tau_sweep",
                 "bench.fed_faults.degradation_sweep",
-                "bench.fed_faults.equivalence_check", "bench.glm_problem",
-                "bench.logreg_nonconvex_problem", "bench.quickstart",
+                "bench.fed_faults.equivalence_check",
+                "bench.fed_faults.obs_compile_check", "bench.glm_problem",
+                "bench.logreg_nonconvex_problem", "bench.obs_trace",
+                "bench.quickstart",
                 "bench.run",
                 "convert.cache_from_numpy", "convert.params_from_numpy",
                 "convert.plan_from_numpy", "convert.problem_from_numpy",
