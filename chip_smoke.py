@@ -197,7 +197,29 @@ Phases, each fatal on failure:
     ``Obs.full().compile_spans()``: one ``backend_compile`` span per
     library that was missing (none on the warm cache), then once more
     into an empty build directory, where every source must be recorded.
-    ``OBS_CUTS`` lists the cuts.
+    ``OBS_CUTS`` lists the cuts;
+18. full-state checkpoints (``repro_torch.checkpoint``) — kill and
+    restore through files written under ``tempfile.mkdtemp()`` (each save
+    preceded by a free-space check of twice the file's size, every file
+    deleted at the end): (a) ``launch.train.train`` with the real flags on
+    Mamba2-780M at full width cut to ``CKPT_LAYERS`` of 48 layers (phase
+    5's configuration, kernel 3): ``--steps 4`` twice (a control pair that
+    tells whether the trainer repeats itself bit for bit on the card),
+    ``--steps 2 --ckpt D``, then ``--steps 4 --ckpt D --resume`` from fresh
+    objects; gates: the file loads bit for bit into arm 2's final state,
+    and the resumed run's final state equals the uninterrupted one's (bit
+    for bit when the control pair is; else within the control pair's own
+    worst leaf error, never looser than ``CKPT_RESUME_CAP``); (b)
+    ``VecFedSim`` on phase 12b's sampled campaign (n = 10,000, C = 64, d
+    = 20,958, fused RandK, slab store: kernels 1 and 4), 256 rounds in
+    chunks of 32, killed after chunk 3 and restored from disk into a fresh
+    simulator; (c) the heap ``FedSim`` on phase 15's data under FM_MIXED
+    faults, 40 rounds in chunks of 8, killed after chunk 1; gates for (b)
+    and (c): the tail's traces and the final state bit-equal to an
+    uninterrupted run's.  Each gate has two planted faults that must fail
+    it: a restore with one h_local row one ulp off, and one with the start
+    round one off.  Reported: each file's size, save and load seconds and
+    GB/s, the device peak and the launches by kernel.
 
 Every phase that drives a main path zeroes the launch counters just before
 it and reads them just after; a kernel of that path that never launched
@@ -214,10 +236,13 @@ import gc
 import json
 import math
 import operator
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -339,27 +364,63 @@ ASYNC_CUTS = {
 # 3,615 x d = 20,958, fused RandK K = 100) and the async bench's links at
 # sigma = OBS_SIGMA, OBS_HEAP_ROUNDS rounds a campaign (the fused QDither
 # one OBS_QDITHER_ROUNDS); 17c benchmarks/fed_scale_bench.py's obs gate
-# (n = 10,000, C = 64, 1,000 rounds, the handle under 3% of the wall
-# clock) on phase 12b's campaign over OBS_REPS turns, each turn's arms in
-# a rotated order, read as the median over the turns of the handle's run
-# against the same turn's plain run (the reference's best of ``reps``, 3
-# there, is reported: on the H100's host its plain-against-plain control
-# read +5.25% at 3 and +3.12% at 7, more than the gate), the handle's
-# peak within
-# OBS_PEAK_SLACK_GB of the plain run's, a profiled chunk's launches equal
+# (n = 10,000, C = 64, the handle under 3% of the wall clock) on phase
+# 12b's campaign in short campaigns, one chunk of OBS_GATE_ROUNDS rounds
+# each (the handle's cost for each campaign weighs 1000 / 32 times what
+# it does in the reference's 1,000 rounds; short runs give the median
+# more pairs a second, and most of them miss the host's hiccups), run as
+# a plain campaign, then OBS_TURNS turns of OBS_TURN (three handle runs
+# and a planted one, each followed by a plain run): each handle run and
+# each planted run (a handle that
+# spins on the host for OBS_PLANTED times the gate of a plain campaign's
+# wall) is read against the mean of the plain runs on either side, which
+# cancels the host's drift, and the gate is the median of those ratios;
+# the planted median must reach the gate; each inner plain run against
+# its two plain neighbours is the control (on the H100's host a
+# campaign's wall drifts over a minute and spreads from one run to the
+# next by more than the gate: a median over 7 turns of 1,000-round runs,
+# each against its turn's plain run, read +3.27% once with its control
+# at -1.58%, and a median of 60 one-chunk 128-round ratios +3.07% with
+# its control at +0.19%), the handle's peak within
+# OBS_PEAK_SLACK_GB of the plain runs', a profiled chunk's launches equal
 # name for name (each arm the most of OBS_PROFILE_WINDOWS windows: the
 # profiler can lose records), and phase 11's n = 100,000 over
 # OBS_SCALE_ROUNDS rounds.  OBS_CUTS lists what is cut.
 OBS_SIGMA, OBS_HEAP_ROUNDS, OBS_QDITHER_ROUNDS = 1.0, 120, 40
-OBS_GATE_ROUNDS, OBS_REPS, OBS_OVERHEAD = 1000, 7, 0.03
+OBS_GATE_ROUNDS, OBS_TURNS, OBS_OVERHEAD, OBS_PLANTED = 32, 60, 0.03, 4.0
+OBS_TURN = ("obs", "plain", "obs", "plain", "obs", "plain", "planted",
+            "plain")
 OBS_SCALE_ROUNDS, OBS_PEAK_SLACK_GB = 256, 0.05
 OBS_PROFILE_WINDOWS = 3
 OBS_CUTS = {
     "heap_rounds": "17a's campaigns 120 rounds (the async bench: 300)",
     "overhead_width": "fed_scale_bench's gated case (d = 64, m = 2, K = 8) "
                       "widened to phase 12b's d = 20,958, m = 1, K = 100",
+    "overhead_rounds": "fed_scale_bench's 1,000 rounds a run cut to one "
+                       "chunk of 32, each handle run between two plain "
+                       "ones, 180 handle runs",
     "scale_rounds": "phase 11's 1,000 rounds cut to 256 at n = 100,000, "
                     "as 16c",
+}
+
+
+# full-state checkpoints (phase 18): (a) phase 5's trainer cut to
+# CKPT_LAYERS of 48 layers (~106.8M parameters, ~48 B each in a file: x,
+# g, 4 g_i, 4 h_i, Adam's mu and nu), CKPT_STEPS rounds uninterrupted
+# against CKPT_CUT, a checkpoint and the rest; the resumed state against
+# the uninterrupted one within the control pair's own worst leaf error
+# (relative to the leaf's largest magnitude) when the trainer does not
+# repeat itself bit for bit, and never looser than CKPT_RESUME_CAP; (b)
+# phase 12b's campaign killed after chunk CKPT_VEC_KILL; (c) phase 15's
+# faulted heap campaign killed after chunk CKPT_HEAP_KILL
+CKPT_LAYERS, CKPT_STEPS, CKPT_CUT, CKPT_RESUME_CAP = 2, 4, 2, 1e-4
+CKPT_VEC_ROUNDS, CKPT_VEC_CHUNK, CKPT_VEC_KILL = 256, 32, 3
+CKPT_HEAP_ROUNDS, CKPT_HEAP_CHUNK, CKPT_HEAP_KILL = 40, 8, 1
+CKPT_CUTS = {
+    "trainer_layers": "Mamba2-780M's 48 layers cut to 2 (phase 5: 16), so "
+                      "that each of 4 arms and its ~5 GB file stay within "
+                      "the phase's time",
+    "trainer_steps": "4 rounds, the checkpoint after 2",
 }
 
 
@@ -3949,24 +4010,30 @@ def _obs_launches_profiled(torch, fn):
 
 
 def _obs_overhead(torch, smi: str):
-    """Phase 17c: fed_scale_bench's obs gate (n = 10,000, C = 64, 1,000
-    rounds) at real-sim's width: phase 12b's sampled
-    VecFedSim, m = 1, fused RandK K = 100 (kernel 1), the slab store
-    (kernel 4).  One warm-up chunk, then OBS_REPS turns of (plain,
-    ``Obs.metrics_only(MemorySink())``, plain again: the control), each
-    turn's order rotated by one, the objects the earlier phases left
-    frozen out of the collector's way and a collection before every run,
-    outside its time.  Gates: the median over the turns of the handle's
-    run against the turn's plain run within OBS_OVERHEAD (the plain-again
-    control read the same way, and both as the reference's best of the
-    turns, are reported); no kernel build with the
-    handle; every run's final state and traces bit-identical; kernels 1
-    and 4 launched equally in every run; one profiled chunk launching as
-    many CUDA kernels with the handle as without, name for name, each arm
-    the most of OBS_PROFILE_WINDOWS windows; the handle's peak within
-    OBS_PEAK_SLACK_GB of the plain run's.  Then phase 11's n = 100,000
+    """Phase 17c: fed_scale_bench's obs gate (n = 10,000, C = 64) at
+    real-sim's width: phase 12b's sampled VecFedSim, m = 1, fused RandK
+    K = 100 (kernel 1), the slab store (kernel 4), in campaigns of one
+    chunk of OBS_GATE_ROUNDS rounds.  One warm-up chunk and three plain campaigns that size the
+    planted handle, then a plain campaign and OBS_TURNS turns of
+    OBS_TURN (three runs with the handle
+    ``Obs.metrics_only(MemorySink())`` and one planted, each followed by
+    a plain run), the objects the earlier phases left frozen out of the
+    collector's way and a collection before every run, outside its time.
+    Each handle run and each planted run is read against the mean of the
+    two plain runs around it; each inner plain run against its two plain
+    neighbours is the control.  Gates: the median of the handle's ratios
+    within OBS_OVERHEAD, and the median of the planted handle's (it spins
+    on the host for OBS_PLANTED times the gate of a plain campaign's
+    wall) at or over it (the reference's best-of fractions are
+    reported); no kernel build with the handle; every run's final state
+    and traces bit-identical; kernels 1 and 4 launched equally in every
+    run; one profiled chunk launching as many CUDA kernels with the
+    handle as without, name for name, each arm the most of
+    OBS_PROFILE_WINDOWS windows; the handle's peak within
+    OBS_PEAK_SLACK_GB of the plain runs'.  Then phase 11's n = 100,000
     campaign over OBS_SCALE_ROUNDS rounds with and without the handle,
-    reported without a gate.  Returns the report and one run's launches."""
+    reported without a gate.  Returns the report and one run's
+    launches."""
     from repro_torch.bench.fed_faults import same_run
     from repro_torch.core.oracles import FiniteSumProblem
     from repro_torch.data.pipeline import synthetic_classification
@@ -3998,51 +4065,82 @@ def _obs_overhead(torch, smi: str):
         return (res, time.perf_counter() - t0,
                 torch.cuda.max_memory_allocated() / 1e9, _launch_counts())
 
-    walls = {"plain": [], "obs": [], "control": []}
-    peaks = {"plain": [], "obs": [], "control": []}
+    # the planted fault: a handle that spins on the host each time a run
+    # loop asks it for a histogram, OBS_PLANTED times the gate of a plain
+    # campaign's wall in all
+    spin = {"s": 0.0, "calls": 0}
+
+    def planted():
+        obs = Obs.metrics_only(MemorySink())
+        real = obs.histogram
+
+        def histogram(name):
+            spin["calls"] += 1
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < spin["s"]:
+                pass
+            return real(name)
+
+        obs.histogram = histogram
+        return obs
+
+    plain_s = statistics.median(one(None)[1] for _ in range(3))
+    one(planted())
+    spin["s"] = OBS_PLANTED * OBS_OVERHEAD * plain_s / max(spin["calls"], 1)
+
+    handles = {"plain": lambda: None,
+               "obs": lambda: Obs.metrics_only(MemorySink()),
+               "planted": planted}
+    seq = ["plain"] + OBS_TURNS * list(OBS_TURN)
+    walls, peaks = [], {arm: [] for arm in handles}
     first = None
     # the earlier phases' objects out of the collector's way: a full
-    # collection over them inside one 2 s run and not the next would
-    # weigh as much as the gate
+    # collection over them inside one run and not the next would weigh
+    # as much as the gate
     gc.collect()
     gc.freeze()
-    turn = ("plain", "obs", "control")
-    for i in range(OBS_REPS):
-        for arm in turn[i % 3:] + turn[:i % 3]:
-            obs = Obs.metrics_only(MemorySink()) if arm == "obs" else None
-            res, wall, peak, counts = one(obs)
-            walls[arm].append(wall)
-            peaks[arm].append(peak)
-            if first is None:
-                first = (res, counts)
-            elif not same_run(first[0], res) or counts != first[1]:
-                raise AssertionError(f"[obs] overhead {arm}: the run or its "
-                                     f"launches {counts} differ from the "
-                                     f"first run's {first[1]}")
-            if obs is not None:
-                builds = obs.metrics.counter("compiles").value
-                fed_rounds = obs.metrics.counter("fed.rounds").value
-                if builds or fed_rounds != rounds:
-                    raise AssertionError(f"[obs] overhead: {builds} builds, "
-                                         f"{fed_rounds} rounds counted")
-            del res
+    for arm in seq:
+        obs = handles[arm]()
+        res, wall, peak, counts = one(obs)
+        walls.append(wall)
+        peaks[arm].append(peak)
+        if first is None:
+            first = (res, counts)
+        elif not same_run(first[0], res) or counts != first[1]:
+            raise AssertionError(f"[obs] overhead {arm}: the run or its "
+                                 f"launches {counts} differ from the "
+                                 f"first run's {first[1]}")
+        if obs is not None:
+            builds = obs.metrics.counter("compiles").value
+            fed_rounds = obs.metrics.counter("fed.rounds").value
+            if builds or fed_rounds != rounds:
+                raise AssertionError(f"[obs] overhead: {builds} builds, "
+                                     f"{fed_rounds} rounds counted")
+        del res
     gc.unfreeze()
     want = {"dasha_update": rounds,
             "slab_writeback": 2 * -(-rounds // FED_CHUNK)}
     _gate_launches("obs overhead", first[1], want)
-    # the gate reads each turn's run against the plain run of the same
-    # turn and takes the median over the turns: the host drifts between
-    # turns by more than the gate, and a pair of runs seconds apart shares
-    # its state.  The reference's best-of fractions are reported beside.
-    def paired(arm):
-        return statistics.median(
-            w / p for w, p in zip(walls[arm], walls["plain"])) - 1.0
 
-    best = {arm: min(w) for arm, w in walls.items()}
-    frac, control = paired("obs"), paired("control")
+    # each run against the plain runs on either side: the host drifts
+    # from one run to the next by as much as the gate, and the mean of
+    # the two neighbours cancels a drift that is steady over the three
+    def bracketed(arm, gap=1):
+        return [walls[i] / (0.5 * (walls[i - gap] + walls[i + gap])) - 1.0
+                for i in range(gap, len(seq) - gap) if seq[i] == arm]
+
+    ratios = {"obs": bracketed("obs"), "planted": bracketed("planted"),
+              "control": bracketed("plain", gap=2)}
+    frac, planted_frac, control = (statistics.median(ratios[a]) for a in
+                                   ("obs", "planted", "control"))
+    by_arm = {arm: [w for w, a in zip(walls, seq) if a == arm]
+              for arm in handles}
+    best = {arm: min(w) for arm, w in by_arm.items()}
     best_frac = best["obs"] / best["plain"] - 1.0
-    best_control = best["control"] / best["plain"] - 1.0
     peak_gap = max(peaks["obs"]) - max(peaks["plain"])
+    obs_host_ms = statistics.median(
+        walls[i] - 0.5 * (walls[i - 1] + walls[i + 1])
+        for i in range(1, len(seq) - 1) if seq[i] == "obs") / rounds * 1e3
 
     # one profiled chunk with and without the handle: equal launches,
     # name for name.  The profiler loses records now and then (on the
@@ -4071,26 +4169,33 @@ def _obs_overhead(torch, smi: str):
     diff = {k: (most["plain"][k], most["obs"][k])
             for k in most["plain"].keys() | most["obs"].keys()
             if most["plain"][k] != most["obs"][k]}
-    out = {"n": n, "c": c, "d": d, "rounds": rounds, "reps": OBS_REPS,
-           "walls_s": walls, "best_s": best, "overhead_frac": frac,
+    out = {"n": n, "c": c, "d": d, "rounds": rounds, "turns": OBS_TURNS,
+           "sequence": seq, "walls_s": walls, "ratios": ratios,
+           "best_s": best, "overhead_frac": frac,
+           "planted_frac": planted_frac, "planted_spin_s": spin["s"],
            "control_frac": control, "best_of_overhead_frac": best_frac,
-           "best_of_control_frac": best_control, "peak_gb": peaks,
-           "peak_gap_gb": peak_gap, "launches": first[1],
+           "peak_gb": peaks, "peak_gap_gb": peak_gap, "launches": first[1],
            "profiled_chunk_launches": launches,
            "profiled_window_launches": window_counts,
-           "obs_host_ms_per_round": statistics.median(
-               o - p for o, p in zip(walls["obs"], walls["plain"]))
-           / rounds * 1e3}
-    log(f"[obs] overhead n={n} C={c} d={d}, {rounds} rounds, {OBS_REPS} "
-        f"turns: the handle's run against the turn's plain run, median "
-        f"{frac * 100:+.2f}% (gate < {OBS_OVERHEAD * 100:.0f}%), plain "
-        f"again {control * 100:+.2f}% (control); best of {OBS_REPS}: plain "
-        f"{best['plain']:.4f} s, Obs.metrics_only {best['obs']:.4f} s "
-        f"({best_frac * 100:+.2f}%), plain again {best['control']:.4f} s "
-        f"({best_control * 100:+.2f}%); peaks plain "
-        f"{max(peaks['plain']):.4f} GB, obs {max(peaks['obs']):.4f} GB; "
-        f"profiled chunk launches {launches} (most of the windows "
-        f"{window_counts}); kernel launches a run "
+           "obs_host_ms_per_round": obs_host_ms,
+           "ratio_sd": {a: statistics.pstdev(r) for a, r in ratios.items()}}
+    # the runs on disk before the gates, so that a failed gate can be read
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "obs_overhead.json").write_text(json.dumps(out, indent=1))
+    log(f"[obs] overhead n={n} C={c} d={d}, campaigns of {rounds} rounds, "
+        f"{len(ratios['obs'])} handle runs each against the plain runs on "
+        f"either side (one ratio's sd {out['ratio_sd']['obs'] * 100:.2f}%):"
+        f" median {frac * 100:+.2f}% (gate < "
+        f"{OBS_OVERHEAD * 100:.0f}%), plain against its plain neighbours "
+        f"{control * 100:+.2f}% (control), the planted handle "
+        f"({spin['s'] * 1e3:.3f} ms of spin a call, {OBS_PLANTED:g} x the "
+        f"gate) {planted_frac * 100:+.2f}% over {len(ratios['planted'])} "
+        f"runs; best of each arm: plain {best['plain']:.4f} s, "
+        f"Obs.metrics_only {best['obs']:.4f} s ({best_frac * 100:+.2f}%); "
+        f"peaks plain {max(peaks['plain']):.4f} GB, obs "
+        f"{max(peaks['obs']):.4f} GB; profiled chunk launches {launches} "
+        f"(most of the windows {window_counts}); kernel launches a run "
         f"{first[1]} | {smi}")
     if abs(control) >= OBS_OVERHEAD:
         log(f"[obs] the plain-against-plain control reads "
@@ -4099,6 +4204,10 @@ def _obs_overhead(torch, smi: str):
         raise AssertionError(f"[obs] overhead {frac * 100:.2f}% not under "
                              f"{OBS_OVERHEAD * 100:.0f}% (control "
                              f"{control * 100:+.2f}%)")
+    if not planted_frac >= OBS_OVERHEAD:
+        raise AssertionError(f"[obs] the planted handle, {OBS_PLANTED:g} x "
+                             f"the gate, reads {planted_frac * 100:+.2f}%: "
+                             f"the gate cannot see it")
     if not abs(peak_gap) <= OBS_PEAK_SLACK_GB:
         raise AssertionError(f"[obs] peak with the handle {peak_gap:+.4f} GB"
                              f" from the plain run's")
@@ -4202,12 +4311,14 @@ def phase_obs(torch, smi: str):
     vec, vec_counts = _obs_vec(torch, smi, problem, timelines)
     del problem, timelines
     overhead, over_counts = _obs_overhead(torch, smi)
+    handle_runs = OBS_TURNS * OBS_TURN.count("obs")
     builds = _obs_build_spans()
     launches = {"dasha_update": heap_counts["dasha_update"]
                 + vec_counts["dasha_update"]
-                + OBS_REPS * over_counts["dasha_update"],
+                + handle_runs * over_counts["dasha_update"],
                 "quantize": heap_counts["quantize"],
-                "slab_writeback": OBS_REPS * over_counts["slab_writeback"]}
+                "slab_writeback": handle_runs
+                * over_counts["slab_writeback"]}
     wall = time.perf_counter() - t_phase
     log(f"[obs] phase 17 in {wall:.1f} s; launches with a handle "
         f"{launches} | {smi}")
@@ -4215,6 +4326,432 @@ def phase_obs(torch, smi: str):
             "heap": heap, "vec_replay": vec, "overhead": overhead,
             "build_spans": builds, "launches": launches, "wall_s": wall,
             "nvidia_smi": smi}, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 18: full-state checkpoints, kill and restore through files
+# ---------------------------------------------------------------------------
+
+def _state_parts(torch, state, prefix=""):
+    """(tensor leaves, host leaves) of a state as {path: value}."""
+    tensors, host = {}, {}
+    if isinstance(state, torch.Tensor):
+        tensors[prefix] = state
+    elif isinstance(state, tuple) and hasattr(state, "_fields"):
+        for f in state._fields:
+            t, h = _state_parts(torch, getattr(state, f), f"{prefix}{f}/")
+            tensors.update(t)
+            host.update(h)
+    elif isinstance(state, dict):
+        for k in sorted(state):
+            t, h = _state_parts(torch, state[k], f"{prefix}{k}/")
+            tensors.update(t)
+            host.update(h)
+    elif isinstance(state, (tuple, list)):
+        for i, v in enumerate(state):
+            t, h = _state_parts(torch, v, f"{prefix}{i}/")
+            tensors.update(t)
+            host.update(h)
+    elif state is not None:
+        host[prefix] = state
+    return tensors, host
+
+
+def _stored_nbytes(torch, state) -> int:
+    """The bytes a checkpoint of ``state`` holds (bfloat16 widened to
+    float32; a host leaf 8 bytes at most)."""
+    tensors, host = _state_parts(torch, state)
+    return sum(t.numel() * (4 if t.dtype == torch.bfloat16
+                            else t.element_size())
+               for t in tensors.values()) + 8 * len(host)
+
+
+def _ckpt_diff(torch, got, want):
+    """(bit-equal, worst tensor-leaf error as a fraction of the leaf's
+    largest magnitude, that leaf) between two states; a host leaf that
+    differs, or a different structure, counts as infinitely far."""
+    import numpy as np
+    gt, gh = _state_parts(torch, got)
+    wt, wh = _state_parts(torch, want)
+    if sorted(gt) != sorted(wt) or sorted(gh) != sorted(wh):
+        return False, math.inf, "structure"
+    for k in wh:
+        if not np.array_equal(np.asarray(gh[k]), np.asarray(wh[k])):
+            return False, math.inf, k
+    equal, worst, where = True, 0.0, None
+    for k, w in wt.items():
+        g = gt[k]
+        if g.shape != w.shape or g.dtype != w.dtype:
+            return False, math.inf, k
+        if torch.equal(g, w):
+            continue
+        equal = False
+        wf, gf = w.float(), g.float()
+        scale = max(float(wf.abs().max()), 1e-30)
+        err = float((gf - wf).abs().max()) / scale
+        if not err <= worst:
+            worst, where = err, k
+    return equal, worst, where
+
+
+def _one_ulp_row(torch, state, row: int, by=None):
+    """``state`` with h_local's row ``row`` moved one ulp up (a tree's
+    every leaf's node row, a flat store's row), or by ``by`` times the
+    leaf's largest magnitude."""
+    def bump(t):
+        t = t.clone()
+        if by is None:
+            t[row] = torch.nextafter(t[row],
+                                     torch.full_like(t[row], math.inf))
+        else:
+            t[row] += by * t.abs().max()
+        return t
+
+    h = state.h_local
+    if isinstance(h, dict):
+        from repro_torch.core import tree
+        return state._replace(h_local=tree.map_leaves(bump, h))
+    return state._replace(h_local=bump(h))
+
+
+def _check_disk(directory: str, nbytes: int) -> float:
+    """Free bytes under ``directory``; fails below twice ``nbytes``."""
+    free = shutil.disk_usage(directory).free
+    if free < 2 * nbytes:
+        raise AssertionError(f"[ckpt] {free / 1e9:.2f} GB free under "
+                             f"{directory}, less than twice the "
+                             f"{nbytes / 1e9:.2f} GB file")
+    return free
+
+
+def _file_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def _drill_mismatch(torch, full, res, cut: int):
+    """What differs between an uninterrupted campaign's tail (rounds
+    ``cut``..) and a resumed one: trace names, and the final state."""
+    import numpy as np
+    bad = sorted(set(full.traces) ^ set(res.traces))
+    bad += [k for k in full.traces if k in res.traces
+            and not np.array_equal(full.traces[k][cut:], res.traces[k])]
+    equal, _, where = _ckpt_diff(torch, res.state, full.state)
+    if not equal:
+        bad.append(f"state:{where}")
+    return bad
+
+
+def _ckpt_trainer(torch, smi: str, tmp: str):
+    """18a: the trainer's --ckpt / --resume at full width (depth cut)."""
+    from repro_torch.checkpoint import checkpoint_step, load_method_state
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree
+    from repro_torch.launch.train import train
+
+    cfg = dataclasses.replace(get_config("mamba2-780m"),
+                              num_layers=CKPT_LAYERS)
+    path = os.path.join(tmp, "trainer")
+    base = ["--log-every", str(CKPT_CUT), "--variant", "mvr",
+            "--use-kernel"]
+
+    chunk_peaks = []
+
+    def arm(steps, *extra):
+        res = train(cfg, _train_args(["--steps", str(steps), *base,
+                                      *extra]), device="cuda", log=log)
+        chunk_peaks.extend(c["peak_mem_gb"] for c in res.chunks)
+        return res
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    t_drill = time.perf_counter()
+    full = arm(CKPT_STEPS).state                       # arm 1
+    control = arm(CKPT_STEPS).state                    # arm 1 again
+    ctrl_equal, ctrl_err, ctrl_leaf = _ckpt_diff(torch, control, full)
+    del control
+    if ctrl_equal:
+        log("[ckpt] trainer control pair: two uninterrupted runs are "
+            "bit-identical on the card; the resume gate is bit equality")
+        limit = 0.0
+    else:
+        limit = min(ctrl_err, CKPT_RESUME_CAP)
+        log(f"[ckpt] trainer control pair differs: worst leaf {ctrl_leaf} "
+            f"{ctrl_err:.3g} of its largest magnitude (a device op that "
+            f"does not repeat itself run to run); resume gate {limit:.3g}")
+    nbytes = _stored_nbytes(torch, full)
+    free = _check_disk(tmp, nbytes)
+    two = arm(CKPT_CUT, "--ckpt", path)                # arm 2
+    if checkpoint_step(path) != CKPT_CUT:
+        raise AssertionError(f"[ckpt] trainer file at step "
+                             f"{checkpoint_step(path)}, not {CKPT_CUT}")
+    size = _file_bytes(path)
+    save_s = two.chunks[-1]["ckpt_s"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loaded = load_method_state(path, two.state)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    load_equal, load_err, load_leaf = _ckpt_diff(torch, loaded, two.state)
+    if not load_equal:
+        raise AssertionError(f"[ckpt] the trainer file does not load bit "
+                             f"for bit: {load_leaf} off by {load_err:.3g}")
+    planted = _ckpt_diff(torch, _one_ulp_row(torch, loaded, 0), two.state)
+    if planted[0]:
+        raise AssertionError("[ckpt] planted fault: a state one ulp off "
+                             "passed the load gate")
+    driver, data_seed = two.driver, two.data_seed
+    del two
+    _check_disk(tmp, nbytes)
+    three = arm(CKPT_STEPS, "--ckpt", path, "--resume")  # arm 3
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_drill
+    counts = _launch_counts()
+    # train() resets the peak at each logged chunk: the drill's peak is
+    # the largest chunk's or what came after it (the load check)
+    peak = max(chunk_peaks + [torch.cuda.max_memory_allocated() / 1e9])
+    leaves = len(tree.leaves(full.x))
+    rounds = 2 * CKPT_STEPS + CKPT_STEPS
+    _gate_launches("ckpt", counts, {"dasha_mvr_update": leaves * rounds})
+    if three.start_step != CKPT_CUT or three.state.t != CKPT_STEPS:
+        raise AssertionError(f"[ckpt] resumed from step {three.start_step} "
+                             f"to {three.state.t}")
+    res_equal, res_err, res_leaf = _ckpt_diff(torch, three.state, full)
+    second_save_s = three.chunks[-1]["ckpt_s"]
+    resumed_state = three.state
+    del three
+
+    def passes(state):
+        eq, err, _ = _ckpt_diff(torch, state, full)
+        return eq if ctrl_equal else err <= limit
+
+    if not passes(resumed_state):
+        raise AssertionError(f"[ckpt] resumed trainer state off the "
+                             f"uninterrupted one: {res_leaf} {res_err:.3g} "
+                             f"(control pair {ctrl_err:.3g}, gate {limit})")
+    del resumed_state
+    # planted faults: one h_local row one ulp off (or, when the gate has a
+    # tolerance, off by ten times it), and the round index one off with
+    # the rounds a resume from that step would run
+    bumped = _one_ulp_row(torch, loaded, 0,
+                          by=None if ctrl_equal else 10 * limit)
+    bad_row, _ = driver.run(bumped, CKPT_STEPS - CKPT_CUT,
+                            data_seed=data_seed)
+    del bumped
+    bad_start, _ = driver.run(loaded._replace(t=loaded.t + 1),
+                              CKPT_STEPS - CKPT_CUT - 1, data_seed=data_seed)
+    for name, st in (("h_local row one ulp off", bad_row),
+                     ("start round one off", bad_start)):
+        if passes(st):
+            raise AssertionError(f"[ckpt] planted fault ({name}) passed the "
+                                 "trainer's resume gate")
+    del bad_row, bad_start, loaded, full, driver
+    out = {"layers": CKPT_LAYERS, "steps": CKPT_STEPS, "cut": CKPT_CUT,
+           "file_bytes": size, "reckoned_bytes": nbytes,
+           "free_bytes_before": free, "save_s": save_s,
+           "save_s_resumed_arm": second_save_s, "load_s": load_s,
+           "save_GBps": size / save_s / 1e9, "load_GBps": size / load_s / 1e9,
+           "control_bit_equal": ctrl_equal, "control_worst": ctrl_err,
+           "control_worst_leaf": ctrl_leaf, "resume_bit_equal": res_equal,
+           "resume_worst": res_err, "resume_gate": limit,
+           "peak_mem_gb": peak, "launches": counts, "wall_s": wall}
+    log(f"[ckpt] 18a trainer mamba2-780m {CKPT_LAYERS}/48 layers: file "
+        f"{size / 1e9:.3f} GB (reckoned {nbytes / 1e9:.3f}), save "
+        f"{save_s:.2f} s = {out['save_GBps']:.2f} GB/s (resumed arm's "
+        f"{second_save_s:.2f} s), load {load_s:.2f} s = "
+        f"{out['load_GBps']:.2f} GB/s, bit-exact; resume vs uninterrupted "
+        f"{'bit-equal' if res_equal else f'{res_err:.3g}'} beside the "
+        f"control pair's {'bit-equal' if ctrl_equal else f'{ctrl_err:.3g}'}"
+        f"; planted faults caught; peak {peak:.2f} GB; launches {counts}; "
+        f"{wall:.1f} s | {smi}")
+    return out, counts
+
+
+def _ckpt_campaign(torch, smi: str, tmp: str, tag: str, build, rounds: int,
+                   chunk: int, kill: int, metric):
+    """Kill a campaign after chunk ``kill`` (its hook saves the state with
+    the next round and the wall clock, then raises), restore it from disk
+    into a fresh simulator and finish; gate the tail and the final state
+    bit for bit against an uninterrupted run, with the two planted
+    faults."""
+    from repro_torch.checkpoint import (checkpoint_meta, load_method_state,
+                                        save_method_state)
+
+    class Killed(RuntimeError):
+        pass
+
+    path = os.path.join(tmp, tag)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    t_drill = time.perf_counter()
+    sim, st = build()
+    full = sim.run(st, rounds, metric_fn=metric)
+    nbytes = _stored_nbytes(torch, st)
+    saves = []
+
+    def hook(state, next_round, now):
+        _check_disk(tmp, nbytes)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_method_state(path, state, step=next_round,
+                          extra={"wall_clock": now})
+        saves.append(time.perf_counter() - t0)
+        if len(saves) == kill + 1:
+            raise Killed
+
+    sim, st = build()
+    killed = False
+    try:
+        sim.run(st, rounds, metric_fn=metric, checkpoint=hook)
+    except Killed:
+        killed = True
+    if not killed:
+        raise AssertionError(f"[ckpt] {tag}: the campaign was not killed")
+    del sim, st
+    sim, like = build()                    # "a new process"
+    meta = checkpoint_meta(path)
+    cut = int(meta["step"])
+    if cut != (kill + 1) * chunk:
+        raise AssertionError(f"[ckpt] {tag}: file at round {cut}")
+    clock0 = float(meta["extra"]["wall_clock"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = load_method_state(path, like)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    del like
+    res = sim.run(restored, rounds, metric_fn=metric, start_round=cut,
+                  clock0=clock0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_drill
+    counts = _launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    bad = _drill_mismatch(torch, full, res, cut)
+    if bad:
+        raise AssertionError(f"[ckpt] {tag}: resumed campaign differs from "
+                             f"the uninterrupted one in {bad}")
+    for name, state, start in (
+            ("h_local row one ulp off", _one_ulp_row(torch, restored, 0),
+             cut),
+            ("start round one off", restored, cut + 1)):
+        got = sim.run(state, rounds, metric_fn=metric, start_round=start,
+                      clock0=clock0)
+        if not _drill_mismatch(torch, full, got, cut):
+            raise AssertionError(f"[ckpt] {tag}: planted fault ({name}) "
+                                 "passed the gate")
+        del got
+    size = _file_bytes(path)
+    out = {"rounds": rounds, "chunk": chunk, "killed_after_chunk": kill,
+           "cut": cut, "file_bytes": size, "reckoned_bytes": nbytes,
+           "saves": len(saves), "save_s": saves,
+           "save_GBps": [size / v / 1e9 for v in saves], "load_s": load_s,
+           "load_GBps": size / load_s / 1e9, "peak_mem_gb": peak,
+           "launches": counts, "wall_s": wall,
+           "traces": sorted(full.traces)}
+    log(f"[ckpt] {tag}: {rounds} rounds in chunks of {chunk}, killed after "
+        f"chunk {kill} (round {cut}); file {size / 1e9:.4f} GB, {len(saves)}"
+        f" saves {min(saves):.3f}-{max(saves):.3f} s = "
+        f"{size / max(saves) / 1e9:.2f}-{size / min(saves) / 1e9:.2f} GB/s, "
+        f"load {load_s:.3f} s = {out['load_GBps']:.2f} GB/s; tail traces "
+        f"and final state bit-equal, planted faults caught; peak "
+        f"{peak:.2f} GB; launches {counts}; {wall:.1f} s | {smi}")
+    del full, res, restored, sim
+    return out, counts
+
+
+def _ckpt_vec(torch, smi: str, tmp: str):
+    """18b: phase 12b's sampled campaign on the slab store."""
+    from repro_torch.core.oracles import FiniteSumProblem
+    from repro_torch.data.pipeline import synthetic_classification
+
+    n, c, d = HEAP_N, FED_C, D_REALSIM
+    feats, labels = synthetic_classification(1, n, 1, d, device="cuda")
+    problem = FiniteSumProblem(_glm_loss(torch), feats, labels)
+    L = float((feats.norm(dim=-1) ** 2).mean() * 2)
+
+    def build():
+        sim = _fed_sim(problem, n, d, c, hyper_kw=dict(L=L),
+                       chunk=CKPT_VEC_CHUNK)
+        if not sim.slab:
+            raise AssertionError("[ckpt] VecFedSim did not take the slab "
+                                 "store")
+        return sim, sim.init(torch.zeros(d, device="cuda"), 3,
+                             device="cuda")
+
+    out, counts = _ckpt_campaign(
+        torch, smi, tmp, "18b VecFedSim slab", build, CKPT_VEC_ROUNDS,
+        CKPT_VEC_CHUNK, CKPT_VEC_KILL, lambda s: torch.sum(s.g ** 2))
+    # the full run, the killed one and the resumed tail: one fused update
+    # a round, two writebacks a chunk
+    rounds = 2 * CKPT_VEC_ROUNDS
+    chunks = 2 * (CKPT_VEC_ROUNDS // CKPT_VEC_CHUNK)
+    _gate_launches("ckpt", counts, {"dasha_update": rounds,
+                                    "slab_writeback": 2 * chunks})
+    del problem, feats, labels
+    return dict(out, n=n, C=c, d=d, K=K_RANDK, store="slab"), counts
+
+
+def _ckpt_heap(torch, smi: str, tmp: str):
+    """18c: the faulted heap campaign on phase 15's data."""
+    from repro_torch.bench import common as bc
+    from repro_torch.bench import fed_faults as ff
+    from repro_torch.compress import make_round_compressor
+    from repro_torch.fed import FaultModel, FedSim
+    from repro_torch.methods import FlatSubstrate
+
+    n, m, d, k = FAULT_N, FAULT_M, D_REALSIM, K_RANDK
+    problem = ff.make_problem(d, n, m, device="cuda")
+    sub = FlatSubstrate(problem, n, d)
+    rc = make_round_compressor("randk", d, n, k=k, backend="fused",
+                               device="cuda")
+    hp = bc.theory_hyper("dasha", rc.omega, bc.lipschitz_glm(problem), d=d,
+                         k=k, n=n, m=m)
+    fm = FaultModel(**ff.EQUIV_FAULTS["dasha"])
+
+    def build():
+        sim = FedSim("dasha", rc, sub, hp, compute_s=0.0, seed=ff.NET_SEED,
+                     faults=fm, chunk=CKPT_HEAP_CHUNK, **ff.links())
+        return sim, sim.init(torch.zeros(d, device="cuda"), 1,
+                             device="cuda")
+
+    out, counts = _ckpt_campaign(
+        torch, smi, tmp, "18c FedSim faulted", build, CKPT_HEAP_ROUNDS,
+        CKPT_HEAP_CHUNK, CKPT_HEAP_KILL, None)
+    _gate_launches("ckpt", counts, {"dasha_update": 2 * CKPT_HEAP_ROUNDS})
+    del problem, sub
+    return dict(out, n=n, m=m, d=d, K=k, faults=ff.EQUIV_FAULTS["dasha"]), \
+        counts
+
+
+def phase_ckpt(torch, smi: str):
+    """Phase 18: full-state checkpoints, kill and restore through files
+    for the trainer (18a), VecFedSim on the slab store (18b) and the
+    faulted heap FedSim (18c).  Returns the report and the launches of
+    kernels 1, 3 and 4 in the drills' main-path runs."""
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    log(f"[ckpt] files under {tmp}; cuts: {CKPT_CUTS}")
+    try:
+        trainer, t_counts = _ckpt_trainer(torch, smi, tmp)
+        vec, v_counts = _ckpt_vec(torch, smi, tmp)
+        heap, h_counts = _ckpt_heap(torch, smi, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {"dasha_update": v_counts["dasha_update"]
+                + h_counts["dasha_update"],
+                "dasha_mvr_update": t_counts["dasha_mvr_update"],
+                "slab_writeback": v_counts["slab_writeback"]}
+    wall = time.perf_counter() - t_phase
+    log(f"[ckpt] phase 18 in {wall:.1f} s; launches {launches} | {smi}")
+    return {"trainer": trainer, "vec": vec, "heap": heap, "cuts": CKPT_CUTS,
+            "launches": launches, "wall_s": wall, "nvidia_smi": smi}, \
+        launches
 
 
 def main() -> int:
@@ -4258,10 +4795,12 @@ def main() -> int:
         torch, smi, fault_peak_gb=faults["peak_mem_gb"],
         fed_peak_gb=fed["peak_mem_gb"])
     obsr, obs_launches = phase_obs(torch, smi)
-    # kernels 1, 2 and 4 run on several main paths: the flat round, the
+    ckpt, ckpt_launches = phase_ckpt(torch, smi)
+    # kernels 1 to 4 run on several main paths: the flat round, the
     # federated cohort round, the heap oracle, the sweep, the faulted
-    # campaigns, the asynchronous ones and the runs with an observability
-    # handle (each counted from zero around its own run)
+    # campaigns, the asynchronous ones, the runs with an observability
+    # handle and the checkpoint drills; kernel 3 in the trainer and its
+    # drill (each counted from zero around its own run)
     by_path = {
         "dasha_update": {"flat": launches["dasha_update"],
                          "fed": fed_launches["dasha_update"],
@@ -4269,7 +4808,10 @@ def main() -> int:
                          "sweep": sweep_launches,
                          "faults": fault_launches["dasha_update"],
                          "async": async_launches["dasha_update"],
-                         "obs": obs_launches["dasha_update"]},
+                         "obs": obs_launches["dasha_update"],
+                         "ckpt": ckpt_launches["dasha_update"]},
+        "dasha_mvr_update": {"trainer": launches["dasha_mvr_update"],
+                             "ckpt": ckpt_launches["dasha_mvr_update"]},
         "quantize": {"flat": launches["quantize"],
                      "heap": heap_launches["quantize"],
                      "faults": fault_launches["quantize"],
@@ -4278,7 +4820,8 @@ def main() -> int:
         "slab_writeback": {"fed": fed_launches["slab_writeback"],
                            "heap": heap_launches["slab_writeback"],
                            "async": async_launches["slab_writeback"],
-                           "obs": obs_launches["slab_writeback"]}}
+                           "obs": obs_launches["slab_writeback"],
+                           "ckpt": ckpt_launches["slab_writeback"]}}
     for name, paths in by_path.items():
         launches[name] = sum(paths.values())
 
@@ -4355,7 +4898,7 @@ def main() -> int:
               "serve_agreement_worst": serve_rel, "fed": fed,
               "fed_agreement_worst": fed_rel, "heap": heap,
               "sweep": sweep, "faults": faults, "async": asyncr,
-              "obs": obsr, "nvidia_smi": smi}
+              "obs": obsr, "ckpt": ckpt, "nvidia_smi": smi}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))

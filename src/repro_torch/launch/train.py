@@ -2,22 +2,27 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-780m \
         --steps 200 --nodes 4 --batch 2 --seq 128 [--full] \
-        --compression 0.03125 --variant mvr --use-kernel
+        --compression 0.03125 --variant mvr --use-kernel \
+        [--ckpt out/ckpt --ckpt-every 1 --resume]
 
-The same command line as the reference, except that ``--ckpt`` and
-``--resume`` raise until ``checkpoint/io.py`` is ported, and ``--arch``
-defaults to the one family ported so far.  Without ``--full`` it trains
-the architecture's reduced (smoke) config.  :func:`train` is the library
-form: it takes the config itself, so a caller can cut the depth of a full
-config, and a device (the card unless ``device="cpu"``).
+The reference's command line; ``--arch`` defaults to the one family
+ported so far.  Without ``--full`` it trains the architecture's reduced
+(smoke) config.  :func:`train` is the library form: it takes the config
+itself, so a caller can cut the depth of a full config, and a device (the
+card unless ``device="cpu"``).
 
 Rounds run through the chunked :class:`~repro_torch.methods.driver.Driver`
-with a fresh node batch each round (``data_fn``, seeded per round), in
-chunks of ``--log-every`` rounds.  After every ``--ckpt-every``-th chunk
-and after the last, as the reference's hook fires, the host waits for the
-device, logs the held-out eval loss, ``||g||^2`` and the payload, and
-records the wall time since the previous log; the eval loss is also taken
-before the first round.
+with a fresh node batch each round (``data_fn``, seeded by the global
+round index), in chunks of ``--log-every`` rounds.  After every
+``--ckpt-every``-th chunk and after the last, as the reference's hook
+fires, the host waits for the device, logs the held-out eval loss,
+``||g||^2`` and the payload at the global round, records the wall time
+since the previous log, and with ``--ckpt`` saves the full
+``MethodState`` (iterate, g, g_i, h_i, optimizer state, seed, round,
+payload count) there.  ``--resume`` restores that state and runs the
+rounds from its step up to ``--steps``: the same data and draws as an
+uninterrupted run, so the same final state bit for bit.  The eval loss is
+also taken before the first round, on the (restored) iterate.
 """
 from __future__ import annotations
 
@@ -29,6 +34,8 @@ from typing import Callable, Dict, List
 
 import torch
 
+from repro_torch.checkpoint import (checkpoint_step, load_method_state,
+                                   save_method_state)
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core import tree
 from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
@@ -65,12 +72,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--use-kernel", action="store_true",
                     help="fused CUDA estimator-update path")
     ap.add_argument("--ckpt", default=None,
-                    help="full-MethodState checkpoint directory (not "
-                         "ported yet)")
+                    help="full-MethodState checkpoint directory")
     ap.add_argument("--ckpt-every", type=int, default=1,
                     help="checkpoint cadence in chunks")
     ap.add_argument("--resume", action="store_true",
-                    help="continue from --ckpt (not ported yet)")
+                    help="continue from --ckpt (bit-identical to an "
+                         "uninterrupted run)")
     ap.add_argument("--chunk", type=int, default=None,
                     help="driver chunk length (default: --log-every)")
     ap.add_argument("--log-every", type=int, default=10)
@@ -82,9 +89,11 @@ def build_parser() -> argparse.ArgumentParser:
 class TrainResult:
     """What :func:`train` leaves behind: the final state, the driver and
     its data seed (to run further rounds), the eval loss before the first
-    round, and one record per logged chunk (``rounds`` done, ``seconds`` of
-    wall time for the chunk's rounds, eval ``loss``, ``g_norm_sq`` and, on
-    the card, the chunk's ``peak_mem_gb``)."""
+    round, one record per logged chunk (``rounds``: the global round
+    reached, ``seconds`` of wall time for the chunk's rounds, eval
+    ``loss``, ``g_norm_sq``, with ``--ckpt`` the ``ckpt_s`` its save took,
+    and on the card the chunk's ``peak_mem_gb``), and the round the run
+    started from (the checkpoint's step after ``--resume``)."""
 
     state: MethodState
     driver: Driver
@@ -92,6 +101,7 @@ class TrainResult:
     loss0: float
     chunks: List[Dict[str, float]]
     n_params: int
+    start_step: int = 0
 
 
 def _sync(dev: torch.device) -> None:
@@ -111,11 +121,11 @@ def _chunk_peak(dev: torch.device) -> Dict[str, float]:
 def train(cfg: ArchConfig, args: argparse.Namespace,
           device=DEFAULT_DEVICE, *, log: Callable[[str], None] = print
           ) -> TrainResult:
-    """Train ``cfg`` for ``args.steps`` DASHA rounds on ``device``."""
-    if args.ckpt or args.resume:
-        raise NotImplementedError(
-            "--ckpt / --resume need checkpoint/io.py, which repro_torch "
-            "does not port yet")
+    """Train ``cfg`` up to global round ``args.steps`` on ``device``: from
+    round 0, or with ``--resume`` from the step of the state in
+    ``--ckpt``."""
+    if args.resume and not args.ckpt:
+        raise SystemExit("--resume requires --ckpt")
     dev = resolve_device(device)
     params = init_params(cfg, derive_seed(args.seed, "init"), device=dev)
     n_params = sum(int(x.numel()) for x in tree.leaves(params))
@@ -133,6 +143,16 @@ def train(cfg: ArchConfig, args: argparse.Namespace,
         return lm.loss_fn(cfg, p, b)[0]
 
     method = make_method(dasha, node_loss)
+    state = method.init(params, derive_seed(args.seed, "state"),
+                        init_mode="zeros", device=dev)
+    del params
+    done = 0
+    if args.resume:
+        t0 = time.perf_counter()
+        state = load_method_state(args.ckpt, state)
+        done = checkpoint_step(args.ckpt)
+        log(f"[train] resumed from {args.ckpt} at step {done} in "
+            f"{time.perf_counter() - t0:.2f}s")
 
     tcfg = SyntheticTextConfig(vocab_size=cfg.vocab_size, seq_len=args.seq)
 
@@ -156,37 +176,51 @@ def train(cfg: ArchConfig, args: argparse.Namespace,
     drv = Driver(method, data_fn=data_fn, metrics={"g_norm_sq": g_norm_sq},
                  chunk=chunk)
     data_seed = derive_seed(args.seed, "data")
-    loss0 = eval_loss(params)
-    log(f"[train] step     0 loss={loss0:.4f}")
+    loss0 = eval_loss(state.x)
+    log(f"[train] step {done:5d} loss={loss0:.4f}")
     chunks: List[Dict[str, float]] = []
+    remaining = args.steps - done
+    if remaining <= 0:
+        log(f"[train] checkpoint already at step {done} >= {args.steps}")
+        return TrainResult(state=state, driver=drv, data_seed=data_seed,
+                           loss0=loss0, chunks=chunks, n_params=n_params,
+                           start_step=done)
     _sync(dev)
     _chunk_peak(dev)
     clock = [time.perf_counter()]
 
-    def hook(ms, done, tr):
+    def hook(ms, _, tr):
         _sync(dev)
         seconds = time.perf_counter() - clock[0]
         peak = _chunk_peak(dev)
         loss = eval_loss(ms.x)
         gsq = float(tr["g_norm_sq"][-1])
-        chunks.append({"rounds": done, "seconds": seconds, "loss": loss,
-                       "g_norm_sq": gsq, **peak})
+        rec = {"rounds": int(ms.t), "seconds": seconds, "loss": loss,
+               "g_norm_sq": gsq, **peak}
+        saved = ""
+        if args.ckpt:
+            t0 = time.perf_counter()
+            save_method_state(args.ckpt, ms, step=int(ms.t))
+            rec["ckpt_s"] = time.perf_counter() - t0
+            saved = f" saved in {rec['ckpt_s']:.2f}s"
+        chunks.append(rec)
         mem = f" peak={peak['peak_mem_gb']:.2f}GB" if peak else ""
-        log(f"[train] step {done:5d} loss={loss:.4f} |g|^2={gsq:.3e} "
+        log(f"[train] step {int(ms.t):5d} loss={loss:.4f} |g|^2={gsq:.3e} "
             f"payload={frac:.4f} coords/node={float(ms.bits_sent):.3e} "
-            f"({seconds:.2f}s){mem}")
+            f"({seconds:.2f}s){mem}{saved}")
         _sync(dev)
         clock[0] = time.perf_counter()
 
-    # the initial state goes in as a temporary, so the driver can free it
-    # after the first round (n = 4 nodes of zero fp32 state are ~30 bytes
-    # per parameter)
-    state, _ = drv.run(method.init(params, derive_seed(args.seed, "state"),
-                                   init_mode="zeros", device=dev),
-                       args.steps, data_seed=data_seed, checkpoint=hook,
-                       checkpoint_every=args.ckpt_every)
+    # the initial state goes in as a temporary (popped from its box), so
+    # the driver can free it after the first round (n = 4 nodes of fp32
+    # state are ~30 bytes per parameter)
+    box = [state]
+    del state
+    state, _ = drv.run(box.pop(), remaining, data_seed=data_seed,
+                       checkpoint=hook, checkpoint_every=args.ckpt_every)
     return TrainResult(state=state, driver=drv, data_seed=data_seed,
-                       loss0=loss0, chunks=chunks, n_params=n_params)
+                       loss0=loss0, chunks=chunks, n_params=n_params,
+                       start_step=done)
 
 
 def main(argv=None) -> int:
@@ -194,9 +228,14 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch) if args.full \
         else get_smoke_config(args.arch)
     res = train(cfg, args)
+    if not res.chunks:
+        return 0
+    if args.ckpt:
+        print(f"[train] saved full method state to {args.ckpt}")
     wall = sum(c["seconds"] for c in res.chunks)
-    print(f"[train] done: {args.steps} rounds at "
-          f"{args.steps / max(wall, 1e-9):.2f} steps/s")
+    rounds = res.state.t - res.start_step
+    print(f"[train] done: {rounds} rounds at "
+          f"{rounds / max(wall, 1e-9):.2f} steps/s")
     return 0
 
 

@@ -1,6 +1,8 @@
 """DASHA as a distributed training method (port of
-``repro.optim.distributed``): the trainer's config, its Method and its
-static payload fraction.
+``repro.optim.distributed``): the trainer's config, its Method, its static
+payload fraction, and the seed-era train-step API (``DashaTrainState``,
+``dasha_train_init``, ``make_train_step``, ``method_state``,
+``train_state``).
 
 The "nodes" are data-parallel groups; every method quantity (h_i, g_i,
 messages) is a parameter-shaped tree with a leading node axis.  The
@@ -19,13 +21,17 @@ same, and must stay at their defaults: the port runs one device.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.compress.spec import omega_bernoulli, omega_permk
+from repro_torch.core import tree
+from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.core.rng import Draws
 from repro_torch.methods.accounting import expected_payload_frac
-from repro_torch.methods.engine import Hyper, Method
+from repro_torch.methods.engine import Hyper, Method, MethodState
 from repro_torch.methods.rules import get_rule
 from repro_torch.methods.substrates import (BatchLossOracle,
                                             TreeCompression, TreeSubstrate)
@@ -78,10 +84,50 @@ class DashaTrainConfig:
                      b=self.b, p=self.p)
 
 
+class DashaTrainState(NamedTuple):
+    """Trainer-facing state (the reference's, with ``key`` an integer
+    ``seed``).  ``prev_params`` is retired, as in the reference: v1
+    checkpoints that still carry it restore through
+    :func:`repro_torch.checkpoint.load_state`."""
+
+    params: Any           # the iterate (a parameter tree)
+    g: Any                # server estimator (like params, float32)
+    h_local: Any          # per-node h_i: leading node axis
+    g_local: Any          # per-node g_i
+    opt_state: Any
+    seed: int             # root of every round's generators
+    step: int             # global round index
+
+
 def _server_opt(cfg: DashaTrainConfig):
     if cfg.server_opt == "adam":
         return Adam(lr=cfg.gamma)
     return SGD(lr=cfg.gamma)
+
+
+def dasha_train_init(params: Any, cfg: DashaTrainConfig, seed: int,
+                     grads0: Optional[Any] = None, *,
+                     device=DEFAULT_DEVICE) -> DashaTrainState:
+    """The initial trainer state on ``device`` (the card unless the caller
+    asks for the CPU).  ``grads0``: optional (n, *shape) initial per-node
+    gradients (the paper's h_i^0 = g_i^0 = grad f_i(x^0)); zeros
+    otherwise.  ``g`` is the float32 mean of the per-node state."""
+    dev = resolve_device(device)
+    n, sdt = cfg.n_nodes, cfg.torch_state_dtype
+    params = tree.map_leaves(lambda p: p.to(dev), params)
+    if grads0 is None:
+        per_node = tree.map_leaves(
+            lambda p: torch.zeros((n,) + tuple(p.shape), dtype=sdt,
+                                  device=dev), params)
+    else:
+        per_node = tree.map_leaves(lambda h: h.to(device=dev, dtype=sdt),
+                                   grads0)
+    g = tree.map_leaves(lambda h: torch.mean(h.to(torch.float32), 0),
+                        per_node)
+    return DashaTrainState(params=params, g=g, h_local=per_node,
+                           g_local=per_node,
+                           opt_state=_server_opt(cfg).init(params),
+                           seed=int(seed), step=0)
 
 
 def make_method(cfg: DashaTrainConfig,
@@ -108,3 +154,43 @@ def payload_frac(cfg: DashaTrainConfig) -> float:
                            n=cfg.n_nodes)
     return expected_payload_frac(get_rule(cfg.variant), cfg.hyper,
                                  comp.static_frac)
+
+
+def method_state(state: DashaTrainState,
+                 bits_sent: Optional[Any] = None) -> MethodState:
+    """View a trainer state as the engine's MethodState."""
+    if bits_sent is None:
+        bits_sent = np.float32(0)
+    return MethodState(x=state.params, g=state.g, g_local=state.g_local,
+                       h_local=state.h_local, opt_state=state.opt_state,
+                       seed=state.seed, t=state.step, bits_sent=bits_sent)
+
+
+def train_state(ms: MethodState) -> DashaTrainState:
+    """Project a MethodState back onto the trainer state (drops the
+    cumulative ``bits_sent``: the train step reports it as a metric)."""
+    return DashaTrainState(params=ms.x, g=ms.g, h_local=ms.h_local,
+                           g_local=ms.g_local, opt_state=ms.opt_state,
+                           seed=ms.seed, step=ms.t)
+
+
+def make_train_step(cfg: DashaTrainConfig,
+                    loss_fn: Callable[[Any, Any], torch.Tensor]
+                    ) -> Callable[..., Tuple[DashaTrainState, dict]]:
+    """The train step for any registry variant (a thin wrapper over
+    :func:`make_method`): ``step(state, batch, draws=None) -> (state,
+    {"g_norm_sq", "payload_frac", "payload_coords"})``.  ``g_norm_sq`` is
+    ``sum ||g||^2`` over ``state.g``'s leaves before the step, and
+    ``payload_coords`` the round's coords sent per node.  ``draws``
+    injects the round's randomness (:meth:`Method.step_full`)."""
+    method = make_method(cfg, loss_fn)
+    frac = np.float32(payload_frac(cfg))
+
+    def step(state: DashaTrainState, batch, draws: Optional[Draws] = None
+             ) -> Tuple[DashaTrainState, dict]:
+        gn = sum(torch.sum(torch.square(x)) for x in tree.leaves(state.g))
+        ms, _ = method.step_full(method_state(state), batch, draws=draws)
+        return train_state(ms), {"g_norm_sq": gn, "payload_frac": frac,
+                                 "payload_coords": ms.bits_sent}
+
+    return step

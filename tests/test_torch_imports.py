@@ -65,7 +65,8 @@ def test_import_scan_covers_the_slice():
                 "bench/table1_complexity.py", "bench/quickstart.py",
                 "bench/run.py", "bench/obs_trace.py", "obs/__init__.py",
                 "obs/timeline.py", "obs/metrics.py", "obs/handle.py",
-                "obs/attrib.py", "obs/vecreplay.py"):
+                "obs/attrib.py", "obs/vecreplay.py", "checkpoint/__init__.py",
+                "checkpoint/io.py"):
         assert mod in names
     for src in ("dasha_update.cu", "ssd_chunk.cu", "slab_writeback.cu"):
         assert (ROOT / "src/repro_torch/kernels/csrc" / src).exists()
@@ -75,6 +76,21 @@ def test_fed_package_imports_neither_jax_nor_the_reference():
     """Importing the federated slice (and through it the methods layer and
     the kernels) loads no module of JAX or of the reference package."""
     code = ("import sys; import repro_torch.fed; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')); print(bad); "
+            "sys.exit(1 if bad else 0)")
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert run.returncode == 0, run.stdout + run.stderr
+
+
+def test_checkpoint_package_imports_neither_jax_nor_the_reference():
+    """``repro_torch.checkpoint`` reads and writes the reference's format
+    with numpy and torch alone: importing it loads no module of JAX or of
+    the reference package."""
+    code = ("import sys; import repro_torch.checkpoint; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -109,6 +125,8 @@ def _entry_points():
     from repro_torch.methods import (FlatSubstrate, Hyper, Method,
                                      SampledFlatSubstrate, Sweeper)
     from repro_torch.models import init_params, lm
+    from repro_torch.optim.distributed import (DashaTrainConfig,
+                                               dasha_train_init)
 
     def method_init():
         feats = torch.zeros((2, 3, 4))
@@ -194,6 +212,8 @@ def _entry_points():
             {"conv": np.zeros((1, 2, 3, 4), np.float32)}),
         "lm.init_cache": lambda: lm.init_cache(
             get_smoke_config("mamba2-780m"), 1, 8),
+        "dasha_train_init": lambda: dasha_train_init(
+            {"w": torch.zeros(3)}, DashaTrainConfig(gamma=0.1), 0),
         "launch.serve": lambda: serve_mod.serve(
             get_smoke_config("mamba2-780m"),
             serve_mod.build_parser().parse_args([])),
@@ -213,7 +233,7 @@ ENTRY_POINTS = ["FedSim.init", "Method.init", "StochasticProblem",
                 "convert.cache_from_numpy", "convert.params_from_numpy",
                 "convert.plan_from_numpy", "convert.problem_from_numpy",
                 "convert.state_from_numpy", "convert.tree_state_from_numpy",
-                "init_params", "launch.serve", "launch.train",
+                "dasha_train_init", "init_params", "launch.serve", "launch.train",
                 "lm.init_cache", "make_lm_batch", "make_node_batches",
                 "make_round_compressor", "simulate",
                 "synthetic_classification", "synthetic_quadratic"]

@@ -10,7 +10,13 @@
 * the whole slice: 5 rounds of ``make_method`` + ``Driver`` on the
   ``mamba2-smoke`` config (float32), DASHA-MVR with the fused kernel path,
   the reference's batches and masks replayed;
-* the port's ``launch/train.py`` library function on the CPU.
+* the port's ``launch/train.py`` library function on the CPU, and its
+  ``--ckpt`` / ``--resume`` (a resumed run equals an uninterrupted one bit
+  for bit);
+* the seed-era train-step API (``dasha_train_init`` / ``make_train_step``)
+  as ``tests/test_train_distributed.py`` and ``tests/test_fused_paths.py``
+  hold the reference's, and one step against the reference's with its
+  masks replayed.
 
 Tolerances: messages and masked updates are computed by the same
 elementwise ops in both packages and agree to rtol 1e-6 (last-ulp drift
@@ -35,6 +41,7 @@ from repro.methods.driver import Driver as JDriver
 from repro.models import init_params as j_init
 from repro.models import lm as jlm
 from repro.optim import distributed as jdist
+from repro_torch import checkpoint as tcheckpoint
 from repro_torch import convert
 from repro_torch.compress import treelevel as ttl
 from repro_torch.configs import get_smoke_config as t_smoke
@@ -382,7 +389,258 @@ def test_ckpt_every_sets_the_hook_cadence_as_the_reference_driver():
     assert res.state.t == 6
 
 
-def test_train_refuses_checkpoint_flags_until_ported():
-    args = ttrain.build_parser().parse_args(["--ckpt", "somewhere"])
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        ttrain.train(t_smoke("mamba2-780m"), args, device="cpu")
+# ---------------------------------------------------------------------------
+# --ckpt / --resume
+# ---------------------------------------------------------------------------
+
+CKPT_ARGS = ["--seq", "32", "--log-every", "1", "--use-kernel"]
+
+
+def _train(steps, *extra, log=None):
+    args = ttrain.build_parser().parse_args(
+        ["--steps", str(steps), *CKPT_ARGS, *extra])
+    return ttrain.train(t_smoke("mamba2-780m"), args, device="cpu",
+                        log=log or (lambda _: None))
+
+
+def _assert_port_states_equal(a, b):
+    for name in ("x", "g", "g_local", "h_local"):
+        for (pa, u), (pb, v) in zip(tree.items(getattr(a, name)),
+                                    tree.items(getattr(b, name))):
+            assert pa == pb and u.dtype == v.dtype, (name, pa)
+            assert torch.equal(u, v), (name, pa)
+    for f in ("mu", "nu"):
+        for u, v in zip(tree.leaves(getattr(a.opt_state, f)),
+                        tree.leaves(getattr(b.opt_state, f))):
+            assert torch.equal(u, v), f
+    assert a.opt_state.count == b.opt_state.count
+    assert (a.seed, a.t) == (b.seed, b.t)
+    assert a.bits_sent == b.bits_sent
+
+
+@pytest.mark.parametrize("variant", ["mvr", "sync_mvr"])
+def test_ckpt_then_resume_equals_an_uninterrupted_run(variant, tmp_path):
+    """``--steps 2 --ckpt D`` then ``--steps 4 --ckpt D --resume`` ends in
+    the state ``--steps 4`` reaches, bit for bit: the full MethodState is
+    restored and the data stream is keyed on the global round."""
+    ck = str(tmp_path / "ck")
+    full = _train(4, "--variant", variant)
+    first = _train(2, "--variant", variant, "--ckpt", ck)
+    assert tcheckpoint.checkpoint_step(ck) == 2
+    lines = []
+    resumed = _train(4, "--variant", variant, "--ckpt", ck, "--resume",
+                     log=lines.append)
+    _assert_port_states_equal(resumed.state, full.state)
+    assert resumed.start_step == 2 and resumed.state.t == 4
+    assert any("resumed from" in ln and "at step 2" in ln for ln in lines)
+    # the eval loss before the first round is that of the restored iterate
+    assert resumed.loss0 == first.chunks[-1]["loss"]
+    assert [c["loss"] for c in resumed.chunks] == \
+        [c["loss"] for c in full.chunks[2:]]
+    assert tcheckpoint.checkpoint_step(ck) == 4
+    assert all(c["ckpt_s"] > 0 for c in resumed.chunks)
+
+
+def test_resume_without_ckpt_exits():
+    with pytest.raises(SystemExit, match="--resume requires --ckpt"):
+        _train(2, "--resume")
+
+
+@pytest.mark.parametrize("steps", [1, 2])
+def test_resume_at_or_past_the_saved_step_runs_no_round(steps, tmp_path):
+    ck = str(tmp_path / "ck")
+    saved = _train(2, "--ckpt", ck)
+    lines = []
+    res = _train(steps, "--ckpt", ck, "--resume", log=lines.append)
+    assert res.chunks == [] and res.state.t == 2 and res.start_step == 2
+    assert "already at step 2" in lines[-1]
+    _assert_port_states_equal(res.state, saved.state)
+
+
+def test_logged_rounds_are_global(tmp_path):
+    """After a resume the hook's log lines and chunk records show the
+    global round, as the reference logs ``done + t``."""
+    ck = str(tmp_path / "ck")
+    _train(3, "--ckpt", ck)
+    lines = []
+    res = _train(7, "--ckpt", ck, "--resume", "--log-every", "2",
+                 log=lines.append)
+    assert [c["rounds"] for c in res.chunks] == [5, 7]
+    steps = [int(ln.split()[2]) for ln in lines
+             if ln.startswith("[train] step") and "|g|^2" in ln]
+    assert steps == [5, 7]
+    assert lines[2].startswith("[train] step     3 loss=")
+
+
+def test_main_trains_resumes_and_reports_the_rounds_it_ran(tmp_path,
+                                                           monkeypatch,
+                                                           capsys):
+    """``main`` with the real flags: the card is its default, so the test
+    points it at the CPU."""
+    real = ttrain.train
+    monkeypatch.setattr(ttrain, "train", lambda cfg, args: real(
+        cfg, args, device="cpu", log=lambda _: None))
+    ck = str(tmp_path / "ck")
+    assert ttrain.main(["--steps", "2", "--ckpt", ck, *CKPT_ARGS]) == 0
+    assert ttrain.main(["--steps", "3", "--ckpt", ck, "--resume",
+                        *CKPT_ARGS]) == 0
+    out = capsys.readouterr().out
+    assert "done: 2 rounds" in out and "done: 1 rounds" in out
+    assert f"saved full method state to {ck}" in out
+
+
+# ---------------------------------------------------------------------------
+# the seed-era train-step API (tests/test_train_distributed.py and
+# tests/test_fused_paths.py on the port)
+# ---------------------------------------------------------------------------
+
+def _mlp_problem():
+    rng = np.random.default_rng(0)
+    params = {"w1": torch.as_tensor(rng.standard_normal((8, 16)) * 0.3,
+                                    dtype=torch.float32),
+              "b1": torch.zeros(16),
+              "w2": torch.as_tensor(rng.standard_normal((16, 4)) * 0.3,
+                                    dtype=torch.float32)}
+    target_w = torch.as_tensor(rng.standard_normal((8, 4)),
+                               dtype=torch.float32)
+
+    def loss(p, batch):
+        h = torch.tanh(batch["x"] @ p["w1"] + p["b1"])
+        return torch.mean((h @ p["w2"] - batch["y"]) ** 2)
+
+    def make_batch(seed, n_nodes, b=16):
+        g = torch.Generator().manual_seed(seed)
+        x = torch.randn((n_nodes, b, 8), generator=g)
+        return {"x": x, "y": torch.einsum("nbi,io->nbo", x, target_w)}
+
+    return params, loss, make_batch
+
+
+def _flat_batch(b):
+    return {k: v.reshape((-1,) + v.shape[2:]) for k, v in b.items()}
+
+
+def _train_loss_ratio(cfg, steps):
+    params, loss, make_batch = _mlp_problem()
+    state = tdist.dasha_train_init(params, cfg, 3, device="cpu")
+    step = tdist.make_train_step(cfg, loss)
+    flat = _flat_batch(make_batch(4, cfg.n_nodes))
+    l0 = float(loss(params, flat))
+    for t in range(steps):
+        state, _ = step(state, make_batch(100 + t, cfg.n_nodes))
+    assert state.step == steps
+    return float(loss(state.params, flat)) / l0, state
+
+
+@pytest.mark.parametrize("mode,variant,use_kernel", [
+    ("independent", "dasha", False), ("independent", "mvr", False),
+    ("permk", "dasha", False), ("shared_coords", "dasha", False),
+    ("permk", "mvr", True), ("shared_coords", "dasha", True)])
+def test_train_step_reduces_loss(mode, variant, use_kernel):
+    cfg = tdist.DashaTrainConfig(gamma=0.01, compression=0.25, mode=mode,
+                                 variant=variant, b=0.2, n_nodes=4,
+                                 server_opt="adam", use_kernel=use_kernel)
+    ratio, _ = _train_loss_ratio(cfg, 200 if use_kernel else 300)
+    assert ratio < (0.6 if use_kernel else 0.5), ratio
+
+
+def test_train_step_keeps_g_the_mean_of_g_local():
+    cfg = tdist.DashaTrainConfig(gamma=0.05, compression=0.5, n_nodes=4)
+    _, state = _train_loss_ratio(cfg, 5)
+    for g, gl in zip(tree.leaves(state.g), tree.leaves(state.g_local)):
+        np.testing.assert_allclose(g.numpy(), gl.mean(0).numpy(),
+                                   rtol=1e-4, atol=1e-5)
+
+
+def test_bf16_state_still_learns():
+    cfg = tdist.DashaTrainConfig(gamma=0.01, compression=0.25, n_nodes=4,
+                                 server_opt="adam", state_dtype="bfloat16")
+    ratio, state = _train_loss_ratio(cfg, 300)
+    assert state.h_local["w1"].dtype == torch.bfloat16
+    assert state.g["w1"].dtype == torch.float32
+    assert ratio < 0.6, ratio
+
+
+@pytest.mark.parametrize("mode", ["independent", "shared_coords", "permk"])
+@pytest.mark.parametrize("variant", ["dasha", "mvr"])
+def test_kernel_path_matches_the_unfused_path(mode, variant):
+    """``use_kernel=True`` (the kernels' plain versions on the CPU) against
+    the unfused path under the same draws."""
+    params, loss, make_batch = _mlp_problem()
+    batches = [make_batch(10 + i, 2) for i in range(4)]
+    outs = []
+    for uk in (False, True):
+        cfg = tdist.DashaTrainConfig(gamma=0.05, compression=0.5, n_nodes=2,
+                                     mode=mode, variant=variant, b=0.3,
+                                     use_kernel=uk)
+        state = tdist.dasha_train_init(params, cfg, 5, device="cpu")
+        step = tdist.make_train_step(cfg, loss)
+        for b in batches:
+            state, _ = step(state, b)
+        outs.append(state)
+    for name in ("params", "g", "h_local", "g_local"):
+        for a, b in zip(tree.leaves(getattr(outs[0], name)),
+                        tree.leaves(getattr(outs[1], name))):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=2e-5,
+                                       atol=1e-6, err_msg=name)
+
+
+def test_dasha_train_init_matches_the_reference_and_views_round_trip():
+    params = _toy_params()
+    grads0 = _per_node_tree(7, {"w": (6, 4), "layers": {"a": (2, 4, 4),
+                                                        "b": (2, 4)},
+                                "c": (5,)})
+    kw = dict(gamma=0.05, n_nodes=N, server_opt="adam")
+    jst = jdist.dasha_train_init(
+        jax.tree_util.tree_map(jnp.asarray, params), jdist.DashaTrainConfig(
+            **kw), jax.random.PRNGKey(0),
+        grads0=jax.tree_util.tree_map(jnp.asarray, grads0))
+    tst = tdist.dasha_train_init(_port(params), tdist.DashaTrainConfig(**kw),
+                                 9, grads0=_port(grads0), device="cpu")
+    assert tst._fields == tuple("seed" if f == "key" else f
+                                for f in jst._fields)
+    for name in ("params", "g", "h_local", "g_local"):
+        _assert_trees_close(getattr(tst, name), getattr(jst, name), 0, 0,
+                            name)
+    assert tst.opt_state.count == int(jst.opt_state.count) == 0
+    assert (tst.seed, tst.step) == (9, 0)
+    ms = tdist.method_state(tst, np.float32(3))
+    assert (ms.x, ms.t, ms.seed, ms.bits_sent) == (tst.params, 0, 9, 3)
+    back = tdist.train_state(ms)
+    assert all(getattr(back, f) is getattr(tst, f) for f in tst._fields)
+
+
+@pytest.mark.parametrize("variant,server_opt", [("dasha", "sgd"),
+                                                ("mvr", "adam"),
+                                                ("sync_mvr", "adam")])
+def test_train_step_matches_the_reference_with_injected_draws(variant,
+                                                              server_opt):
+    """One ``make_train_step`` round per step of the reference's, its masks
+    and sync coins replayed: state within fp32 tolerance, the metrics
+    (``g_norm_sq`` before the step, the static fraction, the round's
+    coords) as the reference's."""
+    kw = dict(gamma=0.05, compression=0.5, mode="independent",
+              variant=variant, b=0.3, p=0.5, n_nodes=N,
+              server_opt=server_opt)
+    jcfg, tcfg = jdist.DashaTrainConfig(**kw), tdist.DashaTrainConfig(**kw)
+    params = _toy_params()
+    jst = jdist.dasha_train_init(
+        jax.tree_util.tree_map(jnp.asarray, params), jcfg,
+        jax.random.PRNGKey(2))
+    tst = tdist.dasha_train_init(_port(params), tcfg, 0, device="cpu")
+    jstep = jax.jit(jdist.make_train_step(jcfg, _toy_loss_j))
+    tstep = tdist.make_train_step(tcfg, _toy_loss_t)
+    for t in range(3):
+        batch = _toy_batch(t)
+        draws = _reference_draws(jdist.method_state(jst), jcfg)
+        jst, jm = jstep(jst, {k: jnp.asarray(v) for k, v in batch.items()})
+        tst, tm_ = tstep(tst, {k: torch.as_tensor(v)
+                               for k, v in batch.items()}, draws=draws)
+        for name in ("params", "g", "h_local", "g_local"):
+            _assert_trees_close(getattr(tst, name), getattr(jst, name), 1e-5,
+                                1e-6, name)
+        assert tst.step == int(jst.step) == t + 1
+        np.testing.assert_allclose(float(tm_["g_norm_sq"]),
+                                   float(jm["g_norm_sq"]), rtol=1e-5)
+        assert tm_["payload_frac"] == np.float32(jm["payload_frac"])
+        assert tm_["payload_coords"] == np.float32(jm["payload_coords"])
