@@ -150,19 +150,18 @@ def fused_estimator_update(plan: Plan, h_new: torch.Tensor, h: torch.Tensor,
     m = C(h_new - h - a (g_local - h)); g_i <- g_i + m_i.
 
     With a lane axis, (G, n, d) inputs, the plan's (n, d) support (or
-    uniforms) is broadcast over the lanes and the kernel runs once on the
-    G * n rows.
+    uniforms, which the QDither kernel reads at row r % n) is broadcast
+    over the lanes and the kernel runs once on the G * n rows.
 
     Returns (messages, h_out, g_local_new)."""
     d = float(h_new.shape[-1])            # fused messages stay dense
     if plan.kind == "dither":
-        delta = h_new - h - a * (g_local - h)
-        rows = delta.reshape(-1, delta.shape[-1])
-        u = plan.dither_u.expand(delta.shape).reshape(rows.shape)
-        m = kops.quantize_with_u(rows, u, plan.levels).view(delta.shape) \
-            * plan.scale
-        return (DenseMessages(m, plan.payload_coords, d),
-                h_new, g_local + m)
+        scale = plan.scale.contiguous() \
+            if isinstance(plan.scale, torch.Tensor) else plan.scale
+        m, h_out, gl_new = kops.dasha_quantize_update(
+            h_new.contiguous(), h.contiguous(), g_local.contiguous(),
+            plan.dither_u.contiguous(), a, scale, plan.levels)
+        return (DenseMessages(m, plan.payload_coords, d), h_out, gl_new)
 
     if plan.kind == "passthrough":
         mask = torch.ones_like(h_new, dtype=torch.float32)

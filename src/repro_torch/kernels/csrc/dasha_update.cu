@@ -5,22 +5,30 @@
 //   dasha_mvr_update — the same pass with the MVR h-update fused in
 //                      (replaces repro/kernels/dasha_update.py:
 //                      dasha_mvr_update_pallas)
-//   quantize_rows    — row-wise QSGD with external uniforms, two passes
-//                      (replaces repro/kernels/dasha_update.py:quantize_pallas)
+//   quantize_rows    — row-wise QSGD with external uniforms
+//                      (replaces repro/kernels/dasha_update.py:
+//                      quantize_pallas)
+//   dasha_quantize_update — the QDither estimator update: the drift, QSGD
+//                      and g_local += m in one launch (the reference runs
+//                      it as jnp ops around quantize_pallas)
 //
 // All are bound by device-memory bytes (see dasha_update.py for the
 // numbers).  Plain C interface for ctypes: pointers and the stream come in
 // as void*, each entry launches on the caller's stream, never synchronizes,
 // allocates nothing and returns cudaGetLastError().
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kBlocksPerSm = 8;
-// elements of one row that one quantize block covers
-constexpr int kQuantChunk = 8192;
+// the largest cluster a row may take (16 is non-portable: quantize_init
+// asks the card whether it takes it)
+constexpr int kMaxCluster = 16;
 
 int sm_count() {
   int dev = 0;
@@ -171,69 +179,401 @@ dasha_mvr_update_scalar(const float* __restrict__ gn,
   }
 }
 
-// Sum over the block in a fixed order (shuffle tree, then warps in index
-// order), so every block that sums the same values gets the same bits.
-__device__ float block_sum(float v) {
+// ---------------------------------------------------------------------------
+// Kernel 2: row-wise QSGD, plain (x) or fused (x = the drift of h_new, h,
+// g_local).  Every sum of squares runs in a fixed order: each thread over
+// its own elements in index order, a shuffle tree in the warp, the warps in
+// index order, then the blocks of the row in index order.  Every block of
+// a row thus gets the same norm bits and repeated runs are bit-identical.
+
+struct QArgs {
+  const float* x;        // plain: x; fused: h_new
+  const float* h;        // fused only
+  const float* gl;       // fused only: g_local
+  const float* u;        // (u_rows, cols) uniforms, row r read at r % u_rows
+  const float* scale_t;  // fused: per-row scale (scale_rows), or null
+  float* out;            // plain: out; fused: m
+  float* g_out;          // fused only: g_local + m
+  float* partials;       // two-pass only: (rows, blocks_per_row)
+  long long cols;
+  long long u_rows;
+  long long scale_rows;
+  long long per_block;   // vectors of a row one block covers
+  long long blocks_per_row;
+  float a, scale, levels;
+};
+
+template <int V>
+__device__ __forceinline__ void load_vec(const float* p, float (&o)[V]) {
+  if constexpr (V == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    o[0] = t.x; o[1] = t.y; o[2] = t.z; o[3] = t.w;
+  } else if constexpr (V == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    o[0] = t.x; o[1] = t.y;
+  } else {
+    o[0] = *p;
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_vec(float* p, const float (&o)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(o[0], o[1], o[2], o[3]);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(o[0], o[1]);
+  } else {
+    *p = o[0];
+  }
+}
+
+// x of V elements at element offset e of the row: x itself, or the drift
+// (h_new - h) - a (g_local - h) with g_local kept for the epilogue, each op
+// rounded once in the plain version's order
+template <int V, bool FUSED>
+__device__ __forceinline__ void load_x(const QArgs& p, long long e,
+                                       float (&x)[V], float (&g)[V]) {
+  if constexpr (FUSED) {
+    float hn[V], hh[V];
+    load_vec<V>(p.x + e, hn);
+    load_vec<V>(p.h + e, hh);
+    load_vec<V>(p.gl + e, g);
+#pragma unroll
+    for (int c = 0; c < V; ++c) {
+      x[c] = __fsub_rn(__fsub_rn(hn[c], hh[c]),
+                       __fmul_rn(p.a, __fsub_rn(g[c], hh[c])));
+    }
+  } else {
+    load_vec<V>(p.x + e, x);
+  }
+}
+
+// one QSGD element: the plain version's ops, each rounded once
+__device__ __forceinline__ float qsgd_one(float xv, float uv, float safe,
+                                          float s, bool nonzero) {
+  const float y = __fmul_rn(__fdiv_rn(fabsf(xv), safe), s);
+  const float fl = floorf(y);
+  const float q = __fadd_rn(fl, uv < __fsub_rn(y, fl) ? 1.f : 0.f);
+  const float sgn = xv > 0.f ? 1.f : (xv < 0.f ? -1.f : 0.f);
+  const float v = __fdiv_rn(__fmul_rn(__fmul_rn(sgn, q), safe), s);
+  return nonzero ? v : 0.f;
+}
+
+// quantize V elements and store them: out, or (fused) m = out * scale and
+// g_out = g_local + m, each rounded once in that order
+template <int V, bool FUSED>
+__device__ __forceinline__ void emit(const QArgs& p, long long e,
+                                     const float (&x)[V], const float (&u)[V],
+                                     const float (&g)[V], float safe,
+                                     bool nonzero, float sc) {
+  float q[V];
+#pragma unroll
+  for (int c = 0; c < V; ++c) q[c] = qsgd_one(x[c], u[c], safe, p.levels,
+                                              nonzero);
+  if constexpr (FUSED) {
+    float gn[V];
+#pragma unroll
+    for (int c = 0; c < V; ++c) {
+      q[c] = __fmul_rn(q[c], sc);
+      gn[c] = __fadd_rn(g[c], q[c]);
+    }
+    store_vec<V>(p.g_out + e, gn);
+  }
+  store_vec<V>(p.out + e, q);
+}
+
+// The block's sum in a fixed order (shuffle tree, then warps in index
+// order); the total is valid in thread 0 only.
+__device__ __forceinline__ float block_sum(float v) {
   __shared__ float warp_sums[kThreads / 32];
-  __shared__ float total;
   for (int off = 16; off > 0; off >>= 1) {
     v = __fadd_rn(v, __shfl_down_sync(0xffffffffu, v, off));
   }
   if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = v;
   __syncthreads();
+  float s = 0.f;
   if (threadIdx.x == 0) {
-    float s = 0.f;
-    for (int w = 0; w < kThreads / 32; ++w) s = __fadd_rn(s, warp_sums[w]);
-    total = s;
+    for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) {
+      s = __fadd_rn(s, warp_sums[w]);
+    }
   }
-  __syncthreads();
-  return total;
+  return s;
 }
 
-// pass 1: partials[row, chunk] = sum of x^2 over the chunk
-__global__ void __launch_bounds__(kThreads)
-quantize_partials(const float* __restrict__ x, float* __restrict__ partials,
-                  long long cols, int chunks) {
-  const long long row = blockIdx.y;
-  const long long lo = static_cast<long long>(blockIdx.x) * kQuantChunk;
-  const long long hi = lo + kQuantChunk < cols ? lo + kQuantChunk : cols;
-  const float* xr = x + row * cols;
+// The cluster barrier split in two: arrive early, wait where needed.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+// Cluster path: one cluster of blocks_per_row blocks a row.  Block `rank`
+// holds vectors [rank * per_block, (rank + 1) * per_block) of its row in
+// registers (VPT vectors of V floats a thread, coalesced) and sums their
+// squares.  Lanes of warp 0 then push the block's partial into slot `rank`
+// of every block's shared memory (distributed shared memory), once a first
+// barrier phase, begun before the loads, shows every peer running; after
+// a second each block holds all partials locally and every thread sums
+// them in rank order.  No block touches a peer's shared memory after that,
+// so none has to wait for its peers before it exits.  x is read once: 12
+// bytes an element (plain), 24 (fused).
+template <int V, int VPT, bool FUSED>
+__device__ __forceinline__ void cluster_body(const QArgs& p) {
+  __shared__ float warp_sums[kThreads / 32];
+  __shared__ float parts[kMaxCluster];
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned cl = cluster.num_blocks();
+  const unsigned rank = cluster.block_rank();
+  const long long row = blockIdx.x / cl;
+  const long long nvec = p.cols / V;
+  const long long lo = rank * p.per_block;
+  const long long hi = lo + p.per_block < nvec ? lo + p.per_block : nvec;
+  const long long cnt = hi > lo ? hi - lo : 0;
+  const long long base = row * p.cols + lo * V;
+  const long long ubase = (row % p.u_rows) * p.cols + lo * V;
+  const float sc = FUSED && p.scale_t != nullptr
+                       ? p.scale_t[row % p.scale_rows] : p.scale;
+  if (cl > 1) cluster_arrive_relaxed();     // this block runs
+
+  float x[VPT][V], u[VPT][V], g[FUSED ? VPT : 1][V];
+#pragma unroll
+  for (int j = 0; j < VPT; ++j) {
+    const long long k = static_cast<long long>(j) * blockDim.x + threadIdx.x;
+    if (k < cnt) {
+      load_x<V, FUSED>(p, base + k * V, x[j], g[FUSED ? j : 0]);
+      load_vec<V>(p.u + ubase + k * V, u[j]);
+    }
+  }
   float acc = 0.f;
-  for (long long i = lo + threadIdx.x; i < hi; i += kThreads) {
-    const float v = xr[i];
-    acc = __fadd_rn(acc, __fmul_rn(v, v));
+#pragma unroll
+  for (int j = 0; j < VPT; ++j) {
+    const long long k = static_cast<long long>(j) * blockDim.x + threadIdx.x;
+    if (k < cnt) {
+#pragma unroll
+      for (int c = 0; c < V; ++c) acc = __fadd_rn(acc, __fmul_rn(x[j][c],
+                                                                 x[j][c]));
+    }
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    acc = __fadd_rn(acc, __shfl_down_sync(0xffffffffu, acc, off));
+  }
+  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = acc;
+  __syncthreads();
+  if (cl > 1) cluster_wait();               // every peer runs
+  if (threadIdx.x < 32) {
+    float s = 0.f;
+    if (threadIdx.x == 0) {
+      for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) {
+        s = __fadd_rn(s, warp_sums[w]);
+      }
+    }
+    s = __shfl_sync(0xffffffffu, s, 0);
+    if (threadIdx.x < cl) {
+      *cluster.map_shared_rank(&parts[rank], threadIdx.x) = s;
+    }
+  }
+  if (cl > 1) {
+    cluster.sync();                     // every block's partial has landed
+  } else {
+    __syncthreads();
+  }
+  float tot = 0.f;
+#pragma unroll
+  for (int r = 0; r < kMaxCluster; ++r) {
+    if (r < static_cast<int>(cl)) tot = __fadd_rn(tot, parts[r]);
+  }
+  const float norm = __fsqrt_rn(tot);
+  const bool nonzero = norm > 0.f;
+  const float safe = nonzero ? norm : 1.f;
+#pragma unroll
+  for (int j = 0; j < VPT; ++j) {
+    const long long k = static_cast<long long>(j) * blockDim.x + threadIdx.x;
+    if (k < cnt) {
+      emit<V, FUSED>(p, base + k * V, x[j], u[j], g[FUSED ? j : 0], safe,
+                     nonzero, sc);
+    }
+  }
+}
+
+template <int V, int VPT>
+__global__ void __launch_bounds__(kThreads) quantize_cluster(QArgs p) {
+  cluster_body<V, VPT, false>(p);
+}
+
+template <int V, int VPT>
+__global__ void __launch_bounds__(kThreads) dasha_quantize_cluster(QArgs p) {
+  cluster_body<V, VPT, true>(p);
+}
+
+// Two-pass path, for rows wider than a cluster holds: pass 1 writes each
+// (row, chunk)'s sum of squares, pass 2 sums its row's partials in a fixed
+// order (no atomics) and quantizes its chunk, recomputing the drift when
+// fused.  x is read twice: 16 bytes an element (plain).  Pass 2 walks the
+// chunks in reverse so that its first blocks find pass 1's last in L2.
+template <int V, bool FUSED>
+__device__ __forceinline__ void partials_body(const QArgs& p) {
+  const long long row = blockIdx.x / p.blocks_per_row;
+  const long long chunk = blockIdx.x % p.blocks_per_row;
+  const long long nvec = p.cols / V;
+  const long long lo = chunk * p.per_block;
+  const long long hi = lo + p.per_block < nvec ? lo + p.per_block : nvec;
+  const long long base = row * p.cols;
+  float acc = 0.f;
+#pragma unroll 4
+  for (long long k = lo + threadIdx.x; k < hi; k += blockDim.x) {
+    float x[V], g[V];
+    load_x<V, FUSED>(p, base + k * V, x, g);
+#pragma unroll
+    for (int c = 0; c < V; ++c) acc = __fadd_rn(acc, __fmul_rn(x[c], x[c]));
   }
   const float s = block_sum(acc);
-  if (threadIdx.x == 0) partials[row * chunks + blockIdx.x] = s;
+  if (threadIdx.x == 0) p.partials[blockIdx.x] = s;
 }
 
-// pass 2: each block sums its row's partials in a fixed order (no atomics:
-// repeated runs give the same bits), then quantizes its chunk
-__global__ void __launch_bounds__(kThreads)
-quantize_apply(const float* __restrict__ x, const float* __restrict__ u,
-               const float* __restrict__ partials, float* __restrict__ out,
-               long long cols, int chunks, float s) {
-  const long long row = blockIdx.y;
+template <int V, bool FUSED>
+__device__ __forceinline__ void apply_body(const QArgs& p) {
+  __shared__ float norm_s;
+  const long long b = static_cast<long long>(gridDim.x) - 1 - blockIdx.x;
+  const long long row = b / p.blocks_per_row;
+  const long long chunk = b % p.blocks_per_row;
+  const float* part = p.partials + row * p.blocks_per_row;
   float acc = 0.f;
-  for (int c = threadIdx.x; c < chunks; c += kThreads) {
-    acc = __fadd_rn(acc, partials[row * chunks + c]);
+  for (long long c = threadIdx.x; c < p.blocks_per_row; c += blockDim.x) {
+    acc = __fadd_rn(acc, part[c]);
   }
-  const float norm = __fsqrt_rn(block_sum(acc));
-  const float safe = norm > 0.f ? norm : 1.f;
-  const long long lo = static_cast<long long>(blockIdx.x) * kQuantChunk;
-  const long long hi = lo + kQuantChunk < cols ? lo + kQuantChunk : cols;
-  const float* xr = x + row * cols;
-  const float* ur = u + row * cols;
-  float* outr = out + row * cols;
-  for (long long i = lo + threadIdx.x; i < hi; i += kThreads) {
-    const float xv = xr[i];
-    const float y = __fmul_rn(__fdiv_rn(fabsf(xv), safe), s);
-    const float fl = floorf(y);
-    const float q = __fadd_rn(fl, ur[i] < __fsub_rn(y, fl) ? 1.f : 0.f);
-    const float sgn = xv > 0.f ? 1.f : (xv < 0.f ? -1.f : 0.f);
-    const float v = __fdiv_rn(__fmul_rn(__fmul_rn(sgn, q), safe), s);
-    outr[i] = norm > 0.f ? v : 0.f;
+  const float s = block_sum(acc);
+  if (threadIdx.x == 0) norm_s = __fsqrt_rn(s);
+  __syncthreads();
+  const float norm = norm_s;
+  const bool nonzero = norm > 0.f;
+  const float safe = nonzero ? norm : 1.f;
+  const float sc = FUSED && p.scale_t != nullptr
+                       ? p.scale_t[row % p.scale_rows] : p.scale;
+  const long long nvec = p.cols / V;
+  const long long lo = chunk * p.per_block;
+  const long long hi = lo + p.per_block < nvec ? lo + p.per_block : nvec;
+  const long long base = row * p.cols;
+  const long long ubase = (row % p.u_rows) * p.cols;
+#pragma unroll 4
+  for (long long k = lo + threadIdx.x; k < hi; k += blockDim.x) {
+    float x[V], g[V], u[V];
+    load_x<V, FUSED>(p, base + k * V, x, g);
+    load_vec<V>(p.u + ubase + k * V, u);
+    emit<V, FUSED>(p, base + k * V, x, u, g, safe, nonzero, sc);
   }
+}
+
+template <int V>
+__global__ void __launch_bounds__(kThreads) quantize_partials(QArgs p) {
+  partials_body<V, false>(p);
+}
+
+template <int V>
+__global__ void __launch_bounds__(kThreads) quantize_apply(QArgs p) {
+  apply_body<V, false>(p);
+}
+
+template <int V>
+__global__ void __launch_bounds__(kThreads) dasha_quantize_partials(QArgs p) {
+  partials_body<V, true>(p);
+}
+
+template <int V>
+__global__ void __launch_bounds__(kThreads) dasha_quantize_apply(QArgs p) {
+  apply_body<V, true>(p);
+}
+
+using QKernel = void (*)(QArgs);
+
+template <int V, int VPT>
+QKernel pick_cluster(bool fused) {
+  return fused ? static_cast<QKernel>(&dasha_quantize_cluster<V, VPT>)
+               : static_cast<QKernel>(&quantize_cluster<V, VPT>);
+}
+
+// the cluster kernel of (fused, V, VPT), or null for a plan this file
+// does not instantiate (VPT a power of two, VPT <= 8)
+template <int V>
+QKernel cluster_kernel_v(bool fused, int vpt) {
+  switch (vpt) {
+    case 1: return pick_cluster<V, 1>(fused);
+    case 2: return pick_cluster<V, 2>(fused);
+    case 4: return pick_cluster<V, 4>(fused);
+    case 8: return pick_cluster<V, 8>(fused);
+    default: return nullptr;
+  }
+}
+
+QKernel cluster_kernel(bool fused, int vec, int vpt) {
+  switch (vec) {
+    case 1: return cluster_kernel_v<1>(fused, vpt);
+    case 2: return cluster_kernel_v<2>(fused, vpt);
+    case 4: return cluster_kernel_v<4>(fused, vpt);
+    default: return nullptr;
+  }
+}
+
+template <int V>
+void two_pass_kernels_v(bool fused, QKernel* k1, QKernel* k2) {
+  *k1 = fused ? static_cast<QKernel>(&dasha_quantize_partials<V>)
+              : static_cast<QKernel>(&quantize_partials<V>);
+  *k2 = fused ? static_cast<QKernel>(&dasha_quantize_apply<V>)
+              : static_cast<QKernel>(&quantize_apply<V>);
+}
+
+bool two_pass_kernels(bool fused, int vec, QKernel* k1, QKernel* k2) {
+  switch (vec) {
+    case 1: two_pass_kernels_v<1>(fused, k1, k2); return true;
+    case 2: two_pass_kernels_v<2>(fused, k1, k2); return true;
+    case 4: two_pass_kernels_v<4>(fused, k1, k2); return true;
+    default: return false;
+  }
+}
+
+// Launch one plan: the cluster path as one launch with a cluster of
+// blocks_per_row blocks a row, or the two passes.  Refuses a plan whose
+// numbers no kernel here takes, or whose grid the card would refuse.
+int launch_quantize(bool fused, const QArgs& p, long long rows, int two_pass,
+                    int vec, int vpt, int threads, cudaStream_t st) {
+  if (rows <= 0 || p.cols <= 0) return static_cast<int>(cudaGetLastError());
+  const long long grid = rows * p.blocks_per_row;
+  if ((vec != 1 && vec != 2 && vec != 4) || threads < 32 ||
+      threads > kThreads || threads % 32 != 0 ||
+      p.blocks_per_row < 1 || p.per_block < 1 || grid > 0x7fffffffLL ||
+      p.cols % vec != 0 || p.blocks_per_row * p.per_block < p.cols / vec) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (two_pass) {
+    QKernel k1 = nullptr, k2 = nullptr;
+    if (!two_pass_kernels(fused, vec, &k1, &k2) || p.partials == nullptr) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    k1<<<static_cast<unsigned>(grid), threads, 0, st>>>(p);
+    k2<<<static_cast<unsigned>(grid), threads, 0, st>>>(p);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const QKernel k = cluster_kernel(fused, vec, vpt);
+  if (k == nullptr || p.blocks_per_row > kMaxCluster ||
+      p.per_block > static_cast<long long>(vpt) * threads) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(grid));
+  cfg.blockDim = dim3(static_cast<unsigned>(threads));
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(p.blocks_per_row);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, k, p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -297,27 +637,99 @@ int dasha_mvr_update(const void* gn, const void* go, const void* h,
   return static_cast<int>(cudaGetLastError());
 }
 
-// elements of one row per quantize block: the wrapper sizes the
-// (rows, ceil(cols / chunk)) partial-sum scratch with it
-int quantize_chunk_elems() { return kQuantChunk; }
-
-// out <- row-wise QSGD of the (rows, cols) fp32 matrix x with uniforms u;
-// partials is (rows, ceil(cols / chunk)) fp32 scratch
-int quantize_rows(const void* x, const void* u, void* out, void* partials,
-                  long long rows, long long cols, float levels,
-                  void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (rows <= 0 || cols <= 0) return static_cast<int>(cudaGetLastError());
-  const long long chunks = (cols + kQuantChunk - 1) / kQuantChunk;
-  const dim3 grid(static_cast<unsigned>(chunks), static_cast<unsigned>(rows));
-  quantize_partials<<<grid, kThreads, 0, st>>>(
-      static_cast<const float*>(x), static_cast<float*>(partials), cols,
-      static_cast<int>(chunks));
-  quantize_apply<<<grid, kThreads, 0, st>>>(
-      static_cast<const float*>(x), static_cast<const float*>(u),
-      static_cast<const float*>(partials), static_cast<float*>(out), cols,
-      static_cast<int>(chunks), levels);
+// Let every cluster kernel take a cluster of 16 blocks (non-portable) and
+// ask the card whether it schedules a cluster of 16 of every one of them:
+// *max_cluster <- 16 if it does, else 8.  The wrapper calls this once per
+// device.
+int quantize_init(int* max_cluster) {
+  const bool fused[2] = {false, true};
+  const int vecs[3] = {1, 2, 4};
+  const int vpts[4] = {1, 2, 4, 8};
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kMaxCluster);
+  cfg.blockDim = dim3(kThreads);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kMaxCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  bool all16 = true;
+  for (bool f : fused) {
+    for (int v : vecs) {
+      for (int t : vpts) {
+        const void* k = reinterpret_cast<const void*>(cluster_kernel(f, v, t));
+        const cudaError_t err = cudaFuncSetAttribute(
+            k, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        int clusters = 0;
+        const cudaError_t occ =
+            cudaOccupancyMaxActiveClusters(&clusters, k, &cfg);
+        cudaGetLastError();             // a refusal here is an answer
+        all16 = all16 && occ == cudaSuccess && clusters > 0;
+      }
+    }
+  }
+  *max_cluster = all16 ? kMaxCluster : kMaxCluster / 2;
   return static_cast<int>(cudaGetLastError());
+}
+
+// out <- row-wise QSGD of the (rows, cols) fp32 matrix x with uniforms u
+// (row r read at r % u_rows) by the wrapper's plan; partials is (rows,
+// blocks_per_row) fp32 scratch on the two-pass path, else unused
+int quantize_rows(const void* x, const void* u, void* out, void* partials,
+                  long long rows, long long cols, long long u_rows,
+                  float levels, int two_pass, int vec, int vpt, int threads,
+                  long long per_block, long long blocks_per_row,
+                  void* stream) {
+  QArgs p = {};
+  p.x = static_cast<const float*>(x);
+  p.u = static_cast<const float*>(u);
+  p.out = static_cast<float*>(out);
+  p.partials = static_cast<float*>(partials);
+  p.cols = cols;
+  p.u_rows = u_rows;
+  p.scale_rows = 1;
+  p.per_block = per_block;
+  p.blocks_per_row = blocks_per_row;
+  p.levels = levels;
+  return launch_quantize(false, p, rows, two_pass, vec, vpt, threads,
+                         static_cast<cudaStream_t>(stream));
+}
+
+// The QDither estimator update of (rows, cols) fp32 rows:
+//   delta = (h_new - h) - a (g_local - h);  m = QSGD(delta, u) * scale;
+//   g_out = g_local + m
+// u row r read at r % u_rows; scale is scale_t[r % scale_rows] when
+// scale_t is not null, else the scalar
+int dasha_quantize_update(const void* h_new, const void* h,
+                          const void* g_local, const void* u,
+                          const void* scale_t, void* m, void* g_out,
+                          void* partials, long long rows, long long cols,
+                          long long u_rows, long long scale_rows, float a,
+                          float scale, float levels, int two_pass, int vec,
+                          int vpt, int threads, long long per_block,
+                          long long blocks_per_row, void* stream) {
+  QArgs p = {};
+  p.x = static_cast<const float*>(h_new);
+  p.h = static_cast<const float*>(h);
+  p.gl = static_cast<const float*>(g_local);
+  p.u = static_cast<const float*>(u);
+  p.scale_t = static_cast<const float*>(scale_t);
+  p.out = static_cast<float*>(m);
+  p.g_out = static_cast<float*>(g_out);
+  p.partials = static_cast<float*>(partials);
+  p.cols = cols;
+  p.u_rows = u_rows;
+  p.scale_rows = scale_rows;
+  p.per_block = per_block;
+  p.blocks_per_row = blocks_per_row;
+  p.a = a;
+  p.scale = scale;
+  p.levels = levels;
+  return launch_quantize(true, p, rows, two_pass, vec, vpt, threads,
+                         static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

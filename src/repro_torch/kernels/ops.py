@@ -58,6 +58,22 @@ def quantize_with_u(x: torch.Tensor, u: torch.Tensor,
     return cuda_kernels.quantize(x, u, levels)
 
 
+def dasha_quantize_update(h_new: torch.Tensor, h: torch.Tensor,
+                          g_local: torch.Tensor, u: torch.Tensor, a: float,
+                          scale, levels: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """The QDither estimator update m = quantize(h_new - h - a (g_local -
+    h), u) * scale, g_new = g_local + m in one launch; returns (m, h_new,
+    g_new).  ``u`` (n, d) is broadcast over leading lane axes; ``scale``
+    is a float or an (n, 1) tensor."""
+    if _on_cpu("dasha_quantize_update", h_new):
+        return ref.dasha_quantize_update_ref(h_new, h, g_local, u, a, scale,
+                                             levels)
+    return cuda_kernels.dasha_quantize_update(h_new, h, g_local, u, a,
+                                              scale, levels)
+
+
 def quantize(x: torch.Tensor, generator: torch.Generator,
              levels: int = 15) -> torch.Tensor:
     """Unbiased row-wise stochastic quantization of x: (R, C), drawing the

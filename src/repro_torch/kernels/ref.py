@@ -66,6 +66,27 @@ def quantize_ref(x: torch.Tensor, u: torch.Tensor,
     return torch.where(norm > 0, out, torch.zeros_like(out)).to(x.dtype)
 
 
+def dasha_quantize_update_ref(h_new: torch.Tensor, h: torch.Tensor,
+                              g_local: torch.Tensor, u: torch.Tensor,
+                              a: float, scale, levels: int
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """The fused backend's QDither estimator update (the reference's
+    ``fused_estimator_update`` dither branch), as torch ops:
+
+        delta = h_new - h - a * (g_local - h)
+        m     = quantize(delta, u) * scale      (row-wise, s = levels)
+        g_new = g_local + m
+
+    ``h_new`` (..., n, d); ``u`` (n, d), broadcast over leading axes;
+    ``scale`` a float or an (n, 1) tensor.  Returns (m, h_new, g_new)."""
+    delta = h_new - h - a * (g_local - h)
+    rows = delta.reshape(-1, delta.shape[-1])
+    uu = u.expand(delta.shape).reshape(rows.shape)
+    m = quantize_ref(rows, uu, levels).view(delta.shape) * scale
+    return m, h_new, g_local + m
+
+
 def ssd_chunk_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                   b: torch.Tensor, c: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
