@@ -9,10 +9,11 @@ Phases, each fatal on failure:
    nvcc for sm_90a (one nvcc per source, all started together);
 2. kernels vs plain — each kernel against its plain torch version on the
    card, timed with CUDA events and the profiler beside its device-memory
-   bound: ``dasha_update`` at the flat path's (5, 20958), the ResNet-18
-   width (5, 11173962) and a ragged misaligned (3, 4099);
-   ``dasha_mvr_update`` at (4, 20958), the Mamba2-780M tied embedding
-   leaf (4, 77463552) and the ragged misaligned shape; then kernel 2
+   bound: ``dasha_update`` (the dense-mask entry) at the flat path's (5,
+   20958), the ResNet-18 width (5, 11173962) and a ragged misaligned (3,
+   4099); ``dasha_mvr_update`` at (4, 20958), the Mamba2-780M tied
+   embedding leaf (4, 77463552) and the ragged misaligned shape, on an fp32
+   mask, the trainer's bool draw and one shared bool row; then kernel 2
    (``QUANT_CASES``, ``FUSED_CASES``): the device floor of one launch (a
    one-element torch add), ``quantize`` by the one-level rule and two
    launches bit-identical on the cluster path at (5 | 20 | 64, 20958),
@@ -34,14 +35,27 @@ Phases, each fatal on failure:
    ``CLUSTER_SPEEDUP_MIN`` times slower (a planted fault, the two-pass
    path timed as the new arm, must fail that gate), and the fused entry
    against the unfused chain (torch delta, two-pass quantize, * scale,
-   + g_local) as one device-time sum;
+   + g_local) as one device-time sum; then kernel 1's sparsifier entry
+   ``dasha_sparsify_update`` (``SPARSIFY_CASES``: RandK at (5 | 20 | 64,
+   20958), with coins, at the cohort's scale, 8 lanes x 5 rows on the
+   plan's 5 index rows, shared_coords on one row, PermK with PAD,
+   passthrough with coins, a Bernoulli mask on misaligned (3, 4099), the
+   tree path's shared bool row, the ResNet-18 width) bit-equal to its
+   plain version (the chain: mask built, scale folded in, the dense-mask
+   update) with h_out the caller's grad; and at (5 | 20, 20958), in turns, the chain it replaced (the plan's
+   indices to a dense mask, the coins folded in, the dense-mask entry) as
+   one device-time sum, which must be at least ``SPARSIFY_SPEEDUP_MIN``
+   times the entry's (a planted fault, the chain timed as the new arm,
+   must fail that gate);
 3. flat main path — DASHA's flat Algorithm-1 round at the LIBSVM real-sim
    shape (n = 5 nodes x m = 14,461 samples, d = 20,958; synthetic data made
    on the card from a seed) through Method.build / init / Driver.run: dasha
    with fused RandK, dasha with fused QDither (its profiled window must
    hold one fused kernel-2 launch a round, no two-pass kernel and no
    kernel of the plain entry; device launches and ms a round reported),
-   page with fused RandK;
+   page with fused RandK (the RandK windows must hold one launch of
+   kernel 1's sparsifier entry a round, no mask scatter and no dense-mask
+   kernel);
 4. flat agreement — all 5 variants x dense/sparse/fused on the quickstart
    problem, on the card and on the CPU with the same injected draws;
 5. trainer main path — ``repro_torch.launch.train.train`` on Mamba2-780M
@@ -51,7 +65,8 @@ Phases, each fatal on failure:
    80 GB), n = 4, batch 2 per node,
    seq 512, DASHA-MVR with the fused kernel and an Adam server; rounds/s,
    tokens/s, peak memory, eval loss before and after, kernel launches
-   (= leaves x rounds) and a profiled window;
+   (= leaves x rounds; kernel 3 reads each leaf's bool draw) and a
+   profiled window with its device launches a round;
 6. trainer agreement — a smoke-size float32 Mamba2 trained on the card and
    on the CPU with the same injected masks, coins and batches, for dasha /
    mvr / sync_mvr x independent / permk x use_kernel off / on;
@@ -94,9 +109,9 @@ Phases, each fatal on failure:
     fused updates), participants and bytes; a second, gated run from the
     same state watches every writeback (untouched and written store rows)
     and must repeat the first bit for bit; the caller's state must be
-    unchanged; then a profiled chunk, and ``dasha_update`` against its
-    plain version at the cohort's (64, 20958) with a real round's RandK
-    mask and the plan scale d/K * n/C;
+    unchanged; then a profiled chunk, and kernel 1's sparsifier entry
+    against its plain version at the cohort's (64, 20958) on a real
+    round's RandK indices and the plan scale d/K * n/C;
 12. federated agreement — the example's shape (n = 256, m = 8, d = 40,
     K = 8, C in 256/64/16) for dasha/page x randk sparse/fused and mvr on
     a stochastic problem, card vs CPU with the same injected draws (exact
@@ -134,8 +149,9 @@ Phases, each fatal on failure:
     <= 8 GB, the best lane ending below its x0 ||grad f||^2; reported:
     rounds/s and lane-rounds/s against the sequential runs, a profiled
     window's busy share and top kernels, each method's best gamma and
-    coords to eps; then kernel 1
-    against its plain version at the sweep's (40, 20958) rows, and the
+    coords to eps; then kernel 1's sparsifier entry against its plain
+    version at the sweep's (40, 20958) rows on the plan's 5 index rows,
+    and the
     port's fig1, fig5 and table1 at the reference's rounds, fig2 at half
     and fig3 at a tenth of theirs (``FIG_ROUNDS_SCALE``), their rows printed
     (gates: fig1's DASHA-over-MARINA speedup > 1, fig5's floor ordering);
@@ -163,8 +179,8 @@ Phases, each fatal on failure:
     hand on the step's own input state and masks (x, g, g_local, h_local
     within 1e-3 of how far the round could move each row; a planted
     fault, a dropped client's round committed, must fail it); the absolute
-    peak gated at 8 GB; kernels 1 (the campaigns' a and d/K on a real RandK
-    mask, bit-equal) and 2 (s = 15, the one-level rule) against their
+    peak gated at 8 GB; kernels 1 (the sparsifier entry, the campaigns' a
+    and d/K on a real round's RandK indices, bit-equal) and 2 (s = 15, the one-level rule) against their
     plain versions at the campaigns' (20, 20958) rows; (d) card vs CPU at
     n = 5, m = 32, d = 40: faulted dasha and marina through both
     simulators with the same injected draws (integer traces equal, metric,
@@ -324,6 +340,31 @@ QUANT_MUST_RUN = {"quantize": {(4, 8), (2, 8), (1, 8)},
 CLUSTER_SPEEDUP_MIN = 2.0
 # before and after in one call, in turns (old, new, new, old)
 TURN_SHAPES = [(N_NODES, D_REALSIM), (20, D_REALSIM)]
+# kernel 1's sparsifier entry, (tag, (rows, cols), support, scale,
+# misaligned): the flat round's RandK at d/K, the faulted / async heaps'
+# 20 rows with coins, the cohort's 64 rows at d/K * n/C, the sweep's 8
+# lanes x 5 nodes on the plan's 5 rows, RandK shared_coords (one index row),
+# PermK with its 2 PAD slots, passthrough with coins, a Bernoulli fp32 mask
+# on misaligned ragged rows, the tree path's shared bool mask, and the
+# ResNet-18 width
+SPARSIFY_CASES = [
+    ("randk", (N_NODES, D_REALSIM), "randk", "d/K", False),
+    ("randk_coins", (20, D_REALSIM), "randk", "coins", False),
+    ("cohort", (64, D_REALSIM), "randk", "cohort", False),
+    ("lanes_8x5", (8 * N_NODES, D_REALSIM), "randk_lanes", "d/K", False),
+    ("shared_coords", (N_NODES, D_REALSIM), "randk_shared", "d/K", False),
+    ("permk_pad", (N_NODES, D_REALSIM), "permk", "n", False),
+    ("passthrough", (N_NODES, D_REALSIM), "none", "coins", False),
+    ("bernoulli", (3, 4099), "mask_f32", "1/p", True),
+    ("bool_shared", (4, D_REALSIM), "mask_bool_shared", "1/p",
+     False),
+    ("randk_resnet18", (N_NODES, D_RESNET18), "randk", "d/K", False)]
+# kernel entries that no main path calls: kernel 1's dense-mask entry, the
+# counterpart of dasha_update_pallas (the paths call the sparsifier entry)
+OFF_PATH_ENTRIES = {"dasha_update"}
+# the sparsifier entry must be this many times below the chain it replaced
+# (mask build + the dense-mask entry), by summed device time, at TURN_SHAPES
+SPARSIFY_SPEEDUP_MIN = 2.0
 # the trainer: Mamba2-780M's widths, its tied embedding leaf, n = 4 nodes
 TRAIN_NODES, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 4, 16, 2, 512
 TRAIN_WARMUP, TRAIN_ROUNDS, TRAIN_PROFILED = 2, 10, 2
@@ -648,16 +689,12 @@ def _inputs(torch, shape, seed: int, misalign: bool):
     return grad, h, gl, mask, u
 
 
-def _check_dasha(torch, kern, ref, shape, misalign, seed,
-                 a=1.0 / (2.0 * 208.58 + 1.0), scale=209.58, mask=None,
-                 cold: bool = False):
-    """Kernel 1 against its plain version; by default the flat round's
-    RandK scale d/K on a Bernoulli mask, else the given ``a``, ``scale``
-    and (shape-sized) ``mask``.  ``cold`` adds the device time with the
-    L2 cache flushed before every launch (``device_ms_cold``), as a main
-    path that streams gigabytes between launches finds it."""
-    grad, h, gl, bern, _ = _inputs(torch, shape, seed, misalign)
-    mask = bern if mask is None else mask
+def _check_dasha(torch, kern, ref, shape, misalign, seed):
+    """Kernel 1's dense-mask entry against its plain version at the flat
+    round's RandK scale d/K on a Bernoulli mask: bit-equal and
+    repeatable."""
+    a, scale = 1.0 / (2.0 * 208.58 + 1.0), 209.58
+    grad, h, gl, mask, _ = _inputs(torch, shape, seed, misalign)
     out = kern.dasha_update(grad, h, gl, mask, a, scale)
     again = kern.dasha_update(grad, h, gl, mask, a, scale)
     plain = ref.dasha_update_ref(grad, h, gl, mask, a, scale)
@@ -668,53 +705,58 @@ def _check_dasha(torch, kern, ref, shape, misalign, seed,
                              "(must be bit-equal and repeatable)")
     numel = math.prod(shape)
     b, by = bound(7 * 4 * numel, 6 * numel)
-    out = {"max_abs_err": err,
-           "ms": time_ms(torch, lambda: kern.dasha_update(
-               grad, h, gl, mask, a, scale)),
-           "plain_ms": time_ms(torch, lambda: ref.dasha_update_ref(
-               grad, h, gl, mask, a, scale)),
-           "device_ms": kernel_device_ms(torch, lambda: kern.dasha_update(
-               grad, h, gl, mask, a, scale), ["dasha_update_"]),
-           "bound_ms": b, "bound_by": by}
-    if cold:
-        flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-
-        def launch_cold():
-            flush.zero_()
-            kern.dasha_update(grad, h, gl, mask, a, scale)
-        out["device_ms_cold"] = kernel_device_ms(torch, launch_cold,
-                                                 ["dasha_update_"])
-    return out
+    return {"max_abs_err": err,
+            "ms": time_ms(torch, lambda: kern.dasha_update(
+                grad, h, gl, mask, a, scale)),
+            "plain_ms": time_ms(torch, lambda: ref.dasha_update_ref(
+                grad, h, gl, mask, a, scale)),
+            "device_ms": kernel_device_ms(torch, lambda: kern.dasha_update(
+                grad, h, gl, mask, a, scale), ["dasha_update_"]),
+            "bound_ms": b, "bound_by": by}
 
 
 def _check_mvr(torch, kern, ref, shape, misalign, seed):
+    """Kernel 3 against its plain version on every mask form: the fp32
+    mask, the trainer's bool draw and one shared bool row (read at r % 1),
+    for MVR and SARAH (b = 0), bit-equal and repeatable.  Timed on the
+    bool mask the trainer hands it (29 bytes an element), the fp32 mask's
+    times (32 bytes) beside them."""
     a, scale = 1.0 / (2.0 * 31.0 + 1.0), 32.0
     gn, h, gl, mask, _ = _inputs(torch, shape, seed, misalign)
     go, *_ = _inputs(torch, shape, seed + 50, misalign)
+    bmask = mask != 0
+    masks = {"float32": mask, "bool": bmask,
+             "bool_shared": bmask[:1].contiguous()}
     err = 0.0
-    for b in (0.1, 0.0):                      # MVR and SARAH (SYNC-MVR)
-        out = kern.dasha_mvr_update(gn, go, h, gl, mask, a, b, scale)
-        again = kern.dasha_mvr_update(gn, go, h, gl, mask, a, b, scale)
-        plain = ref.dasha_mvr_update_ref(gn, go, h, gl, mask, a, b, scale)
-        torch.cuda.synchronize()
-        err = max([err] + [float((o - p).abs().max())
-                           for o, p in zip(out, plain)])
-        if err != 0.0 or not all(torch.equal(o, p)
-                                 for o, p in zip(out, again)):
-            raise AssertionError(f"dasha_mvr_update {shape} b={b}: "
-                                 f"max_abs_err {err} (must be bit-equal "
-                                 "and repeatable)")
-        del out, again, plain
+    for form, mk in masks.items():
+        for b in (0.1, 0.0):                  # MVR and SARAH (SYNC-MVR)
+            out = kern.dasha_mvr_update(gn, go, h, gl, mk, a, b, scale)
+            again = kern.dasha_mvr_update(gn, go, h, gl, mk, a, b, scale)
+            plain = ref.dasha_mvr_update_ref(gn, go, h, gl, mk, a, b, scale)
+            torch.cuda.synchronize()
+            err = max([err] + [float((o - p).abs().max())
+                               for o, p in zip(out, plain)])
+            if err != 0.0 or not all(torch.equal(o, p)
+                                     for o, p in zip(out, again)):
+                raise AssertionError(f"dasha_mvr_update {shape} {form} "
+                                     f"b={b}: max_abs_err {err} (must be "
+                                     "bit-equal and repeatable)")
+            del out, again, plain
     numel = math.prod(shape)
-    b_ms, by = bound(8 * 4 * numel, 9 * numel)
-    return {"max_abs_err": err,
-            "ms": time_ms(torch, lambda: kern.dasha_mvr_update(
-                gn, go, h, gl, mask, a, 0.1, scale)),
-            "plain_ms": time_ms(torch, lambda: ref.dasha_mvr_update_ref(
-                gn, go, h, gl, mask, a, 0.1, scale)),
-            "device_ms": kernel_device_ms(torch, lambda: kern.dasha_mvr_update(
-                gn, go, h, gl, mask, a, 0.1, scale), ["dasha_mvr_update_"]),
-            "bound_ms": b_ms, "bound_by": by}
+
+    def timed(mk, nbytes):
+        b_ms, by = bound(nbytes * numel, 9 * numel)
+        return {"ms": time_ms(torch, lambda: kern.dasha_mvr_update(
+                    gn, go, h, gl, mk, a, 0.1, scale)),
+                "plain_ms": time_ms(torch, lambda: ref.dasha_mvr_update_ref(
+                    gn, go, h, gl, mk, a, 0.1, scale)),
+                "device_ms": kernel_device_ms(
+                    torch, lambda: kern.dasha_mvr_update(
+                        gn, go, h, gl, mk, a, 0.1, scale),
+                    ["dasha_mvr_update_"]),
+                "bound_ms": b_ms, "bound_by": by}
+    return {"max_abs_err": err, "mask": "bool", **timed(bmask, 29),
+            "float32_mask": timed(mask, 32)}
 
 
 QUANT_NAMES = ["quantize_cluster", "quantize_partials", "quantize_apply"]
@@ -976,6 +1018,193 @@ def phase_kernel2(torch):
             "turns": turns}
 
 
+SPARSIFY_NAMES = ["dasha_sparsify_rows"]
+# the chain the sparsifier entry replaced: indices_to_masks's clamp, fill,
+# scatter and slice copy, the coins' mask * scale, the dense-mask entry
+CHAIN_NAMES = ["elementwise_kernel", "dasha_update_"]
+
+
+def _sparsify_inputs(torch, shape, support, scale_kind, misalign, seed):
+    """(grad, h, gl, indices, mask, scale) of a sparsifier case on the
+    card: RandK rows of K_RANDK indices (one row for shared_coords, the
+    plan's 5 rows for 8 lanes), the PermK partition (2 PAD slots at n = 5,
+    d = 20,958), a Bernoulli(0.3) mask, or none; the scale d/K, d/K * n/C
+    (the cohort's n = 100,000, C = 64), n, 1/p, or coins (2 with a zero
+    node) times d/K."""
+    from repro_torch.compress.plan import perm_partition
+    rows, d = shape
+    grad, h, gl, bern, _ = _inputs(torch, shape, seed, misalign)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 7)
+
+    def randk(k_rows):
+        u = torch.rand((k_rows, d), generator=g, device="cuda")
+        return torch.topk(u, K_RANDK, dim=1).indices
+    indices = mask = None
+    if support == "randk":
+        indices = randk(rows)
+    elif support == "randk_lanes":
+        indices = randk(N_NODES)
+    elif support == "randk_shared":
+        indices = randk(1)
+    elif support == "permk":
+        indices = perm_partition(torch.Generator().manual_seed(seed), d,
+                                 rows, device="cuda")
+    elif support == "mask_f32":
+        mask = bern
+    elif support == "mask_bool_shared":
+        mask = (bern[:1] != 0).contiguous()
+    dk = d / K_RANDK
+    scale = {"d/K": dk, "cohort": dk * (100000 / 64), "n": float(rows),
+             "1/p": 1 / 0.3}.get(scale_kind)
+    if scale_kind == "coins":
+        scale = _coin_scale(torch, rows) * (dk if indices is not None
+                                            else 1.0)
+    return grad, h, gl, indices, mask, scale
+
+
+def _sparsify_bytes(shape, indices, mask, scale) -> int:
+    """What the entry must move: grad, h, g_local read and m, g_new written
+    (20 bytes an element; h_new is grad itself), the support and a per-row
+    scale read once."""
+    numel = math.prod(shape)
+    extra = 0
+    for t in (indices, mask, scale):
+        if hasattr(t, "element_size"):
+            extra += t.numel() * t.element_size()
+    return 20 * numel + extra
+
+
+def _check_sparsify(torch, kern, ref, tag, shape, support, scale_kind,
+                    misalign, seed):
+    """The sparsifier entry against its plain version (the chain) on a
+    case of :data:`SPARSIFY_CASES`."""
+    grad, h, gl, indices, mask, scale = _sparsify_inputs(
+        torch, shape, support, scale_kind, misalign, seed)
+    return {"case": tag, "shape": list(shape), "misaligned": misalign,
+            **_sparsify_row(torch, kern, ref, tag, grad, h, gl,
+                            1.0 / (2.0 * 208.58 + 1.0), scale, indices,
+                            mask)}
+
+
+def _sparsify_row(torch, kern, ref, tag, grad, h, gl, a, scale, indices,
+                  mask, cold: bool = False):
+    """The sparsifier entry against its plain version (the chain): m and
+    g_new bit-equal, h_out is grad, two launches bit-identical; timed
+    beside its bound (20 bytes an element and the support).  ``cold`` adds
+    the device time with the L2 cache flushed before every launch
+    (``device_ms_cold``)."""
+    shape = tuple(grad.shape)
+
+    def launch():
+        return kern.dasha_sparsify_update(grad, h, gl, a, scale,
+                                          indices=indices, mask=mask)
+    out, again = launch(), launch()
+    plain = ref.dasha_sparsify_update_ref(grad, h, gl, a, scale,
+                                          indices=indices, mask=mask)
+    torch.cuda.synchronize()
+    if out[1] is not grad:
+        raise AssertionError(f"dasha_sparsify_update {tag}: h_out is not "
+                             "grad")
+    err = max(float((o - p).abs().max()) for o, p in zip(out, plain))
+    if not all(_bits_equal(torch, o, p) for o, p in zip(out, plain)) or \
+            not all(_bits_equal(torch, o, p) for o, p in zip(out, again)):
+        raise AssertionError(f"dasha_sparsify_update {tag} {shape}: "
+                             f"max_abs_err {err} (must be bit-equal and "
+                             "repeatable)")
+    del out, again, plain
+    numel = math.prod(shape)
+    b, by = bound(_sparsify_bytes(shape, indices, mask, scale), 6 * numel)
+    args = kern.sparsify_args(grad, indices, mask, scale)
+    floats = [grad, h, gl] + ([mask] if args.form == "mask_f32" else [])
+    plan = kern._rows_plan(args, floats,
+                           mask if args.form == "mask_u8" else None)
+    out = {"form": args.form, "s_rows": args.s_rows, "k": args.k,
+           "sc_rows": args.sc_rows, "plan": plan._asdict(),
+           "max_abs_err": err, "ms": time_ms(torch, launch),
+           "plain_ms": time_ms(torch, lambda: ref.dasha_sparsify_update_ref(
+               grad, h, gl, a, scale, indices=indices, mask=mask)),
+           "device_ms": kernel_device_ms(torch, launch, SPARSIFY_NAMES),
+           "bound_ms": b, "bound_by": by}
+    if cold:
+        flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+
+        def launch_cold():
+            flush.zero_()
+            launch()
+        out["device_ms_cold"] = kernel_device_ms(torch, launch_cold,
+                                                 SPARSIFY_NAMES)
+    return out
+
+
+def _sparsify_turns(torch, kern, shape, scale_kind, seed, plant=False):
+    """At a main path's shape: the chain the entry replaced (the plan's
+    indices to a dense fp32 mask, the coins folded in, the dense-mask
+    entry) against the entry, by summed device time, gated at
+    :data:`SPARSIFY_SPEEDUP_MIN`; with ``plant``, the gate must refuse the
+    chain timed as the new arm."""
+    from repro_torch.compress.plan import indices_to_masks
+    grad, h, gl, indices, _, scale = _sparsify_inputs(
+        torch, shape, "randk", scale_kind, False, seed)
+    a = 1.0 / (2.0 * 208.58 + 1.0)
+
+    def chain():
+        mask = indices_to_masks(indices, shape[1])
+        kscale = scale
+        if isinstance(scale, torch.Tensor):
+            mask = mask * scale
+            kscale = 1.0
+        return kern.dasha_update(grad, h, gl, mask, a, kscale)
+    chain_arm = (chain, CHAIN_NAMES)
+    fused_arm = (lambda: kern.dasha_sparsify_update(
+        grad, h, gl, a, scale, indices=indices), SPARSIFY_NAMES)
+    t = _turns(torch, chain_arm, fused_arm)
+    tag = f"{shape} sparsify: the chain vs the entry"
+    if _turn_ratio(tag, t) < SPARSIFY_SPEEDUP_MIN:
+        raise AssertionError(f"[kernels] {tag}: chain / entry "
+                             f"{t['ratio']:.2f} < {SPARSIFY_SPEEDUP_MIN}")
+    out = {"shape": list(shape), "scale": scale_kind,
+           "chain_vs_entry": t}
+    if plant:
+        planted = _turns(torch, chain_arm, chain_arm)
+        if _turn_ratio(f"{shape} planted: the chain as the new arm",
+                       planted) >= SPARSIFY_SPEEDUP_MIN:
+            raise AssertionError(f"[kernels] {shape}: the sparsify gate "
+                                 f"passed the chain as the new arm "
+                                 f"({planted})")
+        log("[kernels] planted fault caught: the chain as the new arm "
+            f"reads {planted['ratio']:.2f} < {SPARSIFY_SPEEDUP_MIN}")
+        out["planted_chain_as_new"] = planted
+    return out
+
+
+def phase_sparsify(torch):
+    """Kernel 1's sparsifier entry at every route and the paths' shapes,
+    bit-equal to its plain version, and the turns against the chain it
+    replaced."""
+    from repro_torch.kernels import dasha_update as kern
+    from repro_torch.kernels import ref
+    rows = []
+    for i, (tag, shape, support, scale_kind, misalign) in \
+            enumerate(SPARSIFY_CASES):
+        r = _check_sparsify(torch, kern, ref, tag, shape, support,
+                            scale_kind, misalign, 200 + i)
+        rows.append(r)
+        torch.cuda.empty_cache()
+        p = r["plan"]
+        log(f"[kernels] dasha_sparsify_update {tag} {shape} {r['form']} "
+            f"s_rows {r['s_rows']}{' misaligned' if misalign else ''} "
+            f"vec {p['vec']} threads "
+            f"{p['threads']} grid {p['grid']}: err {r['max_abs_err']:.3g}  "
+            f"call {r['ms']:.4f} ms  device {r['device_ms']} ms  plain "
+            f"{r['plain_ms']:.4f} ms  bound {r['bound_ms']:.5f} ms")
+    turns = [_sparsify_turns(torch, kern, shape, kind, 240 + i,
+                             plant=i == 0)
+             for i, (shape, kind) in enumerate(zip(TURN_SHAPES,
+                                                   ("d/K", "coins")))]
+    return {"cases": rows, "turns": turns}
+
+
 def phase_kernels(torch):
     from repro_torch.kernels import dasha_update as kern
     from repro_torch.kernels import ref
@@ -1024,10 +1253,10 @@ def phase_main_path(torch):
     L = float(torch.mean(torch.sum(feats ** 2, -1)) * 2)
     x0 = torch.zeros(d, device="cuda")
     g0 = float(torch.sum(problem.grad_f(x0) ** 2))
-    runs = [("dasha", "randk", dict(k=K_RANDK), {}, "dasha_update"),
+    runs = [("dasha", "randk", dict(k=K_RANDK), {}, "dasha_sparsify_update"),
             ("dasha", "qdither", dict(s=S_QDITHER), {}, "quantize"),
             ("page", "randk", dict(k=K_RANDK), dict(B=1, m=m),
-             "dasha_update")]
+             "dasha_sparsify_update")]
     results, launches = [], {name: 0 for name in kern.COUNTS}
     for variant, comp_name, ckw, tkw, kernel in runs:
         comp = make_round_compressor(comp_name, d, n, backend="fused",
@@ -1070,8 +1299,10 @@ def phase_main_path(torch):
         # where the time goes: 20 more rounds under the profiler (its CPU
         # tracing slows the host, so the busy share is a lower bound); the
         # QDither round must launch kernel 2's fused entry once a round,
-        # no two-pass kernel and no kernel of the plain entry (a window
-        # that lost records is profiled again)
+        # no two-pass kernel and no kernel of the plain entry, and the RandK
+        # round kernel 1's sparsifier entry once a round, no scatter of a
+        # mask build and no dense-mask kernel (a window that lost records
+        # is profiled again)
         for attempt in range(1 + PROFILE_RETRIES):
             table, pwall = profiled(torch, lambda: driver.run(state, 20))
             fused = sum(c for k, (c, _) in table.items()
@@ -1081,16 +1312,23 @@ def phase_main_path(torch):
                         and "dasha_quantize_cluster" not in k)
             two_pass = sum(c for k, (c, _) in table.items()
                            if any(nm in k for nm in TWO_PASS_NAMES))
-            if kernel != "quantize" or (fused == 20 and two_pass == 0
-                                        and plain == 0):
+            sparsify = sum(c for k, (c, _) in table.items()
+                           if "dasha_sparsify_rows" in k)
+            chain = sum(c for k, (c, _) in table.items()
+                        if "dasha_update_" in k or "_scatter_gather" in k)
+            if kernel == "quantize" and fused == 20 and two_pass == 0 \
+                    and plain == 0:
+                break
+            if kernel == "dasha_sparsify_update" and sparsify == 20 and chain == 0:
                 break
             log(f"[main] {variant}/{comp_name}: profiled window {attempt + 1}"
                 f" holds {fused} fused, {plain} plain-entry and {two_pass} "
-                "two-pass kernel-2 launches (20, 0 and 0 expected)")
+                f"two-pass kernel-2 launches, {sparsify} sparsifier-entry "
+                f"and {chain} mask-chain or dense-mask kernel-1 launches")
         else:
-            raise AssertionError(f"{variant}/{comp_name}: kernel 2 not once "
-                                 "a round, by its fused entry, in the "
-                                 "profile")
+            raise AssertionError(f"{variant}/{comp_name}: the fused update "
+                                 "not once a round, by its one entry, in "
+                                 "the profile")
         busy_s = sum(t for _, t in table.values()) / 1e6
         top = sorted(table.items(), key=lambda kv: -kv[1][1])[:8]
         profile = {"rounds": 20, "wall_s": pwall, "device_busy_s": busy_s,
@@ -1101,6 +1339,8 @@ def phase_main_path(torch):
                    "quantize_fused_launches": fused,
                    "quantize_plain_entry_launches": plain,
                    "quantize_two_pass_launches": two_pass,
+                   "sparsify_launches": sparsify,
+                   "mask_chain_launches": chain,
                    "top_kernels": [[k[:90], c, us / 1e3]
                                    for k, (c, us) in top]}
         results.append({"run": tag, "rounds": ROUNDS,
@@ -1245,7 +1485,8 @@ def phase_trainer(torch):
     node_pass = torch.cuda.max_memory_allocated() - resident
     del batch, ps, loss
     if counts["dasha_mvr_update"] != leaves * rounds or \
-            counts["dasha_update"] or counts["quantize"]:
+            counts["dasha_update"] or counts["dasha_sparsify_update"] or \
+            counts["quantize"]:
         raise AssertionError(f"trainer launches {counts}, expected "
                              f"{leaves} leaves x {rounds} rounds of "
                              "dasha_mvr_update only")
@@ -1259,7 +1500,8 @@ def phase_trainer(torch):
     timed_rounds = rounds - TRAIN_WARMUP
     tokens = TRAIN_NODES * TRAIN_BATCH * TRAIN_SEQ
     numel = res.n_params * TRAIN_NODES
-    k3_bound = numel * 32 / HBM_BYTES_PER_S * 1e3
+    # kernel 3 on the bool draw: 4 reads, 3 writes and a mask byte
+    k3_bound = numel * 29 / HBM_BYTES_PER_S * 1e3
     # where the time goes: a few more rounds under the profiler (its CPU
     # tracing slows the host, so the busy share is a lower bound)
     table, pwall = profiled(torch, lambda: res.driver.run(
@@ -1285,6 +1527,8 @@ def phase_trainer(torch):
                                                       / TRAIN_PROFILED),
            "profile": {"rounds": TRAIN_PROFILED, "wall_s": pwall,
                        "device_busy_s": busy_s, "busy_share": busy_s / pwall,
+                       "device_launches_per_round":
+                           sum(c for c, _ in table.values()) / TRAIN_PROFILED,
                        "top_kernels": [[k[:90], c, us / 1e3]
                                        for k, (c, us) in top]},
            "chunks": res.chunks}
@@ -1297,7 +1541,9 @@ def phase_trainer(torch):
         f"{losses[-1]:.4f}, launches {counts}")
     log(f"[train] dasha_mvr_update {k3_ms:.3f} ms device per round vs a "
         f"{k3_bound:.3f} ms bound, {out['kernel_share_of_profiled_round']:.3f}"
-        f" of a profiled round; device busy {out['profile']['busy_share']:.3f}")
+        f" of a profiled round; device busy {out['profile']['busy_share']:.3f}"
+        f", {out['profile']['device_launches_per_round']:.1f} device launches "
+        "a round (no mask conversion pass: the kernel reads the bool draw)")
     for k, c, ms in out["profile"]["top_kernels"]:
         log(f"[train]   {ms:9.3f} ms  x{c:<5d} {k}")
     del res
@@ -1937,7 +2183,7 @@ def phase_fed_main(torch, smi: str):
 
     tr = res.traces
     chunks = -(-rounds // FED_CHUNK)
-    want = {"dasha_update": rounds, "slab_writeback": 2 * chunks}
+    want = {"dasha_sparsify_update": rounds, "slab_writeback": 2 * chunks}
     if any(counts[k] != v for k, v in want.items()) or \
             sum(counts.values()) != sum(want.values()):
         raise AssertionError(f"[fed] launches {counts}, expected {want}")
@@ -2056,12 +2302,25 @@ def phase_fed_main(torch, smi: str):
     return out, counts, _check_dasha_fed(torch, sim, smi)
 
 
+def _path_support(torch, plan, rows: int, k: int, tag: str):
+    """A RandK plan's support as the path hands it to kernel 1's
+    sparsifier entry (``backends._support``): indices, no dense mask;
+    each of the plan's rows must hold k distinct columns."""
+    from repro_torch.compress.backends import _support
+    indices, mask = _support(plan)
+    if mask is not None or indices is None or indices.shape[1] != k or \
+            rows % indices.shape[0] or \
+            any(len(set(r.tolist())) != k for r in indices.cpu()):
+        raise AssertionError(f"[{tag}] the round's plan is not RandK "
+                             "indices")
+    return indices
+
+
 def _check_dasha_fed(torch, sim, smi: str):
-    """Kernel 1 against its plain version at the federated path's shape
-    and scale: the (C, d) cohort, a real round's RandK mask, the plan
-    scale d/K * n/C (the n/C inflation folded in, as the cohort round
-    does) and the campaign's own momentum a."""
-    from repro_torch.compress.plan import indices_to_masks
+    """Kernel 1's sparsifier entry against its plain version at the
+    federated path's shape and scale: the (C, d) cohort, a real round's
+    RandK indices, the plan scale d/K * n/C (the n/C inflation folded in,
+    as the cohort round does) and the campaign's own momentum a."""
     from repro_torch.core.rng import RoundRandom
     from repro_torch.kernels import dasha_update as kern
     from repro_torch.kernels import ref
@@ -2069,18 +2328,17 @@ def _check_dasha_fed(torch, sim, smi: str):
     c, d = int(sub.c), int(sim.comp.spec.d)
     plan = RoundRandom(0, 0).plan(sub.cohort_rc)
     scale = float(plan.scale) * (sub.n / float(c))
-    mask = plan.mask.to(torch.float32).contiguous() if plan.mask is not None \
-        else indices_to_masks(plan.indices, d)
-    if int(mask.sum()) != c * K_RANDK:
-        raise AssertionError("[fed] the cohort plan's mask is not RandK")
-    r = _check_dasha(torch, kern, ref, (c, d), False, 160, a=sim.hyper.a,
-                     scale=scale, mask=mask)
-    r = {"shape": [c, d], "misaligned": False, "path": "fed", "a": sim.hyper.a,
-         "scale": scale, **r}
-    log(f"[kernels] dasha_update ({c}, {d}) at the federated scale "
-        f"{scale:.6g}, a {sim.hyper.a:.6g}: err {r['max_abs_err']:.3g}  call "
-        f"{r['ms']:.4f} ms  device {r['device_ms']} ms  plain "
-        f"{r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms | {smi}")
+    indices = _path_support(torch, plan, c, K_RANDK, "fed")
+    grad, h, gl, _, _ = _inputs(torch, (c, d), 160, False)
+    r = _sparsify_row(torch, kern, ref, "fed", grad, h, gl, sim.hyper.a,
+                      scale, indices, None)
+    r = {"case": "fed", "shape": [c, d], "misaligned": False, "path": "fed",
+         "a": sim.hyper.a, "scale": scale, **r}
+    log(f"[kernels] dasha_sparsify_update ({c}, {d}) at the federated "
+        f"scale {scale:.6g}, a {sim.hyper.a:.6g}: err "
+        f"{r['max_abs_err']:.3g}  call {r['ms']:.4f} ms  device "
+        f"{r['device_ms']} ms  plain {r['plain_ms']:.4f} ms  bound "
+        f"{r['bound_ms']:.5f} ms | {smi}")
     return r
 
 
@@ -2372,7 +2630,7 @@ def _heap_campaigns(torch, smi: str):
     peak = torch.cuda.max_memory_allocated()
 
     fused_randk = sum(1 for name, _ in campaigns if name != "dasha_qdither")
-    want = {"dasha_update": fused_randk * rounds, "quantize": rounds}
+    want = {"dasha_sparsify_update": fused_randk * rounds, "quantize": rounds}
     if any(counts[kk] != v for kk, v in want.items()) or \
             sum(counts.values()) != sum(want.values()):
         raise AssertionError(f"[heap] launches {counts}, expected {want}")
@@ -2675,7 +2933,7 @@ def phase_heap(torch, smi: str):
     worst = _heap_agreement(torch)
     return ({"real_sim": flat, "sampled": sampled,
              "agreement_worst": worst},
-            {"dasha_update": flat_counts["dasha_update"],
+            {"dasha_sparsify_update": flat_counts["dasha_sparsify_update"],
              "quantize": flat_counts["quantize"],
              "slab_writeback": sampled_counts["slab_writeback"]})
 
@@ -2832,10 +3090,11 @@ def _sweep_method(torch, smi: str, variant, problem, comp, gammas, g0):
     if gs.shape != (G, rounds) or bits.shape != (G, rounds):
         raise AssertionError(f"[sweep] {variant}: traces {gs.shape} / "
                              f"{bits.shape}, expected ({G}, {rounds})")
-    if counts["dasha_update"] != rounds or sum(counts.values()) != rounds:
+    if counts["dasha_sparsify_update"] != rounds or \
+            sum(counts.values()) != rounds:
         raise AssertionError(f"[sweep] {variant}: launches {counts}, "
-                             f"expected {rounds} of dasha_update only (one "
-                             "a round for all lanes)")
+                             f"expected {rounds} of dasha_sparsify_update "
+                             "only (one a round for all lanes)")
     if peak > SWEEP_PEAK_GB:
         raise AssertionError(f"[sweep] {variant}: peak {peak:.2f} GB over "
                              f"{SWEEP_PEAK_GB} GB")
@@ -2890,37 +3149,33 @@ def _sweep_method(torch, smi: str, variant, problem, comp, gammas, g0):
             f"{ {f: float(f'{e:.3g}') for f, e in errs.items()} }")
     for k_, c, ms in out["profile"]["top_kernels"]:
         log(f"[sweep]   {ms:9.3f} ms  x{c:<5d} {k_}")
-    return out, counts["dasha_update"]
+    return out, counts["dasha_sparsify_update"]
 
 
 def _sweep_kernel_row(torch, comp, smi: str):
-    """Kernel 1 against its plain version at the sweep's (G * n, d) rows: a
-    real round's RandK mask broadcast over the lanes, the plan scale d/K
-    and the sweep's momentum a."""
-    from repro_torch.compress.plan import indices_to_masks
+    """Kernel 1's sparsifier entry against its plain version at the
+    sweep's (G * n, d) rows: a real round's n RandK index rows, read at
+    row r % n by every lane (no copy), the plan scale d/K and the sweep's
+    momentum a."""
     from repro_torch.core import theory
     from repro_torch.core.rng import RoundRandom
     from repro_torch.kernels import dasha_update as kern
     from repro_torch.kernels import ref
     n, d, G = comp.n, comp.spec.d, SWEEP_G
     plan = RoundRandom(1, 0).plan(comp)
-    mask = indices_to_masks(plan.indices, d).expand(G, n, d) \
-        .reshape(G * n, d).contiguous()
+    indices = _path_support(torch, plan, G * n, K_RANDK, "sweep")
     a = theory.momentum_a(comp.omega)
-    r = _check_dasha(torch, kern, ref, (G * n, d), False, 170, a=a,
-                     scale=float(plan.scale), mask=mask, cold=True)
-    # the sweep's update reads three and writes three (G * n, d) tensors
-    # but needs only the plan's (n, d) mask: the bound counts that, not
-    # the (G * n, d) copy of it the kernel is handed
-    b, by = bound(6 * 4 * G * n * d + 4 * n * d, 6 * G * n * d)
-    r = {"shape": [G * n, d], "misaligned": False, "path": "sweep", "a": a,
-         "scale": float(plan.scale), **r, "bound_ms": b, "bound_by": by,
-         "bound_ms_expanded_mask": r["bound_ms"]}
-    log(f"[kernels] dasha_update ({G * n}, {d}), the sweep's {G} lanes x "
-        f"{n} nodes: err {r['max_abs_err']:.3g}  call {r['ms']:.4f} ms  "
-        f"device {r['device_ms']} ms (L2 flushed before each launch: "
+    grad, h, gl, _, _ = _inputs(torch, (G * n, d), 170, False)
+    r = _sparsify_row(torch, kern, ref, "sweep", grad, h, gl, a,
+                      float(plan.scale), indices, None, cold=True)
+    r = {"case": "sweep", "shape": [G * n, d], "misaligned": False,
+         "path": "sweep", "a": a, "scale": float(plan.scale), **r}
+    log(f"[kernels] dasha_sparsify_update ({G * n}, {d}), the sweep's {G} "
+        f"lanes x {n} nodes on {r['s_rows']} index rows: err "
+        f"{r['max_abs_err']:.3g}  call {r['ms']:.4f} ms  device "
+        f"{r['device_ms']} ms (L2 flushed before each launch: "
         f"{r['device_ms_cold']} ms)  plain {r['plain_ms']:.4f} ms  bound "
-        f"{r['bound_ms']:.4f} ms | {smi}")
+        f"{r['bound_ms']:.5f} ms | {smi}")
     return r
 
 
@@ -3107,7 +3362,7 @@ def _faults_sweep(torch, smi: str, problem):
     wall = time.perf_counter() - t0
     counts = _launch_counts()
     campaigns = len(ff.DROP_GRID) * 2
-    _gate_launches("faults", counts, {"dasha_update": campaigns * rounds})
+    _gate_launches("faults", counts, {"dasha_sparsify_update": campaigns * rounds})
     gates = ("marina_math_invariant", "dasha_metric_within_factor",
              "dasha_wall_bounded_by_deadline",
              "marina_pays_in_time_and_bytes", "graceful_degradation_ok")
@@ -3292,8 +3547,9 @@ def _faults_heap_vec(torch, smi: str, problem):
         f"integer gate on {caught}")
     counts = _launch_counts()
     fused_randk = 2 * 2 + 1            # heap and vec x 2, and the planted
-    _gate_launches("faults", counts, {"dasha_update": fused_randk * rounds,
-                                      "quantize": 2 * rounds})
+    _gate_launches("faults", counts,
+                   {"dasha_sparsify_update": fused_randk * rounds,
+                    "quantize": 2 * rounds})
     return {"campaigns": rows, "planted_fault_fails_on": caught,
             "launches": counts}, counts
 
@@ -3301,12 +3557,11 @@ def _faults_heap_vec(torch, smi: str, problem):
 def _faults_kernel_rows(torch, smi: str, problem):
     """Phase 15 kernel rows: kernels 1 and 2 against their plain versions
     at the faulted campaigns' (n, d) rows, gated as phase 2 gates them
-    (kernel 1 bit-equal, kernel 2 the one-level rule): kernel 1 on a real
-    round's RandK mask at the plan scale d/K with the campaigns' momentum
-    a, kernel 2 at s = 15."""
+    (kernel 1 bit-equal, kernel 2 the one-level rule): kernel 1's
+    sparsifier entry on a real round's RandK indices at the plan scale d/K
+    with the campaigns' momentum a, kernel 2 at s = 15."""
     from repro_torch.bench import common as bc
     from repro_torch.compress import make_round_compressor
-    from repro_torch.compress.plan import indices_to_masks
     from repro_torch.core.rng import RoundRandom
     from repro_torch.kernels import dasha_update as kern
     from repro_torch.kernels import ref
@@ -3317,26 +3572,25 @@ def _faults_kernel_rows(torch, smi: str, problem):
     a = bc.theory_hyper("dasha", rc.omega, bc.lipschitz_glm(problem), d=d,
                         k=K_RANDK, n=n, m=m).a
     plan = RoundRandom(1, 0).plan(rc)
-    mask = plan.mask.to(torch.float32).contiguous() if plan.mask is not None \
-        else indices_to_masks(plan.indices, d)
-    if int(mask.sum()) != n * K_RANDK:
-        raise AssertionError("[faults] the round's plan mask is not RandK")
+    indices = _path_support(torch, plan, n, K_RANDK, "faults")
     scale = float(plan.scale)
-    r1 = _check_dasha(torch, kern, ref, (n, d), False, 180, a=a,
-                      scale=scale, mask=mask, cold=True)
-    r1 = {"shape": [n, d], "misaligned": False, "path": "faults", "a": a,
-          "scale": scale, **r1}
+    grad, h, gl, _, _ = _inputs(torch, (n, d), 180, False)
+    r1 = _sparsify_row(torch, kern, ref, "faults", grad, h, gl, a, scale,
+                       indices, None, cold=True)
+    del grad, h, gl
+    r1 = {"case": "faults", "shape": [n, d], "misaligned": False,
+          "path": "faults", "a": a, "scale": scale, **r1}
     r2 = _check_quantize(torch, kern, ref, (n, d), False, 181)
     r2 = {"shape": [n, d], "misaligned": False, "path": "faults",
           "levels": S_QDITHER, **r2}
-    for name, r in (("dasha_update", r1), ("quantize", r2)):
+    for name, r in (("dasha_sparsify_update", r1), ("quantize", r2)):
         cold = f" (L2 flushed before each launch: {r['device_ms_cold']} ms)" \
             if "device_ms_cold" in r else ""
         log(f"[kernels] {name} ({n}, {d}) at the faulted campaigns' rows: "
             f"err {r['max_abs_err']:.3g}  call {r['ms']:.4f} ms  device "
             f"{r['device_ms']} ms{cold}  plain {r['plain_ms']:.4f} ms  bound "
             f"{r['bound_ms']:.4f} ms | {smi}")
-    return {"dasha_update": r1, "quantize": r2}
+    return {"dasha_sparsify_update": r1, "quantize": r2}
 
 
 def _dasha_round_by_hand(torch, problem, rc, hp, st, drop, reset):
@@ -3568,8 +3822,8 @@ def phase_faults(torch, smi: str):
     del problem
     torch.cuda.empty_cache()
     worst = _faults_agreement(torch)
-    launches = {"dasha_update": sweep_counts["dasha_update"]
-                + equiv_counts["dasha_update"],
+    launches = {"dasha_sparsify_update": sweep_counts["dasha_sparsify_update"]
+                + equiv_counts["dasha_sparsify_update"],
                 "quantize": equiv_counts["quantize"]}
     return {"n": n, "m": m, "d": d, "K": K_RANDK, "s_qdither": S_QDITHER,
             "features_gb": n * m * d * 4 / 1e9,
@@ -3611,7 +3865,7 @@ def _async_sweep(torch, smi: str, problem):
     runs = sev.pop("runs")
     rounds = 2 * 2 * len(ASYNC_SIGMAS) * ASYNC_ROUNDS \
         + len(depth["taus"]) * depth["rounds"]
-    _gate_launches("async", counts, {"dasha_update": rounds})
+    _gate_launches("async", counts, {"dasha_sparsify_update": rounds})
     gates = ("dasha_async_strictly_faster", "advantage_widens_with_severity",
              "marina_capped_by_coin_flush",
              "bytes_up_bit_identical_async_vs_barrier", "payload_reconciles")
@@ -3860,7 +4114,7 @@ def _async_heap_vec(torch, smi: str, problem):
             f"metric {cmp['metric_rel_err']:.3g}, x {x_err:.3g}; "
             f"{clock['gated_uploads']} uploads decoded | {smi}")
     counts = _launch_counts()
-    _gate_launches("async", counts, {"dasha_update": 2 * 2 * rounds,
+    _gate_launches("async", counts, {"dasha_sparsify_update": 2 * 2 * rounds,
                                      "quantize": 2 * rounds})
     return {"campaigns": rows, "launches": counts}, counts
 
@@ -3905,7 +4159,7 @@ def _async_scale(torch, smi: str, fed_peak_gb: float):
         counts[mode] = _launch_counts()
         peak = torch.cuda.max_memory_allocated() / 1e9
         tr = res.traces
-        want = {"dasha_update": rounds,
+        want = {"dasha_sparsify_update": rounds,
                 "slab_writeback": 2 * -(-rounds // FED_CHUNK)}
         _gate_launches(f"async-scale {mode}", counts[mode], want)
         if not (np.all(tr["participants"] == c) and all(
@@ -4006,9 +4260,9 @@ def phase_async(torch, smi: str, fault_peak_gb=None, fed_peak_gb=None):
     torch.cuda.empty_cache()
     scale, scale_counts = _async_scale(
         torch, smi, FED_PEAK_GB if fed_peak_gb is None else fed_peak_gb)
-    launches = {"dasha_update": sweep_counts["dasha_update"]
-                + equiv_counts["dasha_update"]
-                + scale_counts["dasha_update"],
+    launches = {"dasha_sparsify_update": sweep_counts["dasha_sparsify_update"]
+                + equiv_counts["dasha_sparsify_update"]
+                + scale_counts["dasha_sparsify_update"],
                 "quantize": equiv_counts["quantize"],
                 "slab_writeback": scale_counts["slab_writeback"]}
     return {"n": n, "m": m, "d": d, "K": K_RANDK, "tau": ASYNC_TAU,
@@ -4196,7 +4450,7 @@ def _obs_heap(torch, smi: str, problem, out_dir):
     if arms["plain"] != arms["obs"]:
         raise AssertionError(f"[obs] launches differ: plain "
                              f"{arms['plain']}, obs {arms['obs']}")
-    want = {"dasha_update": sum(r for _, _, c, _, r in campaigns
+    want = {"dasha_sparsify_update": sum(r for _, _, c, _, r in campaigns
                                 if c == "randk"),
             "quantize": OBS_QDITHER_ROUNDS}
     _gate_launches("obs heap", arms["obs"], want)
@@ -4292,7 +4546,7 @@ def _obs_vec(torch, smi: str, problem, heap_timelines):
             f"spans; rebuilt {len(tl.events)} events in {rebuild_s:.3f} s, "
             f"equal to the heap's event for event (timestamps bit for "
             f"bit); planted faults fail: {list(planted)} | {smi}")
-    _gate_launches("obs vec", counts, {"dasha_update": 2 * OBS_HEAP_ROUNDS})
+    _gate_launches("obs vec", counts, {"dasha_sparsify_update": 2 * OBS_HEAP_ROUNDS})
     out["launches"] = counts
     return out, counts
 
@@ -4441,7 +4695,7 @@ def _obs_overhead(torch, smi: str):
                                      f"{fed_rounds} rounds counted")
         del res
     gc.unfreeze()
-    want = {"dasha_update": rounds,
+    want = {"dasha_sparsify_update": rounds,
             "slab_writeback": 2 * -(-rounds // FED_CHUNK)}
     _gate_launches("obs overhead", first[1], want)
 
@@ -4636,9 +4890,9 @@ def phase_obs(torch, smi: str):
     overhead, over_counts = _obs_overhead(torch, smi)
     handle_runs = OBS_TURNS * OBS_TURN.count("obs")
     builds = _obs_build_spans()
-    launches = {"dasha_update": heap_counts["dasha_update"]
-                + vec_counts["dasha_update"]
-                + handle_runs * over_counts["dasha_update"],
+    launches = {"dasha_sparsify_update": heap_counts["dasha_sparsify_update"]
+                + vec_counts["dasha_sparsify_update"]
+                + handle_runs * over_counts["dasha_sparsify_update"],
                 "quantize": heap_counts["quantize"],
                 "slab_writeback": handle_runs
                 * over_counts["slab_writeback"]}
@@ -5012,7 +5266,7 @@ def _ckpt_vec(torch, smi: str, tmp: str):
     # a round, two writebacks a chunk
     rounds = 2 * CKPT_VEC_ROUNDS
     chunks = 2 * (CKPT_VEC_ROUNDS // CKPT_VEC_CHUNK)
-    _gate_launches("ckpt", counts, {"dasha_update": rounds,
+    _gate_launches("ckpt", counts, {"dasha_sparsify_update": rounds,
                                     "slab_writeback": 2 * chunks})
     del problem, feats, labels
     return dict(out, n=n, C=c, d=d, K=K_RANDK, store="slab"), counts
@@ -5044,7 +5298,7 @@ def _ckpt_heap(torch, smi: str, tmp: str):
     out, counts = _ckpt_campaign(
         torch, smi, tmp, "18c FedSim faulted", build, CKPT_HEAP_ROUNDS,
         CKPT_HEAP_CHUNK, CKPT_HEAP_KILL, None)
-    _gate_launches("ckpt", counts, {"dasha_update": 2 * CKPT_HEAP_ROUNDS})
+    _gate_launches("ckpt", counts, {"dasha_sparsify_update": 2 * CKPT_HEAP_ROUNDS})
     del problem, sub
     return dict(out, n=n, m=m, d=d, K=k, faults=ff.EQUIV_FAULTS["dasha"]), \
         counts
@@ -5066,8 +5320,8 @@ def phase_ckpt(torch, smi: str):
         shutil.rmtree(tmp, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
-    launches = {"dasha_update": v_counts["dasha_update"]
-                + h_counts["dasha_update"],
+    launches = {"dasha_sparsify_update": v_counts["dasha_sparsify_update"]
+                + h_counts["dasha_sparsify_update"],
                 "dasha_mvr_update": t_counts["dasha_mvr_update"],
                 "slab_writeback": v_counts["slab_writeback"]}
     wall = time.perf_counter() - t_phase
@@ -5098,6 +5352,7 @@ def main() -> int:
     per_shape = phase_kernels(torch)
     kernel2 = phase_kernel2(torch)
     per_shape["quantize"] = kernel2["quantize"]
+    sparsify = phase_sparsify(torch)
     runs, launches = phase_main_path(torch)
     rel = phase_agreement(torch)
     trainer, train_launches = phase_trainer(torch)
@@ -5107,15 +5362,16 @@ def main() -> int:
     serving, launches["ssd_chunk"] = phase_serve(torch, smi)
     serve_rel = phase_serve_agreement(torch)
     slab_rows = phase_slab_kernel(torch, smi)
+    # the paths' own kernel-1 rows join the sparsifier entry's cases
     fed, fed_launches, fed_dasha = phase_fed_main(torch, smi)
-    per_shape["dasha_update"].append(fed_dasha)
+    sparsify["cases"].append(fed_dasha)
     fed_rel = phase_fed_agreement(torch)
     heap, heap_launches = phase_heap(torch, smi)
     sweep, sweep_launches, sweep_dasha = phase_sweep(torch, smi)
-    per_shape["dasha_update"].append(sweep_dasha)
+    sparsify["cases"].append(sweep_dasha)
     faults, fault_launches, fault_rows = phase_faults(torch, smi)
-    for name, row in fault_rows.items():
-        per_shape[name].append(row)
+    sparsify["cases"].append(fault_rows["dasha_sparsify_update"])
+    per_shape["quantize"].append(fault_rows["quantize"])
     asyncr, async_launches = phase_async(
         torch, smi, fault_peak_gb=faults["peak_mem_gb"],
         fed_peak_gb=fed["peak_mem_gb"])
@@ -5127,14 +5383,15 @@ def main() -> int:
     # handle and the checkpoint drills; kernel 3 in the trainer and its
     # drill (each counted from zero around its own run)
     by_path = {
-        "dasha_update": {"flat": launches["dasha_update"],
-                         "fed": fed_launches["dasha_update"],
-                         "heap": heap_launches["dasha_update"],
-                         "sweep": sweep_launches,
-                         "faults": fault_launches["dasha_update"],
-                         "async": async_launches["dasha_update"],
-                         "obs": obs_launches["dasha_update"],
-                         "ckpt": ckpt_launches["dasha_update"]},
+        "dasha_sparsify_update": {
+            "flat": launches["dasha_sparsify_update"],
+            "fed": fed_launches["dasha_sparsify_update"],
+            "heap": heap_launches["dasha_sparsify_update"],
+            "sweep": sweep_launches,
+            "faults": fault_launches["dasha_sparsify_update"],
+            "async": async_launches["dasha_sparsify_update"],
+            "obs": obs_launches["dasha_sparsify_update"],
+            "ckpt": ckpt_launches["dasha_sparsify_update"]},
         "dasha_mvr_update": {"trainer": launches["dasha_mvr_update"],
                              "ckpt": ckpt_launches["dasha_mvr_update"]},
         "quantize": {"flat": launches["quantize"],
@@ -5194,6 +5451,27 @@ def main() -> int:
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"], "library_ms": None,
         "launches_by_path": by_path["quantize"], "shapes": kernel2["fused"]})
+    # kernel 1's sparsifier entry, its own row at the flat round's (5,
+    # 20958) RandK: 20 bytes an element and the plan's indices, against the
+    # chain it replaces (the reference's jnp mask build around
+    # dasha_update_pallas).  Every main path reaches kernel 1 through this
+    # entry (phase 3's profile and every launch gate hold it), so the
+    # dense-mask row above reports the dense-mask entry's own launches: none
+    main_shape = sparsify["cases"][0]
+    kernels.append({
+        "name": "dasha_sparsify_update", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/dasha_update.cu",
+        "replaces": "src/repro/kernels/dasha_update.py:70",
+        "replaces_chain": "src/repro/compress/backends.py:158-172",
+        "launches": launches["dasha_sparsify_update"],
+        "max_abs_err": max(r["max_abs_err"] for r in sparsify["cases"]),
+        "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
+        "bound_ms": main_shape["bound_ms"],
+        "bound_by": main_shape["bound_by"], "library_ms": None,
+        "device_ms": main_shape["device_ms"],
+        "launches_by_path": by_path["dasha_sparsify_update"],
+        "turns": sparsify["turns"],
+        "shapes": sparsify["cases"]})
     # the SSD kernel's row: one layer of the serving prefill in bf16; its
     # bound is that of the tensor-core arithmetic it runs, with the float32
     # CUDA-core bound of the same work beside it
@@ -5232,10 +5510,17 @@ def main() -> int:
         "per_chunk": {k: fed["profiled_chunk"][k] for k in (
             "slab_writeback_launches", "slab_writeback_device_ms",
             "slab_writeback_bound_ms", "union_rows")}})
+    # every kernel of the main paths launched there: kernel 1 through its
+    # sparsifier entry; its dense-mask entry, the Pallas entry's
+    # counterpart, is on no path, and must not have launched on one
     for row in kernels:
         if row["name"] in by_path:
             row["launches_by_path"] = by_path[row["name"]]
-        if row["launches"] == 0:
+        row["on_main_path"] = row["name"] not in OFF_PATH_ENTRIES
+        if not row["on_main_path"] and row["launches"]:
+            raise AssertionError(f"{row['name']} launched on a main path "
+                                 f"({row['launches']} times)")
+        if row["on_main_path"] and row["launches"] == 0:
             raise AssertionError(f"{row['name']} was never launched on the "
                                  "main path")
     report = {"kernels": kernels, "main_path": runs,

@@ -147,11 +147,15 @@ def fused_estimator_update(plan: Plan, h_new: torch.Tensor, h: torch.Tensor,
                            g_local: torch.Tensor, a: float
                            ) -> Tuple[Messages, torch.Tensor, torch.Tensor]:
     """Alg. 1 lines 9-10 through the fused kernel, one device-memory pass:
-    m = C(h_new - h - a (g_local - h)); g_i <- g_i + m_i.
+    m = C(h_new - h - a (g_local - h)); g_i <- g_i + m_i.  On the card one
+    launch: kernel 2's fused entry for QDither, kernel 1's sparsifier
+    entry for RandK, PermK, Bernoulli and passthrough, which builds the
+    support from the plan's indices (or reads its mask) inside the launch
+    and folds a per-node scale in as the reference's mask * scale does.
 
-    With a lane axis, (G, n, d) inputs, the plan's (n, d) support (or
-    uniforms, which the QDither kernel reads at row r % n) is broadcast
-    over the lanes and the kernel runs once on the G * n rows.
+    With a lane axis, (G, n, d) inputs, the plan's (n, d) support, scale
+    and uniforms are read at row r % n: the kernel runs once on the G * n
+    rows and nothing is copied per lane.  ``h_out`` is ``h_new`` itself.
 
     Returns (messages, h_out, g_local_new)."""
     d = float(h_new.shape[-1])            # fused messages stay dense
@@ -163,26 +167,31 @@ def fused_estimator_update(plan: Plan, h_new: torch.Tensor, h: torch.Tensor,
             plan.dither_u.contiguous(), a, scale, plan.levels)
         return (DenseMessages(m, plan.payload_coords, d), h_out, gl_new)
 
-    if plan.kind == "passthrough":
-        mask = torch.ones_like(h_new, dtype=torch.float32)
-    elif plan.mask is not None:
-        mask = plan.mask.to(torch.float32).contiguous()
-    else:
-        mask = indices_to_masks(plan.indices, h_new.shape[-1])
-    if isinstance(plan.scale, torch.Tensor):
-        # participation coins make the scale per-node: fold it into the
-        # mask so the kernel's scale stays one scalar
-        mask = mask * plan.scale.to(torch.float32)
-        kscale = 1.0
-    else:
-        kscale = float(plan.scale)
-    if mask.shape != h_new.shape:
-        # lanes: one plan for every lane, the kernel's mask per element
-        mask = mask.expand(h_new.shape).contiguous()
-    m, h_out, gl_new = kops.dasha_update(h_new.contiguous(), h.contiguous(),
-                                         g_local.contiguous(), mask, a,
-                                         kscale)
+    scale = plan.scale.to(torch.float32).contiguous() \
+        if isinstance(plan.scale, torch.Tensor) else float(plan.scale)
+    indices, mask = _support(plan)
+    m, h_out, gl_new = kops.dasha_sparsify_update(
+        h_new.contiguous(), h.contiguous(), g_local.contiguous(), a, scale,
+        indices=indices, mask=mask)
     return (DenseMessages(m, plan.payload_coords, d), h_out, gl_new)
+
+
+def _support(plan: Plan):
+    """A sparsify or passthrough plan's support as the fused entry takes
+    it, (indices, mask): a RandK ``shared_coords`` plan's (n, k) view of
+    one row goes as that row (the kernel reads row r % 1); a mask of
+    another dtype is read as float32, as the reference converts it."""
+    if plan.kind == "passthrough":
+        return None, None
+    if plan.mask is not None:
+        mask = plan.mask
+        if mask.dtype not in (torch.float32, torch.bool, torch.uint8):
+            mask = mask.to(torch.float32)
+        return None, mask.contiguous()
+    idx = plan.indices
+    if idx.dim() == 2 and idx.shape[0] > 1 and idx.stride(0) == 0:
+        idx = idx[:1]
+    return idx.contiguous(), None
 
 
 @dataclasses.dataclass(frozen=True)

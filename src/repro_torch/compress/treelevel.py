@@ -5,7 +5,8 @@ Model training thinks in parameter trees whose leaves carry a leading node
 axis.  This module bridges them to the compressors:
 
 * :func:`leaf_mask` / :func:`tree_masks` — the per-leaf (n, *shape) {0,1}
-  masks and the unbiasedness scale;
+  masks and the unbiasedness scale; :func:`leaf_support` — the same draw
+  as the kernels read it (bool, one row for ``shared_coords``);
 * :func:`bernoulli_compress` — tree-level independent / shared_coords;
 * :func:`permk_compress`     — tree-level PermK with its exact aggregate;
 * :func:`fused_leaf_updates` / :func:`fused_tree_update` — the CUDA kernel
@@ -34,14 +35,9 @@ def _node_ids(x: torch.Tensor) -> torch.Tensor:
                                                     (x.dim() - 1))
 
 
-def leaf_mask(rnd, path: str, x: torch.Tensor, *, mode: str, p: float,
-              n: int) -> torch.Tensor:
-    """The (n, *shape) float32 {0,1} mask of leaf ``x`` (shape (n, ...)).
-
-    ``permk``: node i keeps the coordinates it owns under the leaf's
-    cyclic-shift partition; ``shared_coords``: one Bernoulli(p) mask per
-    leaf, the same for every node; ``independent``: Bernoulli(p) per node
-    and coordinate."""
+def _leaf_draw(path: str, x: torch.Tensor, *, mode: str, p: float, n: int):
+    """(generator device, draw) of leaf ``x``'s support before its float
+    conversion: bool, (n, *shape), or (1, *shape) for ``shared_coords``."""
     if mode == "permk":
         # the scale is the tree-wide n: a leaf whose node axis disagrees
         # would be silently mis-scaled (a biased estimator)
@@ -51,17 +47,36 @@ def leaf_mask(rnd, path: str, x: torch.Tensor, *, mode: str, p: float,
 
         def draw(gen):
             owner = permk_owner(gen, x.shape[1:], n, device=x.device)
-            return (owner[None] == _node_ids(x)).to(torch.float32)
-        return rnd.leaf_mask(path, "cpu", draw)
+            return owner[None] == _node_ids(x)
+        return "cpu", draw
     if mode == "shared_coords":
-        def draw(gen):
-            return draw_mask(gen, x.shape[1:], p)[None].expand(x.shape) \
-                .to(torch.float32)
-        return rnd.leaf_mask(path, x.device, draw)
+        return x.device, lambda gen: draw_mask(gen, x.shape[1:], p)[None]
     if mode != "independent":
         raise ValueError(f"unknown tree compression mode {mode!r}")
-    return rnd.leaf_mask(path, x.device, lambda gen: draw_mask(
-        gen, x.shape, p).to(torch.float32))
+    return x.device, lambda gen: draw_mask(gen, x.shape, p)
+
+
+def leaf_mask(rnd, path: str, x: torch.Tensor, *, mode: str, p: float,
+              n: int) -> torch.Tensor:
+    """The (n, *shape) float32 {0,1} mask of leaf ``x`` (shape (n, ...)).
+
+    ``permk``: node i keeps the coordinates it owns under the leaf's
+    cyclic-shift partition; ``shared_coords``: one Bernoulli(p) mask per
+    leaf, the same for every node; ``independent``: Bernoulli(p) per node
+    and coordinate."""
+    dev, draw = _leaf_draw(path, x, mode=mode, p=p, n=n)
+    return rnd.leaf_mask(path, dev, lambda gen: draw(gen).expand(x.shape)
+                         .to(torch.float32))
+
+
+def leaf_support(rnd, path: str, x: torch.Tensor, *, mode: str, p: float,
+                 n: int) -> torch.Tensor:
+    """:func:`leaf_mask`'s draw before its float conversion, as the
+    kernels read it: bool (n, *shape), or the single (1, *shape) row of
+    ``shared_coords`` (the kernels read row r % 1).  The same generator
+    calls, so the same values; an injected mask is returned as given."""
+    dev, draw = _leaf_draw(path, x, mode=mode, p=p, n=n)
+    return rnd.leaf_mask(path, dev, draw)
 
 
 def mask_scale(mode: str, p: float, n: int) -> float:
@@ -119,8 +134,10 @@ def fused_leaf_updates(rnd, grads_new: Tree, h: Tree, g_local: Tree, *,
                        ) -> Iterator[Tuple[str, torch.Tensor, torch.Tensor,
                                            torch.Tensor]]:
     """Alg. 1 lines 8-10 leaf by leaf, one kernel launch per leaf: yields
-    ``(path, m, h_new, g_local_new)``.  A leaf's mask lives only while its
-    kernel runs, so the masks of the whole tree never exist at once.
+    ``(path, m, h_new, g_local_new)``.  Each kernel reads the leaf's draw
+    as it comes (:func:`leaf_support`, a byte a coordinate, no float
+    conversion pass); it lives only while its kernel runs, so the masks of
+    the whole tree never exist at once.
 
     ``variant="dasha"``: h_new = grads_new.  ``variant="mvr"``: the kernel
     fuses the momentum h-update h_new = gn + (1-b)(h - go) as well
@@ -131,14 +148,23 @@ def fused_leaf_updates(rnd, grads_new: Tree, h: Tree, g_local: Tree, *,
         raise ValueError(f"unknown fused variant {variant!r}")
     scale = mask_scale(mode, p, n)
     for path, gn in tree.items(grads_new):
-        mask = leaf_mask(rnd, path, gn, mode=mode, p=p, n=n)
+        support = leaf_support(rnd, path, gn, mode=mode, p=p, n=n)
         hh, gl = tree.get(h, path), tree.get(g_local, path)
         if variant == "mvr":
             out = kops.dasha_mvr_update(gn, tree.get(grads_old, path), hh,
-                                        gl, mask, a, b, scale)
+                                        gl, support, a, b, scale)
         else:
-            out = kops.dasha_update(gn, hh, gl, mask, a, scale)
+            out = _sparsify_leaf(gn, hh, gl, support, a, scale)
         yield (path, *out)
+
+
+def _sparsify_leaf(gn, hh, gl, support, a: float, scale: float):
+    """Kernel 1's sparsifier entry on a leaf as n rows: (m, gn, g_new)."""
+    def rows(t):
+        return t.reshape(t.shape[0], -1)
+    m, _, g_new = kops.dasha_sparsify_update(
+        rows(gn), rows(hh), rows(gl), a, scale, mask=rows(support))
+    return m.view(gn.shape), gn, g_new.view(gn.shape)
 
 
 def fused_tree_update(rnd, grads_new: Tree, h: Tree, g_local: Tree, *,

@@ -1,10 +1,17 @@
 // Hand-written Hopper (sm_90a) kernels of the DASHA round.
 //
-//   dasha_update     — the fused estimator update, one elementwise pass
-//                      (replaces repro/kernels/dasha_update.py:dasha_update_pallas)
-//   dasha_mvr_update — the same pass with the MVR h-update fused in
-//                      (replaces repro/kernels/dasha_update.py:
-//                      dasha_mvr_update_pallas)
+//   dasha_update     — the fused estimator update on a dense fp32 mask, with
+//                      h_new written as a copy of grad (replaces repro/
+//                      kernels/dasha_update.py:dasha_update_pallas)
+//   dasha_sparsify_update — the same update for the sparsifiers (RandK,
+//                      PermK, Bernoulli) and passthrough, with the support
+//                      built in the launch from the plan's indices or read
+//                      from its mask (the reference runs the mask build as
+//                      jnp ops around dasha_update_pallas); both entries
+//                      launch one rows kernel
+//   dasha_mvr_update — the same pass with the MVR h-update fused in, by
+//                      rows, on an fp32 or byte mask (replaces repro/
+//                      kernels/dasha_update.py:dasha_mvr_update_pallas)
 //   quantize_rows    — row-wise QSGD with external uniforms
 //                      (replaces repro/kernels/dasha_update.py:
 //                      quantize_pallas)
@@ -18,39 +25,15 @@
 // allocates nothing and returns cudaGetLastError().
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
-#include <stdint.h>
 
 namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBlocksPerSm = 8;
 // the largest cluster a row may take (16 is non-portable: quantize_init
 // asks the card whether it takes it)
 constexpr int kMaxCluster = 16;
-
-int sm_count() {
-  int dev = 0;
-  int sms = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess) {
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return sms;
-}
-
-// enough blocks to fill every SM, no more than the work needs
-int grid_for(long long work) {
-  long long blocks = (work + kThreads - 1) / kThreads;
-  const long long cap = static_cast<long long>(sm_count()) * kBlocksPerSm;
-  if (blocks > cap) blocks = cap;
-  if (blocks < 1) blocks = 1;
-  return static_cast<int>(blocks);
-}
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
-}
 
 // delta = grad - h - a * (g_local - h); m = mask * delta * scale;
 // g_new = g_local + m.  Every op is rounded on its own, in the plain
@@ -66,55 +49,6 @@ __device__ __forceinline__ void dasha_one(float g, float h, float gl,
   *gn = __fadd_rn(gl, mm);
 }
 
-__global__ void __launch_bounds__(kThreads)
-dasha_update_vec4(const float4* __restrict__ grad,
-                  const float4* __restrict__ h,
-                  const float4* __restrict__ gl,
-                  const float4* __restrict__ mask,
-                  float4* __restrict__ m, float4* __restrict__ h_out,
-                  float4* __restrict__ gl_out, float a, float scale,
-                  long long n4) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n4; i += stride) {
-    const float4 g = grad[i];
-    const float4 hh = h[i];
-    const float4 l = gl[i];
-    const float4 k = mask[i];
-    float4 mo, go;
-    dasha_one(g.x, hh.x, l.x, k.x, a, scale, &mo.x, &go.x);
-    dasha_one(g.y, hh.y, l.y, k.y, a, scale, &mo.y, &go.y);
-    dasha_one(g.z, hh.z, l.z, k.z, a, scale, &mo.z, &go.z);
-    dasha_one(g.w, hh.w, l.w, k.w, a, scale, &mo.w, &go.w);
-    m[i] = mo;
-    h_out[i] = g;
-    gl_out[i] = go;
-  }
-}
-
-// elements [start, n): the tail after the float4 body, or everything when
-// a pointer is not 16-byte aligned
-__global__ void __launch_bounds__(kThreads)
-dasha_update_scalar(const float* __restrict__ grad,
-                    const float* __restrict__ h,
-                    const float* __restrict__ gl,
-                    const float* __restrict__ mask, float* __restrict__ m,
-                    float* __restrict__ h_out, float* __restrict__ gl_out,
-                    float a, float scale, long long start, long long n) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = start + static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n; i += stride) {
-    const float g = grad[i];
-    float mo, go;
-    dasha_one(g, h[i], gl[i], mask[i], a, scale, &mo, &go);
-    m[i] = mo;
-    h_out[i] = g;
-    gl_out[i] = go;
-  }
-}
-
 // t = h - go; h_new = gn + c * t (c = 1 - b, rounded to fp32 by the caller
 // exactly as the plain version rounds it); then dasha_one on h_new.  Every
 // op rounded on its own, in the plain version's order.
@@ -125,58 +59,6 @@ __device__ __forceinline__ void mvr_one(float gn, float go, float h,
   const float hnew = __fadd_rn(gn, __fmul_rn(c, __fsub_rn(h, go)));
   *hn = hnew;
   dasha_one(hnew, h, gl, mk, a, scale, m, gout);
-}
-
-__global__ void __launch_bounds__(kThreads)
-dasha_mvr_update_vec4(const float4* __restrict__ gn,
-                      const float4* __restrict__ go,
-                      const float4* __restrict__ h,
-                      const float4* __restrict__ gl,
-                      const float4* __restrict__ mask,
-                      float4* __restrict__ m, float4* __restrict__ h_out,
-                      float4* __restrict__ gl_out, float a, float c,
-                      float scale, long long n4) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n4; i += stride) {
-    const float4 n = gn[i];
-    const float4 o = go[i];
-    const float4 hh = h[i];
-    const float4 l = gl[i];
-    const float4 k = mask[i];
-    float4 ho, mo, go4;
-    mvr_one(n.x, o.x, hh.x, l.x, k.x, a, c, scale, &ho.x, &mo.x, &go4.x);
-    mvr_one(n.y, o.y, hh.y, l.y, k.y, a, c, scale, &ho.y, &mo.y, &go4.y);
-    mvr_one(n.z, o.z, hh.z, l.z, k.z, a, c, scale, &ho.z, &mo.z, &go4.z);
-    mvr_one(n.w, o.w, hh.w, l.w, k.w, a, c, scale, &ho.w, &mo.w, &go4.w);
-    m[i] = mo;
-    h_out[i] = ho;
-    gl_out[i] = go4;
-  }
-}
-
-// elements [start, n): the tail after the float4 body, or everything when
-// a pointer is not 16-byte aligned
-__global__ void __launch_bounds__(kThreads)
-dasha_mvr_update_scalar(const float* __restrict__ gn,
-                        const float* __restrict__ go,
-                        const float* __restrict__ h,
-                        const float* __restrict__ gl,
-                        const float* __restrict__ mask,
-                        float* __restrict__ m, float* __restrict__ h_out,
-                        float* __restrict__ gl_out, float a, float c,
-                        float scale, long long start, long long n) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = start + static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n; i += stride) {
-    float ho, mo, go1;
-    mvr_one(gn[i], go[i], h[i], gl[i], mask[i], a, c, scale, &ho, &mo, &go1);
-    m[i] = mo;
-    h_out[i] = ho;
-    gl_out[i] = go1;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -576,65 +458,385 @@ int launch_quantize(bool fused, const QArgs& p, long long rows, int two_pass,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// Kernels 1 and 3 by rows.  A (rows, cols) matrix in tiles of a row: block
+// b covers `span` elements of row b / blocks_per_row.  Each thread holds
+// vpt (1 to kMaxVpt) vectors of W floats of every operand: every load of a
+// sub-tile is issued before any arithmetic, and the index form builds its
+// bitmap while the first sub-tile's loads are in flight, so a short row
+// costs about one memory round trip.  The support of row r is row
+// r % s_rows of the support, the scale row r % sc_rows of scale_t: a lane
+// axis and a shared support need no copy.
+
+// the support of a row, as the kernel reads it
+enum SupportForm { kDense = 0, kIndex = 1, kMaskF32 = 2, kMaskU8 = 3 };
+
+// the most vectors of each operand a thread holds per sub-tile (the plan's
+// vpt, 1 to 4)
+constexpr int kMaxVpt = 4;
+
+struct RArgs {
+  const float* grad;     // kernel 1: h_new; kernel 3: grad_new
+  const float* go;       // kernel 3: grad_old
+  const float* h;
+  const float* gl;       // g_local
+  const void* support;   // (s_rows, k) int64 | (s_rows, cols) fp32 / uint8
+  const float* scale_t;  // (sc_rows,) per-row scale, or null
+  float* m;
+  float* h_out;          // kernel 3: h_new; dense-mask entry: a copy of grad
+  float* g_out;
+  long long rows, cols;
+  long long s_rows, k, sc_rows;
+  long long span;            // elements of a row a block covers (W | span)
+  long long blocks_per_row;
+  int vpt;                   // vectors of each operand a thread holds
+  float a, c, scale;         // c = 1 - b (kernel 3)
+};
+
+template <int W>
+__device__ __forceinline__ void load_u8(const unsigned char* p,
+                                        float (&o)[W]) {
+  if constexpr (W == 4) {
+    const uchar4 t = *reinterpret_cast<const uchar4*>(p);
+    o[0] = t.x; o[1] = t.y; o[2] = t.z; o[3] = t.w;
+  } else if constexpr (W == 2) {
+    const uchar2 t = *reinterpret_cast<const uchar2*>(p);
+    o[0] = t.x; o[1] = t.y;
+  } else {
+    o[0] = *p;
+  }
+}
+
+// one element: mk is the support value (1 or 0 from an index bitmap or a
+// byte, the fp32 mask value, or 1 where there is no support); with a
+// per-row scale the torch chain folded it into the mask (mask * scale,
+// then a kernel scale of 1), and so does this, op for op.  Kernel 1's
+// h_out is g itself.
+template <bool MVR>
+__device__ __forceinline__ void rows_one(const RArgs& p, float g, float o,
+                                         float hh, float l, float mk,
+                                         float row_scale, float* mo,
+                                         float* ho, float* gout) {
+  float scale = p.scale;
+  if (p.scale_t != nullptr) {
+    mk = __fmul_rn(mk, row_scale);
+    scale = 1.0f;
+  }
+  if constexpr (MVR) {
+    mvr_one(g, o, hh, l, mk, p.a, p.c, scale, ho, mo, gout);
+  } else {
+    *ho = g;
+    dasha_one(g, hh, l, mk, p.a, scale, mo, gout);
+  }
+}
+
+// the index form's bitmap of the block's elements [f0, f1) of row r: bit
+// e for element f0 + e, from the row's k indices (index row r % s_rows;
+// PAD and columns outside the tile dropped).  Each thread issues kScan
+// index loads before its atomics.
+constexpr int kScan = 8;
+
+// r % m for a row index and a row count below 2^31 (launch_rows checks
+// the rows): 32-bit, where a 64-bit remainder is a long software routine
+// that would sit before a block's first load
+__device__ __forceinline__ long long row_mod(long long r, long long m) {
+  return static_cast<long long>(static_cast<unsigned>(r) %
+                                static_cast<unsigned>(m));
+}
+
+__device__ __forceinline__ void build_bitmap(const RArgs& p, long long r,
+                                             long long f0, long long f1,
+                                             unsigned* bits) {
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const long long len = f1 - f0;
+  const int words = static_cast<int>((len + 31) >> 5);
+  for (int i = tid; i < words; i += nt) bits[i] = 0u;
+  __syncthreads();
+  const long long* idx =
+      static_cast<const long long*>(p.support) + row_mod(r, p.s_rows) * p.k;
+  const long long base = r * p.cols - f0;
+  for (long long j0 = 0; j0 < p.k; j0 += static_cast<long long>(nt) * kScan) {
+    long long col[kScan];
+#pragma unroll
+    for (int q = 0; q < kScan; ++q) {
+      const long long j = j0 + static_cast<long long>(q) * nt + tid;
+      col[q] = j < p.k ? __ldg(idx + j) : -1;
+    }
+#pragma unroll
+    for (int q = 0; q < kScan; ++q) {
+      if (col[q] >= 0 && col[q] < p.cols) {
+        const long long e = base + col[q];
+        if (e >= 0 && e < len) {
+          atomicOr(&bits[e >> 5], 1u << static_cast<unsigned>(e & 31));
+        }
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// H_OUT: write h_out (kernel 3's h_new, the dense-mask entry's copy of
+// grad); the sparsifier entry returns grad itself and writes none
+template <int W, int FORM, bool MVR, bool H_OUT>
+__device__ __forceinline__ void rows_body(const RArgs& p) {
+  extern __shared__ unsigned rows_bits[];  // the index form's bitmap
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int vpt = p.vpt;
+  const unsigned bpr = static_cast<unsigned>(p.blocks_per_row);
+  const unsigned row = blockIdx.x / bpr;
+  const long long r = row;
+  const long long c0 = static_cast<long long>(blockIdx.x - row * bpr) * p.span;
+  const long long c1 = c0 + p.span < p.cols ? c0 + p.span : p.cols;
+  const long long f0 = r * p.cols + c0;
+  const long long f1 = r * p.cols + c1;
+  const float rs =
+      p.scale_t != nullptr ? p.scale_t[row_mod(r, p.sc_rows)] : 1.0f;
+  // a mask row's element f of row r lies at f + so
+  const long long so = (row_mod(r, p.s_rows) - r) * p.cols;
+  // W divides cols and span, and c0 < cols (launch_rows checks both), so
+  // the block has at least one vector and every thread of the block runs
+  // the first pass, where the index form's bitmap and its barriers are
+  const long long v0 = f0 / W;
+  const long long v1 = f1 / W;
+  const long long stride = static_cast<long long>(nt) * vpt;
+  for (long long s = v0; s < v1; s += stride) {
+    float g[kMaxVpt][W], hh[kMaxVpt][W], l[kMaxVpt][W], o[kMaxVpt][W],
+        mk[kMaxVpt][W];
+#pragma unroll
+    for (int j = 0; j < kMaxVpt; ++j) {
+      const long long v = s + static_cast<long long>(j) * nt + tid;
+      if (j < vpt && v < v1) {
+        const long long e = v * W;
+        load_vec<W>(p.grad + e, g[j]);
+        load_vec<W>(p.h + e, hh[j]);
+        load_vec<W>(p.gl + e, l[j]);
+        if constexpr (MVR) load_vec<W>(p.go + e, o[j]);
+        if constexpr (FORM == kMaskF32) {
+          load_vec<W>(static_cast<const float*>(p.support) + e + so, mk[j]);
+        } else if constexpr (FORM == kMaskU8) {
+          load_u8<W>(static_cast<const unsigned char*>(p.support) + e + so,
+                     mk[j]);
+        }
+      }
+    }
+    if constexpr (FORM == kIndex) {
+      // while the first sub-tile's loads are in flight
+      if (s == v0) build_bitmap(p, r, f0, f1, rows_bits);
+    }
+#pragma unroll
+    for (int j = 0; j < kMaxVpt; ++j) {
+      const long long v = s + static_cast<long long>(j) * nt + tid;
+      if (j < vpt && v < v1) {
+        const long long e = v * W;
+        unsigned word = 0u;
+        if constexpr (FORM == kIndex) {
+          const long long b = e - f0;
+          word = rows_bits[b >> 5] >> static_cast<unsigned>(b & 31);
+        }
+        float mo[W], ho[W], go[W];
+#pragma unroll
+        for (int i = 0; i < W; ++i) {
+          float support = 1.0f;
+          if constexpr (FORM == kIndex) {
+            support = ((word >> i) & 1u) ? 1.0f : 0.0f;
+          } else if constexpr (FORM == kMaskF32 || FORM == kMaskU8) {
+            support = mk[j][i];
+          }
+          rows_one<MVR>(p, g[j][i], MVR ? o[j][i] : 0.0f, hh[j][i], l[j][i],
+                        support, rs, &mo[i], &ho[i], &go[i]);
+        }
+        store_vec<W>(p.m + e, mo);
+        store_vec<W>(p.g_out + e, go);
+        if constexpr (H_OUT) store_vec<W>(p.h_out + e, ho);
+      }
+    }
+  }
+}
+
+// kernel 1's sparsifier entry: m and g_new; h_new is the caller's grad
+template <int W, int FORM>
+__global__ void __launch_bounds__(kThreads) dasha_sparsify_rows(RArgs p) {
+  rows_body<W, FORM, false, false>(p);
+}
+
+// kernel 1's dense-mask entry: m, g_new and h_new a copy of grad, on an
+// fp32 mask
+template <int W>
+__global__ void __launch_bounds__(kThreads) dasha_update_rows(RArgs p) {
+  rows_body<W, kMaskF32, false, true>(p);
+}
+
+// kernel 3: m, h_new and g_new, a mask of fp32 or bytes
+template <int W, int FORM>
+__global__ void __launch_bounds__(kThreads) dasha_mvr_update_rows(RArgs p) {
+  rows_body<W, FORM, true, true>(p);
+}
+
+using RKernel = void (*)(RArgs);
+
+// the entry a rows launch serves
+enum RowsEntry { kSparsify = 0, kDenseMask = 1, kMvr = 2 };
+
+template <int W>
+RKernel rows_kernel_w(int entry, int form) {
+  if (entry == kDenseMask) {
+    return form == kMaskF32 ? &dasha_update_rows<W> : nullptr;
+  }
+  if (entry == kMvr) {
+    if (form == kMaskF32) return &dasha_mvr_update_rows<W, kMaskF32>;
+    if (form == kMaskU8) return &dasha_mvr_update_rows<W, kMaskU8>;
+    return nullptr;
+  }
+  switch (form) {
+    case kDense: return &dasha_sparsify_rows<W, kDense>;
+    case kIndex: return &dasha_sparsify_rows<W, kIndex>;
+    case kMaskF32: return &dasha_sparsify_rows<W, kMaskF32>;
+    case kMaskU8: return &dasha_sparsify_rows<W, kMaskU8>;
+    default: return nullptr;
+  }
+}
+
+RKernel rows_kernel(int entry, int form, int vec) {
+  switch (vec) {
+    case 1: return rows_kernel_w<1>(entry, form);
+    case 2: return rows_kernel_w<2>(entry, form);
+    case 4: return rows_kernel_w<4>(entry, form);
+    default: return nullptr;
+  }
+}
+
+// Launch one plan of kernels 1 and 3 by rows.  Refuses a plan whose
+// numbers no kernel here takes, or whose grid the card would refuse.
+int launch_rows(int entry, const RArgs& p, int form, int vec, int threads,
+                cudaStream_t st) {
+  if (p.rows <= 0 || p.cols <= 0) return static_cast<int>(cudaSuccess);
+  const RKernel k = rows_kernel(entry, form, vec);
+  const long long grid = p.rows * p.blocks_per_row;
+  if (k == nullptr || threads < 32 || threads > kThreads ||
+      threads % 32 != 0 || p.vpt < 1 || p.vpt > kMaxVpt || p.span < 1 ||
+      p.cols % vec != 0 || p.span % vec != 0 ||
+      p.blocks_per_row * p.span < p.cols ||
+      (p.blocks_per_row - 1) * p.span >= p.cols ||
+      grid < 1 || grid > 0x7fffffffLL || p.rows > 0x7fffffffLL ||
+      p.s_rows < 1 || p.rows % p.s_rows != 0 ||
+      (p.scale_t != nullptr && (p.sc_rows < 1 || p.rows % p.sc_rows != 0)) ||
+      (form != kDense && p.support == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem =
+      form == kIndex ? static_cast<size_t>((p.span + 31) / 32) * 4 : 0;
+  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  k<<<static_cast<unsigned>(grid), threads, smem, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
-// (m, h_out, g_out) <- fused update of n fp32 elements
+// (m, h_out, g_out) <- kernel 1 on a dense fp32 mask of the same (rows,
+// cols) shape, h_out a copy of grad, by the wrapper's plan
+// (sparsify_plan): vec, threads, vpt, span, blocks_per_row
 int dasha_update(const void* grad, const void* h, const void* g_local,
                  const void* mask, void* m, void* h_out, void* g_out,
-                 float a, float scale, long long n, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool vec = aligned16(grad) && aligned16(h) && aligned16(g_local) &&
-                   aligned16(mask) && aligned16(m) && aligned16(h_out) &&
-                   aligned16(g_out);
-  const long long n4 = vec ? n / 4 : 0;
-  if (n4 > 0) {
-    dasha_update_vec4<<<grid_for(n4), kThreads, 0, st>>>(
-        static_cast<const float4*>(grad), static_cast<const float4*>(h),
-        static_cast<const float4*>(g_local), static_cast<const float4*>(mask),
-        static_cast<float4*>(m), static_cast<float4*>(h_out),
-        static_cast<float4*>(g_out), a, scale, n4);
-  }
-  const long long start = n4 * 4;
-  if (start < n) {
-    dasha_update_scalar<<<grid_for(n - start), kThreads, 0, st>>>(
-        static_cast<const float*>(grad), static_cast<const float*>(h),
-        static_cast<const float*>(g_local), static_cast<const float*>(mask),
-        static_cast<float*>(m), static_cast<float*>(h_out),
-        static_cast<float*>(g_out), a, scale, start, n);
-  }
-  return static_cast<int>(cudaGetLastError());
+                 float a, float scale, long long rows, long long cols,
+                 int vec, int threads, int vpt, long long span,
+                 long long blocks_per_row, void* stream) {
+  RArgs p = {};
+  p.grad = static_cast<const float*>(grad);
+  p.h = static_cast<const float*>(h);
+  p.gl = static_cast<const float*>(g_local);
+  p.support = mask;
+  p.m = static_cast<float*>(m);
+  p.h_out = static_cast<float*>(h_out);
+  p.g_out = static_cast<float*>(g_out);
+  p.rows = rows;
+  p.cols = cols;
+  p.s_rows = rows;
+  p.sc_rows = 1;
+  p.span = span;
+  p.blocks_per_row = blocks_per_row;
+  p.vpt = vpt;
+  p.a = a;
+  p.scale = scale;
+  return launch_rows(kDenseMask, p, kMaskF32, vec, threads,
+                     static_cast<cudaStream_t>(stream));
 }
 
-// (m, h_out, g_out) <- fused MVR update of n fp32 elements; c = 1 - b
+// (m, g_out) <- kernel 1's sparsifier update of (rows, cols) fp32 rows
+// in one launch:
+//   delta = (grad - h) - a (g_local - h);  m = (mk delta) scale;
+//   g_out = g_local + m
+// mk is the row's support: form 0 none (1), 1 the (s_rows, k) int64
+// indices (PAD and any index outside [0, cols) dropped), 2 / 3 an
+// (s_rows, cols) fp32 / uint8 mask (its value); row r reads support row
+// r % s_rows.  Where scale_t is not null, mk is times scale_t[r % sc_rows]
+// and the scalar scale is not used.  h_new is grad itself.  By the
+// wrapper's plan (sparsify_plan): vec, threads, vpt, span, blocks_per_row.
+int dasha_sparsify_update(const void* grad, const void* h,
+                          const void* g_local, const void* support,
+                          const void* scale_t, void* m, void* g_out,
+                          long long rows, long long cols, long long s_rows,
+                          long long k, long long sc_rows, float a,
+                          float scale, int form, int vec, int threads,
+                          int vpt, long long span, long long blocks_per_row,
+                          void* stream) {
+  RArgs p = {};
+  p.grad = static_cast<const float*>(grad);
+  p.h = static_cast<const float*>(h);
+  p.gl = static_cast<const float*>(g_local);
+  p.support = support;
+  p.scale_t = static_cast<const float*>(scale_t);
+  p.m = static_cast<float*>(m);
+  p.g_out = static_cast<float*>(g_out);
+  p.rows = rows;
+  p.cols = cols;
+  p.s_rows = s_rows;
+  p.k = k;
+  p.sc_rows = sc_rows;
+  p.span = span;
+  p.blocks_per_row = blocks_per_row;
+  p.vpt = vpt;
+  p.a = a;
+  p.scale = scale;
+  return launch_rows(kSparsify, p, form, vec, threads,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// (m, h_out, g_out) <- kernel 3, the fused MVR update of (rows, cols) fp32
+// rows: h_new = gn + c (h - go) (c = 1 - b), then kernel 1's update on
+// h_new with the mask (form 2 fp32, 3 uint8; row r reads mask row
+// r % s_rows) and the scalar scale.  By the wrapper's plan.
 int dasha_mvr_update(const void* gn, const void* go, const void* h,
                      const void* g_local, const void* mask, void* m,
-                     void* h_out, void* g_out, float a, float c, float scale,
-                     long long n, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool vec = aligned16(gn) && aligned16(go) && aligned16(h) &&
-                   aligned16(g_local) && aligned16(mask) && aligned16(m) &&
-                   aligned16(h_out) && aligned16(g_out);
-  const long long n4 = vec ? n / 4 : 0;
-  if (n4 > 0) {
-    dasha_mvr_update_vec4<<<grid_for(n4), kThreads, 0, st>>>(
-        static_cast<const float4*>(gn), static_cast<const float4*>(go),
-        static_cast<const float4*>(h), static_cast<const float4*>(g_local),
-        static_cast<const float4*>(mask), static_cast<float4*>(m),
-        static_cast<float4*>(h_out), static_cast<float4*>(g_out), a, c, scale,
-        n4);
-  }
-  const long long start = n4 * 4;
-  if (start < n) {
-    dasha_mvr_update_scalar<<<grid_for(n - start), kThreads, 0, st>>>(
-        static_cast<const float*>(gn), static_cast<const float*>(go),
-        static_cast<const float*>(h), static_cast<const float*>(g_local),
-        static_cast<const float*>(mask), static_cast<float*>(m),
-        static_cast<float*>(h_out), static_cast<float*>(g_out), a, c, scale,
-        start, n);
-  }
-  return static_cast<int>(cudaGetLastError());
+                     void* h_out, void* g_out, long long rows, long long cols,
+                     long long s_rows, float a, float c, float scale,
+                     int form, int vec, int threads, int vpt,
+                     long long span, long long blocks_per_row,
+                     void* stream) {
+  RArgs p = {};
+  p.grad = static_cast<const float*>(gn);
+  p.go = static_cast<const float*>(go);
+  p.h = static_cast<const float*>(h);
+  p.gl = static_cast<const float*>(g_local);
+  p.support = mask;
+  p.m = static_cast<float*>(m);
+  p.h_out = static_cast<float*>(h_out);
+  p.g_out = static_cast<float*>(g_out);
+  p.rows = rows;
+  p.cols = cols;
+  p.s_rows = s_rows;
+  p.sc_rows = 1;
+  p.span = span;
+  p.blocks_per_row = blocks_per_row;
+  p.vpt = vpt;
+  p.a = a;
+  p.c = c;
+  p.scale = scale;
+  return launch_rows(kMvr, p, form, vec, threads,
+                     static_cast<cudaStream_t>(stream));
 }
 
 // Let every cluster kernel take a cluster of 16 blocks (non-portable) and

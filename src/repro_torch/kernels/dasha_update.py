@@ -3,29 +3,49 @@
 
 ``dasha_update`` replaces ``repro/kernels/dasha_update.py:
 dasha_update_pallas`` (body ``_dasha_update_kernel``): Alg. 1 lines 8-10
-as one elementwise pass over n*d fp32 elements, four reads (grad, h,
-g_local, mask) and three writes (m, h_new, g_new).  It does 6 flops per
-element, far under the card's rate, so device-memory bytes bound it:
-28 bytes an element, 1.564 GB at the ResNet-18 width (n = 5,
-d = 11,173,962), 0.467 ms at 3.35 TB/s.  Its design streams them once: a
-grid-stride loop over the flat storage (no (R, 128) lane padding), enough
-256-thread blocks to fill every SM, 16-byte ``float4`` loads and stores
-when every pointer is 16-byte aligned, and a scalar tail.  Each op is
-rounded on its own (``__fsub_rn``/``__fmul_rn``/``__fadd_rn``) so the
-kernel matches the plain version bit for bit.  ``h_new`` is written as a
-copy of ``grad`` so the returned values match the reference's.
+as one elementwise pass over fp32 rows (the last axis) on a dense fp32
+mask of their shape, four reads (grad, h, g_local, mask) and three writes
+(m, h_new, g_new), 28 bytes an element, 6 flops.  It launches the rows
+kernel of ``dasha_sparsify_update`` below, by the same plan, on the mask
+form, and writes ``h_new`` as a copy of ``grad``.  Each op is rounded on
+its own (``__fsub_rn``/``__fmul_rn``/``__fadd_rn``) so the kernel matches
+the plain version bit for bit.  No main path calls it now: it is the
+counterpart of ``dasha_update_pallas`` as that kernel is specified.
+
+``dasha_sparsify_update`` is kernel 1 as the main paths run it: the
+``fused`` backend's estimator update for the sparsifiers (RandK, PermK,
+Bernoulli) and passthrough in one launch, where the reference runs the
+mask build as jnp ops around ``dasha_update_pallas``
+(``repro/compress/backends.py:158-172``) and the port ran it as four to
+six torch launches.  It takes the plan's support as it is drawn: (s_rows,
+k) int64 indices, PAD-padded (each block builds its tile's selection
+bitmap in shared memory from its row's indices, no dense mask anywhere),
+an (s_rows, cols) fp32 or byte mask, or none; and a float or per-row scale,
+which it folds into the support as the torch chain did (mask * scale, then
+a kernel scale of 1), so it is bit-equal to that chain.  Row r reads
+support row r % s_rows and scale row r % sc_rows: a lane axis and RandK
+``shared_coords`` (one index row) need no copy.  ``h_new`` is ``grad``
+itself, as the plain version returns it, so it moves 20 bytes an element:
+0.000626 ms at the flat round's (5, 20,958), 0.3336 ms at (5,
+11,173,962), at 3.35 TB/s.  A short row is a latency problem (its bytes
+move faster than a launch's floor), so :func:`sparsify_plan` spreads the
+rows over one wave of blocks, rows on ``grid.x`` (any number of rows), a
+block a tile of one row (``float2`` at 20,958: odd rows start 8 bytes off
+16), each thread holding a few vectors of every operand with all loads
+issued before any arithmetic and the bitmap built while they are in
+flight.
 
 ``dasha_mvr_update`` replaces ``repro/kernels/dasha_update.py:
 dasha_mvr_update_pallas`` (body ``_dasha_mvr_update_kernel``): the same
-pass with the MVR h-update fused in, h_new = gn + (1 - b)(h - go), five
-reads (gn, go, h, g_local, mask) and three writes (m, h_new, g_new): 32
-bytes an element, 9 flops.  The trainer launches it once per parameter
-leaf per round; at Mamba2-780M's width with 16 layers and n = 4 that is
-n*E = 1.247G elements, 39.9 GB, 11.9 ms at 3.35 TB/s.  Same design as
-``dasha_update``: grid-stride float4 body when all eight pointers are
-16-byte aligned, scalar tail, one rounding per op in the plain version's
-order.  ``1 - b`` is formed in Python double and rounded to fp32 once, as
-the plain version's scalar is, so the two agree bit for bit.
+pass with the MVR h-update fused in, h_new = gn + (1 - b)(h - go), by the
+same rows kernel and plan over a leaf's n rows, on an fp32 mask or the
+tree path's bool draw (row r % s_rows: one row for ``shared_coords``).
+Five reads (gn, go, h, g_local, a mask byte) and three writes: 29 bytes an
+element on the bool draw, 9 flops.  The trainer launches it once per
+parameter leaf per round; at the tied embedding leaf (4, 77,463,552) the
+bound is 2.682 ms at 3.35 TB/s.  ``1 - b`` is formed in Python double and
+rounded to fp32 once, as the plain version's scalar is, so the two agree
+bit for bit.
 
 ``quantize`` replaces ``repro/kernels/dasha_update.py:quantize_pallas``
 (body ``_quantize_kernel``): row-wise QSGD of an (n, d) message matrix with
@@ -80,9 +100,11 @@ import torch
 
 from repro_torch.kernels import build
 
-#: launches of each kernel's wrapper since the last :func:`reset_counts`
-COUNTS: Dict[str, int] = {"dasha_update": 0, "dasha_mvr_update": 0,
-                          "quantize": 0}
+#: launches of each kernel's wrappers since the last :func:`reset_counts`
+#: (kernel 1's dense-mask entry as "dasha_update", its sparsifier entry as
+#: "dasha_sparsify_update", kernel 2's two entries as "quantize")
+COUNTS: Dict[str, int] = {"dasha_update": 0, "dasha_sparsify_update": 0,
+                          "dasha_mvr_update": 0, "quantize": 0}
 
 _P = ctypes.c_void_p
 _F = ctypes.c_float
@@ -97,11 +119,19 @@ def reset_counts() -> None:
 def _lib() -> ctypes.CDLL:
     lib = build.load("dasha_update")
     if not getattr(lib, "_typed", False):
-        lib.dasha_update.argtypes = [_P, _P, _P, _P, _P, _P, _P, _F, _F,
-                                     _LL, _P]
+        lib.dasha_update.argtypes = [
+            _P, _P, _P, _P, _P, _P, _P, _F, _F, _LL, _LL, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, _LL, _LL, _P]
         lib.dasha_update.restype = ctypes.c_int
-        lib.dasha_mvr_update.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _F,
-                                         _F, _F, _LL, _P]
+        lib.dasha_sparsify_update.argtypes = [
+            _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _F, _F,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _LL,
+            _LL, _P]
+        lib.dasha_sparsify_update.restype = ctypes.c_int
+        lib.dasha_mvr_update.argtypes = [
+            _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _F, _F, _F,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _LL, _LL,
+            _P]
         lib.dasha_mvr_update.restype = ctypes.c_int
         plan = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 _LL, _LL, _P]
@@ -140,52 +170,6 @@ def _check(name: str, ref: torch.Tensor, *tensors: torch.Tensor) -> None:
 def _raise_on(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
-
-
-def dasha_update(grad: torch.Tensor, h: torch.Tensor, g_local: torch.Tensor,
-                 mask: torch.Tensor, a: float, scale: float
-                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The fused update on the card: returns (m, h_new, g_new), each shaped
-    like ``grad``.  ``a`` and ``scale`` are passed as fp32."""
-    _check("dasha_update", grad, h, g_local, mask)
-    m = torch.empty_like(grad)
-    h_new = torch.empty_like(grad)
-    g_new = torch.empty_like(grad)
-    with torch.cuda.device(grad.device):
-        lib = _lib()
-        stream = torch.cuda.current_stream(grad.device).cuda_stream
-        err = lib.dasha_update(grad.data_ptr(), h.data_ptr(),
-                               g_local.data_ptr(), mask.data_ptr(),
-                               m.data_ptr(), h_new.data_ptr(),
-                               g_new.data_ptr(), float(a), float(scale),
-                               grad.numel(), stream)
-    COUNTS["dasha_update"] += 1
-    _raise_on("dasha_update", err)
-    return m, h_new, g_new
-
-
-def dasha_mvr_update(grad_new: torch.Tensor, grad_old: torch.Tensor,
-                     h: torch.Tensor, g_local: torch.Tensor,
-                     mask: torch.Tensor, a: float, b: float, scale: float
-                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The fused MVR update on the card: returns (m, h_new, g_new), each
-    shaped like ``grad_new``.  ``a``, ``1 - b`` and ``scale`` are passed
-    as fp32."""
-    _check("dasha_mvr_update", grad_new, grad_old, h, g_local, mask)
-    m = torch.empty_like(grad_new)
-    h_new = torch.empty_like(grad_new)
-    g_new = torch.empty_like(grad_new)
-    with torch.cuda.device(grad_new.device):
-        lib = _lib()
-        stream = torch.cuda.current_stream(grad_new.device).cuda_stream
-        err = lib.dasha_mvr_update(
-            grad_new.data_ptr(), grad_old.data_ptr(), h.data_ptr(),
-            g_local.data_ptr(), mask.data_ptr(), m.data_ptr(),
-            h_new.data_ptr(), g_new.data_ptr(), float(a), 1.0 - float(b),
-            float(scale), grad_new.numel(), stream)
-    COUNTS["dasha_mvr_update"] += 1
-    _raise_on("dasha_mvr_update", err)
-    return m, h_new, g_new
 
 
 #: kernel 2's plan limits, as ``csrc/dasha_update.cu`` instantiates them:
@@ -479,3 +463,322 @@ def quantize_agreement(out: torch.Tensor, plain: torch.Tensor,
     agree = torch.where(flip, torch.zeros_like(err), err)
     return {"max_abs_err": float(agree.max()) if agree.numel() else 0.0,
             "flips": int(flip.sum()), "ok": ok}
+
+
+# ---------------------------------------------------------------------------
+# kernels 1 and 3 by rows: dasha_sparsify_update and dasha_mvr_update
+# ---------------------------------------------------------------------------
+
+#: vectors of each operand a thread may hold (at most ``kMaxVpt`` in the
+#: source), and the block sizes a plan may take
+ROWS_VPTS = (1, 2, 4)
+ROWS_THREADS = (32, 64, 128, 256)
+#: an index-form block covers at least k / ROWS_INDEX_SPAN elements, so its
+#: scan of the row's k indices costs under half its streaming; and at most
+#: a 48 KB bitmap's elements
+ROWS_INDEX_SPAN = 2
+ROWS_SPAN_MAX = 48 * 1024 * 8
+#: the support forms, as the source numbers them
+FORMS = {"dense": 0, "index": 1, "mask_f32": 2, "mask_u8": 3}
+H100_SMS = 132
+
+
+class SparsifyPlan(NamedTuple):
+    """How kernels 1 and 3 cover a (rows, cols) matrix by rows: blocks of
+    ``threads`` threads, each thread ``vpt`` vectors of ``vec`` floats a
+    sub-tile, each block ``span`` elements of one row, ``blocks_per_row``
+    blocks a row."""
+
+    vec: int
+    threads: int
+    vpt: int
+    span: int
+    blocks_per_row: int
+    grid: int
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=512)
+def sparsify_plan(rows: int, cols: int, aligned16: bool, aligned8: bool,
+                  form: str = "dense", k: int = 0,
+                  sms: int = H100_SMS) -> SparsifyPlan:
+    """The plan of kernel 1's entries (``form`` of :data:`FORMS`, ``k``
+    indices a row) or of kernel 3 (a mask form) for a (rows, cols) matrix
+    whose pointers are all 16-byte (``aligned16``) or 8-byte
+    (``aligned8``) aligned, on a card of ``sms`` SMs.
+
+    A short row is a latency problem: its bytes move in less time than a
+    launch takes, so the plan spreads the rows over one wave of blocks:
+    the fewest vectors a thread (:data:`ROWS_VPTS`), then the fewest
+    threads a block, that keep the grid within ``sms`` blocks; past that,
+    256 threads of 2 vectors.  The index form holds 4 vectors a thread,
+    which amortize its bitmap (on the H100 the fastest at every RandK
+    shape measured, PERF.md).  A block covers a tile of one row, with the
+    widest vector the rows' alignment allows (rows of 20,958 floats:
+    float2, as odd rows start 8 bytes off 16).  An index-form block spans
+    at least k / :data:`ROWS_INDEX_SPAN` elements (a loop of sub-tiles),
+    at most :data:`ROWS_SPAN_MAX` and the row."""
+    if form not in FORMS:
+        raise ValueError(f"sparsify_plan: unknown form {form!r}")
+    if rows < 1 or cols < 1:
+        raise ValueError(f"sparsify_plan: empty ({rows}, {cols})")
+    vec = _vec_width(cols, aligned16, aligned8)
+    # the index form builds one bitmap a block: 4 vectors a thread
+    # amortize it; the others spread over the most threads that fit
+    vpts = ROWS_VPTS[-1:] if form == "index" else ROWS_VPTS
+    fits = [(v, t) for v in vpts for t in ROWS_THREADS
+            if rows * _ceil(cols, t * v * vec) <= sms]
+    vpt, threads = fits[0] if fits else (vpts[-1] if form == "index" else 2,
+                                         ROWS_THREADS[-1])
+    sub = threads * vpt * vec
+    span = sub
+    if form == "index" and k > 0:
+        # no wider than the bitmap's room or the row
+        room = min(ROWS_SPAN_MAX // sub, _ceil(cols, sub))
+        span = sub * max(1, min(_ceil(k, ROWS_INDEX_SPAN * sub), room))
+    bpr = _ceil(cols, span)
+    plan = SparsifyPlan(vec, threads, vpt, span, bpr, rows * bpr)
+    if plan.grid > GRID_LIMIT:
+        raise ValueError(f"sparsify_plan: {plan.grid} blocks exceed the "
+                         f"card's grid limit {GRID_LIMIT}")
+    return plan
+
+
+class RowsArgs(NamedTuple):
+    """What a kernel-1 sparsifier or kernel-3 launch reads: (rows, cols)
+    rows, the support's form, its rows (row r reads row r % s_rows) and
+    indices a row, and the per-row scale's rows (0: a float scale)."""
+
+    rows: int
+    cols: int
+    form: str
+    s_rows: int
+    k: int
+    sc_rows: int
+
+
+def _divides(name: str, what: str, k: int, rows: int) -> int:
+    if k < 1 or rows % k:
+        raise ValueError(f"{name}: {k} rows of {what} do not divide "
+                         f"{rows} rows")
+    return k
+
+
+def _mask_form(name: str, mask: torch.Tensor) -> str:
+    if mask.dtype == torch.float32:
+        return "mask_f32"
+    if mask.dtype in (torch.bool, torch.uint8):
+        return "mask_u8"
+    raise TypeError(f"{name}: a mask of float32, bool or uint8, got "
+                    f"{mask.dtype}")
+
+
+def sparsify_args(grad: torch.Tensor, indices: Optional[torch.Tensor] = None,
+                  mask: Optional[torch.Tensor] = None,
+                  scale: Union[float, torch.Tensor] = 1.0) -> RowsArgs:
+    """:func:`dasha_sparsify_update`'s arguments checked (on any device):
+    rows of the last axis; at most one support, ``indices`` (s_rows, k)
+    int64 or ``mask`` (s_rows, cols) float32 / bool / uint8, contiguous,
+    s_rows dividing the rows; a float scale, or a contiguous float32
+    (sc_rows,) or (sc_rows, 1) one, sc_rows dividing the rows."""
+    name = "dasha_sparsify_update"
+    if grad.dim() < 1:
+        raise ValueError(f"{name}: expected (..., cols), got a scalar")
+    cols = grad.shape[-1]
+    rows = grad.numel() // cols if cols else 0
+    form, s_rows, k = "dense", 1, 0
+    if indices is not None and mask is not None:
+        raise ValueError(f"{name}: give indices or a mask, not both")
+    if indices is not None:
+        if indices.dtype != torch.int64:
+            raise TypeError(f"{name}: indices must be int64, got "
+                            f"{indices.dtype}")
+        if indices.dim() != 2 or not indices.is_contiguous():
+            raise ValueError(f"{name}: indices must be a contiguous "
+                             f"(s_rows, k), got {tuple(indices.shape)}")
+        form, s_rows, k = "index", _divides(name, "indices",
+                                            indices.shape[0], rows), \
+            indices.shape[1]
+    elif mask is not None:
+        form = _mask_form(name, mask)
+        if mask.dim() < 1 or mask.shape[-1] != cols or \
+                not mask.is_contiguous():
+            raise ValueError(f"{name}: mask {tuple(mask.shape)} must be a "
+                             f"contiguous (s_rows, {cols})")
+        s_rows = _divides(name, "mask", mask.numel() // cols, rows)
+    sc_rows = 0
+    if isinstance(scale, torch.Tensor):
+        if scale.dtype != torch.float32:
+            raise TypeError(f"{name}: a per-row scale must be float32, got "
+                            f"{scale.dtype}")
+        if scale.dim() not in (1, 2) or scale.shape[1:] not in ((), (1,)) \
+                or not scale.is_contiguous():
+            raise ValueError(f"{name}: a per-row scale must be a contiguous "
+                             f"(sc_rows,) or (sc_rows, 1), got "
+                             f"{tuple(scale.shape)}")
+        sc_rows = _divides(name, "scale", scale.numel(), rows)
+    return RowsArgs(rows, cols, form, s_rows, k, sc_rows)
+
+
+def mvr_args(grad_new: torch.Tensor, mask: torch.Tensor) -> RowsArgs:
+    """:func:`dasha_mvr_update`'s rows (checked on any device): a leaf
+    (n, ...) is n rows (a 1-D one, one row), and its mask float32 / bool /
+    uint8 of its shape or with fewer rows that divide n (row r reads mask
+    row r % s_rows: (1, ...) for one mask of every node)."""
+    name = "dasha_mvr_update"
+    form = _mask_form(name, mask)
+    if grad_new.dim() >= 2:
+        rows = grad_new.shape[0]
+        ok = mask.dim() == grad_new.dim() and \
+            mask.shape[1:] == grad_new.shape[1:]
+    else:
+        rows = 1
+        ok = mask.shape == grad_new.shape
+    if not ok or not mask.is_contiguous():
+        raise ValueError(f"{name}: mask {tuple(mask.shape)} against "
+                         f"{tuple(grad_new.shape)}")
+    cols = grad_new.numel() // rows if rows else 0
+    s_rows = _divides(name, "mask", mask.numel() // cols, rows) if cols \
+        else 1
+    return RowsArgs(rows, cols, form, s_rows, 0, 0)
+
+
+#: per device index: its SMs
+_SMS: Dict[int, int] = {}
+
+
+def _sms(device: torch.device) -> int:
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
+def _rows_plan(args: RowsArgs, floats,
+               mask_u8: Optional[torch.Tensor]) -> SparsifyPlan:
+    """:func:`sparsify_plan` for these tensors: the float pointers' and a
+    byte mask's alignment (4 and 2 bytes for float4 and float2)."""
+    a16 = _aligned(floats, 16) and (mask_u8 is None or
+                                    mask_u8.data_ptr() % 4 == 0)
+    a8 = _aligned(floats, 8) and (mask_u8 is None or
+                                  mask_u8.data_ptr() % 2 == 0)
+    return sparsify_plan(args.rows, args.cols, a16, a8, args.form, args.k,
+                         _sms(floats[0].device))
+
+
+def dasha_update(grad: torch.Tensor, h: torch.Tensor, g_local: torch.Tensor,
+                 mask: torch.Tensor, a: float, scale: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The fused update on the card on a dense fp32 ``mask``, by
+    :func:`sparsify_plan` over the rows of the last axis: returns (m,
+    h_new, g_new), each shaped like ``grad``, h_new a copy of it.  ``a``
+    and ``scale`` are passed as fp32."""
+    _check("dasha_update", grad, h, g_local, mask)
+    cols = grad.shape[-1] if grad.dim() else 1
+    rows = grad.numel() // cols if cols else 0
+    m = torch.empty_like(grad)
+    h_new = torch.empty_like(grad)
+    g_new = torch.empty_like(grad)
+    if grad.numel() == 0:
+        return m, h_new, g_new
+    args = RowsArgs(rows, cols, "mask_f32", rows, 0, 0)
+    plan = _rows_plan(args, [grad, h, g_local, mask, m, h_new, g_new], None)
+    with torch.cuda.device(grad.device):
+        stream = torch.cuda.current_stream(grad.device).cuda_stream
+        err = _lib().dasha_update(
+            grad.data_ptr(), h.data_ptr(), g_local.data_ptr(),
+            mask.data_ptr(), m.data_ptr(), h_new.data_ptr(),
+            g_new.data_ptr(), float(a), float(scale), rows, cols, plan.vec,
+            plan.threads, plan.vpt, plan.span, plan.blocks_per_row, stream)
+    COUNTS["dasha_update"] += 1
+    _raise_on("dasha_update", err)
+    return m, h_new, g_new
+
+
+def dasha_sparsify_update(grad: torch.Tensor, h: torch.Tensor,
+                          g_local: torch.Tensor, a: float,
+                          scale: Union[float, torch.Tensor], *,
+                          indices: Optional[torch.Tensor] = None,
+                          mask: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """Kernel 1's sparsifier estimator update on the card in one launch,
+    by :func:`sparsify_plan`: returns (m, grad, g_new), m and g_new shaped
+    like ``grad`` (any leading axes; the last is the row).  The support is
+    ``indices`` (RandK, PermK; PAD and any index outside [0, cols)
+    dropped), ``mask`` (Bernoulli, a tree leaf's draw) or none
+    (passthrough); see :func:`sparsify_args`.  ``a`` and a float scale are
+    passed as fp32.  Counts one call of ``dasha_sparsify_update``."""
+    name = "dasha_sparsify_update"
+    _check(name, grad, h, g_local)
+    support = indices if indices is not None else mask
+    scale_t = scale if isinstance(scale, torch.Tensor) else None
+    for t in (support, scale_t):
+        if t is not None:
+            if t.device != grad.device:
+                raise ValueError(f"{name}: tensors on {grad.device} and "
+                                 f"{t.device}")
+    args = sparsify_args(grad, indices, mask, scale)
+    m = torch.empty_like(grad)
+    g_new = torch.empty_like(grad)
+    if grad.numel() == 0:
+        return m, grad, g_new
+    floats = [grad, h, g_local, m, g_new]
+    if args.form == "mask_f32":
+        floats.append(mask)
+    plan = _rows_plan(args, floats, mask if args.form == "mask_u8" else None)
+    kscale = 1.0 if scale_t is not None else float(scale)
+    with torch.cuda.device(grad.device):
+        stream = torch.cuda.current_stream(grad.device).cuda_stream
+        err = _lib().dasha_sparsify_update(
+            grad.data_ptr(), h.data_ptr(), g_local.data_ptr(), _ptr(support),
+            _ptr(scale_t), m.data_ptr(), g_new.data_ptr(), args.rows,
+            args.cols, args.s_rows, args.k, max(args.sc_rows, 1), float(a),
+            kscale, FORMS[args.form], plan.vec, plan.threads, plan.vpt,
+            plan.span, plan.blocks_per_row, stream)
+    COUNTS["dasha_sparsify_update"] += 1
+    _raise_on(name, err)
+    return m, grad, g_new
+
+
+def dasha_mvr_update(grad_new: torch.Tensor, grad_old: torch.Tensor,
+                     h: torch.Tensor, g_local: torch.Tensor,
+                     mask: torch.Tensor, a: float, b: float, scale: float
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The fused MVR update on the card in one launch, by
+    :func:`sparsify_plan` over the leaf's n rows: returns (m, h_new,
+    g_new), each shaped like ``grad_new``.  ``mask``: float32, bool or
+    uint8, of grad_new's shape or (s_rows, ...) read at row r % s_rows
+    (:func:`mvr_args`).  ``a``, ``1 - b`` and ``scale`` are passed as
+    fp32."""
+    name = "dasha_mvr_update"
+    _check(name, grad_new, grad_old, h, g_local)
+    if mask.device != grad_new.device:
+        raise ValueError(f"{name}: tensors on {grad_new.device} and "
+                         f"{mask.device}")
+    args = mvr_args(grad_new, mask)
+    m = torch.empty_like(grad_new)
+    h_new = torch.empty_like(grad_new)
+    g_new = torch.empty_like(grad_new)
+    if grad_new.numel() == 0:
+        return m, h_new, g_new
+    floats = [grad_new, grad_old, h, g_local, m, h_new, g_new]
+    if args.form == "mask_f32":
+        floats.append(mask)
+    plan = _rows_plan(args, floats, mask if args.form == "mask_u8" else None)
+    with torch.cuda.device(grad_new.device):
+        stream = torch.cuda.current_stream(grad_new.device).cuda_stream
+        err = _lib().dasha_mvr_update(
+            grad_new.data_ptr(), grad_old.data_ptr(), h.data_ptr(),
+            g_local.data_ptr(), mask.data_ptr(), m.data_ptr(),
+            h_new.data_ptr(), g_new.data_ptr(), args.rows, args.cols,
+            args.s_rows, float(a), 1.0 - float(b), float(scale),
+            FORMS[args.form], plan.vec, plan.threads, plan.vpt, plan.span,
+            plan.blocks_per_row, stream)
+    COUNTS["dasha_mvr_update"] += 1
+    _raise_on(name, err)
+    return m, h_new, g_new

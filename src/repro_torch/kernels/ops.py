@@ -4,7 +4,8 @@ A CPU tensor takes the plain torch version (:mod:`repro_torch.kernels.ref`);
 a CUDA tensor launches the hand-written kernel
 (:mod:`repro_torch.kernels.dasha_update`, :mod:`repro_torch.kernels.
 ssd_chunk`, :mod:`repro_torch.kernels.slab_writeback`) or raises.  No lane
-padding: the DASHA kernels walk the flat storage with a 1-D grid.
+padding: the DASHA kernels cover the storage by rows (the dense-mask
+``dasha_update`` by a 1-D grid).
 :func:`ssd_chunk_scan` is the SSD forward that ``models.ssm`` calls with
 ``use_ssd_kernel``.
 """
@@ -37,11 +38,30 @@ def dasha_update(grad: torch.Tensor, h: torch.Tensor, g_local: torch.Tensor,
     return cuda_kernels.dasha_update(grad, h, g_local, mask, a, scale)
 
 
+def dasha_sparsify_update(grad: torch.Tensor, h: torch.Tensor,
+                          g_local: torch.Tensor, a: float, scale, *,
+                          indices=None, mask=None
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """The sparsifier (RandK, PermK, Bernoulli) or passthrough estimator
+    update on rows of grad's last axis, the support built from
+    ``indices`` or read from ``mask`` (row r at r % their rows; neither:
+    passthrough) and a float or per-row ``scale``; returns (m, grad,
+    g_new).  On the card one launch of kernel 1's sparsifier entry."""
+    if _on_cpu("dasha_sparsify_update", grad):
+        return ref.dasha_sparsify_update_ref(grad, h, g_local, a, scale,
+                                             indices=indices, mask=mask)
+    return cuda_kernels.dasha_sparsify_update(grad, h, g_local, a, scale,
+                                              indices=indices, mask=mask)
+
+
 def dasha_mvr_update(grad_new: torch.Tensor, grad_old: torch.Tensor,
                      h: torch.Tensor, g_local: torch.Tensor,
                      mask: torch.Tensor, a: float, b: float, scale: float
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Fused DASHA-MVR update; returns (m, h_new, g_local_new)."""
+    """Fused DASHA-MVR update; returns (m, h_new, g_local_new).  ``mask``
+    float32, bool or uint8, of the leaf's shape or (1, ...) for every
+    node."""
     if _on_cpu("dasha_mvr_update", grad_new):
         return ref.dasha_mvr_update_ref(grad_new, grad_old, h, g_local, mask,
                                         a, b, scale)

@@ -7,7 +7,7 @@ reference's, one rounding per torch op.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -23,10 +23,11 @@ def dasha_update_ref(grad: torch.Tensor, h: torch.Tensor,
         m     = mask * delta * scale
         g_new = g_local + m
 
-    Returns (m, h_new, g_new)."""
+    Returns (m, h_new, g_new).  A bool or uint8 mask is read as float32,
+    as the dense path converts it."""
     h_new = grad
     delta = h_new - h - a * (g_local - h)
-    m = mask * delta * scale
+    m = _as_float(mask) * delta * scale
     return m, h_new, g_local + m
 
 
@@ -41,11 +42,64 @@ def dasha_mvr_update_ref(grad_new: torch.Tensor, grad_old: torch.Tensor,
         m     = mask * delta * scale
         g_new = g_local + m
 
-    Returns (m, h_new, g_new)."""
+    ``mask`` float32, bool or uint8 (read as float32), of the leaf's
+    shape or broadcast over its node axis.  Returns (m, h_new, g_new)."""
     h_new = grad_new + (1.0 - b) * (h - grad_old)
     delta = h_new - h - a * (g_local - h)
-    m = mask * delta * scale
+    m = _as_float(mask) * delta * scale
     return m, h_new, g_local + m
+
+
+def _as_float(mask: torch.Tensor) -> torch.Tensor:
+    return mask if mask.is_floating_point() else mask.to(torch.float32)
+
+
+def _rows_of(t: torch.Tensor, rows: int) -> torch.Tensor:
+    """(k, w) -> (rows, w): row r is t's row r % k."""
+    k, w = t.shape
+    return t.expand(rows // k, k, w).reshape(rows, w)
+
+
+def dasha_sparsify_update_ref(grad: torch.Tensor, h: torch.Tensor,
+                              g_local: torch.Tensor, a: float, scale, *,
+                              indices: Optional[torch.Tensor] = None,
+                              mask: Optional[torch.Tensor] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """The fused backend's sparsifier estimator update as the chain the
+    card's one launch replaces (the reference's ``fused_estimator_update``
+    around ``dasha_update_pallas``), on rows of grad's last axis:
+
+        support = indices -> 0/1 rows (PAD and indices >= cols dropped)
+                  | mask as float32 | ones (passthrough);  row r is
+                  support row r % s_rows
+        mask    = support * scale row r % sc_rows, kernel scale 1
+                  (a per-row scale), else support and the float scale
+        (m, _, g_new) = dasha_update_ref(grad, h, g_local, mask, a, scale)
+
+    ``indices`` (s_rows, k) int64; ``mask`` (s_rows, cols); ``scale`` a
+    float or a (sc_rows,) / (sc_rows, 1) tensor.  Returns (m, grad,
+    g_new)."""
+    cols = grad.shape[-1]
+    rows = grad.numel() // cols if cols else 0
+    if indices is not None:
+        wide = torch.zeros((indices.shape[0], cols + 1), dtype=torch.float32,
+                           device=grad.device)
+        wide.scatter_(1, indices.clamp(max=cols), 1.0)
+        support = wide[:, :cols]
+    elif mask is not None:
+        support = _as_float(mask).reshape(-1, cols)
+    else:
+        support = torch.ones((1, cols), dtype=torch.float32,
+                             device=grad.device)
+    full = _rows_of(support, rows)
+    kscale = scale
+    if isinstance(scale, torch.Tensor):
+        full = full * _rows_of(scale.to(torch.float32).reshape(-1, 1), rows)
+        kscale = 1.0
+    m, _, g_new = dasha_update_ref(grad, h, g_local, full.view(grad.shape),
+                                   a, kscale)
+    return m, grad, g_new
 
 
 def quantize_ref(x: torch.Tensor, u: torch.Tensor,

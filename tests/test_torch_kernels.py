@@ -199,8 +199,8 @@ def test_wrappers_refuse_cpu_tensors_and_launch_nothing():
         kern.dasha_mvr_update(t, t, t, t, t, 0.1, 0.5, 1.0)
     with pytest.raises(ValueError, match="CUDA"):
         kern.quantize(t.view(2, 4), t.view(2, 4), 3)
-    assert kern.COUNTS == {"dasha_update": 0, "dasha_mvr_update": 0,
-                           "quantize": 0}
+    assert kern.COUNTS == {"dasha_update": 0, "dasha_sparsify_update": 0,
+                           "dasha_mvr_update": 0, "quantize": 0}
 
 
 def _ssd_arrays(B, S, H, P, N, seed=0):

@@ -330,8 +330,8 @@ def test_fused_wrapper_refuses_cpu_tensors_and_counts_nothing():
         kern._quantize_with_plan(t, t, 3, plan)
     with pytest.raises(ValueError, match="CUDA"):
         kern._dasha_quantize_update_with_plan(t, t, t, t, 0.1, 1.0, 3, plan)
-    assert kern.COUNTS == {"dasha_update": 0, "dasha_mvr_update": 0,
-                           "quantize": 0}
+    assert kern.COUNTS == {"dasha_update": 0, "dasha_sparsify_update": 0,
+                           "dasha_mvr_update": 0, "quantize": 0}
 
 
 def test_dispatch_refuses_devices_without_a_kernel():
