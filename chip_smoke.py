@@ -12,7 +12,8 @@ Phases, each fatal on failure:
    bound: ``dasha_update`` (the dense-mask entry) at the flat path's (5,
    20958), the ResNet-18 width (5, 11173962) and a ragged misaligned (3,
    4099); ``dasha_mvr_update`` at (4, 20958), the Mamba2-780M tied
-   embedding leaf (4, 77463552) and the ragged misaligned shape, on an fp32
+   embedding leaf (4, 77463552), starcoder2-3b's embedding leaf (4,
+   150994944) and the ragged misaligned shape, on an fp32
    mask, the trainer's bool draw and one shared bool row; then kernel 2
    (``QUANT_CASES``, ``FUSED_CASES``): the device floor of one launch (a
    one-element torch add), ``quantize`` by the one-level rule and two
@@ -260,7 +261,29 @@ Phases, each fatal on failure:
     uninterrupted run's.  Each gate has two planted faults that must fail
     it: a restore with one h_local row one ulp off, and one with the start
     round one off.  Reported: each file's size, save and load seconds and
-    GB/s, the device peak and the launches by kernel.
+    GB/s, the device peak and the launches by kernel;
+19. the dense GQA family at starcoder2-3b's full width (d_model 3,072, 24
+    heads, 2 KV heads, d_ff 12,288, vocab 49,152), with the card's memory
+    printed first: (a) ``launch.train.train`` cut to ``DENSE_TRAIN_LAYERS``
+    of 30 layers at phase 5's n = 4 x 2 x 512, DASHA-MVR with the fused
+    kernel and Adam, rounds/s, tokens/s, peak, busy share; gate: kernel 3
+    once per parameter leaf a round (16) and nothing else; (b) serving at
+    30 of 30 layers in bf16: ``prefill_logits`` at 4 x 8,192 tokens (the
+    streaming attention under the 4,096-token window) beside its bf16
+    tensor-core bound, ``serve`` at batch 128, and 32 decode steps at
+    batch 128 on the 4,096-slot ring across its wrap beside the bound of
+    reading the weights and the cache once; (c) card vs CPU at the three
+    smoke configs in float32: prefill logits by the dense (64 tokens) and
+    streaming (2,048) paths, 24 decode steps past the 16-slot smoke ring,
+    within ``DENSE_AGREE_LIMIT`` (planted: the streaming prefill without
+    its window, a ring written at t instead of t % T); (d) starcoder2
+    smoke trained on the card and the CPU with the same masks and
+    batches, dasha / mvr x kernel off / on (planted: the next round's
+    masks; the plain route's launches under (a)'s launch gate); (e)
+    Figure 4 (``repro_torch.bench.fig4_dnn``) at its 120 steps, each row
+    with its wall seconds, and dasha_1/32's lowest- and highest-gamma
+    lanes against sequential Driver runs (planted: each lane against the
+    other's run).  ``DENSE_CUTS`` lists the cuts.
 
 Every phase that drives a main path zeroes the launch counters just before
 it and reads them just after; a kernel of that path that never launched
@@ -368,8 +391,11 @@ SPARSIFY_SPEEDUP_MIN = 2.0
 # the trainer: Mamba2-780M's widths, its tied embedding leaf, n = 4 nodes
 TRAIN_NODES, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 4, 16, 2, 512
 TRAIN_WARMUP, TRAIN_ROUNDS, TRAIN_PROFILED = 2, 10, 2
-D_EMBED = 50432 * 1536
-MVR_SHAPES = [(TRAIN_NODES, D_REALSIM), (TRAIN_NODES, D_EMBED), (3, 4099)]
+# the trainers' largest leaves: Mamba2-780M's tied embedding, starcoder2-3b's
+# embedding (its lm_head is as large)
+D_EMBED, D_DENSE_EMBED = 50432 * 1536, 49152 * 3072
+MVR_SHAPES = [(TRAIN_NODES, D_REALSIM), (TRAIN_NODES, D_EMBED),
+              (TRAIN_NODES, D_DENSE_EMBED), (3, 4099)]
 # serving: Mamba2-780M's SSD (H = 48 heads x P = 64, state N = 128, chunk
 # 256) at the prefill_32k sequence length, batch cut from 32 to 4; then
 # the smoke model's, and ragged shapes (B, S, H, P, N, chunk)
@@ -526,6 +552,41 @@ CKPT_CUTS = {
                       "that each of 4 arms and its ~5 GB file stay within "
                       "the phase's time",
     "trainer_steps": "4 rounds, the checkpoint after 2",
+}
+
+# the dense GQA family (phase 19): starcoder2-3b at full width (d_model
+# 3,072, 24 heads, 2 KV heads, d_ff 12,288, vocab 49,152).  (a) the
+# trainer cut to DENSE_TRAIN_LAYERS of 30 layers at phase 5's n = 4 x 2 x
+# 512, DASHA-MVR with kernel 3 once per parameter leaf a round
+# (DENSE_LEAVES) and an Adam server; (b) serving at 30 of 30 layers in
+# bf16: a 4 x 8,192 prefill (two 4,096-token windows: the streaming path
+# and its window mask), the serve entry point at batch 128, and
+# DENSE_DECODE_STEPS decode steps at batch 128 on the 4,096-slot ring,
+# wrapping; (c, d) card against CPU at the three smoke configs in float32
+# (prefill by both attention paths, decode past the 16-slot smoke ring,
+# trainer rounds on replayed masks) within DENSE_AGREE_LIMIT; (e) Figure 4
+# at its full 120 steps, dasha_1/32's lanes FIG4_CHECKED_LANES against
+# sequential runs (FIG4_LANE_RTOL of each field's move from the start,
+# FIG4_LOSS_RTOL on the eval loss); a prefill is profiled on
+# DENSE_PROFILED_LAYERS of its identical layers
+DENSE_LEAVES = 16
+DENSE_TRAIN_LAYERS, DENSE_TRAIN_WARMUP, DENSE_TRAIN_ROUNDS = 3, 2, 6
+DENSE_PREFILL_BATCH, DENSE_PREFILL_SEQ, DENSE_PREFILL_TIMED = 4, 8192, 2
+DENSE_SERVE_PROMPT, DENSE_SERVE_NEW = 16, 16
+DENSE_DECODE_BATCH, DENSE_DECODE_STEPS, DENSE_DECODE_PROFILED = 128, 32, 4
+DENSE_AGREE_LIMIT, DENSE_AGREE_STREAM_SEQ = 1e-4, 2048
+DENSE_DECODE_AGREE_STEPS, DENSE_AGREE_ROUNDS = 24, 3
+FIG4_LANE_RTOL, FIG4_LOSS_RTOL, FIG4_CHECKED_LANES = 1e-2, 1e-3, (0, 2)
+DENSE_PROFILED_LAYERS = 2
+DENSE_CUTS = {
+    "trainer_layers": "starcoder2-3b's 30 layers cut to 3 for the trainer: "
+                      "n = 4 nodes of fp32 state and the round's per-node "
+                      "trees take ~105 bytes a parameter (53.36 GB at 2 "
+                      "layers, 62.19 GB at 3 on the H100, leaving 22.8 GB "
+                      "of its 85.0 GB; 4 layers would need ~71 GB)",
+    "decode_history": "the 4,096-slot ring filled with random K/V in place "
+                      "of 4,096 prompt steps (a step's time does not depend "
+                      "on the values)",
 }
 
 
@@ -5331,6 +5392,600 @@ def phase_ckpt(torch, smi: str):
         launches
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the dense GQA family (starcoder2-3b) and Figure 4
+# ---------------------------------------------------------------------------
+
+def _dense_launch_gate(tag: str, counts: dict, leaves: int,
+                       rounds: int) -> None:
+    """The dense trainer's launches: kernel 3 once per parameter leaf a
+    round (16 leaves for starcoder2) and no other kernel."""
+    want = {"dasha_mvr_update": leaves * rounds}
+    if leaves != DENSE_LEAVES:
+        raise AssertionError(f"[{tag}] {leaves} parameter leaves, expected "
+                             f"{DENSE_LEAVES}")
+    _gate_launches(tag, counts, want)
+
+
+def _dense_trainer(torch, smi: str):
+    """19a: ``launch.train.train`` on starcoder2-3b at full width cut to
+    DENSE_TRAIN_LAYERS layers, phase 5's n = 4 x 2 x 512, DASHA-MVR with
+    kernel 3 and an Adam server, the counters zeroed before and read
+    after."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree
+    from repro_torch.launch.train import train
+
+    cfg = dataclasses.replace(get_config("starcoder2-3b"),
+                              num_layers=DENSE_TRAIN_LAYERS)
+    rounds = DENSE_TRAIN_WARMUP + DENSE_TRAIN_ROUNDS
+    args = _train_args(["--arch", "starcoder2-3b", "--steps", str(rounds),
+                        "--log-every", str(DENSE_TRAIN_WARMUP), "--variant",
+                        "mvr", "--use-kernel"])
+    _reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    res = train(cfg, args, device="cuda", log=log)
+    torch.cuda.synchronize()
+    counts = _launch_counts()
+    leaves = len(tree.leaves(res.state.x))
+    _dense_launch_gate("dense-train", counts, leaves, rounds)
+    peak = max(c["peak_mem_gb"] for c in res.chunks)
+    losses = [c["loss"] for c in res.chunks]
+    if not all(math.isfinite(v) for v in [res.loss0] + losses) or \
+            not losses[-1] < res.loss0:
+        raise AssertionError(f"[dense-train] eval loss {res.loss0} -> "
+                             f"{losses}: must be finite and end lower")
+    timed = res.chunks[1:]                      # the first chunk warms up
+    wall = sum(c["seconds"] for c in timed)
+    timed_rounds = rounds - DENSE_TRAIN_WARMUP
+    tokens = TRAIN_NODES * TRAIN_BATCH * TRAIN_SEQ
+    k3_bound = res.n_params * TRAIN_NODES * 29 / HBM_BYTES_PER_S * 1e3
+    # the profiled rounds take the state out of ``res``, so that the
+    # driver frees it after its first round (two states do not fit)
+    box = [res.state]
+    res.state = None
+    table, pwall = profiled(torch, lambda: box.append(res.driver.run(
+        box.pop(), TRAIN_PROFILED, data_seed=res.data_seed)[0]))
+    busy_s = sum(t for _, t in table.values()) / 1e6
+    k3_ms = sum(t for k, (_, t) in table.items()
+                if "dasha_mvr_update" in k) / 1e3 / TRAIN_PROFILED
+    top = sorted(table.items(), key=lambda kv: -kv[1][1])[:10]
+    total_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    out = {"layers": DENSE_TRAIN_LAYERS, "of_layers": 30,
+           "d_model": cfg.d_model, "heads": cfg.num_heads,
+           "kv_heads": cfg.num_kv_heads, "d_ff": cfg.d_ff,
+           "vocab_padded": cfg.padded_vocab, "params": res.n_params,
+           "leaves": leaves, "nodes": TRAIN_NODES, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "rounds_timed": timed_rounds,
+           "rounds_per_s": timed_rounds / wall,
+           "tokens_per_s": timed_rounds * tokens / wall,
+           "round_ms": wall / timed_rounds * 1e3, "peak_mem_gb": peak,
+           "card_gb": total_gb, "free_at_peak_gb": total_gb - peak,
+           "eval_loss_start": res.loss0, "eval_loss_end": losses[-1],
+           "launches": counts, "kernel3_launches_per_round":
+               counts["dasha_mvr_update"] / rounds,
+           "kernel_device_ms_per_round": k3_ms,
+           "kernel_bound_ms_per_round": k3_bound,
+           "profile": {"rounds": TRAIN_PROFILED, "wall_s": pwall,
+                       "device_busy_s": busy_s, "busy_share": busy_s / pwall,
+                       "device_launches_per_round":
+                           sum(c for c, _ in table.values()) / TRAIN_PROFILED,
+                       "top_kernels": [[k[:90], c, us / 1e3]
+                                       for k, (c, us) in top]},
+           "chunks": res.chunks, "card": smi}
+    log(f"[dense-train] starcoder2-3b {DENSE_TRAIN_LAYERS}/30 layers, "
+        f"{res.n_params / 1e6:.1f}M params, {leaves} leaves ({smi}): "
+        f"{out['rounds_per_s']:.3f} rounds/s, {out['tokens_per_s']:.0f} "
+        f"tokens/s, peak {peak:.2f} GB of {total_gb:.1f} GB, eval loss "
+        f"{res.loss0:.4f} -> {losses[-1]:.4f}, kernel 3 "
+        f"{out['kernel3_launches_per_round']:.0f} launches a round, "
+        f"{k3_ms:.3f} ms device a round vs a {k3_bound:.3f} ms bound; "
+        f"device busy {busy_s / pwall:.3f}")
+    for k, c, ms in out["profile"]["top_kernels"]:
+        log(f"[dense-train]   {ms:9.3f} ms  x{c:<5d} {k}")
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def dense_prefill_bound(cfg, batch: int, seq: int, n_params: int):
+    """The least time of a last-position prefill: its bf16 tensor-core
+    operations (every layer's projections and MLP for each token, the
+    causal window's QK^T and PV products over the keys each query sees,
+    the head at the last position) against reading the weights once."""
+    per_layer = (n_params - 2 * cfg.padded_vocab * cfg.d_model) \
+        / cfg.num_layers
+    W = cfg.sliding_window or seq
+    keys = sum(min(p + 1, W) for p in range(seq))        # per sequence
+    attn = 4 * cfg.head_dim * cfg.num_heads * keys * batch
+    flops = cfg.num_layers * (2 * per_layer * batch * seq + attn) \
+        + 2 * batch * cfg.d_model * cfg.padded_vocab
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_bytes = 2 * n_params / HBM_BYTES_PER_S * 1e3
+    return ((t_ops, "operations") if t_ops >= t_bytes else
+            (t_bytes, "bytes")), flops
+
+
+def dense_decode_bound(cfg, batch: int, T: int, n_params: int):
+    """The least time of one decode step: read the weights (the embedding
+    only at the batch's rows) and the KV cache once, write one slot; its
+    bf16 operations beside it."""
+    embed = cfg.padded_vocab * cfg.d_model
+    kv = 2 * cfg.num_layers * batch * T * cfg.num_kv_heads * cfg.head_dim
+    nbytes = 2 * (n_params - embed + batch * cfg.d_model) + 2 * kv
+    flops = 2 * (n_params - embed) * batch + 2 * kv * (
+        cfg.num_heads // cfg.num_kv_heads)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops else
+            (t_ops, "operations")), nbytes
+
+
+def _dense_serve(torch, smi: str):
+    """19b: starcoder2-3b at 30 of 30 layers in bf16 through the serving
+    entry points: ``prefill_logits`` of 4 x 8,192 tokens (two windows:
+    the streaming path and the window mask), ``serve`` at batch 128, and
+    decode steps at batch 128 on the 4,096-slot ring cache, wrapping."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree
+    from repro_torch.data.pipeline import SyntheticTextConfig, make_lm_batch
+    from repro_torch.launch import serve as S
+    from repro_torch.models import init_params, lm
+
+    cfg = get_config("starcoder2-3b")
+    L = cfg.num_layers
+    params = init_params(cfg, 0, device="cuda")
+    n_params = sum(int(x.numel()) for x in tree.leaves(params))
+    out = {"layers": L, "params": n_params, "card": smi}
+
+    # prefill
+    text = SyntheticTextConfig(vocab_size=cfg.vocab_size,
+                               seq_len=DENSE_PREFILL_SEQ)
+    tokens = make_lm_batch(1, text, DENSE_PREFILL_BATCH,
+                           device="cuda")["tokens"]
+    _reset_launch_counts()
+    logits = S.prefill_logits(cfg, params, tokens)            # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(DENSE_PREFILL_TIMED):
+        t0 = time.perf_counter()
+        logits = S.prefill_logits(cfg, params, tokens)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    if tuple(logits.shape) != (DENSE_PREFILL_BATCH, 1, cfg.padded_vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"[dense-serve] prefill logits "
+                             f"{tuple(logits.shape)} misshapen or not "
+                             "finite")
+    # the profiled call runs DENSE_PROFILED_LAYERS of the 30 identical
+    # layers (the profiler's tables of a whole call's ~10^5 launches take
+    # minutes to build)
+    cut = dataclasses.replace(cfg, num_layers=DENSE_PROFILED_LAYERS)
+    cut_params = dict(params, layers=tree.map_leaves(
+        lambda w: w[:DENSE_PROFILED_LAYERS], params["layers"]))
+    table, pwall = profiled(torch, lambda: S.prefill_logits(cut, cut_params,
+                                                            tokens))
+    busy_s = sum(t for _, t in table.values()) / 1e6
+    top = sorted(table.items(), key=lambda kv: -kv[1][1])[:10]
+    (b_ms, by), flops = dense_prefill_bound(cfg, DENSE_PREFILL_BATCH,
+                                            DENSE_PREFILL_SEQ, n_params)
+    wall = sum(walls) / len(walls)
+    ntok = DENSE_PREFILL_BATCH * DENSE_PREFILL_SEQ
+    out["prefill"] = {
+        "batch": DENSE_PREFILL_BATCH, "seq": DENSE_PREFILL_SEQ,
+        "walls_s": walls, "tokens_per_s": ntok / wall,
+        "peak_mem_gb": peak / 1e9, "bound_ms": b_ms, "bound_by": by,
+        "flops": flops, "bound_share": b_ms / (wall * 1e3),
+        "launches": _launch_counts(),
+        "profile": {"layers": DENSE_PROFILED_LAYERS, "wall_s": pwall,
+                    "device_busy_s": busy_s, "busy_share": busy_s / pwall,
+                    "launches": sum(c for c, _ in table.values()),
+                    "top_kernels": [[k[:90], c, us / 1e3]
+                                    for k, (c, us) in top]}}
+    log(f"[dense-serve] starcoder2-3b {L}/30 layers, {n_params / 1e6:.1f}M "
+        f"params, bf16 ({smi}): prefill {DENSE_PREFILL_BATCH} x "
+        f"{DENSE_PREFILL_SEQ} in {walls} s, {ntok / wall:.0f} tokens/s, "
+        f"peak {peak / 1e9:.2f} GB, bound {b_ms:.1f} ms ({by}, "
+        f"{flops / 1e12:.1f} TFLOP at the bf16 rate); a profiled call of "
+        f"{DENSE_PROFILED_LAYERS} layers {pwall:.3f} s, device busy "
+        f"{busy_s / pwall:.3f}")
+    for k, c, ms in out["prefill"]["profile"]["top_kernels"]:
+        log(f"[dense-serve]   {ms:9.3f} ms  x{c:<5d} {k}")
+    del logits, tokens
+    torch.cuda.empty_cache()
+
+    # serve: the entry point at batch 128 (a short prompt stepped through
+    # decode_step, greedy decode)
+    args = S.build_parser().parse_args([
+        "--arch", "starcoder2-3b", "--batch", str(DENSE_DECODE_BATCH),
+        "--prompt-len", str(DENSE_SERVE_PROMPT), "--new-tokens",
+        str(DENSE_SERVE_NEW)])
+    res = S.serve(cfg, args, device="cuda", params=params, log=log)
+    torch.cuda.synchronize()
+    if res.tokens.shape != (DENSE_DECODE_BATCH, DENSE_SERVE_NEW) or \
+            not ((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all():
+        raise AssertionError(f"[dense-serve] serve tokens "
+                             f"{res.tokens.shape} misshapen or out of the "
+                             "vocabulary")
+    out["serve"] = {"batch": DENSE_DECODE_BATCH,
+                    "prompt": DENSE_SERVE_PROMPT, "new": DENSE_SERVE_NEW,
+                    "prompt_ms_per_step":
+                        res.prefill_s / DENSE_SERVE_PROMPT * 1e3,
+                    "decode_ms_per_step":
+                        res.decode_s / DENSE_SERVE_NEW * 1e3,
+                    "first_row": res.tokens[0].tolist()}
+    del res
+    torch.cuda.empty_cache()
+
+    # decode on the full ring: 4,096 slots of a written history (random
+    # K/V: the step's time does not depend on their values), from 16
+    # positions before the wrap to 16 after it
+    T = cfg.sliding_window
+    cache = lm.init_cache(cfg, DENSE_DECODE_BATCH, T + DENSE_DECODE_STEPS,
+                          device="cuda")
+    if cache["k"].shape[2] != T:
+        raise AssertionError(f"[dense-serve] cache {tuple(cache['k'].shape)}"
+                             f": expected a ring of {T} slots")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    for c in cache.values():
+        c.normal_(generator=gen)
+    t0 = T - DENSE_DECODE_STEPS // 2
+    tok = torch.randint(1, cfg.vocab_size, (DENSE_DECODE_BATCH,),
+                        device="cuda", generator=gen)
+
+    def steps(first: int, count: int):
+        nonlocal tok
+        with torch.inference_mode():
+            for i in range(count):
+                logits, _ = lm.decode_step(cfg, params, cache, tok,
+                                           first + i)
+                tok = S.greedy(cfg, logits)
+        return logits
+
+    steps(t0 - 2, 2)                                       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    last = steps(t0, DENSE_DECODE_STEPS)
+    torch.cuda.synchronize()
+    dwall = time.perf_counter() - t1
+    dpeak = torch.cuda.max_memory_allocated()
+    if not bool(torch.isfinite(last).all()):
+        raise AssertionError("[dense-serve] decode logits not finite")
+    table, pwall = profiled(torch, lambda: steps(t0 + DENSE_DECODE_STEPS,
+                                                 DENSE_DECODE_PROFILED))
+    busy_s = sum(t for _, t in table.values()) / 1e6
+    top = sorted(table.items(), key=lambda kv: -kv[1][1])[:8]
+    (db_ms, dby), dbytes = dense_decode_bound(cfg, DENSE_DECODE_BATCH, T,
+                                              n_params)
+    ms = dwall / DENSE_DECODE_STEPS * 1e3
+    cache_gb = sum(c.numel() * c.element_size() for c in cache.values()) / 1e9
+    out["decode"] = {
+        "batch": DENSE_DECODE_BATCH, "ring_slots": T,
+        "positions": [t0, t0 + DENSE_DECODE_STEPS - 1],
+        "steps": DENSE_DECODE_STEPS, "ms_per_step": ms,
+        "tokens_per_s": DENSE_DECODE_BATCH / (ms / 1e3),
+        "cache_gb": cache_gb, "peak_mem_gb": dpeak / 1e9,
+        "bound_ms": db_ms, "bound_by": dby, "bound_bytes": dbytes,
+        "profile": {"steps": DENSE_DECODE_PROFILED, "wall_s": pwall,
+                    "device_busy_s": busy_s, "busy_share": busy_s / pwall,
+                    "kernels_per_step": sum(c for c, _ in table.values())
+                    / DENSE_DECODE_PROFILED,
+                    "top_kernels": [[k[:90], c, us / 1e3]
+                                    for k, (c, us) in top]}}
+    log(f"[dense-serve] decode batch {DENSE_DECODE_BATCH} on the {T}-slot "
+        f"ring ({smi}), positions {t0}..{t0 + DENSE_DECODE_STEPS - 1}: "
+        f"{ms:.2f} ms a step vs a {db_ms:.2f} ms bound ({dby}), cache "
+        f"{cache_gb:.2f} GB, peak {dpeak / 1e9:.2f} GB, device busy "
+        f"{busy_s / pwall:.3f}, "
+        f"{out['decode']['profile']['kernels_per_step']:.0f} kernels a step")
+    for k, c, ms_k in out["decode"]["profile"]["top_kernels"]:
+        log(f"[dense-serve]   {ms_k:9.3f} ms  x{c:<5d} {k}")
+    del cache, params, last
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rel_gap(got, want) -> float:
+    scale = max(float(want.abs().max()), 1e-30)
+    return float((got.float().cpu() - want.float()).abs().max()) / scale
+
+
+def _dense_model_agreement(torch):
+    """19c: the three smoke configs in float32 on the card and on the
+    CPU, the same params and tokens: prefill logits by the dense path (64
+    tokens) and the streaming one (2,048), and 24 teacher-forced decode
+    steps (past the 16-slot smoke ring), each within DENSE_AGREE_LIMIT of
+    the largest CPU logit.  Planted faults (starcoder2): the streaming
+    prefill without its window, and decode on the ring's cache written at
+    t (clamped, no window) instead of t % T, must each fail it."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import tree
+    from repro_torch.launch import serve as S
+    from repro_torch.models import init_params, lm
+
+    worst, planted, by_arch = 0.0, {}, {}
+    gen = torch.Generator().manual_seed(7)
+    for arch in ("starcoder2-3b", "minitron-8b", "qwen1.5-110b"):
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        params = init_params(cfg, 0, device="cpu")
+        dev_params = tree.map_leaves(lambda p: p.to("cuda"), params)
+        errs = {}
+        for name, shape in (("prefill_dense", (2, 64)),
+                            ("prefill_streaming",
+                             (1, DENSE_AGREE_STREAM_SEQ))):
+            tok = torch.randint(1, cfg.vocab_size, shape, generator=gen)
+            want = S.prefill_logits(cfg, params, tok)
+            errs[name] = _rel_gap(S.prefill_logits(cfg, dev_params,
+                                                   tok.to("cuda")), want)
+            if name == "prefill_streaming" and cfg.sliding_window:
+                nowin = dataclasses.replace(cfg, sliding_window=0)
+                planted["streaming prefill without its window"] = _rel_gap(
+                    S.prefill_logits(nowin, dev_params, tok.to("cuda")),
+                    want)
+        B, steps = 2, DENSE_DECODE_AGREE_STEPS
+        tok = torch.randint(1, cfg.vocab_size, (B, steps), generator=gen)
+        caches = {d: lm.init_cache(cfg, B, steps, device=d)
+                  for d in ("cpu", "cuda")}
+        ring_fault = lm.init_cache(cfg, B, steps, device="cuda") \
+            if cfg.sliding_window else None
+        flat = dataclasses.replace(cfg, sliding_window=0)
+        err = fault = 0.0
+        with torch.inference_mode():
+            for t in range(steps):
+                want, _ = lm.decode_step(cfg, params, caches["cpu"],
+                                         tok[:, t], t)
+                got, _ = lm.decode_step(cfg, dev_params, caches["cuda"],
+                                        tok[:, t].to("cuda"), t)
+                err = max(err, _rel_gap(got, want))
+                if ring_fault is not None:
+                    bad, _ = lm.decode_step(flat, dev_params, ring_fault,
+                                            tok[:, t].to("cuda"), t)
+                    fault = max(fault, _rel_gap(bad, want))
+        errs["decode"] = err
+        if ring_fault is not None:
+            planted["ring written at t, not t % T"] = fault
+        by_arch[arch] = errs
+        worst = max([worst] + list(errs.values()))
+    if not worst <= DENSE_AGREE_LIMIT:
+        raise AssertionError(f"[dense-agree] card and CPU logits differ: "
+                             f"{by_arch} (limit {DENSE_AGREE_LIMIT})")
+    missed = {k: v for k, v in planted.items()
+              if not v > DENSE_AGREE_LIMIT}
+    if len(planted) != 2 or missed:
+        raise AssertionError(f"[dense-agree] planted faults pass the gate: "
+                             f"{planted}")
+    log(f"[dense-agree] smoke starcoder2 / minitron / qwen1.5 f32, card vs "
+        f"CPU (dense and streaming prefill, {DENSE_DECODE_AGREE_STEPS} "
+        f"decode steps past the 16-slot ring): worst {worst:.3g} of max "
+        f"|logit| (limit {DENSE_AGREE_LIMIT}); planted {planted}")
+    return {"worst": worst, "by_arch": by_arch, "planted": planted}
+
+
+def _dense_trainer_agreement(torch):
+    """19d: starcoder2 smoke in float32 trained on the card and on the CPU
+    with the same CPU-drawn masks and batches, dasha and mvr x kernel off
+    / on, DENSE_AGREE_ROUNDS rounds, SGD server: the states within
+    DENSE_AGREE_LIMIT of each leaf's largest magnitude.  Planted faults:
+    the card run on the next round's masks must fail that gate, and the
+    plain route's launches must fail the trainer's launch gate."""
+    from repro_torch.compress import treelevel
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import tree
+    from repro_torch.core.rng import Draws, RoundRandom
+    from repro_torch.data.pipeline import (SyntheticTextConfig,
+                                           make_node_batches)
+    from repro_torch.methods import Driver
+    from repro_torch.models import init_params, lm
+    from repro_torch.optim.distributed import DashaTrainConfig, make_method
+
+    cfg = dataclasses.replace(get_smoke_config("starcoder2-3b"),
+                              dtype="float32")
+    n, rounds = TRAIN_NODES, DENSE_AGREE_ROUNDS
+    text = SyntheticTextConfig(vocab_size=cfg.vocab_size, seq_len=64)
+    batches = [make_node_batches(t, text, n, 2, device="cpu")
+               for t in range(rounds)]
+    params = init_params(cfg, 0, device="cpu")
+    zeros = tree.map_leaves(lambda p: torch.zeros((n,) + tuple(p.shape)),
+                            params)
+    worst, errs, planted = 0.0, {}, {}
+    for variant in ("dasha", "mvr"):
+        dcfg = DashaTrainConfig(gamma=0.05, compression=0.25,
+                                variant=variant, b=0.1, n_nodes=n,
+                                server_opt="sgd")
+        draws = []
+        for t in range(rounds + 1):
+            masks, _ = treelevel.tree_masks(RoundRandom(9, t), zeros,
+                                            mode="independent",
+                                            p=dcfg.compression, n=n)
+            draws.append(Draws(masks=masks))
+
+        def run(dev, use_kernel, shift=0):
+            method = make_method(
+                dataclasses.replace(dcfg, use_kernel=use_kernel),
+                lambda p, b: lm.loss_fn(cfg, p, b)[0])
+            state = method.init(tree.map_leaves(lambda p: p.to(dev),
+                                                params), 1,
+                                init_mode="zeros", device=dev)
+            dev_draws = [Draws(masks=tree.map_leaves(
+                lambda m: m.to(dev), d.masks)) for d in draws]
+
+            def step(s, data):
+                return method.step_full(s, data,
+                                        draws=dev_draws[s.t + shift])[0]
+
+            _reset_launch_counts()
+            final, _ = Driver(step, data_fn=lambda seed, t: {
+                k: v.to(dev) for k, v in batches[t].items()}).run(
+                state, rounds, data_seed=0)
+            return final, _launch_counts()
+
+        cpu, _ = run("cpu", False)
+        for use_kernel in (False, True):
+            card, counts = run("cuda", use_kernel)
+            tag = f"{variant}/kernel={use_kernel}"
+            try:
+                errs[tag] = _states_agree(torch, card, cpu,
+                                          DENSE_AGREE_LIMIT)
+            except AssertionError as e:
+                raise AssertionError(f"[dense-agree] trainer {tag}: {e}") \
+                    from None
+            worst = max(worst, errs[tag])
+            if variant == "mvr" and not use_kernel:
+                try:
+                    _dense_launch_gate("planted", counts,
+                                       len(tree.leaves(params)), rounds)
+                except AssertionError as e:
+                    planted["plain route under the launch gate"] = str(e)
+                else:
+                    raise AssertionError("[dense-agree] the plain route's "
+                                         f"launches {counts} pass the "
+                                         "trainer's launch gate")
+        shifted, _ = run("cuda", True, shift=1)
+        try:
+            _states_agree(torch, shifted, cpu, DENSE_AGREE_LIMIT)
+        except AssertionError as e:
+            planted[f"{variant} on the next round's masks"] = str(e)[:120]
+        else:
+            raise AssertionError(f"[dense-agree] {variant} on the next "
+                                 "round's masks passes the state gate")
+    log(f"[dense-agree] trainer, starcoder2 smoke f32, dasha/mvr x kernel "
+        f"off/on, {rounds} rounds with injected CPU masks and batches: card "
+        f"vs CPU worst {worst:.3g} of a leaf's largest magnitude (limit "
+        f"{DENSE_AGREE_LIMIT}); planted faults caught: {sorted(planted)}")
+    return {"worst": worst, "by_route": errs, "planted": planted}
+
+
+def _fig4_lane_errors(torch, lanes_state, j: int, seq, init) -> dict:
+    """Lane ``j``'s distance from a sequential run, per state field: the
+    largest leaf error relative to how far the sequential run moved that
+    leaf from the start (a lane run at its neighbour's gamma is ~1 off),
+    and the largest absolute difference."""
+    from repro_torch.core import tree
+    out = {}
+    for f in SWEEP_STATE:
+        rel = diff = 0.0
+        for path, w in tree.items(getattr(seq, f)):
+            g = tree.get(getattr(lanes_state, f), path)[j].float()
+            w, w0 = w.float(), tree.get(getattr(init, f), path).float()
+            d = float((g - w).abs().max())
+            move = float((w - w0).abs().max())
+            diff = max(diff, d)
+            rel = max(rel, d / move if move > 0 else (0.0 if d == 0
+                                                       else math.inf))
+        out[f] = {"rel_to_move": rel, "max_abs": diff}
+    return out
+
+
+def _dense_fig4(torch, smi: str):
+    """19e: Figure 4 on the card at its full STEPS (the three 3-lane
+    sweeps on the tree substrate and the Adam baseline), each row with
+    its wall seconds; then dasha_1/32's lowest- and highest-gamma lanes
+    (FIG4_CHECKED_LANES) against sequential Driver runs at their gammas
+    over the same rounds (bits_sent exactly, every state field within
+    FIG4_LANE_RTOL of the run's move from the start, the eval losses
+    within FIG4_LOSS_RTOL), where each lane held against the other's run
+    must fail."""
+    from repro_torch.bench import fig4_dnn as F
+    from repro_torch.bench.common import emit
+    from repro_torch.methods import Driver
+
+    t0 = time.perf_counter()
+    rows, sweeps, (cfg, params, data_fn, fixed) = F.figure(
+        torch.device("cuda"), F.STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log(f"[fig4] Figure 4 at {F.STEPS} steps on the card ({smi}): "
+        f"{wall:.2f} s")
+    emit(rows)
+    if not all(math.isfinite(r["final_loss"]) for r in rows):
+        raise AssertionError(f"[fig4] a row's loss is not finite: {rows}")
+
+    name, kw = F.METHODS[0]
+    finals, lane_losses = sweeps[name]
+    init = F.init_state(cfg, kw, params, device="cuda")
+    method_fn = F.method_fn_of(cfg, kw)
+    seqs, checks = {}, []
+    for j in FIG4_CHECKED_LANES:
+        gamma = F.GAMMAS[j]
+        seq, _ = Driver(method_fn(gamma), data_fn=data_fn,
+                         chunk=F.CHUNK).run(init, F.STEPS,
+                                            data_seed=F.DATA_SEED)
+        seqs[j] = seq
+        loss = F.eval_loss(cfg, seq.x, fixed)
+        errs = _fig4_lane_errors(torch, finals, j, seq, init)
+        loss_rel = abs(lane_losses[j] - loss) / abs(loss)
+        bad = {f: e for f, e in errs.items()
+               if not e["rel_to_move"] <= FIG4_LANE_RTOL}
+        if bad or not loss_rel <= FIG4_LOSS_RTOL or \
+                float(finals.bits_sent[j]) != float(seq.bits_sent):
+            raise AssertionError(f"[fig4] lane {j} (gamma {gamma}) off its "
+                                 f"sequential run: {bad}, loss {loss_rel}, "
+                                 f"bits {finals.bits_sent[j]} vs "
+                                 f"{seq.bits_sent}")
+        checks.append({"lane": j, "gamma": gamma, "errors": errs,
+                       "loss_lane": lane_losses[j], "loss_seq": loss,
+                       "loss_rel_err": loss_rel})
+    planted = {}
+    for j, nb in zip(FIG4_CHECKED_LANES, FIG4_CHECKED_LANES[::-1]):
+        errs = _fig4_lane_errors(torch, finals, j, seqs[nb], init)
+        worst_f = max(e["rel_to_move"] for e in errs.values())
+        if not worst_f > FIG4_LANE_RTOL:
+            raise AssertionError(f"[fig4] lane {j} against gamma "
+                                 f"{F.GAMMAS[nb]} passes the lane gate "
+                                 f"({errs})")
+        planted[f"lane {j} vs gamma {F.GAMMAS[nb]}"] = worst_f
+    exact = all(e["max_abs"] == 0.0 for c in checks
+                for e in c["errors"].values())
+    worst = max(e["rel_to_move"] for c in checks
+                for e in c["errors"].values())
+    log(f"[fig4] dasha_1/32's lanes {FIG4_CHECKED_LANES} vs sequential "
+        f"Driver runs over {F.STEPS} steps: worst {worst:.3g} of the move "
+        f"(limit {FIG4_LANE_RTOL}), bit for bit: {exact}; planted "
+        f"other-gamma faults read {planted}")
+    return {"rows": rows, "wall_s": wall, "lane_checks": checks,
+            "lanes_bit_equal": exact, "planted": planted}
+
+
+def phase_dense(torch, smi: str):
+    """Phase 19: the dense GQA family at starcoder2-3b's full width
+    (trainer and serving), card against CPU at the three smoke configs,
+    and Figure 4 with its lane gate.  Returns the report and kernel 3's
+    launches on the trainer."""
+    gc.collect()                    # earlier phases' reference cycles
+    torch.cuda.empty_cache()
+    held = {"allocated_gb": torch.cuda.memory_allocated() / 1e9,
+            "reserved_gb": torch.cuda.memory_reserved() / 1e9}
+    log(f"[dense] before the phase: {held['allocated_gb']:.2f} GB "
+        f"allocated, {held['reserved_gb']:.2f} GB reserved")
+    t0 = time.perf_counter()
+    walls = {}
+
+    def part(name, fn, *args):
+        t1 = time.perf_counter()
+        res = fn(torch, *args)
+        walls[name] = time.perf_counter() - t1
+        log(f"[dense] {name} in {walls[name]:.1f} s")
+        return res
+
+    trainer, counts = part("trainer", _dense_trainer, smi)
+    serving = part("serve", _dense_serve, smi)
+    agree = part("agreement", _dense_model_agreement)
+    train_agree = part("trainer_agreement", _dense_trainer_agreement)
+    fig4 = part("fig4", _dense_fig4, smi)
+    wall = time.perf_counter() - t0
+    log(f"[dense] phase 19 in {wall:.1f} s")
+    return {"held_before": held, "trainer": trainer, "serve": serving,
+            "agreement": agree, "trainer_agreement": train_agree,
+            "fig4": fig4, "cuts": DENSE_CUTS, "wall_s": wall,
+            "walls_s": walls}, counts["dasha_mvr_update"]
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"{SRC / 'repro_torch'} not found: run from a checkout of the "
@@ -5377,6 +6032,7 @@ def main() -> int:
         fed_peak_gb=fed["peak_mem_gb"])
     obsr, obs_launches = phase_obs(torch, smi)
     ckpt, ckpt_launches = phase_ckpt(torch, smi)
+    dense, dense_launches = phase_dense(torch, smi)
     # kernels 1 to 4 run on several main paths: the flat round, the
     # federated cohort round, the heap oracle, the sweep, the faulted
     # campaigns, the asynchronous ones, the runs with an observability
@@ -5393,7 +6049,8 @@ def main() -> int:
             "obs": obs_launches["dasha_sparsify_update"],
             "ckpt": ckpt_launches["dasha_sparsify_update"]},
         "dasha_mvr_update": {"trainer": launches["dasha_mvr_update"],
-                             "ckpt": ckpt_launches["dasha_mvr_update"]},
+                             "ckpt": ckpt_launches["dasha_mvr_update"],
+                             "dense_trainer": dense_launches},
         "quantize": {"flat": launches["quantize"],
                      "heap": heap_launches["quantize"],
                      "faults": fault_launches["quantize"],
@@ -5529,7 +6186,8 @@ def main() -> int:
               "serve_agreement_worst": serve_rel, "fed": fed,
               "fed_agreement_worst": fed_rel, "heap": heap,
               "sweep": sweep, "faults": faults, "async": asyncr,
-              "obs": obsr, "ckpt": ckpt, "nvidia_smi": smi}
+              "obs": obsr, "ckpt": ckpt, "dense": dense,
+              "nvidia_smi": smi}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -20,8 +20,8 @@ from repro_torch.bench.common import emit
 from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
 
 BENCHES = ["fig1_gradient", "fig2_finite_sum", "fig3_stochastic",
-           "fig5_quadratic_pl", "table1_complexity", "fed_faults",
-           "fed_async"]
+           "fig4_dnn", "fig5_quadratic_pl", "table1_complexity",
+           "fed_faults", "fed_async"]
 
 
 def select(only) -> list:

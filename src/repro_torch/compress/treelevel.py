@@ -12,6 +12,10 @@ axis.  This module bridges them to the compressors:
 * :func:`fused_leaf_updates` / :func:`fused_tree_update` — the CUDA kernel
   path for every mode x variant (dasha | mvr).
 
+Each takes ``lanes=True`` for a sweep's lane trees, whose leaves carry a
+leading (G,) lane axis before the node axis: every lane shares the
+round's one draw per leaf, and a kernel launch covers all G * n rows.
+
 Every mask comes from the round's :class:`repro_torch.core.rng.RoundRandom`
 (one generator per leaf, tagged with the leaf's path, or the injected
 ``Draws.masks``), so the dense and fused paths see the same randomness.
@@ -35,9 +39,15 @@ def _node_ids(x: torch.Tensor) -> torch.Tensor:
                                                     (x.dim() - 1))
 
 
-def _leaf_draw(path: str, x: torch.Tensor, *, mode: str, p: float, n: int):
+def _leaf_draw(path: str, x: torch.Tensor, *, mode: str, p: float, n: int,
+               lanes: bool = False):
     """(generator device, draw) of leaf ``x``'s support before its float
-    conversion: bool, (n, *shape), or (1, *shape) for ``shared_coords``."""
+    conversion: bool, (n, *shape), or (1, *shape) for ``shared_coords``.
+    ``lanes``: ``x`` is (G, n, *shape), a sweep's G lanes, which share the
+    one draw of lane 0's shape (as G sequential runs from one seed draw
+    the same mask)."""
+    if lanes:
+        x = x[0]
     if mode == "permk":
         # the scale is the tree-wide n: a leaf whose node axis disagrees
         # would be silently mis-scaled (a biased estimator)
@@ -57,25 +67,27 @@ def _leaf_draw(path: str, x: torch.Tensor, *, mode: str, p: float, n: int):
 
 
 def leaf_mask(rnd, path: str, x: torch.Tensor, *, mode: str, p: float,
-              n: int) -> torch.Tensor:
-    """The (n, *shape) float32 {0,1} mask of leaf ``x`` (shape (n, ...)).
+              n: int, lanes: bool = False) -> torch.Tensor:
+    """The (n, *shape) float32 {0,1} mask of leaf ``x`` (shape (n, ...),
+    or (G, n, ...) with ``lanes``, whose lanes share the mask).
 
     ``permk``: node i keeps the coordinates it owns under the leaf's
     cyclic-shift partition; ``shared_coords``: one Bernoulli(p) mask per
     leaf, the same for every node; ``independent``: Bernoulli(p) per node
     and coordinate."""
-    dev, draw = _leaf_draw(path, x, mode=mode, p=p, n=n)
-    return rnd.leaf_mask(path, dev, lambda gen: draw(gen).expand(x.shape)
+    dev, draw = _leaf_draw(path, x, mode=mode, p=p, n=n, lanes=lanes)
+    shape = x.shape[1:] if lanes else x.shape
+    return rnd.leaf_mask(path, dev, lambda gen: draw(gen).expand(shape)
                          .to(torch.float32))
 
 
 def leaf_support(rnd, path: str, x: torch.Tensor, *, mode: str, p: float,
-                 n: int) -> torch.Tensor:
+                 n: int, lanes: bool = False) -> torch.Tensor:
     """:func:`leaf_mask`'s draw before its float conversion, as the
     kernels read it: bool (n, *shape), or the single (1, *shape) row of
     ``shared_coords`` (the kernels read row r % 1).  The same generator
     calls, so the same values; an injected mask is returned as given."""
-    dev, draw = _leaf_draw(path, x, mode=mode, p=p, n=n)
+    dev, draw = _leaf_draw(path, x, mode=mode, p=p, n=n, lanes=lanes)
     return rnd.leaf_mask(path, dev, draw)
 
 
@@ -97,29 +109,36 @@ def tree_masks(rnd, per_node: Tree, *, mode: str, p: float, n: int
 # ---------------------------------------------------------------------------
 
 def bernoulli_compress(rnd, delta: Tree, p: float,
-                       shared: bool = False) -> Tree:
-    """delta leaves: (n, *shape).  An independent Bernoulli(p) mask per
-    node and coordinate; ``shared=True`` draws one mask per leaf for all
-    nodes (the ``shared_coords`` mode).  Kept values are scaled by 1/p."""
+                       shared: bool = False, lanes: bool = False) -> Tree:
+    """delta leaves: (n, *shape), or (G, n, *shape) with ``lanes`` (one
+    mask for every lane).  An independent Bernoulli(p) mask per node and
+    coordinate; ``shared=True`` draws one mask per leaf for all nodes (the
+    ``shared_coords`` mode).  Kept values are scaled by 1/p."""
     mode = "shared_coords" if shared else "independent"
+    node_axis = 1 if lanes else 0
 
     def leaf(path, x):
-        mask = leaf_mask(rnd, path, x, mode=mode, p=p, n=x.shape[0])
+        mask = leaf_mask(rnd, path, x, mode=mode, p=p,
+                         n=x.shape[node_axis], lanes=lanes)
         return torch.where(mask != 0, x / p, torch.zeros_like(x)).to(x.dtype)
 
     return tree.from_items((path, leaf(path, x))
                            for path, x in tree.items(delta))
 
 
-def permk_compress(rnd, delta: Tree, n: int) -> Tuple[Tree, Tree]:
+def permk_compress(rnd, delta: Tree, n: int,
+                   lanes: bool = False) -> Tuple[Tree, Tree]:
     """Returns (messages m_i (n, *shape), exact aggregate mean_i m_i
-    (*shape)): node i keeps the coordinates it owns, times n."""
+    (*shape)): node i keeps the coordinates it owns, times n.  With
+    ``lanes`` the leaves are (G, n, *shape), one partition for every
+    lane."""
     ms, aggs = [], []
     for path, x in tree.items(delta):
-        mask = leaf_mask(rnd, path, x, mode="permk", p=1.0, n=n)
-        m = x * mask.to(x.dtype) * x.shape[0]
+        mask = leaf_mask(rnd, path, x, mode="permk", p=1.0, n=n, lanes=lanes)
+        m = x * mask.to(x.dtype) * n
         ms.append((path, m))
-        aggs.append((path, torch.mean(m.to(torch.float32), 0)))
+        aggs.append((path, torch.mean(m.to(torch.float32), 1 if lanes
+                                      else 0)))
     return tree.from_items(ms), tree.from_items(aggs)
 
 
@@ -130,7 +149,7 @@ def permk_compress(rnd, delta: Tree, n: int) -> Tuple[Tree, Tree]:
 def fused_leaf_updates(rnd, grads_new: Tree, h: Tree, g_local: Tree, *,
                        mode: str, a: float, p: float, n: int,
                        variant: str = "dasha", b: float = 0.0,
-                       grads_old: Optional[Tree] = None
+                       grads_old: Optional[Tree] = None, lanes: bool = False
                        ) -> Iterator[Tuple[str, torch.Tensor, torch.Tensor,
                                            torch.Tensor]]:
     """Alg. 1 lines 8-10 leaf by leaf, one kernel launch per leaf: yields
@@ -141,29 +160,45 @@ def fused_leaf_updates(rnd, grads_new: Tree, h: Tree, g_local: Tree, *,
 
     ``variant="dasha"``: h_new = grads_new.  ``variant="mvr"``: the kernel
     fuses the momentum h-update h_new = gn + (1-b)(h - go) as well
-    (``grads_old`` required)."""
+    (``grads_old`` required).  With ``lanes`` the leaves are (G, n,
+    *shape), a sweep's lanes: one launch covers the G * n rows, each
+    reading its node's row of the one (n, *shape) draw (row r % n)."""
     if variant == "mvr" and grads_old is None:
         raise ValueError("the mvr fused path needs grads_old")
     if variant not in ("dasha", "mvr"):
         raise ValueError(f"unknown fused variant {variant!r}")
     scale = mask_scale(mode, p, n)
     for path, gn in tree.items(grads_new):
-        support = leaf_support(rnd, path, gn, mode=mode, p=p, n=n)
+        support = leaf_support(rnd, path, gn, mode=mode, p=p, n=n,
+                               lanes=lanes)
         hh, gl = tree.get(h, path), tree.get(g_local, path)
         if variant == "mvr":
-            out = kops.dasha_mvr_update(gn, tree.get(grads_old, path), hh,
-                                        gl, support, a, b, scale)
+            ts = (gn, tree.get(grads_old, path), hh, gl)
+            if lanes:
+                ts = tuple(_lane_rows(t) for t in ts)
+                support = support.reshape(support.shape[0], -1)
+            out = kops.dasha_mvr_update(*ts, support, a, b, scale)
+            out = tuple(o.view(gn.shape) for o in out)
         else:
-            out = _sparsify_leaf(gn, hh, gl, support, a, scale)
+            out = _sparsify_leaf(gn, hh, gl, support, a, scale, lanes)
         yield (path, *out)
 
 
-def _sparsify_leaf(gn, hh, gl, support, a: float, scale: float):
-    """Kernel 1's sparsifier entry on a leaf as n rows: (m, gn, g_new)."""
+def _lane_rows(t: torch.Tensor) -> torch.Tensor:
+    """A (G, n, *shape) lane leaf as G * n rows."""
+    return t.reshape(t.shape[0] * t.shape[1], -1)
+
+
+def _sparsify_leaf(gn, hh, gl, support, a: float, scale: float,
+                   lanes: bool = False):
+    """Kernel 1's sparsifier entry on a leaf as n rows (G * n with
+    ``lanes``): (m, gn, g_new)."""
     def rows(t):
         return t.reshape(t.shape[0], -1)
+    leaf_rows = _lane_rows if lanes else rows
     m, _, g_new = kops.dasha_sparsify_update(
-        rows(gn), rows(hh), rows(gl), a, scale, mask=rows(support))
+        leaf_rows(gn), leaf_rows(hh), leaf_rows(gl), a, scale,
+        mask=rows(support))
     return m.view(gn.shape), gn, g_new.view(gn.shape)
 
 

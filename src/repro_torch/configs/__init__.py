@@ -1,7 +1,8 @@
 """Architecture registry (port of ``repro.configs``): one module per
 architecture, each holding the full config ``CONFIG`` and its reduced
-same-family ``SMOKE`` variant.  Only the Mamba2 family is ported so far;
-the other ids of the reference raise (ROADMAP.md lists them)."""
+same-family ``SMOKE`` variant.  The Mamba2 family and the dense GQA
+family (starcoder2, minitron, qwen1.5) are ported; the other ids of the
+reference raise (ROADMAP.md lists them)."""
 from __future__ import annotations
 
 import importlib
@@ -9,10 +10,12 @@ from typing import List
 
 from repro_torch.models.common import ArchConfig
 
-ARCHS: List[str] = ["mamba2_780m"]
+ARCHS: List[str] = ["mamba2_780m", "starcoder2_3b", "minitron_8b",
+                    "qwen15_110b"]
 
 # CLI ids (assignment spelling) -> module name
-ALIASES = {"mamba2-780m": "mamba2_780m"}
+ALIASES = {"mamba2-780m": "mamba2_780m", "starcoder2-3b": "starcoder2_3b",
+           "minitron-8b": "minitron_8b", "qwen1.5-110b": "qwen15_110b"}
 
 
 def _module(name: str):

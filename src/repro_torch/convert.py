@@ -101,8 +101,9 @@ def params_from_numpy(params: Mapping[str, Any], *,
 def cache_from_numpy(cache: Mapping[str, Any], *,
                      device=DEFAULT_DEVICE) -> dict:
     """The port's decode cache from the reference's (``lm.init_cache`` or
-    a ``decode_step`` output, as numpy arrays): the conv window in its
-    dtype (bfloat16 by its bits) and the float32 SSM state, exactly."""
+    a ``decode_step`` output, as numpy arrays): Mamba2's conv window in its
+    dtype (bfloat16 by its bits) and float32 SSM state, or the dense
+    family's stacked K and V (ring buffers included), exactly."""
     dev = resolve_device(device)
     return tree.map_leaves(lambda a: _exact(a, dev), dict(cache))
 

@@ -43,10 +43,16 @@ def dasha_mvr_update_ref(grad_new: torch.Tensor, grad_old: torch.Tensor,
         g_new = g_local + m
 
     ``mask`` float32, bool or uint8 (read as float32), of the leaf's
-    shape or broadcast over its node axis.  Returns (m, h_new, g_new)."""
+    shape, or with k rows dividing its n, row r read at r % k as the
+    kernel reads it ((1, ...) for every node, (n, ...) for G * n lane
+    rows).  Returns (m, h_new, g_new)."""
     h_new = grad_new + (1.0 - b) * (h - grad_old)
     delta = h_new - h - a * (g_local - h)
-    m = _as_float(mask) * delta * scale
+    mask = _as_float(mask)
+    if mask.shape != delta.shape and mask.shape[0] != 1:
+        mask = _rows_of(mask.reshape(mask.shape[0], -1),
+                        delta.shape[0]).view(delta.shape)
+    m = mask * delta * scale
     return m, h_new, g_local + m
 
 

@@ -1,8 +1,9 @@
 """Serving driver (port of ``examples/serve_lm.py`` and of the prefill
-function of ``repro.launch.specs``), the ``ssm`` family.
+function of ``repro.launch.specs``): the ``ssm`` family and the dense GQA
+family.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve [--full] \
-        --batch 4 --prompt-len 24 --new-tokens 16
+    PYTHONPATH=src python -m repro_torch.launch.serve [--arch starcoder2-3b] \
+        [--full] --batch 4 --prompt-len 24 --new-tokens 16
 
 Without ``--full`` it serves the architecture's reduced (smoke) config.
 :func:`serve` is the library form: it takes the config itself and a device
@@ -13,9 +14,11 @@ driver data, indexed by the state's position ``t``), and then the state's
 own greedy token feeds back for ``--new-tokens`` steps, the generated
 tokens leaving the device as the ``"token"`` metric trace.
 :func:`prefill_logits` is the serving prefill of ``repro.launch.specs``: the
-prompt through the chunked forward with the hand-written SSD kernel
-(``use_ssd_kernel``, the reference's TPU deploy switch), to the last
-position's logits.
+prompt through the forward to the last position's logits; for Mamba2
+through the chunked SSD with the hand-written kernel (``use_ssd_kernel``,
+the reference's TPU deploy switch), for the dense family through the
+attention of :mod:`repro_torch.models.attention` (dense below 2,048
+tokens, streaming from there; it has no kernel of its own).
 
 Weights are random from ``--seed`` and prompts are the synthetic
 copy-structured tokens of :func:`data.pipeline.make_lm_batch`, drawn on the
@@ -58,14 +61,17 @@ def greedy(cfg: ArchConfig, logits: torch.Tensor) -> torch.Tensor:
 
 
 def kernel_config(cfg: ArchConfig) -> ArchConfig:
-    """``cfg`` with the SSD kernel path on."""
+    """``cfg`` with the SSD kernel path on (Mamba2); a family without an
+    SSD kernel is served as it is."""
+    if cfg.arch_type != "ssm":
+        return cfg
     return dataclasses.replace(cfg, use_ssd_kernel=True)
 
 
 def prefill_logits(cfg: ArchConfig, params: Dict,
                    tokens: torch.Tensor) -> torch.Tensor:
     """Serving prefill: (B, 1, V_padded) logits of the last position,
-    through the chunked forward with the SSD kernel."""
+    through the forward (with the SSD kernel for Mamba2)."""
     with torch.inference_mode():
         logits, _ = lm.forward(kernel_config(cfg), params, tokens,
                                last_only=True)

@@ -1,15 +1,16 @@
 """End-to-end DASHA training driver (port of ``repro.launch.train``).
 
-    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-780m \
+    PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-3b \
         --steps 200 --nodes 4 --batch 2 --seq 128 [--full] \
         --compression 0.03125 --variant mvr --use-kernel \
         [--ckpt out/ckpt --ckpt-every 1 --resume]
 
-The reference's command line; ``--arch`` defaults to the one family
-ported so far.  Without ``--full`` it trains the architecture's reduced
-(smoke) config.  :func:`train` is the library form: it takes the config
-itself, so a caller can cut the depth of a full config, and a device (the
-card unless ``device="cpu"``).
+The reference's command line, with its default ``--arch starcoder2-3b``
+(the dense GQA family; ``mamba2-780m``, ``minitron-8b`` and
+``qwen1.5-110b`` are the other ported ids).  Without ``--full`` it trains
+the architecture's reduced (smoke) config.  :func:`train` is the library
+form: it takes the config itself, so a caller can cut the depth of a full
+config, and a device (the card unless ``device="cpu"``).
 
 Rounds run through the chunked :class:`~repro_torch.methods.driver.Driver`
 with a fresh node batch each round (``data_fn``, seeded by the global
@@ -51,7 +52,7 @@ from repro_torch.optim.distributed import (DashaTrainConfig, make_method,
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="mamba2-780m")
+    ap.add_argument("--arch", default="starcoder2-3b")
     ap.add_argument("--full", action="store_true",
                     help="use the full assigned config")
     ap.add_argument("--steps", type=int,

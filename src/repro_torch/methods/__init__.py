@@ -14,5 +14,6 @@ from repro_torch.methods.rules import (VARIANTS, MvrFusion,  # noqa: F401
 from repro_torch.methods.substrates import (BatchLossOracle,  # noqa: F401
                                             FlatSubstrate,
                                             LaneFlatSubstrate,
+                                            LaneTreeSubstrate,
                                             SampledFlatSubstrate,
                                             TreeCompression, TreeSubstrate)

@@ -17,7 +17,7 @@ a round never waits for the device.
 
 A :class:`Hyper` whose ``gamma``, ``a`` or ``b`` holds G per-lane values
 (:class:`repro_torch.methods.lanes.Lanes`, or a 1-D array) builds a method
-of G lanes on the substrate's lane view (a sweep; see
+of G lanes on the substrate's lane view, flat or tree (a sweep; see
 :class:`repro_torch.methods.driver.Sweeper`).  It only steps: its state is
 a one-lane method's ``init`` that the Sweeper broadcasts, so its device
 fields carry a leading (G,) axis and ``bits_sent`` is a (G,) float32 array.
@@ -200,6 +200,10 @@ class Method(NamedTuple):
                                 getattr(compressor, "backend", None))
         if lanes is not None:
             sub = sub.with_lanes(lanes)
+            if isinstance(hp.b, Lanes) and getattr(sub, "fuses_mvr", False):
+                raise ValueError("Hyper.b cannot vary by lane on the fused "
+                                 "tree path: the kernel takes 1 - b as a "
+                                 "scalar argument")
         a_eff = rule.force_a if rule.force_a is not None else hp.a
         # the sampled-client substrate (DESIGN.md §13) windows each round
         # onto a cohort; a C-of-n cohort can never answer an all-client

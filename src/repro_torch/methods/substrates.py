@@ -10,7 +10,10 @@
 * :class:`TreeSubstrate` holds parameter-shaped trees with a leading node
   axis (the LM trainer), with per-node gradients from a
   :class:`BatchLossOracle` and compression through
-  :class:`TreeCompression` (:mod:`repro_torch.compress.treelevel`).
+  :class:`TreeCompression` (:mod:`repro_torch.compress.treelevel`);
+* :class:`LaneFlatSubstrate` and :class:`LaneTreeSubstrate` are a sweep's
+  G lanes of the flat and tree substrates, a leading lane axis on every
+  state field.
 
 Randomness reaches a substrate as the round's
 :class:`repro_torch.core.rng.RoundRandom` in place of the reference's key.
@@ -521,55 +524,66 @@ class BatchLossOracle:
     preallocated (n, *shape) buffer per leaf.  The same batch evaluates both
     points of a pair — the "same samples" requirement of MVR/PAGE — and the
     megabatch sync round reuses the round's batch (B' = B at this layer).
+
+    ``lanes=G`` (a sweep's :class:`LaneTreeSubstrate`): the parameters
+    carry a leading (G,) lane axis, and lane j's gradients on every node's
+    batch fill row (j, i) of one (G, n, *shape) buffer per leaf; the lanes
+    share the round's batch.
     """
 
     loss_fn: Callable[[Any, Any], torch.Tensor]
     state_dtype: torch.dtype = torch.float32
 
-    def per_node_grads(self, params, data):
+    def per_node_grads(self, params, data, lanes: int = 0):
         paths, leaves = zip(*tree.items(params))
         n = tree.leaves(data)[0].shape[0]
-        out = [torch.empty((n,) + tuple(p.shape), dtype=self.state_dtype,
-                           device=p.device) for p in leaves]
-        for i in range(n):
-            ps = [p.detach().requires_grad_(True) for p in leaves]
-            node_batch = tree.map_leaves(lambda x: x[i], data)
-            with torch.enable_grad():
-                loss = self.loss_fn(tree.from_items(zip(paths, ps)),
-                                    node_batch)
-                grads = torch.autograd.grad(loss, ps)
-            for buf, g in zip(out, grads):
-                buf[i].copy_(g)
+        lead = (lanes, n) if lanes else (n,)
+        out = [torch.empty(lead + tuple(p.shape[1 if lanes else 0:]),
+                           dtype=self.state_dtype, device=p.device)
+               for p in leaves]
+        for j in range(max(lanes, 1)):
+            lane = [p[j] for p in leaves] if lanes else leaves
+            for i in range(n):
+                ps = [p.detach().requires_grad_(True) for p in lane]
+                node_batch = tree.map_leaves(lambda x: x[i], data)
+                with torch.enable_grad():
+                    loss = self.loss_fn(tree.from_items(zip(paths, ps)),
+                                        node_batch)
+                    grads = torch.autograd.grad(loss, ps)
+                for buf, g in zip(out, grads):
+                    (buf[j, i] if lanes else buf[i]).copy_(g)
         return tree.from_items(zip(paths, out))
 
-    def grad(self, rnd, x, data, size: int = 1):
-        return self.per_node_grads(x, data)
+    def grad(self, rnd, x, data, size: int = 1, lanes: int = 0):
+        return self.per_node_grads(x, data, lanes)
 
-    def grad_pair(self, rnd, x_new, x_old, size: int, data):
-        return (self.per_node_grads(x_new, data),
-                self.per_node_grads(x_old, data))
+    def grad_pair(self, rnd, x_new, x_old, size: int, data, lanes: int = 0):
+        return (self.per_node_grads(x_new, data, lanes),
+                self.per_node_grads(x_old, data, lanes))
 
-    def grad_diff(self, rnd, x_new, x_old, size: int, data):
-        gn, go = self.grad_pair(rnd, x_new, x_old, size, data)
+    def grad_diff(self, rnd, x_new, x_old, size: int, data, lanes: int = 0):
+        gn, go = self.grad_pair(rnd, x_new, x_old, size, data, lanes)
         return tree.map_leaves(
             lambda a, b: (a.to(torch.float32)
                           - b.to(torch.float32)).to(self.state_dtype),
             gn, go)
 
-    def megabatch(self, rnd, x, size: int, data):
-        return self.per_node_grads(x, data)
+    def megabatch(self, rnd, x, size: int, data, lanes: int = 0):
+        return self.per_node_grads(x, data, lanes)
 
-    def grad_minibatch(self, rnd, x, size: int, data):
-        return self.per_node_grads(x, data)
+    def grad_minibatch(self, rnd, x, size: int, data, lanes: int = 0):
+        return self.per_node_grads(x, data, lanes)
 
 
 # ---------------------------------------------------------------------------
 # tree compression
 # ---------------------------------------------------------------------------
 
-def _leaf_size(leaf) -> float:
+def _leaf_size(leaf, lanes: bool = False) -> float:
+    """Coordinates per node of a per-node leaf (n, *shape), or (G, n,
+    *shape) with ``lanes``."""
     sz = 1.0
-    for s in leaf.shape[1:]:
+    for s in leaf.shape[2 if lanes else 1:]:
         sz *= s
     return sz
 
@@ -589,11 +603,18 @@ class TreeCompression:
         """Payload / dense, per node (the trainer's payload_frac metric)."""
         return 1.0 / self.n if self.mode == "permk" else self.p
 
-    def payload_per_node(self, per_node_tree) -> float:
-        return sum(self.static_frac * _leaf_size(l)
+    @property
+    def backend(self) -> str:
+        """The execution backend, in the round compressors' names: the
+        kernel path is ``fused`` (its scalars enter the kernel)."""
+        return "fused" if self.use_kernel else "dense"
+
+    def payload_per_node(self, per_node_tree, lanes: bool = False) -> float:
+        return sum(self.static_frac * _leaf_size(l, lanes)
                    for l in tree.leaves(per_node_tree))
 
-    def estimator_update(self, rnd, h_new, h, g_local, a: float, aux=None):
+    def estimator_update(self, rnd, h_new, h, g_local, a: float, aux=None,
+                         lanes: bool = False):
         """Returns (aggregate, h_out, g_local_new, payload per node).  The
         kernel path reduces each leaf's messages to their mean as soon as
         its kernel has run, so the (n, *shape) messages of the whole tree
@@ -601,40 +622,44 @@ class TreeCompression:
         left to the kernel; ``aux`` is then the round's :class:`MvrFusion`,
         whose two gradient trees this path consumes: each leaf is released
         once its kernel has read it, so they never coexist with all of the
-        round's outputs."""
+        round's outputs.  ``lanes``: the trees' leaves are (G, n, *shape),
+        a sweep's G lanes, which share the round's masks."""
         f32 = torch.float32
+        node_axis = 1 if lanes else 0
         if self.use_kernel:
             fusion = aux if isinstance(aux, MvrFusion) else None
             if fusion is not None:
                 leaves = fused_leaf_updates(
                     rnd, fusion.grads_new, h, g_local, mode=self.mode, a=a,
                     p=self.p, n=self.n, variant="mvr", b=fusion.b,
-                    grads_old=fusion.grads_old)
+                    grads_old=fusion.grads_old, lanes=lanes)
             else:
                 leaves = fused_leaf_updates(
                     rnd, h_new, h, g_local, mode=self.mode, a=a, p=self.p,
-                    n=self.n, variant="dasha")
+                    n=self.n, variant="dasha", lanes=lanes)
             aggs, h_outs, gls = [], [], []
             for path, m, hn, gl in leaves:
-                aggs.append((path, torch.mean(m.to(f32), 0)))
+                aggs.append((path, torch.mean(m.to(f32), node_axis)))
                 h_outs.append((path, hn))
                 gls.append((path, gl))
                 if fusion is not None:
                     tree.release(fusion.grads_new, path)
                     tree.release(fusion.grads_old, path)
             return (tree.from_items(aggs), tree.from_items(h_outs),
-                    tree.from_items(gls), self.payload_per_node(h))
+                    tree.from_items(gls), self.payload_per_node(h, lanes))
 
         delta = tree.map_leaves(lambda hn, hh, gl_: hn - hh - a * (gl_ - hh),
                                 h_new, h, g_local)
         if self.mode == "permk":
-            m, agg = permk_compress(rnd, delta, self.n)
+            m, agg = permk_compress(rnd, delta, self.n, lanes=lanes)
         else:
             m = bernoulli_compress(rnd, delta, self.p,
-                                   shared=self.mode == "shared_coords")
-            agg = tree.map_leaves(lambda mm: torch.mean(mm.to(f32), 0), m)
+                                   shared=self.mode == "shared_coords",
+                                   lanes=lanes)
+            agg = tree.map_leaves(
+                lambda mm: torch.mean(mm.to(f32), node_axis), m)
         gl_new = tree.map_leaves(torch.add, g_local, m)
-        return agg, h_new, gl_new, self.payload_per_node(h_new)
+        return agg, h_new, gl_new, self.payload_per_node(h_new, lanes)
 
 
 # ---------------------------------------------------------------------------
@@ -659,10 +684,12 @@ class TreeSubstrate:
                 "TreeCompression")
         return dataclasses.replace(self, comp=comp)
 
-    def with_lanes(self, lanes: int):
-        raise NotImplementedError(
-            "sweeps (a lane axis) on the tree substrate are not ported yet; "
-            "sweep a FlatSubstrate")
+    def with_lanes(self, lanes: int) -> "LaneTreeSubstrate":
+        """This substrate with a leading lane axis of ``lanes`` on every
+        state leaf (a sweep's G lanes; see :class:`LaneTreeSubstrate`)."""
+        return LaneTreeSubstrate(self.oracle, self.n, self.server_opt,
+                                 self.state_dtype, self.comp,
+                                 lanes=int(lanes))
 
     @property
     def fuses_mvr(self) -> bool:
@@ -743,3 +770,71 @@ class TreeSubstrate:
         def metric(s):
             return sum(torch.sum(torch.square(x)) for x in tree.leaves(s.g))
         return metric
+
+
+@dataclasses.dataclass(frozen=True)
+class LaneTreeSubstrate(TreeSubstrate):
+    """G lanes of a :class:`TreeSubstrate` side by side, for a sweep (the
+    reference's vmapped ``sweep`` over a tree method): every state leaf
+    carries a leading (G,) lane axis, so the iterate and server estimator
+    are (G, *shape), the per-node fields (G, n, *shape) and Adam's moments
+    (G, *shape); its step count and the round seed are shared.
+
+    * the oracle takes each lane's gradients on every node's batch (the
+      lanes share the round's batch, as G sequential runs from one data
+      seed draw the same ones);
+    * the round draws ONE mask per leaf, shared by every lane, and the
+      fused path launches its kernel once per leaf over all G * n rows;
+    * a hyperparameter that varies by lane is a
+      :class:`repro_torch.methods.lanes.Lanes`: the stepsize enters the
+      server optimizer's learning rate (``Adam(lr=Lanes)``), ``b`` the
+      rules' arithmetic (not on the kernel path, where it is a scalar
+      argument of the kernel).
+
+    Lane j is then a sequential run at ``values[j]``: the same masks and
+    batches, the same floats up to the last ulp.
+    """
+
+    lanes: int = 1
+
+    def with_lanes(self, lanes: int) -> "LaneTreeSubstrate":
+        return dataclasses.replace(self, lanes=int(lanes))
+
+    # -- oracle ops (every lane on the round's batch) ---------------------
+    def grad(self, rnd, x, data=None, size: int = 1):
+        return self.oracle.grad(rnd, x, data, size, lanes=self.lanes)
+
+    def grad_pair(self, rnd, x_new, x_old, size: int, data=None):
+        return self.oracle.grad_pair(rnd, x_new, x_old, size, data,
+                                     lanes=self.lanes)
+
+    def grad_diff(self, rnd, x_new, x_old, size: int, data=None):
+        return self.oracle.grad_diff(rnd, x_new, x_old, size, data,
+                                     lanes=self.lanes)
+
+    def megabatch(self, rnd, x, size: int, data=None):
+        return self.oracle.megabatch(rnd, x, size, data, lanes=self.lanes)
+
+    def grad_minibatch(self, rnd, x, size: int, data=None):
+        return self.oracle.grad_minibatch(rnd, x, size, data,
+                                          lanes=self.lanes)
+
+    # -- arithmetic --------------------------------------------------------
+    def mean_nodes(self, per_node):
+        return tree.map_leaves(lambda h: torch.mean(h.to(torch.float32), 1),
+                               per_node)
+
+    def sub_deficit(self, g, deficit):
+        raise ValueError("deficit= (asynchronous rounds) has no lane form: "
+                         "the simulators run one method, not a sweep")
+
+    def dense_coords(self, per_node_tree) -> float:
+        return sum(_leaf_size(l, lanes=True)
+                   for l in tree.leaves(per_node_tree))
+
+    # -- compression -------------------------------------------------------
+    def estimator_update_full(self, rnd, h_new, h, g_local, a: float,
+                              aux=None):
+        agg, h_out, gl, payload = self.comp.estimator_update(
+            rnd, h_new, h, g_local, a, aux, lanes=True)
+        return agg, h_out, gl, payload, None, None

@@ -1,7 +1,9 @@
-"""Language models (port of ``repro.models``): the config and norms
-(:mod:`.common`), stacked-layer initialisation (:mod:`.init`), the Mamba2
-mixer (:mod:`.ssm`), blocks (:mod:`.blocks`) and the LM forward and loss
-(:mod:`.lm`).  Only the ``ssm`` family is ported so far."""
+"""Language models (port of ``repro.models``): the config, norms, RoPE
+and MLPs (:mod:`.common`), stacked-layer initialisation (:mod:`.init`),
+the Mamba2 mixer (:mod:`.ssm`), grouped-query attention
+(:mod:`.attention`), blocks (:mod:`.blocks`) and the LM forward, loss and
+decode (:mod:`.lm`).  The ``ssm`` family and the homogeneous dense GQA
+stack are ported; the other families raise NotImplementedError."""
 from repro_torch.models import lm  # noqa: F401
 from repro_torch.models.common import ArchConfig  # noqa: F401
 from repro_torch.models.init import init_params  # noqa: F401

@@ -1,0 +1,196 @@
+"""Grouped-query attention (port of the GQA part of
+``repro.models.attention``): RoPE, a sliding window, a logit softcap and
+QKV bias, for a full sequence (``gqa_prefill``, causal) and for one new
+token against a fixed-size KV cache (``gqa_decode``).
+
+The reference computes attention in ``jnp``, in no Pallas kernel, and so
+does the port, in torch ops (``einsum``, ``softmax``, a loop over blocks),
+in the reference's order of casts:
+
+* the dense path (``_sdpa``, S < ``QBLOCK_THRESHOLD``) scales the logits in
+  the input dtype and casts them to float32 only at the mask;
+* the streaming path (``_flash_sdpa``, S >= ``QBLOCK_THRESHOLD``, taken in
+  ``QBLOCK``-query blocks over ``KBLOCK``-key blocks with an online
+  softmax) casts to float32 before it scales;
+* on both, the probabilities go back to the input dtype before the PV
+  product.
+
+No (S, T) logits matrix exists on the streaming path: one (B, G, R,
+QBLOCK, KBLOCK) block at a time.  (The reference rematerialises each block
+in its backward pass; the port's autograd keeps each block's
+probabilities, which changes memory, not the numbers.)  The reference
+scans every key block; the port skips the blocks whose every key the mask
+hides from the query block (causally later, or past the window), which
+leaves the carry exactly as it was: such a block adds p = 0 and rescales
+by alpha = 1 (or keeps the empty carry at zero).  MLA and cross attention
+come with the families that use them.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.models.common import ArchConfig, rope, softcap
+
+NEG_INF = -2.0e38
+
+#: sequences at or above this length take the streaming softmax
+QBLOCK_THRESHOLD = 2048
+QBLOCK = 512
+KBLOCK = 512
+
+
+def _gqa_logits(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """q: (B,S,G,R,hd), k: (B,T,G,hd) -> (B,G,R,S,T)."""
+    return torch.einsum("bsgrk,btgk->bgrst", q, k)
+
+
+def _causal_window_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
+                        window: int) -> torch.Tensor:
+    """True where attention is allowed.  q_pos: (S,), k_pos: (T,);
+    ``window`` 0 is full causal attention."""
+    causal = k_pos[None, :] <= q_pos[:, None]
+    if window <= 0:
+        return causal
+    return causal & ((q_pos[:, None] - k_pos[None, :]) < window)
+
+
+def _masked(mask: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """float32 ``logits`` where ``mask`` (broadcast over the leading
+    (B, G, R) axes), NEG_INF elsewhere."""
+    return torch.where(mask, logits.to(torch.float32),
+                       torch.full((), NEG_INF, dtype=torch.float32,
+                                  device=logits.device))
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          q_pos: torch.Tensor, k_pos: torch.Tensor, window: int, cap: float,
+          scale: float) -> torch.Tensor:
+    """q: (B,Sq,G,R,hd); k/v: (B,T,G,hd) -> (B,Sq,G,R,hd)."""
+    logits = softcap(_gqa_logits(q, k) * scale, cap)
+    logits = _masked(_causal_window_mask(q_pos, k_pos, window), logits)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bgrst,btgk->bsgrk", probs, v)
+
+
+def _visible_blocks(q_pos: torch.Tensor, k_pos: torch.Tensor,
+                    window: int) -> list:
+    """(S // QBLOCK) lists of (T // KBLOCK) bools: whether the mask lets
+    any query of q block i see any key of key block j."""
+    mask = _causal_window_mask(q_pos, k_pos, window)
+    nq, nk = q_pos.shape[0] // QBLOCK, k_pos.shape[0] // KBLOCK
+    return mask.view(nq, QBLOCK, nk, KBLOCK).any(3).any(1).tolist()
+
+
+def _flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                q_pos: torch.Tensor, k_pos: torch.Tensor, window: int,
+                cap: float, scale: float, blocks=None) -> torch.Tensor:
+    """Streaming (online-softmax) attention for one q block.
+
+    q: (B,Q,G,R,hd); k/v: (B,T,G,hd) with T % KBLOCK == 0.  The loop walks
+    the key blocks carrying (acc, running max, running denominator);
+    ``blocks`` (one bool a key block) skips the blocks the mask hides
+    entirely, which would leave the carry as it is."""
+    B, Q, G, R, hd = q.shape
+    T = k.shape[1]
+    f32 = torch.float32
+    acc = torch.zeros((B, G, R, Q, hd), dtype=f32, device=q.device)
+    mx = torch.full((B, G, R, Q), NEG_INF, dtype=f32, device=q.device)
+    den = torch.zeros((B, G, R, Q), dtype=f32, device=q.device)
+    neg = torch.full((), NEG_INF, dtype=f32, device=q.device)
+    zero = torch.zeros((), dtype=f32, device=q.device)
+    for j in range(T // KBLOCK):
+        if blocks is not None and not blocks[j]:
+            continue
+        sl = slice(j * KBLOCK, (j + 1) * KBLOCK)
+        logits = torch.einsum("bqgrk,btgk->bgrqt", q, k[:, sl]).to(f32) \
+            * scale
+        logits = softcap(logits, cap)
+        mask = _causal_window_mask(q_pos, k_pos[sl], window)   # (Q, KBLOCK)
+        logits = torch.where(mask, logits, neg)
+        new_mx = torch.maximum(mx, torch.amax(logits, -1))
+        # new_mx == NEG_INF only while no key is visible yet; keep alpha
+        # and p finite there (the row contributes nothing)
+        safe_mx = torch.where(new_mx <= NEG_INF, zero, new_mx)
+        alpha = torch.exp(torch.where(mx <= NEG_INF, neg, mx) - safe_mx)
+        p = torch.exp(logits - safe_mx[..., None])
+        p = torch.where(mask, p, zero)
+        den = den * alpha + torch.sum(p, -1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bgrqt,btgk->bgrqk", p.to(q.dtype), v[:, sl]).to(f32)
+        mx = new_mx
+    out = acc / torch.clamp(den, min=1e-30)[..., None]
+    return torch.movedim(out, 3, 1).to(q.dtype)          # (B,Q,G,R,hd)
+
+
+def _project_qkv(p: Dict, x: torch.Tensor, positions: torch.Tensor,
+                 cfg: ArchConfig):
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dgk->bsgk", x, p["wk"])
+    v = torch.einsum("bsd,dgk->bsgk", x, p["wv"])
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    return (rope(q, positions, cfg.rope_theta),
+            rope(k, positions, cfg.rope_theta), v)
+
+
+def gqa_prefill(p: Dict, x: torch.Tensor, positions: torch.Tensor,
+                cfg: ArchConfig, *, window: int = 0,
+                scale: Optional[float] = None) -> torch.Tensor:
+    """x: (B,S,d) -> (B,S,d); positions: (B,S)."""
+    B, S, _ = x.shape
+    H, G, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    R = H // G
+    q, k, v = _project_qkv(p, x, positions, cfg)
+    q = q.reshape(B, S, G, R, hd)
+    sc = scale or hd ** -0.5
+    k_pos = positions[0]
+    cap = cfg.attn_logit_softcap
+    if S < QBLOCK_THRESHOLD or S % QBLOCK != 0 or S % KBLOCK != 0:
+        out = _sdpa(q, k, v, k_pos, k_pos, window, cap, sc)
+    else:
+        visible = _visible_blocks(k_pos, k_pos, window)
+        out = torch.cat([
+            _flash_sdpa(q[:, i * QBLOCK:(i + 1) * QBLOCK], k, v,
+                        k_pos[i * QBLOCK:(i + 1) * QBLOCK], k_pos, window,
+                        cap, sc, blocks=row)
+            for i, row in enumerate(visible)], 1)
+    out = out.reshape(B, S, H, hd)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def gqa_decode(p: Dict, x: torch.Tensor, t: int, cache: Dict,
+               cfg: ArchConfig, *, window: int = 0, ring: bool = False,
+               scale: Optional[float] = None
+               ) -> Tuple[torch.Tensor, Dict]:
+    """x: (B,1,d); cache {"k","v"}: (B,T,G,hd), written in place; t: the
+    ABSOLUTE position (a Python int).
+
+    ``ring=True`` treats the cache as a rolling buffer of the last T tokens
+    (sliding-window decode: write at ``t % T``; keys carry their absolute
+    RoPE phase, so the mask is only 'slot already written').  Without a
+    ring the token is written at ``t``, clamped to T - 1 as
+    ``lax.dynamic_update_slice`` clamps its start index, and the window
+    mask applies."""
+    B = x.shape[0]
+    H, G, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    R = H // G
+    T = cache["k"].shape[1]
+    t = int(t)
+    write_at = t % T if ring else min(max(t, 0), T - 1)
+    pos = torch.full((B, 1), t, dtype=torch.int32, device=x.device)
+    q, k, v = _project_qkv(p, x, pos, cfg)
+    cache["k"][:, write_at] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, write_at] = v[:, 0].to(cache["v"].dtype)
+    q = q.reshape(B, 1, G, R, hd)
+    logits = _gqa_logits(q, cache["k"]) * (scale or hd ** -0.5)
+    logits = softcap(logits, cfg.attn_logit_softcap)
+    k_pos = torch.arange(T, device=x.device)
+    ok = k_pos <= t                       # ring: all-true once t >= T
+    if not ring and window > 0:
+        ok = ok & ((t - k_pos) < window)
+    probs = torch.softmax(_masked(ok, logits), dim=-1).to(x.dtype)
+    out = torch.einsum("bgrst,btgk->bsgrk", probs,
+                       cache["v"]).reshape(B, 1, H, hd)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"]), cache

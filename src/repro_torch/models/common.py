@@ -2,8 +2,10 @@
 ``repro.models.common``).
 
 :class:`ArchConfig` keeps the reference's field names and defaults for
-everything the SSM path reads; the attention, MoE and multimodal fields
-wait for the slices that port those families.
+everything the ported families read: the SSM fields (Mamba2) and the
+attention fields of the dense GQA stack (starcoder2, minitron, qwen1.5).
+The MoE, MLA, hybrid and multimodal fields wait for the slices that port
+those families.
 """
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -22,7 +25,7 @@ def pad_to(x: int, mult: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    arch_type: str               # ssm; the other families come later
+    arch_type: str               # dense | ssm; the other families come later
     num_layers: int
     d_model: int
     num_heads: int
@@ -31,6 +34,9 @@ class ArchConfig:
     vocab_size: int
     source: str = ""             # citation bracket from the assignment
     head_dim: Optional[int] = None
+    qkv_bias: bool = False
+    mlp_type: str = "swiglu"     # swiglu | gelu | geglu
+    rope_theta: float = 10_000.0
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
@@ -41,7 +47,17 @@ class ArchConfig:
     ssm_headdim: int = 64
     conv_width: int = 4
     ssd_chunk: int = 256
-    use_ssd_kernel: bool = False   # ssd_chunk kernel path (next slice)
+    use_ssd_kernel: bool = False   # the hand-written ssd_chunk kernel path
+
+    # --- attention pattern -----------------------------------------------
+    sliding_window: int = 0        # 0 = full attention everywhere
+    global_every: int = 0          # gemma3: 1 global layer per `global_every`
+    attn_logit_softcap: float = 0.0
+
+    def __post_init__(self):
+        if self.head_dim is None and self.num_heads:
+            object.__setattr__(self, "head_dim",
+                               self.d_model // self.num_heads)
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -59,6 +75,24 @@ class ArchConfig:
     def ssm_nheads(self) -> int:
         return self.d_inner // self.ssm_headdim
 
+    def param_count(self) -> int:
+        """Parameters of the model, counted from the shapes of
+        :func:`repro_torch.models.init.init_params` on the ``meta``
+        device (nothing is allocated)."""
+        from repro_torch.core import tree
+        from repro_torch.models.init import init_params
+        return int(sum(p.numel() for p in tree.leaves(
+            init_params(self, 0, device="meta"))))
+
+    def active_param_count(self) -> int:
+        """Active parameters per token.  Every ported family is dense
+        (no experts), so all of them are active."""
+        return self.param_count()
+
+
+# ---------------------------------------------------------------------------
+# tiny building blocks
+# ---------------------------------------------------------------------------
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:
@@ -66,3 +100,41 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor,
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
     return (out * (1.0 + w.to(torch.float32))).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """Rotary embedding in float32, cast back to ``x``'s dtype.
+    x: (..., S, H, hd); positions: (..., S)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=x.device) / half)
+    angles = positions[..., None].to(torch.float32) * freq  # (..., S, half)
+    cos = torch.cos(angles)[..., None, :]                # (..., S, 1, half)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.split(x.to(torch.float32), half, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+    return out.to(x.dtype)
+
+
+def mlp_apply(p: dict, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
+    """The block's MLP.  ``jax.nn.gelu`` is the tanh approximation by
+    default, so the reference's ``"gelu"`` and ``"geglu"`` both take
+    ``approximate="tanh"``."""
+    if mlp_type == "gelu":
+        h = x @ p["w_in"]
+        if "b_in" in p:
+            h = h + p["b_in"]
+        h = F.gelu(h, approximate="tanh") @ p["w_out"]
+        return h + p["b_out"] if "b_out" in p else h
+    gate = x @ p["w_gate"]
+    act = F.gelu(gate, approximate="tanh") if mlp_type == "geglu" \
+        else F.silu(gate)
+    return (act * (x @ p["w_in"])) @ p["w_out"]
+
+
+def softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
+    if cap <= 0:
+        return logits
+    return cap * torch.tanh(logits / cap)

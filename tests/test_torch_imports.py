@@ -66,7 +66,9 @@ def test_import_scan_covers_the_slice():
                 "bench/run.py", "bench/obs_trace.py", "obs/__init__.py",
                 "obs/timeline.py", "obs/metrics.py", "obs/handle.py",
                 "obs/attrib.py", "obs/vecreplay.py", "checkpoint/__init__.py",
-                "checkpoint/io.py"):
+                "checkpoint/io.py", "models/attention.py",
+                "configs/starcoder2_3b.py", "configs/minitron_8b.py",
+                "configs/qwen15_110b.py", "bench/fig4_dnn.py"):
         assert mod in names
     for src in ("dasha_update.cu", "ssd_chunk.cu", "slab_writeback.cu"):
         assert (ROOT / "src/repro_torch/kernels/csrc" / src).exists()

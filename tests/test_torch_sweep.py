@@ -14,7 +14,8 @@
   samples and coins replayed through a bare ``step_full(..., draws=)``
   step: traces within 1e-4, ``bits_sent`` exactly;
 * lane ``p``, ``batch``, ``batch_sync`` and fused ``a`` raise ValueError,
-  and the sampled and tree substrates raise NotImplementedError;
+  and the sampled substrate raises NotImplementedError (the tree
+  substrate's lanes are held in ``tests/test_torch_dense.py``);
 * no op of a sweep round or of the lane metric allocates a tensor of
   G * n * m * d elements or more (a lanes-outermost gradient does).
 """
@@ -34,7 +35,8 @@ from repro.core.oracles import FiniteSumProblem as JFiniteSum
 from repro.methods import driver as jdriver
 from repro_torch import convert
 from repro_torch.compress import make_round_compressor
-from repro_torch.methods import (Driver, FlatSubstrate, Hyper, Lanes, Method,
+from repro_torch.methods import (Driver, FlatSubstrate, Hyper, Lanes,
+                                 LaneTreeSubstrate, Method,
                                  SampledFlatSubstrate, Sweeper, TreeSubstrate,
                                  lane_metric, sweep)
 
@@ -349,13 +351,16 @@ def test_lane_a_runs_on_the_dense_backend_and_marina_ignores_it():
 
 
 def test_sampled_and_tree_substrates_have_no_lanes_yet():
+    """The sampled substrate still has no lanes; the tree substrate has
+    them now (``tests/test_torch_dense.py`` holds its lanes against
+    sequential runs)."""
     problem = _glm()
     comp = make_round_compressor("randk", D, N, k=K, device="cpu")
     with pytest.raises(NotImplementedError, match="sampled-client"):
         Method.build("dasha", comp, SampledFlatSubstrate(problem, N, D, c=2),
                      Hyper(gamma=Lanes([0.1, 0.2]), a=0.2))
-    with pytest.raises(NotImplementedError, match="tree substrate"):
-        TreeSubstrate(oracle=None, n=N, server_opt=None).with_lanes(2)
+    lanes = TreeSubstrate(oracle=None, n=N, server_opt=None).with_lanes(2)
+    assert isinstance(lanes, LaneTreeSubstrate) and lanes.lanes == 2
 
 
 def test_lanes_arithmetic_rounds_like_a_python_scalar():
