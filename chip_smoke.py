@@ -283,7 +283,29 @@ Phases, each fatal on failure:
     Figure 4 (``repro_torch.bench.fig4_dnn``) at its 120 steps, each row
     with its wall seconds, and dasha_1/32's lowest- and highest-gamma
     lanes against sequential Driver runs (planted: each lane against the
-    other's run).  ``DENSE_CUTS`` lists the cuts.
+    other's run).  ``DENSE_CUTS`` lists the cuts;
+20. gemma3's grouped local/global stack and the mixture-of-experts family,
+    with the card's memory printed first: (a-c) served in bf16 at full
+    width through ``prefill_logits`` (4 x 8,192 tokens, the streaming
+    attention), ``serve`` (one request batch) and 32 decode steps on a
+    4,128-slot cache beside their bf16 bounds, each model freed before the
+    next: gemma3-12b at 48 of 48 layers (local layers under the 1,024-token
+    window, every 6th layer global; decode at batch 32 from t = 4,080,
+    the local rings wrapping at 4,096), deepseek-v2-lite-16b at 27 of 27
+    (MLA, 64 experts top-6 and 2 shared; decode at batch 128 on the latent
+    cache, dropless) and phi3.5-moe at 16 of 32 (16 experts top-2, the
+    prefill by both dispatch modes; decode at batch 32); a prefill cut to
+    2 layers under the profiler; gate: none of the five kernels launches;
+    (d) ``launch.train.train`` at the three smoke configs, DASHA-MVR with
+    kernel 3 once per parameter leaf a round and nothing else, and one
+    forward and backward of deepseek-v2-lite at full width cut to 2
+    layers (finite gradients, a non-zero router gradient); (e) card vs
+    CPU at the three smoke configs in float32 (prefill by both attention
+    paths and both dispatch modes, decode past the local rings' wrap and
+    the latent cache's end, trainer rounds on replayed masks) within
+    ``DENSE_AGREE_LIMIT`` (planted: rings as long as the sequence, a
+    latent cache that never clamps, the next round's masks).
+    ``FAMILY_CUTS`` lists the cuts.
 
 Every phase that drives a main path zeroes the launch counters just before
 it and reads them just after; a kernel of that path that never launched
@@ -587,6 +609,48 @@ DENSE_CUTS = {
     "decode_history": "the 4,096-slot ring filled with random K/V in place "
                       "of 4,096 prompt steps (a step's time does not depend "
                       "on the values)",
+}
+
+# gemma3's grouped stack and the MoE family (phase 20): each model at full
+# width in bf16, (arch, layers served or None for all, decode batch, the
+# prefill's dispatch modes);
+# prefill FAMILY_PREFILL_BATCH x FAMILY_PREFILL_SEQ, decode steps from
+# FAMILY_DECODE_T0 on FAMILY_DECODE_SLOTS slots; the trainer at the smoke
+# configs (FAMILY_LEAVES parameter leaves each), the routed backward at
+# full width cut to FAMILY_GRAD_LAYERS; card vs CPU at the smoke configs
+FAMILY_ARCHS = ("gemma3-12b", "phi3.5-moe-42b-a6.6b", "deepseek-v2-lite-16b")
+FAMILY_RUNS = (("gemma3-12b", None, 32, (None,)),
+               ("deepseek-v2-lite-16b", None, 128, ("gather",)),
+               ("phi3.5-moe-42b-a6.6b", 16, 32, ("gather", "einsum")))
+FAMILY_LEAVES = {"gemma3-12b": 20, "phi3.5-moe-42b-a6.6b": 13,
+                 "deepseek-v2-lite-16b": 18}
+FAMILY_PREFILL_BATCH, FAMILY_PREFILL_SEQ, FAMILY_PREFILL_TIMED = 4, 8192, 1
+FAMILY_SERVE_PROMPT, FAMILY_SERVE_NEW = 16, 16
+FAMILY_DECODE_SLOTS, FAMILY_DECODE_T0 = 4128, 4080
+# two decode steps profiled: the profiler's tables of a 4-step window took
+# 7-13 s a model (~4,800 launches a step), for the same busy share
+FAMILY_DECODE_STEPS, FAMILY_DECODE_PROFILED = 32, 2
+FAMILY_PROFILED_LAYERS = 2
+FAMILY_TRAIN_ROUNDS = 4
+FAMILY_GRAD_LAYERS, FAMILY_GRAD_BATCH, FAMILY_GRAD_SEQ = 2, 2, 2048
+FAMILY_AGREE_DECODE_STEPS, FAMILY_AGREE_MLA_SLOTS = 24, 16
+FAMILY_AGREE_CHUNK = 48
+FAMILY_CUTS = {
+    "phi_layers": "phi3.5-moe-42b-a6.6b's 32 layers cut to 16 for serving: "
+                  "its 41.87B parameters are 83.7 GB in bf16, more than the "
+                  "card's 80 GB; 16 layers are 21.07B, 42.1 GB",
+    "decode_history": "the 4,128-slot caches (gemma3's local rings: 1,024 "
+                      "slots) filled with random K/V or latents in place of "
+                      "4,080 prompt steps (a step's time does not depend on "
+                      "the values)",
+    "trainer": "the trainer at the three smoke configs: n = 4 nodes of fp32 "
+               "state and the round's per-node trees take ~105 bytes a "
+               "parameter (62.19 GB at starcoder2's 589.9M, phase 19), so "
+               "deepseek-v2-lite cut to 1 of 27 layers (1.00B parameters) "
+               "would need ~105 GB, gemma3 and phi3.5-moe more; full width "
+               "is one forward and backward of deepseek-v2-lite at 2 layers",
+    "prefill_timed": "one timed prefill call after the warm-up (phase 19 "
+                     "times two)",
 }
 
 
@@ -5767,6 +5831,47 @@ def _dense_model_agreement(torch):
     return {"worst": worst, "by_arch": by_arch, "planted": planted}
 
 
+def _replay_draws(torch, params, dcfg, rounds: int):
+    """The tree trainer's per-leaf masks for ``rounds`` + 1 rounds, drawn
+    on the CPU from a fixed seed."""
+    from repro_torch.compress import treelevel
+    from repro_torch.core import tree
+    from repro_torch.core.rng import Draws, RoundRandom
+    n = dcfg.n_nodes
+    zeros = tree.map_leaves(lambda p: torch.zeros((n,) + tuple(p.shape)),
+                            params)
+    return [Draws(masks=treelevel.tree_masks(
+        RoundRandom(9, t), zeros, mode="independent", p=dcfg.compression,
+        n=n)[0]) for t in range(rounds + 1)]
+
+
+def _replayed_trainer(torch, cfg, dcfg, params, batches, draws, dev,
+                      use_kernel: bool, shift: int = 0):
+    """``len(batches)`` rounds of ``make_method(dcfg)`` on ``cfg`` from
+    ``params`` on ``dev``, round t on ``batches[t]`` and ``draws[t +
+    shift]``, the counters zeroed before: (final state, launches)."""
+    from repro_torch.core import tree
+    from repro_torch.core.rng import Draws
+    from repro_torch.methods import Driver
+    from repro_torch.models import lm
+    from repro_torch.optim.distributed import make_method
+    method = make_method(dataclasses.replace(dcfg, use_kernel=use_kernel),
+                         lambda p, b: lm.loss_fn(cfg, p, b)[0])
+    state = method.init(tree.map_leaves(lambda p: p.to(dev), params), 1,
+                        init_mode="zeros", device=dev)
+    dev_draws = [Draws(masks=tree.map_leaves(lambda m: m.to(dev), d.masks))
+                 for d in draws]
+
+    def step(s, data):
+        return method.step_full(s, data, draws=dev_draws[s.t + shift])[0]
+
+    _reset_launch_counts()
+    final, _ = Driver(step, data_fn=lambda seed, t: {
+        k: v.to(dev) for k, v in batches[t].items()}).run(
+        state, len(batches), data_seed=0)
+    return final, _launch_counts()
+
+
 def _dense_trainer_agreement(torch):
     """19d: starcoder2 smoke in float32 trained on the card and on the CPU
     with the same CPU-drawn masks and batches, dasha and mvr x kernel off
@@ -5774,15 +5879,12 @@ def _dense_trainer_agreement(torch):
     DENSE_AGREE_LIMIT of each leaf's largest magnitude.  Planted faults:
     the card run on the next round's masks must fail that gate, and the
     plain route's launches must fail the trainer's launch gate."""
-    from repro_torch.compress import treelevel
     from repro_torch.configs import get_smoke_config
     from repro_torch.core import tree
-    from repro_torch.core.rng import Draws, RoundRandom
     from repro_torch.data.pipeline import (SyntheticTextConfig,
                                            make_node_batches)
-    from repro_torch.methods import Driver
-    from repro_torch.models import init_params, lm
-    from repro_torch.optim.distributed import DashaTrainConfig, make_method
+    from repro_torch.models import init_params
+    from repro_torch.optim.distributed import DashaTrainConfig
 
     cfg = dataclasses.replace(get_smoke_config("starcoder2-3b"),
                               dtype="float32")
@@ -5791,39 +5893,16 @@ def _dense_trainer_agreement(torch):
     batches = [make_node_batches(t, text, n, 2, device="cpu")
                for t in range(rounds)]
     params = init_params(cfg, 0, device="cpu")
-    zeros = tree.map_leaves(lambda p: torch.zeros((n,) + tuple(p.shape)),
-                            params)
     worst, errs, planted = 0.0, {}, {}
     for variant in ("dasha", "mvr"):
         dcfg = DashaTrainConfig(gamma=0.05, compression=0.25,
                                 variant=variant, b=0.1, n_nodes=n,
                                 server_opt="sgd")
-        draws = []
-        for t in range(rounds + 1):
-            masks, _ = treelevel.tree_masks(RoundRandom(9, t), zeros,
-                                            mode="independent",
-                                            p=dcfg.compression, n=n)
-            draws.append(Draws(masks=masks))
+        draws = _replay_draws(torch, params, dcfg, rounds)
 
         def run(dev, use_kernel, shift=0):
-            method = make_method(
-                dataclasses.replace(dcfg, use_kernel=use_kernel),
-                lambda p, b: lm.loss_fn(cfg, p, b)[0])
-            state = method.init(tree.map_leaves(lambda p: p.to(dev),
-                                                params), 1,
-                                init_mode="zeros", device=dev)
-            dev_draws = [Draws(masks=tree.map_leaves(
-                lambda m: m.to(dev), d.masks)) for d in draws]
-
-            def step(s, data):
-                return method.step_full(s, data,
-                                        draws=dev_draws[s.t + shift])[0]
-
-            _reset_launch_counts()
-            final, _ = Driver(step, data_fn=lambda seed, t: {
-                k: v.to(dev) for k, v in batches[t].items()}).run(
-                state, rounds, data_seed=0)
-            return final, _launch_counts()
+            return _replayed_trainer(torch, cfg, dcfg, params, batches,
+                                     draws, dev, use_kernel, shift)
 
         cpu, _ = run("cpu", False)
         for use_kernel in (False, True):
@@ -5986,6 +6065,578 @@ def phase_dense(torch, smi: str):
             "walls_s": walls}, counts["dasha_mvr_update"]
 
 
+# ---------------------------------------------------------------------------
+# phase 20: gemma3's grouped local/global stack and the MoE family
+# (phi3.5-moe, deepseek-v2-lite with MLA)
+# ---------------------------------------------------------------------------
+
+def _active_layer_params(cfg, params) -> float:
+    """Parameters a token passes through in the transformer layers: every
+    layer leaf, the routed experts' at experts_per_token / num_experts
+    (the router and the shared experts whole)."""
+    from repro_torch.core import tree
+    total = 0.0
+    for key in ("layers", "local_layers", "global_layers"):
+        for path, w in tree.items(params.get(key, {})):
+            n = float(w.numel())
+            if cfg.num_experts and path in ("ffn/w_gate", "ffn/w_in",
+                                            "ffn/w_out"):
+                n *= cfg.experts_per_token / cfg.num_experts
+            total += n
+    return total
+
+
+def _layer_kinds(cfg):
+    """(layers, window) pairs: gemma3's local layers under the sliding
+    window and its global layers, or every layer at the config's window."""
+    if cfg.global_every:
+        groups = cfg.num_layers // cfg.global_every
+        return [(groups * (cfg.global_every - 1), cfg.sliding_window),
+                (groups, 0)]
+    return [(cfg.num_layers, cfg.sliding_window)]
+
+
+def _attn_flops_per_key(cfg, decode: bool) -> float:
+    """Products a query does against one key in one layer: QK^T and PV
+    over every head (MLA's decode in the rank-r latent space)."""
+    H = cfg.num_heads
+    if not cfg.use_mla:
+        return 4.0 * cfg.head_dim * H
+    dr = cfg.qk_rope_head_dim
+    if decode:
+        return 2.0 * (2 * cfg.kv_lora_rank + dr) * H
+    return 2.0 * (cfg.qk_nope_head_dim + dr + cfg.v_head_dim) * H
+
+
+def family_prefill_bound(cfg, params, batch: int, seq: int, n_params: int):
+    """The least time of a last-position prefill: the bf16 tensor-core
+    operations of every token through its active layer parameters (K of E
+    experts), the causal (windowed) attention over the keys each query
+    sees, and the head at the last position, against reading the weights
+    once."""
+    flops = 2 * _active_layer_params(cfg, params) * batch * seq \
+        + 2 * batch * cfg.d_model * cfg.padded_vocab
+    per_key = _attn_flops_per_key(cfg, decode=False)
+    for n, W in _layer_kinds(cfg):
+        keys = sum(min(p + 1, W or seq) for p in range(seq))
+        flops += n * per_key * keys * batch
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_bytes = 2 * n_params / HBM_BYTES_PER_S * 1e3
+    return ((t_ops, "operations") if t_ops >= t_bytes else
+            (t_bytes, "bytes")), flops
+
+
+def family_decode_bound(cfg, params, batch: int, t_mean: float,
+                        n_params: int):
+    """The least time of one decode step at position ~``t_mean``: read the
+    weights once (every expert: at these batches each one is routed to;
+    an untied embedding only at the batch's rows) and the cache slots a
+    query sees, write one slot; its bf16 operations beside it."""
+    embed = 0 if cfg.tie_embeddings else cfg.padded_vocab * cfg.d_model
+    if cfg.use_mla:
+        per_slot = cfg.kv_lora_rank + cfg.qk_rope_head_dim
+    else:
+        per_slot = 2 * cfg.num_kv_heads * cfg.head_dim
+    slots = sum(n * min(t_mean + 1, W or t_mean + 1)
+                for n, W in _layer_kinds(cfg))
+    cache = per_slot * batch * (slots + cfg.num_layers)
+    nbytes = 2 * (n_params - embed + batch * cfg.d_model) + 2 * cache
+    flops = 2 * (_active_layer_params(cfg, params)
+                 + cfg.padded_vocab * cfg.d_model) * batch \
+        + _attn_flops_per_key(cfg, decode=True) * slots * batch
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops else
+            (t_ops, "operations")), nbytes
+
+
+def _cut_params(cfg, params):
+    """``cfg`` and ``params`` cut to FAMILY_PROFILED_LAYERS layers: the
+    homogeneous stack's first two, or gemma3's first local and first
+    global layer (one group of two)."""
+    from repro_torch.core import tree
+    n = FAMILY_PROFILED_LAYERS
+    if not cfg.global_every:
+        return (dataclasses.replace(cfg, num_layers=n),
+                dict(params, layers=tree.map_leaves(lambda w: w[:n],
+                                                    params["layers"])))
+    cut = dataclasses.replace(cfg, num_layers=n, global_every=n)
+    return cut, dict(params, local_layers=tree.map_leaves(
+        lambda w: w[:1, :n - 1], params["local_layers"]),
+        global_layers=tree.map_leaves(lambda w: w[:1],
+                                      params["global_layers"]))
+
+
+def _top(table, k):
+    return [[name[:90], c, us / 1e3] for name, (c, us) in
+            sorted(table.items(), key=lambda kv: -kv[1][1])[:k]]
+
+
+def _family_prefill(torch, smi: str, cfg, params, n_params: int, tag: str,
+                    profile: bool):
+    """One warm-up and FAMILY_PREFILL_TIMED timed ``prefill_logits`` calls
+    of FAMILY_PREFILL_BATCH x FAMILY_PREFILL_SEQ tokens, and a call cut
+    to FAMILY_PROFILED_LAYERS layers under the profiler."""
+    from repro_torch.data.pipeline import SyntheticTextConfig, make_lm_batch
+    from repro_torch.launch import serve as S
+
+    B, T = FAMILY_PREFILL_BATCH, FAMILY_PREFILL_SEQ
+    tokens = make_lm_batch(1, SyntheticTextConfig(vocab_size=cfg.vocab_size,
+                                                  seq_len=T), B,
+                           device="cuda")["tokens"]
+    S.prefill_logits(cfg, params, tokens)                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(FAMILY_PREFILL_TIMED):
+        t0 = time.perf_counter()
+        logits = S.prefill_logits(cfg, params, tokens)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    if tuple(logits.shape) != (B, 1, cfg.padded_vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"[{tag}] prefill logits "
+                             f"{tuple(logits.shape)} misshapen or not "
+                             "finite")
+    (b_ms, by), flops = family_prefill_bound(cfg, params, B, T, n_params)
+    wall = sum(walls) / len(walls)
+    out = {"batch": B, "seq": T, "dispatch": cfg.moe_dispatch
+           if cfg.num_experts else None, "walls_s": walls,
+           "tokens_per_s": B * T / wall, "peak_mem_gb": peak / 1e9,
+           "bound_ms": b_ms, "bound_by": by, "flops": flops,
+           "bound_share": b_ms / (wall * 1e3)}
+    if cfg.num_experts and cfg.moe_dispatch == "gather":
+        from repro_torch.models.moe import _capacity
+        out["capacity"] = _capacity(cfg, B * T)
+    msg = ""
+    if profile:
+        cut, cut_params = _cut_params(cfg, params)
+        t0 = time.perf_counter()
+        table, pwall = profiled(torch, lambda: S.prefill_logits(
+            cut, cut_params, tokens))
+        busy_s = sum(t for _, t in table.values()) / 1e6
+        out["profile"] = {"layers": FAMILY_PROFILED_LAYERS, "wall_s": pwall,
+                          "with_tables_s": time.perf_counter() - t0,
+                          "device_busy_s": busy_s,
+                          "busy_share": busy_s / pwall,
+                          "launches": sum(c for c, _ in table.values()),
+                          "top_kernels": _top(table, 10)}
+        msg = (f"; a profiled call of {FAMILY_PROFILED_LAYERS} layers "
+               f"{pwall:.3f} s, device busy {busy_s / pwall:.3f}")
+    log(f"[{tag}] prefill {B} x {T} ({out['dispatch'] or 'dense'}) in "
+        f"{walls} s, {B * T / wall:.0f} tokens/s, peak {peak / 1e9:.2f} GB, "
+        f"bound {b_ms:.1f} ms ({by}, {flops / 1e12:.1f} TFLOP at the bf16 "
+        f"rate, {out['bound_share']:.3f} of it){msg} | {smi}")
+    for k, c, ms in out.get("profile", {}).get("top_kernels", []):
+        log(f"[{tag}]   {ms:9.3f} ms  x{c:<5d} {k}")
+    del logits, tokens
+    torch.cuda.empty_cache()
+    return out
+
+
+def _family_decode(torch, smi: str, cfg, params, n_params: int, batch: int,
+                   tag: str):
+    """FAMILY_DECODE_STEPS decode steps at ``batch`` from position
+    FAMILY_DECODE_T0 on a FAMILY_DECODE_SLOTS-slot cache holding a random
+    history (gemma3's 1,024-slot local rings wrap at 4,096 on the way),
+    then FAMILY_DECODE_PROFILED steps under the profiler."""
+    from repro_torch.core import tree
+    from repro_torch.launch import serve as S
+    from repro_torch.models import lm
+
+    T = FAMILY_DECODE_SLOTS
+    cache = lm.init_cache(cfg, batch, T, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    for c in tree.leaves(cache):
+        c.normal_(generator=gen)
+    tok = torch.randint(1, cfg.vocab_size, (batch,), device="cuda",
+                        generator=gen)
+    t0 = FAMILY_DECODE_T0
+
+    def steps(first: int, count: int):
+        nonlocal tok
+        with torch.inference_mode():
+            for i in range(count):
+                logits, _ = lm.decode_step(cfg, params, cache, tok,
+                                           first + i)
+                tok = S.greedy(cfg, logits)
+        return logits
+
+    steps(t0 - 2, 2)                                       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    last = steps(t0, FAMILY_DECODE_STEPS)
+    torch.cuda.synchronize()
+    dwall = time.perf_counter() - t1
+    dpeak = torch.cuda.max_memory_allocated()
+    if not bool(torch.isfinite(last).all()):
+        raise AssertionError(f"[{tag}] decode logits not finite")
+    t2 = time.perf_counter()
+    table, pwall = profiled(torch, lambda: steps(t0 + FAMILY_DECODE_STEPS,
+                                                 FAMILY_DECODE_PROFILED))
+    with_tables = time.perf_counter() - t2
+    busy_s = sum(t for _, t in table.values()) / 1e6
+    (db_ms, dby), dbytes = family_decode_bound(
+        cfg, params, batch, t0 + (FAMILY_DECODE_STEPS - 1) / 2, n_params)
+    ms = dwall / FAMILY_DECODE_STEPS * 1e3
+    cache_gb = sum(c.numel() * c.element_size()
+                   for c in tree.leaves(cache)) / 1e9
+    out = {"batch": batch, "slots": T,
+           "positions": [t0, t0 + FAMILY_DECODE_STEPS - 1],
+           "steps": FAMILY_DECODE_STEPS, "ms_per_step": ms,
+           "tokens_per_s": batch / (ms / 1e3), "cache_gb": cache_gb,
+           "peak_mem_gb": dpeak / 1e9, "bound_ms": db_ms, "bound_by": dby,
+           "bound_bytes": dbytes, "bound_share": db_ms / ms,
+           "profile": {"steps": FAMILY_DECODE_PROFILED, "wall_s": pwall,
+                       "with_tables_s": with_tables,
+                       "device_busy_s": busy_s, "busy_share": busy_s / pwall,
+                       "kernels_per_step": sum(c for c, _ in table.values())
+                       / FAMILY_DECODE_PROFILED,
+                       "top_kernels": _top(table, 8)}}
+    if cfg.global_every:
+        out["local_ring_slots"] = int(cache["local"]["k"].shape[3])
+    log(f"[{tag}] decode batch {batch} on {T} slots, positions {t0}.."
+        f"{t0 + FAMILY_DECODE_STEPS - 1}: {ms:.2f} ms a step vs a "
+        f"{db_ms:.2f} ms bound ({dby}), cache {cache_gb:.2f} GB, peak "
+        f"{dpeak / 1e9:.2f} GB, device busy {busy_s / pwall:.3f}, "
+        f"{out['profile']['kernels_per_step']:.0f} kernels a step | {smi}")
+    for k, c, ms_k in out["profile"]["top_kernels"]:
+        log(f"[{tag}]   {ms_k:9.3f} ms  x{c:<5d} {k}")
+    del cache, last
+    torch.cuda.empty_cache()
+    return out
+
+
+def _family_serve(torch, smi: str, arch: str, layers, batch: int, modes):
+    """20a-c: ``arch`` at full width (``layers`` of its depth, None for
+    all) in bf16 through the serving entry points: ``prefill_logits`` by
+    each of the MoE dispatch ``modes`` (None: no experts), ``serve`` for
+    one request batch, and decode steps on a long cache.  None of the five
+    kernels may launch."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree
+    from repro_torch.launch import serve as S
+    from repro_torch.models import init_params
+
+    cfg = get_config(arch)
+    depth = cfg.num_layers
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    tag = f"family {arch}"
+    _reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(int(x.numel()) for x in tree.leaves(params))
+    out = {"arch": arch, "layers": cfg.num_layers, "of_layers": depth,
+           "params": n_params, "params_gb": 2 * n_params / 1e9,
+           "init_s": time.perf_counter() - t0,
+           "init_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "card": smi}
+    log(f"[{tag}] {cfg.num_layers}/{depth} layers, {n_params / 1e9:.3f}B "
+        f"params ({2 * n_params / 1e9:.1f} GB bf16) in {out['init_s']:.1f} "
+        f"s, peak {out['init_peak_gb']:.1f} GB")
+    walls = out["walls_s"] = {}
+    t0 = time.perf_counter()
+    out["prefill"] = [
+        _family_prefill(torch, smi, dataclasses.replace(
+            cfg, moe_dispatch=m) if m else cfg, params, n_params, tag,
+            profile=i == 0) for i, m in enumerate(modes)]
+    walls["prefill"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    args = S.build_parser().parse_args([
+        "--arch", arch, "--batch", str(batch), "--prompt-len",
+        str(FAMILY_SERVE_PROMPT), "--new-tokens", str(FAMILY_SERVE_NEW)])
+    res = S.serve(cfg, args, device="cuda", params=params, log=log)
+    torch.cuda.synchronize()
+    if res.tokens.shape != (batch, FAMILY_SERVE_NEW) or \
+            not ((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all():
+        raise AssertionError(f"[{tag}] serve tokens {res.tokens.shape} "
+                             "misshapen or out of the vocabulary")
+    out["serve"] = {"batch": batch, "prompt": FAMILY_SERVE_PROMPT,
+                    "new": FAMILY_SERVE_NEW,
+                    "prompt_ms_per_step":
+                        res.prefill_s / FAMILY_SERVE_PROMPT * 1e3,
+                    "decode_ms_per_step": res.decode_s / FAMILY_SERVE_NEW
+                    * 1e3, "first_row": res.tokens[0].tolist()}
+    del res
+    walls["serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["decode"] = _family_decode(torch, smi, cfg, params, n_params, batch,
+                                   tag)
+    walls["decode"] = time.perf_counter() - t0
+    counts = _launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"[{tag}] serving launched hand-written "
+                             f"kernels: {counts}")
+    out["launches"] = counts
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _family_trainer(torch, smi: str):
+    """20d: ``launch.train.train`` at the three smoke configs (bf16),
+    DASHA-MVR with kernel 3, gated on one launch per parameter leaf a
+    round and nothing else; then one ``lm.loss_fn`` forward and backward
+    of deepseek-v2-lite at full width cut to FAMILY_GRAD_LAYERS layers, in
+    bf16 (the routed FFN's index scatters), gated on finite gradients and
+    a non-zero router gradient."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.core import tree
+    from repro_torch.data.pipeline import SyntheticTextConfig, make_lm_batch
+    from repro_torch.launch.train import train
+    from repro_torch.models import init_params, lm
+
+    out, total = {}, 0
+    for arch in FAMILY_ARCHS:
+        cfg = get_smoke_config(arch)
+        args = _train_args(["--arch", arch, "--steps",
+                            str(FAMILY_TRAIN_ROUNDS), "--log-every",
+                            str(FAMILY_TRAIN_ROUNDS // 2), "--variant",
+                            "mvr", "--use-kernel"])
+        _reset_launch_counts()
+        res = train(cfg, args, device="cuda", log=log)
+        torch.cuda.synchronize()
+        counts = _launch_counts()
+        leaves = len(tree.leaves(res.state.x))
+        if leaves != FAMILY_LEAVES[arch]:
+            raise AssertionError(f"[family-train] {arch}: {leaves} "
+                                 f"parameter leaves, expected "
+                                 f"{FAMILY_LEAVES[arch]}")
+        _gate_launches(f"family-train {arch}", counts, {
+            "dasha_mvr_update": leaves * FAMILY_TRAIN_ROUNDS})
+        losses = [c["loss"] for c in res.chunks]
+        if not all(math.isfinite(v) for v in [res.loss0] + losses):
+            raise AssertionError(f"[family-train] {arch} eval loss "
+                                 f"{res.loss0} -> {losses}")
+        total += counts["dasha_mvr_update"]
+        out[arch] = {"config": cfg.name, "params": res.n_params,
+                     "leaves": leaves, "rounds": FAMILY_TRAIN_ROUNDS,
+                     "launches": counts, "eval_loss_start": res.loss0,
+                     "eval_loss_end": losses[-1],
+                     "seconds": [c["seconds"] for c in res.chunks]}
+        del res
+
+    # the routed FFN's backward at full width
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b"),
+                              num_layers=FAMILY_GRAD_LAYERS)
+    params = init_params(cfg, 0, device="cuda")
+    for w in tree.leaves(params):
+        w.requires_grad_(True)
+    batch = make_lm_batch(3, SyntheticTextConfig(
+        vocab_size=cfg.vocab_size, seq_len=FAMILY_GRAD_SEQ),
+        FAMILY_GRAD_BATCH, device="cuda")
+    walls = []
+    for _ in range(2):                              # warm-up, then timed
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, metrics = lm.loss_fn(cfg, params, batch)
+        grads = torch.autograd.grad(loss, tree.leaves(params))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    g = dict(zip([p for p, _ in tree.items(params)], grads))
+    bad = [p for p, v in g.items() if not bool(torch.isfinite(v).all())]
+    router = float(g["layers/ffn/router"].abs().max())
+    loss, aux = float(loss.detach()), float(metrics["aux"].detach())
+    if bad or not router > 0 or not math.isfinite(loss):
+        raise AssertionError(f"[family-grad] loss {loss}, gradients not "
+                             f"finite: {bad}, router |g| max {router}")
+    n_params = sum(int(x.numel()) for x in tree.leaves(params))
+    out["grad"] = {"arch": "deepseek-v2-lite-16b",
+                   "layers": FAMILY_GRAD_LAYERS, "of_layers": 27,
+                   "params": n_params, "batch": FAMILY_GRAD_BATCH,
+                   "seq": FAMILY_GRAD_SEQ, "walls_s": walls,
+                   "peak_mem_gb": peak, "loss": loss,
+                   "aux": aux,
+                   "router_grad_max": router, "card": smi}
+    log(f"[family-grad] deepseek-v2-lite {FAMILY_GRAD_LAYERS}/27 layers, "
+        f"{n_params / 1e9:.3f}B params, bf16, batch {FAMILY_GRAD_BATCH} x "
+        f"{FAMILY_GRAD_SEQ}: forward + backward {walls[-1]:.3f} s (first "
+        f"{walls[0]:.3f}), peak {peak:.2f} GB, loss {loss:.4f}, aux "
+        f"{aux:.4f}, every gradient finite, router "
+        f"|g| max {router:.3g} | {smi}")
+    del params, grads, g, batch, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, total
+
+
+def _family_model_agreement(torch):
+    """20e: the three smoke configs in float32 on the card and on the
+    CPU, the same params and tokens: prefill logits by the dense (64
+    tokens) and streaming (2,048) attention paths, the MoE configs by both
+    dispatch modes (einsum in chunks of FAMILY_AGREE_CHUNK tokens, the
+    last padded); FAMILY_AGREE_DECODE_STEPS teacher-forced decode steps,
+    past gemma3's 16-slot local rings and past the end of deepseek's
+    FAMILY_AGREE_MLA_SLOTS-slot latent cache (the clamp); each within
+    DENSE_AGREE_LIMIT of the largest CPU logit.  Planted faults: gemma3's
+    local rings as long as the sequence, and deepseek's latent cache long
+    enough that it never clamps, must each fail it."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import tree
+    from repro_torch.launch import serve as S
+    from repro_torch.models import init_params, lm
+
+    worst, planted, by_arch = 0.0, {}, {}
+    gen = torch.Generator().manual_seed(11)
+    steps, B = FAMILY_AGREE_DECODE_STEPS, 2
+    for arch in FAMILY_ARCHS:
+        base = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        params = init_params(base, 0, device="cpu")
+        dev_params = tree.map_leaves(lambda p: p.to("cuda"), params)
+        errs = {}
+        modes = ("gather", "einsum") if base.num_experts else (None,)
+        for mode in modes:
+            cfg = dataclasses.replace(
+                base, moe_dispatch=mode,
+                moe_chunk=FAMILY_AGREE_CHUNK) if mode == "einsum" else base
+            for name, shape in (("prefill_dense", (2, 64)),
+                                ("prefill_streaming",
+                                 (1, DENSE_AGREE_STREAM_SEQ))):
+                tok = torch.randint(1, cfg.vocab_size, shape, generator=gen)
+                want = S.prefill_logits(cfg, params, tok)
+                errs[f"{name}/{mode or 'dense'}"] = _rel_gap(
+                    S.prefill_logits(cfg, dev_params, tok.to("cuda")), want)
+        slots = FAMILY_AGREE_MLA_SLOTS if base.use_mla else steps
+        tok = torch.randint(1, base.vocab_size, (B, steps), generator=gen)
+        caches = {d: lm.init_cache(base, B, slots, device=d)
+                  for d in ("cpu", "cuda")}
+        fault_cfg, fault_cache = base, None
+        if base.global_every:
+            fault_cfg = dataclasses.replace(base, sliding_window=steps)
+        if base.global_every or base.use_mla:
+            fault_cache = lm.init_cache(fault_cfg, B, steps, device="cuda")
+        err = fault = 0.0
+        with torch.inference_mode():
+            for t in range(steps):
+                want, _ = lm.decode_step(base, params, caches["cpu"],
+                                         tok[:, t], t)
+                got, _ = lm.decode_step(base, dev_params, caches["cuda"],
+                                        tok[:, t].to("cuda"), t)
+                err = max(err, _rel_gap(got, want))
+                if fault_cache is not None:
+                    bad, _ = lm.decode_step(fault_cfg, dev_params,
+                                            fault_cache,
+                                            tok[:, t].to("cuda"), t)
+                    fault = max(fault, _rel_gap(bad, want))
+        errs["decode"] = err
+        if base.global_every:
+            planted["gemma3 local rings as long as the sequence"] = fault
+        elif base.use_mla:
+            planted["deepseek latent cache that never clamps"] = fault
+        by_arch[arch] = errs
+        worst = max([worst] + list(errs.values()))
+    if not worst <= DENSE_AGREE_LIMIT:
+        raise AssertionError(f"[family-agree] card and CPU logits differ: "
+                             f"{by_arch} (limit {DENSE_AGREE_LIMIT})")
+    missed = {k: v for k, v in planted.items() if not v > DENSE_AGREE_LIMIT}
+    if len(planted) != 2 or missed:
+        raise AssertionError(f"[family-agree] planted faults pass the gate: "
+                             f"{planted}")
+    log(f"[family-agree] smoke gemma3 / phi3.5-moe / deepseek f32, card vs "
+        f"CPU (dense and streaming prefill, both dispatch modes, {steps} "
+        f"decode steps past the rings' wrap and the latent cache's end): "
+        f"worst {worst:.3g} of max |logit| (limit {DENSE_AGREE_LIMIT}); "
+        f"planted {planted}")
+    return {"worst": worst, "by_arch": by_arch, "planted": planted}
+
+
+def _family_trainer_agreement(torch):
+    """20e: the three smoke configs in float32 trained on the card
+    (kernel 3) and on the CPU (plain) with the same CPU-drawn masks and
+    batches, DASHA-MVR, DENSE_AGREE_ROUNDS rounds, SGD server: the states
+    within DENSE_AGREE_LIMIT of each leaf's largest magnitude.  Planted
+    fault: the card run on the next round's masks must fail it."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import (SyntheticTextConfig,
+                                           make_node_batches)
+    from repro_torch.models import init_params
+    from repro_torch.optim.distributed import DashaTrainConfig
+
+    n, rounds = TRAIN_NODES, DENSE_AGREE_ROUNDS
+    dcfg = DashaTrainConfig(gamma=0.05, compression=0.25, variant="mvr",
+                            b=0.1, n_nodes=n, server_opt="sgd")
+    errs, planted = {}, {}
+    for arch in FAMILY_ARCHS:
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        text = SyntheticTextConfig(vocab_size=cfg.vocab_size, seq_len=64)
+        batches = [make_node_batches(t, text, n, 2, device="cpu")
+                   for t in range(rounds)]
+        params = init_params(cfg, 0, device="cpu")
+        draws = _replay_draws(torch, params, dcfg, rounds)
+        cpu, _ = _replayed_trainer(torch, cfg, dcfg, params, batches, draws,
+                                   "cpu", False)
+        card, _ = _replayed_trainer(torch, cfg, dcfg, params, batches,
+                                    draws, "cuda", True)
+        try:
+            errs[arch] = _states_agree(torch, card, cpu, DENSE_AGREE_LIMIT)
+        except AssertionError as e:
+            raise AssertionError(f"[family-agree] trainer {arch}: {e}") \
+                from None
+        if arch == FAMILY_ARCHS[-1]:
+            shifted, _ = _replayed_trainer(torch, cfg, dcfg, params,
+                                           batches, draws, "cuda", True, 1)
+            try:
+                _states_agree(torch, shifted, cpu, DENSE_AGREE_LIMIT)
+            except AssertionError as e:
+                planted[f"{arch} on the next round's masks"] = str(e)[:120]
+            else:
+                raise AssertionError(f"[family-agree] {arch} on the next "
+                                     "round's masks passes the state gate")
+    worst = max(errs.values())
+    log(f"[family-agree] trainer, smoke gemma3 / phi3.5-moe / deepseek "
+        f"f32, mvr with kernel 3 on the card against the CPU, {rounds} "
+        f"rounds with injected CPU masks and batches: worst {worst:.3g} of "
+        f"a leaf's largest magnitude (limit {DENSE_AGREE_LIMIT}); planted "
+        f"faults caught: {sorted(planted)}")
+    return {"worst": worst, "by_arch": errs, "planted": planted}
+
+
+def phase_family(torch, smi: str):
+    """Phase 20: gemma3-12b, deepseek-v2-lite-16b and phi3.5-moe served at
+    full width (the first two at full depth), the three smoke configs
+    trained with kernel 3, deepseek's routed backward at full width, and
+    card against CPU.  Returns the report and kernel 3's launches on the
+    trainers."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = {"allocated_gb": torch.cuda.memory_allocated() / 1e9,
+            "reserved_gb": torch.cuda.memory_reserved() / 1e9}
+    log(f"[family] before the phase: {held['allocated_gb']:.2f} GB "
+        f"allocated, {held['reserved_gb']:.2f} GB reserved; cuts: "
+        f"{FAMILY_CUTS}")
+    t0 = time.perf_counter()
+    walls = {}
+
+    def part(name, fn, *args):
+        t1 = time.perf_counter()
+        res = fn(torch, *args)
+        walls[name] = time.perf_counter() - t1
+        log(f"[family] {name} in {walls[name]:.1f} s")
+        return res
+
+    trainer, k3 = part("trainer", _family_trainer, smi)
+    serving = {run[0]: part(f"serve {run[0]}", _family_serve, smi, *run)
+               for run in FAMILY_RUNS}
+    agree = part("agreement", _family_model_agreement)
+    train_agree = part("trainer_agreement", _family_trainer_agreement)
+    wall = time.perf_counter() - t0
+    log(f"[family] phase 20 in {wall:.1f} s")
+    return {"held_before": held, "trainer": trainer, "serve": serving,
+            "agreement": agree, "trainer_agreement": train_agree,
+            "cuts": FAMILY_CUTS, "wall_s": wall, "walls_s": walls,
+            "nvidia_smi": smi}, k3
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"{SRC / 'repro_torch'} not found: run from a checkout of the "
@@ -6033,11 +6684,13 @@ def main() -> int:
     obsr, obs_launches = phase_obs(torch, smi)
     ckpt, ckpt_launches = phase_ckpt(torch, smi)
     dense, dense_launches = phase_dense(torch, smi)
+    family, family_launches = phase_family(torch, smi)
     # kernels 1 to 4 run on several main paths: the flat round, the
     # federated cohort round, the heap oracle, the sweep, the faulted
     # campaigns, the asynchronous ones, the runs with an observability
-    # handle and the checkpoint drills; kernel 3 in the trainer and its
-    # drill (each counted from zero around its own run)
+    # handle and the checkpoint drills; kernel 3 in the trainers (Mamba2,
+    # starcoder2, the phase-20 families) and the drill (each counted from
+    # zero around its own run)
     by_path = {
         "dasha_sparsify_update": {
             "flat": launches["dasha_sparsify_update"],
@@ -6050,7 +6703,8 @@ def main() -> int:
             "ckpt": ckpt_launches["dasha_sparsify_update"]},
         "dasha_mvr_update": {"trainer": launches["dasha_mvr_update"],
                              "ckpt": ckpt_launches["dasha_mvr_update"],
-                             "dense_trainer": dense_launches},
+                             "dense_trainer": dense_launches,
+                             "family_trainer": family_launches},
         "quantize": {"flat": launches["quantize"],
                      "heap": heap_launches["quantize"],
                      "faults": fault_launches["quantize"],
@@ -6187,7 +6841,7 @@ def main() -> int:
               "fed_agreement_worst": fed_rel, "heap": heap,
               "sweep": sweep, "faults": faults, "async": asyncr,
               "obs": obsr, "ckpt": ckpt, "dense": dense,
-              "nvidia_smi": smi}
+              "family": family, "nvidia_smi": smi}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))

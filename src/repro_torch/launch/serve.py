@@ -1,6 +1,8 @@
 """Serving driver (port of ``examples/serve_lm.py`` and of the prefill
-function of ``repro.launch.specs``): the ``ssm`` family and the dense GQA
-family.
+function of ``repro.launch.specs``): the ``ssm`` family (mamba2-780m), the
+dense GQA family (starcoder2-3b, minitron-8b, qwen1.5-110b), gemma3's
+grouped local/global stack (gemma3-12b) and the mixture-of-experts family
+(phi3.5-moe-42b-a6.6b, deepseek-v2-lite-16b with MLA).
 
     PYTHONPATH=src python -m repro_torch.launch.serve [--arch starcoder2-3b] \
         [--full] --batch 4 --prompt-len 24 --new-tokens 16
@@ -16,9 +18,11 @@ tokens leaving the device as the ``"token"`` metric trace.
 :func:`prefill_logits` is the serving prefill of ``repro.launch.specs``: the
 prompt through the forward to the last position's logits; for Mamba2
 through the chunked SSD with the hand-written kernel (``use_ssd_kernel``,
-the reference's TPU deploy switch), for the dense family through the
-attention of :mod:`repro_torch.models.attention` (dense below 2,048
-tokens, streaming from there; it has no kernel of its own).
+the reference's TPU deploy switch), for the transformer families through
+the attention of :mod:`repro_torch.models.attention` (GQA or MLA; dense
+below 2,048 tokens, streaming from there) and the routed experts of
+:mod:`repro_torch.models.moe` (dropless on the decode steps), none of
+which has a kernel of its own.
 
 Weights are random from ``--seed`` and prompts are the synthetic
 copy-structured tokens of :func:`data.pipeline.make_lm_batch`, drawn on the

@@ -1,14 +1,18 @@
-"""Grouped-query attention (port of the GQA part of
-``repro.models.attention``): RoPE, a sliding window, a logit softcap and
-QKV bias, for a full sequence (``gqa_prefill``, causal) and for one new
-token against a fixed-size KV cache (``gqa_decode``).
+"""Attention (port of the GQA and MLA parts of
+``repro.models.attention``): grouped-query attention with RoPE, a sliding
+window, a logit softcap and QKV bias, and DeepSeek-V2's multi-head latent
+attention (MLA), each for a full sequence (``gqa_prefill`` /
+``mla_prefill``, causal) and for one new token against a fixed-size cache
+(``gqa_decode`` on K/V, ``mla_decode`` with the absorbed matrices on the
+latent ``(ckv, krope)`` cache).
 
 The reference computes attention in ``jnp``, in no Pallas kernel, and so
 does the port, in torch ops (``einsum``, ``softmax``, a loop over blocks),
 in the reference's order of casts:
 
 * the dense path (``_sdpa``, S < ``QBLOCK_THRESHOLD``) scales the logits in
-  the input dtype and casts them to float32 only at the mask;
+  the input dtype, by the scale rounded to it as JAX rounds a Python
+  scalar, and casts them to float32 only at the mask;
 * the streaming path (``_flash_sdpa``, S >= ``QBLOCK_THRESHOLD``, taken in
   ``QBLOCK``-query blocks over ``KBLOCK``-key blocks with an online
   softmax) casts to float32 before it scales;
@@ -22,8 +26,11 @@ probabilities, which changes memory, not the numbers.)  The reference
 scans every key block; the port skips the blocks whose every key the mask
 hides from the query block (causally later, or past the window), which
 leaves the carry exactly as it was: such a block adds p = 0 and rescales
-by alpha = 1 (or keeps the empty carry at zero).  MLA and cross attention
-come with the families that use them.
+by alpha = 1 (or keeps the empty carry at zero).  MLA takes the same two
+paths with the same cast orders, but for one step: its streaming path
+adds its two logit products (the latent part and the RoPE part) in
+float32, as the reference's compiled scan body does.  Cross attention
+comes with the families that use it.
 """
 from __future__ import annotations
 
@@ -31,7 +38,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.models.common import ArchConfig, rope, softcap
+from repro_torch.models.common import ArchConfig, dtype_scalar, rope, softcap
 
 NEG_INF = -2.0e38
 
@@ -68,7 +75,7 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           q_pos: torch.Tensor, k_pos: torch.Tensor, window: int, cap: float,
           scale: float) -> torch.Tensor:
     """q: (B,Sq,G,R,hd); k/v: (B,T,G,hd) -> (B,Sq,G,R,hd)."""
-    logits = softcap(_gqa_logits(q, k) * scale, cap)
+    logits = softcap(_gqa_logits(q, k) * dtype_scalar(scale, q.dtype), cap)
     logits = _masked(_causal_window_mask(q_pos, k_pos, window), logits)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bgrst,btgk->bsgrk", probs, v)
@@ -184,7 +191,8 @@ def gqa_decode(p: Dict, x: torch.Tensor, t: int, cache: Dict,
     cache["k"][:, write_at] = k[:, 0].to(cache["k"].dtype)
     cache["v"][:, write_at] = v[:, 0].to(cache["v"].dtype)
     q = q.reshape(B, 1, G, R, hd)
-    logits = _gqa_logits(q, cache["k"]) * (scale or hd ** -0.5)
+    logits = _gqa_logits(q, cache["k"]) * dtype_scalar(scale or hd ** -0.5,
+                                                        q.dtype)
     logits = softcap(logits, cfg.attn_logit_softcap)
     k_pos = torch.arange(T, device=x.device)
     ok = k_pos <= t                       # ring: all-true once t >= T
@@ -193,4 +201,118 @@ def gqa_decode(p: Dict, x: torch.Tensor, t: int, cache: Dict,
     probs = torch.softmax(_masked(ok, logits), dim=-1).to(x.dtype)
     out = torch.einsum("bgrst,btgk->bsgrk", probs,
                        cache["v"]).reshape(B, 1, H, hd)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"]), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA — DeepSeek-V2 multi-head latent attention
+# ---------------------------------------------------------------------------
+
+def _mla_flash(qn: torch.Tensor, qr: torch.Tensor, k_nope: torch.Tensor,
+               k_rope: torch.Tensor, v: torch.Tensor, q_pos: torch.Tensor,
+               k_pos: torch.Tensor, scale: float, blocks=None
+               ) -> torch.Tensor:
+    """Streaming softmax of one q block over the KBLOCK-key blocks.
+    qn: (B,Q,H,dn), qr: (B,Q,H,dr); k_nope: (B,T,H,dn), k_rope: (B,T,dr),
+    v: (B,T,H,dv) -> (B,Q,H,dv).  ``blocks`` skips the key blocks the
+    causal mask hides entirely, as :func:`_flash_sdpa` does.  The two
+    logit products are added in float32: the reference's compiled scan
+    body keeps their sum there (XLA drops the sum's round trip through
+    bf16, which the dense path, run op by op, makes)."""
+    B, Q, H, _ = qn.shape
+    T, dv = k_nope.shape[1], v.shape[-1]
+    f32 = torch.float32
+    acc = torch.zeros((B, H, Q, dv), dtype=f32, device=qn.device)
+    mx = torch.full((B, H, Q), NEG_INF, dtype=f32, device=qn.device)
+    den = torch.zeros((B, H, Q), dtype=f32, device=qn.device)
+    neg = torch.full((), NEG_INF, dtype=f32, device=qn.device)
+    zero = torch.zeros((), dtype=f32, device=qn.device)
+    for j in range(T // KBLOCK):
+        if blocks is not None and not blocks[j]:
+            continue
+        sl = slice(j * KBLOCK, (j + 1) * KBLOCK)
+        logits = (torch.einsum("bqhk,bthk->bhqt", qn, k_nope[:, sl]).to(f32)
+                  + torch.einsum("bqhk,btk->bhqt", qr, k_rope[:, sl]).to(f32)
+                  ) * scale
+        mask = _causal_window_mask(q_pos, k_pos[sl], 0)         # (Q, KBLOCK)
+        logits = torch.where(mask, logits, neg)
+        new_mx = torch.maximum(mx, torch.amax(logits, -1))
+        safe_mx = torch.where(new_mx <= NEG_INF, zero, new_mx)
+        alpha = torch.exp(torch.where(mx <= NEG_INF, neg, mx) - safe_mx)
+        pr = torch.exp(logits - safe_mx[..., None])
+        pr = torch.where(mask, pr, zero)
+        den = den * alpha + torch.sum(pr, -1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhqt,bthk->bhqk", pr.to(qn.dtype), v[:, sl]).to(f32)
+        mx = new_mx
+    out = acc / torch.clamp(den, min=1e-30)[..., None]
+    return torch.movedim(out, 2, 1).to(qn.dtype)          # (B,Q,H,dv)
+
+
+def mla_prefill(p: Dict, x: torch.Tensor, positions: torch.Tensor,
+                cfg: ArchConfig) -> torch.Tensor:
+    """x: (B,S,d) -> (B,S,d); positions: (B,S).  K and V come up from the
+    rank-r latent ``ckv`` (no norm on it, as in the reference); the RoPE
+    part of the key is one head shared by all."""
+    B, S, _ = x.shape
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])          # (B,S,H,dn+dr)
+    q_nope = q[..., :dn]
+    q_rope = rope(q[..., dn:], positions, cfg.rope_theta)
+    ckv = torch.einsum("bsd,dr->bsr", x, p["w_dkv"])       # (B,S,r)
+    k_rope = rope(torch.einsum("bsd,dk->bsk", x, p["w_krope"])[:, :, None],
+                  positions, cfg.rope_theta)[:, :, 0]      # (B,S,dr)
+    k_nope = torch.einsum("bsr,rhk->bshk", ckv, p["w_uk"])
+    v = torch.einsum("bsr,rhk->bshk", ckv, p["w_uv"])
+    scale = (dn + dr) ** -0.5
+    k_pos = positions[0]
+    if S < QBLOCK_THRESHOLD or S % QBLOCK != 0 or S % KBLOCK != 0:
+        logits = (torch.einsum("bshk,bthk->bhst", q_nope, k_nope)
+                  + torch.einsum("bshk,btk->bhst", q_rope, k_rope)) \
+            * dtype_scalar(scale, x.dtype)
+        logits = _masked(_causal_window_mask(k_pos, k_pos, 0), logits)
+        probs = torch.softmax(logits, -1).to(x.dtype)
+        out = torch.einsum("bhst,bthk->bshk", probs, v)
+    else:
+        visible = _visible_blocks(k_pos, k_pos, 0)
+        out = torch.cat([
+            _mla_flash(q_nope[:, i * QBLOCK:(i + 1) * QBLOCK],
+                       q_rope[:, i * QBLOCK:(i + 1) * QBLOCK], k_nope,
+                       k_rope, v, k_pos[i * QBLOCK:(i + 1) * QBLOCK], k_pos,
+                       scale, blocks=row)
+            for i, row in enumerate(visible)], 1)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def mla_decode(p: Dict, x: torch.Tensor, t: int, cache: Dict,
+               cfg: ArchConfig) -> Tuple[torch.Tensor, Dict]:
+    """Absorbed-matrix decode: attention runs in the rank-r latent space
+    and the cache holds only ``ckv`` (B,T,r) and ``krope`` (B,T,dr),
+    written in place at ``t`` (clamped to T - 1, as
+    ``lax.dynamic_update_slice`` clamps its start index)."""
+    B = x.shape[0]
+    dn = cfg.qk_nope_head_dim
+    dr = cfg.qk_rope_head_dim
+    T = cache["ckv"].shape[1]
+    t = int(t)
+    write_at = min(max(t, 0), T - 1)
+    pos = torch.full((B, 1), t, dtype=torch.int32, device=x.device)
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    q_nope = q[..., :dn]
+    q_rope = rope(q[..., dn:], pos, cfg.rope_theta)
+    ckv_new = torch.einsum("bsd,dr->bsr", x, p["w_dkv"])
+    krope_new = rope(torch.einsum("bsd,dk->bsk", x, p["w_krope"])[:, :, None],
+                     pos, cfg.rope_theta)[:, :, 0]
+    cache["ckv"][:, write_at] = ckv_new[:, 0].to(cache["ckv"].dtype)
+    cache["krope"][:, write_at] = krope_new[:, 0].to(cache["krope"].dtype)
+    ckv, krope = cache["ckv"], cache["krope"]
+    # absorb W_uk into the query: q_lat (B,1,H,r)
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope, p["w_uk"])
+    logits = (torch.einsum("bshr,btr->bhst", q_lat, ckv)
+              + torch.einsum("bshk,btk->bhst", q_rope, krope)) \
+        * dtype_scalar((dn + dr) ** -0.5, x.dtype)
+    ok = torch.arange(T, device=x.device) <= t
+    probs = torch.softmax(_masked(ok, logits), -1).to(x.dtype)
+    out_lat = torch.einsum("bhst,btr->bshr", probs, ckv)    # latent output
+    out = torch.einsum("bshr,rhk->bshk", out_lat, p["w_uv"])
     return torch.einsum("bshk,hkd->bsd", out, p["wo"]), cache

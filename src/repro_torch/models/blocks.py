@@ -1,7 +1,8 @@
 """Block application (port of ``repro.models.blocks``): the pre-norm
-transformer block of the dense family and the pre-norm Mamba block, each
-as a prefill and a decode step.  MoE, MLA and cross-attention blocks come
-with the slices that port those families."""
+transformer block (GQA or MLA attention; a dense MLP or the routed
+experts) and the pre-norm Mamba block, each as a prefill and a decode
+step.  Cross-attention blocks come with the slices that port those
+families."""
 from __future__ import annotations
 
 from typing import Dict, Tuple
@@ -10,14 +11,17 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models.common import ArchConfig, mlp_apply, rms_norm
+from repro_torch.models.moe import moe_ffn
 from repro_torch.models.ssm import mamba_mixer_decode, mamba_mixer_prefill
 
 
-def _ffn(p: Dict, x: torch.Tensor, cfg: ArchConfig
-         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The block's feed-forward and its auxiliary loss: the dense MLP,
-    whose loss is zero (MoE's routed experts come with the moe family,
-    which ``init_params`` and ``lm`` refuse)."""
+def _ffn(p: Dict, x: torch.Tensor, cfg: ArchConfig,
+         dropless: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The block's feed-forward and its float32 auxiliary loss: the
+    routed experts where the config has them (``dropless`` on the decode
+    path), else the dense MLP, whose loss is zero."""
+    if cfg.num_experts:
+        return moe_ffn(p, x, cfg, dropless=dropless)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return mlp_apply(p, x, cfg.mlp_type), aux
 
@@ -26,7 +30,11 @@ def block_prefill(p: Dict, x: torch.Tensor, positions: torch.Tensor,
                   cfg: ArchConfig, window: int = 0
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    x = x + attn.gqa_prefill(p["attn"], h, positions, cfg, window=window)
+    if cfg.use_mla:
+        x = x + attn.mla_prefill(p["attn"], h, positions, cfg)
+    else:
+        x = x + attn.gqa_prefill(p["attn"], h, positions, cfg,
+                                 window=window)
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     y, aux = _ffn(p["ffn"], h, cfg)
     return x + y, aux
@@ -35,14 +43,18 @@ def block_prefill(p: Dict, x: torch.Tensor, positions: torch.Tensor,
 def block_decode(p: Dict, x: torch.Tensor, t: int, cache: Dict,
                  cfg: ArchConfig, window: int = 0, ring: bool = False
                  ) -> Tuple[torch.Tensor, Dict]:
-    """One token through the block; ``cache`` ({"k", "v"}: (B,T,G,hd)) is
-    written in place and returned."""
+    """One token through the block; ``cache`` ({"k", "v"}: (B,T,G,hd), or
+    MLA's {"ckv", "krope"}) is written in place and returned.  The routed
+    experts run dropless."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    a, cache = attn.gqa_decode(p["attn"], h, t, cache, cfg, window=window,
-                               ring=ring)
+    if cfg.use_mla:
+        a, cache = attn.mla_decode(p["attn"], h, t, cache, cfg)
+    else:
+        a, cache = attn.gqa_decode(p["attn"], h, t, cache, cfg,
+                                   window=window, ring=ring)
     x = x + a
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    y, _ = _ffn(p["ffn"], h, cfg)
+    y, _ = _ffn(p["ffn"], h, cfg, dropless=True)
     return x + y, cache
 
 

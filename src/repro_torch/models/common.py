@@ -2,14 +2,16 @@
 ``repro.models.common``).
 
 :class:`ArchConfig` keeps the reference's field names and defaults for
-everything the ported families read: the SSM fields (Mamba2) and the
-attention fields of the dense GQA stack (starcoder2, minitron, qwen1.5).
-The MoE, MLA, hybrid and multimodal fields wait for the slices that port
-those families.
+everything the ported families read: the SSM fields (Mamba2), the
+attention fields of the dense GQA stack (starcoder2, minitron, qwen1.5,
+gemma3's grouped local/global stack) and the MoE and MLA fields (phi3.5-moe,
+deepseek-v2-lite).  The hybrid and multimodal fields wait for the slices
+that port those families.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -25,7 +27,7 @@ def pad_to(x: int, mult: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    arch_type: str               # dense | ssm; the other families come later
+    arch_type: str               # dense | moe | ssm; the others come later
     num_layers: int
     d_model: int
     num_heads: int
@@ -40,6 +42,21 @@ class ArchConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
+
+    # --- MoE ---------------------------------------------------------------
+    num_experts: int = 0
+    experts_per_token: int = 0
+    num_shared_experts: int = 0
+    capacity_factor: float = 1.25
+    moe_dispatch: str = "gather"   # gather | einsum (see moe.moe_ffn)
+    moe_chunk: int = 4096          # tokens per einsum-dispatch group
+
+    # --- MLA (DeepSeek-V2) ---------------------------------------------------
+    use_mla: bool = False
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
 
     # --- SSM (Mamba2 / SSD) --------------------------------------------------
     ssm_state: int = 0
@@ -85,14 +102,37 @@ class ArchConfig:
             init_params(self, 0, device="meta"))))
 
     def active_param_count(self) -> int:
-        """Active parameters per token.  Every ported family is dense
-        (no experts), so all of them are active."""
-        return self.param_count()
+        """Active parameters per token, as the reference counts them: the
+        leaves under a key named ``"experts"`` count at
+        ``experts_per_token / num_experts``.  No parameter tree has such a
+        key (the routed experts are ``ffn/w_gate`` etc.), so this equals
+        :meth:`param_count` for the MoE configs too, as the reference's
+        does."""
+        total = self.param_count()
+        if self.num_experts == 0:
+            return total
+        from repro_torch.core import tree
+        from repro_torch.models.init import init_params
+        expert_total = sum(
+            p.numel() for path, p in tree.items(
+                init_params(self, 0, device="meta"))
+            if "experts" in path.split("/"))
+        active_frac = self.experts_per_token / max(self.num_experts, 1)
+        return int(total - expert_total + expert_total * active_frac)
 
 
 # ---------------------------------------------------------------------------
 # tiny building blocks
 # ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def dtype_scalar(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``.  JAX rounds a Python scalar (a weak
+    type) to the dtype of the array it multiplies (a bf16 array times 0.5
+    ** -0.5 multiplies by 0.70703125); torch multiplies by the unrounded
+    value.  Multiplying by this one gives the reference's product."""
+    return float(torch.tensor(value, dtype=dtype))
+
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:

@@ -1,13 +1,16 @@
 """Parameter initialisation (port of ``repro.models.init``): the ``ssm``
-family and the homogeneous dense transformer stack.
+family, the homogeneous transformer stack (dense GQA, or MLA and routed
+experts for the ``moe`` family) and gemma3's grouped local/global stack.
 
 Layers are stacked along a leading L axis, as the reference's
 ``lax.scan`` expects, so ``params["layers"]`` has one leaf per weight kind
 (nested ``attn`` / ``ffn`` dicts for a transformer block) and the per-node
-optimizer state has the reference's leaves.  Every draw comes from a
-``torch.Generator`` on ``device`` seeded from ``(seed, part, layer)``; the
-numbers differ from the reference's threefry draws, so parity tests carry
-the reference's parameters across (``convert.params_from_numpy``).  On the
+optimizer state has the reference's leaves.  gemma3's groups stack twice:
+``local_layers`` (n_groups, n_local, ...) and ``global_layers``
+(n_groups, ...).  Every draw comes from a ``torch.Generator`` on
+``device`` seeded from ``(seed, part, group, layer)``; the numbers differ
+from the reference's threefry draws, so parity tests carry the
+reference's parameters across (``convert.params_from_numpy``).  On the
 ``meta`` device nothing is drawn or allocated: the tree carries the shapes
 and dtypes only (:meth:`ArchConfig.param_count`).
 """
@@ -23,27 +26,21 @@ from repro_torch.core.rng import generator
 from repro_torch.models.common import ArchConfig
 
 #: the reference's families that wait for a later slice, and what each is
-_NOT_PORTED = {"moe": "mixture-of-experts: phi3.5-moe, and deepseek-v2's "
-                      "MLA with experts",
-               "hybrid": "Mamba2 + shared attention (zamba2)",
+_NOT_PORTED = {"hybrid": "Mamba2 + shared attention (zamba2)",
                "vlm": "vision cross-attention (llama-3.2-vision)",
                "audio": "encoder-decoder (whisper)"}
 
 
 def require_ported(cfg: ArchConfig) -> None:
     """Raise NotImplementedError, naming the family, for an architecture
-    the port does not run yet: every ``arch_type`` but ``ssm`` and the
-    homogeneous ``dense`` stack (gemma3's grouped local/global stack
-    included)."""
+    the port does not run yet: every ``arch_type`` but ``ssm``, ``dense``
+    (gemma3's grouped stack included) and ``moe``."""
     at = cfg.arch_type
-    if at == "dense" and cfg.global_every:
-        family = "gemma3's grouped local/global attention"
-    elif at in ("ssm", "dense"):
+    if at in ("ssm", "dense", "moe"):
         return
-    else:
-        family = _NOT_PORTED.get(at, at)
     raise NotImplementedError(
-        f"arch_type {at!r} ({family}) is not ported to repro_torch yet")
+        f"arch_type {at!r} ({_NOT_PORTED.get(at, at)}) is not ported to "
+        "repro_torch yet")
 
 
 class _Draws:
@@ -73,15 +70,29 @@ def _zeros(dev, shape, dtype) -> torch.Tensor:
 
 def _stack(n: int, fn: Callable[[int], Dict]) -> Dict:
     """``fn(i)`` for each of n layers, stacked leaf-wise on a leading axis
-    (nested dicts stay nested)."""
-    per_layer = [fn(i) for i in range(n)]
+    (nested dicts stay nested).  Each layer is copied into its slot as it
+    is made, so the peak is the stack and one layer (a 42 GB stack of
+    experts would not fit twice)."""
+    def alloc(part):
+        if isinstance(part, dict):
+            return {k: alloc(v) for k, v in part.items()}
+        return torch.empty((n,) + tuple(part.shape), dtype=part.dtype,
+                           device=part.device)
 
-    def stack(parts):
-        if isinstance(parts[0], dict):
-            return {k: stack([p[k] for p in parts]) for k in parts[0]}
-        return torch.stack(parts)
+    def put(out, part, i):
+        if isinstance(part, dict):
+            for k, v in part.items():
+                put(out[k], v, i)
+        else:
+            out[i].copy_(part)
 
-    return stack(per_layer)
+    first = fn(0)
+    out = alloc(first)
+    put(out, first, 0)
+    del first
+    for i in range(1, n):
+        put(out, fn(i), i)
+    return out
 
 
 def _mamba_params(gen, dev, cfg: ArchConfig, dt) -> Dict:
@@ -125,22 +136,55 @@ def _gqa_params(gen, dev, cfg: ArchConfig, dt) -> Dict:
     return p
 
 
-def _block_params(draws: _Draws, i: int, cfg: ArchConfig, dt) -> Dict:
-    """Layer ``i`` of the dense transformer stack: its attention and its
-    MLP each from their own generator."""
+def _mla_params(gen, dev, cfg: ArchConfig, dt) -> Dict:
+    d, H = cfg.d_model, cfg.num_heads
+    dn, dr, dv, r = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                     cfg.v_head_dim, cfg.kv_lora_rank)
+    return {"wq": _dense_init(gen, dev, (d, H, dn + dr), dt, d),
+            "w_dkv": _dense_init(gen, dev, (d, r), dt, d),
+            "w_krope": _dense_init(gen, dev, (d, dr), dt, d),
+            "w_uk": _dense_init(gen, dev, (r, H, dn), dt, r),
+            "w_uv": _dense_init(gen, dev, (r, H, dv), dt, r),
+            "wo": _dense_init(gen, dev, (H, dv, d), dt, H * dv)}
+
+
+def _moe_params(gen, dev, cfg: ArchConfig, dt) -> Dict:
+    """The router (float32 in any model dtype), the experts stacked
+    (E, d, ff) / (E, ff, d), and the shared experts as one d x
+    ff * num_shared SwiGLU."""
+    d, E, ff = cfg.d_model, cfg.num_experts, cfg.d_ff
+    p = {"router": _dense_init(gen, dev, (d, E), torch.float32, d),
+         "w_gate": _dense_init(gen, dev, (E, d, ff), dt, d),
+         "w_in": _dense_init(gen, dev, (E, d, ff), dt, d),
+         "w_out": _dense_init(gen, dev, (E, ff, d), dt, ff)}
+    if cfg.num_shared_experts:
+        sf = ff * cfg.num_shared_experts
+        p.update(shared_w_gate=_dense_init(gen, dev, (d, sf), dt),
+                 shared_w_in=_dense_init(gen, dev, (d, sf), dt),
+                 shared_w_out=_dense_init(gen, dev, (sf, d), dt, sf))
+    return p
+
+
+def _block_params(draws: _Draws, tag: tuple, cfg: ArchConfig, dt) -> Dict:
+    """One transformer block (``tag`` names it: ``("layer", i)``, or
+    ``("local", g, j)`` / ``("global", g)`` in gemma3's groups): its
+    attention (GQA or MLA) and its feed-forward (an MLP or the routed
+    experts) each from their own generator."""
     dev = draws.dev
+    attn, ffn = draws(*tag, "attn"), draws(*tag, "ffn")
     return {"ln1": _zeros(dev, (cfg.d_model,), dt),
             "ln2": _zeros(dev, (cfg.d_model,), dt),
-            "attn": _gqa_params(draws("layer", i, "attn"), dev, cfg, dt),
-            "ffn": _mlp_params(draws("layer", i, "ffn"), dev, cfg,
-                               cfg.d_model, cfg.d_ff, dt)}
+            "attn": _mla_params(attn, dev, cfg, dt) if cfg.use_mla
+            else _gqa_params(attn, dev, cfg, dt),
+            "ffn": _moe_params(ffn, dev, cfg, dt) if cfg.num_experts
+            else _mlp_params(ffn, dev, cfg, cfg.d_model, cfg.d_ff, dt)}
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, *,
                 device=DEFAULT_DEVICE) -> Dict:
-    """Random parameters of ``cfg`` on ``device`` (the ``ssm`` family and
-    the homogeneous dense stack; every other family raises
-    NotImplementedError)."""
+    """Random parameters of ``cfg`` on ``device`` (the ``ssm`` family,
+    the homogeneous dense / moe stack and gemma3's groups; every other
+    family raises NotImplementedError)."""
     require_ported(cfg)
     dev = resolve_device(device)
     draws = _Draws(dev, seed)
@@ -157,7 +201,15 @@ def init_params(cfg: ArchConfig, seed: int = 0, *,
     if cfg.arch_type == "ssm":
         params["layers"] = _stack(cfg.num_layers, lambda i: _mamba_params(
             draws("layer", i), dev, cfg, dt))
-    else:
+    elif cfg.global_every:      # gemma3-style local/global groups
+        n_groups = cfg.num_layers // cfg.global_every
+        n_local = cfg.global_every - 1
+        params["local_layers"] = _stack(n_groups, lambda g: _stack(
+            n_local, lambda j: _block_params(draws, ("local", g, j), cfg,
+                                             dt)))
+        params["global_layers"] = _stack(n_groups, lambda g: _block_params(
+            draws, ("global", g), cfg, dt))
+    else:                       # homogeneous dense / moe stack
         params["layers"] = _stack(cfg.num_layers, lambda i: _block_params(
-            draws, i, cfg, dt))
+            draws, ("layer", i), cfg, dt))
     return params

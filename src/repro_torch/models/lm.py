@@ -1,6 +1,8 @@
-"""Language-model assembly (port of ``repro.models.lm``, the ``ssm``
-family and the homogeneous dense GQA stack): the training / prefill
-forward and loss, and the serving cache and decode step.
+"""Language-model assembly (port of ``repro.models.lm``: the ``ssm``
+family, the homogeneous transformer stack — dense GQA, or MLA and routed
+experts for the ``moe`` family — and gemma3's grouped local/global
+stack): the training / prefill forward and loss, and the serving cache and
+decode step.
 
     forward(cfg, params, tokens, last_only=False) -> (logits, aux)
     loss_fn(cfg, params, batch) -> (scalar, metrics)
@@ -13,9 +15,10 @@ rematerialisation, so no ``remat`` argument: it would change memory, not
 the numbers).  Each stacked leaf is ``unbind``-ed once, so its gradient is
 assembled by one stack rather than one full-size scatter per layer.  The
 decode step updates the stacked cache in place, layer by layer: the SSM
-family's conv window and state, or the dense family's KV cache (ring
-buffers of the sliding window where the config has one).  Every other
-family raises NotImplementedError, naming it.
+family's conv window and state, the transformer's KV cache (ring buffers
+of the sliding window where the config has one), MLA's latent cache, or
+gemma3's local rings and global caches.  Every other family raises
+NotImplementedError, naming it.
 """
 from __future__ import annotations
 
@@ -28,13 +31,19 @@ from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models.blocks import (block_decode, block_prefill,
                                        mamba_block_decode,
                                        mamba_block_prefill)
-from repro_torch.models.common import ArchConfig, rms_norm
+from repro_torch.models.common import ArchConfig, dtype_scalar, rms_norm
 from repro_torch.models.init import require_ported
 
 
 def _embed(cfg: ArchConfig, params: Dict, tokens: torch.Tensor
            ) -> torch.Tensor:
-    return params["embed"][tokens]
+    """The token embeddings; gemma's are scaled by sqrt(d_model) rounded
+    to the model dtype first (the reference multiplies by
+    ``jnp.asarray(d ** 0.5, x.dtype)``: 62.0 for d = 3,840 in bf16)."""
+    x = params["embed"][tokens]
+    if cfg.arch_type == "dense" and cfg.global_every:
+        x = x * dtype_scalar(cfg.d_model ** 0.5, x.dtype)
+    return x
 
 
 def _logits(cfg: ArchConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
@@ -57,6 +66,15 @@ def _per_layer(tree: Dict, n: int):
     return [{k: v[i] for k, v in per.items()} for i in range(n)]
 
 
+def _groups(cfg: ArchConfig, local: Dict, glob: Dict):
+    """gemma3's stacked (n_groups, n_local, ...) local and (n_groups, ...)
+    global trees as one (local layers, global layer) pair per group."""
+    n_groups = cfg.num_layers // cfg.global_every
+    n_local = cfg.global_every - 1
+    return [(_per_layer(lg, n_local), gg) for lg, gg in
+            zip(_per_layer(local, n_groups), _per_layer(glob, n_groups))]
+
+
 def forward(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
             last_only: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (B,S,V_padded), aux_loss scalar).  ``last_only``
@@ -66,13 +84,23 @@ def forward(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
     B, S = tokens.shape
     x = _embed(cfg, params, tokens)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    layers = _per_layer(params["layers"], cfg.num_layers)
     if cfg.arch_type == "ssm":
-        for lp in layers:
+        for lp in _per_layer(params["layers"], cfg.num_layers):
             x = mamba_block_prefill(lp, x, cfg)
-    else:                       # the homogeneous dense stack (uniform window)
+    elif cfg.global_every:      # gemma3: groups of local layers + 1 global
         pos = _positions(B, S, x.device)
-        for lp in layers:
+        for local, glob in _groups(cfg, params["local_layers"],
+                                   params["global_layers"]):
+            a1 = torch.zeros((), dtype=torch.float32, device=x.device)
+            for lp in local:
+                x, a = block_prefill(lp, x, pos, cfg,
+                                     window=cfg.sliding_window)
+                a1 = a1 + a
+            x, a2 = block_prefill(glob, x, pos, cfg, window=0)
+            aux = aux + (a1 + a2)
+    else:                       # the homogeneous stack (uniform window)
+        pos = _positions(B, S, x.device)
+        for lp in _per_layer(params["layers"], cfg.num_layers):
             x, a = block_prefill(lp, x, pos, cfg,
                                  window=cfg.sliding_window)
             aux = aux + a
@@ -109,19 +137,36 @@ def _ssm_cache(cfg: ArchConfig, B: int, dev: torch.device) -> Dict:
 
 def init_cache(cfg: ArchConfig, batch: int, seq: int, *,
                device=DEFAULT_DEVICE) -> Dict:
-    """The decode cache for ``seq`` total positions on ``device``: for the
-    ``ssm`` family a conv window (L,B,W-1,Cd) in the model dtype and a
-    float32 state (L,B,H,N,P), neither of which grows with ``seq``; for the
-    dense family K and V of (L,B,T,G,hd) in the model dtype, T = ``seq``,
-    or ring buffers of T = min(sliding_window, seq) slots."""
+    """The decode cache for ``seq`` total positions on ``device``, in the
+    model dtype but the SSM state: for the ``ssm`` family a conv window
+    (L,B,W-1,Cd) and a float32 state (L,B,H,N,P), neither of which grows
+    with ``seq``; for MLA the latent ``ckv`` (L,B,T,r) and ``krope``
+    (L,B,T,dr), T = ``seq``; for gemma3's groups ``local`` rings
+    (n_groups,n_local,B,min(W, seq),G,hd) and ``global`` K/V
+    (n_groups,B,seq,G,hd); else K and V of (L,B,T,G,hd), T = ``seq``, or
+    ring buffers of T = min(sliding_window, seq) slots."""
     require_ported(cfg)
     dev = resolve_device(device)
     if cfg.arch_type == "ssm":
         return _ssm_cache(cfg, batch, dev)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=cfg.torch_dtype, device=dev)
+
+    G, hd, L = cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
+    if cfg.use_mla:
+        return {"ckv": zeros(L, batch, seq, cfg.kv_lora_rank),
+                "krope": zeros(L, batch, seq, cfg.qk_rope_head_dim)}
+    if cfg.global_every:
+        n_groups = cfg.num_layers // cfg.global_every
+        n_local = cfg.global_every - 1
+        Wr = min(cfg.sliding_window, seq)
+        return {"local": {"k": zeros(n_groups, n_local, batch, Wr, G, hd),
+                          "v": zeros(n_groups, n_local, batch, Wr, G, hd)},
+                "global": {"k": zeros(n_groups, batch, seq, G, hd),
+                           "v": zeros(n_groups, batch, seq, G, hd)}}
     T = min(cfg.sliding_window, seq) if cfg.sliding_window else seq
-    shape = (cfg.num_layers, batch, T, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=cfg.torch_dtype, device=dev),
-            "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=dev)}
+    return {"k": zeros(L, batch, T, G, hd), "v": zeros(L, batch, T, G, hd)}
 
 
 def decode_step(cfg: ArchConfig, params: Dict, cache: Dict,
@@ -131,6 +176,17 @@ def decode_step(cfg: ArchConfig, params: Dict, cache: Dict,
     tensors are updated in place and returned."""
     require_ported(cfg)
     x = _embed(cfg, params, token[:, None])
+    if cfg.global_every:
+        # local layers decode on their rings (ring=True, no window: the
+        # ring holds the window); global layers on the full cache
+        for (local, glob), (lcs, gc) in zip(
+                _groups(cfg, params["local_layers"],
+                        params["global_layers"]),
+                _groups(cfg, cache["local"], cache["global"])):
+            for lp, lc in zip(local, lcs):
+                x, _ = block_decode(lp, x, t, lc, cfg, ring=True)
+            x, _ = block_decode(glob, x, t, gc, cfg)
+        return _logits(cfg, params, x)[:, 0], cache
     caches = _per_layer(cache, cfg.num_layers)
     layers = _per_layer(params["layers"], cfg.num_layers)
     if cfg.arch_type == "ssm":

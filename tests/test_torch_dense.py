@@ -24,8 +24,9 @@ forward and decode logits 7e-7 of max |logit|); the streaming path against
 the dense one to rtol 2e-4 / atol 2e-5 (the reference's own test);
 gradients to rtol 1e-3 / atol 1e-6 (the reference's).  bf16 attention
 against the reference's bf16 to 2e-2 of the largest output (one bf16 ulp is
-8e-3) and 4e-3 of the mean magnitude on average (measured: dense 1.6e-2 and
-1.9e-3, streaming 1.9e-3 and 2e-7; the dense path with the streaming
+8e-3) and 4e-3 of the mean magnitude on average (measured: dense 1.9e-3 and
+3e-7 with the scale rounded to bf16 as JAX rounds it, 1.6e-2 and 1.9e-3
+unrounded; streaming 1.9e-3 and 2e-7; the dense path with the streaming
 path's cast order reads 8.7e-3 on average).  Trainer states after three
 rounds agree to 2e-4 of each leaf's largest magnitude
 (``tests/test_torch_train.py``'s bound for the Mamba2 slice); tree lanes
@@ -493,12 +494,15 @@ def _family_cfg(**kw):
 
 
 @pytest.mark.parametrize("kw,family", [
-    (dict(sliding_window=16, global_every=2, mlp_type="geglu"), "gemma3"),
-    (dict(arch_type="moe"), "moe"),
     (dict(arch_type="hybrid"), "zamba2"),
+    (dict(arch_type="hybrid", num_experts=4, experts_per_token=2), "zamba2"),
     (dict(arch_type="vlm"), "llama-3.2-vision"),
-    (dict(arch_type="audio"), "whisper")])
+    (dict(arch_type="vlm", use_mla=True, kv_lora_rank=16), "llama-3.2-vision"),
+    (dict(arch_type="audio", global_every=2, sliding_window=16), "whisper")])
 def test_other_families_still_raise_naming_the_family(kw, family):
+    """The hybrid, VLM and audio families raise, naming the family, also
+    when their config carries the MoE, MLA or grouped-attention fields the
+    port now runs."""
     cfg = _family_cfg(**kw)
     tok = torch.ones((1, 4), dtype=torch.int64)
     for call in (lambda: t_init(cfg, 0, device="cpu"),
@@ -508,7 +512,7 @@ def test_other_families_still_raise_naming_the_family(kw, family):
         with pytest.raises(NotImplementedError, match=family):
             call()
     with pytest.raises(ValueError, match="not ported"):
-        t_config("gemma3-12b")
+        t_config("zamba2-1.2b")
 
 
 # ---------------------------------------------------------------------------

@@ -267,7 +267,7 @@ def test_full_config_is_the_reference_config():
     assert (t.padded_vocab, t.d_inner, t.ssm_nheads) == \
         (j.padded_vocab, j.d_inner, j.ssm_nheads) == (50432, 3072, 48)
     with pytest.raises(ValueError, match="not ported"):
-        t_config("gemma3-12b")
+        t_config("zamba2-1.2b")
 
 
 def test_node_batches_have_the_reference_structure():
