@@ -153,8 +153,9 @@ Phases, each fatal on failure:
     coords to eps; then kernel 1's sparsifier entry against its plain
     version at the sweep's (40, 20958) rows on the plan's 5 index rows,
     and the
-    port's fig1, fig5 and table1 at the reference's rounds, fig2 at half
-    and fig3 at a tenth of theirs (``FIG_ROUNDS_SCALE``), their rows printed
+    port's fig1, fig5 and table1 at the reference's rounds, fig2 at a
+    quarter and fig3 at a twentieth of theirs (``FIG_ROUNDS_SCALE``), their
+    rows printed
     (gates: fig1's DASHA-over-MARINA speedup > 1, fig5's floor ordering);
 15. faulted campaigns at the real-sim width — ``repro_torch.fed.faults``
     through the engine's ``faults=`` hook, with benchmarks/
@@ -280,8 +281,8 @@ Phases, each fatal on failure:
     smoke trained on the card and the CPU with the same masks and
     batches, dasha / mvr x kernel off / on (planted: the next round's
     masks; the plain route's launches under (a)'s launch gate); (e)
-    Figure 4 (``repro_torch.bench.fig4_dnn``) at its 120 steps, each row
-    with its wall seconds, and dasha_1/32's lowest- and highest-gamma
+    Figure 4 (``repro_torch.bench.fig4_dnn``) at 20 of its 120 steps, each
+    row with its wall seconds, and dasha_1/32's lowest- and highest-gamma
     lanes against sequential Driver runs (planted: each lane against the
     other's run).  ``DENSE_CUTS`` lists the cuts;
 20. gemma3's grouped local/global stack and the mixture-of-experts family,
@@ -294,8 +295,9 @@ Phases, each fatal on failure:
     the local rings wrapping at 4,096), deepseek-v2-lite-16b at 27 of 27
     (MLA, 64 experts top-6 and 2 shared; decode at batch 128 on the latent
     cache, dropless) and phi3.5-moe at 16 of 32 (16 experts top-2, the
-    prefill by both dispatch modes; decode at batch 32); a prefill cut to
-    2 layers under the profiler; gate: none of the five kernels launches;
+    prefill by both dispatch modes; decode at batch 32); gemma3's prefill
+    cut to 2 layers and 2 of its decode steps under the profiler; gate:
+    none of the five kernels launches;
     (d) ``launch.train.train`` at the three smoke configs, DASHA-MVR with
     kernel 3 once per parameter leaf a round and nothing else, and one
     forward and backward of deepseek-v2-lite at full width cut to 2
@@ -305,7 +307,33 @@ Phases, each fatal on failure:
     the latent cache's end, trainer rounds on replayed masks) within
     ``DENSE_AGREE_LIMIT`` (planted: rings as long as the sequence, a
     latent cache that never clamps, the next round's masks).
-    ``FAMILY_CUTS`` lists the cuts.
+    ``FAMILY_CUTS`` lists the cuts;
+21. the hybrid family, zamba2-1.2b (38 Mamba2 layers, d_model 2,048, 64
+    SSD heads of 64 with state N = 64, and one shared transformer block
+    of 32 heads run before every 6th layer, 7 uses), with the card's
+    memory printed first: (a) ``prefill_logits`` at 38 of 38 layers in
+    bf16, 4 x 8,192 tokens, beside its bf16 tensor-core bound (gate:
+    kernel 5 exactly 38 times a call, no other kernel), and a prefill
+    cut to 7 layers (two uses of the shared block) under the profiler:
+    device ms by kernel, busy share, kernel 5 a layer against its bytes
+    bound; (b) ``serve`` for one batch of 128, a 16-token prompt and 16
+    new tokens; (c) 32 decode steps at batch 128 on a 4,128-slot cache
+    from t = 4,096, the 7 K/V caches and the SSM states holding random
+    history, beside the bound of reading the weights and the cache once
+    (gate: none of the five kernels launches while serving); (d) kernel
+    5 against its plain version at zamba2's shape (4, 8,192, 64, 64, 64),
+    Q = 256, bf16 (the N <= 64 instantiation), its row joining phase 7's;
+    (e) card vs CPU at ``zamba2-smoke`` in float32 within
+    ``DENSE_AGREE_LIMIT``: prefill logits (64 and 2,048 tokens, kernel 5
+    on the card, the plain version on the CPU), decode steps past the
+    prompt, trainer rounds on replayed masks with kernel 3 off and on
+    (planted: the shared block before the last layer of each period, the
+    decode's K/V cache of a use shifted to the next use's, the next
+    round's masks); (f) ``launch.train.train`` at ``zamba2-smoke``,
+    DASHA-MVR with kernel 3 once per parameter leaf a round and nothing
+    else, and one forward and backward at full width cut to 7 layers
+    (finite gradients, a non-zero gradient of the shared block).
+    ``HYBRID_CUTS`` lists the cuts.
 
 Every phase that drives a main path zeroes the launch counters just before
 it and reads them just after; a kernel of that path that never launched
@@ -316,6 +344,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -460,11 +489,12 @@ SWEEP_PEAK_GB, SWEEP_PROFILED = 8.0, 10
 SWEEP_FAST, SWEEP_FAST_MOVE, SWEEP_STATE_RTOL = 16, 1e-2, 1e-2
 SWEEP_STATE = ("x", "g", "g_local", "h_local")
 # the port's figures on the card: fig1, fig5 and table1 at the reference's
-# rounds; fig2 at half its rounds and fig3 at a tenth (its stochastic
-# rounds draw every node's samples on the host: ~4 minutes at full
-# length), so that the whole script stays near half its time limit
-FIG_ROUNDS_SCALE = {"fig1_gradient": 1.0, "fig2_finite_sum": 0.5,
-                    "fig3_stochastic": 0.1, "fig5_quadratic_pl": 1.0,
+# rounds; fig2 at a quarter of its rounds and fig3 at a twentieth (its
+# stochastic rounds draw every node's samples on the host: ~4 minutes at
+# full length; at half and a tenth they took 54 and 53 s on a slow host),
+# so that the whole script stays inside its time limit with phase 21
+FIG_ROUNDS_SCALE = {"fig1_gradient": 1.0, "fig2_finite_sum": 0.25,
+                    "fig3_stochastic": 0.05, "fig5_quadratic_pl": 1.0,
                     "table1_complexity": 1.0}
 # the faulted campaigns (phase 15): benchmarks/fed_faults_bench.py's
 # configuration widened to real-sim's features — n = 20 clients (the
@@ -587,8 +617,9 @@ CKPT_CUTS = {
 # wrapping; (c, d) card against CPU at the three smoke configs in float32
 # (prefill by both attention paths, decode past the 16-slot smoke ring,
 # trainer rounds on replayed masks) within DENSE_AGREE_LIMIT; (e) Figure 4
-# at its full 120 steps, dasha_1/32's lanes FIG4_CHECKED_LANES against
-# sequential runs (FIG4_LANE_RTOL of each field's move from the start,
+# cut from its 120 steps to FIG4_STEPS, dasha_1/32's lanes
+# FIG4_CHECKED_LANES against sequential runs (FIG4_LANE_RTOL of each
+# field's move from the start,
 # FIG4_LOSS_RTOL on the eval loss); a prefill is profiled on
 # DENSE_PROFILED_LAYERS of its identical layers
 DENSE_LEAVES = 16
@@ -599,6 +630,10 @@ DENSE_DECODE_BATCH, DENSE_DECODE_STEPS, DENSE_DECODE_PROFILED = 128, 32, 4
 DENSE_AGREE_LIMIT, DENSE_AGREE_STREAM_SEQ = 1e-4, 2048
 DENSE_DECODE_AGREE_STEPS, DENSE_AGREE_ROUNDS = 24, 3
 FIG4_LANE_RTOL, FIG4_LOSS_RTOL, FIG4_CHECKED_LANES = 1e-2, 1e-3, (0, 2)
+# Figure 4's 120 host-bound steps took 95-131 s on the card (40 steps
+# 38-51 s); a sixth of them keeps its rows and its lane gate at the same
+# count
+FIG4_STEPS = 20
 DENSE_PROFILED_LAYERS = 2
 DENSE_CUTS = {
     "trainer_layers": "starcoder2-3b's 30 layers cut to 3 for the trainer: "
@@ -609,6 +644,8 @@ DENSE_CUTS = {
     "decode_history": "the 4,096-slot ring filled with random K/V in place "
                       "of 4,096 prompt steps (a step's time does not depend "
                       "on the values)",
+    "fig4_steps": "Figure 4 at 20 of its 120 steps (rows and the lane "
+                  "gate at the same count), to make room for phase 21",
 }
 
 # gemma3's grouped stack and the MoE family (phase 20): each model at full
@@ -631,6 +668,9 @@ FAMILY_DECODE_SLOTS, FAMILY_DECODE_T0 = 4128, 4080
 # 7-13 s a model (~4,800 launches a step), for the same busy share
 FAMILY_DECODE_STEPS, FAMILY_DECODE_PROFILED = 32, 2
 FAMILY_PROFILED_LAYERS = 2
+# the profiler's windows and tables took ~64 s of phase 20's 111 s of
+# serving with all three models profiled; one model is profiled
+FAMILY_PROFILED_ARCH = "gemma3-12b"
 FAMILY_TRAIN_ROUNDS = 4
 FAMILY_GRAD_LAYERS, FAMILY_GRAD_BATCH, FAMILY_GRAD_SEQ = 2, 2, 2048
 FAMILY_AGREE_DECODE_STEPS, FAMILY_AGREE_MLA_SLOTS = 24, 16
@@ -651,6 +691,45 @@ FAMILY_CUTS = {
                "is one forward and backward of deepseek-v2-lite at 2 layers",
     "prefill_timed": "one timed prefill call after the warm-up (phase 19 "
                      "times two)",
+    "profiles": "the prefill and decode profiled for gemma3-12b only, to "
+                "make room for phase 21",
+}
+
+# the hybrid family (phase 21): zamba2-1.2b at full width and depth in
+# bf16, a HYBRID_PREFILL_BATCH x HYBRID_PREFILL_SEQ prefill (kernel 5 on
+# each of its 38 Mamba2 layers), a profiled prefill cut to
+# HYBRID_PROFILED_LAYERS layers (two uses of the shared block), serve for
+# one batch, phase 20's decode steps and slots from HYBRID_DECODE_T0;
+# kernel 5 at zamba2's SSD shape; the trainer
+# at the smoke config (HYBRID_LEAVES parameter leaves), the full-width
+# backward cut to HYBRID_GRAD_LAYERS; card vs CPU at the smoke config
+HYBRID_ARCH = "zamba2-1.2b"
+HYBRID_PREFILL_BATCH, HYBRID_PREFILL_SEQ, HYBRID_PREFILL_TIMED = 4, 8192, 2
+HYBRID_PROFILED_LAYERS = 7
+HYBRID_SERVE_BATCH, HYBRID_SERVE_PROMPT, HYBRID_SERVE_NEW = 128, 16, 16
+HYBRID_DECODE_BATCH, HYBRID_DECODE_T0 = 128, 4096
+HYBRID_SSD_SHAPE = (4, 8192, 64, 64, 64, 256)
+HYBRID_LEAVES, HYBRID_TRAIN_ROUNDS = 22, 4
+HYBRID_GRAD_LAYERS, HYBRID_GRAD_BATCH, HYBRID_GRAD_SEQ = 7, 2, 2048
+HYBRID_AGREE_STEPS = 24
+# the smoke trainer's card-vs-CPU gate: DENSE_AGREE_LIMIT, or
+# HYBRID_CONTROL_FACTOR times the model's own spread, whichever is larger;
+# the spread is the CPU run's from parameters nudged by half a float32
+# ulp (zamba2-smoke amplifies rounding: on the H100 machine's CPU such a
+# nudge moved its trainer states by 3.8e-4 of a leaf's largest
+# magnitude, and the card's run differed from the CPU's by 1.7e-4)
+HYBRID_CONTROL_FACTOR, HALF_ULP_F32 = 4.0, 2.0 ** -24
+HYBRID_CUTS = {
+    "decode_history": "the 4,128-slot K/V caches of the 7 shared-block uses "
+                      "and the 38 SSM states and conv windows filled with "
+                      "random values in place of 4,096 prompt steps (a "
+                      "step's time does not depend on the values)",
+    "trainer": "the trainer at zamba2-smoke: n = 4 nodes of fp32 state and "
+               "the round's per-node trees take ~105 bytes a parameter "
+               "(62.19 GB at starcoder2's 589.9M, phase 19), ~116 GB at "
+               "zamba2's 1.10B; full width is one forward and backward cut "
+               "to 7 of 38 layers (two uses of the shared block)",
+    "profiled_prefill": "the profiled prefill cut to 7 of 38 layers",
 }
 
 
@@ -1824,8 +1903,10 @@ def ssd_tc_bound(shape, itemsize: int):
     return by, flops, rate
 
 
-def phase_ssd_kernel(torch, smi: str):
-    """ssd_chunk against its plain version on the card (phase 7)."""
+def phase_ssd_kernel(torch, smi: str, shapes=SSD_SHAPES, dtypes=None):
+    """ssd_chunk against its plain version on the card (phase 7; phase
+    21d at zamba2's shape): each of ``shapes`` in each of ``dtypes``
+    (bf16 and float32 by default)."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import ssd_chunk as kern
     sass = sass_mma_count("ssd_chunk")
@@ -1833,8 +1914,8 @@ def phase_ssd_kernel(torch, smi: str):
     if sass["hmma"] is not None and sass["hmma"] + sass["hgmma"] == 0:
         raise AssertionError("ssd_chunk: no HMMA/HGMMA in the library")
     rows = []
-    for i, shape in enumerate(SSD_SHAPES):
-        for dtype in (torch.bfloat16, torch.float32):
+    for i, shape in enumerate(shapes):
+        for dtype in dtypes or (torch.bfloat16, torch.float32):
             torch.cuda.empty_cache()
             x, dt, A, b, c = _ssd_inputs(torch, shape, dtype, 200 + i)
             Q = shape[-1]
@@ -5962,8 +6043,8 @@ def _fig4_lane_errors(torch, lanes_state, j: int, seq, init) -> dict:
 
 
 def _dense_fig4(torch, smi: str):
-    """19e: Figure 4 on the card at its full STEPS (the three 3-lane
-    sweeps on the tree substrate and the Adam baseline), each row with
+    """19e: Figure 4 on the card at FIG4_STEPS of its STEPS (the three
+    3-lane sweeps on the tree substrate and the Adam baseline), each row with
     its wall seconds; then dasha_1/32's lowest- and highest-gamma lanes
     (FIG4_CHECKED_LANES) against sequential Driver runs at their gammas
     over the same rounds (bits_sent exactly, every state field within
@@ -5976,11 +6057,11 @@ def _dense_fig4(torch, smi: str):
 
     t0 = time.perf_counter()
     rows, sweeps, (cfg, params, data_fn, fixed) = F.figure(
-        torch.device("cuda"), F.STEPS)
+        torch.device("cuda"), FIG4_STEPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    log(f"[fig4] Figure 4 at {F.STEPS} steps on the card ({smi}): "
-        f"{wall:.2f} s")
+    log(f"[fig4] Figure 4 at {FIG4_STEPS} of {F.STEPS} steps on the card "
+        f"({smi}): {wall:.2f} s")
     emit(rows)
     if not all(math.isfinite(r["final_loss"]) for r in rows):
         raise AssertionError(f"[fig4] a row's loss is not finite: {rows}")
@@ -5993,7 +6074,7 @@ def _dense_fig4(torch, smi: str):
     for j in FIG4_CHECKED_LANES:
         gamma = F.GAMMAS[j]
         seq, _ = Driver(method_fn(gamma), data_fn=data_fn,
-                         chunk=F.CHUNK).run(init, F.STEPS,
+                         chunk=F.CHUNK).run(init, FIG4_STEPS,
                                             data_seed=F.DATA_SEED)
         seqs[j] = seq
         loss = F.eval_loss(cfg, seq.x, fixed)
@@ -6024,10 +6105,11 @@ def _dense_fig4(torch, smi: str):
     worst = max(e["rel_to_move"] for c in checks
                 for e in c["errors"].values())
     log(f"[fig4] dasha_1/32's lanes {FIG4_CHECKED_LANES} vs sequential "
-        f"Driver runs over {F.STEPS} steps: worst {worst:.3g} of the move "
+        f"Driver runs over {FIG4_STEPS} steps: worst {worst:.3g} of the move "
         f"(limit {FIG4_LANE_RTOL}), bit for bit: {exact}; planted "
         f"other-gamma faults read {planted}")
-    return {"rows": rows, "wall_s": wall, "lane_checks": checks,
+    return {"rows": rows, "steps": FIG4_STEPS, "of_steps": F.STEPS,
+            "wall_s": wall, "lane_checks": checks,
             "lanes_bit_equal": exact, "planted": planted}
 
 
@@ -6235,12 +6317,14 @@ def _family_prefill(torch, smi: str, cfg, params, n_params: int, tag: str,
     return out
 
 
-def _family_decode(torch, smi: str, cfg, params, n_params: int, batch: int,
-                   tag: str):
-    """FAMILY_DECODE_STEPS decode steps at ``batch`` from position
-    FAMILY_DECODE_T0 on a FAMILY_DECODE_SLOTS-slot cache holding a random
-    history (gemma3's 1,024-slot local rings wrap at 4,096 on the way),
-    then FAMILY_DECODE_PROFILED steps under the profiler."""
+def _family_decode(torch, smi: str, cfg, params, batch: int, tag: str,
+                   t0: int, bound, profile: bool = True):
+    """FAMILY_DECODE_STEPS decode steps at ``batch`` from position ``t0``
+    on a FAMILY_DECODE_SLOTS-slot cache holding a random history
+    (gemma3's 1,024-slot local rings wrap at 4,096 on the way from
+    FAMILY_DECODE_T0), then, with ``profile``, FAMILY_DECODE_PROFILED steps
+    under the profiler.  ``bound(cache, t_mean)`` gives the least time of
+    a step: ((ms, by), bytes)."""
     from repro_torch.core import tree
     from repro_torch.launch import serve as S
     from repro_torch.models import lm
@@ -6253,7 +6337,6 @@ def _family_decode(torch, smi: str, cfg, params, n_params: int, batch: int,
         c.normal_(generator=gen)
     tok = torch.randint(1, cfg.vocab_size, (batch,), device="cuda",
                         generator=gen)
-    t0 = FAMILY_DECODE_T0
 
     def steps(first: int, count: int):
         nonlocal tok
@@ -6274,13 +6357,7 @@ def _family_decode(torch, smi: str, cfg, params, n_params: int, batch: int,
     dpeak = torch.cuda.max_memory_allocated()
     if not bool(torch.isfinite(last).all()):
         raise AssertionError(f"[{tag}] decode logits not finite")
-    t2 = time.perf_counter()
-    table, pwall = profiled(torch, lambda: steps(t0 + FAMILY_DECODE_STEPS,
-                                                 FAMILY_DECODE_PROFILED))
-    with_tables = time.perf_counter() - t2
-    busy_s = sum(t for _, t in table.values()) / 1e6
-    (db_ms, dby), dbytes = family_decode_bound(
-        cfg, params, batch, t0 + (FAMILY_DECODE_STEPS - 1) / 2, n_params)
+    (db_ms, dby), dbytes = bound(cache, t0 + (FAMILY_DECODE_STEPS - 1) / 2)
     ms = dwall / FAMILY_DECODE_STEPS * 1e3
     cache_gb = sum(c.numel() * c.element_size()
                    for c in tree.leaves(cache)) / 1e9
@@ -6289,21 +6366,28 @@ def _family_decode(torch, smi: str, cfg, params, n_params: int, batch: int,
            "steps": FAMILY_DECODE_STEPS, "ms_per_step": ms,
            "tokens_per_s": batch / (ms / 1e3), "cache_gb": cache_gb,
            "peak_mem_gb": dpeak / 1e9, "bound_ms": db_ms, "bound_by": dby,
-           "bound_bytes": dbytes, "bound_share": db_ms / ms,
-           "profile": {"steps": FAMILY_DECODE_PROFILED, "wall_s": pwall,
-                       "with_tables_s": with_tables,
-                       "device_busy_s": busy_s, "busy_share": busy_s / pwall,
-                       "kernels_per_step": sum(c for c, _ in table.values())
-                       / FAMILY_DECODE_PROFILED,
-                       "top_kernels": _top(table, 8)}}
+           "bound_bytes": dbytes, "bound_share": db_ms / ms, "profile": None}
     if cfg.global_every:
         out["local_ring_slots"] = int(cache["local"]["k"].shape[3])
+    msg = ""
+    if profile:
+        t2 = time.perf_counter()
+        table, pwall = profiled(torch, lambda: steps(
+            t0 + FAMILY_DECODE_STEPS, FAMILY_DECODE_PROFILED))
+        busy_s = sum(t for _, t in table.values()) / 1e6
+        out["profile"] = {
+            "steps": FAMILY_DECODE_PROFILED, "wall_s": pwall,
+            "with_tables_s": time.perf_counter() - t2,
+            "device_busy_s": busy_s, "busy_share": busy_s / pwall,
+            "kernels_per_step": sum(c for c, _ in table.values())
+            / FAMILY_DECODE_PROFILED, "top_kernels": _top(table, 8)}
+        msg = (f", device busy {busy_s / pwall:.3f}, "
+               f"{out['profile']['kernels_per_step']:.0f} kernels a step")
     log(f"[{tag}] decode batch {batch} on {T} slots, positions {t0}.."
         f"{t0 + FAMILY_DECODE_STEPS - 1}: {ms:.2f} ms a step vs a "
         f"{db_ms:.2f} ms bound ({dby}), cache {cache_gb:.2f} GB, peak "
-        f"{dpeak / 1e9:.2f} GB, device busy {busy_s / pwall:.3f}, "
-        f"{out['profile']['kernels_per_step']:.0f} kernels a step | {smi}")
-    for k, c, ms_k in out["profile"]["top_kernels"]:
+        f"{dpeak / 1e9:.2f} GB{msg} | {smi}")
+    for k, c, ms_k in (out["profile"] or {}).get("top_kernels", []):
         log(f"[{tag}]   {ms_k:9.3f} ms  x{c:<5d} {k}")
     del cache, last
     torch.cuda.empty_cache()
@@ -6314,7 +6398,8 @@ def _family_serve(torch, smi: str, arch: str, layers, batch: int, modes):
     """20a-c: ``arch`` at full width (``layers`` of its depth, None for
     all) in bf16 through the serving entry points: ``prefill_logits`` by
     each of the MoE dispatch ``modes`` (None: no experts), ``serve`` for
-    one request batch, and decode steps on a long cache.  None of the five
+    one request batch, and decode steps on a long cache, the prefill and
+    the decode profiled for FAMILY_PROFILED_ARCH only.  None of the five
     kernels may launch."""
     from repro_torch.configs import get_config
     from repro_torch.core import tree
@@ -6323,6 +6408,7 @@ def _family_serve(torch, smi: str, arch: str, layers, batch: int, modes):
 
     cfg = get_config(arch)
     depth = cfg.num_layers
+    profile = arch == FAMILY_PROFILED_ARCH
     if layers:
         cfg = dataclasses.replace(cfg, num_layers=layers)
     tag = f"family {arch}"
@@ -6345,7 +6431,7 @@ def _family_serve(torch, smi: str, arch: str, layers, batch: int, modes):
     out["prefill"] = [
         _family_prefill(torch, smi, dataclasses.replace(
             cfg, moe_dispatch=m) if m else cfg, params, n_params, tag,
-            profile=i == 0) for i, m in enumerate(modes)]
+            profile=profile and i == 0) for i, m in enumerate(modes)]
     walls["prefill"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -6367,8 +6453,10 @@ def _family_serve(torch, smi: str, arch: str, layers, batch: int, modes):
     del res
     walls["serve"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    out["decode"] = _family_decode(torch, smi, cfg, params, n_params, batch,
-                                   tag)
+    out["decode"] = _family_decode(
+        torch, smi, cfg, params, batch, tag, FAMILY_DECODE_T0,
+        lambda cache, t: family_decode_bound(cfg, params, batch, t,
+                                             n_params), profile)
     walls["decode"] = time.perf_counter() - t0
     counts = _launch_counts()
     if any(counts.values()):
@@ -6637,6 +6725,514 @@ def phase_family(torch, smi: str):
             "nvidia_smi": smi}, k3
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the hybrid family (zamba2-1.2b: Mamba2 layers and one shared
+# transformer block)
+# ---------------------------------------------------------------------------
+
+def _hybrid_uses(cfg) -> int:
+    """Uses of the shared block: one before every hybrid_attn_every-th
+    layer."""
+    return -(-cfg.num_layers // cfg.hybrid_attn_every)
+
+
+def _hybrid_ssd_shape(cfg, batch: int, seq: int):
+    return (batch, seq, cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state,
+            min(cfg.ssd_chunk, seq))
+
+
+def _numel(params) -> float:
+    from repro_torch.core import tree
+    return float(sum(w.numel() for w in tree.leaves(params)))
+
+
+def hybrid_prefill_bound(cfg, params, batch: int, seq: int):
+    """The least time of a last-position prefill: the bf16 tensor-core
+    operations of every token through the Mamba2 layers' weights and the
+    shared block's at each of its uses, each layer's SSD (the intra-chunk
+    work of :func:`ssd_bound` and the chunk states' output, 2 N P H a
+    token), each use's causal attention over the keys each query sees, and
+    the tied head at the last position; against reading the weights once.
+    Returns ((ms, by), flops)."""
+    tokens = batch * seq
+    uses = _hybrid_uses(cfg)
+    H, P, N = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state
+    _, ssd_flops, _ = ssd_bound(_hybrid_ssd_shape(cfg, batch, seq), 2)
+    flops = (2 * (_numel(params["layers"])
+                  + uses * _numel(params["shared_attn"])) * tokens
+             + cfg.num_layers * (ssd_flops + 2 * N * P * H * tokens)
+             + uses * 4.0 * cfg.head_dim * cfg.num_heads * batch
+             * seq * (seq + 1) / 2
+             + 2 * batch * cfg.d_model * cfg.padded_vocab)
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_bytes = 2 * _numel(params) / HBM_BYTES_PER_S * 1e3
+    return ((t_ops, "operations") if t_ops >= t_bytes else
+            (t_bytes, "bytes")), flops
+
+
+def hybrid_decode_bound(cfg, params, cache, batch: int, t_mean: float):
+    """The least time of one decode step at position ~``t_mean``: read the
+    weights once (the tied embedding whole: it is the head), each use's K
+    and V up to the position and write one slot, read and write the SSM
+    states and conv windows; its bf16 operations beside it.  Returns
+    ((ms, by), bytes)."""
+    uses = _hybrid_uses(cfg)
+    slot = 2 * cfg.num_kv_heads * cfg.head_dim * 2             # K and V
+    mamba = cache["mamba"]
+    state = sum(c.numel() * c.element_size() for c in mamba.values())
+    nbytes = (2 * _numel(params)
+              + uses * batch * (t_mean + 2) * slot + 2 * state)
+    flops = (2 * (_numel(params["layers"])
+                  + uses * _numel(params["shared_attn"])
+                  + cfg.padded_vocab * cfg.d_model) * batch
+             + uses * 4.0 * cfg.head_dim * cfg.num_heads * (t_mean + 1)
+             * batch)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops else
+            (t_ops, "operations")), nbytes
+
+
+def _hybrid_cut(cfg, params, layers: int):
+    """``cfg`` and ``params`` cut to the first ``layers`` Mamba2 layers
+    (the shared block unchanged)."""
+    from repro_torch.core import tree
+    return (dataclasses.replace(cfg, num_layers=layers),
+            dict(params, layers=tree.map_leaves(lambda w: w[:layers],
+                                                params["layers"])))
+
+
+def _hybrid_prefill(torch, smi: str, cfg, params):
+    """21a: one warm-up and HYBRID_PREFILL_TIMED timed ``prefill_logits``
+    calls, each gated on kernel 5 launching once per Mamba2 layer and no
+    other kernel launching; then a call cut to HYBRID_PROFILED_LAYERS
+    layers under the profiler.  Returns the report and kernel 5's
+    launches on the timed path."""
+    from repro_torch.data.pipeline import SyntheticTextConfig, make_lm_batch
+    from repro_torch.launch import serve as S
+
+    B, T, L = HYBRID_PREFILL_BATCH, HYBRID_PREFILL_SEQ, cfg.num_layers
+    tokens = make_lm_batch(1, SyntheticTextConfig(vocab_size=cfg.vocab_size,
+                                                  seq_len=T), B,
+                           device="cuda")["tokens"]
+    walls, launches = [], 0
+    for i in range(1 + HYBRID_PREFILL_TIMED):
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        logits = S.prefill_logits(cfg, params, tokens)
+        torch.cuda.synchronize()
+        if i:
+            walls.append(time.perf_counter() - t0)
+        counts = _launch_counts()
+        _gate_launches(f"hybrid prefill call {i}", counts, {"ssd_chunk": L})
+        launches += counts["ssd_chunk"]
+    peak = torch.cuda.max_memory_allocated()
+    if tuple(logits.shape) != (B, 1, cfg.padded_vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"[hybrid] prefill logits "
+                             f"{tuple(logits.shape)} misshapen or not finite")
+    (b_ms, by), flops = hybrid_prefill_bound(cfg, params, B, T)
+    wall = sum(walls) / len(walls)
+
+    n = HYBRID_PROFILED_LAYERS
+    cut, cut_params = _hybrid_cut(cfg, params, n)
+    t0 = time.perf_counter()
+    table, pwall = profiled(torch, lambda: S.prefill_logits(
+        cut, cut_params, tokens))
+    with_tables = time.perf_counter() - t0
+    busy_s = sum(t for _, t in table.values()) / 1e6
+    k_count = sum(c for k, (c, _) in table.items() if "ssd_chunk_kernel" in k)
+    k_ms = sum(t for k, (_, t) in table.items()
+               if "ssd_chunk_kernel" in k) / 1e3
+    if k_count != n:
+        log(f"[hybrid] the profiled prefill recorded {k_count} ssd_chunk "
+            f"launches, not {n}: no device time for it")
+        k_ms = None
+    layer = _hybrid_ssd_shape(cfg, B, T)
+    _, _, k_bytes = ssd_bound(layer, 2)
+    k_bytes_ms = k_bytes / HBM_BYTES_PER_S * 1e3
+    (tc_ms, tc_by), _, _ = ssd_tc_bound(layer, 2)
+    out = {"batch": B, "seq": T, "walls_s": walls,
+           "tokens_per_s": B * T / wall, "peak_mem_gb": peak / 1e9,
+           "bound_ms": b_ms, "bound_by": by, "flops": flops,
+           "flops_per_token": flops / (B * T),
+           "bound_share": b_ms / (wall * 1e3),
+           "ssd_chunk_launches": launches,
+           "ssd_chunk_launches_per_call": L,
+           "profile": {"layers": n, "wall_s": pwall,
+                       "with_tables_s": with_tables,
+                       "device_busy_s": busy_s, "busy_share": busy_s / pwall,
+                       "launches": sum(c for c, _ in table.values()),
+                       "ssd_chunk_launches": k_count,
+                       "ssd_chunk_device_ms_per_layer":
+                           None if k_ms is None else k_ms / n,
+                       "ssd_chunk_bytes_bound_ms_per_layer": k_bytes_ms,
+                       "ssd_chunk_tc_bound_ms_per_layer": tc_ms,
+                       "ssd_chunk_tc_bound_by": tc_by,
+                       "top_kernels": _top(table, 12)}}
+    prof = out["profile"]
+    log(f"[hybrid] prefill {B} x {T} at {L}/{L} layers in {walls} s, "
+        f"{B * T / wall:.0f} tokens/s, peak {peak / 1e9:.2f} GB, bound "
+        f"{b_ms:.1f} ms ({by}, {flops / (B * T) / 1e9:.2f} GFLOP a token, "
+        f"{out['bound_share']:.3f} of it); ssd_chunk {launches} launches "
+        f"({L} a call); profiled call of {n} layers {pwall:.3f} s, device "
+        f"busy {prof['busy_share']:.3f}, ssd_chunk "
+        f"{prof['ssd_chunk_device_ms_per_layer']} ms a layer vs a "
+        f"{k_bytes_ms:.3f} ms bytes bound | {smi}")
+    for k, c, ms in prof["top_kernels"]:
+        log(f"[hybrid]   {ms:9.3f} ms  x{c:<5d} {k}")
+    del logits, tokens
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def _hybrid_serve(torch, smi: str):
+    """21a-c: zamba2-1.2b at full width and depth in bf16 through
+    ``prefill_logits`` (kernel 5 on every Mamba2 layer), ``serve`` for one
+    request batch and decode steps on a long cache, none of which may
+    launch a kernel but kernel 5 in the prefill.  Returns the report and
+    kernel 5's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as S
+    from repro_torch.models import init_params
+
+    cfg = get_config(HYBRID_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = _numel(params)
+    out = {"arch": HYBRID_ARCH, "layers": cfg.num_layers,
+           "shared_block_uses": _hybrid_uses(cfg), "params": int(n_params),
+           "params_gb": 2 * n_params / 1e9,
+           "init_s": time.perf_counter() - t0,
+           "init_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "card": smi}
+    log(f"[hybrid] {cfg.num_layers} layers, {_hybrid_uses(cfg)} uses of the "
+        f"shared block, {n_params / 1e9:.3f}B params "
+        f"({2 * n_params / 1e9:.2f} GB bf16) in {out['init_s']:.1f} s")
+    walls = out["walls_s"] = {}
+    t0 = time.perf_counter()
+    out["prefill"], launches = _hybrid_prefill(torch, smi, cfg, params)
+    walls["prefill"] = time.perf_counter() - t0
+
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    args = S.build_parser().parse_args([
+        "--arch", HYBRID_ARCH, "--batch", str(HYBRID_SERVE_BATCH),
+        "--prompt-len", str(HYBRID_SERVE_PROMPT), "--new-tokens",
+        str(HYBRID_SERVE_NEW)])
+    res = S.serve(cfg, args, device="cuda", params=params, log=log)
+    torch.cuda.synchronize()
+    if res.tokens.shape != (HYBRID_SERVE_BATCH, HYBRID_SERVE_NEW) or \
+            not ((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all():
+        raise AssertionError(f"[hybrid] serve tokens {res.tokens.shape} "
+                             "misshapen or out of the vocabulary")
+    out["serve"] = {"batch": HYBRID_SERVE_BATCH,
+                    "prompt": HYBRID_SERVE_PROMPT, "new": HYBRID_SERVE_NEW,
+                    "prompt_ms_per_step":
+                        res.prefill_s / HYBRID_SERVE_PROMPT * 1e3,
+                    "decode_ms_per_step":
+                        res.decode_s / HYBRID_SERVE_NEW * 1e3,
+                    "first_row": res.tokens[0].tolist()}
+    del res
+    walls["serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batch = HYBRID_DECODE_BATCH
+    out["decode"] = _family_decode(
+        torch, smi, cfg, params, batch, "hybrid", HYBRID_DECODE_T0,
+        lambda cache, t: hybrid_decode_bound(cfg, params, cache, batch, t))
+    walls["decode"] = time.perf_counter() - t0
+    counts = _launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"[hybrid] serve and decode launched "
+                             f"hand-written kernels: {counts}")
+    out["serve_decode_launches"] = counts
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def _hybrid_trainer(torch, smi: str):
+    """21f: ``launch.train.train`` at ``zamba2-smoke`` (bf16), DASHA-MVR
+    with kernel 3, gated on one launch per parameter leaf a round and
+    nothing else; then one ``lm.loss_fn`` forward and backward at full
+    width cut to HYBRID_GRAD_LAYERS layers in bf16, gated on finite
+    gradients and a non-zero gradient of the shared block (the sum over
+    its two uses).  Returns the report and kernel 3's launches."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.core import tree
+    from repro_torch.data.pipeline import SyntheticTextConfig, make_lm_batch
+    from repro_torch.launch.train import train
+    from repro_torch.models import init_params, lm
+
+    cfg = get_smoke_config(HYBRID_ARCH)
+    args = _train_args(["--arch", HYBRID_ARCH, "--steps",
+                        str(HYBRID_TRAIN_ROUNDS), "--log-every",
+                        str(HYBRID_TRAIN_ROUNDS // 2), "--variant", "mvr",
+                        "--use-kernel"])
+    _reset_launch_counts()
+    res = train(cfg, args, device="cuda", log=log)
+    torch.cuda.synchronize()
+    counts = _launch_counts()
+    leaves = len(tree.leaves(res.state.x))
+    if leaves != HYBRID_LEAVES:
+        raise AssertionError(f"[hybrid-train] {leaves} parameter leaves, "
+                             f"expected {HYBRID_LEAVES}")
+    _gate_launches("hybrid-train", counts, {
+        "dasha_mvr_update": leaves * HYBRID_TRAIN_ROUNDS})
+    losses = [c["loss"] for c in res.chunks]
+    if not all(math.isfinite(v) for v in [res.loss0] + losses):
+        raise AssertionError(f"[hybrid-train] eval loss {res.loss0} -> "
+                             f"{losses}")
+    out = {"config": cfg.name, "params": res.n_params, "leaves": leaves,
+           "rounds": HYBRID_TRAIN_ROUNDS, "launches": counts,
+           "eval_loss_start": res.loss0, "eval_loss_end": losses[-1],
+           "seconds": [c["seconds"] for c in res.chunks]}
+    del res
+
+    cfg = dataclasses.replace(get_config(HYBRID_ARCH),
+                              num_layers=HYBRID_GRAD_LAYERS)
+    params = init_params(cfg, 0, device="cuda")
+    for w in tree.leaves(params):
+        w.requires_grad_(True)
+    batch = make_lm_batch(3, SyntheticTextConfig(
+        vocab_size=cfg.vocab_size, seq_len=HYBRID_GRAD_SEQ),
+        HYBRID_GRAD_BATCH, device="cuda")
+    walls = []
+    for _ in range(2):                              # warm-up, then timed
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, _ = lm.loss_fn(cfg, params, batch)
+        grads = torch.autograd.grad(loss, tree.leaves(params))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    g = dict(zip([p for p, _ in tree.items(params)], grads))
+    bad = [p for p, v in g.items() if not bool(torch.isfinite(v).all())]
+    shared = max(float(v.abs().max()) for p, v in g.items()
+                 if p.startswith("shared_attn/"))
+    loss = float(loss.detach())
+    if bad or not shared > 0 or not math.isfinite(loss):
+        raise AssertionError(f"[hybrid-grad] loss {loss}, gradients not "
+                             f"finite: {bad}, shared block |g| max {shared}")
+    n_params = _numel(params)
+    out["grad"] = {"arch": HYBRID_ARCH, "layers": HYBRID_GRAD_LAYERS,
+                   "of_layers": 38, "shared_block_uses": _hybrid_uses(cfg),
+                   "params": int(n_params), "batch": HYBRID_GRAD_BATCH,
+                   "seq": HYBRID_GRAD_SEQ, "walls_s": walls,
+                   "peak_mem_gb": peak, "loss": loss,
+                   "shared_grad_max": shared, "card": smi}
+    log(f"[hybrid-grad] {HYBRID_ARCH} {HYBRID_GRAD_LAYERS}/38 layers "
+        f"({_hybrid_uses(cfg)} uses of the shared block), "
+        f"{n_params / 1e9:.3f}B params, bf16, batch {HYBRID_GRAD_BATCH} x "
+        f"{HYBRID_GRAD_SEQ}: forward + backward {walls[-1]:.3f} s (first "
+        f"{walls[0]:.3f}), peak {peak:.2f} GB, loss {loss:.4f}, every "
+        f"gradient finite, shared block |g| max {shared:.3g} | {smi}")
+    del params, grads, g, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, counts["dasha_mvr_update"]
+
+
+@contextlib.contextmanager
+def _hybrid_slot_fault(slot):
+    """``lm._hybrid_slot`` replaced by ``slot`` (a planted fault) inside
+    the block."""
+    from repro_torch.models import lm
+    real = lm._hybrid_slot
+    lm._hybrid_slot = slot
+    try:
+        yield
+    finally:
+        lm._hybrid_slot = real
+
+
+def _hybrid_model_agreement(torch):
+    """21e: ``zamba2-smoke`` in float32 on the card and on the CPU, the
+    same params and tokens: prefill logits at 64 and 2,048 tokens (the
+    dense and the streaming attention; kernel 5 once per layer on the
+    card, the plain version on the CPU) and HYBRID_AGREE_STEPS
+    teacher-forced decode steps, each within DENSE_AGREE_LIMIT of the
+    largest CPU logit.  Planted faults that must fail it: the shared block
+    before the last layer of each period (``idx % every == every - 1``),
+    and, from the middle of the decode on a copy of the card's cache, each
+    use reading and writing the next use's K/V cache."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import tree
+    from repro_torch.launch import serve as S
+    from repro_torch.models import init_params, lm
+
+    cfg = dataclasses.replace(get_smoke_config(HYBRID_ARCH), dtype="float32")
+    every, uses = cfg.hybrid_attn_every, _hybrid_uses(cfg)
+    params = init_params(cfg, 0, device="cpu")
+    dev_params = tree.map_leaves(lambda p: p.to("cuda"), params)
+    gen = torch.Generator().manual_seed(13)
+    errs, planted = {}, {}
+    for name, shape in (("prefill_dense", (2, 64)),
+                        ("prefill_streaming", (1, DENSE_AGREE_STREAM_SEQ))):
+        tok = torch.randint(1, cfg.vocab_size, shape, generator=gen)
+        want = S.prefill_logits(cfg, params, tok)
+        _reset_launch_counts()
+        got = S.prefill_logits(cfg, dev_params, tok.to("cuda"))
+        _gate_launches(f"hybrid-agree {name}", _launch_counts(),
+                       {"ssd_chunk": cfg.num_layers})
+        errs[name] = _rel_gap(got, want)
+        if name == "prefill_dense":
+            with _hybrid_slot_fault(lambda c, idx: idx // every
+                                    if idx % every == every - 1 else None):
+                planted["shared block at idx % every == every - 1"] = \
+                    _rel_gap(S.prefill_logits(cfg, dev_params,
+                                              tok.to("cuda")), want)
+    B, steps = 2, HYBRID_AGREE_STEPS
+    tok = torch.randint(1, cfg.vocab_size, (B, steps), generator=gen)
+    caches = {d: lm.init_cache(cfg, B, steps, device=d)
+              for d in ("cpu", "cuda")}
+    err = fault = 0.0
+    shifted = None
+    with torch.inference_mode():
+        for t in range(steps):
+            want, _ = lm.decode_step(cfg, params, caches["cpu"], tok[:, t], t)
+            got, _ = lm.decode_step(cfg, dev_params, caches["cuda"],
+                                    tok[:, t].to("cuda"), t)
+            err = max(err, _rel_gap(got, want))
+            if shifted is not None:
+                with _hybrid_slot_fault(lambda c, idx: (idx // every + 1)
+                                        % uses if idx % every == 0
+                                        else None):
+                    bad, _ = lm.decode_step(cfg, dev_params, shifted,
+                                            tok[:, t].to("cuda"), t)
+                fault = max(fault, _rel_gap(bad, want))
+            if t == steps // 2 - 1:
+                shifted = tree.map_leaves(lambda c: c.clone(),
+                                          caches["cuda"])
+    errs["decode"] = err
+    planted["decode on the next use's K/V cache"] = fault
+    worst = max(errs.values())
+    if not worst <= DENSE_AGREE_LIMIT:
+        raise AssertionError(f"[hybrid-agree] card and CPU logits differ: "
+                             f"{errs} (limit {DENSE_AGREE_LIMIT})")
+    missed = {k: v for k, v in planted.items() if not v > DENSE_AGREE_LIMIT}
+    if missed:
+        raise AssertionError(f"[hybrid-agree] planted faults pass the gate: "
+                             f"{planted}")
+    log(f"[hybrid-agree] zamba2-smoke f32, card (kernel 5) vs CPU (dense "
+        f"and streaming prefill, {steps} decode steps): worst {worst:.3g} "
+        f"of max |logit| (limit {DENSE_AGREE_LIMIT}); planted {planted}")
+    return {"worst": worst, "errors": errs, "planted": planted}
+
+
+def _hybrid_trainer_agreement(torch):
+    """21e: ``zamba2-smoke`` in float32 trained on the card, with kernel 3
+    off and on, and on the CPU (plain), on the same CPU-drawn masks and
+    batches, DASHA-MVR, DENSE_AGREE_ROUNDS rounds, SGD server: the states
+    within DENSE_AGREE_LIMIT of each leaf's largest magnitude, or within
+    HYBRID_CONTROL_FACTOR times the control (the CPU run from parameters
+    nudged by half a float32 ulp, against the CPU run), whichever is
+    larger.  Planted fault: the card run on the next round's masks must
+    fail it."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import tree
+    from repro_torch.data.pipeline import (SyntheticTextConfig,
+                                           make_node_batches)
+    from repro_torch.models import init_params
+    from repro_torch.optim.distributed import DashaTrainConfig
+
+    n, rounds = TRAIN_NODES, DENSE_AGREE_ROUNDS
+    dcfg = DashaTrainConfig(gamma=0.05, compression=0.25, variant="mvr",
+                            b=0.1, n_nodes=n, server_opt="sgd")
+    cfg = dataclasses.replace(get_smoke_config(HYBRID_ARCH), dtype="float32")
+    text = SyntheticTextConfig(vocab_size=cfg.vocab_size, seq_len=64)
+    batches = [make_node_batches(t, text, n, 2, device="cpu")
+               for t in range(rounds)]
+    params = init_params(cfg, 0, device="cpu")
+    draws = _replay_draws(torch, params, dcfg, rounds)
+    cpu, _ = _replayed_trainer(torch, cfg, dcfg, params, batches, draws,
+                               "cpu", False)
+    gen = torch.Generator().manual_seed(1)
+    nudged, _ = _replayed_trainer(torch, cfg, dcfg, tree.map_leaves(
+        lambda w: w * (1 + HALF_ULP_F32 * torch.randn(w.shape,
+                                                      generator=gen)),
+        params), batches, draws, "cpu", False)
+    control = _states_agree(torch, nudged, cpu, math.inf)
+    limit = max(DENSE_AGREE_LIMIT, HYBRID_CONTROL_FACTOR * control)
+    errs = {}
+    for use_kernel in (False, True):
+        card, counts = _replayed_trainer(torch, cfg, dcfg, params, batches,
+                                         draws, "cuda", use_kernel)
+        _gate_launches(f"hybrid-agree trainer kernel {use_kernel}", counts,
+                       {"dasha_mvr_update": HYBRID_LEAVES * rounds
+                        if use_kernel else 0})
+        try:
+            errs[f"kernel_{'on' if use_kernel else 'off'}"] = _states_agree(
+                torch, card, cpu, limit)
+        except AssertionError as e:
+            raise AssertionError(f"[hybrid-agree] trainer, kernel "
+                                 f"{use_kernel}: {e}") from None
+    shifted, _ = _replayed_trainer(torch, cfg, dcfg, params, batches, draws,
+                                   "cuda", True, 1)
+    try:
+        _states_agree(torch, shifted, cpu, limit)
+    except AssertionError as e:
+        planted = {"the next round's masks": str(e)[:120]}
+    else:
+        raise AssertionError("[hybrid-agree] the card trainer on the next "
+                             "round's masks passes the state gate")
+    worst = max(errs.values())
+    log(f"[hybrid-agree] trainer, zamba2-smoke f32, mvr on the card (kernel "
+        f"3 off and on) against the CPU, {rounds} rounds with injected CPU "
+        f"masks and batches: worst {worst:.3g} of a leaf's largest "
+        f"magnitude (limit {limit:.3g}: the CPU's own spread under a "
+        f"half-ulp nudge {control:.3g}); planted faults caught: {planted}")
+    return {"worst": worst, "by_route": errs, "control": control,
+            "limit": limit, "planted": planted}
+
+
+def phase_hybrid(torch, smi: str):
+    """Phase 21: zamba2-1.2b served at full width and depth (kernel 5 on
+    its Mamba2 prefill), kernel 5 at its SSD shape, the smoke config
+    trained with kernel 3, the full-width backward at 7 layers, and card
+    against CPU.  Returns the report, the launches of kernels 5 and 3 on
+    its paths, and kernel 5's row at zamba2's shape."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    held = {"allocated_gb": torch.cuda.memory_allocated() / 1e9,
+            "reserved_gb": torch.cuda.memory_reserved() / 1e9,
+            "free_gb": free / 1e9, "total_gb": total / 1e9}
+    log(f"[hybrid] before the phase: {held['allocated_gb']:.2f} GB "
+        f"allocated, {held['reserved_gb']:.2f} GB reserved, "
+        f"{held['free_gb']:.2f} of {held['total_gb']:.2f} GB free; cuts: "
+        f"{HYBRID_CUTS}")
+    t0 = time.perf_counter()
+    walls = {}
+
+    def part(name, fn, *args):
+        t1 = time.perf_counter()
+        res = fn(torch, *args)
+        walls[name] = time.perf_counter() - t1
+        log(f"[hybrid] {name} in {walls[name]:.1f} s")
+        return res
+
+    ssd_rows = part("kernel5", phase_ssd_kernel, smi, [HYBRID_SSD_SHAPE],
+                    (torch.bfloat16,))
+    serving, k5 = part("serve", _hybrid_serve, smi)
+    trainer, k3 = part("trainer", _hybrid_trainer, smi)
+    agree = part("agreement", _hybrid_model_agreement)
+    train_agree = part("trainer_agreement", _hybrid_trainer_agreement)
+    wall = time.perf_counter() - t0
+    log(f"[hybrid] phase 21 in {wall:.1f} s")
+    return ({"held_before": held, "ssd_chunk_rows": ssd_rows,
+             "serve": serving, "trainer": trainer, "agreement": agree,
+             "trainer_agreement": train_agree, "cuts": HYBRID_CUTS,
+             "wall_s": wall, "walls_s": walls, "nvidia_smi": smi},
+            {"ssd_chunk": k5, "dasha_mvr_update": k3}, ssd_rows)
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"{SRC / 'repro_torch'} not found: run from a checkout of the "
@@ -6654,43 +7250,55 @@ def main() -> int:
     log(f"[device] {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
-    phase_build()
-    per_shape = phase_kernels(torch)
-    kernel2 = phase_kernel2(torch)
+    walls = {}
+
+    def timed(fn, *args, **kw):
+        t0 = time.perf_counter()
+        res = fn(*args, **kw)
+        walls[fn.__name__] = time.perf_counter() - t0
+        log(f"[main] {fn.__name__} in {walls[fn.__name__]:.1f} s")
+        return res
+
+    timed(phase_build)
+    per_shape = timed(phase_kernels, torch)
+    kernel2 = timed(phase_kernel2, torch)
     per_shape["quantize"] = kernel2["quantize"]
-    sparsify = phase_sparsify(torch)
-    runs, launches = phase_main_path(torch)
-    rel = phase_agreement(torch)
-    trainer, train_launches = phase_trainer(torch)
+    sparsify = timed(phase_sparsify, torch)
+    runs, launches = timed(phase_main_path, torch)
+    rel = timed(phase_agreement, torch)
+    trainer, train_launches = timed(phase_trainer, torch)
     launches["dasha_mvr_update"] = train_launches["dasha_mvr_update"]
-    train_rel = phase_trainer_agreement(torch)
-    ssd_rows = phase_ssd_kernel(torch, smi)
-    serving, launches["ssd_chunk"] = phase_serve(torch, smi)
-    serve_rel = phase_serve_agreement(torch)
-    slab_rows = phase_slab_kernel(torch, smi)
+    train_rel = timed(phase_trainer_agreement, torch)
+    ssd_rows = timed(phase_ssd_kernel, torch, smi)
+    serving, launches["ssd_chunk"] = timed(phase_serve, torch, smi)
+    serve_rel = timed(phase_serve_agreement, torch)
+    slab_rows = timed(phase_slab_kernel, torch, smi)
     # the paths' own kernel-1 rows join the sparsifier entry's cases
-    fed, fed_launches, fed_dasha = phase_fed_main(torch, smi)
+    fed, fed_launches, fed_dasha = timed(phase_fed_main, torch, smi)
     sparsify["cases"].append(fed_dasha)
-    fed_rel = phase_fed_agreement(torch)
-    heap, heap_launches = phase_heap(torch, smi)
-    sweep, sweep_launches, sweep_dasha = phase_sweep(torch, smi)
+    fed_rel = timed(phase_fed_agreement, torch)
+    heap, heap_launches = timed(phase_heap, torch, smi)
+    sweep, sweep_launches, sweep_dasha = timed(phase_sweep, torch, smi)
     sparsify["cases"].append(sweep_dasha)
-    faults, fault_launches, fault_rows = phase_faults(torch, smi)
+    faults, fault_launches, fault_rows = timed(phase_faults, torch, smi)
     sparsify["cases"].append(fault_rows["dasha_sparsify_update"])
     per_shape["quantize"].append(fault_rows["quantize"])
-    asyncr, async_launches = phase_async(
-        torch, smi, fault_peak_gb=faults["peak_mem_gb"],
+    asyncr, async_launches = timed(
+        phase_async, torch, smi, fault_peak_gb=faults["peak_mem_gb"],
         fed_peak_gb=fed["peak_mem_gb"])
-    obsr, obs_launches = phase_obs(torch, smi)
-    ckpt, ckpt_launches = phase_ckpt(torch, smi)
-    dense, dense_launches = phase_dense(torch, smi)
-    family, family_launches = phase_family(torch, smi)
+    obsr, obs_launches = timed(phase_obs, torch, smi)
+    ckpt, ckpt_launches = timed(phase_ckpt, torch, smi)
+    dense, dense_launches = timed(phase_dense, torch, smi)
+    family, family_launches = timed(phase_family, torch, smi)
+    hybrid, hybrid_launches, hybrid_ssd_rows = timed(phase_hybrid, torch, smi)
+    ssd_rows.extend(hybrid_ssd_rows)
     # kernels 1 to 4 run on several main paths: the flat round, the
     # federated cohort round, the heap oracle, the sweep, the faulted
     # campaigns, the asynchronous ones, the runs with an observability
     # handle and the checkpoint drills; kernel 3 in the trainers (Mamba2,
-    # starcoder2, the phase-20 families) and the drill (each counted from
-    # zero around its own run)
+    # starcoder2, the phase-20 families, zamba2) and the drill; kernel 5 in
+    # the Mamba2 and zamba2 prefills (each counted from zero around its own
+    # run)
     by_path = {
         "dasha_sparsify_update": {
             "flat": launches["dasha_sparsify_update"],
@@ -6704,7 +7312,11 @@ def main() -> int:
         "dasha_mvr_update": {"trainer": launches["dasha_mvr_update"],
                              "ckpt": ckpt_launches["dasha_mvr_update"],
                              "dense_trainer": dense_launches,
-                             "family_trainer": family_launches},
+                             "family_trainer": family_launches,
+                             "hybrid_trainer":
+                                 hybrid_launches["dasha_mvr_update"]},
+        "ssd_chunk": {"mamba2_prefill": launches["ssd_chunk"],
+                      "hybrid": hybrid_launches["ssd_chunk"]},
         "quantize": {"flat": launches["quantize"],
                      "heap": heap_launches["quantize"],
                      "faults": fault_launches["quantize"],
@@ -6785,7 +7397,8 @@ def main() -> int:
         "shapes": sparsify["cases"]})
     # the SSD kernel's row: one layer of the serving prefill in bf16; its
     # bound is that of the tensor-core arithmetic it runs, with the float32
-    # CUDA-core bound of the same work beside it
+    # CUDA-core bound of the same work beside it; zamba2's shape (phase 21d)
+    # is the last of its shapes
     main_shape = ssd_rows[0]
     kernels.append({
         "name": "ssd_chunk", "route": "cuda",
@@ -6804,7 +7417,13 @@ def main() -> int:
         "per_layer": {k: serving["prefill"][k] for k in (
             "ssd_chunk_profiled_launches", "ssd_chunk_device_ms_per_layer",
             "ssd_chunk_bound_ms_per_layer", "ssd_chunk_tc_bound_ms_per_layer",
-            "ssd_chunk_share_of_call")}})
+            "ssd_chunk_share_of_call")},
+        # and in the profiled 7-layer zamba2 prefill (phase 21a)
+        "per_layer_hybrid": {k: hybrid["serve"]["prefill"]["profile"][k]
+                             for k in ("ssd_chunk_launches",
+                                       "ssd_chunk_device_ms_per_layer",
+                                       "ssd_chunk_bytes_bound_ms_per_layer",
+                                       "ssd_chunk_tc_bound_ms_per_layer")}})
     # the slab kernel's row: the cell's chunk slab, set
     main_shape = slab_rows[0]
     kernels.append({
@@ -6841,7 +7460,8 @@ def main() -> int:
               "fed_agreement_worst": fed_rel, "heap": heap,
               "sweep": sweep, "faults": faults, "async": asyncr,
               "obs": obsr, "ckpt": ckpt, "dense": dense,
-              "family": family, "nvidia_smi": smi}
+              "family": family, "hybrid": hybrid, "phase_walls_s": walls,
+              "nvidia_smi": smi}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))

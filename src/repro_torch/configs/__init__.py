@@ -1,9 +1,10 @@
 """Architecture registry (port of ``repro.configs``): one module per
 architecture, each holding the full config ``CONFIG`` and its reduced
 same-family ``SMOKE`` variant.  The Mamba2 family, the dense GQA family
-(starcoder2, minitron, qwen1.5), gemma3's grouped local/global stack and
-the mixture-of-experts family (phi3.5-moe, deepseek-v2-lite with MLA) are
-ported; the other ids of the reference raise (ROADMAP.md lists them)."""
+(starcoder2, minitron, qwen1.5), gemma3's grouped local/global stack, the
+mixture-of-experts family (phi3.5-moe, deepseek-v2-lite with MLA) and the
+hybrid family (zamba2) are ported; the other ids of the reference
+raise (ROADMAP.md lists them)."""
 from __future__ import annotations
 
 import importlib
@@ -13,7 +14,7 @@ from repro_torch.models.common import ArchConfig
 
 ARCHS: List[str] = ["mamba2_780m", "deepseek_v2_lite_16b", "starcoder2_3b",
                     "phi35_moe_42b", "gemma3_12b", "minitron_8b",
-                    "qwen15_110b"]
+                    "qwen15_110b", "zamba2_1p2b"]
 
 # CLI ids (assignment spelling) -> module name
 ALIASES = {"mamba2-780m": "mamba2_780m",
@@ -21,7 +22,7 @@ ALIASES = {"mamba2-780m": "mamba2_780m",
            "starcoder2-3b": "starcoder2_3b",
            "phi3.5-moe-42b-a6.6b": "phi35_moe_42b",
            "gemma3-12b": "gemma3_12b", "minitron-8b": "minitron_8b",
-           "qwen1.5-110b": "qwen15_110b"}
+           "qwen1.5-110b": "qwen15_110b", "zamba2-1.2b": "zamba2_1p2b"}
 
 
 def _module(name: str):

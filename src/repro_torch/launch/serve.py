@@ -1,8 +1,9 @@
 """Serving driver (port of ``examples/serve_lm.py`` and of the prefill
 function of ``repro.launch.specs``): the ``ssm`` family (mamba2-780m), the
 dense GQA family (starcoder2-3b, minitron-8b, qwen1.5-110b), gemma3's
-grouped local/global stack (gemma3-12b) and the mixture-of-experts family
-(phi3.5-moe-42b-a6.6b, deepseek-v2-lite-16b with MLA).
+grouped local/global stack (gemma3-12b), the mixture-of-experts family
+(phi3.5-moe-42b-a6.6b, deepseek-v2-lite-16b with MLA) and the hybrid
+family (zamba2-1.2b: Mamba2 layers and one shared transformer block).
 
     PYTHONPATH=src python -m repro_torch.launch.serve [--arch starcoder2-3b] \
         [--full] --batch 4 --prompt-len 24 --new-tokens 16
@@ -16,9 +17,11 @@ driver data, indexed by the state's position ``t``), and then the state's
 own greedy token feeds back for ``--new-tokens`` steps, the generated
 tokens leaving the device as the ``"token"`` metric trace.
 :func:`prefill_logits` is the serving prefill of ``repro.launch.specs``: the
-prompt through the forward to the last position's logits; for Mamba2
-through the chunked SSD with the hand-written kernel (``use_ssd_kernel``,
-the reference's TPU deploy switch), for the transformer families through
+prompt through the forward to the last position's logits; every Mamba2
+layer (mamba2-780m's, and zamba2's between its shared-block uses) through
+the chunked SSD with the hand-written kernel (``use_ssd_kernel``, the
+reference's TPU deploy switch, which its Mamba2 mixer reads in any
+family), for the transformer families and zamba2's shared block through
 the attention of :mod:`repro_torch.models.attention` (GQA or MLA; dense
 below 2,048 tokens, streaming from there) and the routed experts of
 :mod:`repro_torch.models.moe` (dropless on the decode steps), none of
@@ -65,9 +68,10 @@ def greedy(cfg: ArchConfig, logits: torch.Tensor) -> torch.Tensor:
 
 
 def kernel_config(cfg: ArchConfig) -> ArchConfig:
-    """``cfg`` with the SSD kernel path on (Mamba2); a family without an
-    SSD kernel is served as it is."""
-    if cfg.arch_type != "ssm":
+    """``cfg`` with the SSD kernel path on for the families with Mamba2
+    layers (``ssm``, ``hybrid``); a family without one is served as it
+    is."""
+    if cfg.arch_type not in ("ssm", "hybrid"):
         return cfg
     return dataclasses.replace(cfg, use_ssd_kernel=True)
 
@@ -75,7 +79,7 @@ def kernel_config(cfg: ArchConfig) -> ArchConfig:
 def prefill_logits(cfg: ArchConfig, params: Dict,
                    tokens: torch.Tensor) -> torch.Tensor:
     """Serving prefill: (B, 1, V_padded) logits of the last position,
-    through the forward (with the SSD kernel for Mamba2)."""
+    through the forward (with the SSD kernel on every Mamba2 layer)."""
     with torch.inference_mode():
         logits, _ = lm.forward(kernel_config(cfg), params, tokens,
                                last_only=True)

@@ -7,10 +7,12 @@
 
 The reference's command line, with its default ``--arch starcoder2-3b``
 (the dense GQA family; ``mamba2-780m``, ``minitron-8b``,
-``qwen1.5-110b``, ``gemma3-12b``, ``phi3.5-moe-42b-a6.6b`` and
-``deepseek-v2-lite-16b`` are the other ported ids; the MoE families add
-their routers' load-balance loss, times 0.01, to the training loss).  Without ``--full`` it trains
-the architecture's reduced (smoke) config.  :func:`train` is the library
+``qwen1.5-110b``, ``gemma3-12b``, ``phi3.5-moe-42b-a6.6b``,
+``deepseek-v2-lite-16b`` and ``zamba2-1.2b`` are the other ported ids;
+the MoE families add their routers' load-balance loss, times 0.01, to the
+training loss; the trainer's forward takes the plain SSD path, as the
+reference's does).  Without ``--full`` it trains the architecture's
+reduced (smoke) config.  :func:`train` is the library
 form: it takes the config itself, so a caller can cut the depth of a full
 config, and a device (the card unless ``device="cpu"``).
 

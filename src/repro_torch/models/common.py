@@ -4,14 +4,20 @@
 :class:`ArchConfig` keeps the reference's field names and defaults for
 everything the ported families read: the SSM fields (Mamba2), the
 attention fields of the dense GQA stack (starcoder2, minitron, qwen1.5,
-gemma3's grouped local/global stack) and the MoE and MLA fields (phi3.5-moe,
-deepseek-v2-lite).  The hybrid and multimodal fields wait for the slices
-that port those families.
+gemma3's grouped local/global stack), the MoE and MLA fields (phi3.5-moe,
+deepseek-v2-lite) and the hybrid family's shared-block period (zamba2).
+The multimodal fields wait for the slices that port those families.
+
+The bf16 activations (:func:`silu`, :func:`gelu_tanh`, :func:`softplus`)
+and :func:`softcap` round each op to bf16 in the order the reference's
+JAX lowers them to, with its weak-typed constants rounded to bf16 first;
+in float32 each activation is one ``torch.nn.functional`` call.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Optional
 
 import torch
@@ -27,7 +33,7 @@ def pad_to(x: int, mult: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    arch_type: str               # dense | moe | ssm; the others come later
+    arch_type: str               # dense | moe | ssm | hybrid; the others later
     num_layers: int
     d_model: int
     num_heads: int
@@ -69,6 +75,7 @@ class ArchConfig:
     # --- attention pattern -----------------------------------------------
     sliding_window: int = 0        # 0 = full attention everywhere
     global_every: int = 0          # gemma3: 1 global layer per `global_every`
+    hybrid_attn_every: int = 0     # zamba2: shared attn block every k layers
     attn_logit_softcap: float = 0.0
 
     def __post_init__(self):
@@ -158,6 +165,38 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``.  In bf16 the op order jax 0.9 lowers it to, each
+    op rounded to bf16: ``x * (1 / (1 + exp(-x)))``; else one
+    ``F.silu``."""
+    if x.dtype != torch.bfloat16:
+        return F.silu(x)
+    return x * torch.reciprocal(torch.exp(-x) + 1.0)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(approximate=True)``.  In bf16 its formula op by op,
+    each op rounded to bf16, the constants 0.044715 and sqrt(2 / pi)
+    rounded to bf16 first: ``x * (0.5 * (1 + tanh(c1 * (x + c0 * x**3))))``
+    with ``x**3`` as ``(x * x) * x``; else one ``F.gelu``."""
+    if x.dtype != torch.bfloat16:
+        return F.gelu(x, approximate="tanh")
+    c0 = dtype_scalar(0.044715, x.dtype)
+    c1 = dtype_scalar(math.sqrt(2 / math.pi), x.dtype)
+    cube = (x * x) * x
+    inner = (x + cube * c0) * c1
+    return x * ((torch.tanh(inner) + 1.0) * 0.5)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus`` (``logaddexp(x, 0)``).  In bf16 the op order jax
+    0.9 lowers it to, each op rounded to bf16: ``max(x, 0) +
+    log1p(exp(-|x|))``; else one ``F.softplus``."""
+    if x.dtype != torch.bfloat16:
+        return F.softplus(x)
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
 def mlp_apply(p: dict, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
     """The block's MLP.  ``jax.nn.gelu`` is the tanh approximation by
     default, so the reference's ``"gelu"`` and ``"geglu"`` both take
@@ -166,15 +205,17 @@ def mlp_apply(p: dict, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
         h = x @ p["w_in"]
         if "b_in" in p:
             h = h + p["b_in"]
-        h = F.gelu(h, approximate="tanh") @ p["w_out"]
+        h = gelu_tanh(h) @ p["w_out"]
         return h + p["b_out"] if "b_out" in p else h
     gate = x @ p["w_gate"]
-    act = F.gelu(gate, approximate="tanh") if mlp_type == "geglu" \
-        else F.silu(gate)
+    act = gelu_tanh(gate) if mlp_type == "geglu" else silu(gate)
     return (act * (x @ p["w_in"])) @ p["w_out"]
 
 
 def softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
+    """``cap * tanh(logits / cap)`` with the cap rounded to the logits'
+    dtype first, as JAX rounds the weak-typed scalar."""
     if cap <= 0:
         return logits
+    cap = dtype_scalar(cap, logits.dtype)
     return cap * torch.tanh(logits / cap)

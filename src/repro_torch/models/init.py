@@ -1,6 +1,8 @@
 """Parameter initialisation (port of ``repro.models.init``): the ``ssm``
 family, the homogeneous transformer stack (dense GQA, or MLA and routed
-experts for the ``moe`` family) and gemma3's grouped local/global stack.
+experts for the ``moe`` family), gemma3's grouped local/global stack and
+the ``hybrid`` family (zamba2: stacked Mamba2 layers and one shared
+transformer block, ``shared_attn``).
 
 Layers are stacked along a leading L axis, as the reference's
 ``lax.scan`` expects, so ``params["layers"]`` has one leaf per weight kind
@@ -26,17 +28,16 @@ from repro_torch.core.rng import generator
 from repro_torch.models.common import ArchConfig
 
 #: the reference's families that wait for a later slice, and what each is
-_NOT_PORTED = {"hybrid": "Mamba2 + shared attention (zamba2)",
-               "vlm": "vision cross-attention (llama-3.2-vision)",
+_NOT_PORTED = {"vlm": "vision cross-attention (llama-3.2-vision)",
                "audio": "encoder-decoder (whisper)"}
 
 
 def require_ported(cfg: ArchConfig) -> None:
     """Raise NotImplementedError, naming the family, for an architecture
     the port does not run yet: every ``arch_type`` but ``ssm``, ``dense``
-    (gemma3's grouped stack included) and ``moe``."""
+    (gemma3's grouped stack included), ``moe`` and ``hybrid``."""
     at = cfg.arch_type
-    if at in ("ssm", "dense", "moe"):
+    if at in ("ssm", "dense", "moe", "hybrid"):
         return
     raise NotImplementedError(
         f"arch_type {at!r} ({_NOT_PORTED.get(at, at)}) is not ported to "
@@ -166,8 +167,9 @@ def _moe_params(gen, dev, cfg: ArchConfig, dt) -> Dict:
 
 
 def _block_params(draws: _Draws, tag: tuple, cfg: ArchConfig, dt) -> Dict:
-    """One transformer block (``tag`` names it: ``("layer", i)``, or
-    ``("local", g, j)`` / ``("global", g)`` in gemma3's groups): its
+    """One transformer block (``tag`` names it: ``("layer", i)``,
+    ``("local", g, j)`` / ``("global", g)`` in gemma3's groups, or
+    ``("shared_attn",)`` for the hybrid family's shared block): its
     attention (GQA or MLA) and its feed-forward (an MLP or the routed
     experts) each from their own generator."""
     dev = draws.dev
@@ -182,9 +184,9 @@ def _block_params(draws: _Draws, tag: tuple, cfg: ArchConfig, dt) -> Dict:
 
 def init_params(cfg: ArchConfig, seed: int = 0, *,
                 device=DEFAULT_DEVICE) -> Dict:
-    """Random parameters of ``cfg`` on ``device`` (the ``ssm`` family,
-    the homogeneous dense / moe stack and gemma3's groups; every other
-    family raises NotImplementedError)."""
+    """Random parameters of ``cfg`` on ``device`` (the ``ssm`` and
+    ``hybrid`` families, the homogeneous dense / moe stack and gemma3's
+    groups; every other family raises NotImplementedError)."""
     require_ported(cfg)
     dev = resolve_device(device)
     draws = _Draws(dev, seed)
@@ -198,9 +200,12 @@ def init_params(cfg: ArchConfig, seed: int = 0, *,
     if not cfg.tie_embeddings:
         params["lm_head"] = _dense_init(draws("lm_head"), dev,
                                         (cfg.d_model, cfg.padded_vocab), dt)
-    if cfg.arch_type == "ssm":
+    if cfg.arch_type in ("ssm", "hybrid"):
         params["layers"] = _stack(cfg.num_layers, lambda i: _mamba_params(
             draws("layer", i), dev, cfg, dt))
+        if cfg.arch_type == "hybrid":   # one block, shared by every use
+            params["shared_attn"] = _block_params(draws, ("shared_attn",),
+                                                  cfg, dt)
     elif cfg.global_every:      # gemma3-style local/global groups
         n_groups = cfg.num_layers // cfg.global_every
         n_local = cfg.global_every - 1

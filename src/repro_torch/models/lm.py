@@ -1,8 +1,9 @@
 """Language-model assembly (port of ``repro.models.lm``: the ``ssm``
 family, the homogeneous transformer stack — dense GQA, or MLA and routed
-experts for the ``moe`` family — and gemma3's grouped local/global
-stack): the training / prefill forward and loss, and the serving cache and
-decode step.
+experts for the ``moe`` family — gemma3's grouped local/global stack,
+and the ``hybrid`` family, Mamba2 layers with one shared transformer
+block run before every ``hybrid_attn_every``-th of them): the training /
+prefill forward and loss, and the serving cache and decode step.
 
     forward(cfg, params, tokens, last_only=False) -> (logits, aux)
     loss_fn(cfg, params, batch) -> (scalar, metrics)
@@ -13,16 +14,19 @@ The reference scans the stacked layers under ``jax.checkpoint``; the port
 loops over them and keeps every activation for the backward pass (no
 rematerialisation, so no ``remat`` argument: it would change memory, not
 the numbers).  Each stacked leaf is ``unbind``-ed once, so its gradient is
-assembled by one stack rather than one full-size scatter per layer.  The
-decode step updates the stacked cache in place, layer by layer: the SSM
-family's conv window and state, the transformer's KV cache (ring buffers
-of the sliding window where the config has one), MLA's latent cache, or
-gemma3's local rings and global caches.  Every other family raises
+assembled by one stack rather than one full-size scatter per layer; the
+hybrid family's shared block is one tree used at every one of its
+positions, so autograd sums its gradient over the uses.  The decode step
+updates the stacked cache in place, layer by layer: the SSM family's conv
+window and state, the transformer's KV cache (ring buffers of the sliding
+window where the config has one), MLA's latent cache, gemma3's local
+rings and global caches, or the hybrid family's Mamba2 caches and the
+shared block's K/V cache of each use.  Every other family raises
 NotImplementedError, naming it.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -75,6 +79,15 @@ def _groups(cfg: ArchConfig, local: Dict, glob: Dict):
             zip(_per_layer(local, n_groups), _per_layer(glob, n_groups))]
 
 
+def _hybrid_slot(cfg: ArchConfig, idx: int) -> Optional[int]:
+    """The hybrid family's shared block runs before Mamba2 layer ``idx``
+    when ``idx % hybrid_attn_every == 0``; this returns the K/V cache of
+    that use, ``idx // hybrid_attn_every``, or None where it does not
+    run."""
+    every = cfg.hybrid_attn_every
+    return idx // every if idx % every == 0 else None
+
+
 def forward(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
             last_only: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (B,S,V_padded), aux_loss scalar).  ``last_only``
@@ -86,6 +99,13 @@ def forward(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.arch_type == "ssm":
         for lp in _per_layer(params["layers"], cfg.num_layers):
+            x = mamba_block_prefill(lp, x, cfg)
+    elif cfg.arch_type == "hybrid":   # the shared block: full attention
+        pos = _positions(B, S, x.device)
+        for idx, lp in enumerate(_per_layer(params["layers"],
+                                            cfg.num_layers)):
+            if _hybrid_slot(cfg, idx) is not None:
+                x, _ = block_prefill(params["shared_attn"], x, pos, cfg)
             x = mamba_block_prefill(lp, x, cfg)
     elif cfg.global_every:      # gemma3: groups of local layers + 1 global
         pos = _positions(B, S, x.device)
@@ -140,7 +160,9 @@ def init_cache(cfg: ArchConfig, batch: int, seq: int, *,
     """The decode cache for ``seq`` total positions on ``device``, in the
     model dtype but the SSM state: for the ``ssm`` family a conv window
     (L,B,W-1,Cd) and a float32 state (L,B,H,N,P), neither of which grows
-    with ``seq``; for MLA the latent ``ckv`` (L,B,T,r) and ``krope``
+    with ``seq``; for the ``hybrid`` family those under ``mamba`` and the
+    shared block's K and V under ``attn``, (ceil(L / every),B,T,G,hd), T =
+    ``seq``, one cache per use; for MLA the latent ``ckv`` (L,B,T,r) and ``krope``
     (L,B,T,dr), T = ``seq``; for gemma3's groups ``local`` rings
     (n_groups,n_local,B,min(W, seq),G,hd) and ``global`` K/V
     (n_groups,B,seq,G,hd); else K and V of (L,B,T,G,hd), T = ``seq``, or
@@ -154,6 +176,11 @@ def init_cache(cfg: ArchConfig, batch: int, seq: int, *,
         return torch.zeros(shape, dtype=cfg.torch_dtype, device=dev)
 
     G, hd, L = cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
+    if cfg.arch_type == "hybrid":
+        uses = -(-L // cfg.hybrid_attn_every)
+        return {"mamba": _ssm_cache(cfg, batch, dev),
+                "attn": {"k": zeros(uses, batch, seq, G, hd),
+                         "v": zeros(uses, batch, seq, G, hd)}}
     if cfg.use_mla:
         return {"ckv": zeros(L, batch, seq, cfg.kv_lora_rank),
                 "krope": zeros(L, batch, seq, cfg.qk_rope_head_dim)}
@@ -187,8 +214,18 @@ def decode_step(cfg: ArchConfig, params: Dict, cache: Dict,
                 x, _ = block_decode(lp, x, t, lc, cfg, ring=True)
             x, _ = block_decode(glob, x, t, gc, cfg)
         return _logits(cfg, params, x)[:, 0], cache
-    caches = _per_layer(cache, cfg.num_layers)
     layers = _per_layer(params["layers"], cfg.num_layers)
+    if cfg.arch_type == "hybrid":
+        attn = _per_layer(cache["attn"], cache["attn"]["k"].shape[0])
+        for idx, (lp, lc) in enumerate(zip(
+                layers, _per_layer(cache["mamba"], cfg.num_layers))):
+            slot = _hybrid_slot(cfg, idx)
+            if slot is not None:
+                x, _ = block_decode(params["shared_attn"], x, t,
+                                    attn[slot], cfg)
+            x, _ = mamba_block_decode(lp, x, lc, cfg)
+        return _logits(cfg, params, x)[:, 0], cache
+    caches = _per_layer(cache, cfg.num_layers)
     if cfg.arch_type == "ssm":
         for lp, lc in zip(layers, caches):
             x, _ = mamba_block_decode(lp, x, lc, cfg)

@@ -35,7 +35,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import ArchConfig, mlp_apply
+from repro_torch.models.common import ArchConfig, mlp_apply, silu
 
 
 def _capacity(cfg: ArchConfig, num_tokens: int) -> int:
@@ -87,7 +87,7 @@ def _aux_loss(probs: torch.Tensor, first: torch.Tensor, E: int
 
 def _experts(p: Dict, buf: torch.Tensor) -> torch.Tensor:
     """(E, C, d) buffers through each expert's SwiGLU: (E, C, d)."""
-    h = F.silu(torch.bmm(buf, p["w_gate"])) * torch.bmm(buf, p["w_in"])
+    h = silu(torch.bmm(buf, p["w_gate"])) * torch.bmm(buf, p["w_in"])
     return torch.bmm(h, p["w_out"])
 
 

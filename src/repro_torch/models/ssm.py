@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ops import ssd_chunk_scan
-from repro_torch.models.common import ArchConfig, rms_norm
+from repro_torch.models.common import ArchConfig, rms_norm, silu, softplus
 
 
 def _segsum(a: torch.Tensor) -> torch.Tensor:
@@ -109,7 +109,7 @@ def _conv1d_prefill(xbc: torch.Tensor, w: torch.Tensor,
     W, S = w.shape[0], xbc.shape[1]
     pad = F.pad(xbc, (0, 0, W - 1, 0))
     out = sum(pad[:, i:i + S] * w[i][None, None] for i in range(W))
-    return F.silu(out + bias[None, None])
+    return silu(out + bias[None, None])
 
 
 def mamba_mixer_prefill(p: Dict, x: torch.Tensor, cfg: ArchConfig,
@@ -121,7 +121,7 @@ def mamba_mixer_prefill(p: Dict, x: torch.Tensor, cfg: ArchConfig,
     H, P, N = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state
     z = (x @ p["w_z"].reshape(d, H * P)).reshape(B, S, H, P)
     xbc = x @ p["w_xbc"]                                   # (B,S,HP+2N)
-    dt = F.softplus(x @ p["w_dt"] + p["dt_bias"])
+    dt = softplus(x @ p["w_dt"] + p["dt_bias"])
     xbc = _conv1d_prefill(xbc, p["conv_w"], p["conv_b"])
     xs = xbc[..., :H * P].reshape(B, S, H, P)
     bmat = xbc[..., H * P:H * P + N]
@@ -132,7 +132,7 @@ def mamba_mixer_prefill(p: Dict, x: torch.Tensor, cfg: ArchConfig,
         y, _ = ssd_chunk_scan(xs, dt, A, bmat, cmat, p["D"], chunk)
     else:
         y, _ = ssd_chunked(xs, dt, A, bmat, cmat, p["D"], chunk, s0)
-    y = y * F.silu(z)
+    y = y * silu(z)
     y = rms_norm(y.reshape(B, S, H * P), p["norm"], cfg.norm_eps)
     return y @ p["w_out"]
 
@@ -146,17 +146,17 @@ def mamba_mixer_decode(p: Dict, x: torch.Tensor, cache: Dict,
     xt = x[:, 0]
     z = (xt @ p["w_z"].reshape(d, H * P)).reshape(B, H, P)
     xbc = xt @ p["w_xbc"]
-    dt = F.softplus(xt @ p["w_dt"] + p["dt_bias"])          # (B,H)
+    dt = softplus(xt @ p["w_dt"] + p["dt_bias"])          # (B,H)
     # conv cache: the window of the last W-1 inputs
     conv_in = torch.cat([cache["conv"], xbc[:, None]], 1)   # (B,W,Cd)
-    conv_out = F.silu(torch.einsum("bwc,wc->bc", conv_in, p["conv_w"])
-                      + p["conv_b"])
+    conv_out = silu(torch.einsum("bwc,wc->bc", conv_in, p["conv_w"])
+                    + p["conv_b"])
     cache["conv"].copy_(conv_in[:, 1:])
     xs = conv_out[:, :H * P].reshape(B, H, P)
     bmat = conv_out[:, H * P:H * P + N]
     cmat = conv_out[:, H * P + N:]
     A = -torch.exp(p["A_log"].to(torch.float32))
     y, _ = ssd_decode(xs, dt, A, bmat, cmat, p["D"], cache["ssm"])
-    y = y * F.silu(z)
+    y = y * silu(z)
     y = rms_norm(y.reshape(B, 1, H * P), p["norm"], cfg.norm_eps)
     return y @ p["w_out"], cache

@@ -494,15 +494,16 @@ def _family_cfg(**kw):
 
 
 @pytest.mark.parametrize("kw,family", [
-    (dict(arch_type="hybrid"), "zamba2"),
-    (dict(arch_type="hybrid", num_experts=4, experts_per_token=2), "zamba2"),
+    (dict(arch_type="vlm", num_experts=4, experts_per_token=2),
+     "llama-3.2-vision"),
+    (dict(arch_type="audio", hybrid_attn_every=2, ssm_state=16), "whisper"),
     (dict(arch_type="vlm"), "llama-3.2-vision"),
     (dict(arch_type="vlm", use_mla=True, kv_lora_rank=16), "llama-3.2-vision"),
     (dict(arch_type="audio", global_every=2, sliding_window=16), "whisper")])
 def test_other_families_still_raise_naming_the_family(kw, family):
-    """The hybrid, VLM and audio families raise, naming the family, also
-    when their config carries the MoE, MLA or grouped-attention fields the
-    port now runs."""
+    """The VLM and audio families raise, naming the family, also when
+    their config carries the MoE, MLA, grouped-attention or hybrid fields
+    the port now runs."""
     cfg = _family_cfg(**kw)
     tok = torch.ones((1, 4), dtype=torch.int64)
     for call in (lambda: t_init(cfg, 0, device="cpu"),
@@ -512,7 +513,7 @@ def test_other_families_still_raise_naming_the_family(kw, family):
         with pytest.raises(NotImplementedError, match=family):
             call()
     with pytest.raises(ValueError, match="not ported"):
-        t_config("zamba2-1.2b")
+        t_config("whisper-tiny")
 
 
 # ---------------------------------------------------------------------------

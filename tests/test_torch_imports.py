@@ -71,7 +71,8 @@ def test_import_scan_covers_the_slice():
                 "configs/qwen15_110b.py", "bench/fig4_dnn.py",
                 "models/moe.py", "configs/gemma3_12b.py",
                 "configs/phi35_moe_42b.py",
-                "configs/deepseek_v2_lite_16b.py"):
+                "configs/deepseek_v2_lite_16b.py",
+                "configs/zamba2_1p2b.py"):
         assert mod in names
     for src in ("dasha_update.cu", "ssd_chunk.cu", "slab_writeback.cu"):
         assert (ROOT / "src/repro_torch/kernels/csrc" / src).exists()

@@ -7,11 +7,15 @@ The reference's parameters (``repro.models.init_params`` on the
 Tolerances: float32 runs agree to rtol 1e-5 with atol 1e-5 of the
 output's largest magnitude (the two sum matmuls and einsums in different
 orders; measured: logits max err 1.8e-5 at max |logit| 4.5, loss equal).
-bfloat16 runs round at other places in the two frameworks (after each
-matmul, softplus, silu and conv tap): outputs agree to a max abs err of
-0.1 of their largest magnitude and a mean abs err of 0.03 of their mean
-magnitude (measured on logits: 0.19 at 4.5, mean 0.012 at 0.80; mixer:
-0.033, mean 0.005), and the loss to rtol 1e-3 (measured 1e-4).
+bfloat16 runs round each op of softplus and silu in bf16 in the
+reference's order (``models.common``), so the mixer agrees to 1.1e-7 of
+its largest magnitude and the block to 1.3e-3 (a few elements one bf16
+ulp apart: the matmuls sum in other orders); the reference's compiled
+layer scan rounds some fused ops otherwise than its eager code, and over
+the two layers the logits agree to a max abs err of 0.03 of their largest
+magnitude and a mean abs err of 0.015 of their mean magnitude (measured:
+0.0155 and 0.0091; before the activations were rounded op by op 0.042 and
+0.015), and the loss to rtol 1e-3 (measured 1.2e-4).
 Gradients of the float32 loss agree with ``jax.grad`` to rtol 1e-4 and
 atol 1e-6 of each leaf's largest magnitude (backward sums accumulate more
 rounding than the forward).
@@ -128,8 +132,8 @@ def _check(cfg, got, want):
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * scale)
         return
     err = np.abs(got - want)
-    assert err.max() <= 0.1 * scale, (err.max(), scale)
-    assert err.mean() <= 0.03 * np.abs(want).mean(), err.mean()
+    assert err.max() <= 0.03 * scale, (err.max(), scale)
+    assert err.mean() <= 0.015 * np.abs(want).mean(), err.mean()
 
 
 def _loss_rtol(cfg):
@@ -267,7 +271,7 @@ def test_full_config_is_the_reference_config():
     assert (t.padded_vocab, t.d_inner, t.ssm_nheads) == \
         (j.padded_vocab, j.d_inner, j.ssm_nheads) == (50432, 3072, 48)
     with pytest.raises(ValueError, match="not ported"):
-        t_config("zamba2-1.2b")
+        t_config("whisper-tiny")
 
 
 def test_node_batches_have_the_reference_structure():

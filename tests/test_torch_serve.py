@@ -166,11 +166,12 @@ def test_mixer_kernel_path_matches_reference_kernel_path(smoke):
 # the recurrent decode step and its cache
 # ---------------------------------------------------------------------------
 
-# in bfloat16, the serving dtype: the two frameworks round bf16 intermediates
-# in different places (jax rounds each op of softplus and silu in bf16,
-# torch computes them in float32 and rounds once; the bf16 matmuls sum in
-# different orders), so the port agrees with the reference to a few bf16
-# ulps (2**-7 of the largest magnitude), not to float32 rounding
+# in bfloat16, the serving dtype: the port rounds each op of softplus and
+# silu in bf16 in the reference's order (``models.common``), but the bf16
+# matmuls sum in different orders, so the port agrees with the reference to
+# within a bf16 ulp (2**-7 of the largest magnitude), not to float32
+# rounding; a mixer step to an eighth of one (measured 6.8e-5; 2 ulps
+# before the activations were rounded op by op)
 BF16_ULP = 2.0 ** -7
 
 
@@ -228,8 +229,8 @@ def test_mamba_mixer_decode_matches_reference_with_a_carried_cache(
         dtype, request):
     """Three mixer steps in each layer with a carried cache (the conv
     window in the model's dtype, the state in float32).  float32: within
-    1e-5; bf16: the output and both caches within 2 bf16 ulps of their
-    largest magnitude."""
+    1e-5; bf16: the output and both caches within an eighth of a bf16 ulp
+    of their largest magnitude."""
     jcfg, tcfg, jparams, tparams = request.getfixturevalue(
         "smoke" if dtype == "float32" else "smoke_bf16")
     cast = np.dtype(jnp.bfloat16) if dtype == "bfloat16" else np.float32
@@ -256,9 +257,9 @@ def test_mamba_mixer_decode_matches_reference_with_a_carried_cache(
                 for k in ("conv", "ssm"):
                     _close(tc[k], jc[k], 1e-5)
             else:
-                assert _rel(got.float(), want) <= 2 * BF16_ULP
+                assert _rel(got.float(), want) <= BF16_ULP / 8
                 for k in ("conv", "ssm"):
-                    assert _rel(tc[k].float(), jc[k]) <= 2 * BF16_ULP, k
+                    assert _rel(tc[k].float(), jc[k]) <= BF16_ULP / 8, k
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -1,8 +1,9 @@
 """Helpers shared by the port's model-family tests (``test_torch_moe``,
-``test_torch_mla``, ``test_torch_gemma3``): array conversion, the
-tolerance check, and the LM / trainer parity runs against the reference
-on its parameters, batches and masks."""
+``test_torch_mla``, ``test_torch_gemma3``, ``test_torch_hybrid``): array
+conversion, the tolerance check, and the LM / trainer parity runs against
+the reference on its parameters, batches and masks."""
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +30,11 @@ from repro_torch.models import lm as tlm
 from repro_torch.optim import distributed as tdist
 
 N_NODES = 4
+
+#: the reference's ``init_params`` compiled once per config (its eager
+#: form compiles each op on its own); the parity tests carry whatever it
+#: draws into the port
+j_init_jit = jax.jit(j_init, static_argnums=0)
 
 
 def np_tree(t):
@@ -72,7 +78,7 @@ def f32_smoke(arch, **kw):
 def smoke_model(arch, seed=0, **kw):
     """(jcfg, tcfg, reference params, the same params in the port)."""
     jcfg, tcfg = f32_smoke(arch, **kw)
-    jp = j_init(jcfg, jax.random.PRNGKey(seed))
+    jp = j_init_jit(jcfg, jax.random.PRNGKey(seed))
     return jcfg, tcfg, jp, port(jp)
 
 
@@ -93,7 +99,7 @@ def assert_init_tree_matches(arch, n_leaves):
     reference's tree comes back leaf for leaf, bit for bit."""
     tcfg, jcfg = t_smoke(arch), j_smoke(arch)
     got = t_init(tcfg, 5, device="cpu")
-    jp = j_init(jcfg, jax.random.PRNGKey(0))
+    jp = j_init_jit(jcfg, jax.random.PRNGKey(0))
     want = jax.tree_util.tree_leaves_with_path(jp)
     assert [p for p, _ in tree.items(got)] == [
         "/".join(k.key for k in path) for path, _ in want]
@@ -118,14 +124,15 @@ def assert_param_counts(arch):
 
 
 def assert_forward_and_loss(jcfg, tcfg, jp, tp, B=2, S=40, seed=0,
-                            aux_nonzero=False):
-    """forward (logits, aux, last_only) and loss_fn (total, loss, aux,
-    out-of-vocab labels masked) against the reference."""
+                            aux_nonzero=False, frac=1e-5):
+    """forward (logits within ``frac`` of the largest, aux, last_only) and
+    loss_fn (total, loss, aux, out-of-vocab labels masked) against the
+    reference."""
     tok = tokens(seed, B, S)
     got, aux = tlm.forward(tcfg, tp, tt(tok).long())
     want, jaux = jlm.forward(jcfg, jp, jnp.asarray(tok), remat=False)
     assert got.shape == want.shape == (B, S, tcfg.padded_vocab)
-    close_of_max(got.numpy(), want, 1e-5, "logits")
+    close_of_max(got.numpy(), want, frac, "logits")
     np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-5,
                                atol=1e-7)
     assert (float(aux) > 0) == aux_nonzero
@@ -155,19 +162,19 @@ def assert_streaming_forward(jcfg, tcfg, jp, tp, seed=1):
 
 def assert_decode_steps(jcfg, tcfg, jp, tp, S, cache_seq=None, seed=4):
     """S teacher-forced decode steps on a cache of ``cache_seq`` positions
-    (default S) against the reference's decode, logits and every cache
-    leaf; the cache's tree is the reference's.  Returns the last logits
-    and the port's cache."""
+    (default S) against the reference's decode (compiled once), logits and
+    every cache leaf; the cache's tree is the reference's.  Returns the
+    last logits and the port's cache."""
     B = 2
     tok = tokens(seed, B, S)
     jcache = jlm.init_cache(jcfg, B, cache_seq or S)
     cache = convert.cache_from_numpy(np_tree(jcache), device="cpu")
+    jstep = jax.jit(functools.partial(jlm.decode_step, jcfg))
     for t in range(S):
         logits, cache = tlm.decode_step(tcfg, tp, cache,
                                         tt(tok[:, t]).long(), t)
-        jlogits, jcache = jlm.decode_step(jcfg, jp, jcache,
-                                          jnp.asarray(tok[:, t]),
-                                          jnp.int32(t))
+        jlogits, jcache = jstep(jp, jcache, jnp.asarray(tok[:, t]),
+                                jnp.int32(t))
         close_of_max(logits.numpy(), jlogits, 1e-5, f"step {t}")
     flat_w = jax.tree_util.tree_leaves_with_path(jcache)
     flat_g = list(tree.items(cache))
@@ -196,10 +203,18 @@ def assert_init_cache(arch, seq, want_keys):
 # trainer rounds with the reference's draws replayed
 # ---------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=None)
+def _tree_masks(mode, p, n):
+    """The reference's per-leaf mask draw, compiled once per setting (the
+    same bits as its eager form, without one compile per leaf)."""
+    return jax.jit(lambda k, t: jtl.tree_masks(k, t, mode=mode, p=p,
+                                               n=n)[0])
+
+
 def _reference_masks(key, h_local, cfg):
     _, _, k_c, _ = jax.random.split(key, 4)
-    masks, _ = jtl.tree_masks(k_c, h_local, mode=cfg.mode,
-                              p=cfg.compression, n=cfg.n_nodes)
+    masks = _tree_masks(cfg.mode, cfg.compression, cfg.n_nodes)(k_c,
+                                                                 h_local)
     return Draws(masks=port(masks))
 
 
@@ -220,25 +235,20 @@ def _assert_trees_close_of_max(got, want, frac, what):
                      f"{what} {name}")
 
 
-def assert_trainer_rounds(arch, use_kernel, rounds=2, seq=32, **cfg_kw):
-    """make_method + Driver on ``arch``'s smoke config (float32), n = 4,
-    DASHA-MVR with an SGD server, ``rounds`` rounds on the reference's
-    batches and masks replayed: x, g, g_local, h_local within 2e-4 of each
-    leaf's largest magnitude (``tests/test_torch_dense.py``'s bound);
-    with ``use_kernel`` kernel 3 (its plain version on the CPU) runs once
-    per parameter leaf a round."""
-    from repro_torch.kernels import ops
+def reference_trainer_rounds(arch, rounds=2, seq=32, use_kernel=False,
+                             **cfg_kw):
+    """The reference's side of :func:`assert_trainer_rounds` (its Pallas
+    kernel in interpret mode with ``use_kernel``), run once: its final
+    state, and what the port replays (its initial state, batches and
+    masks)."""
     jcfg, tcfg = f32_smoke(arch, **cfg_kw)
     kw = dict(gamma=0.05, compression=0.25, mode="independent",
-              variant="mvr", b=0.1, n_nodes=N_NODES, server_opt="sgd",
-              use_kernel=use_kernel)
-    jtc, ttc = jdist.DashaTrainConfig(**kw), tdist.DashaTrainConfig(**kw)
-    jmethod = jdist.make_method(jtc, lambda p, b: jlm.loss_fn(jcfg, p, b)[0])
-    tmethod = tdist.make_method(ttc, lambda p, b: tlm.loss_fn(tcfg, p, b)[0])
-    jstate = jmethod.init(j_init(jcfg, jax.random.PRNGKey(0)),
+              variant="mvr", b=0.1, n_nodes=N_NODES, server_opt="sgd")
+    jtc = jdist.DashaTrainConfig(use_kernel=use_kernel, **kw)
+    jmethod = jdist.make_method(jtc, lambda p, b: jlm.loss_fn(
+        jcfg, p, b, remat=False)[0])
+    jstate = jmethod.init(j_init_jit(jcfg, jax.random.PRNGKey(0)),
                           jax.random.PRNGKey(1), init_mode="zeros")
-    tstate = convert.tree_state_from_numpy(_state_arrays(jstate), seed=0,
-                                           device="cpu")
     text = JText(vocab_size=jcfg.vocab_size, seq_len=seq)
     data_key = jax.random.PRNGKey(2)
     batches, draws, key = [], [], jstate.key
@@ -251,6 +261,24 @@ def assert_trainer_rounds(arch, use_kernel, rounds=2, seq=32, **cfg_kw):
     jfinal, _ = JDriver(jmethod, data_fn=lambda k, t: j_node_batches(
         k, text, N_NODES, 2), chunk=rounds).run(jstate, rounds,
                                                 data_key=data_key)
+    return dict(tcfg=tcfg, kw=kw, rounds=rounds, jfinal=jfinal,
+                init=_state_arrays(jstate), batches=batches, draws=draws)
+
+
+def assert_port_trainer_rounds(ref, use_kernel):
+    """The port's side: make_method + Driver from the reference's initial
+    state on its batches and masks (``ref``, from
+    :func:`reference_trainer_rounds`): x, g, g_local, h_local within 2e-4
+    of each leaf's largest magnitude (``tests/test_torch_dense.py``'s
+    bound); with ``use_kernel`` kernel 3 (its plain version on the CPU)
+    runs once per parameter leaf a round."""
+    from repro_torch.kernels import ops
+    tcfg, rounds, draws, batches = (ref["tcfg"], ref["rounds"],
+                                    ref["draws"], ref["batches"])
+    ttc = tdist.DashaTrainConfig(use_kernel=use_kernel, **ref["kw"])
+    tmethod = tdist.make_method(ttc, lambda p, b: tlm.loss_fn(tcfg, p, b)[0])
+    tstate = convert.tree_state_from_numpy(ref["init"], seed=0,
+                                           device="cpu")
     calls = []
     real = ops.dasha_mvr_update
 
@@ -268,6 +296,7 @@ def assert_trainer_rounds(arch, use_kernel, rounds=2, seq=32, **cfg_kw):
             tstate, rounds, data_seed=0)
     finally:
         ops.dasha_mvr_update = real
+    jfinal = ref["jfinal"]
     for name in ("x", "g", "g_local", "h_local"):
         _assert_trees_close_of_max(getattr(tfinal, name),
                                    getattr(jfinal, name), 2e-4, name)
@@ -279,3 +308,12 @@ def assert_trainer_rounds(arch, use_kernel, rounds=2, seq=32, **cfg_kw):
     assert any(float((g - x0[p]).abs().max()) > 0
                for p, g in tree.items(tfinal.x))
     return tfinal
+
+
+def assert_trainer_rounds(arch, use_kernel, rounds=2, seq=32, **cfg_kw):
+    """make_method + Driver on ``arch``'s smoke config (float32), n = 4,
+    DASHA-MVR with an SGD server, ``rounds`` rounds on the reference's
+    batches and masks replayed, both packages on the kernel route or
+    both on the plain one (:func:`assert_port_trainer_rounds`)."""
+    return assert_port_trainer_rounds(reference_trainer_rounds(
+        arch, rounds, seq, use_kernel, **cfg_kw), use_kernel)
