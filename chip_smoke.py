@@ -86,7 +86,7 @@ Phases, each fatal on failure:
    (a) ``prefill_logits`` at batch 4 x 32,768 tokens, 1 warm-up + 2 timed
    calls and a profiled one (``ssd_chunk`` launches = 48 a call: the
    kernel's launches on the main path); (b) ``serve`` at batch 128, a
-   256-token prompt stepped through ``decode_step`` and 64 new tokens
+   128-token prompt stepped through ``decode_step`` and 64 new tokens
    (the recurrence, no kernel); (c) ``prefill_logits`` against the 512th
    decode step of ``serve`` on a 512-token prompt at batch 2 in float32;
 9. serve agreement — the smoke Mamba2 in float32 prefilled (kernel on
@@ -153,8 +153,8 @@ Phases, each fatal on failure:
     coords to eps; then kernel 1's sparsifier entry against its plain
     version at the sweep's (40, 20958) rows on the plan's 5 index rows,
     and the
-    port's fig1, fig5 and table1 at the reference's rounds, fig2 at a
-    quarter and fig3 at a twentieth of theirs (``FIG_ROUNDS_SCALE``), their
+    port's fig1, fig5 and table1 at the reference's rounds, fig2 at an
+    eighth and fig3 at a fortieth of theirs (``FIG_ROUNDS_SCALE``), their
     rows printed
     (gates: fig1's DASHA-over-MARINA speedup > 1, fig5's floor ordering);
 15. faulted campaigns at the real-sim width — ``repro_torch.fed.faults``
@@ -281,7 +281,7 @@ Phases, each fatal on failure:
     smoke trained on the card and the CPU with the same masks and
     batches, dasha / mvr x kernel off / on (planted: the next round's
     masks; the plain route's launches under (a)'s launch gate); (e)
-    Figure 4 (``repro_torch.bench.fig4_dnn``) at 20 of its 120 steps, each
+    Figure 4 (``repro_torch.bench.fig4_dnn``) at 12 of its 120 steps, each
     row with its wall seconds, and dasha_1/32's lowest- and highest-gamma
     lanes against sequential Driver runs (planted: each lane against the
     other's run).  ``DENSE_CUTS`` lists the cuts;
@@ -333,7 +333,32 @@ Phases, each fatal on failure:
     DASHA-MVR with kernel 3 once per parameter leaf a round and nothing
     else, and one forward and backward at full width cut to 7 layers
     (finite gradients, a non-zero gradient of the shared block).
-    ``HYBRID_CUTS`` lists the cuts.
+    ``HYBRID_CUTS`` lists the cuts;
+22. the cross-attention families, each cross block's gates set to 0.5
+    and -0.3 (they start at zero, where a cross block adds nothing): (a)
+    llama-3.2-vision-11b at full width and depth in bf16 (40 layers, 8
+    gated cross blocks to 1,601 image tokens a row): ``prefill_logits`` at
+    4 x 8,192 tokens beside its bf16 tensor-core bound, a prefill cut to 5
+    layers (one cross block) under the profiler, ``serve`` for one batch,
+    32 decode steps at batch 32 on 4,128 slots of random self K/V beside
+    the image K/V of each cross block (from ``make_image_kv``), beside the
+    bound of reading the weights and both caches once (gate: none of the
+    five kernels launches while serving); the smoke trainer, DASHA-MVR with
+    kernel 3 once per parameter leaf a round and nothing else; one forward
+    and backward at full width cut to 5 layers at 2 x 2,048 (finite
+    gradients, non-zero gradients of the gates and of a cross K
+    projection); (b) whisper-tiny at full width: ``serve`` at batch 128
+    with 1,500 frames through the encoder, a 384-token prompt and 64 new
+    tokens (Whisper's 448 positions), no kernel; the trainer at n = 4 x 2
+    x 448 tokens with the frames, kernel 3 once per leaf a round, its peak
+    reported; (c) card vs CPU at both smoke configs in float32 within
+    ``DENSE_AGREE_LIMIT``: prefill logits, 12 decode steps on the cross
+    K/V, trainer rounds on replayed masks with kernel 3 (or within 4 x the
+    CPU's own half-ulp spread, as 21e), planted: the gates zeroed on the
+    card, the VLM's cross block after ``idx % every == 0``, a
+    bidirectional whisper encoder, the next round's masks.
+    ``CROSS_CUTS`` lists the cuts, ``PHASE22_CUTS`` what earlier phases
+    gave up for it.
 
 Every phase that drives a main path zeroes the launch counters just before
 it and reads them just after; a kernel of that path that never launched
@@ -441,7 +466,9 @@ OFF_PATH_ENTRIES = {"dasha_update"}
 SPARSIFY_SPEEDUP_MIN = 2.0
 # the trainer: Mamba2-780M's widths, its tied embedding leaf, n = 4 nodes
 TRAIN_NODES, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 4, 16, 2, 512
-TRAIN_WARMUP, TRAIN_ROUNDS, TRAIN_PROFILED = 2, 10, 2
+# 6 timed rounds and one profiled (PR 26: 10 and 2), to make room for
+# phase 22 (``PHASE22_CUTS``)
+TRAIN_WARMUP, TRAIN_ROUNDS, TRAIN_PROFILED = 2, 6, 1
 # the trainers' largest leaves: Mamba2-780M's tied embedding, starcoder2-3b's
 # embedding (its lm_head is as large)
 D_EMBED, D_DENSE_EMBED = 50432 * 1536, 49152 * 3072
@@ -454,7 +481,9 @@ SSD_SHAPES = [(4, 32768, 48, 64, 128, 256), (2, 64, 8, 32, 16, 32),
               (1, 128, 4, 16, 8, 32), (2, 32, 3, 4, 5, 8)]
 SSD_LIMIT = 1e-4
 PREFILL_BATCH, PREFILL_SEQ, PREFILL_TIMED = 4, 32768, 2
-DECODE_BATCH, DECODE_PROMPT, DECODE_NEW, DECODE_PROFILED = 128, 256, 64, 4
+# a 128-token prompt (PR 26: 256; a Mamba2 step's time does not depend on
+# the position), to make room for phase 22
+DECODE_BATCH, DECODE_PROMPT, DECODE_NEW, DECODE_PROFILED = 128, 128, 64, 4
 PARITY_BATCH, PARITY_PROMPT, PARITY_LIMIT = 2, 512, 5e-3
 PROFILE_WARMUP_LAUNCHES, PROFILE_WARMUP_S = 32, 0.2
 PROFILE_RETRIES = 2
@@ -489,12 +518,13 @@ SWEEP_PEAK_GB, SWEEP_PROFILED = 8.0, 10
 SWEEP_FAST, SWEEP_FAST_MOVE, SWEEP_STATE_RTOL = 16, 1e-2, 1e-2
 SWEEP_STATE = ("x", "g", "g_local", "h_local")
 # the port's figures on the card: fig1, fig5 and table1 at the reference's
-# rounds; fig2 at a quarter of its rounds and fig3 at a twentieth (its
+# rounds; fig2 at an eighth of its rounds and fig3 at a fortieth (its
 # stochastic rounds draw every node's samples on the host: ~4 minutes at
-# full length; at half and a tenth they took 54 and 53 s on a slow host),
-# so that the whole script stays inside its time limit with phase 21
-FIG_ROUNDS_SCALE = {"fig1_gradient": 1.0, "fig2_finite_sum": 0.25,
-                    "fig3_stochastic": 0.05, "fig5_quadratic_pl": 1.0,
+# full length; at half and a tenth they took 54 and 53 s on a slow host,
+# at a quarter and a twentieth 17.5 and 20.4 s on a fast one), so that
+# the whole script stays inside its time limit with phases 21 and 22
+FIG_ROUNDS_SCALE = {"fig1_gradient": 1.0, "fig2_finite_sum": 0.125,
+                    "fig3_stochastic": 0.025, "fig5_quadratic_pl": 1.0,
                     "table1_complexity": 1.0}
 # the faulted campaigns (phase 15): benchmarks/fed_faults_bench.py's
 # configuration widened to real-sim's features — n = 20 clients (the
@@ -624,16 +654,16 @@ CKPT_CUTS = {
 # DENSE_PROFILED_LAYERS of its identical layers
 DENSE_LEAVES = 16
 DENSE_TRAIN_LAYERS, DENSE_TRAIN_WARMUP, DENSE_TRAIN_ROUNDS = 3, 2, 6
-DENSE_PREFILL_BATCH, DENSE_PREFILL_SEQ, DENSE_PREFILL_TIMED = 4, 8192, 2
+DENSE_PREFILL_BATCH, DENSE_PREFILL_SEQ, DENSE_PREFILL_TIMED = 4, 8192, 1
 DENSE_SERVE_PROMPT, DENSE_SERVE_NEW = 16, 16
 DENSE_DECODE_BATCH, DENSE_DECODE_STEPS, DENSE_DECODE_PROFILED = 128, 32, 4
 DENSE_AGREE_LIMIT, DENSE_AGREE_STREAM_SEQ = 1e-4, 2048
 DENSE_DECODE_AGREE_STEPS, DENSE_AGREE_ROUNDS = 24, 3
 FIG4_LANE_RTOL, FIG4_LOSS_RTOL, FIG4_CHECKED_LANES = 1e-2, 1e-3, (0, 2)
 # Figure 4's 120 host-bound steps took 95-131 s on the card (40 steps
-# 38-51 s); a sixth of them keeps its rows and its lane gate at the same
-# count
-FIG4_STEPS = 20
+# 38-51 s, 20 steps 20.3 s); a tenth of them keeps its rows and its lane
+# gate at the same count
+FIG4_STEPS = 12
 DENSE_PROFILED_LAYERS = 2
 DENSE_CUTS = {
     "trainer_layers": "starcoder2-3b's 30 layers cut to 3 for the trainer: "
@@ -644,8 +674,11 @@ DENSE_CUTS = {
     "decode_history": "the 4,096-slot ring filled with random K/V in place "
                       "of 4,096 prompt steps (a step's time does not depend "
                       "on the values)",
-    "fig4_steps": "Figure 4 at 20 of its 120 steps (rows and the lane "
-                  "gate at the same count), to make room for phase 21",
+    "fig4_steps": "Figure 4 at 12 of its 120 steps (rows and the lane "
+                  "gate at the same count), to make room for phases 21 and "
+                  "22",
+    "prefill_timed": "one timed prefill call after the warm-up (PR 26: "
+                     "two), to make room for phase 22",
 }
 
 # gemma3's grouped stack and the MoE family (phase 20): each model at full
@@ -704,7 +737,7 @@ FAMILY_CUTS = {
 # at the smoke config (HYBRID_LEAVES parameter leaves), the full-width
 # backward cut to HYBRID_GRAD_LAYERS; card vs CPU at the smoke config
 HYBRID_ARCH = "zamba2-1.2b"
-HYBRID_PREFILL_BATCH, HYBRID_PREFILL_SEQ, HYBRID_PREFILL_TIMED = 4, 8192, 2
+HYBRID_PREFILL_BATCH, HYBRID_PREFILL_SEQ, HYBRID_PREFILL_TIMED = 4, 8192, 1
 HYBRID_PROFILED_LAYERS = 7
 HYBRID_SERVE_BATCH, HYBRID_SERVE_PROMPT, HYBRID_SERVE_NEW = 128, 16, 16
 HYBRID_DECODE_BATCH, HYBRID_DECODE_T0 = 128, 4096
@@ -730,6 +763,58 @@ HYBRID_CUTS = {
                "zamba2's 1.10B; full width is one forward and backward cut "
                "to 7 of 38 layers (two uses of the shared block)",
     "profiled_prefill": "the profiled prefill cut to 7 of 38 layers",
+    "prefill_timed": "one timed prefill call after the warm-up (PR 26: "
+                     "two), to make room for phase 22",
+}
+
+# the cross-attention families (phase 22): llama-3.2-vision-11b at full
+# width and depth in bf16 (40 layers, 8 cross blocks, 1,601 image tokens,
+# every cross block's gates at CROSS_GATES: they start at zero, where a
+# cross block adds nothing): a CROSS_PREFILL_BATCH x CROSS_PREFILL_SEQ
+# prefill, a profiled prefill cut to CROSS_PROFILED_LAYERS layers (one
+# cross block), serve for one batch, phase 20's decode steps and slots at
+# CROSS_DECODE_BATCH; its smoke trainer (CROSS_LEAVES parameter leaves)
+# and the full-width backward cut to CROSS_GRAD_LAYERS; whisper-tiny at
+# full width: serve at WHISPER_SERVE_BATCH up to Whisper's 448 positions,
+# the trainer at n = 4 x 2 x WHISPER_TRAIN_SEQ tokens with 1,500 frames;
+# card vs CPU at both smoke configs (CROSS_AGREE_STEPS decode steps,
+# CROSS_AGREE_ROUNDS trainer rounds)
+CROSS_VLM, CROSS_AUDIO = "llama-3.2-vision-11b", "whisper-tiny"
+CROSS_GATES = (0.5, -0.3)
+CROSS_LEAVES = {CROSS_VLM: 23, CROSS_AUDIO: 36}
+CROSS_PREFILL_BATCH, CROSS_PREFILL_SEQ, CROSS_PROFILED_LAYERS = 4, 8192, 5
+CROSS_SERVE_BATCH, CROSS_SERVE_PROMPT, CROSS_SERVE_NEW = 4, 8, 8
+CROSS_DECODE_BATCH, CROSS_TRAIN_ROUNDS = 32, 4
+CROSS_GRAD_LAYERS, CROSS_GRAD_BATCH, CROSS_GRAD_SEQ = 5, 2, 2048
+WHISPER_SERVE_BATCH, WHISPER_SERVE_PROMPT, WHISPER_SERVE_NEW = 128, 384, 64
+WHISPER_TRAIN_SEQ, WHISPER_TRAIN_WARMUP, WHISPER_TRAIN_ROUNDS = 448, 2, 2
+CROSS_AGREE_STEPS, CROSS_AGREE_ROUNDS = 12, 2
+CROSS_CUTS = {
+    "vlm_trainer": "the VLM's trainer at its smoke config: n = 4 nodes of "
+                   "fp32 state and the round's per-node trees take ~105 "
+                   "bytes a parameter (62.19 GB at starcoder2's 589.9M, "
+                   "phase 19), ~1.2 TB at 11.52B; full width is one forward "
+                   "and backward cut to 5 of 40 layers (one cross block)",
+    "decode_history": "the 4,128-slot self K/V caches filled with random "
+                      "values in place of 4,080 prompt steps (a step's time "
+                      "does not depend on the values); the image K/V made "
+                      "by make_image_kv from random image embeddings",
+    "prefill_timed": "one timed prefill call after a warm-up cut to 5 "
+                     "layers; the decode not profiled",
+    "profiled_prefill": "the profiled prefill cut to 5 of 40 layers",
+}
+# what the earlier phases gave up for phase 22, each beside its seconds
+# in PR 26's run 4 (per-unit time x units cut)
+PHASE22_CUTS = {
+    "phase 5": "6 timed rounds of 10 (4 x 0.978 s) and 1 profiled round of "
+               "2 (1.88 s of window, and its tables)",
+    "phase 8": "a 128-token serve prompt of 256 (128 x 50.93 ms)",
+    "phase 14": "fig2 at 1/8 of its rounds (1/4: 17.53 s), fig3 at 1/40 "
+                "(1/20: 20.35 s)",
+    "phase 19": "Figure 4 at 12 steps of 20 (8 x 1.017 s), one timed "
+                "prefill of 2 (3.40 s), one profiled trainer round of 2 "
+                "(0.33 s of window)",
+    "phase 21": "one timed prefill of 2 (1.70 s)",
 }
 
 
@@ -768,11 +853,20 @@ def bound(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def device_kernels(torch, prof):
+def device_kernels(torch, prof, raw: bool = False):
     """Device time (us) and count of every CUDA kernel in a profile, but
-    the warm-up's spin kernels."""
+    the warm-up's spin kernels.  ``raw`` sums the profiler's device
+    events by name without building its event tree (the same table, in
+    less time)."""
     from torch.autograd import DeviceType
     out = {}
+    if raw:
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == DeviceType.CUDA and \
+                    "spin_kernel" not in e.name():
+                c, us = out.get(e.name(), (0, 0.0))
+                out[e.name()] = (c + 1, us + e.duration_ns() / 1e3)
+        return out
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key:
             us = getattr(e, "self_device_time_total", None)
@@ -782,15 +876,20 @@ def device_kernels(torch, prof):
     return out
 
 
-def profiled(torch, fn):
+def profiled(torch, fn, cpu: bool = True):
     """Run ``fn`` under torch.profiler: (kernel table, wall seconds).  The
     profiler records no launch of its first moments (without a warm-up, a
     window of one call recorded none, and one of 20 short calls 13), so
     a few spin kernels and a pause come first, outside the wall and the
-    table."""
+    table.  ``cpu=False`` records the device activity only and sums its
+    events by name: the host's op events and the profiler's event tree
+    are most of what the tables take to build (a window of 20,364
+    launches took 31 s with them, 16 s with the tree alone)."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if cpu:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         for _ in range(PROFILE_WARMUP_LAUNCHES):
             torch.cuda._sleep(1000)
         torch.cuda.synchronize()
@@ -799,7 +898,7 @@ def profiled(torch, fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return device_kernels(torch, prof), wall
+    return device_kernels(torch, prof, raw=not cpu), wall
 
 
 def kernel_device_ms(torch, fn, names, reps: int = 20,
@@ -2058,7 +2157,7 @@ def phase_serve(torch, smi: str):
     del logits, tokens
     torch.cuda.empty_cache()
 
-    # (b) serve: a 256-token prompt stepped through decode_step, 64 new
+    # (b) serve: a 128-token prompt stepped through decode_step, 64 new
     # (the recurrence: no ssd_chunk launch)
     args = S.build_parser().parse_args([
         "--batch", str(DECODE_BATCH), "--prompt-len", str(DECODE_PROMPT),
@@ -6318,22 +6417,24 @@ def _family_prefill(torch, smi: str, cfg, params, n_params: int, tag: str,
 
 
 def _family_decode(torch, smi: str, cfg, params, batch: int, tag: str,
-                   t0: int, bound, profile: bool = True):
+                   t0: int, bound, profile: bool = True, cache_kw=None):
     """FAMILY_DECODE_STEPS decode steps at ``batch`` from position ``t0``
     on a FAMILY_DECODE_SLOTS-slot cache holding a random history
     (gemma3's 1,024-slot local rings wrap at 4,096 on the way from
     FAMILY_DECODE_T0), then, with ``profile``, FAMILY_DECODE_PROFILED steps
     under the profiler.  ``bound(cache, t_mean)`` gives the least time of
-    a step: ((ms, by), bytes)."""
+    a step: ((ms, by), bytes).  ``cache_kw`` goes to ``lm.init_cache``
+    (the cross families' cross K/V, which keeps its values: only the
+    self K/V under ``kv`` is filled)."""
     from repro_torch.core import tree
     from repro_torch.launch import serve as S
     from repro_torch.models import lm
 
     T = FAMILY_DECODE_SLOTS
-    cache = lm.init_cache(cfg, batch, T, device="cuda")
+    cache = lm.init_cache(cfg, batch, T, device="cuda", **(cache_kw or {}))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
-    for c in tree.leaves(cache):
+    for c in tree.leaves(cache["kv"] if "cross" in cache else cache):
         c.normal_(generator=gen)
     tok = torch.randint(1, cfg.vocab_size, (batch,), device="cuda",
                         generator=gen)
@@ -7040,16 +7141,15 @@ def _hybrid_trainer(torch, smi: str):
 
 
 @contextlib.contextmanager
-def _hybrid_slot_fault(slot):
-    """``lm._hybrid_slot`` replaced by ``slot`` (a planted fault) inside
-    the block."""
-    from repro_torch.models import lm
-    real = lm._hybrid_slot
-    lm._hybrid_slot = slot
+def _patched(obj, name: str, value):
+    """``obj.name`` replaced by ``value`` (a planted fault) inside the
+    block."""
+    real = getattr(obj, name)
+    setattr(obj, name, value)
     try:
         yield
     finally:
-        lm._hybrid_slot = real
+        setattr(obj, name, real)
 
 
 def _hybrid_model_agreement(torch):
@@ -7083,8 +7183,8 @@ def _hybrid_model_agreement(torch):
                        {"ssd_chunk": cfg.num_layers})
         errs[name] = _rel_gap(got, want)
         if name == "prefill_dense":
-            with _hybrid_slot_fault(lambda c, idx: idx // every
-                                    if idx % every == every - 1 else None):
+            with _patched(lm, "_hybrid_slot", lambda c, idx: idx // every
+                          if idx % every == every - 1 else None):
                 planted["shared block at idx % every == every - 1"] = \
                     _rel_gap(S.prefill_logits(cfg, dev_params,
                                               tok.to("cuda")), want)
@@ -7101,9 +7201,9 @@ def _hybrid_model_agreement(torch):
                                     tok[:, t].to("cuda"), t)
             err = max(err, _rel_gap(got, want))
             if shifted is not None:
-                with _hybrid_slot_fault(lambda c, idx: (idx // every + 1)
-                                        % uses if idx % every == 0
-                                        else None):
+                with _patched(lm, "_hybrid_slot", lambda c, idx: (
+                        idx // every + 1) % uses if idx % every == 0
+                        else None):
                     bad, _ = lm.decode_step(cfg, dev_params, shifted,
                                             tok[:, t].to("cuda"), t)
                 fault = max(fault, _rel_gap(bad, want))
@@ -7233,6 +7333,627 @@ def phase_hybrid(torch, smi: str):
             {"ssd_chunk": k5, "dasha_mvr_update": k3}, ssd_rows)
 
 
+def _cross_n(cfg) -> int:
+    """Cross blocks: one per cross_attn_every layers (VLM), one per
+    decoder layer (whisper)."""
+    if cfg.arch_type == "vlm":
+        return cfg.num_layers // cfg.cross_attn_every
+    return cfg.num_layers
+
+
+def _cross_kv_weights(params) -> float:
+    """The cross blocks' K and V projections: run once a prefill per
+    image token (and never in decode, which reads the cross K/V)."""
+    attn = params["cross_layers"]["attn"]
+    return float(attn["wk"].numel() + attn["wv"].numel())
+
+
+def _gate_cross_blocks(params):
+    """Every cross block's gates set to CROSS_GATES in place (they
+    start at zero, where a cross block adds nothing)."""
+    for name, value in zip(("attn_gate", "mlp_gate"), CROSS_GATES):
+        params["cross_layers"][name].fill_(value)
+    return params
+
+
+def cross_prefill_bound(cfg, params, batch: int, seq: int, n_img: int,
+                        n_params: int):
+    """The least time of the VLM's last-position prefill: the bf16
+    tensor-core operations of every token through the self layers and
+    the cross blocks' query side (q, o, the MLP), of every image token
+    through the cross K and V projections, each layer's causal attention
+    over the keys each query sees, each cross block's attention over
+    every image token, and the head at the last position; against
+    reading the weights once.  Returns ((ms, by), flops)."""
+    tokens = batch * seq
+    kv_w = _cross_kv_weights(params)
+    per_key = 4.0 * cfg.head_dim * cfg.num_heads
+    flops = (2 * _numel(params["layers"]) * tokens
+             + 2 * (_numel(params["cross_layers"]) - kv_w) * tokens
+             + 2 * kv_w * batch * n_img
+             + cfg.num_layers * per_key * batch * seq * (seq + 1) / 2
+             + _cross_n(cfg) * per_key * tokens * n_img
+             + 2 * batch * cfg.d_model * cfg.padded_vocab)
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_bytes = 2 * n_params / HBM_BYTES_PER_S * 1e3
+    return ((t_ops, "operations") if t_ops >= t_bytes else
+            (t_bytes, "bytes")), flops
+
+
+def cross_decode_bound(cfg, params, cache, batch: int, t_mean: float,
+                       n_params: int):
+    """The least time of one VLM decode step at position ~``t_mean``:
+    read the weights once (the embedding only at the batch's rows; the
+    cross K and V projections not at all: decode reads the cross K/V),
+    the self K/V up to the position, write one slot, and read the image
+    K/V once; its bf16 operations beside it.  Returns ((ms, by),
+    bytes)."""
+    embed = cfg.padded_vocab * cfg.d_model
+    kv_w = _cross_kv_weights(params)
+    slot = 2 * cfg.num_kv_heads * cfg.head_dim                  # K and V
+    n_img = cache["cross"]["k"].shape[2]
+    cross_bytes = sum(c.numel() * c.element_size()
+                      for c in cache["cross"].values())
+    nbytes = (2 * (n_params - embed - kv_w + batch * cfg.d_model)
+              + 2 * slot * batch * cfg.num_layers * (t_mean + 2)
+              + cross_bytes)
+    per_key = 4.0 * cfg.head_dim * cfg.num_heads
+    flops = (2 * (n_params - embed - kv_w + cfg.padded_vocab * cfg.d_model)
+             * batch
+             + cfg.num_layers * per_key * (t_mean + 1) * batch
+             + _cross_n(cfg) * per_key * n_img * batch)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops else
+            (t_ops, "operations")), nbytes
+
+
+def _cross_cut(cfg, params, layers: int):
+    """The VLM cut to its first ``layers`` layers and the cross blocks
+    they hold (5 layers: one cross block, after the fifth)."""
+    from repro_torch.core import tree
+    cut = dataclasses.replace(cfg, num_layers=layers)
+    n = _cross_n(cut)
+    return cut, dict(params, layers=tree.map_leaves(
+        lambda w: w[:layers], params["layers"]),
+        cross_layers=tree.map_leaves(lambda w: w[:n],
+                                     params["cross_layers"]))
+
+
+def _cross_prefill(torch, smi: str, cfg, params, n_params: int):
+    """22a: one timed ``prefill_logits`` call of CROSS_PREFILL_BATCH x
+    CROSS_PREFILL_SEQ tokens with the image tokens of each row, beside
+    its bf16 bound, after a warm-up call cut to CROSS_PROFILED_LAYERS
+    layers (one cross block: the same shapes a layer); then that cut
+    call under the profiler, device activity only."""
+    from repro_torch.data.pipeline import (SyntheticTextConfig, make_lm_batch,
+                                           modality_kw)
+    from repro_torch.launch import serve as S
+
+    B, T = CROSS_PREFILL_BATCH, CROSS_PREFILL_SEQ
+    batch = make_lm_batch(1, SyntheticTextConfig(vocab_size=cfg.vocab_size,
+                                                 seq_len=T), B,
+                          device="cuda", **modality_kw(cfg))
+    tokens, img = batch["tokens"], batch["image_embeds"]
+    n = CROSS_PROFILED_LAYERS
+    cut, cut_params = _cross_cut(cfg, params, n)
+    S.prefill_logits(cut, cut_params, tokens, image_embeds=img)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits = S.prefill_logits(cfg, params, tokens, image_embeds=img)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if tuple(logits.shape) != (B, 1, cfg.padded_vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"[cross] prefill logits {tuple(logits.shape)} "
+                             "misshapen or not finite")
+    n_img = cfg.num_image_tokens
+    (b_ms, by), flops = cross_prefill_bound(cfg, params, B, T, n_img,
+                                            n_params)
+    t1 = time.perf_counter()
+    table, pwall = profiled(torch, lambda: S.prefill_logits(
+        cut, cut_params, tokens, image_embeds=img), cpu=False)
+    busy_s = sum(t for _, t in table.values()) / 1e6
+    out = {"batch": B, "seq": T, "image_tokens": n_img, "wall_s": wall,
+           "tokens_per_s": B * T / wall, "peak_mem_gb": peak / 1e9,
+           "bound_ms": b_ms, "bound_by": by, "flops": flops,
+           "bound_share": b_ms / (wall * 1e3),
+           "profile": {"layers": n, "cross_blocks": _cross_n(cut),
+                       "wall_s": pwall,
+                       "with_tables_s": time.perf_counter() - t1,
+                       "device_busy_s": busy_s, "busy_share": busy_s / pwall,
+                       "launches": sum(c for c, _ in table.values()),
+                       "top_kernels": _top(table, 10)}}
+    log(f"[cross] prefill {B} x {T} with {n_img} image tokens a row in "
+        f"{wall:.3f} s, {B * T / wall:.0f} tokens/s, peak {peak / 1e9:.2f} "
+        f"GB, bound {b_ms:.1f} ms ({by}, {flops / 1e12:.1f} TFLOP at the "
+        f"bf16 rate, {out['bound_share']:.3f} of it); a profiled call of {n} "
+        f"layers ({_cross_n(cut)} cross block) {pwall:.3f} s, device busy "
+        f"{busy_s / pwall:.3f} | {smi}")
+    for k, c, ms in out["profile"]["top_kernels"]:
+        log(f"[cross]   {ms:9.3f} ms  x{c:<5d} {k}")
+    del logits, tokens, img, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def _cross_vlm_serve(torch, smi: str):
+    """22a: llama-3.2-vision-11b at full width and depth in bf16 (40
+    layers, 8 cross blocks, gates at CROSS_GATES): the prefill, ``serve``
+    for one request batch, and decode steps at CROSS_DECODE_BATCH on
+    FAMILY_DECODE_SLOTS slots of random self K/V beside the image K/V of
+    each cross block; no hand-written kernel may launch."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import (SyntheticTextConfig, make_lm_batch,
+                                           modality_kw)
+    from repro_torch.launch import serve as S
+    from repro_torch.models import init_params, lm
+
+    cfg = get_config(CROSS_VLM)
+    _reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = _gate_cross_blocks(init_params(cfg, 0, device="cuda"))
+    torch.cuda.synchronize()
+    n_params = int(_numel(params))
+    out = {"arch": CROSS_VLM, "layers": cfg.num_layers,
+           "cross_blocks": _cross_n(cfg), "params": n_params,
+           "params_gb": 2 * n_params / 1e9,
+           "init_s": time.perf_counter() - t0, "gates": CROSS_GATES,
+           "card": smi}
+    log(f"[cross {CROSS_VLM}] {cfg.num_layers} layers, {_cross_n(cfg)} cross "
+        f"blocks, {n_params / 1e9:.3f}B params ({2 * n_params / 1e9:.2f} GB "
+        f"bf16) in {out['init_s']:.1f} s")
+    walls = out["walls_s"] = {}
+    t0 = time.perf_counter()
+    out["prefill"] = _cross_prefill(torch, smi, cfg, params, n_params)
+    walls["prefill"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    args = S.build_parser().parse_args([
+        "--arch", CROSS_VLM, "--batch", str(CROSS_SERVE_BATCH),
+        "--prompt-len", str(CROSS_SERVE_PROMPT), "--new-tokens",
+        str(CROSS_SERVE_NEW)])
+    res = S.serve(cfg, args, device="cuda", params=params, log=log)
+    torch.cuda.synchronize()
+    if res.tokens.shape != (CROSS_SERVE_BATCH, CROSS_SERVE_NEW) or \
+            not ((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all():
+        raise AssertionError(f"[cross] serve tokens {res.tokens.shape} "
+                             "misshapen or out of the vocabulary")
+    out["serve"] = {"batch": CROSS_SERVE_BATCH, "prompt": CROSS_SERVE_PROMPT,
+                    "new": CROSS_SERVE_NEW,
+                    "prompt_ms_per_step":
+                        res.prefill_s / CROSS_SERVE_PROMPT * 1e3,
+                    "decode_ms_per_step":
+                        res.decode_s / CROSS_SERVE_NEW * 1e3,
+                    "first_row": res.tokens[0].tolist()}
+    del res
+    walls["serve"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    batch = CROSS_DECODE_BATCH
+    img = make_lm_batch(2, SyntheticTextConfig(vocab_size=cfg.vocab_size,
+                                               seq_len=1), batch,
+                        device="cuda", **modality_kw(cfg))["image_embeds"]
+    image_kv = lm.make_image_kv(cfg, params, img, device="cuda")
+    del img
+    out["decode"] = _family_decode(
+        torch, smi, cfg, params, batch, f"cross {CROSS_VLM}",
+        FAMILY_DECODE_T0, lambda cache, t: cross_decode_bound(
+            cfg, params, cache, batch, t, n_params), profile=False,
+        cache_kw={"image_kv": image_kv})
+    out["decode"]["image_kv_gb"] = sum(
+        c.numel() * c.element_size() for c in image_kv.values()) / 1e9
+    walls["decode"] = time.perf_counter() - t0
+    counts = _launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"[cross] serving launched hand-written "
+                             f"kernels: {counts}")
+    out["launches"] = counts
+    del params, image_kv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _cross_vlm_train(torch, smi: str):
+    """22a: ``launch.train.train`` at the VLM's smoke config (bf16),
+    DASHA-MVR with kernel 3 once per parameter leaf a round and nothing
+    else; then one ``lm.loss_fn`` forward and backward at full width cut
+    to CROSS_GRAD_LAYERS layers (one cross block, gates at CROSS_GATES)
+    with the image tokens: every gradient finite, the gates' non-zero.
+    Returns the report and kernel 3's launches."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.core import tree
+    from repro_torch.data.pipeline import (SyntheticTextConfig, make_lm_batch,
+                                           modality_kw)
+    from repro_torch.launch.train import train
+    from repro_torch.models import init_params, lm
+
+    cfg = get_smoke_config(CROSS_VLM)
+    args = _train_args(["--arch", CROSS_VLM, "--steps",
+                        str(CROSS_TRAIN_ROUNDS), "--log-every",
+                        str(CROSS_TRAIN_ROUNDS // 2), "--variant", "mvr",
+                        "--use-kernel"])
+    _reset_launch_counts()
+    res = train(cfg, args, device="cuda", log=log)
+    torch.cuda.synchronize()
+    counts = _launch_counts()
+    leaves = len(tree.leaves(res.state.x))
+    if leaves != CROSS_LEAVES[CROSS_VLM]:
+        raise AssertionError(f"[cross-train] {leaves} parameter leaves, "
+                             f"expected {CROSS_LEAVES[CROSS_VLM]}")
+    _gate_launches("cross-train vlm smoke", counts, {
+        "dasha_mvr_update": leaves * CROSS_TRAIN_ROUNDS})
+    losses = [c["loss"] for c in res.chunks]
+    if not all(math.isfinite(v) for v in [res.loss0] + losses):
+        raise AssertionError(f"[cross-train] eval loss {res.loss0} -> "
+                             f"{losses}")
+    out = {"config": cfg.name, "params": res.n_params, "leaves": leaves,
+           "rounds": CROSS_TRAIN_ROUNDS, "launches": counts,
+           "eval_loss_start": res.loss0, "eval_loss_end": losses[-1],
+           "seconds": [c["seconds"] for c in res.chunks]}
+    del res
+
+    cfg = dataclasses.replace(get_config(CROSS_VLM),
+                              num_layers=CROSS_GRAD_LAYERS)
+    params = _gate_cross_blocks(init_params(cfg, 0, device="cuda"))
+    for w in tree.leaves(params):
+        w.requires_grad_(True)
+    batch = make_lm_batch(3, SyntheticTextConfig(
+        vocab_size=cfg.vocab_size, seq_len=CROSS_GRAD_SEQ),
+        CROSS_GRAD_BATCH, device="cuda", **modality_kw(cfg))
+    walls = []
+    for _ in range(2):                              # warm-up, then timed
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, _ = lm.loss_fn(cfg, params, batch)
+        grads = torch.autograd.grad(loss, tree.leaves(params))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    g = dict(zip([p for p, _ in tree.items(params)], grads))
+    bad = [p for p, v in g.items() if not bool(torch.isfinite(v).all())]
+    gates = {p: float(g[f"cross_layers/{p}"].abs().max())
+             for p in ("attn_gate", "mlp_gate")}
+    cross_w = float(g["cross_layers/attn/wk"].abs().max())
+    loss = float(loss.detach())
+    if bad or not min(gates.values()) > 0 or not cross_w > 0 or \
+            not math.isfinite(loss):
+        raise AssertionError(f"[cross-grad] loss {loss}, gradients not "
+                             f"finite: {bad}, gates |g| {gates}, cross wk "
+                             f"|g| {cross_w}")
+    n_params = _numel(params)
+    out["grad"] = {"arch": CROSS_VLM, "layers": CROSS_GRAD_LAYERS,
+                   "of_layers": 40, "cross_blocks": _cross_n(cfg),
+                   "params": int(n_params), "batch": CROSS_GRAD_BATCH,
+                   "seq": CROSS_GRAD_SEQ,
+                   "image_tokens": cfg.num_image_tokens, "walls_s": walls,
+                   "peak_mem_gb": peak, "loss": loss,
+                   "gate_grad_max": gates, "cross_wk_grad_max": cross_w,
+                   "card": smi}
+    log(f"[cross-grad] {CROSS_VLM} {CROSS_GRAD_LAYERS}/40 layers "
+        f"({_cross_n(cfg)} cross block), {n_params / 1e9:.3f}B params, bf16, "
+        f"batch {CROSS_GRAD_BATCH} x {CROSS_GRAD_SEQ} with "
+        f"{cfg.num_image_tokens} image tokens: forward + backward "
+        f"{walls[-1]:.3f} s (first {walls[0]:.3f}), peak {peak:.2f} GB, loss "
+        f"{loss:.4f}, every gradient finite, gates |g| {gates}, cross wk |g| "
+        f"{cross_w:.3g} | {smi}")
+    del params, grads, g, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, counts["dasha_mvr_update"]
+
+
+def _cross_whisper(torch, smi: str):
+    """22b: whisper-tiny at full width and depth: ``serve`` at
+    WHISPER_SERVE_BATCH with its frames through the encoder, a
+    WHISPER_SERVE_PROMPT-token prompt and WHISPER_SERVE_NEW new tokens
+    (Whisper's 448 positions), no hand-written kernel launched; then
+    ``launch.train.train`` at full width, n = 4 x 2 x WHISPER_TRAIN_SEQ
+    tokens with the frames, DASHA-MVR with kernel 3 once per parameter
+    leaf a round and nothing else, the peak reported.  Returns the report
+    and kernel 3's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree
+    from repro_torch.launch import serve as S
+    from repro_torch.launch.train import build_parser, train
+    from repro_torch.models import init_params
+
+    cfg = get_config(CROSS_AUDIO)
+    params = _gate_cross_blocks(init_params(cfg, 0, device="cuda"))
+    B, P, N = WHISPER_SERVE_BATCH, WHISPER_SERVE_PROMPT, WHISPER_SERVE_NEW
+    args = S.build_parser().parse_args([
+        "--arch", CROSS_AUDIO, "--batch", str(B), "--prompt-len", str(P),
+        "--new-tokens", str(N)])
+    _reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = S.serve(cfg, args, device="cuda", params=params, log=log)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"[cross-whisper] serving launched hand-written "
+                             f"kernels: {counts}")
+    if res.tokens.shape != (B, N) or res.state.t != P + N or \
+            not ((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all():
+        raise AssertionError(f"[cross-whisper] serve tokens "
+                             f"{res.tokens.shape} at t = {res.state.t} "
+                             "misshapen or out of the vocabulary")
+    serve = {"batch": B, "frames": cfg.num_audio_frames, "prompt": P,
+             "new": N, "positions": P + N, "wall_s": wall,
+             "prompt_ms_per_step": res.prefill_s / P * 1e3,
+             "decode_ms_per_step": res.decode_s / N * 1e3,
+             "decode_tokens_per_s": B * N / res.decode_s,
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "launches": counts, "first_row": res.tokens[0].tolist()}
+    log(f"[cross-whisper] serve batch {B}, {cfg.num_audio_frames} frames "
+        f"through the encoder, {P}-token prompt + {N} new ({P + N} "
+        f"positions): {wall:.2f} s, prompt {serve['prompt_ms_per_step']:.2f} "
+        f"ms a step, decode {serve['decode_ms_per_step']:.2f} ms a step "
+        f"({serve['decode_tokens_per_s']:.0f} tokens/s), peak "
+        f"{serve['peak_mem_gb']:.2f} GB, no kernel | {smi}")
+    del res, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rounds = WHISPER_TRAIN_WARMUP + WHISPER_TRAIN_ROUNDS
+    targs = build_parser().parse_args([
+        "--arch", CROSS_AUDIO, "--nodes", str(TRAIN_NODES), "--batch",
+        str(TRAIN_BATCH), "--seq", str(WHISPER_TRAIN_SEQ), "--server-opt",
+        "adam", "--steps", str(rounds), "--log-every",
+        str(WHISPER_TRAIN_WARMUP), "--variant", "mvr", "--use-kernel"])
+    _reset_launch_counts()
+    res = train(cfg, targs, device="cuda", log=log)
+    torch.cuda.synchronize()
+    counts = _launch_counts()
+    leaves = len(tree.leaves(res.state.x))
+    if leaves != CROSS_LEAVES[CROSS_AUDIO]:
+        raise AssertionError(f"[cross-whisper] {leaves} parameter leaves, "
+                             f"expected {CROSS_LEAVES[CROSS_AUDIO]}")
+    _gate_launches("cross-whisper trainer", counts,
+                   {"dasha_mvr_update": leaves * rounds})
+    losses = [c["loss"] for c in res.chunks]
+    if not all(math.isfinite(v) for v in [res.loss0] + losses):
+        raise AssertionError(f"[cross-whisper] eval loss {res.loss0} -> "
+                             f"{losses}")
+    timed = res.chunks[1:]                      # the first chunk warms up
+    twall = sum(c["seconds"] for c in timed)
+    tokens = TRAIN_NODES * TRAIN_BATCH * WHISPER_TRAIN_SEQ
+    trainer = {"arch": CROSS_AUDIO, "params": res.n_params, "leaves": leaves,
+               "nodes": TRAIN_NODES, "batch": TRAIN_BATCH,
+               "seq": WHISPER_TRAIN_SEQ, "frames": cfg.num_audio_frames,
+               "rounds": rounds, "rounds_timed": WHISPER_TRAIN_ROUNDS,
+               "rounds_per_s": WHISPER_TRAIN_ROUNDS / twall,
+               "tokens_per_s": WHISPER_TRAIN_ROUNDS * tokens / twall,
+               "peak_mem_gb": max(c["peak_mem_gb"] for c in res.chunks),
+               "eval_loss_start": res.loss0, "eval_loss_end": losses[-1],
+               "launches": counts, "chunks": res.chunks}
+    log(f"[cross-whisper] trainer at full width ({res.n_params / 1e6:.2f}M "
+        f"params, {leaves} leaves), n = {TRAIN_NODES} x {TRAIN_BATCH} x "
+        f"{WHISPER_TRAIN_SEQ} tokens with {cfg.num_audio_frames} frames: "
+        f"{trainer['rounds_per_s']:.3f} rounds/s, "
+        f"{trainer['tokens_per_s']:.0f} tokens/s, peak "
+        f"{trainer['peak_mem_gb']:.2f} GB, eval loss {res.loss0:.4f} -> "
+        f"{losses[-1]:.4f}, launches {counts} | {smi}")
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"serve": serve, "trainer": trainer}, counts["dasha_mvr_update"]
+
+
+def _bidirectional_encoder(torch):
+    """A planted fault: the whisper encoder with every frame attending to
+    every frame (the mask all-true inside ``lm._encoder_forward``; the
+    reference's encoder attends causally)."""
+    from repro_torch.models import attention, lm
+    real = lm._encoder_forward
+
+    def encoder(cfg, params, frames):
+        with _patched(attention, "_causal_window_mask",
+                      lambda q, k, w: torch.ones(
+                          (q.shape[0], k.shape[0]), dtype=torch.bool,
+                          device=q.device)):
+            return real(cfg, params, frames)
+    return _patched(lm, "_encoder_forward", encoder)
+
+
+def _cross_smoke(torch, arch: str):
+    """The float32 smoke config of ``arch``, its CPU params with gated
+    cross blocks, and the modality keyword of its inputs."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    key = "image_embeds" if cfg.arch_type == "vlm" else "frames"
+    return cfg, _gate_cross_blocks(init_params(cfg, 0, device="cpu")), key
+
+
+def _cross_model_agreement(torch):
+    """22c: the two smoke configs in float32 with gated cross blocks, on
+    the card and on the CPU, the same params, tokens and modality inputs:
+    prefill logits (64 tokens) and CROSS_AGREE_STEPS teacher-forced decode
+    steps on the cross K/V made by ``make_image_kv`` / ``make_enc_kv``,
+    each within DENSE_AGREE_LIMIT of the largest CPU logit.  Planted
+    faults that must fail it: the gates zeroed on the card, the VLM's
+    cross block after ``idx % every == 0``, a bidirectional encoder."""
+    from repro_torch.core import tree
+    from repro_torch.launch import serve as S
+    from repro_torch.models import lm
+
+    gen = torch.Generator().manual_seed(17)
+    errs, planted = {}, {}
+    for arch in (CROSS_VLM, CROSS_AUDIO):
+        cfg, params, key = _cross_smoke(torch, arch)
+        dev_params = tree.map_leaves(lambda p: p.to("cuda"), params)
+        n_extra = cfg.num_image_tokens if key == "image_embeds" \
+            else cfg.num_audio_frames
+        B = 2
+        tok = torch.randint(1, cfg.vocab_size, (B, 64), generator=gen)
+        extra = torch.randn((B, n_extra, cfg.d_model), generator=gen)
+        want = S.prefill_logits(cfg, params, tok, **{key: extra})
+
+        def card(p=dev_params):
+            return S.prefill_logits(cfg, p, tok.to("cuda"),
+                                    **{key: extra.to("cuda")})
+        _reset_launch_counts()
+        errs[f"{arch} prefill"] = _rel_gap(card(), want)
+        _gate_launches(f"cross-agree {arch} prefill", _launch_counts(), {})
+        zeroed = dict(dev_params, cross_layers=dict(
+            dev_params["cross_layers"], **{
+                g: torch.zeros_like(dev_params["cross_layers"][g])
+                for g in ("attn_gate", "mlp_gate")}))
+        planted[f"{arch} gates zeroed"] = _rel_gap(card(zeroed), want)
+        if key == "image_embeds":
+            every = cfg.cross_attn_every
+            with _patched(lm, "_cross_slot", lambda c, idx: idx // every
+                          if idx % every == 0 else None):
+                planted[f"{arch} cross block after idx % every == 0"] = \
+                    _rel_gap(card(), want)
+        else:
+            with _bidirectional_encoder(torch):
+                planted[f"{arch} bidirectional encoder"] = _rel_gap(card(),
+                                                                    want)
+        steps = CROSS_AGREE_STEPS
+        tok = torch.randint(1, cfg.vocab_size, (B, steps), generator=gen)
+        make = lm.make_image_kv if key == "image_embeds" else lm.make_enc_kv
+        kw = "image_kv" if key == "image_embeds" else "enc_kv"
+        with torch.inference_mode():
+            caches = {d: lm.init_cache(cfg, B, steps, device=d, **{
+                kw: make(cfg, p, extra, device=d)})
+                for d, p in (("cpu", params), ("cuda", dev_params))}
+            err = 0.0
+            for t in range(steps):
+                want, _ = lm.decode_step(cfg, params, caches["cpu"],
+                                         tok[:, t], t)
+                got, _ = lm.decode_step(cfg, dev_params, caches["cuda"],
+                                        tok[:, t].to("cuda"), t)
+                err = max(err, _rel_gap(got, want))
+        errs[f"{arch} decode"] = err
+    worst = max(errs.values())
+    if not worst <= DENSE_AGREE_LIMIT:
+        raise AssertionError(f"[cross-agree] card and CPU logits differ: "
+                             f"{errs} (limit {DENSE_AGREE_LIMIT})")
+    missed = {k: v for k, v in planted.items() if not v > DENSE_AGREE_LIMIT}
+    if len(planted) != 4 or missed:
+        raise AssertionError(f"[cross-agree] planted faults pass the gate: "
+                             f"{planted}")
+    log(f"[cross-agree] llama-vision-smoke and whisper-smoke f32, gates "
+        f"{CROSS_GATES}, card vs CPU (prefill, {CROSS_AGREE_STEPS} decode "
+        f"steps on the cross K/V): worst {worst:.3g} of max |logit| (limit "
+        f"{DENSE_AGREE_LIMIT}); planted {planted}")
+    return {"worst": worst, "errors": errs, "planted": planted}
+
+
+def _cross_trainer_agreement(torch):
+    """22c: the two smoke configs in float32 with gated cross blocks,
+    trained on the card with kernel 3 and on the CPU (plain) on the same
+    CPU-drawn masks and batches (image embeddings or frames included),
+    DASHA-MVR, CROSS_AGREE_ROUNDS rounds, SGD server: the states within
+    DENSE_AGREE_LIMIT of each leaf's largest magnitude, or, where the
+    card misses that, within HYBRID_CONTROL_FACTOR times the CPU's own
+    spread under a half-ulp nudge of the parameters (run only then).
+    Planted fault: the card run on the next round's masks must fail the
+    gate."""
+    from repro_torch.core import tree
+    from repro_torch.data.pipeline import (SyntheticTextConfig,
+                                           make_node_batches, modality_kw)
+    from repro_torch.optim.distributed import DashaTrainConfig
+
+    n, rounds = TRAIN_NODES, CROSS_AGREE_ROUNDS
+    dcfg = DashaTrainConfig(gamma=0.05, compression=0.25, variant="mvr",
+                            b=0.1, n_nodes=n, server_opt="sgd")
+    by_arch = {}
+    for arch in (CROSS_VLM, CROSS_AUDIO):
+        cfg, params, _ = _cross_smoke(torch, arch)
+        text = SyntheticTextConfig(vocab_size=cfg.vocab_size, seq_len=64)
+        batches = [make_node_batches(t, text, n, 2, device="cpu",
+                                     **modality_kw(cfg))
+                   for t in range(rounds)]
+        draws = _replay_draws(torch, params, dcfg, rounds)
+        cpu, _ = _replayed_trainer(torch, cfg, dcfg, params, batches, draws,
+                                   "cpu", False)
+        card, counts = _replayed_trainer(torch, cfg, dcfg, params, batches,
+                                         draws, "cuda", True)
+        _gate_launches(f"cross-agree {arch} trainer", counts, {
+            "dasha_mvr_update": CROSS_LEAVES[arch] * rounds})
+        err = _states_agree(torch, card, cpu, math.inf)
+        control, limit = None, DENSE_AGREE_LIMIT
+        if err > limit:         # the model's own spread decides (as 21e)
+            gen = torch.Generator().manual_seed(1)
+            nudged, _ = _replayed_trainer(torch, cfg, dcfg, tree.map_leaves(
+                lambda w: w * (1 + HALF_ULP_F32 * torch.randn(
+                    w.shape, generator=gen)), params), batches, draws,
+                "cpu", False)
+            control = _states_agree(torch, nudged, cpu, math.inf)
+            limit = max(limit, HYBRID_CONTROL_FACTOR * control)
+        try:
+            _states_agree(torch, card, cpu, limit)
+        except AssertionError as e:
+            raise AssertionError(f"[cross-agree] {arch} trainer: {e}") \
+                from None
+        shifted, _ = _replayed_trainer(torch, cfg, dcfg, params, batches,
+                                       draws, "cuda", True, 1)
+        try:
+            _states_agree(torch, shifted, cpu, limit)
+        except AssertionError as e:
+            fault = str(e)[:120]
+        else:
+            raise AssertionError(f"[cross-agree] {arch}: the card trainer on "
+                                 "the next round's masks passes the state "
+                                 "gate")
+        by_arch[arch] = {"worst": err, "control": control, "limit": limit,
+                         "planted": {"the next round's masks": fault}}
+    worst = max(v["worst"] for v in by_arch.values())
+    log(f"[cross-agree] trainers, smoke f32 with gated cross blocks, mvr with "
+        f"kernel 3 on the card against the CPU, {rounds} rounds with injected "
+        f"CPU masks and batches: {by_arch}")
+    return {"worst": worst, "by_arch": by_arch}
+
+
+def phase_cross(torch, smi: str):
+    """Phase 22: the cross-attention families — llama-3.2-vision-11b
+    served at full width and depth (prefill, serve, decode on its two
+    caches), its smoke trainer and its full-width backward cut to 5
+    layers; whisper-tiny served and trained at full width; card against
+    CPU at both smoke configs.  Returns the report and kernel 3's
+    launches on its trainers."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    held = {"allocated_gb": torch.cuda.memory_allocated() / 1e9,
+            "free_gb": free / 1e9, "total_gb": total / 1e9}
+    log(f"[cross] before the phase: {held['allocated_gb']:.2f} GB allocated, "
+        f"{held['free_gb']:.2f} of {held['total_gb']:.2f} GB free; cuts: "
+        f"{CROSS_CUTS}")
+    t0 = time.perf_counter()
+    walls = {}
+
+    def part(name, fn, *args):
+        t1 = time.perf_counter()
+        res = fn(torch, *args)
+        walls[name] = time.perf_counter() - t1
+        log(f"[cross] {name} in {walls[name]:.1f} s")
+        return res
+
+    vlm = part("vlm_serve", _cross_vlm_serve, smi)
+    vlm_train, k3_vlm = part("vlm_train", _cross_vlm_train, smi)
+    whisper, k3_whisper = part("whisper", _cross_whisper, smi)
+    agree = part("agreement", _cross_model_agreement)
+    train_agree = part("trainer_agreement", _cross_trainer_agreement)
+    wall = time.perf_counter() - t0
+    log(f"[cross] phase 22 in {wall:.1f} s | {smi}")
+    return ({"held_before": held, "vlm": vlm, "vlm_train": vlm_train,
+             "whisper": whisper, "agreement": agree,
+             "trainer_agreement": train_agree, "cuts": CROSS_CUTS,
+             "wall_s": wall, "walls_s": walls, "nvidia_smi": smi},
+            {"vlm_smoke_trainer": k3_vlm, "whisper_trainer": k3_whisper})
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"{SRC / 'repro_torch'} not found: run from a checkout of the "
@@ -7292,13 +8013,14 @@ def main() -> int:
     family, family_launches = timed(phase_family, torch, smi)
     hybrid, hybrid_launches, hybrid_ssd_rows = timed(phase_hybrid, torch, smi)
     ssd_rows.extend(hybrid_ssd_rows)
+    cross, cross_launches = timed(phase_cross, torch, smi)
     # kernels 1 to 4 run on several main paths: the flat round, the
     # federated cohort round, the heap oracle, the sweep, the faulted
     # campaigns, the asynchronous ones, the runs with an observability
     # handle and the checkpoint drills; kernel 3 in the trainers (Mamba2,
-    # starcoder2, the phase-20 families, zamba2) and the drill; kernel 5 in
-    # the Mamba2 and zamba2 prefills (each counted from zero around its own
-    # run)
+    # starcoder2, the phase-20 families, zamba2, the VLM's smoke config and
+    # whisper-tiny) and the drill; kernel 5 in the Mamba2 and zamba2
+    # prefills (each counted from zero around its own run)
     by_path = {
         "dasha_sparsify_update": {
             "flat": launches["dasha_sparsify_update"],
@@ -7314,7 +8036,8 @@ def main() -> int:
                              "dense_trainer": dense_launches,
                              "family_trainer": family_launches,
                              "hybrid_trainer":
-                                 hybrid_launches["dasha_mvr_update"]},
+                                 hybrid_launches["dasha_mvr_update"],
+                             **cross_launches},
         "ssd_chunk": {"mamba2_prefill": launches["ssd_chunk"],
                       "hybrid": hybrid_launches["ssd_chunk"]},
         "quantize": {"flat": launches["quantize"],
@@ -7460,7 +8183,8 @@ def main() -> int:
               "fed_agreement_worst": fed_rel, "heap": heap,
               "sweep": sweep, "faults": faults, "async": asyncr,
               "obs": obsr, "ckpt": ckpt, "dense": dense,
-              "family": family, "hybrid": hybrid, "phase_walls_s": walls,
+              "family": family, "hybrid": hybrid, "cross": cross,
+              "phase22_cuts": PHASE22_CUTS, "phase_walls_s": walls,
               "nvidia_smi": smi}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -61,11 +61,16 @@ class SyntheticTextConfig:
 
 
 def make_lm_batch(seed: int, cfg: SyntheticTextConfig, batch: int, *,
+                  with_images: int = 0, with_frames: int = 0,
+                  d_model: int = 0, dtype: torch.dtype = torch.bfloat16,
                   device=DEFAULT_DEVICE) -> Dict[str, torch.Tensor]:
     """Next-token LM batch ``{"tokens", "labels"}`` of (batch, seq_len)
     int64: a period-``copy_period`` stream with 10% of tokens replaced by
-    noise (the reference's recipe; the modality stubs come with the VLM and
-    audio slices)."""
+    noise (the reference's recipe).  ``with_images`` / ``with_frames``
+    add the stubbed modality embeddings, standard normal (batch,
+    with_images | with_frames, d_model) in ``dtype`` under
+    ``"image_embeds"`` / ``"frames"``, each from a generator of its own
+    (the tokens do not depend on them)."""
     dev = resolve_device(device)
     S, V = cfg.seq_len, cfg.vocab_size
     base = torch.randint(1, V, (batch, cfg.copy_period), device=dev,
@@ -77,14 +82,35 @@ def make_lm_batch(seed: int, cfg: SyntheticTextConfig, batch: int, *,
     noisy = torch.rand((batch, S + 1), device=dev,
                        generator=generator(dev, seed, "noisy")) < 0.1
     seq = torch.where(noisy, noise, stream[:, :S + 1])
-    return {"tokens": seq[:, :S], "labels": seq[:, 1:]}
+    out = {"tokens": seq[:, :S], "labels": seq[:, 1:]}
+    for key, count in (("image_embeds", with_images),
+                       ("frames", with_frames)):
+        if count:
+            out[key] = torch.randn(
+                (batch, count, d_model), device=dev,
+                generator=generator(dev, seed, key)).to(dtype)
+    return out
+
+
+def modality_kw(cfg) -> Dict:
+    """:func:`make_lm_batch`'s keywords for an ``ArchConfig``'s stubbed
+    inputs: the VLM's ``num_image_tokens`` image embeddings, the
+    encoder-decoder's ``num_audio_frames`` frames, in the model dtype;
+    none for the other families (the reference trainer's ``data_kw``)."""
+    count = {"vlm": ("with_images", cfg.num_image_tokens),
+             "audio": ("with_frames", cfg.num_audio_frames)}
+    if cfg.arch_type not in count:
+        return {}
+    key, n = count[cfg.arch_type]
+    return {key: n, "d_model": cfg.d_model, "dtype": cfg.torch_dtype}
 
 
 def make_node_batches(seed: int, cfg: SyntheticTextConfig, n_nodes: int,
-                      per_node_batch: int, *,
-                      device=DEFAULT_DEVICE) -> Dict[str, torch.Tensor]:
-    """Batch with a leading node axis (n, b, seq_len) for DASHA training."""
+                      per_node_batch: int, *, device=DEFAULT_DEVICE,
+                      **kw) -> Dict[str, torch.Tensor]:
+    """Batch with a leading node axis (n, b, ...) for DASHA training;
+    ``kw`` (the modality stubs) goes to :func:`make_lm_batch`."""
     batch = make_lm_batch(seed, cfg, n_nodes * per_node_batch,
-                          device=device)
+                          device=device, **kw)
     return {k: v.reshape((n_nodes, per_node_batch) + v.shape[1:])
             for k, v in batch.items()}

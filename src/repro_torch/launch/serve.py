@@ -2,8 +2,11 @@
 function of ``repro.launch.specs``): the ``ssm`` family (mamba2-780m), the
 dense GQA family (starcoder2-3b, minitron-8b, qwen1.5-110b), gemma3's
 grouped local/global stack (gemma3-12b), the mixture-of-experts family
-(phi3.5-moe-42b-a6.6b, deepseek-v2-lite-16b with MLA) and the hybrid
-family (zamba2-1.2b: Mamba2 layers and one shared transformer block).
+(phi3.5-moe-42b-a6.6b, deepseek-v2-lite-16b with MLA), the hybrid
+family (zamba2-1.2b: Mamba2 layers and one shared transformer block) and
+the cross-attention families (llama-3.2-vision-11b: gated cross blocks to
+image embeddings; whisper-tiny: an encoder over audio frames and a cross
+block in every decoder layer).
 
     PYTHONPATH=src python -m repro_torch.launch.serve [--arch starcoder2-3b] \
         [--full] --batch 4 --prompt-len 24 --new-tokens 16
@@ -23,14 +26,18 @@ the chunked SSD with the hand-written kernel (``use_ssd_kernel``, the
 reference's TPU deploy switch, which its Mamba2 mixer reads in any
 family), for the transformer families and zamba2's shared block through
 the attention of :mod:`repro_torch.models.attention` (GQA or MLA; dense
-below 2,048 tokens, streaming from there) and the routed experts of
-:mod:`repro_torch.models.moe` (dropless on the decode steps), none of
-which has a kernel of its own.
+below 2,048 tokens, streaming from there; cross attention in query blocks)
+and the routed experts of :mod:`repro_torch.models.moe` (dropless on the
+decode steps), none of which has a kernel of its own.
 
 Weights are random from ``--seed`` and prompts are the synthetic
 copy-structured tokens of :func:`data.pipeline.make_lm_batch`, drawn on the
-CPU so that every device serves the same prompt.  Everything runs under
-``torch.inference_mode()``.
+CPU so that every device serves the same prompt; so are the VLM's image
+embeddings and whisper's frames (the stubbed vision encoder's and audio
+frontend's outputs), whose cross K/V (:func:`lm.make_image_kv`,
+:func:`lm.make_enc_kv`, the latter through the encoder) are made once
+and held in the decode cache, as ``examples/serve_lm.py`` does.
+Everything runs under ``torch.inference_mode()``.
 """
 from __future__ import annotations
 
@@ -46,7 +53,8 @@ import torch
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.core.rng import derive_seed
-from repro_torch.data.pipeline import SyntheticTextConfig, make_lm_batch
+from repro_torch.data.pipeline import (SyntheticTextConfig, make_lm_batch,
+                                       modality_kw)
 from repro_torch.methods.driver import Driver
 from repro_torch.models import init_params, lm
 from repro_torch.models.common import ArchConfig
@@ -76,12 +84,16 @@ def kernel_config(cfg: ArchConfig) -> ArchConfig:
     return dataclasses.replace(cfg, use_ssd_kernel=True)
 
 
-def prefill_logits(cfg: ArchConfig, params: Dict,
-                   tokens: torch.Tensor) -> torch.Tensor:
+def prefill_logits(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
+                   image_embeds: Optional[torch.Tensor] = None,
+                   frames: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Serving prefill: (B, 1, V_padded) logits of the last position,
-    through the forward (with the SSD kernel on every Mamba2 layer)."""
+    through the forward (with the SSD kernel on every Mamba2 layer; the
+    VLM attends to ``image_embeds``, whisper's encoder reads
+    ``frames``)."""
     with torch.inference_mode():
         logits, _ = lm.forward(kernel_config(cfg), params, tokens,
+                               image_embeds=image_embeds, frames=frames,
                                last_only=True)
     return logits
 
@@ -122,10 +134,12 @@ def _sync(dev: torch.device) -> None:
 def serve(cfg: ArchConfig, args: argparse.Namespace, device=DEFAULT_DEVICE,
           *, params: Optional[Dict] = None,
           prompt: Optional[torch.Tensor] = None,
+          inputs: Optional[Dict[str, torch.Tensor]] = None,
           log: Callable[[str], None] = print) -> ServeResult:
     """Prefill ``args.batch`` prompts of ``args.prompt_len`` tokens and
-    greedily decode ``args.new_tokens`` more on ``device``.  ``params``
-    and ``prompt`` (batch, prompt_len) replace the seeded ones."""
+    greedily decode ``args.new_tokens`` more on ``device``.  ``params``,
+    ``prompt`` (batch, prompt_len) and ``inputs`` (the VLM's
+    ``image_embeds`` or whisper's ``frames``) replace the seeded ones."""
     dev = resolve_device(device)
     cfg = kernel_config(cfg)
     B, S = args.batch, args.prompt_len
@@ -133,15 +147,26 @@ def serve(cfg: ArchConfig, args: argparse.Namespace, device=DEFAULT_DEVICE,
         if params is None:
             params = init_params(cfg, derive_seed(args.seed, "init"),
                                  device=dev)
-        if prompt is None:
+        kw = modality_kw(cfg)
+        if prompt is None or (kw and inputs is None):
             text = SyntheticTextConfig(vocab_size=cfg.vocab_size, seq_len=S)
-            prompt = make_lm_batch(derive_seed(args.seed, "prompt"), text, B,
-                                   device="cpu")["tokens"]
+            drawn = make_lm_batch(derive_seed(args.seed, "prompt"), text, B,
+                                  device="cpu", **kw)
+            prompt = drawn.pop("tokens") if prompt is None else prompt
+            inputs = drawn if inputs is None else inputs
         prompt = prompt.to(dev)
         if tuple(prompt.shape) != (B, S):
             raise ValueError(f"prompt {tuple(prompt.shape)} != ({B}, {S})")
 
-        cache = lm.init_cache(cfg, B, S + args.new_tokens, device=dev)
+        cross = {}
+        if cfg.arch_type == "vlm":
+            cross["image_kv"] = lm.make_image_kv(
+                cfg, params, inputs["image_embeds"], device=dev)
+        elif cfg.arch_type == "audio":
+            cross["enc_kv"] = lm.make_enc_kv(cfg, params, inputs["frames"],
+                                             device=dev)
+        cache = lm.init_cache(cfg, B, S + args.new_tokens, device=dev,
+                              **cross)
         last: Dict[str, torch.Tensor] = {}
 
         # prefill: step the decode path over the prompt positions; the

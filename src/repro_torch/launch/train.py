@@ -8,13 +8,16 @@
 The reference's command line, with its default ``--arch starcoder2-3b``
 (the dense GQA family; ``mamba2-780m``, ``minitron-8b``,
 ``qwen1.5-110b``, ``gemma3-12b``, ``phi3.5-moe-42b-a6.6b``,
-``deepseek-v2-lite-16b`` and ``zamba2-1.2b`` are the other ported ids;
-the MoE families add their routers' load-balance loss, times 0.01, to the
-training loss; the trainer's forward takes the plain SSD path, as the
-reference's does).  Without ``--full`` it trains the architecture's
-reduced (smoke) config.  :func:`train` is the library
-form: it takes the config itself, so a caller can cut the depth of a full
-config, and a device (the card unless ``device="cpu"``).
+``deepseek-v2-lite-16b``, ``zamba2-1.2b``, ``llama-3.2-vision-11b`` and
+``whisper-tiny`` are the other ported ids; the MoE families add their
+routers' load-balance loss, times 0.01, to the training loss; the
+trainer's forward takes the plain SSD path, as the reference's does; the
+VLM's batches carry image embeddings and whisper's frames, drawn with
+the tokens, as the reference's ``data_kw`` adds them).  Without
+``--full`` it trains the architecture's reduced (smoke) config.
+:func:`train` is the library form: it takes the config itself, so a
+caller can cut the depth of a full config, and a device (the card
+unless ``device="cpu"``).
 
 Rounds run through the chunked :class:`~repro_torch.methods.driver.Driver`
 with a fresh node batch each round (``data_fn``, seeded by the global
@@ -45,7 +48,8 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core import tree
 from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.core.rng import derive_seed
-from repro_torch.data.pipeline import SyntheticTextConfig, make_node_batches
+from repro_torch.data.pipeline import (SyntheticTextConfig, make_node_batches,
+                                       modality_kw)
 from repro_torch.methods.driver import Driver
 from repro_torch.methods.engine import MethodState
 from repro_torch.models import init_params, lm
@@ -160,10 +164,11 @@ def train(cfg: ArchConfig, args: argparse.Namespace,
             f"{time.perf_counter() - t0:.2f}s")
 
     tcfg = SyntheticTextConfig(vocab_size=cfg.vocab_size, seq_len=args.seq)
+    data_kw = modality_kw(cfg)
 
     def data_fn(seed, t):
         return make_node_batches(seed, tcfg, args.nodes, args.batch,
-                                 device=dev)
+                                 device=dev, **data_kw)
 
     def g_norm_sq(s, b):
         return sum(torch.sum(torch.square(x)) for x in tree.leaves(s.g))

@@ -29,8 +29,16 @@ leaves the carry exactly as it was: such a block adds p = 0 and rescales
 by alpha = 1 (or keeps the empty carry at zero).  MLA takes the same two
 paths with the same cast orders, but for one step: its streaming path
 adds its two logit products (the latent part and the RoPE part) in
-float32, as the reference's compiled scan body does.  Cross attention
-comes with the families that use it.
+float32, as the reference's compiled scan body does.
+
+Cross attention (``cross_attn`` from fresh K/V, ``cross_attn_cached``
+against K/V made once by ``cross_kv``) serves the VLM's image layers and
+the encoder-decoder's decoder: no mask and no RoPE, the logits scaled in
+the input dtype by the rounded scale, the softmax in float32, the
+probabilities back in the input dtype.  With no mask each query's row is
+independent of the others, so a long query sequence is taken in blocks
+of ``CROSS_QBLOCK`` queries, which caps the (B, G, R, S, T) logits'
+transient at one block's and leaves every row's sums as they were.
 """
 from __future__ import annotations
 
@@ -46,6 +54,8 @@ NEG_INF = -2.0e38
 QBLOCK_THRESHOLD = 2048
 QBLOCK = 512
 KBLOCK = 512
+#: cross attention takes its queries in blocks of this many
+CROSS_QBLOCK = 1024
 
 
 def _gqa_logits(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -316,3 +326,53 @@ def mla_decode(p: Dict, x: torch.Tensor, t: int, cache: Dict,
     out_lat = torch.einsum("bhst,btr->bshr", probs, ckv)    # latent output
     out = torch.einsum("bshr,rhk->bshk", out_lat, p["w_uv"])
     return torch.einsum("bshk,hkd->bsd", out, p["wo"]), cache
+
+
+# ---------------------------------------------------------------------------
+# cross attention — the VLM's image layers and the whisper decoder
+# ---------------------------------------------------------------------------
+
+def _cross_core(p: Dict, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                cfg: ArchConfig) -> torch.Tensor:
+    """x: (B,S,d) queries against k/v: (B,T,G,hd) -> (B,S,d): the logits
+    scaled in x's dtype by the rounded scale, the softmax in float32, the
+    probabilities cast back before the PV product."""
+    B, S, _ = x.shape
+    H, G, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"]).reshape(B, S, G, H // G,
+                                                         hd)
+    logits = _gqa_logits(q, k) * dtype_scalar(hd ** -0.5, x.dtype)
+    probs = torch.softmax(logits.to(torch.float32), -1).to(x.dtype)
+    out = torch.einsum("bgrst,btgk->bsgrk", probs, v).reshape(B, S, H, hd)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def _cross_blocks(p: Dict, x: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """:func:`_cross_core` over blocks of ``CROSS_QBLOCK`` queries, or in
+    one piece when S fits one block."""
+    qb, S = CROSS_QBLOCK, x.shape[1]
+    if S <= qb:
+        return _cross_core(p, x, k, v, cfg)
+    return torch.cat([_cross_core(p, x[:, i:i + qb], k, v, cfg)
+                      for i in range(0, S, qb)], 1)
+
+
+def cross_kv(p: Dict, kv_src: torch.Tensor, cfg: ArchConfig) -> Dict:
+    """K and V (B,T,G,hd) of the encoder / image states kv_src (B,T,d)."""
+    return {"k": torch.einsum("btd,dgk->btgk", kv_src, p["wk"]),
+            "v": torch.einsum("btd,dgk->btgk", kv_src, p["wv"])}
+
+
+def cross_attn(p: Dict, x: torch.Tensor, kv_src: torch.Tensor,
+               cfg: ArchConfig) -> torch.Tensor:
+    """x: (B,S,d) queries; kv_src: (B,T,d) encoder / image states."""
+    kv = cross_kv(p, kv_src, cfg)
+    return _cross_blocks(p, x, kv["k"], kv["v"], cfg)
+
+
+def cross_attn_cached(p: Dict, x: torch.Tensor, kv: Dict,
+                      cfg: ArchConfig) -> torch.Tensor:
+    """Cross attention against precomputed K/V ({"k", "v"}: (B,T,G,hd),
+    from :func:`cross_kv`)."""
+    return _cross_blocks(p, x, kv["k"], kv["v"], cfg)

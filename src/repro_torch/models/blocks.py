@@ -1,11 +1,11 @@
 """Block application (port of ``repro.models.blocks``): the pre-norm
 transformer block (GQA or MLA attention; a dense MLP or the routed
 experts) and the pre-norm Mamba block, each as a prefill and a decode
-step.  Cross-attention blocks come with the slices that port those
-families."""
+step, and the gated cross-attention block of the VLM and the
+encoder-decoder (fresh K/V in the forward, precomputed K/V in decode)."""
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -56,6 +56,24 @@ def block_decode(p: Dict, x: torch.Tensor, t: int, cache: Dict,
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     y, _ = _ffn(p["ffn"], h, cfg, dropless=True)
     return x + y, cache
+
+
+def cross_block(p: Dict, x: torch.Tensor,
+                image_states: Optional[torch.Tensor], cfg: ArchConfig,
+                kv: Optional[Dict] = None) -> torch.Tensor:
+    """Gated cross-attention block (llama-3.2-vision style): attention to
+    ``image_states`` (B,T,d) (the forward: fresh K/V) or to ``kv`` (decode:
+    K/V made once), then the MLP, each added through ``tanh`` of its gate
+    (both gates start at zero, so a fresh block adds nothing)."""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    if kv is not None:
+        a = attn.cross_attn_cached(p["attn"], h, kv, cfg)
+    else:
+        a = attn.cross_attn(p["attn"], h, image_states, cfg)
+    x = x + torch.tanh(p["attn_gate"]) * a
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    y = mlp_apply(p["ffn"], h, cfg.mlp_type)
+    return x + torch.tanh(p["mlp_gate"]) * y
 
 
 def mamba_block_prefill(p: Dict, x: torch.Tensor,

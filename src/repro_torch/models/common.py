@@ -5,8 +5,9 @@
 everything the ported families read: the SSM fields (Mamba2), the
 attention fields of the dense GQA stack (starcoder2, minitron, qwen1.5,
 gemma3's grouped local/global stack), the MoE and MLA fields (phi3.5-moe,
-deepseek-v2-lite) and the hybrid family's shared-block period (zamba2).
-The multimodal fields wait for the slices that port those families.
+deepseek-v2-lite), the hybrid family's shared-block period (zamba2), the
+VLM's cross-attention period and image-token count (llama-3.2-vision)
+and the encoder-decoder's encoder depth and frame count (whisper).
 
 The bf16 activations (:func:`silu`, :func:`gelu_tanh`, :func:`softplus`)
 and :func:`softcap` round each op to bf16 in the order the reference's
@@ -33,7 +34,7 @@ def pad_to(x: int, mult: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    arch_type: str               # dense | moe | ssm | hybrid; the others later
+    arch_type: str               # dense | moe | ssm | hybrid | vlm | audio
     num_layers: int
     d_model: int
     num_heads: int
@@ -77,6 +78,15 @@ class ArchConfig:
     global_every: int = 0          # gemma3: 1 global layer per `global_every`
     hybrid_attn_every: int = 0     # zamba2: shared attn block every k layers
     attn_logit_softcap: float = 0.0
+
+    # --- VLM ----------------------------------------------------------------
+    cross_attn_every: int = 0      # llama-3.2-vision: cross-attn each k layers
+    num_image_tokens: int = 0
+
+    # --- encoder-decoder (whisper) -----------------------------------------
+    is_encoder_decoder: bool = False
+    num_encoder_layers: int = 0
+    num_audio_frames: int = 0
 
     def __post_init__(self):
         if self.head_dim is None and self.num_heads:

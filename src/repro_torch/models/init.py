@@ -1,8 +1,12 @@
 """Parameter initialisation (port of ``repro.models.init``): the ``ssm``
 family, the homogeneous transformer stack (dense GQA, or MLA and routed
-experts for the ``moe`` family), gemma3's grouped local/global stack and
+experts for the ``moe`` family), gemma3's grouped local/global stack,
 the ``hybrid`` family (zamba2: stacked Mamba2 layers and one shared
-transformer block, ``shared_attn``).
+transformer block, ``shared_attn``), the ``vlm`` family (llama-3.2-vision:
+the transformer stack and ``cross_layers``, one gated cross-attention
+block per ``cross_attn_every`` layers) and the ``audio`` family (whisper:
+an encoder stack ``enc_layers`` with its ``enc_norm``, and a decoder
+stack with one cross block per layer).
 
 Layers are stacked along a leading L axis, as the reference's
 ``lax.scan`` expects, so ``params["layers"]`` has one leaf per weight kind
@@ -27,21 +31,19 @@ from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.core.rng import generator
 from repro_torch.models.common import ArchConfig
 
-#: the reference's families that wait for a later slice, and what each is
-_NOT_PORTED = {"vlm": "vision cross-attention (llama-3.2-vision)",
-               "audio": "encoder-decoder (whisper)"}
+#: every ``arch_type`` of the reference, all ported
+PORTED = ("ssm", "dense", "moe", "hybrid", "vlm", "audio")
 
 
 def require_ported(cfg: ArchConfig) -> None:
-    """Raise NotImplementedError, naming the family, for an architecture
-    the port does not run yet: every ``arch_type`` but ``ssm``, ``dense``
-    (gemma3's grouped stack included), ``moe`` and ``hybrid``."""
+    """Raise NotImplementedError, naming the family, for an ``arch_type``
+    that is none of the reference's (:data:`PORTED`)."""
     at = cfg.arch_type
-    if at in ("ssm", "dense", "moe", "hybrid"):
+    if at in PORTED:
         return
     raise NotImplementedError(
-        f"arch_type {at!r} ({_NOT_PORTED.get(at, at)}) is not ported to "
-        "repro_torch yet")
+        f"arch_type {at!r} is no family of the reference, and not ported "
+        f"to repro_torch (ported: {', '.join(PORTED)})")
 
 
 class _Draws:
@@ -182,11 +184,25 @@ def _block_params(draws: _Draws, tag: tuple, cfg: ArchConfig, dt) -> Dict:
             else _mlp_params(ffn, dev, cfg, cfg.d_model, cfg.d_ff, dt)}
 
 
+def _cross_block_params(draws: _Draws, tag: tuple, cfg: ArchConfig,
+                        dt) -> Dict:
+    """One gated cross-attention block: GQA projections and a dense MLP
+    (never MLA or experts), with ``attn_gate`` and ``mlp_gate`` (1,) at
+    zero, so that a fresh block adds nothing."""
+    dev = draws.dev
+    return {"ln1": _zeros(dev, (cfg.d_model,), dt),
+            "ln2": _zeros(dev, (cfg.d_model,), dt),
+            "attn": _gqa_params(draws(*tag, "attn"), dev, cfg, dt),
+            "ffn": _mlp_params(draws(*tag, "ffn"), dev, cfg, cfg.d_model,
+                               cfg.d_ff, dt),
+            "attn_gate": _zeros(dev, (1,), dt),
+            "mlp_gate": _zeros(dev, (1,), dt)}
+
+
 def init_params(cfg: ArchConfig, seed: int = 0, *,
                 device=DEFAULT_DEVICE) -> Dict:
-    """Random parameters of ``cfg`` on ``device`` (the ``ssm`` and
-    ``hybrid`` families, the homogeneous dense / moe stack and gemma3's
-    groups; every other family raises NotImplementedError)."""
+    """Random parameters of ``cfg`` on ``device`` (every family of the
+    reference; any other ``arch_type`` raises NotImplementedError)."""
     require_ported(cfg)
     dev = resolve_device(device)
     draws = _Draws(dev, seed)
@@ -206,6 +222,22 @@ def init_params(cfg: ArchConfig, seed: int = 0, *,
         if cfg.arch_type == "hybrid":   # one block, shared by every use
             params["shared_attn"] = _block_params(draws, ("shared_attn",),
                                                   cfg, dt)
+    elif cfg.arch_type == "vlm":    # cross blocks after every k-th layer
+        params["layers"] = _stack(cfg.num_layers, lambda i: _block_params(
+            draws, ("layer", i), cfg, dt))
+        params["cross_layers"] = _stack(
+            cfg.num_layers // cfg.cross_attn_every,
+            lambda i: _cross_block_params(draws, ("cross", i), cfg, dt))
+    elif cfg.arch_type == "audio":  # encoder; decoder with a cross block each
+        params["enc_layers"] = _stack(
+            cfg.num_encoder_layers, lambda i: _block_params(
+                draws, ("enc", i), cfg, dt))
+        params["enc_norm"] = _zeros(dev, (cfg.d_model,), dt)
+        params["layers"] = _stack(cfg.num_layers, lambda i: _block_params(
+            draws, ("layer", i), cfg, dt))
+        params["cross_layers"] = _stack(
+            cfg.num_layers, lambda i: _cross_block_params(
+                draws, ("cross", i), cfg, dt))
     elif cfg.global_every:      # gemma3-style local/global groups
         n_groups = cfg.num_layers // cfg.global_every
         n_local = cfg.global_every - 1

@@ -1,13 +1,20 @@
 """Language-model assembly (port of ``repro.models.lm``: the ``ssm``
 family, the homogeneous transformer stack — dense GQA, or MLA and routed
 experts for the ``moe`` family — gemma3's grouped local/global stack,
-and the ``hybrid`` family, Mamba2 layers with one shared transformer
-block run before every ``hybrid_attn_every``-th of them): the training /
-prefill forward and loss, and the serving cache and decode step.
+the ``hybrid`` family, Mamba2 layers with one shared transformer block
+run before every ``hybrid_attn_every``-th of them, the ``vlm`` family, a
+gated cross-attention block to the image embeddings after every
+``cross_attn_every``-th layer, and the ``audio`` family, an encoder over
+the frame embeddings and a decoder with a cross block to the encoder's
+states after every layer): the training / prefill forward and loss, and
+the serving cache and decode step.
 
-    forward(cfg, params, tokens, last_only=False) -> (logits, aux)
+    forward(cfg, params, tokens, image_embeds=None, frames=None,
+            last_only=False) -> (logits, aux)
     loss_fn(cfg, params, batch) -> (scalar, metrics)
-    init_cache(cfg, batch, seq, device=...) -> cache (decode)
+    init_cache(cfg, batch, seq, image_kv=None, enc_kv=None, device=...)
+    make_image_kv(cfg, params, image_embeds) / make_enc_kv(cfg, params,
+                  frames) -> the cross K/V of every cross block
     decode_step(cfg, params, cache, token, t) -> (logits (B,V), cache)
 
 The reference scans the stacked layers under ``jax.checkpoint``; the port
@@ -20,9 +27,12 @@ positions, so autograd sums its gradient over the uses.  The decode step
 updates the stacked cache in place, layer by layer: the SSM family's conv
 window and state, the transformer's KV cache (ring buffers of the sliding
 window where the config has one), MLA's latent cache, gemma3's local
-rings and global caches, or the hybrid family's Mamba2 caches and the
-shared block's K/V cache of each use.  Every other family raises
-NotImplementedError, naming it.
+rings and global caches, the hybrid family's Mamba2 caches and the
+shared block's K/V cache of each use, or the cross families' self K/V
+under ``kv`` beside the cross K/V under ``cross``, which the decode reads
+and never writes.  The whisper encoder is the causal transformer block
+with RoPE positions, as the reference's is (a stub it keeps on purpose).
+Any other ``arch_type`` raises NotImplementedError, naming it.
 """
 from __future__ import annotations
 
@@ -32,8 +42,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.models import attention as attn_lib
 from repro_torch.models.blocks import (block_decode, block_prefill,
-                                       mamba_block_decode,
+                                       cross_block, mamba_block_decode,
                                        mamba_block_prefill)
 from repro_torch.models.common import ArchConfig, dtype_scalar, rms_norm
 from repro_torch.models.init import require_ported
@@ -88,16 +99,68 @@ def _hybrid_slot(cfg: ArchConfig, idx: int) -> Optional[int]:
     return idx // every if idx % every == 0 else None
 
 
+def _cross_slot(cfg: ArchConfig, idx: int) -> Optional[int]:
+    """The VLM's cross block ``idx // cross_attn_every`` runs after layer
+    ``idx`` when ``idx % cross_attn_every == cross_attn_every - 1`` (layers
+    4, 9, ..., 39 of llama-3.2-vision's 40); None where none runs."""
+    every = cfg.cross_attn_every
+    return idx // every if idx % every == every - 1 else None
+
+
+def _encoder_forward(cfg: ArchConfig, params: Dict,
+                     frames: torch.Tensor) -> torch.Tensor:
+    """The whisper encoder over the (stubbed) frame embeddings (B,F,d):
+    the transformer block with RoPE positions and the causal mask, as the
+    reference's encoder runs it, then ``enc_norm``."""
+    B, F, _ = frames.shape
+    pos = _positions(B, F, frames.device)
+    x = frames
+    for lp in _per_layer(params["enc_layers"], cfg.num_encoder_layers):
+        x, _ = block_prefill(lp, x, pos, cfg)
+    return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _require(value, what: str, cfg: ArchConfig):
+    if value is None:
+        raise ValueError(f"{cfg.name} ({cfg.arch_type}) needs {what}")
+    return value
+
+
 def forward(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
+            image_embeds: Optional[torch.Tensor] = None,
+            frames: Optional[torch.Tensor] = None,
             last_only: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits (B,S,V_padded), aux_loss scalar).  ``last_only``
-    slices the hidden states to the final position BEFORE the vocab
-    projection (serving prefill: no (B,S,V) logits)."""
+    """Returns (logits (B,S,V_padded), aux_loss scalar).  The ``vlm``
+    family needs ``image_embeds`` (B,T_img,d), the ``audio`` family
+    ``frames`` (B,F,d).  ``last_only`` slices the hidden states to the
+    final position BEFORE the vocab projection (serving prefill: no
+    (B,S,V) logits)."""
     require_ported(cfg)
     B, S = tokens.shape
     x = _embed(cfg, params, tokens)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if cfg.arch_type == "ssm":
+    if cfg.arch_type == "vlm":
+        image_embeds = _require(image_embeds, "image_embeds", cfg)
+        pos = _positions(B, S, x.device)
+        cross = _per_layer(params["cross_layers"],
+                           cfg.num_layers // cfg.cross_attn_every)
+        for idx, lp in enumerate(_per_layer(params["layers"],
+                                            cfg.num_layers)):
+            x, a = block_prefill(lp, x, pos, cfg)
+            aux = aux + a
+            slot = _cross_slot(cfg, idx)
+            if slot is not None:
+                x = cross_block(cross[slot], x, image_embeds, cfg)
+    elif cfg.arch_type == "audio":
+        enc = _encoder_forward(cfg, params, _require(frames, "frames", cfg))
+        pos = _positions(B, S, x.device)
+        for lp, cp in zip(_per_layer(params["layers"], cfg.num_layers),
+                          _per_layer(params["cross_layers"],
+                                     cfg.num_layers)):
+            x, a = block_prefill(lp, x, pos, cfg)
+            aux = aux + a
+            x = cross_block(cp, x, enc, cfg)
+    elif cfg.arch_type == "ssm":
         for lp in _per_layer(params["layers"], cfg.num_layers):
             x = mamba_block_prefill(lp, x, cfg)
     elif cfg.arch_type == "hybrid":   # the shared block: full attention
@@ -131,7 +194,9 @@ def forward(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
 
 def loss_fn(cfg: ArchConfig, params: Dict, batch: Dict
             ) -> Tuple[torch.Tensor, Dict]:
-    logits, aux = forward(cfg, params, batch["tokens"])
+    logits, aux = forward(cfg, params, batch["tokens"],
+                          image_embeds=batch.get("image_embeds"),
+                          frames=batch.get("frames"))
     labels = batch["labels"]
     logp = F.log_softmax(logits.to(torch.float32), -1)
     # out-of-range labels are masked below; clamp them for the gather as
@@ -155,7 +220,46 @@ def _ssm_cache(cfg: ArchConfig, B: int, dev: torch.device) -> Dict:
                                device=dev)}
 
 
+def make_image_kv(cfg: ArchConfig, params: Dict,
+                  image_embeds: torch.Tensor, *,
+                  device=DEFAULT_DEVICE) -> Dict:
+    """The VLM decode's cross K/V: each cross block's K and V of the image
+    embeddings (B,T_img,d), stacked {"k", "v"}: (n_cross,B,T_img,G,hd), on
+    ``device`` (where the parameters are)."""
+    dev = resolve_device(device)
+    return _stacked_cross_kv(cfg, params, image_embeds.to(dev))
+
+
+def make_enc_kv(cfg: ArchConfig, params: Dict, frames: torch.Tensor, *,
+                device=DEFAULT_DEVICE) -> Dict:
+    """The whisper decode's cross K/V: the encoder over the frames
+    (B,F,d), then each decoder layer's cross K and V of its states,
+    stacked {"k", "v"}: (L,B,F,G,hd), on ``device``."""
+    dev = resolve_device(device)
+    enc = _encoder_forward(cfg, params, frames.to(dev))
+    return _stacked_cross_kv(cfg, params, enc)
+
+
+def _stacked_cross_kv(cfg: ArchConfig, params: Dict,
+                      states: torch.Tensor) -> Dict:
+    """:func:`attention.cross_kv` of ``states`` for every cross block,
+    each written into its slot of one (n,B,T,G,hd) tensor as it is
+    made."""
+    cross = params["cross_layers"]
+    n = cross["attn"]["wk"].shape[0]
+    B, T, _ = states.shape
+    shape = (n, B, T, cfg.num_kv_heads, cfg.head_dim)
+    out = {k: torch.empty(shape, dtype=states.dtype, device=states.device)
+           for k in ("k", "v")}
+    for i, cp in enumerate(_per_layer(cross, n)):
+        kv = attn_lib.cross_kv(cp["attn"], states, cfg)
+        out["k"][i], out["v"][i] = kv["k"], kv["v"]
+    return out
+
+
 def init_cache(cfg: ArchConfig, batch: int, seq: int, *,
+               image_kv: Optional[Dict] = None,
+               enc_kv: Optional[Dict] = None,
                device=DEFAULT_DEVICE) -> Dict:
     """The decode cache for ``seq`` total positions on ``device``, in the
     model dtype but the SSM state: for the ``ssm`` family a conv window
@@ -165,8 +269,12 @@ def init_cache(cfg: ArchConfig, batch: int, seq: int, *,
     ``seq``, one cache per use; for MLA the latent ``ckv`` (L,B,T,r) and ``krope``
     (L,B,T,dr), T = ``seq``; for gemma3's groups ``local`` rings
     (n_groups,n_local,B,min(W, seq),G,hd) and ``global`` K/V
-    (n_groups,B,seq,G,hd); else K and V of (L,B,T,G,hd), T = ``seq``, or
-    ring buffers of T = min(sliding_window, seq) slots."""
+    (n_groups,B,seq,G,hd); for the ``vlm`` and ``audio`` families the
+    self K/V under ``kv``, (L,B,seq,G,hd), and the cross K/V they need
+    under ``cross`` (``image_kv`` from :func:`make_image_kv`, ``enc_kv``
+    from :func:`make_enc_kv`; held, not copied); else K and V of
+    (L,B,T,G,hd), T = ``seq``, or ring buffers of T = min(sliding_window,
+    seq) slots."""
     require_ported(cfg)
     dev = resolve_device(device)
     if cfg.arch_type == "ssm":
@@ -176,6 +284,13 @@ def init_cache(cfg: ArchConfig, batch: int, seq: int, *,
         return torch.zeros(shape, dtype=cfg.torch_dtype, device=dev)
 
     G, hd, L = cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
+    if cfg.arch_type in ("vlm", "audio"):
+        cross = image_kv if cfg.arch_type == "vlm" else enc_kv
+        cross = _require(cross, "image_kv" if cfg.arch_type == "vlm"
+                         else "enc_kv", cfg)
+        return {"kv": {"k": zeros(L, batch, seq, G, hd),
+                       "v": zeros(L, batch, seq, G, hd)},
+                "cross": cross}
     if cfg.arch_type == "hybrid":
         uses = -(-L // cfg.hybrid_attn_every)
         return {"mamba": _ssm_cache(cfg, batch, dev),
@@ -215,6 +330,19 @@ def decode_step(cfg: ArchConfig, params: Dict, cache: Dict,
             x, _ = block_decode(glob, x, t, gc, cfg)
         return _logits(cfg, params, x)[:, 0], cache
     layers = _per_layer(params["layers"], cfg.num_layers)
+    if cfg.arch_type in ("vlm", "audio"):
+        n_cross = cache["cross"]["k"].shape[0]
+        cross = _per_layer(params["cross_layers"], n_cross)
+        cross_kv = _per_layer(cache["cross"], n_cross)
+        for idx, (lp, lc) in enumerate(zip(
+                layers, _per_layer(cache["kv"], cfg.num_layers))):
+            x, _ = block_decode(lp, x, t, lc, cfg)
+            slot = idx if cfg.arch_type == "audio" \
+                else _cross_slot(cfg, idx)
+            if slot is not None:
+                x = cross_block(cross[slot], x, None, cfg,
+                                kv=cross_kv[slot])
+        return _logits(cfg, params, x)[:, 0], cache
     if cfg.arch_type == "hybrid":
         attn = _per_layer(cache["attn"], cache["attn"]["k"].shape[0])
         for idx, (lp, lc) in enumerate(zip(

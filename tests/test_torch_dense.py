@@ -494,16 +494,17 @@ def _family_cfg(**kw):
 
 
 @pytest.mark.parametrize("kw,family", [
-    (dict(arch_type="vlm", num_experts=4, experts_per_token=2),
-     "llama-3.2-vision"),
-    (dict(arch_type="audio", hybrid_attn_every=2, ssm_state=16), "whisper"),
-    (dict(arch_type="vlm"), "llama-3.2-vision"),
-    (dict(arch_type="vlm", use_mla=True, kv_lora_rank=16), "llama-3.2-vision"),
-    (dict(arch_type="audio", global_every=2, sliding_window=16), "whisper")])
+    (dict(arch_type="retnet", num_experts=4, experts_per_token=2),
+     "retnet"),
+    (dict(arch_type="rwkv", hybrid_attn_every=2, ssm_state=16), "rwkv"),
+    (dict(arch_type="retnet"), "retnet"),
+    (dict(arch_type="retnet", use_mla=True, kv_lora_rank=16), "retnet"),
+    (dict(arch_type="rwkv", global_every=2, sliding_window=16), "rwkv")])
 def test_other_families_still_raise_naming_the_family(kw, family):
-    """The VLM and audio families raise, naming the family, also when
-    their config carries the MoE, MLA, grouped-attention or hybrid fields
-    the port now runs."""
+    """An ``arch_type`` that neither package has raises, naming the
+    family, also when its config carries the MoE, MLA, grouped-attention
+    or hybrid fields the port runs (every family of the reference is
+    ported, so only an unknown one is refused)."""
     cfg = _family_cfg(**kw)
     tok = torch.ones((1, 4), dtype=torch.int64)
     for call in (lambda: t_init(cfg, 0, device="cpu"),
@@ -513,7 +514,7 @@ def test_other_families_still_raise_naming_the_family(kw, family):
         with pytest.raises(NotImplementedError, match=family):
             call()
     with pytest.raises(ValueError, match="not ported"):
-        t_config("whisper-tiny")
+        t_config(family)
 
 
 # ---------------------------------------------------------------------------

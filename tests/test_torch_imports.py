@@ -72,7 +72,8 @@ def test_import_scan_covers_the_slice():
                 "models/moe.py", "configs/gemma3_12b.py",
                 "configs/phi35_moe_42b.py",
                 "configs/deepseek_v2_lite_16b.py",
-                "configs/zamba2_1p2b.py"):
+                "configs/zamba2_1p2b.py", "configs/llama32_vision_11b.py",
+                "configs/whisper_tiny.py"):
         assert mod in names
     for src in ("dasha_update.cu", "ssd_chunk.cu", "slab_writeback.cu"):
         assert (ROOT / "src/repro_torch/kernels/csrc" / src).exists()

@@ -270,8 +270,11 @@ def test_full_config_is_the_reference_config():
         assert getattr(t, f.name) == getattr(j, f.name), f.name
     assert (t.padded_vocab, t.d_inner, t.ssm_nheads) == \
         (j.padded_vocab, j.d_inner, j.ssm_nheads) == (50432, 3072, 48)
+    j, t = j_config("whisper-tiny"), t_config("whisper-tiny")
+    for f in dataclasses.fields(t):
+        assert getattr(t, f.name) == getattr(j, f.name), f.name
     with pytest.raises(ValueError, match="not ported"):
-        t_config("whisper-tiny")
+        t_config("whisper-large")
 
 
 def test_node_batches_have_the_reference_structure():
