@@ -86,7 +86,7 @@ Phases, each fatal on failure:
    (a) ``prefill_logits`` at batch 4 x 32,768 tokens, 1 warm-up + 2 timed
    calls and a profiled one (``ssd_chunk`` launches = 48 a call: the
    kernel's launches on the main path); (b) ``serve`` at batch 128, a
-   128-token prompt stepped through ``decode_step`` and 64 new tokens
+   64-token prompt stepped through ``decode_step`` and 32 new tokens
    (the recurrence, no kernel); (c) ``prefill_logits`` against the 512th
    decode step of ``serve`` on a 512-token prompt at batch 2 in float32;
 9. serve agreement — the smoke Mamba2 in float32 prefilled (kernel on
@@ -153,8 +153,8 @@ Phases, each fatal on failure:
     coords to eps; then kernel 1's sparsifier entry against its plain
     version at the sweep's (40, 20958) rows on the plan's 5 index rows,
     and the
-    port's fig1, fig5 and table1 at the reference's rounds, fig2 at an
-    eighth and fig3 at a fortieth of theirs (``FIG_ROUNDS_SCALE``), their
+    port's fig1, fig5 and table1 at the reference's rounds, fig2 at a
+    sixteenth and fig3 at an eightieth of theirs (``FIG_ROUNDS_SCALE``), their
     rows printed
     (gates: fig1's DASHA-over-MARINA speedup > 1, fig5's floor ordering);
 15. faulted campaigns at the real-sim width — ``repro_torch.fed.faults``
@@ -281,14 +281,14 @@ Phases, each fatal on failure:
     smoke trained on the card and the CPU with the same masks and
     batches, dasha / mvr x kernel off / on (planted: the next round's
     masks; the plain route's launches under (a)'s launch gate); (e)
-    Figure 4 (``repro_torch.bench.fig4_dnn``) at 12 of its 120 steps, each
+    Figure 4 (``repro_torch.bench.fig4_dnn``) at 8 of its 120 steps, each
     row with its wall seconds, and dasha_1/32's lowest- and highest-gamma
     lanes against sequential Driver runs (planted: each lane against the
     other's run).  ``DENSE_CUTS`` lists the cuts;
 20. gemma3's grouped local/global stack and the mixture-of-experts family,
     with the card's memory printed first: (a-c) served in bf16 at full
     width through ``prefill_logits`` (4 x 8,192 tokens, the streaming
-    attention), ``serve`` (one request batch) and 32 decode steps on a
+    attention), ``serve`` (one request batch) and 16 decode steps on a
     4,128-slot cache beside their bf16 bounds, each model freed before the
     next: gemma3-12b at 48 of 48 layers (local layers under the 1,024-token
     window, every 6th layer global; decode at batch 32 from t = 4,080,
@@ -358,7 +358,39 @@ Phases, each fatal on failure:
     card, the VLM's cross block after ``idx % every == 0``, a
     bidirectional whisper encoder, the next round's masks.
     ``CROSS_CUTS`` lists the cuts, ``PHASE22_CUTS`` what earlier phases
-    gave up for it.
+    gave up for it;
+23. registry compressors on the tree substrate, the sweep's new lanes and
+    the seed-era API: (a) the parity bridge at real-sim's shape (phase 3's
+    GLM, n = 5, d = 20,958), ``P23_ROUNDS`` rounds of dasha / page /
+    marina with fused RandK and dasha with fused QDither, each as a
+    single-leaf ``TreeSubstrate`` over ``LeafProblemOracle`` with
+    ``SGD(lr=gamma)`` equal to ``FlatSubstrate`` bit for bit (x, g, h_i,
+    g_i, bits_sent; planted: a ``LeafSpecCompressor`` that draws a single
+    leaf's plan by its path must differ); (b) whisper-tiny's trainer at
+    full width built by ``Method.build`` with a registry compressor
+    (``make_round_compressor``) on the tree substrate, DASHA-MVR, fused
+    Bernoulli (kernel 1 once per leaf a round) and fused QDither (kernel
+    2 once per leaf a round), rounds/s and peak; at its smoke config card
+    vs CPU on CPU-drawn per-leaf plans (within ``DENSE_AGREE_LIMIT``, or 4
+    x the CPU's half-ulp spread; QDither on its ||g||^2 trace, and each of
+    its card launches, one a leaf a round, against the plain version by
+    phase 2's one-level rule), and the round's own per-leaf plans equal
+    to the documented path-seeded ones (planted: every leaf's plan from
+    one shared generator must fail that); (c) ``core.dasha.run`` and
+    ``core.marina.run`` (marina, vr, vr_online) with ``make_compressor``
+    and a fused ``NodeCompressor`` equal to the ``Method.build`` runs bit
+    for bit, and ``empirical_omega`` of RandK, PermK and QDither within
+    the reference test's bound; (d) sweeps against sequential runs: 8
+    lanes of page's p (every coin equal) and 8 lanes of a on fused RandK
+    (one kernel-1 launch a round for the 40 rows), each within
+    ``P23_LANE_LIMIT``, the lanes' estimator update bit for bit against
+    the one-lane updates; 4 lanes of b on the fused MVR tree path at
+    starcoder2's smoke config (kernel 3) and 4 lanes on
+    ``SampledFlatSubstrate`` (n = 10,000, c = 64), bit for bit; planted: a
+    per-row a read at ``row % G`` must fail; (e) kernels 1-3 with per-row
+    a / b bit-equal to their plain versions and to one scalar launch a
+    lane, timed beside their bounds.  ``PHASE23_CUTS`` lists what earlier
+    phases gave up for it.
 
 Every phase that drives a main path zeroes the launch counters just before
 it and reads them just after; a kernel of that path that never launched
@@ -481,9 +513,9 @@ SSD_SHAPES = [(4, 32768, 48, 64, 128, 256), (2, 64, 8, 32, 16, 32),
               (1, 128, 4, 16, 8, 32), (2, 32, 3, 4, 5, 8)]
 SSD_LIMIT = 1e-4
 PREFILL_BATCH, PREFILL_SEQ, PREFILL_TIMED = 4, 32768, 2
-# a 128-token prompt (PR 26: 256; a Mamba2 step's time does not depend on
-# the position), to make room for phase 22
-DECODE_BATCH, DECODE_PROMPT, DECODE_NEW, DECODE_PROFILED = 128, 128, 64, 4
+# a 64-token prompt (256, then 128 before phases 22 and 23; a Mamba2
+# step's time does not depend on the position)
+DECODE_BATCH, DECODE_PROMPT, DECODE_NEW, DECODE_PROFILED = 128, 64, 32, 4
 PARITY_BATCH, PARITY_PROMPT, PARITY_LIMIT = 2, 512, 5e-3
 PROFILE_WARMUP_LAUNCHES, PROFILE_WARMUP_S = 32, 0.2
 PROFILE_RETRIES = 2
@@ -523,8 +555,8 @@ SWEEP_STATE = ("x", "g", "g_local", "h_local")
 # full length; at half and a tenth they took 54 and 53 s on a slow host,
 # at a quarter and a twentieth 17.5 and 20.4 s on a fast one), so that
 # the whole script stays inside its time limit with phases 21 and 22
-FIG_ROUNDS_SCALE = {"fig1_gradient": 1.0, "fig2_finite_sum": 0.125,
-                    "fig3_stochastic": 0.025, "fig5_quadratic_pl": 1.0,
+FIG_ROUNDS_SCALE = {"fig1_gradient": 1.0, "fig2_finite_sum": 0.0625,
+                    "fig3_stochastic": 0.0125, "fig5_quadratic_pl": 1.0,
                     "table1_complexity": 1.0}
 # the faulted campaigns (phase 15): benchmarks/fed_faults_bench.py's
 # configuration widened to real-sim's features — n = 20 clients (the
@@ -663,7 +695,7 @@ FIG4_LANE_RTOL, FIG4_LOSS_RTOL, FIG4_CHECKED_LANES = 1e-2, 1e-3, (0, 2)
 # Figure 4's 120 host-bound steps took 95-131 s on the card (40 steps
 # 38-51 s, 20 steps 20.3 s); a tenth of them keeps its rows and its lane
 # gate at the same count
-FIG4_STEPS = 12
+FIG4_STEPS = 8
 DENSE_PROFILED_LAYERS = 2
 DENSE_CUTS = {
     "trainer_layers": "starcoder2-3b's 30 layers cut to 3 for the trainer: "
@@ -674,9 +706,9 @@ DENSE_CUTS = {
     "decode_history": "the 4,096-slot ring filled with random K/V in place "
                       "of 4,096 prompt steps (a step's time does not depend "
                       "on the values)",
-    "fig4_steps": "Figure 4 at 12 of its 120 steps (rows and the lane "
-                  "gate at the same count), to make room for phases 21 and "
-                  "22",
+    "fig4_steps": "Figure 4 at 8 of its 120 steps (rows and the lane "
+                  "gate at the same count), to make room for phases 21, 22 "
+                  "and 23",
     "prefill_timed": "one timed prefill call after the warm-up (PR 26: "
                      "two), to make room for phase 22",
 }
@@ -695,11 +727,11 @@ FAMILY_RUNS = (("gemma3-12b", None, 32, (None,)),
 FAMILY_LEAVES = {"gemma3-12b": 20, "phi3.5-moe-42b-a6.6b": 13,
                  "deepseek-v2-lite-16b": 18}
 FAMILY_PREFILL_BATCH, FAMILY_PREFILL_SEQ, FAMILY_PREFILL_TIMED = 4, 8192, 1
-FAMILY_SERVE_PROMPT, FAMILY_SERVE_NEW = 16, 16
+FAMILY_SERVE_PROMPT, FAMILY_SERVE_NEW = 8, 8
 FAMILY_DECODE_SLOTS, FAMILY_DECODE_T0 = 4128, 4080
 # two decode steps profiled: the profiler's tables of a 4-step window took
 # 7-13 s a model (~4,800 launches a step), for the same busy share
-FAMILY_DECODE_STEPS, FAMILY_DECODE_PROFILED = 32, 2
+FAMILY_DECODE_STEPS, FAMILY_DECODE_PROFILED = 16, 2
 FAMILY_PROFILED_LAYERS = 2
 # the profiler's windows and tables took ~64 s of phase 20's 111 s of
 # serving with all three models profiled; one model is profiled
@@ -815,6 +847,56 @@ PHASE22_CUTS = {
                 "prefill of 2 (3.40 s), one profiled trainer round of 2 "
                 "(0.33 s of window)",
     "phase 21": "one timed prefill of 2 (1.70 s)",
+}
+
+# phase 23: registry compressors on the tree substrate, the sweep's new
+# lanes and the seed-era API.  A flat lane's oracle on the real-sim GLM is
+# a matrix product, (m, d) @ (d, G), where a run takes matrix-vector
+# products, so a flat lane of p or a agrees with its run to rounding, not
+# bit for bit, and the rounds amplify that rounding (RandK scales each
+# kept coordinate by d/K = 209.6).  After 12 rounds on an H100 80GB HBM3
+# at 700 W the lanes of p sat 5.39e-4 and those of a 2.39e-3 of a field's
+# largest magnitude off their runs, the same on the dense backend; so each
+# field is held within P23_LANE_LIMIT of its largest magnitude (measured
+# against the run's move, phase 14's gate, PAGE's h_i was 0.12 off).  The
+# kernel's per-row a is held bit for bit by the one-round update gate.
+# The sampled lanes (an m = 1 problem) and the tree lanes (an oracle that
+# takes each lane on its own) are held bit for bit.
+P23_ROUNDS, P23_SEED_ROUNDS, P23_SWEEP_ROUNDS = 50, 20, 12
+P23_TRAIN_WARMUP, P23_TRAIN_ROUNDS, P23_AGREE_ROUNDS = 1, 2, 2
+P23_P_LANES = (0.02, 0.05, 0.1, 0.15, 0.2, 0.3, 0.4, 0.5)
+P23_A_LANES = (0.01, 0.02, 0.05, 0.1, 0.2, 0.35, 0.5, 0.8)  # 23e's rows
+# 23d's lanes of a: the theory's a = 1 / (2 omega + 1) times 2^-3 .. 2^4
+# (a at 0.01-0.8, 4-330 x the theory's, diverged, and its lanes sat 1.6
+# of a field's largest magnitude off their runs on the H100)
+P23_A_POWERS = range(-3, 5)
+P23_B_LANES = (0.05, 0.2, 0.5, 0.9)
+P23_SAMPLED = (10000, 64, 4)            # n, c, lanes
+P23_LANE_LIMIT = {"p": 1e-3, "a": 5e-3}
+# the reference test's bound: E||C(x)-x||^2 / ||x||^2 <= omega * tol + 0.05
+P23_OMEGA_TOL = {"randk": 1.25, "permk": 1.25, "qdither": 1.0}
+P23_OMEGA_TRIALS = 256
+# what the earlier phases gave up for phase 23, each beside its reckoning
+# from two whole runs on slower H100 80GB HBM3 hosts at 700 W (1,102.1 and
+# 1,136.4 s of command, phase 23 31.0 and 34.7 s; the later one, "slow
+# host" below, after phase 14's cut): a margin under the 1,200 s limit
+# for slower hosts.  Phase 17d's cold build of all three libraries (17.90
+# s there) is kept whole; phase 23's sweeps pay part of it by running no
+# dense-backend control
+PHASE23_CUTS = {
+    "phase 8": "a 64-token serve prompt of 128 and 32 new tokens of 64 "
+               "(64 x 65.78 + 32 x 60.75 ms = 6.15 s, slow host)",
+    "phase 19": "Figure 4 at 8 steps of 12 (4 of the slow host's 12 "
+                "steps in 19.41 s: ~6.5 s)",
+    "phase 20": "8 + 8 serve tokens of 16 + 16 and 16 decode steps of 32 "
+                "(the three models' ms a step: 5.70 + 6.46 = 12.16 s, "
+                "slow host)",
+    "phase 23": "its sweeps at 12 rounds of 20 (~4 s of the slow host's "
+                "13.02) "
+                "and its full-width trainer's 2 timed rounds of 3 (~2 s)",
+    "phase 14": "fig2 at 1/16 of its rounds (1/8: 10.50 s) and fig3 at "
+                "1/80 (1/40: 11.26 s); neither is gated, their rows are "
+                "printed",
 }
 
 
@@ -2157,7 +2239,7 @@ def phase_serve(torch, smi: str):
     del logits, tokens
     torch.cuda.empty_cache()
 
-    # (b) serve: a 128-token prompt stepped through decode_step, 64 new
+    # (b) serve: a 64-token prompt stepped through decode_step, 32 new
     # (the recurrence: no ssd_chunk launch)
     args = S.build_parser().parse_args([
         "--batch", str(DECODE_BATCH), "--prompt-len", str(DECODE_PROMPT),
@@ -7954,6 +8036,878 @@ def phase_cross(torch, smi: str):
             {"vlm_smoke_trainer": k3_vlm, "whisper_trainer": k3_whisper})
 
 
+# ---------------------------------------------------------------------------
+# phase 23: registry compressors on the tree substrate, new lanes, seed API
+# ---------------------------------------------------------------------------
+
+def _p23_fields_equal(torch, a, b, leaf=None):
+    """The fields of two states whose tensors differ in any bit (``leaf``:
+    the path of ``a``'s single leaf)."""
+    from repro_torch.core import tree
+    bad = []
+    for f in ("x", "g", "g_local", "h_local"):
+        va = getattr(a, f)
+        va = tree.get(va, leaf) if leaf else va
+        if not torch.equal(va, getattr(b, f)):
+            bad.append(f)
+    if a.bits_sent != b.bits_sent:
+        bad.append("bits_sent")
+    return bad
+
+
+def _p23_split_single_leaf():
+    """Planted: a ``LeafSpecCompressor`` that draws a single leaf's plan by
+    its path, as a leaf of a larger tree would: the flat round's plan is
+    lost."""
+    from repro_torch.core import tree
+    from repro_torch.methods import LeafSpecCompressor
+    from repro_torch.methods.substrates import _leaf_size
+
+    class Split(LeafSpecCompressor):
+        def leaf_plans(self, rnd, per_node_tree, lanes=False):
+            return {path: rnd.leaf_plan(path, self._leaf_rc(
+                int(_leaf_size(leaf, lanes))))
+                for path, leaf in tree.items(per_node_tree)}
+    return Split
+
+
+def _p23_shared_generator():
+    """Planted: a ``LeafSpecCompressor`` that draws every leaf's plan from
+    one shared generator (the round's flat seed), not one seeded by the
+    leaf's path."""
+    from repro_torch.core import tree
+    from repro_torch.core.rng import derive_seed
+    from repro_torch.methods import LeafSpecCompressor
+    from repro_torch.methods.substrates import _leaf_size
+
+    class Shared(LeafSpecCompressor):
+        def leaf_plans(self, rnd, per_node_tree, lanes=False):
+            seed = derive_seed(rnd.seed, rnd.t, "compress")
+            return {path: self._leaf_rc(int(_leaf_size(leaf, lanes))).plan(
+                seed) for path, leaf in tree.items(per_node_tree)}
+    return Shared
+
+
+def _p23_bridge(torch, smi: str, problem, L: float):
+    """23a: single-leaf tree == flat, bit for bit, at real-sim's shape."""
+    from repro_torch.compress import make_round_compressor
+    from repro_torch.methods import (FlatSubstrate, Hyper, LeafProblemOracle,
+                                     Method, TreeSubstrate)
+    from repro_torch.optim.base import SGD
+    n, d = N_NODES, D_REALSIM
+    x0 = torch.zeros(d, device="cuda")
+    oracle = LeafProblemOracle.wrapping(problem, {"w": x0})
+    cases = [("dasha", "randk", dict(k=K_RANDK), "dasha_sparsify_update"),
+             ("page", "randk", dict(k=K_RANDK), "dasha_sparsify_update"),
+             ("marina", "randk", dict(k=K_RANDK), "dasha_sparsify_update"),
+             ("dasha", "qdither", dict(s=S_QDITHER), "quantize")]
+    rows = []
+    for variant, name, ckw, kernel in cases:
+        rc = make_round_compressor(name, d, n, backend="fused",
+                                   device="cuda", **ckw)
+        theory = dict(B=1, m=M_REALSIM) if variant == "page" else \
+            dict(zeta=K_RANDK, d=d) if variant == "marina" else {}
+        hp = Hyper.from_theory(variant, rc.omega, n, L=L, gamma_mult=16,
+                               **theory)
+        if variant in ("page", "marina"):      # coins inside the run
+            hp = dataclasses.replace(hp, p=0.1)
+        flat = Method.build(variant, rc, FlatSubstrate(problem, n, d), hp)
+        treem = Method.build(variant, rc, TreeSubstrate(
+            oracle, n, SGD(lr=hp.gamma)), hp)
+        sf = flat.init(x0, 1, device="cuda")
+        st = treem.init({"w": x0}, 1, device="cuda")
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        coins = 0
+        for _ in range(P23_ROUNDS):
+            sf, fi = flat.step_full(sf)
+            st, ti = treem.step_full(st)
+            coins += bool(fi.coin)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _launch_counts()
+        tag = f"p23-bridge {variant}/{name}"
+        _gate_launches(tag, counts, {kernel: 2 * P23_ROUNDS})
+        bad = _p23_fields_equal(torch, st, sf, "w")
+        if bad:
+            raise AssertionError(f"[{tag}] single-leaf tree and flat differ "
+                                 f"in {bad} after {P23_ROUNDS} rounds")
+        gsq = float(torch.sum(problem.grad_f(sf.x) ** 2))
+        if not math.isfinite(gsq):
+            raise AssertionError(f"[{tag}] ||grad f||^2 = {gsq}")
+        rows.append({"variant": variant, "compressor": name,
+                     "rounds": P23_ROUNDS, "sync_coins": coins,
+                     "wall_s": wall, "launches": counts[kernel],
+                     "grad_sq_end": gsq, "bit_equal": True})
+        if (variant, name) == ("dasha", "randk"):
+            planted = Method.build(variant, _p23_split_single_leaf()(
+                rc), TreeSubstrate(oracle, n, SGD(lr=hp.gamma)), hp)
+            sp = planted.init({"w": x0}, 1, device="cuda")
+            sf = flat.init(x0, 1, device="cuda")
+            for _ in range(3):
+                sp, sf = planted.step(sp), flat.step(sf)
+            bad = _p23_fields_equal(torch, sp, sf, "w")
+            if not bad:
+                raise AssertionError(f"[{tag}] the planted split-leaf "
+                                     "compressor equals the flat run")
+            rows[-1]["planted_split_leaf_differs_in"] = bad
+    log(f"[p23-bridge] single-leaf tree == flat bit for bit at ({n}, {d}), "
+        f"{P23_ROUNDS} rounds each: {rows} | {smi}")
+    return rows
+
+
+def _p23_trainer_method(torch, cfg, name: str, dev: str, n: int, d: int,
+                        cls=None):
+    """DASHA-MVR on ``cfg``'s LM through ``Method.build`` with the registry
+    compressor ``name`` (fused) on the tree substrate, SGD server.  ``d``:
+    the largest leaf's coordinates a node.  The spec is re-dimensioned leaf
+    by leaf, but ``Hyper.a`` is one number: it is momentum_a(omega) of the
+    largest leaf, the smallest a of any leaf (QDither's omega grows with
+    d; Bernoulli's does not depend on it)."""
+    from repro_torch.compress import make_round_compressor
+    from repro_torch.compress.spec import momentum_a
+    from repro_torch.methods import (BatchLossOracle, Hyper,
+                                     LeafSpecCompressor, Method,
+                                     TreeSubstrate)
+    from repro_torch.models import lm
+    from repro_torch.optim.base import SGD
+    kw = dict(p=0.25) if name == "bernoulli" else dict(s=S_QDITHER)
+    rc = make_round_compressor(name, d, n, backend="fused", device=dev,
+                               **kw)
+    comp = (cls or LeafSpecCompressor)(rc)
+    sub = TreeSubstrate(BatchLossOracle(
+        lambda p, b: lm.loss_fn(cfg, p, b)[0]), n, SGD(lr=0.05))
+    hp = Hyper(gamma=0.05, a=momentum_a(rc.omega), b=0.1, variant="mvr")
+    return Method.build("mvr", rc if cls is None else comp, sub, hp), comp, \
+        hp.a
+
+
+def _p23_registry_trainer(torch, smi: str):
+    """23b: whisper-tiny's trainer at full width with registry compressors
+    on the tree substrate; card vs CPU and the per-leaf plan gate at its
+    smoke config."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree
+    from repro_torch.core.rng import Draws, RoundRandom
+    from repro_torch.data.pipeline import (SyntheticTextConfig,
+                                           make_node_batches, modality_kw)
+    from repro_torch.kernels import dasha_update as kern
+    from repro_torch.kernels import ref
+    from repro_torch.models import init_params
+    n = TRAIN_NODES
+    cfg = get_config(CROSS_AUDIO)
+    params = _gate_cross_blocks(init_params(cfg, 0, device="cuda"))
+    n_params = sum(p.numel() for p in tree.leaves(params))
+    leaves = len(tree.leaves(params))
+    d_max = max(p.numel() for p in tree.leaves(params))
+    if leaves != CROSS_LEAVES[CROSS_AUDIO]:
+        raise AssertionError(f"[p23-train] {leaves} leaves, expected "
+                             f"{CROSS_LEAVES[CROSS_AUDIO]}")
+    text = SyntheticTextConfig(vocab_size=cfg.vocab_size,
+                               seq_len=WHISPER_TRAIN_SEQ)
+    rounds = P23_TRAIN_WARMUP + P23_TRAIN_ROUNDS
+    batches = [make_node_batches(t, text, n, TRAIN_BATCH, device="cuda",
+                                 **modality_kw(cfg)) for t in range(rounds)]
+    full = {}
+    for name, kernel in (("bernoulli", "dasha_sparsify_update"),
+                         ("qdither", "quantize")):
+        method, _, a = _p23_trainer_method(torch, cfg, name, "cuda", n,
+                                           d_max)
+        state = method.init(params, 1, init_mode="zeros", device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launch_counts()
+        for t in range(P23_TRAIN_WARMUP):
+            state = method.step(state, batches[t])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(P23_TRAIN_WARMUP, rounds):
+            state = method.step(state, batches[t])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _launch_counts()
+        _gate_launches(f"p23-train {name}", counts, {kernel: leaves * rounds})
+        bad = [p for p, g in tree.items(state.g)
+               if not bool(torch.isfinite(g).all())]
+        if bad:
+            raise AssertionError(f"[p23-train] {name}: non-finite g at "
+                                 f"{bad[:3]}")
+        tokens = n * TRAIN_BATCH * WHISPER_TRAIN_SEQ
+        full[name] = {"rounds_timed": P23_TRAIN_ROUNDS, "a": a,
+                      "rounds_per_s": P23_TRAIN_ROUNDS / wall,
+                      "tokens_per_s": P23_TRAIN_ROUNDS * tokens / wall,
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "launches": counts,
+                      "bits_sent": float(state.bits_sent)}
+        del method, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[p23-train] whisper-tiny at full width ({n_params / 1e6:.2f}M "
+        f"params, {leaves} leaves), n = {n} x {TRAIN_BATCH} x "
+        f"{WHISPER_TRAIN_SEQ} tokens, DASHA-MVR through Method.build with "
+        f"registry compressors on the tree substrate: {full} | {smi}")
+    del params, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the smoke config: card vs CPU on CPU-drawn per-leaf plans, then the
+    # round's own plans against the documented path-seeded draws
+    cfg, params, _ = _cross_smoke(torch, CROSS_AUDIO)
+    d_max = max(p.numel() for p in tree.leaves(params))
+    text = SyntheticTextConfig(vocab_size=cfg.vocab_size, seq_len=64)
+    batches = [make_node_batches(t, text, n, 2, device="cpu",
+                                 **modality_kw(cfg))
+               for t in range(P23_AGREE_ROUNDS)]
+    zeros = tree.map_leaves(lambda p: torch.zeros((n,) + tuple(p.shape)),
+                            params)
+
+    def to(dev, obj):
+        if isinstance(obj, torch.Tensor):
+            return obj.to(dev)
+        if isinstance(obj, dict):
+            return {k: to(dev, v) for k, v in obj.items()}
+        if hasattr(obj, "_fields"):
+            return obj._replace(**{f: to(dev, getattr(obj, f))
+                                   for f in obj._fields
+                                   if isinstance(getattr(obj, f),
+                                                 torch.Tensor)})
+        return obj
+
+    def run(name, dev, plans, prm=params, cls=None, rounds=None):
+        method, comp, _ = _p23_trainer_method(torch, cfg, name, dev, n,
+                                              d_max, cls)
+        st = method.init(to(dev, prm), 1, init_mode="zeros", device=dev)
+        trace = []
+        for t in range(rounds or P23_AGREE_ROUNDS):
+            dr = None if plans is None else Draws(leaf_plans=to(dev,
+                                                                plans[t]))
+            st = method.step_full(st, to(dev, batches[t]), draws=dr)[0]
+            trace.append(float(sum(torch.sum(g.double() ** 2)
+                                   for g in tree.leaves(st.g))))
+        return st, comp, trace
+
+    def trace_gap(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    def leaf_launches(plans):
+        """The card's QDither run, each fused launch (one a leaf a round)
+        held against its plain version on the same inputs by phase 2's
+        one-level rule: (the run, flips, worst agreeing error, launches)."""
+        calls = []
+        real = kern.dasha_quantize_update
+
+        def recorded(h_new, h, g_local, u, a, scale, levels):
+            out = real(h_new, h, g_local, u, a, scale, levels)
+            delta = h_new - h - a * (g_local - h)
+            plain = ref.dasha_quantize_update_ref(h_new, h, g_local, u, a,
+                                                  scale, levels)[0]
+            agree = kern.quantize_agreement(out[0], plain, delta,
+                                            u.expand_as(delta), levels,
+                                            scale)
+            calls.append((agree, torch.equal(out[2], g_local + out[0])))
+            return out
+        with _patched(kern, "dasha_quantize_update", recorded):
+            res = run("qdither", "cuda", plans)
+        bad = [j for j, (ag, g_ok) in enumerate(calls)
+               if not (ag["ok"] and g_ok)]
+        if bad:
+            raise AssertionError(f"[p23-agree] qdither: the trainer's "
+                                 f"launches {bad[:5]} of {len(calls)} break "
+                                 f"the one-level rule against the plain "
+                                 f"version")
+        return (res, sum(ag["flips"] for ag, _ in calls),
+                max(ag["max_abs_err"] for ag, _ in calls), len(calls))
+
+    # Bernoulli: every state leaf; QDither: each launch leaf by leaf against
+    # its plain version (above), and the ||g||^2 trace (phase 4's form)
+    # card vs CPU, since kernel 2 sums a row's norm in another order than
+    # torch.sum and moves an element one level (norm / s) where its uniform
+    # lies within ~1e-6 of the level's boundary: on a leaf of a few
+    # hundred coordinates one such element is a large share of the leaf
+    # (0.50 of its largest magnitude on the H100)
+    agree = {}
+    for name in ("bernoulli", "qdither"):
+        _, comp, _ = _p23_trainer_method(torch, cfg, name, "cpu", n, d_max)
+        plans = [comp.leaf_plans(RoundRandom(9, t), zeros)
+                 for t in range(P23_AGREE_ROUNDS)]
+        cpu, _, tcpu = run(name, "cpu", plans)
+        leafwise = None
+        if name == "qdither":
+            (card, _, tcard), flips, leaf_err, calls = leaf_launches(plans)
+            leafwise = {"launches": calls, "flips": flips,
+                        "max_abs_err": leaf_err}
+        else:
+            card, _, tcard = run(name, "cuda", plans)
+        if name == "bernoulli":
+            def gap(st, tr):
+                return _states_agree(torch, st, cpu, math.inf)
+        else:
+            def gap(st, tr):
+                return trace_gap(tr, tcpu)
+        err = gap(card, tcard)
+        control, limit = None, DENSE_AGREE_LIMIT
+        if err > limit:
+            gen = torch.Generator().manual_seed(1)
+            nudged, _, tn = run(name, "cpu", plans, tree.map_leaves(
+                lambda w: w * (1 + HALF_ULP_F32 * torch.randn(
+                    w.shape, generator=gen)), params))
+            control = gap(nudged, tn)
+            limit = max(limit, HYBRID_CONTROL_FACTOR * control)
+        form = "state leaves" if name == "bernoulli" else "||g||^2 trace"
+        if not err <= limit:
+            raise AssertionError(f"[p23-agree] {name}: card and CPU differ "
+                                 f"by {err} (limit {limit}; {form})")
+        agree[name] = {"gate": form, "worst": err,
+                       "control": control, "limit": limit,
+                       "leaf_launches_one_level_rule": leafwise,
+                       "state_leaves_worst": _states_agree(
+                           torch, card, cpu, math.inf)}
+    # the round's own plans are the documented per-path draws (one round)
+    own, comp, _ = run("bernoulli", "cuda", None, rounds=1)
+    documented = [comp.leaf_plans(RoundRandom(1, 0), to("cuda", zeros))]
+    injected, _, _ = run("bernoulli", "cuda", documented, rounds=1)
+    bad = _p23_fields_equal_tree(torch, own, injected)
+    if bad:
+        raise AssertionError(f"[p23-plans] the round's own per-leaf plans "
+                             f"are not the path-seeded ones: {bad[:3]}")
+    shared, _, _ = run("bernoulli", "cuda", None, rounds=1,
+                       cls=_p23_shared_generator())
+    if not _p23_fields_equal_tree(torch, shared, injected):
+        raise AssertionError("[p23-plans] the planted shared-generator "
+                             "compressor passes the per-leaf plan gate")
+    log(f"[p23-agree] whisper smoke, registry compressors on the tree "
+        f"substrate, card vs CPU on CPU-drawn per-leaf plans: {agree}; the "
+        f"round's own plans are the path-seeded ones, the shared-generator "
+        f"plant fails")
+    return {"full_width": full, "params": n_params, "leaves": leaves,
+            "agreement": agree, "planted": {"shared generator": "caught"}}
+
+
+def _p23_fields_equal_tree(torch, a, b):
+    """(field, path) of every leaf where two tree states differ in a bit."""
+    from repro_torch.core import tree
+    bad = []
+    for f in ("x", "g", "g_local", "h_local"):
+        for path, w in tree.items(getattr(b, f)):
+            if not torch.equal(tree.get(getattr(a, f), path), w):
+                bad.append((f, path))
+    return bad
+
+
+def _p23_seed_api(torch, smi: str, problem, L: float):
+    """23c: the seed-era entry points equal Method.build runs bit for bit;
+    empirical omega within the spec's bound."""
+    import warnings
+    from repro_torch.compress.legacy import (NodeCompressor, PermK, QDither,
+                                             RandK, empirical_omega,
+                                             make_compressor)
+    from repro_torch.core import dasha as cdasha
+    from repro_torch.core import marina as cmarina
+    from repro_torch.core.oracles import StochasticProblem
+    from repro_torch.methods import FlatSubstrate, Hyper, Method
+    n, d = N_NODES, D_REALSIM
+    x0 = torch.zeros(d, device="cuda")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        nc = NodeCompressor(make_compressor("randk", d, k=K_RANDK), n,
+                            backend="fused", device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    diag = 1.0 + torch.rand(d, generator=gen, device="cuda")
+    bvec = torch.randn(d, generator=gen, device="cuda")
+
+    def qloss(x, xi, i):
+        return 0.5 * torch.sum(diag * x * x) - bvec @ x + xi @ x
+
+    def sample(g, i, batch):
+        return 0.3 * torch.randn((batch, d), generator=g, device=g.device)
+
+    stoch = StochasticProblem(qloss, sample, n, device="cuda",
+                              true_grad=lambda x: diag * x - bvec)
+    rows = {}
+
+    def same(tag, got, want):
+        (fa, ma, ba), (fb, mb, bb) = got, want
+        bad = [f for f in ("x", "g", "g_local", "h_local")
+               if not torch.equal(getattr(fa, f), getattr(fb, f))]
+        if not (ma == mb).all() or not (ba == bb).all():
+            bad.append("traces")
+        if bad:
+            raise AssertionError(f"[p23-seed] {tag}: the seed-era run and "
+                                 f"the Method.build run differ in {bad}")
+        rows[tag] = {"rounds": P23_SEED_ROUNDS, "metric_end": float(ma[-1]),
+                     "bit_equal": True}
+
+    _reset_launch_counts()
+    hp = Hyper.from_theory("dasha", nc.omega, n, L=L, gamma_mult=16)
+    st = cdasha.init(x0, n, 1, problem=problem, hyper=hp, device="cuda")
+    same("dasha", cdasha.run(st, hp, problem, nc, P23_SEED_ROUNDS),
+         Method.build("dasha", nc.rc, FlatSubstrate(problem, n, d), hp).run(
+             st, P23_SEED_ROUNDS))
+    for variant in ("marina", "vr", "vr_online"):
+        prob = stoch if variant == "vr_online" else problem
+        mhp = cmarina.MarinaHyper(gamma=0.5 / L if prob is problem
+                                  else 0.02, p=0.1, variant=variant,
+                                  batch=4, batch_sync=16)
+        st = cmarina.init(x0, 1, prob, device="cuda")
+        same(variant, cmarina.run(st, mhp, prob, nc, P23_SEED_ROUNDS),
+             Method.build("marina", nc.rc, FlatSubstrate(prob, n, d),
+                          cmarina._hyper(mhp)).run(st, P23_SEED_ROUNDS))
+    counts = _launch_counts()
+    _gate_launches("p23-seed", counts, {
+        "dasha_sparsify_update": 2 * 4 * P23_SEED_ROUNDS})
+    x = torch.randn(d, generator=gen, device="cuda")
+    omega = {}
+    for comp, g in ((RandK(d, K_RANDK), gen),
+                    (PermK(d, n), torch.Generator().manual_seed(1)),
+                    (QDither(d, S_QDITHER), gen)):
+        name = type(comp).__name__.lower()
+        emp = empirical_omega(comp, g, x, trials=P23_OMEGA_TRIALS)
+        bound_ = comp.omega * P23_OMEGA_TOL[name] + 0.05
+        if not emp <= bound_:
+            raise AssertionError(f"[p23-seed] {name}: empirical omega {emp} "
+                                 f"over the bound {bound_}")
+        omega[name] = {"empirical": emp, "spec": comp.omega,
+                       "bound": bound_}
+    log(f"[p23-seed] core.dasha.run / core.marina.run == Method.build runs "
+        f"bit for bit at ({n}, {d}): {rows}; empirical omega {omega} | "
+        f"{smi}")
+    return {"runs": rows, "omega": omega,
+            "launches": counts["dasha_sparsify_update"]}
+
+
+def _p23_coin_spy():
+    """A context that records every coin the rounds draw, in order."""
+    from repro_torch.core.rng import RoundRandom
+    real, seen = RoundRandom.coin, []
+
+    def spy(self, p, tag):
+        out = real(self, p, tag)
+        seen.append(out)
+        return out
+
+    @contextlib.contextmanager
+    def watching():
+        RoundRandom.coin = spy
+        try:
+            yield seen
+        finally:
+            RoundRandom.coin = real
+    return watching()
+
+
+def _p23_lanes_vs_runs(torch, tag, build, values, state, rounds, *,
+                       data=None, exact=False, watch_coins=False,
+                       limit=0.0):
+    """Step a method of G lanes and G one-lane methods side by side from
+    ``state``: the coins every round (``watch_coins``), the participation
+    and bits exactly, then each field within ``limit`` of its largest
+    magnitude, or bit for bit with ``exact``.  Returns
+    (worst error, lane launches, rounds whose coins differ by lane, the
+    lanes' final state)."""
+    import numpy as np
+    from repro_torch.core import tree
+    from repro_torch.methods.driver import _broadcast_lanes
+    lanes = build(np.asarray(values))
+    G = len(values)
+    ls = _broadcast_lanes(state, G, torch.device("cuda"))
+    lane_coins = []
+    _reset_launch_counts()
+    with _p23_coin_spy() as seen:
+        for t in range(rounds):
+            seen.clear()
+            ls, li = lanes.step_full(ls, data)
+            lane_coins.append((list(seen), li.present))
+    lane_launches = _launch_counts()
+    mixed, worst = 0, 0.0
+    finals = []
+    with _p23_coin_spy() as seen:
+        for j, v in enumerate(values):
+            one = build(float(v))
+            st = state
+            for t in range(rounds):
+                seen.clear()
+                st, info = one.step_full(st, data)
+                coins, present = lane_coins[t]
+                if watch_coins:
+                    if len(seen) != len(coins) or any(
+                            bool(np.broadcast_to(c, (G,))[j]) != bool(o)
+                            for c, o in zip(coins, seen)):
+                        raise AssertionError(f"[{tag}] lane {j}'s coins "
+                                             f"{coins} at round {t}, its run "
+                                             f"drew {seen}")
+                if present is not None and not torch.equal(present,
+                                                           info.present):
+                    raise AssertionError(f"[{tag}] lane {j}: another cohort "
+                                         f"at round {t}")
+            finals.append(st)
+    if watch_coins:
+        mixed = sum(len({bool(x) for x in np.broadcast_to(c, (G,))}) > 1
+                    for coins, _ in lane_coins for c in coins)
+    for j, st in enumerate(finals):
+        if not np.float32(ls.bits_sent[j]) == np.float32(st.bits_sent):
+            raise AssertionError(f"[{tag}] lane {j}: bits_sent "
+                                 f"{ls.bits_sent[j]} != {st.bits_sent}")
+        if exact:
+            off = []
+            for f in ("x", "g", "g_local", "h_local"):
+                for path, w in tree.items(getattr(st, f)):
+                    g = tree.get(getattr(ls, f), path)[j]
+                    if not torch.equal(g, w):
+                        off.append((f, path, float(
+                            (g.float() - w.float()).abs().max()
+                            / max(float(w.float().abs().max()), 1e-30))))
+            if off:
+                raise AssertionError(f"[{tag}] lane {j} differs from its "
+                                     f"run in {len(off)} leaves, worst "
+                                     f"{max(o[2] for o in off)} of a leaf's "
+                                     f"largest magnitude: {off[:3]}")
+        else:
+            lane = ls._replace(**{f: getattr(ls, f)[j]
+                                  for f in SWEEP_STATE})
+            errs = {}
+            for f in SWEEP_STATE:
+                a, b = getattr(lane, f), getattr(st, f)
+                errs[f] = float((a - b).abs().max()) / max(
+                    float(b.abs().max()), 1e-30)
+            worst = max(worst, max(errs.values()))
+            if not max(errs.values()) <= limit:
+                raise AssertionError(f"[{tag}] lane {j} off its run: {errs} "
+                                     f"of each field's largest magnitude "
+                                     f"(limit {limit})")
+    return worst, lane_launches, mixed, ls
+
+
+def _p23_sweeps(torch, smi: str, problem, L: float):
+    """23d: the sweep's new lanes against sequential runs."""
+    from repro_torch.compress import make_round_compressor
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import tree
+    from repro_torch.data.pipeline import (SyntheticTextConfig,
+                                           make_node_batches,
+                                           synthetic_classification)
+    from repro_torch.core.oracles import FiniteSumProblem
+    from repro_torch.kernels import dasha_update as kern
+    from repro_torch.methods import (BatchLossOracle, FlatSubstrate, Hyper,
+                                     Method, SampledFlatSubstrate,
+                                     TreeCompression, TreeSubstrate)
+    from repro_torch.models import init_params, lm
+    from repro_torch.optim.base import SGD
+    n, d = N_NODES, D_REALSIM
+    R = P23_SWEEP_ROUNDS
+    x0 = torch.zeros(d, device="cuda")
+    rc = make_round_compressor("randk", d, n, k=K_RANDK, backend="fused",
+                               device="cuda")
+    base = Hyper.from_theory("dasha", rc.omega, n, L=L, gamma_mult=16)
+    out = {}
+
+    def page(p):
+        return Method.build("page", rc, FlatSubstrate(problem, n, d),
+                            dataclasses.replace(base, variant="page", p=p,
+                                                batch=1))
+    st = page(0.1).init(x0, 1, device="cuda")
+    worst, launches, mixed, _ = _p23_lanes_vs_runs(
+        torch, "p23-sweep p", page, P23_P_LANES, st, R, watch_coins=True,
+        limit=P23_LANE_LIMIT["p"])
+    _gate_launches("p23-sweep p", launches, {"dasha_sparsify_update": R})
+    if not mixed:
+        raise AssertionError("[p23-sweep p] no round drew coins that differ "
+                             "by lane")
+    out["p"] = {"lanes": len(P23_P_LANES), "rounds": R, "worst": worst,
+                "limit": P23_LANE_LIMIT["p"], "mixed_coin_rounds": mixed}
+
+    def dasha_a(a):
+        return Method.build("dasha", rc, FlatSubstrate(problem, n, d),
+                            dataclasses.replace(base, a=a))
+    a_lanes = [base.a * 2.0 ** k for k in P23_A_POWERS]
+    st = dasha_a(base.a).init(x0, 1, device="cuda")
+    worst, launches, _, ls = _p23_lanes_vs_runs(
+        torch, "p23-sweep a", dasha_a, a_lanes, st, R,
+        limit=P23_LANE_LIMIT["a"])
+    _gate_launches("p23-sweep a", launches, {"dasha_sparsify_update": R})
+
+    # a enters a round through a (g_i - h_i), which the rounds keep small,
+    # and the lanes' gradients differ from their runs' by the oracle's
+    # rounding, which d/K amplifies (one round from the sweep's state: g_i
+    # 8.2e-4 of its largest magnitude off, the same on the dense backend,
+    # on the H100).  So the round's estimator update is held on
+    # its own: from the sweep's final state and the lane oracle's one
+    # gradient, the lanes' update (one kernel-1 launch, a read per row)
+    # against each lane's one-lane update (a scalar a), bit for bit
+    from repro_torch.core.rng import RoundRandom
+    from repro_torch.methods import Lanes
+    flat = FlatSubstrate(problem, n, d).with_compressor(rc)
+    lane_sub = flat.with_lanes(len(a_lanes))
+    h_new = lane_sub.grad(RoundRandom(ls.seed, ls.t), ls.x)
+
+    def one_update():
+        """The lanes whose update differs in any bit from their one-lane
+        update on the same inputs."""
+        lane = lane_sub.estimator_update_full(
+            RoundRandom(ls.seed, ls.t), h_new, ls.h_local, ls.g_local,
+            Lanes(a_lanes))
+        bad = []
+        for j, v in enumerate(a_lanes):
+            one = flat.estimator_update_full(
+                RoundRandom(ls.seed, ls.t), h_new[j], ls.h_local[j],
+                ls.g_local[j], v)
+            if not (torch.equal(lane[0][j], one[0])
+                    and torch.equal(lane[2][j], one[2])):
+                bad.append(j)
+        return bad
+    bad = one_update()
+    if bad:
+        raise AssertionError(f"[p23-sweep a] the lanes' estimator update "
+                             f"differs from the one-lane updates at lanes "
+                             f"{bad}")
+    # planted: the kernel reads row r's a at r % G in place of r / n
+    real = kern.lane_values
+
+    def row_mod_g(name, what, v, rows, device):
+        ka, t, div = real(name, what, v, rows, device)
+        if t is None:
+            return ka, t, div
+        return ka, t.repeat(rows // t.numel()).contiguous(), 1
+    kern.lane_values = row_mod_g
+    try:
+        planted = one_update()
+    finally:
+        kern.lane_values = real
+    if not planted:
+        raise AssertionError("[p23-sweep a] a per-row a read at row % G "
+                             "passes the update gate")
+    out["a"] = {"lanes": len(a_lanes), "values": a_lanes, "rounds": R,
+                "worst": worst, "limit": P23_LANE_LIMIT["a"],
+                "update_bit_equal": True,
+                "planted_row_mod_g_lanes_off": planted,
+                "rows_a_launch": n * len(a_lanes)}
+
+    # b on the fused MVR tree path (kernel 3) at starcoder2's smoke config
+    cfg = get_smoke_config("starcoder2-3b")
+    params = init_params(cfg, 0, device="cuda")
+    text = SyntheticTextConfig(vocab_size=cfg.vocab_size, seq_len=64)
+    batch = make_node_batches(0, text, TRAIN_NODES, 2, device="cuda")
+    sub = TreeSubstrate(BatchLossOracle(lambda p, b: lm.loss_fn(
+        cfg, p, b)[0]), TRAIN_NODES, SGD(lr=0.05))
+    comp = TreeCompression(n=TRAIN_NODES, p=0.25, use_kernel=True)
+
+    def mvr_b(b):
+        return Method.build("mvr", comp, sub, Hyper(gamma=0.05, a=0.2, b=b,
+                                                    variant="mvr"))
+    st = mvr_b(0.1).init(params, 1, init_mode="zeros", device="cuda")
+    leaves = len(tree.leaves(params))
+    _, launches, _, _ = _p23_lanes_vs_runs(
+        torch, "p23-sweep b", mvr_b, P23_B_LANES, st, 3, data=batch,
+        exact=True)
+    _gate_launches("p23-sweep b", launches, {"dasha_mvr_update": 3 * leaves})
+    out["b"] = {"lanes": len(P23_B_LANES), "rounds": 3, "leaves": leaves,
+                "bit_equal": True}
+    del params, batch, st
+    gc.collect()
+
+    # lanes on the sampled substrate
+    ns, c, G = P23_SAMPLED
+    feats, labels = synthetic_classification(1, ns, 1, d, device="cuda")
+    sprob = FiniteSumProblem(_glm_loss(torch), feats, labels)
+    src = make_round_compressor("randk", d, ns, k=K_RANDK, backend="fused",
+                                device="cuda")
+    sub_s = SampledFlatSubstrate(sprob, ns, d, c=c)
+    shp = Hyper.from_theory("dasha", sub_s.with_compressor(
+        src).effective_omega(), ns, L=L, gamma_mult=16)
+
+    def sampled(gamma):
+        return Method.build("dasha", src, sub_s,
+                            dataclasses.replace(shp, gamma=gamma))
+    gammas = [shp.gamma * 2.0 ** k for k in range(-2, G - 2)]
+    st = sampled(shp.gamma).init(x0, 1, device="cuda")
+    _, launches, _, _ = _p23_lanes_vs_runs(
+        torch, "p23-sweep sampled", sampled, gammas, st, R, exact=True)
+    _gate_launches("p23-sweep sampled", launches,
+                   {"dasha_sparsify_update": R})
+    out["sampled"] = {"n": ns, "c": c, "lanes": G, "rounds": R,
+                      "bit_equal": True, "rows_a_launch": G * c}
+    del feats, labels, sprob, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[p23-sweep] lanes against sequential runs (the flat lanes' worst "
+        f"field error of its largest magnitude, within {P23_LANE_LIMIT}; "
+        f"the tree and sampled lanes bit for bit): {out} | {smi}")
+    return out, {"dasha_sparsify_update": 3 * R,
+                 "dasha_mvr_update": 3 * leaves}
+
+
+def _p23_kernel_rows(torch, smi: str):
+    """23e: kernels 1-3 with per-row a / b against their plain versions
+    and against one scalar launch a lane, timed beside their bounds."""
+    from repro_torch.kernels import dasha_update as kern
+    from repro_torch.kernels import ref
+    from repro_torch.methods import Lanes
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    rows = {}
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def lanes_of(t, G):
+        return t.view(G, -1, t.shape[-1])
+
+    # kernel 1: 8 lanes x 5 nodes of real-sim rows, the plan's RandK indices
+    G, n, d, k = len(P23_A_LANES), N_NODES, D_REALSIM, K_RANDK
+    # the lane values as the methods layer hands them over: (G,) fp32,
+    # 1 - b formed in double before its one rounding
+    a = Lanes(P23_A_LANES).as_vector("cuda")
+    grad, h, gl = rnd(G * n, d), rnd(G * n, d), rnd(G * n, d)
+    idx = torch.topk(torch.rand((n, d), generator=gen, device="cuda"), k,
+                     dim=1).indices.contiguous()
+    scale = d / k
+    out = kern.dasha_sparsify_update(grad, h, gl, a, scale, indices=idx)
+    plain = ref.dasha_sparsify_update_ref(grad, h, gl, a, scale,
+                                          indices=idx)
+    per_lane = [kern.dasha_sparsify_update(
+        lanes_of(grad, G)[j], lanes_of(h, G)[j], lanes_of(gl, G)[j],
+        P23_A_LANES[j], scale, indices=idx) for j in range(G)]
+    ok = torch.equal(out[0], plain[0]) and torch.equal(out[2], plain[2])
+    ok = ok and all(torch.equal(lanes_of(out[0], G)[j], m[0]) and
+                    torch.equal(lanes_of(out[2], G)[j], m[2])
+                    for j, m in enumerate(per_lane))
+    if not ok:
+        raise AssertionError("[p23-kernels] kernel 1 with per-row a is not "
+                             "bit-equal to its plain version and to one "
+                             "scalar launch a lane")
+    nbytes = 20 * G * n * d + idx.numel() * 8 + G * 4
+    t_b, by = bound(nbytes, 6 * G * n * d)
+    rows["dasha_sparsify_update"] = {
+        "shape": [G * n, d], "form": "per-row a, RandK indices",
+        "max_abs_err": 0.0,
+        "ms": time_ms(torch, lambda: kern.dasha_sparsify_update(
+            grad, h, gl, a, scale, indices=idx)),
+        "scalar_ms": time_ms(torch, lambda: kern.dasha_sparsify_update(
+            grad, h, gl, 0.1, scale, indices=idx)),
+        "plain_ms": time_ms(torch, lambda: ref.dasha_sparsify_update_ref(
+            grad, h, gl, a, scale, indices=idx)),
+        "bound_ms": t_b, "bound_by": by, "library_ms": None}
+
+    # kernel 3: 4 lanes x 4 nodes of real-sim rows, one bool draw a node
+    G3, n3 = len(P23_B_LANES), TRAIN_NODES
+    a3_lanes = (0.1, 0.2, 0.3, 0.4)
+    a3 = Lanes(a3_lanes).as_vector("cuda")
+    c3 = (1.0 - Lanes(P23_B_LANES)).as_vector("cuda")
+    gn, go, h3, gl3 = (rnd(G3 * n3, d) for _ in range(4))
+    mask = torch.rand((n3, d), generator=gen, device="cuda") < 0.25
+    out = kern.dasha_mvr_update(gn, go, h3, gl3, mask, a3, None, 4.0, c=c3)
+    plain = ref.dasha_mvr_update_ref(gn, go, h3, gl3, mask, a3, None, 4.0,
+                                     c=c3)
+    ok = all(torch.equal(x, y) for x, y in zip(out, plain))
+    for j in range(G3):
+        sl = slice(j * n3, (j + 1) * n3)
+        one = kern.dasha_mvr_update(gn[sl], go[sl], h3[sl], gl3[sl], mask,
+                                    a3_lanes[j], P23_B_LANES[j], 4.0)
+        ok = ok and all(torch.equal(x[sl], y) for x, y in zip(out, one))
+    if not ok:
+        raise AssertionError("[p23-kernels] kernel 3 with per-row a and b "
+                             "is not bit-equal to its plain version and to "
+                             "one scalar launch a lane")
+    # the (n3, d) bool draw is shared by the lanes (row r % n3): once
+    t_b, by = bound(28 * G3 * n3 * d + n3 * d + 2 * G3 * 4,
+                    9 * G3 * n3 * d)
+    rows["dasha_mvr_update"] = {
+        "shape": [G3 * n3, d], "form": "per-row a and 1 - b, bool draw",
+        "max_abs_err": 0.0,
+        "ms": time_ms(torch, lambda: kern.dasha_mvr_update(
+            gn, go, h3, gl3, mask, a3, None, 4.0, c=c3)),
+        "scalar_ms": time_ms(torch, lambda: kern.dasha_mvr_update(
+            gn, go, h3, gl3, mask, 0.2, 0.3, 4.0)),
+        "plain_ms": time_ms(torch, lambda: ref.dasha_mvr_update_ref(
+            gn, go, h3, gl3, mask, a3, None, 4.0, c=c3)),
+        "bound_ms": t_b, "bound_by": by, "library_ms": None}
+
+    # kernel 2's fused QDither entry: 8 lanes x 5 nodes on (5, d) uniforms
+    hn, hq, gq = rnd(G, n, d), rnd(G, n, d), rnd(G, n, d)
+    u = torch.rand((n, d), generator=gen, device="cuda")
+    m, _, g_new = kern.dasha_quantize_update(hn, hq, gq, u, a, 1.0,
+                                             S_QDITHER)
+    for j in range(G):
+        mj, _, gj = kern.dasha_quantize_update(
+            hn[j].contiguous(), hq[j].contiguous(), gq[j].contiguous(), u,
+            P23_A_LANES[j], 1.0, S_QDITHER)
+        if not (torch.equal(m[j], mj) and torch.equal(g_new[j], gj)):
+            raise AssertionError(f"[p23-kernels] kernel 2 with per-row a, "
+                                 f"lane {j}, is not bit-equal to its scalar "
+                                 "launch")
+    delta = hn - hq - ref.per_row(a, hn) * (gq - hq)
+    pm = ref.dasha_quantize_update_ref(hn, hq, gq, u, a, 1.0, S_QDITHER)[0]
+    agree = kern.quantize_agreement(m.view(G * n, d), pm.view(G * n, d),
+                                    delta.view(G * n, d),
+                                    u.repeat(G, 1), S_QDITHER)
+    if not agree["ok"] or not torch.equal(g_new, gq + m):
+        raise AssertionError(f"[p23-kernels] kernel 2 with per-row a against "
+                             f"its plain version: {agree}")
+    # the (n, d) uniforms are shared by the lanes (row r % n): once
+    t_b, by = bound(20 * G * n * d + 4 * n * d + G * 4, 20 * G * n * d)
+    rows["dasha_quantize_update"] = {
+        "shape": [G, n, d], "form": "per-row a, (n, d) uniforms",
+        "max_abs_err": agree["max_abs_err"], "flips": agree["flips"],
+        "ms": time_ms(torch, lambda: kern.dasha_quantize_update(
+            hn, hq, gq, u, a, 1.0, S_QDITHER)),
+        "scalar_ms": time_ms(torch, lambda: kern.dasha_quantize_update(
+            hn, hq, gq, u, 0.1, 1.0, S_QDITHER)),
+        "plain_ms": time_ms(torch, lambda: ref.dasha_quantize_update_ref(
+            hn, hq, gq, u, a, 1.0, S_QDITHER)),
+        "bound_ms": t_b, "bound_by": by, "library_ms": None}
+    log(f"[p23-kernels] per-row a / b forms, bit-equal to the plain versions "
+        f"(kernel 2 by the one-level rule) and to one scalar launch a lane: "
+        f"{rows} | {smi}")
+    return rows
+
+
+def phase_registry(torch, smi: str):
+    """Phase 23: registry compressors on the tree substrate (23a, 23b), the
+    seed-era API (23c), the sweep's new lanes (23d) and the kernels'
+    per-row a / b forms (23e).  Returns the report, the launches of the
+    main paths it drove (by kernel), and the kernel rows."""
+    from repro_torch.core.oracles import FiniteSumProblem
+    from repro_torch.data.pipeline import synthetic_classification
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    walls = {}
+
+    def part(name, fn, *args):
+        t1 = time.perf_counter()
+        res = fn(torch, *args)
+        walls[name] = time.perf_counter() - t1
+        log(f"[p23] {name} in {walls[name]:.1f} s")
+        return res
+
+    n, m, d = N_NODES, M_REALSIM, D_REALSIM
+    feats, labels = synthetic_classification(0, n, m, d, device="cuda")
+    problem = FiniteSumProblem(_glm_loss(torch), feats, labels)
+    L = float(torch.mean(torch.sum(feats ** 2, -1)) * 2)
+    bridge = part("bridge", _p23_bridge, smi, problem, L)
+    seed = part("seed_api", _p23_seed_api, smi, problem, L)
+    sweeps, sweep_launches = part("sweeps", _p23_sweeps, smi, problem, L)
+    del feats, labels, problem
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer = part("registry_trainer", _p23_registry_trainer, smi)
+    rows = part("kernel_rows", _p23_kernel_rows, smi)
+    leaves = trainer["leaves"]
+    rounds = P23_TRAIN_WARMUP + P23_TRAIN_ROUNDS
+    launches = {
+        "dasha_sparsify_update": sum(r["launches"] for r in bridge
+                                     if r["compressor"] == "randk")
+        + seed["launches"] + sweep_launches["dasha_sparsify_update"]
+        + leaves * rounds,
+        "quantize": sum(r["launches"] for r in bridge
+                        if r["compressor"] == "qdither") + leaves * rounds,
+        "dasha_mvr_update": sweep_launches["dasha_mvr_update"]}
+    wall = time.perf_counter() - t0
+    log(f"[p23] phase 23 in {wall:.1f} s ({walls}) | {smi}")
+    return ({"bridge": bridge, "registry_trainer": trainer,
+             "seed_api": seed, "sweeps": sweeps, "kernel_rows": rows,
+             "launches": launches, "cuts": PHASE23_CUTS, "wall_s": wall,
+             "walls_s": walls, "nvidia_smi": smi}, launches, rows)
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"{SRC / 'repro_torch'} not found: run from a checkout of the "
@@ -8014,6 +8968,10 @@ def main() -> int:
     hybrid, hybrid_launches, hybrid_ssd_rows = timed(phase_hybrid, torch, smi)
     ssd_rows.extend(hybrid_ssd_rows)
     cross, cross_launches = timed(phase_cross, torch, smi)
+    registry, p23_launches, p23_rows = timed(phase_registry, torch, smi)
+    sparsify["cases"].append(p23_rows["dasha_sparsify_update"])
+    per_shape["dasha_mvr_update"].append(p23_rows["dasha_mvr_update"])
+    kernel2["fused"].append(p23_rows["dasha_quantize_update"])
     # kernels 1 to 4 run on several main paths: the flat round, the
     # federated cohort round, the heap oracle, the sweep, the faulted
     # campaigns, the asynchronous ones, the runs with an observability
@@ -8030,21 +8988,24 @@ def main() -> int:
             "faults": fault_launches["dasha_sparsify_update"],
             "async": async_launches["dasha_sparsify_update"],
             "obs": obs_launches["dasha_sparsify_update"],
-            "ckpt": ckpt_launches["dasha_sparsify_update"]},
+            "ckpt": ckpt_launches["dasha_sparsify_update"],
+            "registry": p23_launches["dasha_sparsify_update"]},
         "dasha_mvr_update": {"trainer": launches["dasha_mvr_update"],
                              "ckpt": ckpt_launches["dasha_mvr_update"],
                              "dense_trainer": dense_launches,
                              "family_trainer": family_launches,
                              "hybrid_trainer":
                                  hybrid_launches["dasha_mvr_update"],
-                             **cross_launches},
+                             **cross_launches,
+                             "registry": p23_launches["dasha_mvr_update"]},
         "ssd_chunk": {"mamba2_prefill": launches["ssd_chunk"],
                       "hybrid": hybrid_launches["ssd_chunk"]},
         "quantize": {"flat": launches["quantize"],
                      "heap": heap_launches["quantize"],
                      "faults": fault_launches["quantize"],
                      "async": async_launches["quantize"],
-                     "obs": obs_launches["quantize"]},
+                     "obs": obs_launches["quantize"],
+                     "registry": p23_launches["quantize"]},
         "slab_writeback": {"fed": fed_launches["slab_writeback"],
                            "heap": heap_launches["slab_writeback"],
                            "async": async_launches["slab_writeback"],
@@ -8184,7 +9145,8 @@ def main() -> int:
               "sweep": sweep, "faults": faults, "async": asyncr,
               "obs": obsr, "ckpt": ckpt, "dense": dense,
               "family": family, "hybrid": hybrid, "cross": cross,
-              "phase22_cuts": PHASE22_CUTS, "phase_walls_s": walls,
+              "registry": registry, "phase22_cuts": PHASE22_CUTS,
+              "phase23_cuts": PHASE23_CUTS, "phase_walls_s": walls,
               "nvidia_smi": smi}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -4,6 +4,7 @@
 Model training thinks in parameter trees whose leaves carry a leading node
 axis.  This module bridges them to the compressors:
 
+* :func:`leaf_keys`          — per-leaf seeds or generators (API only);
 * :func:`leaf_mask` / :func:`tree_masks` — the per-leaf (n, *shape) {0,1}
   masks and the unbiasedness scale; :func:`leaf_support` — the same draw
   as the kernels read it (bool, one row for ``shared_coords``);
@@ -28,9 +29,28 @@ import torch
 
 from repro_torch.compress.plan import draw_mask, permk_owner
 from repro_torch.core import tree
+from repro_torch.core.rng import derive_seed, generator
 from repro_torch.kernels import ops as kops
 
 Tree = Any
+
+
+def leaf_keys(seed: int, per_leaf: Tree, *, device=None) -> Tree:
+    """One seed per leaf of ``per_leaf``, in its structure:
+    ``derive_seed(seed, path)``; with ``device``, a ``torch.Generator`` on
+    it seeded so.  The port's counterpart of the reference's
+    ``split(key, n_leaves)`` fanout, kept for its API: the trainer itself
+    draws each leaf's mask from the round's
+    :class:`repro_torch.core.rng.RoundRandom` (``leaf_mask``, seeded by
+    ``(seed, t, "mask", path)``), and a registry compressor's per-leaf plans
+    from ``RoundRandom.leaf_plan``."""
+    def one(path):
+        if device is None:
+            return derive_seed(seed, path)
+        return generator(device, seed, path)
+    return tree.from_items((path, one(path))
+                           for path, _ in tree.items(per_leaf)) \
+        if isinstance(per_leaf, dict) else one("")
 
 
 def _node_ids(x: torch.Tensor) -> torch.Tensor:
@@ -149,8 +169,8 @@ def permk_compress(rnd, delta: Tree, n: int,
 def fused_leaf_updates(rnd, grads_new: Tree, h: Tree, g_local: Tree, *,
                        mode: str, a: float, p: float, n: int,
                        variant: str = "dasha", b: float = 0.0,
-                       grads_old: Optional[Tree] = None, lanes: bool = False
-                       ) -> Iterator[Tuple[str, torch.Tensor, torch.Tensor,
+                       grads_old: Optional[Tree] = None, lanes: bool = False,
+                       c=None) -> Iterator[Tuple[str, torch.Tensor, torch.Tensor,
                                            torch.Tensor]]:
     """Alg. 1 lines 8-10 leaf by leaf, one kernel launch per leaf: yields
     ``(path, m, h_new, g_local_new)``.  Each kernel reads the leaf's draw
@@ -162,7 +182,9 @@ def fused_leaf_updates(rnd, grads_new: Tree, h: Tree, g_local: Tree, *,
     fuses the momentum h-update h_new = gn + (1-b)(h - go) as well
     (``grads_old`` required).  With ``lanes`` the leaves are (G, n,
     *shape), a sweep's lanes: one launch covers the G * n rows, each
-    reading its node's row of the one (n, *shape) draw (row r % n)."""
+    reading its node's row of the one (n, *shape) draw (row r % n); ``a``
+    may then be the lanes' (G,) fp32 values, and ``c``, the lanes' (G,)
+    fp32 ``1 - b``, replaces ``b``."""
     if variant == "mvr" and grads_old is None:
         raise ValueError("the mvr fused path needs grads_old")
     if variant not in ("dasha", "mvr"):
@@ -177,7 +199,11 @@ def fused_leaf_updates(rnd, grads_new: Tree, h: Tree, g_local: Tree, *,
             if lanes:
                 ts = tuple(_lane_rows(t) for t in ts)
                 support = support.reshape(support.shape[0], -1)
-            out = kops.dasha_mvr_update(*ts, support, a, b, scale)
+            if c is None:
+                out = kops.dasha_mvr_update(*ts, support, a, b, scale)
+            else:
+                out = kops.dasha_mvr_update(*ts, support, a, None, scale,
+                                            c=c)
             out = tuple(o.view(gn.shape) for o in out)
         else:
             out = _sparsify_leaf(gn, hh, gl, support, a, scale, lanes)

@@ -61,7 +61,13 @@ class Draws(NamedTuple):
     * ``cohort``       — a sampled-client round's (C,) global client ids,
       in cohort-slot order.  On a sampled round ``plan`` is the cohort's
       plan before the n/C unbiasedness scale, and ``samples`` are the
-      cohort rows' samples.
+      cohort rows' samples;
+    * ``leaf_plans``   — a registry compressor's per-leaf plans on a tree
+      of several leaves, a dict of leaf path -> Plan (a single-leaf tree
+      takes ``plan``, as the flat round does).
+
+    A sweep's per-lane ``p`` takes a coin as a (G,) bool array (or one
+    bool for every lane).
 
     A field left None is drawn from the round's own generators.
     """
@@ -73,6 +79,7 @@ class Draws(NamedTuple):
     sync_samples: Any = None
     masks: Any = None
     cohort: Any = None
+    leaf_plans: Any = None
 
 
 _SAMPLE_FIELD = {"h": "samples", "sync": "sync_samples"}
@@ -125,12 +132,24 @@ class RoundRandom:
                     else injected).astype(np.int64)
         return self._cohort
 
-    def coin(self, p: float, tag: str) -> bool:
+    def coin(self, p, tag: str):
+        """The round's ``tag`` coin with probability ``p``: one uniform,
+        drawn on the host, below p (p rounded to fp32, as torch compares a
+        float32 tensor with a Python float).  A sweep's per-lane p, a (G,)
+        numpy array, gives a (G,) bool array: the one uniform against each
+        lane's p, the coin each lane's sequential run draws."""
+        lanes = isinstance(p, np.ndarray)
         injected = getattr(self.draws, _COIN_FIELD[tag])
         if injected is not None:
-            return bool(injected)
+            if not lanes:
+                return bool(injected)
+            return np.broadcast_to(np.asarray(injected, dtype=bool),
+                                   p.shape).copy()
         gen = generator("cpu", self.seed, self.t, "coin", tag)
-        return bool(torch.rand((), generator=gen) < p)
+        u = torch.rand((), generator=gen)
+        if not lanes:
+            return bool(u < p)
+        return (u < torch.as_tensor(p, dtype=torch.float32)).numpy()
 
     def leaf_mask(self, path: str, gen_device,
                   draw: Callable[[torch.Generator], torch.Tensor]
@@ -141,6 +160,14 @@ class RoundRandom:
         if self.draws.masks is not None:
             return tree.get(self.draws.masks, path)
         return draw(generator(gen_device, self.seed, self.t, "mask", path))
+
+    def leaf_plan(self, path: str, rc):
+        """The plan of the parameter leaf at ``path`` for the leaf's
+        round compressor ``rc``: the injected ``Draws.leaf_plans[path]``,
+        else drawn from the seed ``(seed, t, "compress", path)``."""
+        if self.draws.leaf_plans is not None:
+            return self.draws.leaf_plans[path]
+        return rc.plan(derive_seed(self.seed, self.t, "compress", path))
 
     @property
     def drawn_plan(self):

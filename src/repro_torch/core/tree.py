@@ -27,6 +27,9 @@ def leaves(tree: Tree) -> List[Any]:
 
 
 def get(tree: Tree, path: str) -> Any:
+    """The leaf at ``path``; the empty path is a bare leaf itself."""
+    if not path:
+        return tree
     for key in path.split("/"):
         tree = tree[key]
     return tree

@@ -19,6 +19,10 @@
 //                      and g_local += m in one launch (the reference runs
 //                      it as jnp ops around quantize_pallas)
 //
+// A sweep's G lanes may give a (and kernel 3's c = 1 - b) one value a lane:
+// a (G,) fp32 array read once a block at a_t[row / a_div], where a_div is
+// the rows of one lane; a null array keeps the scalar.
+//
 // All are bound by device-memory bytes (see dasha_update.py for the
 // numbers).  Plain C interface for ctypes: pointers and the stream come in
 // as void*, each entry launches on the caller's stream, never synchronizes,
@@ -74,12 +78,14 @@ struct QArgs {
   const float* gl;       // fused only: g_local
   const float* u;        // (u_rows, cols) uniforms, row r read at r % u_rows
   const float* scale_t;  // fused: per-row scale (scale_rows), or null
+  const float* a_t;      // fused: per-lane a, read at row / a_div, or null
   float* out;            // plain: out; fused: m
   float* g_out;          // fused only: g_local + m
   float* partials;       // two-pass only: (rows, blocks_per_row)
   long long cols;
   long long u_rows;
   long long scale_rows;
+  long long a_div;       // rows of one lane (a_t)
   long long per_block;   // vectors of a row one block covers
   long long blocks_per_row;
   float a, scale, levels;
@@ -113,7 +119,7 @@ __device__ __forceinline__ void store_vec(float* p, const float (&o)[V]) {
 // (h_new - h) - a (g_local - h) with g_local kept for the epilogue, each op
 // rounded once in the plain version's order
 template <int V, bool FUSED>
-__device__ __forceinline__ void load_x(const QArgs& p, long long e,
+__device__ __forceinline__ void load_x(const QArgs& p, long long e, float a,
                                        float (&x)[V], float (&g)[V]) {
   if constexpr (FUSED) {
     float hn[V], hh[V];
@@ -123,11 +129,17 @@ __device__ __forceinline__ void load_x(const QArgs& p, long long e,
 #pragma unroll
     for (int c = 0; c < V; ++c) {
       x[c] = __fsub_rn(__fsub_rn(hn[c], hh[c]),
-                       __fmul_rn(p.a, __fsub_rn(g[c], hh[c])));
+                       __fmul_rn(a, __fsub_rn(g[c], hh[c])));
     }
   } else {
     load_vec<V>(p.x + e, x);
   }
+}
+
+// the fused entry's a for a row: the lane's (a_t[row / a_div]) or the
+// scalar
+__device__ __forceinline__ float quant_a(const QArgs& p, long long row) {
+  return p.a_t != nullptr ? p.a_t[row / p.a_div] : p.a;
 }
 
 // one QSGD element: the plain version's ops, each rounded once
@@ -217,6 +229,7 @@ __device__ __forceinline__ void cluster_body(const QArgs& p) {
   const long long ubase = (row % p.u_rows) * p.cols + lo * V;
   const float sc = FUSED && p.scale_t != nullptr
                        ? p.scale_t[row % p.scale_rows] : p.scale;
+  const float a = FUSED ? quant_a(p, row) : 0.f;
   if (cl > 1) cluster_arrive_relaxed();     // this block runs
 
   float x[VPT][V], u[VPT][V], g[FUSED ? VPT : 1][V];
@@ -224,7 +237,7 @@ __device__ __forceinline__ void cluster_body(const QArgs& p) {
   for (int j = 0; j < VPT; ++j) {
     const long long k = static_cast<long long>(j) * blockDim.x + threadIdx.x;
     if (k < cnt) {
-      load_x<V, FUSED>(p, base + k * V, x[j], g[FUSED ? j : 0]);
+      load_x<V, FUSED>(p, base + k * V, a, x[j], g[FUSED ? j : 0]);
       load_vec<V>(p.u + ubase + k * V, u[j]);
     }
   }
@@ -302,11 +315,12 @@ __device__ __forceinline__ void partials_body(const QArgs& p) {
   const long long lo = chunk * p.per_block;
   const long long hi = lo + p.per_block < nvec ? lo + p.per_block : nvec;
   const long long base = row * p.cols;
+  const float a = FUSED ? quant_a(p, row) : 0.f;
   float acc = 0.f;
 #pragma unroll 4
   for (long long k = lo + threadIdx.x; k < hi; k += blockDim.x) {
     float x[V], g[V];
-    load_x<V, FUSED>(p, base + k * V, x, g);
+    load_x<V, FUSED>(p, base + k * V, a, x, g);
 #pragma unroll
     for (int c = 0; c < V; ++c) acc = __fadd_rn(acc, __fmul_rn(x[c], x[c]));
   }
@@ -338,10 +352,11 @@ __device__ __forceinline__ void apply_body(const QArgs& p) {
   const long long hi = lo + p.per_block < nvec ? lo + p.per_block : nvec;
   const long long base = row * p.cols;
   const long long ubase = (row % p.u_rows) * p.cols;
+  const float a = FUSED ? quant_a(p, row) : 0.f;
 #pragma unroll 4
   for (long long k = lo + threadIdx.x; k < hi; k += blockDim.x) {
     float x[V], g[V], u[V];
-    load_x<V, FUSED>(p, base + k * V, x, g);
+    load_x<V, FUSED>(p, base + k * V, a, x, g);
     load_vec<V>(p.u + ubase + k * V, u);
     emit<V, FUSED>(p, base + k * V, x, u, g, safe, nonzero, sc);
   }
@@ -424,7 +439,8 @@ int launch_quantize(bool fused, const QArgs& p, long long rows, int two_pass,
   if ((vec != 1 && vec != 2 && vec != 4) || threads < 32 ||
       threads > kThreads || threads % 32 != 0 ||
       p.blocks_per_row < 1 || p.per_block < 1 || grid > 0x7fffffffLL ||
-      p.cols % vec != 0 || p.blocks_per_row * p.per_block < p.cols / vec) {
+      p.cols % vec != 0 || p.blocks_per_row * p.per_block < p.cols / vec ||
+      (p.a_t != nullptr && (p.a_div < 1 || rows % p.a_div != 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (two_pass) {
@@ -482,11 +498,14 @@ struct RArgs {
   const float* gl;       // g_local
   const void* support;   // (s_rows, k) int64 | (s_rows, cols) fp32 / uint8
   const float* scale_t;  // (sc_rows,) per-row scale, or null
+  const float* a_t;      // (G,) per-lane a, read at row / ac_div, or null
+  const float* c_t;      // kernel 3: (G,) per-lane c = 1 - b, or null
   float* m;
   float* h_out;          // kernel 3: h_new; dense-mask entry: a copy of grad
   float* g_out;
   long long rows, cols;
   long long s_rows, k, sc_rows;
+  long long ac_div;          // rows of one lane (a_t, c_t)
   long long span;            // elements of a row a block covers (W | span)
   long long blocks_per_row;
   int vpt;                   // vectors of each operand a thread holds
@@ -515,18 +534,18 @@ __device__ __forceinline__ void load_u8(const unsigned char* p,
 template <bool MVR>
 __device__ __forceinline__ void rows_one(const RArgs& p, float g, float o,
                                          float hh, float l, float mk,
-                                         float row_scale, float* mo,
-                                         float* ho, float* gout) {
+                                         float row_scale, float a, float c,
+                                         float* mo, float* ho, float* gout) {
   float scale = p.scale;
   if (p.scale_t != nullptr) {
     mk = __fmul_rn(mk, row_scale);
     scale = 1.0f;
   }
   if constexpr (MVR) {
-    mvr_one(g, o, hh, l, mk, p.a, p.c, scale, ho, mo, gout);
+    mvr_one(g, o, hh, l, mk, a, c, scale, ho, mo, gout);
   } else {
     *ho = g;
-    dasha_one(g, hh, l, mk, p.a, scale, mo, gout);
+    dasha_one(g, hh, l, mk, a, scale, mo, gout);
   }
 }
 
@@ -541,6 +560,12 @@ constexpr int kScan = 8;
 // that would sit before a block's first load
 __device__ __forceinline__ long long row_mod(long long r, long long m) {
   return static_cast<long long>(static_cast<unsigned>(r) %
+                                static_cast<unsigned>(m));
+}
+
+// r / m, 32-bit as row_mod
+__device__ __forceinline__ long long row_div(long long r, long long m) {
+  return static_cast<long long>(static_cast<unsigned>(r) /
                                 static_cast<unsigned>(m));
 }
 
@@ -593,6 +618,10 @@ __device__ __forceinline__ void rows_body(const RArgs& p) {
   const long long f1 = r * p.cols + c1;
   const float rs =
       p.scale_t != nullptr ? p.scale_t[row_mod(r, p.sc_rows)] : 1.0f;
+  // the lane's a and c, or the scalars
+  const float a = p.a_t != nullptr ? p.a_t[row_div(r, p.ac_div)] : p.a;
+  const float c = MVR && p.c_t != nullptr ? p.c_t[row_div(r, p.ac_div)]
+                                          : p.c;
   // a mask row's element f of row r lies at f + so
   const long long so = (row_mod(r, p.s_rows) - r) * p.cols;
   // W divides cols and span, and c0 < cols (launch_rows checks both), so
@@ -645,7 +674,7 @@ __device__ __forceinline__ void rows_body(const RArgs& p) {
             support = mk[j][i];
           }
           rows_one<MVR>(p, g[j][i], MVR ? o[j][i] : 0.0f, hh[j][i], l[j][i],
-                        support, rs, &mo[i], &ho[i], &go[i]);
+                        support, rs, a, c, &mo[i], &ho[i], &go[i]);
         }
         store_vec<W>(p.m + e, mo);
         store_vec<W>(p.g_out + e, go);
@@ -722,6 +751,8 @@ int launch_rows(int entry, const RArgs& p, int form, int vec, int threads,
       grid < 1 || grid > 0x7fffffffLL || p.rows > 0x7fffffffLL ||
       p.s_rows < 1 || p.rows % p.s_rows != 0 ||
       (p.scale_t != nullptr && (p.sc_rows < 1 || p.rows % p.sc_rows != 0)) ||
+      ((p.a_t != nullptr || p.c_t != nullptr) &&
+       (p.ac_div < 1 || p.rows % p.ac_div != 0)) ||
       (form != kDense && p.support == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -773,22 +804,24 @@ int dasha_update(const void* grad, const void* h, const void* g_local,
 // indices (PAD and any index outside [0, cols) dropped), 2 / 3 an
 // (s_rows, cols) fp32 / uint8 mask (its value); row r reads support row
 // r % s_rows.  Where scale_t is not null, mk is times scale_t[r % sc_rows]
-// and the scalar scale is not used.  h_new is grad itself.  By the
-// wrapper's plan (sparsify_plan): vec, threads, vpt, span, blocks_per_row.
+// and the scalar scale is not used; where a_t is not null, row r takes
+// a_t[r / a_div] for a.  h_new is grad itself.  By the wrapper's plan
+// (sparsify_plan): vec, threads, vpt, span, blocks_per_row.
 int dasha_sparsify_update(const void* grad, const void* h,
                           const void* g_local, const void* support,
-                          const void* scale_t, void* m, void* g_out,
-                          long long rows, long long cols, long long s_rows,
-                          long long k, long long sc_rows, float a,
-                          float scale, int form, int vec, int threads,
-                          int vpt, long long span, long long blocks_per_row,
-                          void* stream) {
+                          const void* scale_t, const void* a_t, void* m,
+                          void* g_out, long long rows, long long cols,
+                          long long s_rows, long long k, long long sc_rows,
+                          long long a_div, float a, float scale, int form,
+                          int vec, int threads, int vpt, long long span,
+                          long long blocks_per_row, void* stream) {
   RArgs p = {};
   p.grad = static_cast<const float*>(grad);
   p.h = static_cast<const float*>(h);
   p.gl = static_cast<const float*>(g_local);
   p.support = support;
   p.scale_t = static_cast<const float*>(scale_t);
+  p.a_t = static_cast<const float*>(a_t);
   p.m = static_cast<float*>(m);
   p.g_out = static_cast<float*>(g_out);
   p.rows = rows;
@@ -796,6 +829,7 @@ int dasha_sparsify_update(const void* grad, const void* h,
   p.s_rows = s_rows;
   p.k = k;
   p.sc_rows = sc_rows;
+  p.ac_div = a_div;
   p.span = span;
   p.blocks_per_row = blocks_per_row;
   p.vpt = vpt;
@@ -808,11 +842,14 @@ int dasha_sparsify_update(const void* grad, const void* h,
 // (m, h_out, g_out) <- kernel 3, the fused MVR update of (rows, cols) fp32
 // rows: h_new = gn + c (h - go) (c = 1 - b), then kernel 1's update on
 // h_new with the mask (form 2 fp32, 3 uint8; row r reads mask row
-// r % s_rows) and the scalar scale.  By the wrapper's plan.
+// r % s_rows) and the scalar scale; where a_t / c_t are not null, row r
+// takes a_t[r / ac_div] / c_t[r / ac_div] for a / c.  By the wrapper's
+// plan.
 int dasha_mvr_update(const void* gn, const void* go, const void* h,
-                     const void* g_local, const void* mask, void* m,
-                     void* h_out, void* g_out, long long rows, long long cols,
-                     long long s_rows, float a, float c, float scale,
+                     const void* g_local, const void* mask, const void* a_t,
+                     const void* c_t, void* m, void* h_out, void* g_out,
+                     long long rows, long long cols, long long s_rows,
+                     long long ac_div, float a, float c, float scale,
                      int form, int vec, int threads, int vpt,
                      long long span, long long blocks_per_row,
                      void* stream) {
@@ -822,6 +859,8 @@ int dasha_mvr_update(const void* gn, const void* go, const void* h,
   p.h = static_cast<const float*>(h);
   p.gl = static_cast<const float*>(g_local);
   p.support = mask;
+  p.a_t = static_cast<const float*>(a_t);
+  p.c_t = static_cast<const float*>(c_t);
   p.m = static_cast<float*>(m);
   p.h_out = static_cast<float*>(h_out);
   p.g_out = static_cast<float*>(g_out);
@@ -829,6 +868,7 @@ int dasha_mvr_update(const void* gn, const void* go, const void* h,
   p.cols = cols;
   p.s_rows = s_rows;
   p.sc_rows = 1;
+  p.ac_div = ac_div;
   p.span = span;
   p.blocks_per_row = blocks_per_row;
   p.vpt = vpt;
@@ -904,12 +944,14 @@ int quantize_rows(const void* x, const void* u, void* out, void* partials,
 //   delta = (h_new - h) - a (g_local - h);  m = QSGD(delta, u) * scale;
 //   g_out = g_local + m
 // u row r read at r % u_rows; scale is scale_t[r % scale_rows] when
-// scale_t is not null, else the scalar
+// scale_t is not null, else the scalar; a is a_t[r / a_div] when a_t is
+// not null, else the scalar
 int dasha_quantize_update(const void* h_new, const void* h,
                           const void* g_local, const void* u,
-                          const void* scale_t, void* m, void* g_out,
-                          void* partials, long long rows, long long cols,
-                          long long u_rows, long long scale_rows, float a,
+                          const void* scale_t, const void* a_t, void* m,
+                          void* g_out, void* partials, long long rows,
+                          long long cols, long long u_rows,
+                          long long scale_rows, long long a_div, float a,
                           float scale, float levels, int two_pass, int vec,
                           int vpt, int threads, long long per_block,
                           long long blocks_per_row, void* stream) {
@@ -919,12 +961,14 @@ int dasha_quantize_update(const void* h_new, const void* h,
   p.gl = static_cast<const float*>(g_local);
   p.u = static_cast<const float*>(u);
   p.scale_t = static_cast<const float*>(scale_t);
+  p.a_t = static_cast<const float*>(a_t);
   p.out = static_cast<float*>(m);
   p.g_out = static_cast<float*>(g_out);
   p.partials = static_cast<float*>(partials);
   p.cols = cols;
   p.u_rows = u_rows;
   p.scale_rows = scale_rows;
+  p.a_div = a_div;
   p.per_block = per_block;
   p.blocks_per_row = blocks_per_row;
   p.a = a;

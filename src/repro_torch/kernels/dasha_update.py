@@ -85,6 +85,13 @@ so a lane axis needs no copy of them.  The reference runs this chain as
 jnp ops around ``quantize_pallas``; its plain version is
 ``ref.dasha_quantize_update_ref``.
 
+A sweep's G lanes may give ``a``, and kernel 3's ``1 - b`` (``c``), one
+value a lane: the fused entries then take a (G,) fp32 tensor on the card,
+G dividing the rows, and row r reads lane ``r // (rows // G)``'s value,
+once a block, as ``scale_rows`` reads a per-row scale.  The methods layer
+rounds each value to fp32 once (``1 - b`` formed in double first), as a
+lane's scalar is, so lane j is bit-equal to a launch with its scalar.
+
 Each wrapper checks device, dtype, shape and contiguity and raises on
 anything else, allocates its outputs with ``torch.empty``, launches on the
 current stream and raises when the launch reports an error.  There is no
@@ -124,14 +131,14 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_int, ctypes.c_int, _LL, _LL, _P]
         lib.dasha_update.restype = ctypes.c_int
         lib.dasha_sparsify_update.argtypes = [
-            _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _F, _F,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _LL,
-            _LL, _P]
+            _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL,
+            _F, _F, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            _LL, _LL, _P]
         lib.dasha_sparsify_update.restype = ctypes.c_int
         lib.dasha_mvr_update.argtypes = [
-            _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _F, _F, _F,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _LL, _LL,
-            _P]
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _F,
+            _F, _F, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            _LL, _LL, _P]
         lib.dasha_mvr_update.restype = ctypes.c_int
         plan = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 _LL, _LL, _P]
@@ -139,8 +146,8 @@ def _lib() -> ctypes.CDLL:
                                       *plan]
         lib.quantize_rows.restype = ctypes.c_int
         lib.dasha_quantize_update.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P,
-                                              _LL, _LL, _LL, _LL, _F, _F, _F,
-                                              *plan]
+                                              _P, _LL, _LL, _LL, _LL, _LL,
+                                              _F, _F, _F, *plan]
         lib.dasha_quantize_update.restype = ctypes.c_int
         lib.quantize_init.argtypes = [ctypes.POINTER(ctypes.c_int)]
         lib.quantize_init.restype = ctypes.c_int
@@ -367,6 +374,24 @@ def _broadcast_rows(name: str, what: str, k: int, rows: int, n: int) -> int:
     return k
 
 
+def lane_values(name: str, what: str, v, rows: int,
+                device: torch.device):
+    """A scalar argument as a fused entry takes it: ``(float(v), None, 1)``
+    for a number, or ``(0.0, v, rows // G)`` for a sweep's (G,) lane
+    values, a contiguous fp32 tensor on ``device``.  G must divide the
+    rows."""
+    if not isinstance(v, torch.Tensor):
+        return float(v), None, 1
+    if v.dtype != torch.float32 or v.dim() != 1 or v.numel() < 1 \
+            or rows % v.numel() or not v.is_contiguous() \
+            or v.device != device:
+        raise ValueError(f"{name}: lane values of {what} must be a "
+                         f"contiguous 1-D fp32 tensor on {device} whose "
+                         f"length divides {rows} rows, got {v.dtype} "
+                         f"{tuple(v.shape)} on {v.device}")
+    return 0.0, v, rows // v.numel()
+
+
 def dasha_quantize_update(h_new: torch.Tensor, h: torch.Tensor,
                           g_local: torch.Tensor, u: torch.Tensor, a: float,
                           scale: Union[float, torch.Tensor], levels: int
@@ -376,8 +401,9 @@ def dasha_quantize_update(h_new: torch.Tensor, h: torch.Tensor,
     :func:`quantize_plan`: returns (m, h_new, g_new), m and g_new shaped
     like ``h_new`` (any leading axes; the last is the row).  ``u``: (n, d)
     uniforms of the node axis (axis -2) or h_new's shape; ``scale``: a
-    float, or an (n, 1) fp32 tensor.  ``a`` and a float scale are passed
-    as fp32."""
+    float, or an (n, 1) fp32 tensor.  ``a``: a float, or (G,) fp32 lane
+    values (:func:`lane_values`).  ``a`` and a float scale are passed as
+    fp32."""
     return _dasha_quantize_update_with_plan(h_new, h, g_local, u, a, scale,
                                             levels, None)
 
@@ -408,6 +434,7 @@ def _dasha_quantize_update_with_plan(
         scale_t = scale
     else:
         kscale = float(scale)
+    ka, a_t, a_div = lane_values(name, "a", a, rows, h_new.device)
     m = torch.empty_like(h_new)
     g_new = torch.empty_like(h_new)
     if plan is None:
@@ -419,9 +446,9 @@ def _dasha_quantize_update_with_plan(
         stream = torch.cuda.current_stream(h_new.device).cuda_stream
         err = _lib().dasha_quantize_update(
             h_new.data_ptr(), h.data_ptr(), g_local.data_ptr(), u.data_ptr(),
-            _ptr(scale_t), m.data_ptr(), g_new.data_ptr(), _ptr(partials),
-            rows, d, u_rows, scale_rows, float(a), kscale, float(levels),
-            *_plan_args(plan), stream)
+            _ptr(scale_t), _ptr(a_t), m.data_ptr(), g_new.data_ptr(),
+            _ptr(partials), rows, d, u_rows, scale_rows, a_div, ka, kscale,
+            float(levels), *_plan_args(plan), stream)
     COUNTS["quantize"] += 1
     _raise_on(name, err)
     return m, h_new, g_new
@@ -711,7 +738,8 @@ def dasha_sparsify_update(grad: torch.Tensor, h: torch.Tensor,
     like ``grad`` (any leading axes; the last is the row).  The support is
     ``indices`` (RandK, PermK; PAD and any index outside [0, cols)
     dropped), ``mask`` (Bernoulli, a tree leaf's draw) or none
-    (passthrough); see :func:`sparsify_args`.  ``a`` and a float scale are
+    (passthrough); see :func:`sparsify_args`.  ``a``: a float or (G,)
+    fp32 lane values (:func:`lane_values`).  ``a`` and a float scale are
     passed as fp32.  Counts one call of ``dasha_sparsify_update``."""
     name = "dasha_sparsify_update"
     _check(name, grad, h, g_local)
@@ -723,6 +751,7 @@ def dasha_sparsify_update(grad: torch.Tensor, h: torch.Tensor,
                 raise ValueError(f"{name}: tensors on {grad.device} and "
                                  f"{t.device}")
     args = sparsify_args(grad, indices, mask, scale)
+    ka, a_t, a_div = lane_values(name, "a", a, args.rows, grad.device)
     m = torch.empty_like(grad)
     g_new = torch.empty_like(grad)
     if grad.numel() == 0:
@@ -736,9 +765,9 @@ def dasha_sparsify_update(grad: torch.Tensor, h: torch.Tensor,
         stream = torch.cuda.current_stream(grad.device).cuda_stream
         err = _lib().dasha_sparsify_update(
             grad.data_ptr(), h.data_ptr(), g_local.data_ptr(), _ptr(support),
-            _ptr(scale_t), m.data_ptr(), g_new.data_ptr(), args.rows,
-            args.cols, args.s_rows, args.k, max(args.sc_rows, 1), float(a),
-            kscale, FORMS[args.form], plan.vec, plan.threads, plan.vpt,
+            _ptr(scale_t), _ptr(a_t), m.data_ptr(), g_new.data_ptr(),
+            args.rows, args.cols, args.s_rows, args.k, max(args.sc_rows, 1),
+            a_div, ka, kscale, FORMS[args.form], plan.vec, plan.threads, plan.vpt,
             plan.span, plan.blocks_per_row, stream)
     COUNTS["dasha_sparsify_update"] += 1
     _raise_on(name, err)
@@ -747,20 +776,29 @@ def dasha_sparsify_update(grad: torch.Tensor, h: torch.Tensor,
 
 def dasha_mvr_update(grad_new: torch.Tensor, grad_old: torch.Tensor,
                      h: torch.Tensor, g_local: torch.Tensor,
-                     mask: torch.Tensor, a: float, b: float, scale: float
+                     mask: torch.Tensor, a: float, b: float, scale: float,
+                     *, c=None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The fused MVR update on the card in one launch, by
     :func:`sparsify_plan` over the leaf's n rows: returns (m, h_new,
     g_new), each shaped like ``grad_new``.  ``mask``: float32, bool or
     uint8, of grad_new's shape or (s_rows, ...) read at row r % s_rows
-    (:func:`mvr_args`).  ``a``, ``1 - b`` and ``scale`` are passed as
-    fp32."""
+    (:func:`mvr_args`).  ``a``: a float or (G,) fp32 lane values
+    (:func:`lane_values`); ``c``: the lanes' (G,) fp32 ``1 - b``, which
+    replaces ``b``.  ``a``, ``1 - b`` and ``scale`` are passed as fp32."""
     name = "dasha_mvr_update"
     _check(name, grad_new, grad_old, h, g_local)
     if mask.device != grad_new.device:
         raise ValueError(f"{name}: tensors on {grad_new.device} and "
                          f"{mask.device}")
     args = mvr_args(grad_new, mask)
+    ka, a_t, a_div = lane_values(name, "a", a, args.rows, grad_new.device)
+    kc, c_t, c_div = lane_values(name, "1 - b",
+                                 1.0 - float(b) if c is None else c,
+                                 args.rows, grad_new.device)
+    if a_t is not None and c_t is not None and a_div != c_div:
+        raise ValueError(f"{name}: {args.rows // a_div} lanes of a against "
+                         f"{args.rows // c_div} of 1 - b")
     m = torch.empty_like(grad_new)
     h_new = torch.empty_like(grad_new)
     g_new = torch.empty_like(grad_new)
@@ -774,9 +812,10 @@ def dasha_mvr_update(grad_new: torch.Tensor, grad_old: torch.Tensor,
         stream = torch.cuda.current_stream(grad_new.device).cuda_stream
         err = _lib().dasha_mvr_update(
             grad_new.data_ptr(), grad_old.data_ptr(), h.data_ptr(),
-            g_local.data_ptr(), mask.data_ptr(), m.data_ptr(),
-            h_new.data_ptr(), g_new.data_ptr(), args.rows, args.cols,
-            args.s_rows, float(a), 1.0 - float(b), float(scale),
+            g_local.data_ptr(), mask.data_ptr(), _ptr(a_t), _ptr(c_t),
+            m.data_ptr(), h_new.data_ptr(), g_new.data_ptr(), args.rows,
+            args.cols, args.s_rows, a_div if a_t is not None else c_div, ka,
+            kc, float(scale),
             FORMS[args.form], plan.vec, plan.threads, plan.vpt, plan.span,
             plan.blocks_per_row, stream)
     COUNTS["dasha_mvr_update"] += 1

@@ -46,8 +46,9 @@ def dasha_sparsify_update(grad: torch.Tensor, h: torch.Tensor,
     """The sparsifier (RandK, PermK, Bernoulli) or passthrough estimator
     update on rows of grad's last axis, the support built from
     ``indices`` or read from ``mask`` (row r at r % their rows; neither:
-    passthrough) and a float or per-row ``scale``; returns (m, grad,
-    g_new).  On the card one launch of kernel 1's sparsifier entry."""
+    passthrough) and a float or per-row ``scale``; ``a`` a float or a
+    sweep's (G,) fp32 lane values; returns (m, grad, g_new).  On the card
+    one launch of kernel 1's sparsifier entry."""
     if _on_cpu("dasha_sparsify_update", grad):
         return ref.dasha_sparsify_update_ref(grad, h, g_local, a, scale,
                                              indices=indices, mask=mask)
@@ -57,16 +58,18 @@ def dasha_sparsify_update(grad: torch.Tensor, h: torch.Tensor,
 
 def dasha_mvr_update(grad_new: torch.Tensor, grad_old: torch.Tensor,
                      h: torch.Tensor, g_local: torch.Tensor,
-                     mask: torch.Tensor, a: float, b: float, scale: float
+                     mask: torch.Tensor, a: float, b: float, scale: float,
+                     *, c=None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused DASHA-MVR update; returns (m, h_new, g_local_new).  ``mask``
     float32, bool or uint8, of the leaf's shape or (1, ...) for every
-    node."""
+    node; ``a`` a float or a sweep's (G,) fp32 lane values over the leading
+    rows, and ``c`` the lanes' (G,) fp32 ``1 - b``, which replaces ``b``."""
     if _on_cpu("dasha_mvr_update", grad_new):
         return ref.dasha_mvr_update_ref(grad_new, grad_old, h, g_local, mask,
-                                        a, b, scale)
+                                        a, b, scale, c=c)
     return cuda_kernels.dasha_mvr_update(grad_new, grad_old, h, g_local,
-                                         mask, a, b, scale)
+                                         mask, a, b, scale, c=c)
 
 
 def quantize_with_u(x: torch.Tensor, u: torch.Tensor,
@@ -86,7 +89,8 @@ def dasha_quantize_update(h_new: torch.Tensor, h: torch.Tensor,
     """The QDither estimator update m = quantize(h_new - h - a (g_local -
     h), u) * scale, g_new = g_local + m in one launch; returns (m, h_new,
     g_new).  ``u`` (n, d) is broadcast over leading lane axes; ``scale``
-    is a float or an (n, 1) tensor."""
+    is a float or an (n, 1) tensor; ``a`` a float or a sweep's (G,) fp32
+    lane values."""
     if _on_cpu("dasha_quantize_update", h_new):
         return ref.dasha_quantize_update_ref(h_new, h, g_local, u, a, scale,
                                              levels)

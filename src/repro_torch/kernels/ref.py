@@ -4,12 +4,30 @@
 These are the semantics contracts: the CPU path runs them, and the card
 tests hold each CUDA kernel against them.  The operation order is the
 reference's, one rounding per torch op.
+
+A sweep's G lanes may give ``a`` (and kernel 3's ``c = 1 - b``) one value
+a lane: a (G,) fp32 tensor, G dividing the rows of the last axis, row r
+taking lane ``r // (rows // G)``'s value (:func:`per_row`).
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+
+
+def per_row(v, t: torch.Tensor):
+    """A scalar argument against ``t``'s rows (its last axis the row): a
+    number as it is, or (G,) lane values as a tensor of ``t``'s leading
+    shape and a trailing 1, row r holding value ``r // (rows // G)``."""
+    if not isinstance(v, torch.Tensor):
+        return v
+    cols = t.shape[-1]
+    rows = t.numel() // cols if cols else 0
+    g = v.numel()
+    if v.dim() != 1 or g < 1 or rows % g:
+        raise ValueError(f"{g} lane values do not divide {rows} rows")
+    return v.repeat_interleave(rows // g).reshape(t.shape[:-1] + (1,))
 
 
 def dasha_update_ref(grad: torch.Tensor, h: torch.Tensor,
@@ -24,16 +42,18 @@ def dasha_update_ref(grad: torch.Tensor, h: torch.Tensor,
         g_new = g_local + m
 
     Returns (m, h_new, g_new).  A bool or uint8 mask is read as float32,
-    as the dense path converts it."""
+    as the dense path converts it.  ``a``: a float or (G,) lane values
+    (:func:`per_row`)."""
     h_new = grad
-    delta = h_new - h - a * (g_local - h)
+    delta = h_new - h - per_row(a, grad) * (g_local - h)
     m = _as_float(mask) * delta * scale
     return m, h_new, g_local + m
 
 
 def dasha_mvr_update_ref(grad_new: torch.Tensor, grad_old: torch.Tensor,
                          h: torch.Tensor, g_local: torch.Tensor,
-                         mask: torch.Tensor, a: float, b: float, scale: float
+                         mask: torch.Tensor, a: float, b: float, scale: float,
+                         *, c=None
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused DASHA-MVR node update (Alg. 1 line 8 MVR + lines 9-10):
 
@@ -45,15 +65,28 @@ def dasha_mvr_update_ref(grad_new: torch.Tensor, grad_old: torch.Tensor,
     ``mask`` float32, bool or uint8 (read as float32), of the leaf's
     shape, or with k rows dividing its n, row r read at r % k as the
     kernel reads it ((1, ...) for every node, (n, ...) for G * n lane
-    rows).  Returns (m, h_new, g_new)."""
-    h_new = grad_new + (1.0 - b) * (h - grad_old)
-    delta = h_new - h - a * (g_local - h)
+    rows).  ``a``: a float or (G,) fp32 lane values of the leaf's leading
+    rows (:func:`per_row`); ``c``: the lanes' (G,) fp32 ``1 - b``, which
+    replaces ``b``.  Returns (m, h_new, g_new)."""
+    c = 1.0 - b if c is None else c
+    h_new = grad_new + _per_leading_row(c, grad_new) * (h - grad_old)
+    delta = h_new - h - _per_leading_row(a, grad_new) * (g_local - h)
     mask = _as_float(mask)
     if mask.shape != delta.shape and mask.shape[0] != 1:
         mask = _rows_of(mask.reshape(mask.shape[0], -1),
                         delta.shape[0]).view(delta.shape)
     m = mask * delta * scale
     return m, h_new, g_local + m
+
+
+def _per_leading_row(v, t: torch.Tensor):
+    """:func:`per_row` over a leaf's leading axis (a leaf (n, ...) is n
+    rows, a 1-D one a row), shaped to broadcast against the leaf."""
+    rows = t.reshape(t.shape[0], -1) if t.dim() >= 2 else t
+    r = per_row(v, rows)
+    if isinstance(r, torch.Tensor):
+        return r.reshape((-1,) + (1,) * (t.dim() - 1))
+    return r
 
 
 def _as_float(mask: torch.Tensor) -> torch.Tensor:
@@ -84,8 +117,8 @@ def dasha_sparsify_update_ref(grad: torch.Tensor, h: torch.Tensor,
         (m, _, g_new) = dasha_update_ref(grad, h, g_local, mask, a, scale)
 
     ``indices`` (s_rows, k) int64; ``mask`` (s_rows, cols); ``scale`` a
-    float or a (sc_rows,) / (sc_rows, 1) tensor.  Returns (m, grad,
-    g_new)."""
+    float or a (sc_rows,) / (sc_rows, 1) tensor; ``a`` a float or (G,)
+    lane values (:func:`per_row`).  Returns (m, grad, g_new)."""
     cols = grad.shape[-1]
     rows = grad.numel() // cols if cols else 0
     if indices is not None:
@@ -139,8 +172,9 @@ def dasha_quantize_update_ref(h_new: torch.Tensor, h: torch.Tensor,
         g_new = g_local + m
 
     ``h_new`` (..., n, d); ``u`` (n, d), broadcast over leading axes;
-    ``scale`` a float or an (n, 1) tensor.  Returns (m, h_new, g_new)."""
-    delta = h_new - h - a * (g_local - h)
+    ``scale`` a float or an (n, 1) tensor; ``a`` a float or (G,) lane
+    values (:func:`per_row`).  Returns (m, h_new, g_new)."""
+    delta = h_new - h - per_row(a, h_new) * (g_local - h)
     rows = delta.reshape(-1, delta.shape[-1])
     uu = u.expand(delta.shape).reshape(rows.shape)
     m = quantize_ref(rows, uu, levels).view(delta.shape) * scale

@@ -1,6 +1,8 @@
 """One-method API (port of ``repro.methods``, DESIGN.md §7): variant rules
-x the flat, sampled-flat and tree substrates, the engine, the chunked
-driver, hyperparameter sweeps and accounting."""
+x the flat, sampled-flat and tree substrates (registry compressors on the
+tree through ``LeafSpecCompressor``, flat problems through
+``LeafProblemOracle``), the engine, the chunked driver, hyperparameter
+sweeps and accounting."""
 from repro_torch.methods.accounting import (  # noqa: F401
     expected_payload_frac, expected_wire_coords, round_payload,
     sampled_per_node)
@@ -14,6 +16,9 @@ from repro_torch.methods.rules import (VARIANTS, MvrFusion,  # noqa: F401
 from repro_torch.methods.substrates import (BatchLossOracle,  # noqa: F401
                                             FlatSubstrate,
                                             LaneFlatSubstrate,
+                                            LaneSampledFlatSubstrate,
                                             LaneTreeSubstrate,
+                                            LeafProblemOracle,
+                                            LeafSpecCompressor,
                                             SampledFlatSubstrate,
                                             TreeCompression, TreeSubstrate)

@@ -6,11 +6,13 @@
   (payload + p * (dense - payload), Definition 1.3).
 
 Coins are host booleans in the port, so every number here is a Python
-float.
+float (a float32 array over a sweep's lanes for per-lane coins).
 """
 from __future__ import annotations
 
 from typing import Optional
+
+import numpy as np
 
 
 def round_payload(payload_compressed: float, dense_coords: float,
@@ -18,7 +20,10 @@ def round_payload(payload_compressed: float, dense_coords: float,
     """Coords per node actually sent this round: on a sync round (``coin``
     True) every node uploads the full dense vector, otherwise the
     compressor's payload.  ``coin`` is None for variants with no sync
-    branch."""
+    branch, and a (G,) bool array for a sweep's per-lane coins."""
+    if isinstance(coin, np.ndarray):
+        return np.where(coin, dense_coords, payload_compressed).astype(
+            np.float32)
     if coin:
         return dense_coords
     return payload_compressed

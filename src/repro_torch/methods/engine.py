@@ -15,10 +15,13 @@ Randomness is stateless: round t draws from generators seeded by
 arrays passed as ``draws=``.  ``t`` and ``bits_sent`` live on the host, so
 a round never waits for the device.
 
-A :class:`Hyper` whose ``gamma``, ``a`` or ``b`` holds G per-lane values
-(:class:`repro_torch.methods.lanes.Lanes`, or a 1-D array) builds a method
-of G lanes on the substrate's lane view, flat or tree (a sweep; see
-:class:`repro_torch.methods.driver.Sweeper`).  It only steps: its state is
+A :class:`Hyper` whose ``gamma``, ``a``, ``b`` or ``p`` holds G per-lane
+values (:class:`repro_torch.methods.lanes.Lanes`, or a 1-D array) builds a
+method of G lanes on the substrate's lane view, flat, sampled or tree (a
+sweep; see :class:`repro_torch.methods.driver.Sweeper`).  A per-lane ``p``
+compares the round's one coin uniform with each lane's p, so lane j gets
+the coin its sequential run draws; a round whose coins differ by lane
+computes both branches and selects per lane.  It only steps: its state is
 a one-lane method's ``init`` that the Sweeper broadcasts, so its device
 fields carry a leading (G,) axis and ``bits_sent`` is a (G,) float32 array.
 """
@@ -35,18 +38,18 @@ from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.core.rng import Draws, RoundRandom
 from repro_torch.core.theory import ProblemConstants
 from repro_torch.methods import accounting
-from repro_torch.methods.lanes import Lanes
-from repro_torch.methods.rules import VariantRule, get_rule
+from repro_torch.methods.lanes import Lanes, host_value
+from repro_torch.methods.rules import VariantRule, get_rule, select_lanes
 
-#: Hyper fields that may not vary by lane, and why
+#: Hyper fields that may not vary by lane, and why (the reference's vmapped
+#: sweep cannot take them either: a traced shape)
 _LANE_FIXED = {
-    "p": "its coins are host booleans, so every lane shares one coin",
     "batch": "it sets the samples' shape",
     "batch_sync": "it sets the sync megabatch's shape",
 }
 
 
-def _lane_hyper(hp: "Hyper", rule: VariantRule, backend: str):
+def _lane_hyper(hp: "Hyper"):
     """``hp`` with its per-lane fields as :class:`Lanes`, and the lane
     count G (None when no field varies by lane).  Raises ValueError, naming
     the field, for a field that cannot vary by lane."""
@@ -61,9 +64,6 @@ def _lane_hyper(hp: "Hyper", rule: VariantRule, backend: str):
     for name, why in _LANE_FIXED.items():
         if name in lanes:
             raise ValueError(f"Hyper.{name} cannot vary by lane: {why}")
-    if "a" in lanes and backend == "fused" and rule.force_a is None:
-        raise ValueError("Hyper.a cannot vary by lane on the fused backend: "
-                         "it is a scalar argument of the kernel")
     counts = {len(v) for v in lanes.values()}
     if len(counts) != 1:
         raise ValueError(f"per-lane Hyper fields of different lengths: "
@@ -81,7 +81,8 @@ class StepInfo(NamedTuple):
     """Per-round internals exposed by ``Method.step_full``:
 
     * ``messages``  — the per-node compressed messages (backend format);
-    * ``coin``      — the sync-round coin (None for no-sync variants);
+    * ``coin``      — the sync-round coin (None for no-sync variants; a
+      (G,) bool array for a per-lane ``p``);
     * ``sync_dense``— the dense per-node sync upload (None unless this was
       a sync round);
     * ``present``   — (n,) Appendix-D participation (None when
@@ -196,20 +197,15 @@ class Method(NamedTuple):
         """One entrypoint for every variant x substrate x compressor."""
         rule: VariantRule = get_rule(variant)
         sub = substrate.with_compressor(compressor)
-        hp, lanes = _lane_hyper(hyper, rule,
-                                getattr(compressor, "backend", None))
+        hp, lanes = _lane_hyper(hyper)
         if lanes is not None:
             sub = sub.with_lanes(lanes)
-            if isinstance(hp.b, Lanes) and getattr(sub, "fuses_mvr", False):
-                raise ValueError("Hyper.b cannot vary by lane on the fused "
-                                 "tree path: the kernel takes 1 - b as a "
-                                 "scalar argument")
         a_eff = rule.force_a if rule.force_a is not None else hp.a
         # the sampled-client substrate (DESIGN.md §13) windows each round
         # onto a cohort; a C-of-n cohort can never answer an all-client
         # dense synchronization round, so barrier rules are rejected
         samples = bool(getattr(sub, "samples_clients", False))
-        if samples and rule.sync_requires_all:
+        if samples and not rule.supports_client_sampling:
             raise ValueError(
                 f"variant {rule.name!r} has a client-synchronization "
                 "barrier (sync_requires_all): it cannot run on a sampled-"
@@ -223,7 +219,10 @@ class Method(NamedTuple):
             dev = resolve_device(device)
             x0 = sub.place(x0, dev)
             rnd = RoundRandom(seed, -1)
-            if grads0 is not None:
+            if rule.init_h is not None:
+                h0 = rule.init_h(sub, rnd, hp, x0, data)
+                bits0 = sub.dense_coords(h0)
+            elif grads0 is not None:
                 h0 = sub.place_per_node(grads0, dev)
                 bits0 = sub.dense_coords(h0)
             elif init_mode == "zeros" or \
@@ -354,8 +353,16 @@ class Method(NamedTuple):
             if rule.has_sync:
                 # Alg. 2 lines 9-11 / MARINA: with prob p ALL nodes upload
                 # a fresh dense megabatch gradient instead
-                coin = rnd.coin(hp.p, "sync")
-                if coin:
+                coin = rnd.coin(host_value(hp.p), "sync")
+                if isinstance(coin, np.ndarray):
+                    # per-lane coins: the sync branch where any is up,
+                    # selected lane by lane
+                    if coin.any():
+                        h_sync = rule.sync_update(sub, rnd, hp, x_new, data)
+                        h_out = select_lanes(coin, h_sync, h_out)
+                        g_local = select_lanes(coin, h_sync, g_local)
+                        g = select_lanes(coin, sub.mean_nodes(h_sync), g)
+                elif coin:
                     h_sync = rule.sync_update(sub, rnd, hp, x_new, data)
                     h_out = g_local = h_sync
                     g = sub.mean_nodes(h_sync)

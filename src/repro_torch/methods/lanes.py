@@ -16,6 +16,11 @@ Python float:
   j's rows, whatever the rank of the tensor (a (G, d) iterate or (G, n, d)
   per-node rows).  Each (device, dtype, rank) is made once.
 
+Below the methods layer nothing knows a :class:`Lanes`: a fused kernel
+takes a sweep's ``a`` (and kernel 3 its ``1 - b``) as a (G,) fp32 tensor,
+:func:`kernel_value`, and a coin its per-lane p as a (G,) array,
+:func:`host_value`.
+
 Lane j's arithmetic is then a sequential run's at ``values[j]``: the
 float64 expression is rounded to the tensor's dtype once, where it meets
 the tensor, as torch rounds a Python scalar.
@@ -60,6 +65,17 @@ class Lanes:
             self._tensors[key] = t
         return t
 
+    def as_vector(self, device) -> torch.Tensor:
+        """The values as a contiguous (G,) fp32 tensor on ``device``, each
+        rounded once from float64 as a lane's scalar is where it meets an
+        fp32 tensor; made once per device."""
+        key = ("vector", torch.device(device))
+        t = self._tensors.get(key)
+        if t is None:
+            t = self._tensors[key] = torch.as_tensor(self.values).to(
+                torch.float32).to(device).contiguous()
+        return t
+
     def _apply(self, other, fn: Callable, name: str, swap: bool):
         if isinstance(other, torch.Tensor):
             mine = self.as_tensor(other)
@@ -92,6 +108,18 @@ for _name, _fn in (("add", operator.add), ("sub", operator.sub),
     _fwd, _ref = _binary(_name, _fn)
     setattr(Lanes, f"__{_name}__", _fwd)
     setattr(Lanes, f"__r{_name}__", _ref)
+
+
+def kernel_value(v, device):
+    """A scalar hyperparameter as a fused kernel takes it: a number as it
+    is, a :class:`Lanes` as its (G,) fp32 :meth:`Lanes.as_vector`."""
+    return v.as_vector(device) if isinstance(v, Lanes) else v
+
+
+def host_value(v):
+    """A scalar hyperparameter as a host comparison takes it: a number as
+    it is, a :class:`Lanes` as its (G,) float64 values."""
+    return v.values if isinstance(v, Lanes) else v
 
 
 def as_lanes(values):

@@ -13,6 +13,8 @@ refreshes h_i; MARINA fits the same skeleton with a = 0.  A
   (``sub.fuses_mvr``), ``h_new`` is None and is never materialised;
 * ``sync_update`` — the probability-p dense synchronization round, if any;
 * ``force_a``    — overrides the compressor momentum (MARINA: 0);
+* ``init_h``     — optional initialisation override, ``(sub, rnd, hp, x0,
+  data) -> h0`` (default: the oracle gradient at x^0, Cor. 6.2/6.5);
 * ``theory_gamma`` — Section 6 stepsize + derived constants;
 * ``extra_payload`` — expected coords/round beyond the compressed message;
 * ``sync_requires_all`` — the sync round is a client-synchronization
@@ -20,15 +22,21 @@ refreshes h_i; MARINA fits the same skeleton with a = 0.  A
 
 The port's coins are host booleans, so a rule (and the engine's sync
 round) computes only the branch a coin selects; the reference computes
-both and where-selects (``sub.where``), with the same result, so the port's
-substrates need no ``where``.
+both and where-selects (``sub.where``), with the same result.  A sweep's
+per-lane ``p`` gives a (G,) bool array of coins: a round computes a branch
+when any lane's coin selects it, and :func:`select_lanes` picks each lane's
+branch, so a lane whose coin is down keeps its sequential run's floats.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
-from repro_torch.core import theory
+import numpy as np
+import torch
+
+from repro_torch.core import theory, tree
+from repro_torch.methods.lanes import host_value
 
 
 class MvrFusion(NamedTuple):
@@ -57,6 +65,7 @@ class VariantRule:
     h_update: Callable[..., Tuple[Any, Any]]
     sync_update: Optional[Callable[..., Any]] = None
     force_a: Optional[float] = None
+    init_h: Optional[Callable[..., Any]] = None
     theory_gamma: Optional[Callable[..., Tuple[float, Dict[str, Any]]]] = None
     extra_payload: Callable[..., float] = _no_extra_payload
     sync_requires_all: bool = False
@@ -76,6 +85,14 @@ class VariantRule:
         flush."""
         return self.sync_requires_all
 
+    @property
+    def supports_client_sampling(self) -> bool:
+        """Whether the rule can run on a sampled-client substrate
+        (DESIGN.md §13): a ``sync_requires_all`` barrier is the one
+        disqualifier, since a C-of-n cohort can never deliver an all-client
+        dense round."""
+        return not self.sync_requires_all
+
 
 VARIANTS: Dict[str, VariantRule] = {}
 
@@ -94,6 +111,16 @@ def get_rule(variant) -> VariantRule:
     return VARIANTS[variant]
 
 
+def select_lanes(coin: np.ndarray, up, down):
+    """Lane j of ``up`` where ``coin[j]``, else of ``down``: trees (or
+    tensors) whose leaves carry a leading (G,) lane axis."""
+    def leaf(u, d):
+        mask = torch.as_tensor(coin, device=u.device).reshape(
+            (-1,) + (1,) * (u.dim() - 1))
+        return torch.where(mask, u, d)
+    return tree.map_leaves(leaf, up, down)
+
+
 # ---------------------------------------------------------------------------
 # h-updates
 # ---------------------------------------------------------------------------
@@ -105,11 +132,18 @@ def _h_dasha(sub, rnd, hp, x_new, x_old, h, data):
 
 def _h_page(sub, rnd, hp, x_new, x_old, h, data):
     """PAGE: full reset with prob p, else a SARAH increment on a
-    shared-sample minibatch difference (Theorem 6.4)."""
-    if rnd.coin(hp.p, "page"):
+    shared-sample minibatch difference (Theorem 6.4).  Per-lane coins
+    compute each branch some lane takes."""
+    coin = rnd.coin(host_value(hp.p), "page")
+    lanes = isinstance(coin, np.ndarray)
+    if coin.all() if lanes else coin:
         return sub.grad(rnd, x_new, data, hp.batch), None
     diff = sub.grad_diff(rnd, x_new, x_old, hp.batch, data)
-    return sub.lin(lambda h_, d_: h_ + d_, h, diff), None
+    inc = sub.lin(lambda h_, d_: h_ + d_, h, diff)
+    if not lanes or not coin.any():
+        return inc, None
+    return select_lanes(coin, sub.grad(rnd, x_new, data, hp.batch),
+                        inc), None
 
 
 def _h_mvr(sub, rnd, hp, x_new, x_old, h, data):

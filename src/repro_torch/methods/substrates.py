@@ -9,11 +9,19 @@
   a compact chunk slab instead of the (n, d) store (§16);
 * :class:`TreeSubstrate` holds parameter-shaped trees with a leading node
   axis (the LM trainer), with per-node gradients from a
-  :class:`BatchLossOracle` and compression through
-  :class:`TreeCompression` (:mod:`repro_torch.compress.treelevel`);
-* :class:`LaneFlatSubstrate` and :class:`LaneTreeSubstrate` are a sweep's
-  G lanes of the flat and tree substrates, a leading lane axis on every
-  state field.
+  :class:`BatchLossOracle` (or a flat problem on a single-leaf tree,
+  :class:`LeafProblemOracle`) and compression through
+  :class:`TreeCompression` (:mod:`repro_torch.compress.treelevel`) or, leaf
+  by leaf, through a registry :class:`RoundCompressor`
+  (:class:`LeafSpecCompressor`);
+* :class:`LaneFlatSubstrate`, :class:`LaneSampledFlatSubstrate` and
+  :class:`LaneTreeSubstrate` are a sweep's G lanes of the flat, sampled and
+  tree substrates, a leading lane axis on every state field.
+
+Substrate parity: a single-leaf :class:`TreeSubstrate` over
+:class:`LeafProblemOracle` with a registry compressor is
+:class:`FlatSubstrate` bit for bit (the same round plan, the same
+arithmetic).
 
 Randomness reaches a substrate as the round's
 :class:`repro_torch.core.rng.RoundRandom` in place of the reference's key.
@@ -28,6 +36,7 @@ import torch
 from torch.func import grad as func_grad
 from torch.func import vmap
 
+from repro_torch.compress import as_round_compressor
 from repro_torch.compress.backends import (RoundCompressor,
                                            estimator_update_with_plan)
 from repro_torch.compress.spec import omega_participation
@@ -35,6 +44,8 @@ from repro_torch.compress.treelevel import (bernoulli_compress,
                                             fused_leaf_updates,
                                             permk_compress)
 from repro_torch.core import rng, tree
+from repro_torch.core.oracles import _lanes_inside
+from repro_torch.methods.lanes import Lanes, kernel_value
 from repro_torch.methods.rules import MvrFusion
 from repro_torch.optim.base import apply_updates
 
@@ -99,6 +110,15 @@ def _problem_grad_minibatch(problem, rnd, x, size, lanes=False):
     return _oracle(problem, "minibatch_grad", lanes)(x, samples)
 
 
+def _update_with_plan(backend: str, plan, h_new, h, g_local, a):
+    """``estimator_update_with_plan``, a sweep's per-lane ``a`` handed to
+    the fused kernels as its (G,) fp32 values (the dense and sparse
+    backends meet the :class:`Lanes` itself with their tensors)."""
+    if backend == "fused":
+        a = kernel_value(a, h_new.device)
+    return estimator_update_with_plan(backend, plan, h_new, h, g_local, a)
+
+
 # ---------------------------------------------------------------------------
 # FlatSubstrate
 # ---------------------------------------------------------------------------
@@ -117,8 +137,10 @@ class FlatSubstrate:
     #: oracles take one iterate; a :class:`LaneFlatSubstrate` takes G
     _lanes = False
 
-    def with_compressor(self, comp: RoundCompressor) -> "FlatSubstrate":
-        return dataclasses.replace(self, rc=comp)
+    def with_compressor(self, comp) -> "FlatSubstrate":
+        """Bind a :class:`RoundCompressor` or a legacy view of one
+        (:func:`repro_torch.compress.as_round_compressor`)."""
+        return dataclasses.replace(self, rc=as_round_compressor(comp))
 
     def with_lanes(self, lanes: int) -> "LaneFlatSubstrate":
         """This substrate with a leading lane axis of ``lanes`` on every
@@ -189,8 +211,8 @@ class FlatSubstrate:
         h_out, g_local_new, payload per node, the per-node messages, the
         Appendix-D participation or None at full participation)."""
         plan = rnd.plan(self.rc)
-        msgs, h_out, gl = estimator_update_with_plan(
-            self.rc.backend, plan, h_new, h, g_local, a)
+        msgs, h_out, gl = _update_with_plan(self.rc.backend, plan, h_new,
+                                            h, g_local, a)
         present = None
         if self.rc.spec.p_participate < 1.0:
             # a zero scale row IS an absent node
@@ -294,10 +316,14 @@ def slab_layout(sels: np.ndarray, n: int):
     return uniq_pad, loc
 
 
-def _rows_stoch_grad(problem, x, xi, rows):
+def _rows_stoch_grad(problem, x, xi, rows, lanes: bool = False):
     """Row-restricted ``StochasticProblem.stoch_grad``: each cohort row's
     gradient with its global client id as the node index (the same xi give
-    the same-sample pair of MVR)."""
+    the same-sample pair of MVR).  ``lanes``: x is (G, d) and the result
+    (G, C, d), the lane vmap inside the node vmap as the problem's own lane
+    forms."""
+    if lanes:
+        return _lanes_inside(func_grad(problem._node_mean), x, xi, rows)
     return vmap(func_grad(problem._node_mean), in_dims=(None, 0, 0))(
         x, xi, rows)
 
@@ -329,16 +355,18 @@ class _CohortView:
         self.sel = sel
         self.loc = loc
         self._rows = None
+        # a sweep's lanes: (G, n, d) state, oracles in their lane forms
+        self._lanes = base._lanes
 
-    # -- node-axis windowing ----------------------------------------------
+    # -- node-axis windowing (the node axis is -2, after any lane axis) ----
     def gather_nodes(self, per_node):
         idx = self.sel if self.loc is None else self.loc
-        return per_node.index_select(0, idx)
+        return per_node.index_select(-2, idx)
 
     def scatter_nodes(self, full, rows):
         if self.loc is None:
-            return full.index_copy(0, self.sel, rows)
-        return full.index_copy_(0, self.loc, rows)
+            return full.index_copy(-2, self.sel, rows)
+        return full.index_copy_(-2, self.loc, rows)
 
     def _rows_problem(self):
         """The finite-sum problem restricted to the cohort's data rows."""
@@ -352,39 +380,43 @@ class _CohortView:
     def _stoch(self, rnd, x, size, tag):
         p = self.base.problem
         xi = rnd.client_samples(p, size, self.clients, tag)
-        return _rows_stoch_grad(p, x, xi, self.sel)
+        return _rows_stoch_grad(p, x, xi, self.sel, self._lanes)
+
+    def _full(self, x):
+        return _oracle(self._rows_problem(), "full_grad", self._lanes)(x)
 
     # -- oracle ops (cohort rows only) ------------------------------------
     def grad(self, rnd, x, data=None, size: int = 1):
         if hasattr(self.base.problem, "full_grad"):
-            return self._rows_problem().full_grad(x)
+            return self._full(x)
         return self._stoch(rnd, x, size, "h")
 
     def grad_pair(self, rnd, x_new, x_old, size: int, data=None):
         p = self.base.problem
         if hasattr(p, "stoch_grad_pair"):
             xi = rnd.client_samples(p, size, self.clients)
-            return (_rows_stoch_grad(p, x_new, xi, self.sel),
-                    _rows_stoch_grad(p, x_old, xi, self.sel))
+            return (_rows_stoch_grad(p, x_new, xi, self.sel, self._lanes),
+                    _rows_stoch_grad(p, x_old, xi, self.sel, self._lanes))
         return _problem_grad_pair(self._rows_problem(), rnd, x_new, x_old,
-                                  size)
+                                  size, self._lanes)
 
     def grad_diff(self, rnd, x_new, x_old, size: int, data=None):
         if hasattr(self.base.problem, "minibatch_diff"):
             return _problem_grad_diff(self._rows_problem(), rnd, x_new,
-                                      x_old, size)
+                                      x_old, size, self._lanes)
         gn, go = self.grad_pair(rnd, x_new, x_old, size, data)
         return gn - go
 
     def megabatch(self, rnd, x, size: int, data=None):
         if hasattr(self.base.problem, "full_grad"):
-            return self._rows_problem().full_grad(x)
+            return self._full(x)
         return self._stoch(rnd, x, size, "sync")
 
     def grad_minibatch(self, rnd, x, size: int, data=None):
         if hasattr(self.base.problem, "stoch_grad"):
             return self._stoch(rnd, x, size, "init")
-        return _problem_grad_minibatch(self._rows_problem(), rnd, x, size)
+        return _problem_grad_minibatch(self._rows_problem(), rnd, x, size,
+                                       self._lanes)
 
     # -- arithmetic ---------------------------------------------------------
     def lin(self, fn: Callable, *tensors):
@@ -400,8 +432,8 @@ class _CohortView:
         # g = mean_i(g_i)
         plan = rnd.plan(rc)
         plan = plan._replace(scale=plan.scale * (base.n / float(base.c)))
-        msgs, h_out, gl = estimator_update_with_plan(
-            rc.backend, plan, h_new, h, g_local, a)
+        msgs, h_out, gl = _update_with_plan(rc.backend, plan, h_new, h,
+                                            g_local, a)
         # server aggregate (1/n) sum_{i in S} m_i = (C/n) * mean_S(m_i)
         agg = msgs.mean() * (float(base.c) / base.n)
         present = torch.zeros((base.n,), dtype=torch.bool,
@@ -440,10 +472,11 @@ class SampledFlatSubstrate(FlatSubstrate):
     def samples_clients(self) -> bool:
         return self.c < self.n
 
-    def with_lanes(self, lanes: int):
-        raise NotImplementedError(
-            "sweeps (a lane axis) on the sampled-client substrate are not "
-            "ported yet; sweep a FlatSubstrate")
+    def with_lanes(self, lanes: int) -> "LaneSampledFlatSubstrate":
+        """This substrate with a leading lane axis of ``lanes`` on every
+        device field (see :class:`LaneSampledFlatSubstrate`)."""
+        return LaneSampledFlatSubstrate(self.problem, self.n, self.d,
+                                        self.rc, c=self.c, lanes=int(lanes))
 
     @property
     def participation_frac(self) -> float:
@@ -484,6 +517,15 @@ class SampledFlatSubstrate(FlatSubstrate):
         rows inside the chunk slab (int64)."""
         return _CohortView(self, np.asarray(clients, np.int64), sel, loc)
 
+    def round_cohort(self, seed: int, t: int, draws=None) -> np.ndarray:
+        """The (c,) int32 cohort of the round whose randomness is ``(seed,
+        t)`` (``draws``' injected cohort where it has one): the ids
+        :meth:`round_view` draws, recovered without running the step (one
+        round of :meth:`cohort_schedule`), for observers such as the
+        federated simulators."""
+        return self.cohort_schedule(
+            seed, t, 1, None if draws is None else (lambda _: draws))[0]
+
     def cohort_schedule(self, seed: int, t0: int, length: int,
                         draws=None) -> np.ndarray:
         """The cohorts of rounds ``t0 .. t0 + length - 1``, (length, c)
@@ -507,6 +549,38 @@ class SampledFlatSubstrate(FlatSubstrate):
         cnt = self.cohort_counts(rnd)
         return torch.zeros((self.n,), dtype=torch.int32,
                            device=cnt.device).index_copy_(0, sel, cnt)
+
+
+@dataclasses.dataclass(frozen=True)
+class LaneSampledFlatSubstrate(SampledFlatSubstrate):
+    """G lanes of a :class:`SampledFlatSubstrate` side by side, for a
+    sweep: the iterate and server estimator are (G, d), the per-node store
+    (G, n, d).
+
+    Every lane samples the round's one cohort (drawn from the round seed,
+    as G sequential runs from one seed draw the same cohort), gathers its
+    (G, C, d) rows, runs the problem's lane oracles on the cohort's data
+    rows, and compresses them with the cohort's one plan: the fused backend
+    updates all G * C rows in one kernel launch, each reading its node's
+    row of the plan (row r % C).  Unsampled rows of every lane freeze.
+    """
+
+    lanes: int = 1
+    _lanes = True
+
+    def with_lanes(self, lanes: int) -> "LaneSampledFlatSubstrate":
+        return dataclasses.replace(self, lanes=int(lanes))
+
+    def mean_nodes(self, per_node):
+        return per_node.mean(-2)
+
+    def sub_deficit(self, g, deficit):
+        raise ValueError("deficit= (asynchronous rounds) has no lane form: "
+                         "the simulators run one method, not a sweep")
+
+    def window_view(self, clients, sel, loc):
+        raise ValueError("window= (the slab store) has no lane form: the "
+                         "simulators run one method, not a sweep")
 
 
 # ---------------------------------------------------------------------------
@@ -575,6 +649,63 @@ class BatchLossOracle:
         return self.per_node_grads(x, data, lanes)
 
 
+@dataclasses.dataclass(frozen=True)
+class LeafProblemOracle:
+    """A flat Section-1.2 problem on a single-leaf tree substrate.
+
+    The parity bridge: per-node quantities are the problem's (n, d)
+    tensors wrapped back into the iterate's single-leaf tree, so a
+    :class:`TreeSubstrate` over it with a registry compressor reproduces
+    :class:`FlatSubstrate` bit for bit.  ``path`` is the leaf's path (``""``
+    for a bare tensor).  With a sweep's lanes the leaf is (G, d) and the
+    problem's lane oracles answer.
+    """
+
+    problem: Any
+    path: str = ""
+
+    @classmethod
+    def wrapping(cls, problem, x0_tree) -> "LeafProblemOracle":
+        """The oracle of ``problem`` on trees shaped like ``x0_tree``,
+        which must have exactly one leaf."""
+        items = list(tree.items(x0_tree))
+        if len(items) != 1:
+            raise ValueError(f"LeafProblemOracle is single-leaf only, got "
+                             f"{len(items)} leaves")
+        return cls(problem=problem, path=items[0][0])
+
+    def _leaf(self, t):
+        return tree.get(t, self.path)
+
+    def _wrap(self, arr):
+        return arr if self.path == "" else tree.from_items([(self.path, arr)])
+
+    def grad(self, rnd, x, data=None, size: int = 1, lanes: int = 0):
+        return self._wrap(_problem_grad(self.problem, rnd, self._leaf(x),
+                                        size, bool(lanes)))
+
+    def grad_pair(self, rnd, x_new, x_old, size: int, data=None,
+                  lanes: int = 0):
+        gn, go = _problem_grad_pair(self.problem, rnd, self._leaf(x_new),
+                                    self._leaf(x_old), size, bool(lanes))
+        return self._wrap(gn), self._wrap(go)
+
+    def grad_diff(self, rnd, x_new, x_old, size: int, data=None,
+                  lanes: int = 0):
+        return self._wrap(_problem_grad_diff(
+            self.problem, rnd, self._leaf(x_new), self._leaf(x_old), size,
+            bool(lanes)))
+
+    def megabatch(self, rnd, x, size: int, data=None, lanes: int = 0):
+        return self._wrap(_problem_megabatch(self.problem, rnd,
+                                             self._leaf(x), size,
+                                             bool(lanes)))
+
+    def grad_minibatch(self, rnd, x, size: int, data=None, lanes: int = 0):
+        return self._wrap(_problem_grad_minibatch(
+            self.problem, rnd, self._leaf(x), size, bool(lanes)))
+
+
 # ---------------------------------------------------------------------------
 # tree compression
 # ---------------------------------------------------------------------------
@@ -603,12 +734,6 @@ class TreeCompression:
         """Payload / dense, per node (the trainer's payload_frac metric)."""
         return 1.0 / self.n if self.mode == "permk" else self.p
 
-    @property
-    def backend(self) -> str:
-        """The execution backend, in the round compressors' names: the
-        kernel path is ``fused`` (its scalars enter the kernel)."""
-        return "fused" if self.use_kernel else "dense"
-
     def payload_per_node(self, per_node_tree, lanes: bool = False) -> float:
         return sum(self.static_frac * _leaf_size(l, lanes)
                    for l in tree.leaves(per_node_tree))
@@ -628,11 +753,16 @@ class TreeCompression:
         node_axis = 1 if lanes else 0
         if self.use_kernel:
             fusion = aux if isinstance(aux, MvrFusion) else None
+            dev = tree.leaves(g_local)[0].device
+            a = kernel_value(a, dev)
             if fusion is not None:
+                b, c = fusion.b, None
+                if isinstance(b, Lanes):
+                    b, c = None, (1.0 - b).as_vector(dev)
                 leaves = fused_leaf_updates(
                     rnd, fusion.grads_new, h, g_local, mode=self.mode, a=a,
-                    p=self.p, n=self.n, variant="mvr", b=fusion.b,
-                    grads_old=fusion.grads_old, lanes=lanes)
+                    p=self.p, n=self.n, variant="mvr", b=b,
+                    grads_old=fusion.grads_old, lanes=lanes, c=c)
             else:
                 leaves = fused_leaf_updates(
                     rnd, h_new, h, g_local, mode=self.mode, a=a, p=self.p,
@@ -662,6 +792,86 @@ class TreeCompression:
         return agg, h_new, gl_new, self.payload_per_node(h_new, lanes)
 
 
+@dataclasses.dataclass(frozen=True)
+class LeafSpecCompressor:
+    """A registry :class:`RoundCompressor` run leaf by leaf: each per-node
+    leaf reshaped to (n, d_leaf) and compressed by the round compressor
+    re-dimensioned to d_leaf (same spec, mode, backend and device).  This is
+    how RandK, PermK, Bernoulli, QDither and partial participation run on a
+    tree substrate.
+
+    Randomness: a single-leaf tree draws the round's own plan
+    (``rnd.plan``), the plan :class:`FlatSubstrate`'s round draws, so the
+    two are bit-identical; with several leaves each leaf draws its plan
+    from a generator seeded by the round and the leaf's path
+    (:meth:`repro_torch.core.rng.RoundRandom.leaf_plan`), or takes the one
+    injected for it (``Draws.leaf_plans``).
+
+    The MVR h-update is never fused here (the fused tree kernel is
+    :class:`TreeCompression`'s): ``h_new`` arrives materialised and the
+    fused backend runs kernel 1 (or kernel 2 for QDither) once per leaf.
+    """
+
+    rc: RoundCompressor
+
+    @property
+    def static_frac(self) -> float:
+        return self.rc.payload_per_node / float(self.rc.spec.d)
+
+    def _leaf_rc(self, d_leaf: int) -> RoundCompressor:
+        spec = self.rc.spec
+        if spec.name == "randk" and not 0 < (spec.k or 0) <= d_leaf:
+            raise ValueError(f"randk needs 0 < k <= d, got k={spec.k} "
+                             f"d={d_leaf}")
+        return RoundCompressor(dataclasses.replace(spec, d=d_leaf),
+                               self.rc.n, self.rc.mode, self.rc.backend,
+                               self.rc.device)
+
+    def payload_per_node(self, per_node_tree, lanes: bool = False) -> float:
+        return sum(self._leaf_rc(int(_leaf_size(l, lanes))).payload_per_node
+                   for l in tree.leaves(per_node_tree))
+
+    def leaf_plans(self, rnd, per_node_tree, lanes: bool = False):
+        """``{path: plan}``: each leaf's plan of the round whose randomness
+        is ``rnd``, as :meth:`estimator_update` draws them."""
+        items = list(tree.items(per_node_tree))
+        out = {}
+        for path, leaf in items:
+            rc = self._leaf_rc(int(_leaf_size(leaf, lanes)))
+            out[path] = rnd.plan(rc) if len(items) == 1 \
+                else rnd.leaf_plan(path, rc)
+        return out
+
+    def estimator_update(self, rnd, h_new, h, g_local, a: float, aux=None,
+                         lanes: bool = False):
+        """Returns (aggregate, h_out, g_local_new, payload per node).
+        ``lanes``: the leaves are (G, n, *shape), a sweep's lanes, which
+        share each leaf's plan."""
+        node_axis = 1 if lanes else 0
+        plans = self.leaf_plans(rnd, h_new, lanes)
+        aggs, h_outs, gls, payload = [], [], [], 0.0
+        for path, hn in tree.items(h_new):
+            lead = tuple(hn.shape[:node_axis + 1])
+            shape = tuple(hn.shape[node_axis + 1:])
+            d_leaf = int(_leaf_size(hn, lanes))
+            rc = self._leaf_rc(d_leaf)
+
+            def flat(t, lead=lead, d_leaf=d_leaf):
+                return t.reshape(lead + (d_leaf,))
+
+            msgs, h_out, gl_new = _update_with_plan(
+                rc.backend, plans[path], flat(hn), flat(tree.get(h, path)),
+                flat(tree.get(g_local, path)), a)
+            aggs.append((path, msgs.mean().reshape(lead[:-1] + shape)))
+            h_outs.append((path, h_out.reshape(hn.shape)))
+            gls.append((path, gl_new.reshape(hn.shape)))
+            payload += rc.payload_per_node
+        if len(aggs) == 1 and aggs[0][0] == "":
+            return aggs[0][1], h_outs[0][1], gls[0][1], payload
+        return (tree.from_items(aggs), tree.from_items(h_outs),
+                tree.from_items(gls), payload)
+
+
 # ---------------------------------------------------------------------------
 # TreeSubstrate
 # ---------------------------------------------------------------------------
@@ -674,15 +884,17 @@ class TreeSubstrate:
     n: int
     server_opt: Any                     # repro_torch.optim.base SGD / Adam
     state_dtype: torch.dtype = torch.float32
-    comp: Optional[TreeCompression] = None
+    comp: Any = None                    # TreeCompression | LeafSpecCompressor
 
     def with_compressor(self, comp) -> "TreeSubstrate":
-        if not isinstance(comp, TreeCompression):
-            raise NotImplementedError(
-                "registry compressors on the tree path (the reference's "
-                "LeafSpecCompressor) are not ported yet; pass a "
-                "TreeCompression")
-        return dataclasses.replace(self, comp=comp)
+        """Bind a :class:`TreeCompression` or a
+        :class:`LeafSpecCompressor`; a :class:`RoundCompressor` (or a legacy
+        view of one) runs leaf by leaf as a :class:`LeafSpecCompressor`."""
+        if isinstance(comp, (TreeCompression, LeafSpecCompressor)):
+            bound = comp
+        else:
+            bound = LeafSpecCompressor(as_round_compressor(comp))
+        return dataclasses.replace(self, comp=bound)
 
     def with_lanes(self, lanes: int) -> "LaneTreeSubstrate":
         """This substrate with a leading lane axis of ``lanes`` on every
@@ -693,8 +905,10 @@ class TreeSubstrate:
 
     @property
     def fuses_mvr(self) -> bool:
-        """The fused kernel recomputes the MVR h-update in its own pass."""
-        return self.comp is not None and self.comp.use_kernel
+        """The fused tree kernel recomputes the MVR h-update in its own
+        pass (a :class:`TreeCompression` with ``use_kernel``)."""
+        return isinstance(self.comp, TreeCompression) and \
+            self.comp.use_kernel
 
     def place(self, x, device):
         return tree.map_leaves(lambda t: torch.as_tensor(t, device=device),
@@ -787,9 +1001,9 @@ class LaneTreeSubstrate(TreeSubstrate):
       fused path launches its kernel once per leaf over all G * n rows;
     * a hyperparameter that varies by lane is a
       :class:`repro_torch.methods.lanes.Lanes`: the stepsize enters the
-      server optimizer's learning rate (``Adam(lr=Lanes)``), ``b`` the
-      rules' arithmetic (not on the kernel path, where it is a scalar
-      argument of the kernel).
+      server optimizer's learning rate (``Adam(lr=Lanes)``), ``a`` and
+      ``b`` the rules' arithmetic, or on the kernel path the kernels'
+      per-lane arguments (row r of the G * n rows reads lane r // n).
 
     Lane j is then a sequential run at ``values[j]``: the same masks and
     batches, the same floats up to the last ulp.

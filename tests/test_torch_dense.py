@@ -695,19 +695,21 @@ def test_tree_lanes_share_one_mask_draw_and_one_kernel_launch_a_leaf(
 
 
 def test_tree_lanes_refuse_kernel_scalars_and_deficits():
-    """a and b enter the kernels as scalars, so they cannot vary by lane
-    on the fused tree path; asynchronous deficits have no lane form."""
+    """The kernels take a and 1 - b per lane now, so both may vary by
+    lane on the fused tree path (held against sequential runs in
+    ``tests/test_torch_lanes_more.py``); asynchronous deficits still have
+    no lane form."""
     cfg = t_smoke("starcoder2-3b")
     sub = TreeSubstrate(
         oracle=BatchLossOracle(lambda p, b: tlm.loss_fn(cfg, p, b)[0]),
         n=N, server_opt=SGD(lr=0.1))
     comp = TreeCompression(n=N, p=0.5, use_kernel=True)
-    with pytest.raises(ValueError, match="b cannot vary by lane"):
-        Method.build("mvr", comp, sub, Hyper(gamma=0.1, a=0.2,
-                                             b=Lanes([0.1, 0.2])))
-    with pytest.raises(ValueError, match="a cannot vary by lane"):
-        Method.build("dasha", comp, sub, Hyper(gamma=0.1,
-                                               a=Lanes([0.1, 0.2])))
+    for variant, hp in (("mvr", Hyper(gamma=0.1, a=0.2,
+                                      b=Lanes([0.1, 0.2]))),
+                        ("dasha", Hyper(gamma=0.1, a=Lanes([0.1, 0.2])))):
+        m = Method.build(variant, comp, sub, hp)
+        with pytest.raises(ValueError, match="sweep it"):
+            m.init(None, 1)
     lanes = sub.with_compressor(comp).with_lanes(2)
     assert isinstance(lanes, LaneTreeSubstrate) and lanes.lanes == 2
     with pytest.raises(ValueError, match="no lane form"):

@@ -13,9 +13,11 @@
   at ``tests/test_driver.py``'s shapes, with the reference's plans,
   samples and coins replayed through a bare ``step_full(..., draws=)``
   step: traces within 1e-4, ``bits_sent`` exactly;
-* lane ``p``, ``batch``, ``batch_sync`` and fused ``a`` raise ValueError,
-  and the sampled substrate raises NotImplementedError (the tree
-  substrate's lanes are held in ``tests/test_torch_dense.py``);
+* lane ``batch`` and ``batch_sync`` raise ValueError (the reference's
+  vmapped sweep cannot take a traced shape either); lane ``p`` and fused
+  ``a`` build and step, and the sampled substrate has lanes (each held
+  against sequential runs in ``tests/test_torch_lanes_more.py``; the tree
+  substrate's lanes in ``tests/test_torch_dense.py``);
 * no op of a sweep round or of the lane metric allocates a tensor of
   G * n * m * d elements or more (a lanes-outermost gradient does).
 """
@@ -41,6 +43,12 @@ from repro_torch.methods import (Driver, FlatSubstrate, Hyper, Lanes,
                                  lane_metric, sweep)
 
 torch.set_num_threads(1)
+
+
+def jm_broadcast(state, lanes):
+    """One state as the start of ``lanes`` lanes on the CPU."""
+    from repro_torch.methods.driver import _broadcast_lanes
+    return _broadcast_lanes(state, lanes, torch.device("cpu"))
 
 N, M, D, K, ROUNDS = 4, 16, 24, 6, 8
 GAMMAS = np.array([0.05, 0.1, 0.2, 0.4])
@@ -319,6 +327,9 @@ def test_sweep_matches_the_reference_sweep(variant):
                                            ("batch_sync", "sparse"),
                                            ("a", "fused")])
 def test_fields_that_cannot_vary_by_lane_raise(field, backend):
+    """``batch`` and ``batch_sync`` set a shape, so they still raise;
+    ``p`` (per-lane coins) and fused ``a`` (the kernels' per-lane
+    argument) now build a method of two lanes that steps."""
     problem = _glm()
     comp = make_round_compressor("randk", D, N, k=K, backend=backend,
                                  device="cpu")
@@ -326,9 +337,18 @@ def test_fields_that_cannot_vary_by_lane_raise(field, backend):
               batch_sync=2)
     kw[field] = np.array([1, 2]) if "batch" in field else \
         np.array([0.2, 0.4])
-    with pytest.raises(ValueError, match=f"Hyper.{field} cannot vary"):
-        Method.build("sync_mvr", comp, FlatSubstrate(problem, N, D),
-                     Hyper(**kw))
+    if "batch" in field:
+        with pytest.raises(ValueError, match=f"Hyper.{field} cannot vary"):
+            Method.build("sync_mvr", comp, FlatSubstrate(problem, N, D),
+                         Hyper(**kw))
+        return
+    method = Method.build("sync_mvr", comp, FlatSubstrate(problem, N, D),
+                          Hyper(**kw))
+    one = Method.build("sync_mvr", comp, FlatSubstrate(problem, N, D),
+                       Hyper(**dict(kw, **{field: 0.2})))
+    st = one.init(torch.zeros(D), 1, device="cpu")
+    lanes = method.step(jm_broadcast(st, 2))
+    assert lanes.x.shape == (2, D) and lanes.bits_sent.shape == (2,)
 
 
 def test_lane_a_runs_on_the_dense_backend_and_marina_ignores_it():
@@ -351,14 +371,18 @@ def test_lane_a_runs_on_the_dense_backend_and_marina_ignores_it():
 
 
 def test_sampled_and_tree_substrates_have_no_lanes_yet():
-    """The sampled substrate still has no lanes; the tree substrate has
-    them now (``tests/test_torch_dense.py`` holds its lanes against
-    sequential runs)."""
+    """Both have lanes now: the sampled substrate's lane view
+    (``tests/test_torch_lanes_more.py`` holds it against sequential runs)
+    and the tree substrate's (``tests/test_torch_dense.py``)."""
     problem = _glm()
     comp = make_round_compressor("randk", D, N, k=K, device="cpu")
-    with pytest.raises(NotImplementedError, match="sampled-client"):
-        Method.build("dasha", comp, SampledFlatSubstrate(problem, N, D, c=2),
+    m = Method.build("dasha", comp, SampledFlatSubstrate(problem, N, D, c=2),
                      Hyper(gamma=Lanes([0.1, 0.2]), a=0.2))
+    one = Method.build("dasha", comp, SampledFlatSubstrate(problem, N, D,
+                                                           c=2),
+                       Hyper(gamma=0.1, a=0.2))
+    st = m.step(jm_broadcast(one.init(torch.zeros(D), 1, device="cpu"), 2))
+    assert st.x.shape == (2, D) and st.h_local.shape == (2, N, D)
     lanes = TreeSubstrate(oracle=None, n=N, server_opt=None).with_lanes(2)
     assert isinstance(lanes, LaneTreeSubstrate) and lanes.lanes == 2
 
