@@ -154,7 +154,7 @@ Phases, each fatal on failure:
     version at the sweep's (40, 20958) rows on the plan's 5 index rows,
     and the
     port's fig1, fig5 and table1 at the reference's rounds, fig2 at a
-    sixteenth and fig3 at an eightieth of theirs (``FIG_ROUNDS_SCALE``), their
+    32nd and fig3 at a 160th of theirs (``FIG_ROUNDS_SCALE``), their
     rows printed
     (gates: fig1's DASHA-over-MARINA speedup > 1, fig5's floor ordering);
 15. faulted campaigns at the real-sim width — ``repro_torch.fed.faults``
@@ -281,14 +281,14 @@ Phases, each fatal on failure:
     smoke trained on the card and the CPU with the same masks and
     batches, dasha / mvr x kernel off / on (planted: the next round's
     masks; the plain route's launches under (a)'s launch gate); (e)
-    Figure 4 (``repro_torch.bench.fig4_dnn``) at 8 of its 120 steps, each
+    Figure 4 (``repro_torch.bench.fig4_dnn``) at 4 of its 120 steps, each
     row with its wall seconds, and dasha_1/32's lowest- and highest-gamma
     lanes against sequential Driver runs (planted: each lane against the
     other's run).  ``DENSE_CUTS`` lists the cuts;
 20. gemma3's grouped local/global stack and the mixture-of-experts family,
     with the card's memory printed first: (a-c) served in bf16 at full
     width through ``prefill_logits`` (4 x 8,192 tokens, the streaming
-    attention), ``serve`` (one request batch) and 16 decode steps on a
+    attention), ``serve`` (one request batch) and 8 decode steps on a
     4,128-slot cache beside their bf16 bounds, each model freed before the
     next: gemma3-12b at 48 of 48 layers (local layers under the 1,024-token
     window, every 6th layer global; decode at batch 32 from t = 4,080,
@@ -317,7 +317,7 @@ Phases, each fatal on failure:
     cut to 7 layers (two uses of the shared block) under the profiler:
     device ms by kernel, busy share, kernel 5 a layer against its bytes
     bound; (b) ``serve`` for one batch of 128, a 16-token prompt and 16
-    new tokens; (c) 32 decode steps at batch 128 on a 4,128-slot cache
+    new tokens; (c) 8 decode steps at batch 128 on a 4,128-slot cache
     from t = 4,096, the 7 K/V caches and the SSM states holding random
     history, beside the bound of reading the weights and the cache once
     (gate: none of the five kernels launches while serving); (d) kernel
@@ -340,7 +340,7 @@ Phases, each fatal on failure:
     gated cross blocks to 1,601 image tokens a row): ``prefill_logits`` at
     4 x 8,192 tokens beside its bf16 tensor-core bound, a prefill cut to 5
     layers (one cross block) under the profiler, ``serve`` for one batch,
-    32 decode steps at batch 32 on 4,128 slots of random self K/V beside
+    8 decode steps at batch 32 on 4,128 slots of random self K/V beside
     the image K/V of each cross block (from ``make_image_kv``), beside the
     bound of reading the weights and both caches once (gate: none of the
     five kernels launches while serving); the smoke trainer, DASHA-MVR with
@@ -390,7 +390,29 @@ Phases, each fatal on failure:
     per-row a read at ``row % G`` must fail; (e) kernels 1-3 with per-row
     a / b bit-equal to their plain versions and to one scalar launch a
     lane, timed beside their bounds.  ``PHASE23_CUTS`` lists what earlier
-    phases gave up for it.
+    phases gave up for it;
+24. the sharded serving programs (``repro_torch.launch.mesh``,
+    ``models.sharding``, ``launch.dryrun``): (a) a one-rank ``nccl`` group
+    and ``make_host_mesh("cuda")``: mamba2's and starcoder2's smoke
+    configs prefill (kernel 5 through ``local_map``) and take
+    ``MESH_DECODE_STEPS`` decode steps on parameters, prompt and cache
+    laid out by the policy (``distribute_tree``), bit-equal to the same
+    calls on plain tensors on the card, kernel 5's launches in the
+    sharded calls counted (planted: a DTensor handed to
+    ``ssd_chunk_scan`` without ``local_map`` must raise); (b) in a
+    subprocess, rank 0 of the fake 256-rank production mesh on the card:
+    ``MESH_PAIRS`` at full width, mamba2-780m x prefill_32k (2 x 32,768
+    tokens a rank, 3 of 48 SSM heads, kernel 5 48 times a call) and
+    starcoder2-3b x decode_32k (8 rows a rank), the local arguments made
+    on the card at their shards' shapes (their bytes must equal the dry
+    run's ``argument_gb`` exactly), the peak above the baseline within
+    ``MESH_PEAK_BAND`` of the dry run's ``peak_gb``, ms a call beside the
+    roofline's per-chip compute and memory terms (the fake group's
+    collectives write nothing: outputs unchecked, no collective term in
+    the time; a first call over ``MESH_CALL_CUT_S`` cuts the timed call's
+    depth, never its width); (c) the same pairs through ``dryrun_one`` in
+    that subprocess (trace seconds, peak GB a device, collectives by
+    kind).  ``PHASE24_CUTS`` lists what earlier phases gave up for it.
 
 Every phase that drives a main path zeroes the launch counters just before
 it and reads them just after; a kernel of that path that never launched
@@ -421,12 +443,17 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM published peaks (NVIDIA data sheet)
-HBM_BYTES_PER_S = 3.35e12
+# H100 SXM5 published peaks (NVIDIA data sheet), with one source: the
+# port's roofline, ``repro_torch.launch.roofline.H100_SXM5`` (a copy of
+# this script alone, outside a checkout, has none and exits in main)
+if (SRC / "repro_torch").is_dir():
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    from repro_torch.launch.roofline import H100_SXM5 as _CARD
+    HBM_BYTES_PER_S, BF16_FLOPS_PER_S = _CARD.hbm_bw, _CARD.peak_flops
+    TF32_FLOPS_PER_S, FP32_FLOPS_PER_S = _CARD.tf32_flops, _CARD.fp32_flops
 # written between timed launches to evict the 50 MB L2 cache
 L2_FLUSH_BYTES = 128 << 20
-FP32_FLOPS_PER_S = 67e12
-TF32_FLOPS_PER_S, BF16_FLOPS_PER_S = 495e12, 989e12
 
 N_NODES, M_REALSIM, D_REALSIM = 5, 14461, 20958
 D_RESNET18 = 11173962
@@ -555,8 +582,8 @@ SWEEP_STATE = ("x", "g", "g_local", "h_local")
 # full length; at half and a tenth they took 54 and 53 s on a slow host,
 # at a quarter and a twentieth 17.5 and 20.4 s on a fast one), so that
 # the whole script stays inside its time limit with phases 21 and 22
-FIG_ROUNDS_SCALE = {"fig1_gradient": 1.0, "fig2_finite_sum": 0.0625,
-                    "fig3_stochastic": 0.0125, "fig5_quadratic_pl": 1.0,
+FIG_ROUNDS_SCALE = {"fig1_gradient": 1.0, "fig2_finite_sum": 0.03125,
+                    "fig3_stochastic": 0.00625, "fig5_quadratic_pl": 1.0,
                     "table1_complexity": 1.0}
 # the faulted campaigns (phase 15): benchmarks/fed_faults_bench.py's
 # configuration widened to real-sim's features — n = 20 clients (the
@@ -695,7 +722,7 @@ FIG4_LANE_RTOL, FIG4_LOSS_RTOL, FIG4_CHECKED_LANES = 1e-2, 1e-3, (0, 2)
 # Figure 4's 120 host-bound steps took 95-131 s on the card (40 steps
 # 38-51 s, 20 steps 20.3 s); a tenth of them keeps its rows and its lane
 # gate at the same count
-FIG4_STEPS = 8
+FIG4_STEPS = 4
 DENSE_PROFILED_LAYERS = 2
 DENSE_CUTS = {
     "trainer_layers": "starcoder2-3b's 30 layers cut to 3 for the trainer: "
@@ -706,9 +733,9 @@ DENSE_CUTS = {
     "decode_history": "the 4,096-slot ring filled with random K/V in place "
                       "of 4,096 prompt steps (a step's time does not depend "
                       "on the values)",
-    "fig4_steps": "Figure 4 at 8 of its 120 steps (rows and the lane "
-                  "gate at the same count), to make room for phases 21, 22 "
-                  "and 23",
+    "fig4_steps": "Figure 4 at 4 of its 120 steps (rows and the lane "
+                  "gate at the same count), to make room for phases 21 to "
+                  "24",
     "prefill_timed": "one timed prefill call after the warm-up (PR 26: "
                      "two), to make room for phase 22",
 }
@@ -731,7 +758,7 @@ FAMILY_SERVE_PROMPT, FAMILY_SERVE_NEW = 8, 8
 FAMILY_DECODE_SLOTS, FAMILY_DECODE_T0 = 4128, 4080
 # two decode steps profiled: the profiler's tables of a 4-step window took
 # 7-13 s a model (~4,800 launches a step), for the same busy share
-FAMILY_DECODE_STEPS, FAMILY_DECODE_PROFILED = 16, 2
+FAMILY_DECODE_STEPS, FAMILY_DECODE_PROFILED = 8, 2
 FAMILY_PROFILED_LAYERS = 2
 # the profiler's windows and tables took ~64 s of phase 20's 111 s of
 # serving with all three models profiled; one model is profiled
@@ -897,6 +924,31 @@ PHASE23_CUTS = {
     "phase 14": "fig2 at 1/16 of its rounds (1/8: 10.50 s) and fig3 at "
                 "1/80 (1/40: 11.26 s); neither is gated, their rows are "
                 "printed",
+}
+
+# the sharded serving programs (phase 24): 24a the smoke configs on a
+# one-rank host mesh, bit for bit the plain calls; 24b / 24c rank 0 of the
+# fake 16 x 16 production mesh at full width, in a subprocess (a process
+# group is global to its process), against the dry run's memory
+MESH_ARCHS = ("mamba2-780m", "starcoder2-3b")
+MESH_PAIRS = (("mamba2-780m", "prefill_32k"), ("starcoder2-3b", "decode_32k"))
+MESH_SMOKE_BATCH, MESH_SMOKE_SEQ, MESH_DECODE_STEPS = 2, 64, 4
+MESH_PEAK_BAND, MESH_CALL_CUT_S = (0.75, 1.25), 20.0
+# what the earlier phases gave up for phase 24 (~30-45 s), each beside its
+# reckoning from earlier whole runs on H100 80GB HBM3 hosts at 700 W;
+# none of them removes a counted launch (Figure 4's lanes and fig2 / fig3
+# are not main-path runs, and no kernel launches while those models
+# decode), so kernels 1-4 launch as before and kernel 5 adds 24a's and
+# 24b's
+PHASE24_CUTS = {
+    "phase 19": "Figure 4 at 4 steps of 8 (the slow host's 4 steps of 12 "
+                "took ~6.5 s)",
+    "phase 14": "fig2 at 1/32 of its rounds (1/16: 10.50 s on the slow "
+                "host) and fig3 at 1/160 (1/80: 11.26 s): ~10.9 s",
+    "phases 20-22": "8 decode steps of 16 (FAMILY_DECODE_STEPS, which "
+                    "phases 21 and 22 read too) for gemma3, deepseek, "
+                    "phi3.5-moe, zamba2 and the VLM: 8 x their summed "
+                    "~0.6 s a step, ~5 s",
 }
 
 
@@ -8908,6 +8960,262 @@ def phase_registry(torch, smi: str):
              "walls_s": walls, "nvidia_smi": smi}, launches, rows)
 
 
+def _mesh_smoke_calls(torch, cfg, params, tokens, cache, steps, exp=None):
+    """The smoke serving calls of phase 24a: the last-position prefill
+    logits through kernel 5 (``kernel_config``), then the decode steps;
+    returns the outputs."""
+    from repro_torch.launch.serve import kernel_config
+    from repro_torch.models import lm
+    outs = []
+    with torch.no_grad():
+        logits, _ = lm.forward(kernel_config(cfg), params, tokens,
+                               last_only=True)
+        outs.append(logits)
+        for t in range(MESH_DECODE_STEPS):
+            logits, cache = lm.decode_step(cfg, params, cache, steps[t], t)
+            outs.append(logits)
+    return outs
+
+
+def _mesh_host(torch, smi: str):
+    """Phase 24a: the smoke configs on ``make_host_mesh("cuda")`` against
+    the same calls on plain tensors, bit for bit; returns (report, kernel
+    5's launches in the sharded calls)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_chunk as ssd_kern
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import init_params, lm
+    from repro_torch.models import sharding as sh
+    rows, launches = [], 0
+    B, S = MESH_SMOKE_BATCH, MESH_SMOKE_SEQ
+    with M.enter_mesh(M.make_host_mesh("cuda")) as mesh:
+        for arch in MESH_ARCHS:
+            cfg = get_smoke_config(arch)
+            params = init_params(cfg, 0, device="cuda")
+            gen = torch.Generator(device="cuda").manual_seed(24)
+            tokens = torch.randint(1, cfg.vocab_size, (B, S), generator=gen,
+                                   device="cuda", dtype=torch.int32)
+            steps = torch.randint(1, cfg.vocab_size, (MESH_DECODE_STEPS, B),
+                                  generator=gen, device="cuda",
+                                  dtype=torch.int32)
+            slots = S + MESH_DECODE_STEPS
+            want = _mesh_smoke_calls(
+                torch, cfg, params, tokens,
+                lm.init_cache(cfg, B, slots, device="cuda"), steps)
+            cache = lm.init_cache(cfg, B, slots, device="cuda")
+            d_params = sh.distribute_tree(
+                params, sh.param_specs(cfg, params, mesh), mesh)
+            d_tokens = sh.distribute_tree(
+                tokens, sh.batch_specs(cfg, mesh, B)["tokens"], mesh)
+            d_cache = sh.distribute_tree(
+                cache, sh.cache_specs(cfg, cache, mesh, B), mesh)
+            d_steps = sh.distribute_tree(steps, sh.P(None, sh.dp_axes(mesh)),
+                                         mesh)
+            ssd_kern.reset_counts()
+            with implicit_replication():
+                got = _mesh_smoke_calls(torch, cfg, d_params, d_tokens,
+                                        d_cache,
+                                        [d_steps[t] for t in
+                                         range(MESH_DECODE_STEPS)])
+            torch.cuda.synchronize()
+            n5 = ssd_kern.COUNTS["ssd_chunk"]
+            want_n5 = cfg.num_layers if cfg.arch_type == "ssm" else 0
+            if n5 != want_n5:
+                raise AssertionError(f"[p24a] {arch}: kernel 5 launched {n5} "
+                                     f"times in the sharded calls, expected "
+                                     f"{want_n5}")
+            launches += n5
+            equal = [bool(torch.equal(g.full_tensor(), w))
+                     for g, w in zip(got, want)]
+            if not all(equal):
+                raise AssertionError(f"[p24a] {arch}: sharded outputs differ "
+                                     f"from the plain calls: {equal}")
+            rows.append({"arch": arch, "outputs_bit_equal": len(equal),
+                         "kernel5_launches": n5})
+            log(f"[p24a] {arch} smoke on the 1x1 nccl mesh: prefill + "
+                f"{MESH_DECODE_STEPS} decode steps bit-equal to the plain "
+                f"calls, kernel 5 {n5} launches | {smi}")
+        # planted: a DTensor at the kernel without local_map must raise
+        x = sh.constrain(torch.zeros((1, 32, 2, 4), device="cuda"),
+                         (None,) * 4, mesh)
+        ssd_kern.reset_counts()
+        try:
+            ops.ssd_chunk_scan(x, x[..., 0], x[0, 0, :, 0], x[..., :2, 0],
+                               x[..., :2, 0], x[0, 0, :, 0], 32)
+        except ValueError as e:
+            plant = str(e)
+        else:
+            raise AssertionError("[p24a] a DTensor reached kernel 5 without "
+                                 "local_map and did not raise")
+        if ssd_kern.COUNTS["ssd_chunk"]:
+            raise AssertionError("[p24a] the planted call launched")
+    return {"rows": rows, "plant_raised": plant[:200]}, launches
+
+
+def _mesh_rank0(torch, out_path: str) -> None:
+    """Phase 24b / 24c, run in its own process: the dry run of each of
+    MESH_PAIRS on a fake ``cuda`` mesh, then rank 0's program of the pair
+    on the card; writes the rows to ``out_path``."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_chunk as ssd_kern
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import specs as S
+    from repro_torch.models import sharding as sh
+    report = {}
+    for arch, shape in MESH_PAIRS:
+        t0 = time.perf_counter()
+        row = dryrun.dryrun_one(arch, shape, device="cuda", verbose=False)
+        row["dryrun_wall_s"] = time.perf_counter() - t0
+        report[f"{arch} x {shape}"] = {"dryrun": row}
+        if row["status"] != "ok":
+            raise AssertionError(f"[p24c] {arch} x {shape}: {row}")
+    for arch, shape in MESH_PAIRS:
+        rec = report[f"{arch} x {shape}"]
+        ref = rec["dryrun"]
+        cfg = get_config(arch)
+        with M.enter_mesh(M.make_production_mesh(device="cuda")) as mesh:
+            spec = S.input_specs(cfg, shape, mesh)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            gen = torch.Generator(device="cuda").manual_seed(24)
+
+            def make_local(path, shape_, dtype):
+                if dtype.is_floating_point:
+                    return (0.02 * torch.randn(shape_, generator=gen,
+                                               device="cuda")).to(dtype)
+                return torch.randint(1, cfg.vocab_size, shape_,
+                                     generator=gen, device="cuda",
+                                     dtype=dtype)
+
+            args = sh.distribute_tree(spec.args, spec.in_shardings, mesh,
+                                      make_local=make_local)
+            local = [x.to_local() for _, x in sh.leaves_with_path(args)
+                     if sh.is_dtensor(x)]
+            arg_bytes = sum(t.untyped_storage().nbytes() for t in local)
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated() - base
+            torch.cuda.reset_peak_memory_stats()
+            ssd_kern.reset_counts()
+            t0 = time.perf_counter()
+            with implicit_replication():
+                out = spec.fn(*args)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            launches = ssd_kern.COUNTS["ssd_chunk"]
+            peak = torch.cuda.max_memory_allocated() - base
+            del out
+            layers, fn, call_args = cfg.num_layers, spec.fn, args
+            if first_s > MESH_CALL_CUT_S:
+                layers = max(1, int(cfg.num_layers * MESH_CALL_CUT_S
+                                    / first_s))
+                cut = dataclasses.replace(cfg, num_layers=layers)
+                fn = S.input_specs(cut, shape, mesh).fn
+                cache_too = spec.static["kind"] == "decode"
+
+                def cut_leaf(path, x, stacked):
+                    return x[:layers] if sh.is_dtensor(x) and (
+                        stacked or path[:1] == ("layers",)) else x
+                # the stacked layer axis of the params and of the cache
+                call_args = (
+                    sh.map_with_path(functools.partial(cut_leaf,
+                                                       stacked=False),
+                                     args[0]),
+                    sh.map_with_path(functools.partial(cut_leaf,
+                                                       stacked=cache_too),
+                                     args[1])) + tuple(args[2:])
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            with implicit_replication():
+                out = fn(*call_args)
+            end.record()
+            end.synchronize()
+            ms = start.elapsed_time(end)
+            del out, args, call_args, local
+        rec.update({
+            "local_argument_bytes": arg_bytes,
+            "argument_bytes_from_dryrun": ref["argument_gb"] * 1e9,
+            "allocated_for_arguments_bytes": held,
+            "peak_gb_above_baseline": peak / 1e9,
+            "peak_ratio_to_dryrun": peak / 1e9 / ref["peak_gb"],
+            "first_call_s": first_s, "ms_per_call": ms,
+            "timed_layers": layers, "layers": cfg.num_layers,
+            "cut": None if layers == cfg.num_layers else
+            f"first call {first_s:.1f} s > {MESH_CALL_CUT_S} s: the timed "
+            f"call at {layers} of {cfg.num_layers} layers, full width",
+            "t_compute_ms": ref["t_compute_s"] * 1e3,
+            "t_memory_ms": ref["t_memory_s"] * 1e3,
+            "kernel5_launches": launches,
+            "note": "fake collectives write nothing: outputs unchecked, no "
+                    "collective term in the time"})
+        gc.collect()
+        torch.cuda.empty_cache()
+    Path(out_path).write_text(json.dumps(report, indent=1))
+
+
+def phase_mesh(torch, smi: str):
+    """Phase 24: the sharded serving programs (24a here; 24b and 24c in a
+    subprocess).  Returns (report, kernel 5's launches by path)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    host, host_launches = _mesh_host(torch, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "mesh_rank0.json"
+        run = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                              "--mesh-rank0", str(out)],
+                             capture_output=True, text=True, timeout=600)
+        if run.returncode != 0 or not out.exists():
+            raise AssertionError(
+                f"[p24b] rank 0's subprocess failed (rc {run.returncode}): "
+                f"{run.stderr[-3000:]}")
+        rank0 = json.loads(out.read_text())
+    launches = 0
+    for name, rec in rank0.items():
+        ref = rec["dryrun"]
+        if rec["local_argument_bytes"] / 1e9 != ref["argument_gb"]:
+            raise AssertionError(
+                f"[p24b] {name}: local argument bytes "
+                f"{rec['local_argument_bytes']} != the dry run's "
+                f"{ref['argument_gb']} GB")
+        lo, hi = MESH_PEAK_BAND
+        if not lo <= rec["peak_ratio_to_dryrun"] <= hi:
+            raise AssertionError(
+                f"[p24b] {name}: peak {rec['peak_gb_above_baseline']:.3f} GB "
+                f"is {rec['peak_ratio_to_dryrun']:.3f} x the dry run's "
+                f"{ref['peak_gb']:.3f} GB, outside {MESH_PEAK_BAND}")
+        want = rec["layers"] if name.startswith("mamba2") else 0
+        if rec["kernel5_launches"] != want:
+            raise AssertionError(f"[p24b] {name}: kernel 5 launched "
+                                 f"{rec['kernel5_launches']} times in a "
+                                 f"call, expected {want}")
+        launches += rec["kernel5_launches"]
+        log(f"[p24b] {name} rank 0 of 16x16 on the card: args "
+            f"{rec['local_argument_bytes'] / 1e9:.4f} GB (= dry run), peak "
+            f"{rec['peak_gb_above_baseline']:.3f} GB = "
+            f"{rec['peak_ratio_to_dryrun']:.3f} x the dry run's "
+            f"{ref['peak_gb']:.3f}; {rec['ms_per_call']:.2f} ms a call "
+            f"({rec['timed_layers']}/{rec['layers']} layers"
+            f"{'; ' + rec['cut'] if rec['cut'] else ''}) vs the roofline's "
+            f"per-chip compute {rec['t_compute_ms']:.3f} ms, memory "
+            f"{rec['t_memory_ms']:.3f} ms; kernel 5 {rec['kernel5_launches']}"
+            f" a call; {rec['note']} | {smi}")
+        log(f"[p24c] {name}: dryrun_one in {ref['dryrun_wall_s']:.1f} s "
+            f"(trace {ref['trace_s']} s), peak {ref['peak_gb']:.3f} GB a "
+            f"device, collectives {ref['coll_detail']}")
+    wall = time.perf_counter() - t0
+    log(f"[p24] phase 24 in {wall:.1f} s | {smi}")
+    return ({"host_mesh": host, "rank0": rank0, "cuts": PHASE24_CUTS,
+             "wall_s": wall, "nvidia_smi": smi},
+            {"mesh_host": host_launches, "mesh_rank0": launches})
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"{SRC / 'repro_torch'} not found: run from a checkout of the "
@@ -8921,6 +9229,9 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:2] == ["--mesh-rank0"]:      # phase 24b / 24c's process
+        _mesh_rank0(torch, sys.argv[2])
+        return 0
     smi = nvidia_smi_line()
     log(f"[device] {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
@@ -8969,6 +9280,7 @@ def main() -> int:
     ssd_rows.extend(hybrid_ssd_rows)
     cross, cross_launches = timed(phase_cross, torch, smi)
     registry, p23_launches, p23_rows = timed(phase_registry, torch, smi)
+    mesh, mesh_launches = timed(phase_mesh, torch, smi)
     sparsify["cases"].append(p23_rows["dasha_sparsify_update"])
     per_shape["dasha_mvr_update"].append(p23_rows["dasha_mvr_update"])
     kernel2["fused"].append(p23_rows["dasha_quantize_update"])
@@ -8978,7 +9290,8 @@ def main() -> int:
     # handle and the checkpoint drills; kernel 3 in the trainers (Mamba2,
     # starcoder2, the phase-20 families, zamba2, the VLM's smoke config and
     # whisper-tiny) and the drill; kernel 5 in the Mamba2 and zamba2
-    # prefills (each counted from zero around its own run)
+    # prefills and phase 24's sharded prefills through local_map (each
+    # counted from zero around its own run)
     by_path = {
         "dasha_sparsify_update": {
             "flat": launches["dasha_sparsify_update"],
@@ -8999,7 +9312,8 @@ def main() -> int:
                              **cross_launches,
                              "registry": p23_launches["dasha_mvr_update"]},
         "ssd_chunk": {"mamba2_prefill": launches["ssd_chunk"],
-                      "hybrid": hybrid_launches["ssd_chunk"]},
+                      "hybrid": hybrid_launches["ssd_chunk"],
+                      **mesh_launches},
         "quantize": {"flat": launches["quantize"],
                      "heap": heap_launches["quantize"],
                      "faults": fault_launches["quantize"],
@@ -9145,8 +9459,9 @@ def main() -> int:
               "sweep": sweep, "faults": faults, "async": asyncr,
               "obs": obsr, "ckpt": ckpt, "dense": dense,
               "family": family, "hybrid": hybrid, "cross": cross,
-              "registry": registry, "phase22_cuts": PHASE22_CUTS,
-              "phase23_cuts": PHASE23_CUTS, "phase_walls_s": walls,
+              "registry": registry, "mesh": mesh,
+              "phase22_cuts": PHASE22_CUTS, "phase23_cuts": PHASE23_CUTS,
+              "phase24_cuts": PHASE24_CUTS, "phase_walls_s": walls,
               "nvidia_smi": smi}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -1,13 +1,20 @@
 """Dispatch of the port's kernels (port of ``repro.kernels.ops``).
 
-A CPU tensor takes the plain torch version (:mod:`repro_torch.kernels.ref`);
-a CUDA tensor launches the hand-written kernel
+A CPU tensor takes the plain torch version (:mod:`repro_torch.kernels.ref`),
+and so does a ``meta`` tensor (a dry run traces shapes, it computes
+nothing); a CUDA tensor launches the hand-written kernel
 (:mod:`repro_torch.kernels.dasha_update`, :mod:`repro_torch.kernels.
 ssd_chunk`, :mod:`repro_torch.kernels.slab_writeback`) or raises.  No lane
 padding: the DASHA kernels cover the storage by rows (the dense-mask
 ``dasha_update`` by a 1-D grid).
 :func:`ssd_chunk_scan` is the SSD forward that ``models.ssm`` calls with
 ``use_ssd_kernel``.
+
+A DTensor never reaches a kernel: every entry raises on one.  A sharded
+caller goes through ``torch.distributed.tensor.experimental.local_map``
+with its placements declared, and the entry sees the local shards:
+:func:`ssd_chunk_scan_sharded` runs kernel 5 on the local batch rows and
+heads.
 """
 from __future__ import annotations
 
@@ -22,7 +29,15 @@ from repro_torch.kernels import ssd_chunk as ssd_kernel
 
 
 def _on_cpu(name: str, t: torch.Tensor) -> bool:
-    if t.device.type == "cpu":
+    """True where ``t`` takes the plain version (CPU, ``meta``), False where
+    it launches the kernel (CUDA); raises on a DTensor and on any other
+    device."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(t, DTensor):
+        raise ValueError(
+            f"{name}: a DTensor reaches a kernel only through local_map with "
+            "its placements declared (ssd_chunk_scan_sharded)")
+    if t.device.type in ("cpu", "meta"):
         return True
     if t.device.type == "cuda":
         return False
@@ -115,6 +130,8 @@ def slab_writeback(full: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor,
     donation and returns a new array, this writes into ``full``: callers
     pass a store they own."""
     if _on_cpu("slab_writeback", full):
+        if full.device.type == "meta":
+            return full     # a write in place: nothing to write on meta
         return ref.slab_writeback_ref(full, idx, rows, accumulate=accumulate)
     return slab_kernel.slab_writeback(full, idx, rows, accumulate=accumulate)
 
@@ -191,3 +208,43 @@ def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     y = y.view(B, S, H, P)
     y.add_(x.to(torch.float32) * D[None, None, :, None])
     return y.to(x.dtype), s.view(B, H, N, P)
+
+
+def ssd_placements(x) -> Tuple[tuple, tuple]:
+    """The placements :func:`ssd_chunk_scan_sharded` declares, read off the
+    DTensor ``x`` (B,S,H,P): each mesh dim that shards x's batch (dim 0)
+    shards x, dt, b, c and both outputs by batch; each that shards its
+    heads (dim 2) shards x, dt (B,S,H), A and D (H,), y (B,S,H,P) and the
+    state (B,H,N,P) by head and replicates b and c; any other is
+    replicated.  Returns (in placements of (x, dt, A, b, c, D, chunk),
+    out placements of (y, state))."""
+    from torch.distributed.tensor import Replicate, Shard
+    rep = Replicate()
+    cols = []
+    for pl in x.placements:
+        if pl == Shard(0):
+            cols.append((Shard(0), Shard(0), rep, Shard(0), Shard(0), rep,
+                         Shard(0), Shard(0)))
+        elif pl == Shard(2):
+            cols.append((Shard(2), Shard(2), Shard(0), rep, rep, Shard(0),
+                         Shard(2), Shard(1)))
+        elif isinstance(pl, Replicate):
+            cols.append((rep,) * 8)
+        else:
+            raise ValueError(f"ssd_chunk_scan_sharded: x placed {pl} on a "
+                             "mesh dim; only batch and heads shard")
+    per = [tuple(c[i] for c in cols) for i in range(8)]
+    return tuple(per[:6]) + (None,), (per[6], per[7])
+
+
+def ssd_chunk_scan_sharded(x, dt, A, b, c, D, chunk: int):
+    """:func:`ssd_chunk_scan` on DTensors: through ``local_map`` with the
+    placements of :func:`ssd_placements`, so kernel 5 runs on this rank's
+    batch rows and heads.  The inputs must already lie as declared (the
+    caller pins them; nothing is moved here), else ``local_map`` raises."""
+    from torch.distributed.tensor.experimental import local_map
+    in_pl, out_pl = ssd_placements(x)
+    fn = local_map(ssd_chunk_scan, out_placements=out_pl,
+                   in_placements=in_pl, redistribute_inputs=False,
+                   device_mesh=x.device_mesh)
+    return fn(x, dt, A, b, c, D, chunk)

@@ -42,13 +42,17 @@ transient at one block's and leaves every row's sums as they were.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.models import sharding
 from repro_torch.models.common import ArchConfig, dtype_scalar, rope, softcap
 
 NEG_INF = -2.0e38
+#: ``torch.einsum`` on plain tensors; on DTensors a local-shard einsum
+_einsum = sharding.einsum
 
 #: sequences at or above this length take the streaming softmax
 QBLOCK_THRESHOLD = 2048
@@ -60,7 +64,7 @@ CROSS_QBLOCK = 1024
 
 def _gqa_logits(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """q: (B,S,G,R,hd), k: (B,T,G,hd) -> (B,G,R,S,T)."""
-    return torch.einsum("bsgrk,btgk->bgrst", q, k)
+    return _einsum("bsgrk,btgk->bgrst", q, k)
 
 
 def _causal_window_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
@@ -88,16 +92,29 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     logits = softcap(_gqa_logits(q, k) * dtype_scalar(scale, q.dtype), cap)
     logits = _masked(_causal_window_mask(q_pos, k_pos, window), logits)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.einsum("bgrst,btgk->bsgrk", probs, v)
+    return _einsum("bgrst,btgk->bsgrk", probs, v)
 
 
-def _visible_blocks(q_pos: torch.Tensor, k_pos: torch.Tensor,
-                    window: int) -> list:
-    """(S // QBLOCK) lists of (T // KBLOCK) bools: whether the mask lets
-    any query of q block i see any key of key block j."""
-    mask = _causal_window_mask(q_pos, k_pos, window)
-    nq, nk = q_pos.shape[0] // QBLOCK, k_pos.shape[0] // KBLOCK
-    return mask.view(nq, QBLOCK, nk, KBLOCK).any(3).any(1).tolist()
+def _visible_blocks(S: int, window: int) -> list:
+    """(S // QBLOCK) lists of (S // KBLOCK) bools: whether the mask lets any
+    query of q block i see any key of key block j, for the positions
+    0..S-1 of a prefill (``lm._positions`` is an arange).  Reckoned from
+    the ints alone, so it reads no tensor (a ``meta`` or sharded trace has
+    no position values): block i's query minus block j's key position
+    takes every integer from ``i QBLOCK - (j + 1) KBLOCK + 1`` to ``(i + 1)
+    QBLOCK - 1 - j KBLOCK``, and a pair is visible where that difference
+    is in [0, window) (in [0, inf) with no window)."""
+    nq, nk = S // QBLOCK, S // KBLOCK
+    rows = []
+    for i in range(nq):
+        row = []
+        for j in range(nk):
+            lo = i * QBLOCK - (j + 1) * KBLOCK + 1
+            hi = (i + 1) * QBLOCK - 1 - j * KBLOCK
+            top = hi if window <= 0 else min(hi, window - 1)
+            row.append(max(lo, 0) <= top)
+        rows.append(row)
+    return rows
 
 
 def _flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -121,7 +138,7 @@ def _flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if blocks is not None and not blocks[j]:
             continue
         sl = slice(j * KBLOCK, (j + 1) * KBLOCK)
-        logits = torch.einsum("bqgrk,btgk->bgrqt", q, k[:, sl]).to(f32) \
+        logits = _einsum("bqgrk,btgk->bgrqt", q, k[:, sl]).to(f32) \
             * scale
         logits = softcap(logits, cap)
         mask = _causal_window_mask(q_pos, k_pos[sl], window)   # (Q, KBLOCK)
@@ -134,7 +151,7 @@ def _flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         p = torch.exp(logits - safe_mx[..., None])
         p = torch.where(mask, p, zero)
         den = den * alpha + torch.sum(p, -1)
-        acc = acc * alpha[..., None] + torch.einsum(
+        acc = acc * alpha[..., None] + _einsum(
             "bgrqt,btgk->bgrqk", p.to(q.dtype), v[:, sl]).to(f32)
         mx = new_mx
     out = acc / torch.clamp(den, min=1e-30)[..., None]
@@ -143,38 +160,114 @@ def _flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _project_qkv(p: Dict, x: torch.Tensor, positions: torch.Tensor,
                  cfg: ArchConfig):
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dgk->bsgk", x, p["wk"])
-    v = torch.einsum("bsd,dgk->bsgk", x, p["wv"])
+    q = _einsum("bsd,dhk->bshk", x, p["wq"])
+    k = _einsum("bsd,dgk->bsgk", x, p["wk"])
+    v = _einsum("bsd,dgk->bsgk", x, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     return (rope(q, positions, cfg.rope_theta),
             rope(k, positions, cfg.rope_theta), v)
 
 
+def _on_local_heads(core, heads, shared, k_pos: Optional[torch.Tensor]):
+    """``core(*heads, *shared, k_pos)`` where the tensors are DTensors: on
+    this rank's batch rows and heads, through ``local_map``, so the
+    attention's block loop runs as plain local ops (the same ops, on the
+    local shards).  ``heads`` are (B,S,n,hd) tensors, the queries' (n = H)
+    first and the keys' / values' (n = G) after them; ``shared`` are
+    (B,S,r) tensors every head reads (MLA's RoPE key); ``k_pos`` (S,) the
+    key positions, replicated (None: the core takes none).  Batch lies
+    over the data axes where it divides; heads over "model" where G
+    divides (H then does too, in whole groups), or where only H divides,
+    the keys and values repeated to H heads first (each query head beside
+    its group's K/V); otherwise every rank holds every head.  Returns the
+    core's (B,S,H,hd') output as a DTensor laid out as the queries are."""
+    from repro_torch.models import sharding as sh
+    q = heads[0]
+    mesh = q.device_mesh
+    B, H, G = q.shape[0], q.shape[2], heads[-1].shape[2]
+    tp = sh.tp_size(mesh)
+    b_ax = sh.dp_axes(mesh) if B % sh.dp_size(mesh) == 0 else None
+    kv = list(heads[1:])
+    if sh.divides(G, tp):
+        h_ax = "model"
+    elif sh.divides(H, tp):
+        h_ax = "model"
+        kv = [t.repeat_interleave(H // G, 2) if t.shape[2] == G else t
+              for t in kv]
+    else:
+        h_ax = None
+    head_spec, shared_spec = (b_ax, None, h_ax, None), (b_ax, None, None)
+    args = [sh.constrain(t, head_spec, mesh) for t in [q] + kv] + \
+        [sh.constrain(t, shared_spec, mesh) for t in shared] + \
+        ([] if k_pos is None else [sh.constrain(k_pos, (None,), mesh)])
+    from torch.distributed.tensor.experimental import local_map
+    fn = local_map(core,
+                   out_placements=(tuple(sh.to_placements(head_spec, mesh)),),
+                   in_placements=tuple(tuple(a.placements) for a in args),
+                   redistribute_inputs=False, device_mesh=mesh)
+    return fn(*args)
+
+
+def _gqa_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              k_pos: torch.Tensor, *, window: int, cap: float,
+              scale: float) -> torch.Tensor:
+    """Causal attention of q (B,S,H,hd) over k/v (B,S,G,hd) at positions
+    ``k_pos`` (S,) (0..S-1): (B,S,H,hd), dense below QBLOCK_THRESHOLD and
+    streaming from there."""
+    B, S, H, hd = q.shape
+    G = k.shape[2]
+    q = q.reshape(B, S, G, H // G, hd)
+    if S < QBLOCK_THRESHOLD or S % QBLOCK != 0 or S % KBLOCK != 0:
+        out = _sdpa(q, k, v, k_pos, k_pos, window, cap, scale)
+    else:
+        visible = _stream_rows(q, _visible_blocks(S, window))
+        out = _cat_rows([
+            _flash_sdpa(q[:, i * QBLOCK:(i + 1) * QBLOCK], k, v,
+                        k_pos[i * QBLOCK:(i + 1) * QBLOCK], k_pos, window,
+                        cap, scale, blocks=row)
+            if row is not None else None
+            for i, row in enumerate(visible)])
+    return out.reshape(B, S, H, hd)
+
+
+def _stream_rows(q: torch.Tensor, visible: list) -> list:
+    """The streaming loop's rows of visible key blocks.  On ``meta`` (a dry
+    run's trace: shapes, no values) the first query block keeps one key
+    block and the others none (None): a block's temporaries have the same
+    shapes whichever block it is, so the live-bytes peak is the same, and
+    the trace stays a few ops a layer where every block would be
+    thousands, each a Python-level meta op."""
+    if q.device.type != "meta":
+        return visible
+    return [[j == 0 for j in range(len(visible[0]))]] + \
+        [None] * (len(visible) - 1)
+
+
+def _cat_rows(outs: list) -> torch.Tensor:
+    """Query blocks' outputs joined on the sequence dim, a block that
+    :func:`_stream_rows` left out (None) as an empty block of the first's
+    shape."""
+    first = outs[0]
+    return torch.cat([o if o is not None else torch.empty_like(first)
+                      for o in outs], 1)
+
+
 def gqa_prefill(p: Dict, x: torch.Tensor, positions: torch.Tensor,
                 cfg: ArchConfig, *, window: int = 0,
                 scale: Optional[float] = None) -> torch.Tensor:
-    """x: (B,S,d) -> (B,S,d); positions: (B,S)."""
-    B, S, _ = x.shape
-    H, G, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    R = H // G
+    """x: (B,S,d) -> (B,S,d); positions: (B,S), each row 0..S-1.  On
+    DTensors the attention core runs on the local heads
+    (:func:`_on_local_heads`)."""
     q, k, v = _project_qkv(p, x, positions, cfg)
-    q = q.reshape(B, S, G, R, hd)
-    sc = scale or hd ** -0.5
-    k_pos = positions[0]
-    cap = cfg.attn_logit_softcap
-    if S < QBLOCK_THRESHOLD or S % QBLOCK != 0 or S % KBLOCK != 0:
-        out = _sdpa(q, k, v, k_pos, k_pos, window, cap, sc)
+    core = functools.partial(_gqa_core, window=window,
+                             cap=cfg.attn_logit_softcap,
+                             scale=scale or cfg.head_dim ** -0.5)
+    if sharding.is_dtensor(q):
+        out = _on_local_heads(core, (q, k, v), (), positions[0])
     else:
-        visible = _visible_blocks(k_pos, k_pos, window)
-        out = torch.cat([
-            _flash_sdpa(q[:, i * QBLOCK:(i + 1) * QBLOCK], k, v,
-                        k_pos[i * QBLOCK:(i + 1) * QBLOCK], k_pos, window,
-                        cap, sc, blocks=row)
-            for i, row in enumerate(visible)], 1)
-    out = out.reshape(B, S, H, hd)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+        out = core(q, k, v, positions[0])
+    return _einsum("bshk,hkd->bsd", out, p["wo"])
 
 
 def gqa_decode(p: Dict, x: torch.Tensor, t: int, cache: Dict,
@@ -200,6 +293,8 @@ def gqa_decode(p: Dict, x: torch.Tensor, t: int, cache: Dict,
     q, k, v = _project_qkv(p, x, pos, cfg)
     cache["k"][:, write_at] = k[:, 0].to(cache["k"].dtype)
     cache["v"][:, write_at] = v[:, 0].to(cache["v"].dtype)
+    if sharding.is_dtensor(cache["k"]):
+        q = _like_cache(q, cache["k"])
     q = q.reshape(B, 1, G, R, hd)
     logits = _gqa_logits(q, cache["k"]) * dtype_scalar(scale or hd ** -0.5,
                                                         q.dtype)
@@ -209,9 +304,23 @@ def gqa_decode(p: Dict, x: torch.Tensor, t: int, cache: Dict,
     if not ring and window > 0:
         ok = ok & ((t - k_pos) < window)
     probs = torch.softmax(_masked(ok, logits), dim=-1).to(x.dtype)
-    out = torch.einsum("bgrst,btgk->bsgrk", probs,
+    out = _einsum("bgrst,btgk->bsgrk", probs,
                        cache["v"]).reshape(B, 1, H, hd)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"]), cache
+    return _einsum("bshk,hkd->bsd", out, p["wo"]), cache
+
+
+def _like_cache(q, k_cache):
+    """The decode query (B,1,H,hd) laid out as the (B,T,G,hd) cache it reads:
+    over each mesh dim that shards the cache's batch, its heads (G divides
+    there, so H does, in whole groups) or its head_dim, the query's same
+    dim; replicated where the cache shards its sequence (context-parallel
+    decode) or nothing.  The grouped view (B,1,G,R,hd) then keeps the
+    shards, where heads split over more ranks than there are groups could
+    not."""
+    from torch.distributed.tensor import Replicate, Shard
+    place = [Shard(p.dim) if type(p) is Shard and p.dim in (0, 2, 3)
+             else Replicate() for p in k_cache.placements]
+    return q.redistribute(q.device_mesh, place)
 
 
 # ---------------------------------------------------------------------------
@@ -241,8 +350,8 @@ def _mla_flash(qn: torch.Tensor, qr: torch.Tensor, k_nope: torch.Tensor,
         if blocks is not None and not blocks[j]:
             continue
         sl = slice(j * KBLOCK, (j + 1) * KBLOCK)
-        logits = (torch.einsum("bqhk,bthk->bhqt", qn, k_nope[:, sl]).to(f32)
-                  + torch.einsum("bqhk,btk->bhqt", qr, k_rope[:, sl]).to(f32)
+        logits = (_einsum("bqhk,bthk->bhqt", qn, k_nope[:, sl]).to(f32)
+                  + _einsum("bqhk,btk->bhqt", qr, k_rope[:, sl]).to(f32)
                   ) * scale
         mask = _causal_window_mask(q_pos, k_pos[sl], 0)         # (Q, KBLOCK)
         logits = torch.where(mask, logits, neg)
@@ -252,7 +361,7 @@ def _mla_flash(qn: torch.Tensor, qr: torch.Tensor, k_nope: torch.Tensor,
         pr = torch.exp(logits - safe_mx[..., None])
         pr = torch.where(mask, pr, zero)
         den = den * alpha + torch.sum(pr, -1)
-        acc = acc * alpha[..., None] + torch.einsum(
+        acc = acc * alpha[..., None] + _einsum(
             "bhqt,bthk->bhqk", pr.to(qn.dtype), v[:, sl]).to(f32)
         mx = new_mx
     out = acc / torch.clamp(den, min=1e-30)[..., None]
@@ -266,32 +375,45 @@ def mla_prefill(p: Dict, x: torch.Tensor, positions: torch.Tensor,
     part of the key is one head shared by all."""
     B, S, _ = x.shape
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])          # (B,S,H,dn+dr)
+    q = _einsum("bsd,dhk->bshk", x, p["wq"])          # (B,S,H,dn+dr)
     q_nope = q[..., :dn]
     q_rope = rope(q[..., dn:], positions, cfg.rope_theta)
-    ckv = torch.einsum("bsd,dr->bsr", x, p["w_dkv"])       # (B,S,r)
-    k_rope = rope(torch.einsum("bsd,dk->bsk", x, p["w_krope"])[:, :, None],
+    ckv = _einsum("bsd,dr->bsr", x, p["w_dkv"])       # (B,S,r)
+    k_rope = rope(_einsum("bsd,dk->bsk", x, p["w_krope"])[:, :, None],
                   positions, cfg.rope_theta)[:, :, 0]      # (B,S,dr)
-    k_nope = torch.einsum("bsr,rhk->bshk", ckv, p["w_uk"])
-    v = torch.einsum("bsr,rhk->bshk", ckv, p["w_uv"])
-    scale = (dn + dr) ** -0.5
-    k_pos = positions[0]
-    if S < QBLOCK_THRESHOLD or S % QBLOCK != 0 or S % KBLOCK != 0:
-        logits = (torch.einsum("bshk,bthk->bhst", q_nope, k_nope)
-                  + torch.einsum("bshk,btk->bhst", q_rope, k_rope)) \
-            * dtype_scalar(scale, x.dtype)
-        logits = _masked(_causal_window_mask(k_pos, k_pos, 0), logits)
-        probs = torch.softmax(logits, -1).to(x.dtype)
-        out = torch.einsum("bhst,bthk->bshk", probs, v)
+    k_nope = _einsum("bsr,rhk->bshk", ckv, p["w_uk"])
+    v = _einsum("bsr,rhk->bshk", ckv, p["w_uv"])
+    if sharding.is_dtensor(q_nope):
+        out = _on_local_heads(_mla_core, (q_nope, q_rope, k_nope, v),
+                              (k_rope,), positions[0])
     else:
-        visible = _visible_blocks(k_pos, k_pos, 0)
-        out = torch.cat([
-            _mla_flash(q_nope[:, i * QBLOCK:(i + 1) * QBLOCK],
-                       q_rope[:, i * QBLOCK:(i + 1) * QBLOCK], k_nope,
-                       k_rope, v, k_pos[i * QBLOCK:(i + 1) * QBLOCK], k_pos,
-                       scale, blocks=row)
-            for i, row in enumerate(visible)], 1)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+        out = _mla_core(q_nope, q_rope, k_nope, v, k_rope, positions[0])
+    return _einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def _mla_core(q_nope: torch.Tensor, q_rope: torch.Tensor,
+              k_nope: torch.Tensor, v: torch.Tensor, k_rope: torch.Tensor,
+              k_pos: torch.Tensor) -> torch.Tensor:
+    """MLA's causal attention: q_nope (B,S,H,dn), q_rope (B,S,H,dr), k_nope
+    (B,S,H,dn), v (B,S,H,dv), the shared k_rope (B,S,dr) -> (B,S,H,dv),
+    dense below QBLOCK_THRESHOLD and streaming from there."""
+    S = q_nope.shape[1]
+    scale = (q_nope.shape[-1] + q_rope.shape[-1]) ** -0.5
+    if S < QBLOCK_THRESHOLD or S % QBLOCK != 0 or S % KBLOCK != 0:
+        logits = (_einsum("bshk,bthk->bhst", q_nope, k_nope)
+                  + _einsum("bshk,btk->bhst", q_rope, k_rope)) \
+            * dtype_scalar(scale, q_nope.dtype)
+        logits = _masked(_causal_window_mask(k_pos, k_pos, 0), logits)
+        probs = torch.softmax(logits, -1).to(q_nope.dtype)
+        return _einsum("bhst,bthk->bshk", probs, v)
+    visible = _stream_rows(q_nope, _visible_blocks(S, 0))
+    return _cat_rows([
+        _mla_flash(q_nope[:, i * QBLOCK:(i + 1) * QBLOCK],
+                   q_rope[:, i * QBLOCK:(i + 1) * QBLOCK], k_nope,
+                   k_rope, v, k_pos[i * QBLOCK:(i + 1) * QBLOCK], k_pos,
+                   scale, blocks=row)
+        if row is not None else None
+        for i, row in enumerate(visible)])
 
 
 def mla_decode(p: Dict, x: torch.Tensor, t: int, cache: Dict,
@@ -307,25 +429,25 @@ def mla_decode(p: Dict, x: torch.Tensor, t: int, cache: Dict,
     t = int(t)
     write_at = min(max(t, 0), T - 1)
     pos = torch.full((B, 1), t, dtype=torch.int32, device=x.device)
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    q = _einsum("bsd,dhk->bshk", x, p["wq"])
     q_nope = q[..., :dn]
     q_rope = rope(q[..., dn:], pos, cfg.rope_theta)
-    ckv_new = torch.einsum("bsd,dr->bsr", x, p["w_dkv"])
-    krope_new = rope(torch.einsum("bsd,dk->bsk", x, p["w_krope"])[:, :, None],
+    ckv_new = _einsum("bsd,dr->bsr", x, p["w_dkv"])
+    krope_new = rope(_einsum("bsd,dk->bsk", x, p["w_krope"])[:, :, None],
                      pos, cfg.rope_theta)[:, :, 0]
     cache["ckv"][:, write_at] = ckv_new[:, 0].to(cache["ckv"].dtype)
     cache["krope"][:, write_at] = krope_new[:, 0].to(cache["krope"].dtype)
     ckv, krope = cache["ckv"], cache["krope"]
     # absorb W_uk into the query: q_lat (B,1,H,r)
-    q_lat = torch.einsum("bshk,rhk->bshr", q_nope, p["w_uk"])
-    logits = (torch.einsum("bshr,btr->bhst", q_lat, ckv)
-              + torch.einsum("bshk,btk->bhst", q_rope, krope)) \
+    q_lat = _einsum("bshk,rhk->bshr", q_nope, p["w_uk"])
+    logits = (_einsum("bshr,btr->bhst", q_lat, ckv)
+              + _einsum("bshk,btk->bhst", q_rope, krope)) \
         * dtype_scalar((dn + dr) ** -0.5, x.dtype)
     ok = torch.arange(T, device=x.device) <= t
     probs = torch.softmax(_masked(ok, logits), -1).to(x.dtype)
-    out_lat = torch.einsum("bhst,btr->bshr", probs, ckv)    # latent output
-    out = torch.einsum("bshr,rhk->bshk", out_lat, p["w_uv"])
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"]), cache
+    out_lat = _einsum("bhst,btr->bshr", probs, ckv)    # latent output
+    out = _einsum("bshr,rhk->bshk", out_lat, p["w_uv"])
+    return _einsum("bshk,hkd->bsd", out, p["wo"]), cache
 
 
 # ---------------------------------------------------------------------------
@@ -337,14 +459,23 @@ def _cross_core(p: Dict, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """x: (B,S,d) queries against k/v: (B,T,G,hd) -> (B,S,d): the logits
     scaled in x's dtype by the rounded scale, the softmax in float32, the
     probabilities cast back before the PV product."""
-    B, S, _ = x.shape
-    H, G, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"]).reshape(B, S, G, H // G,
-                                                         hd)
-    logits = _gqa_logits(q, k) * dtype_scalar(hd ** -0.5, x.dtype)
-    probs = torch.softmax(logits.to(torch.float32), -1).to(x.dtype)
-    out = torch.einsum("bgrst,btgk->bsgrk", probs, v).reshape(B, S, H, hd)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    q = _einsum("bsd,dhk->bshk", x, p["wq"])
+    if sharding.is_dtensor(q):
+        out = _on_local_heads(_cross_attend, (q, k, v), (), None)
+    else:
+        out = _cross_attend(q, k, v)
+    return _einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def _cross_attend(q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor) -> torch.Tensor:
+    """Unmasked attention of q (B,S,H,hd) over k/v (B,T,G,hd): (B,S,H,hd)."""
+    B, S, H, hd = q.shape
+    G = k.shape[2]
+    q = q.reshape(B, S, G, H // G, hd)
+    logits = _gqa_logits(q, k) * dtype_scalar(hd ** -0.5, q.dtype)
+    probs = torch.softmax(logits.to(torch.float32), -1).to(q.dtype)
+    return _einsum("bgrst,btgk->bsgrk", probs, v).reshape(B, S, H, hd)
 
 
 def _cross_blocks(p: Dict, x: torch.Tensor, k: torch.Tensor,
@@ -360,8 +491,8 @@ def _cross_blocks(p: Dict, x: torch.Tensor, k: torch.Tensor,
 
 def cross_kv(p: Dict, kv_src: torch.Tensor, cfg: ArchConfig) -> Dict:
     """K and V (B,T,G,hd) of the encoder / image states kv_src (B,T,d)."""
-    return {"k": torch.einsum("btd,dgk->btgk", kv_src, p["wk"]),
-            "v": torch.einsum("btd,dgk->btgk", kv_src, p["wv"])}
+    return {"k": _einsum("btd,dgk->btgk", kv_src, p["wk"]),
+            "v": _einsum("btd,dgk->btgk", kv_src, p["wv"])}
 
 
 def cross_attn(p: Dict, x: torch.Tensor, kv_src: torch.Tensor,

@@ -2,7 +2,9 @@
 transformer block (GQA or MLA attention; a dense MLP or the routed
 experts) and the pre-norm Mamba block, each as a prefill and a decode
 step, and the gated cross-attention block of the VLM and the
-encoder-decoder (fresh K/V in the forward, precomputed K/V in decode)."""
+encoder-decoder (fresh K/V in the forward, precomputed K/V in decode).
+On DTensors each residual add is pinned to the stream's layout
+(:func:`sharding.residual`)."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
@@ -12,6 +14,7 @@ import torch
 from repro_torch.models import attention as attn
 from repro_torch.models.common import ArchConfig, mlp_apply, rms_norm
 from repro_torch.models.moe import moe_ffn
+from repro_torch.models.sharding import residual
 from repro_torch.models.ssm import mamba_mixer_decode, mamba_mixer_prefill
 
 
@@ -35,9 +38,10 @@ def block_prefill(p: Dict, x: torch.Tensor, positions: torch.Tensor,
     else:
         x = x + attn.gqa_prefill(p["attn"], h, positions, cfg,
                                  window=window)
+    x = residual(x)
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     y, aux = _ffn(p["ffn"], h, cfg)
-    return x + y, aux
+    return residual(x + y), aux
 
 
 def block_decode(p: Dict, x: torch.Tensor, t: int, cache: Dict,
@@ -52,10 +56,10 @@ def block_decode(p: Dict, x: torch.Tensor, t: int, cache: Dict,
     else:
         a, cache = attn.gqa_decode(p["attn"], h, t, cache, cfg,
                                    window=window, ring=ring)
-    x = x + a
+    x = residual(x + a)
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     y, _ = _ffn(p["ffn"], h, cfg, dropless=True)
-    return x + y, cache
+    return residual(x + y), cache
 
 
 def cross_block(p: Dict, x: torch.Tensor,
@@ -70,20 +74,20 @@ def cross_block(p: Dict, x: torch.Tensor,
         a = attn.cross_attn_cached(p["attn"], h, kv, cfg)
     else:
         a = attn.cross_attn(p["attn"], h, image_states, cfg)
-    x = x + torch.tanh(p["attn_gate"]) * a
+    x = residual(x + torch.tanh(p["attn_gate"]) * a)
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     y = mlp_apply(p["ffn"], h, cfg.mlp_type)
-    return x + torch.tanh(p["mlp_gate"]) * y
+    return residual(x + torch.tanh(p["mlp_gate"]) * y)
 
 
 def mamba_block_prefill(p: Dict, x: torch.Tensor,
                         cfg: ArchConfig) -> torch.Tensor:
     h = rms_norm(x, p["ln"], cfg.norm_eps)
-    return x + mamba_mixer_prefill(p, h, cfg)
+    return residual(x + mamba_mixer_prefill(p, h, cfg))
 
 
 def mamba_block_decode(p: Dict, x: torch.Tensor, cache: Dict,
                        cfg: ArchConfig) -> Tuple[torch.Tensor, Dict]:
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     y, cache = mamba_mixer_decode(p, h, cache, cfg)
-    return x + y, cache
+    return residual(x + y), cache

@@ -10,8 +10,8 @@ states after every layer): the training / prefill forward and loss, and
 the serving cache and decode step.
 
     forward(cfg, params, tokens, image_embeds=None, frames=None,
-            last_only=False) -> (logits, aux)
-    loss_fn(cfg, params, batch) -> (scalar, metrics)
+            last_only=False, seq_shard=None) -> (logits, aux)
+    loss_fn(cfg, params, batch, seq_shard=None) -> (scalar, metrics)
     init_cache(cfg, batch, seq, image_kv=None, enc_kv=None, device=...)
     make_image_kv(cfg, params, image_embeds) / make_enc_kv(cfg, params,
                   frames) -> the cross K/V of every cross block
@@ -36,6 +36,7 @@ Any other ``arch_type`` raises NotImplementedError, naming it.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -43,6 +44,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import sharding
 from repro_torch.models.blocks import (block_decode, block_prefill,
                                        cross_block, mamba_block_decode,
                                        mamba_block_prefill)
@@ -55,10 +57,55 @@ def _embed(cfg: ArchConfig, params: Dict, tokens: torch.Tensor
     """The token embeddings; gemma's are scaled by sqrt(d_model) rounded
     to the model dtype first (the reference multiplies by
     ``jnp.asarray(d ** 0.5, x.dtype)``: 62.0 for d = 3,840 in bf16)."""
-    x = params["embed"][tokens]
+    table = params["embed"]
+    x = _vocab_parallel_embed(table, tokens) if sharding.is_dtensor(table) \
+        else table[tokens]
     if cfg.arch_type == "dense" and cfg.global_every:
         x = x * dtype_scalar(cfg.d_model ** 0.5, x.dtype)
     return x
+
+
+def _lookup(ids: torch.Tensor, table: torch.Tensor,
+            tokens: torch.Tensor) -> torch.Tensor:
+    """Rows of a table shard: ``table`` holds the vocabulary rows ``ids``
+    (consecutive); each token outside them takes a zero row."""
+    local = tokens.to(torch.int64) - ids[0]
+    here = (local >= 0) & (local < table.shape[0])
+    rows = table[local.clamp(0, table.shape[0] - 1)]
+    return torch.where(here[..., None], rows, torch.zeros_like(rows))
+
+
+def _vocab_parallel_embed(table: torch.Tensor,
+                          tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding lookup on DTensors, through ``local_map``: each rank
+    looks its tokens up in its own vocabulary rows (the table's spec
+    splits the vocabulary over "model"), the others' rows zero, and the
+    (B, S, d) result is a partial sum over the mesh dims that split the
+    vocabulary (Megatron's vocab-parallel embedding; DTensor's own rule
+    for a row-split gather is missing in some torch releases)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = table.device_mesh
+    vocab = [i for i, p in enumerate(table.placements) if p == Shard(0)]
+    table = table.redistribute(mesh, [Shard(0) if i in vocab else
+                                      Replicate() for i in range(mesh.ndim)])
+    tokens = sharding.constrain(tokens, (None,) * tokens.ndim, mesh) \
+        if not sharding.is_dtensor(tokens) else tokens
+    tokens = tokens.redistribute(mesh, [
+        Replicate() if i in vocab else p
+        for i, p in enumerate(tokens.placements)])
+    ids = sharding.constrain(torch.arange(table.shape[0],
+                                          device=tokens.to_local().device),
+                             (None,), mesh)
+    ids = ids.redistribute(mesh, list(table.placements))
+    out = tuple(Partial() if i in vocab else p
+                for i, p in enumerate(tokens.placements))
+    fn = local_map(_lookup, out_placements=(out,),
+                   in_placements=(tuple(ids.placements),
+                                  tuple(table.placements),
+                                  tuple(tokens.placements)),
+                   redistribute_inputs=False, device_mesh=mesh)
+    return fn(ids, table, tokens)
 
 
 def _logits(cfg: ArchConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
@@ -129,15 +176,23 @@ def _require(value, what: str, cfg: ArchConfig):
 def forward(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
             image_embeds: Optional[torch.Tensor] = None,
             frames: Optional[torch.Tensor] = None,
-            last_only: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+            last_only: bool = False,
+            seq_shard: Optional[str] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (B,S,V_padded), aux_loss scalar).  The ``vlm``
     family needs ``image_embeds`` (B,T_img,d), the ``audio`` family
     ``frames`` (B,F,d).  ``last_only`` slices the hidden states to the
     final position BEFORE the vocab projection (serving prefill: no
-    (B,S,V) logits)."""
+    (B,S,V) logits).  ``seq_shard`` names the mesh axis the residual
+    stream's sequence dim lies on between blocks (Megatron-SP;
+    :func:`sharding.residual`)."""
     require_ported(cfg)
     B, S = tokens.shape
-    x = _embed(cfg, params, tokens)
+    # the residual stream's layout between blocks on DTensors (the
+    # sequence over ``seq_shard`` where set), where the reference
+    # constrains it; an identity on plain tensors
+    sc = functools.partial(sharding.residual, seq_axis=seq_shard)
+    x = sc(_embed(cfg, params, tokens))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.arch_type == "vlm":
         image_embeds = _require(image_embeds, "image_embeds", cfg)
@@ -146,7 +201,7 @@ def forward(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
                            cfg.num_layers // cfg.cross_attn_every)
         for idx, lp in enumerate(_per_layer(params["layers"],
                                             cfg.num_layers)):
-            x, a = block_prefill(lp, x, pos, cfg)
+            x, a = block_prefill(lp, sc(x), pos, cfg)
             aux = aux + a
             slot = _cross_slot(cfg, idx)
             if slot is not None:
@@ -157,16 +212,17 @@ def forward(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
         for lp, cp in zip(_per_layer(params["layers"], cfg.num_layers),
                           _per_layer(params["cross_layers"],
                                      cfg.num_layers)):
-            x, a = block_prefill(lp, x, pos, cfg)
+            x, a = block_prefill(lp, sc(x), pos, cfg)
             aux = aux + a
             x = cross_block(cp, x, enc, cfg)
     elif cfg.arch_type == "ssm":
         for lp in _per_layer(params["layers"], cfg.num_layers):
-            x = mamba_block_prefill(lp, x, cfg)
+            x = mamba_block_prefill(lp, sc(x), cfg)
     elif cfg.arch_type == "hybrid":   # the shared block: full attention
         pos = _positions(B, S, x.device)
         for idx, lp in enumerate(_per_layer(params["layers"],
                                             cfg.num_layers)):
+            x = sc(x)
             if _hybrid_slot(cfg, idx) is not None:
                 x, _ = block_prefill(params["shared_attn"], x, pos, cfg)
             x = mamba_block_prefill(lp, x, cfg)
@@ -175,8 +231,9 @@ def forward(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
         for local, glob in _groups(cfg, params["local_layers"],
                                    params["global_layers"]):
             a1 = torch.zeros((), dtype=torch.float32, device=x.device)
+            x = sc(x)
             for lp in local:
-                x, a = block_prefill(lp, x, pos, cfg,
+                x, a = block_prefill(lp, sc(x), pos, cfg,
                                      window=cfg.sliding_window)
                 a1 = a1 + a
             x, a2 = block_prefill(glob, x, pos, cfg, window=0)
@@ -184,7 +241,7 @@ def forward(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
     else:                       # the homogeneous stack (uniform window)
         pos = _positions(B, S, x.device)
         for lp in _per_layer(params["layers"], cfg.num_layers):
-            x, a = block_prefill(lp, x, pos, cfg,
+            x, a = block_prefill(lp, sc(x), pos, cfg,
                                  window=cfg.sliding_window)
             aux = aux + a
     if last_only:
@@ -192,11 +249,11 @@ def forward(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
     return _logits(cfg, params, x), aux
 
 
-def loss_fn(cfg: ArchConfig, params: Dict, batch: Dict
-            ) -> Tuple[torch.Tensor, Dict]:
+def loss_fn(cfg: ArchConfig, params: Dict, batch: Dict, *,
+            seq_shard: Optional[str] = None) -> Tuple[torch.Tensor, Dict]:
     logits, aux = forward(cfg, params, batch["tokens"],
                           image_embeds=batch.get("image_embeds"),
-                          frames=batch.get("frames"))
+                          frames=batch.get("frames"), seq_shard=seq_shard)
     labels = batch["labels"]
     logp = F.log_softmax(logits.to(torch.float32), -1)
     # out-of-range labels are masked below; clamp them for the gather as

@@ -25,17 +25,29 @@ reference's order:
 * the combine adds the K gathers in k order from zeros in the input
   dtype, and the aux loss reads only each token's first choice.
 
-The reference's sharding constraints (``constrain_expert_major`` /
-``_token_major``) are identities on one device and have no counterpart.
+Under a mesh (DTensor activations) the reference's sharding constraints
+act as there: ``sharding.constrain_expert_major`` pins the (E, C, ...)
+buffers, the expert weights at use and the expert outputs to the expert
+axis, and ``constrain_token_major`` replicates the combined output and the
+einsum path's dispatch tensor, while :func:`sharding.expert_sharding` names
+an axis; on plain tensors they are identities.  The routing (the top-k
+sort, the count of each expert's pairs, the slot map) runs on a
+replicated token axis, as plain tensors every rank holds whole (DTensor has
+no sharding rule for them), and re-enters the sharded program as
+replicated DTensors.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import ArchConfig, mlp_apply, silu
+from repro_torch.models.sharding import (constrain, constrain_expert_major,
+                                         constrain_token_major, expert_axis,
+                                         is_dtensor)
 
 
 def _capacity(cfg: ArchConfig, num_tokens: int) -> int:
@@ -69,7 +81,10 @@ def _slot_positions(gate_idx: torch.Tensor, E: int) -> torch.Tensor:
     a layer of deepseek-v2-lite's 4 x 8,192 prefill on the H100)."""
     e = gate_idx.reshape(-1)
     order = torch.sort(e, stable=True).indices
-    counts = torch.bincount(e, minlength=E)
+    # integer counts by scatter_add_ (exact; ``bincount`` has no ``meta``
+    # kernel, and a dry run traces this on ``meta``)
+    counts = torch.zeros(E, dtype=e.dtype, device=e.device).scatter_add_(
+        0, e, torch.ones_like(e))
     start = torch.cumsum(counts, 0) - counts
     pos = torch.empty_like(e)
     pos[order] = torch.arange(e.numel(), device=e.device) - start[e[order]]
@@ -86,9 +101,39 @@ def _aux_loss(probs: torch.Tensor, first: torch.Tensor, E: int
 
 
 def _experts(p: Dict, buf: torch.Tensor) -> torch.Tensor:
-    """(E, C, d) buffers through each expert's SwiGLU: (E, C, d)."""
-    h = silu(torch.bmm(buf, p["w_gate"])) * torch.bmm(buf, p["w_in"])
-    return torch.bmm(h, p["w_out"])
+    """(E, C, d) buffers through each expert's SwiGLU: (E, C, d), the
+    buffers, the weights at use, the hidden and the output pinned
+    expert-major."""
+    buf = constrain_expert_major(buf)
+    wg, wi, wo = (constrain_expert_major(p[k])
+                  for k in ("w_gate", "w_in", "w_out"))
+    h = constrain_expert_major(silu(torch.bmm(buf, wg)) * torch.bmm(buf, wi))
+    return constrain_expert_major(torch.bmm(h, wo))
+
+
+def _as_tokens_of(out: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The (N, d) output laid out for its reshape to x's (B, S, d): each
+    mesh dim that shards x's batch shards the tokens (B-major, so the same
+    rows), any other replicates.  An identity on plain tensors."""
+    if not is_dtensor(out):
+        return out
+    from torch.distributed.tensor import Replicate, Shard
+    place = [Shard(0) if pl == Shard(0) else Replicate()
+             for pl in x.placements]
+    return out.redistribute(out.device_mesh, place)
+
+
+def _whole(t: torch.Tensor):
+    """(the plain tensor every rank holds whole, a function putting a plain
+    tensor back as a replicated DTensor on ``t``'s mesh); for a plain ``t``
+    (t, identity)."""
+    if not is_dtensor(t):
+        return t, lambda u: u
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = t.device_mesh
+    local = constrain(t, (None,) * t.ndim).to_local()
+    return local, lambda u: DTensor.from_local(
+        u, mesh, [Replicate()] * mesh.ndim, run_check=False)
 
 
 def _shared(p: Dict, xt: torch.Tensor) -> torch.Tensor:
@@ -118,28 +163,83 @@ def moe_ffn(p: Dict, x: torch.Tensor, cfg: ArchConfig,
     xt = x.reshape(N, d)
     C = N if dropless else _capacity(cfg, N)
 
-    probs, gate_vals, gate_idx = _route(
-        _router_logits(p, xt).to(torch.float32), K)
+    logits, back = _whole(_router_logits(p, xt).to(torch.float32))
+    probs, gate_vals, gate_idx = _route(logits, K)
     pos = _slot_positions(gate_idx, E)
     keep = pos < C
     c_nk = torch.where(keep, pos, torch.full_like(pos, C))     # C = dropped
     # slot -> token map (E, C+1); the sentinel N points at a zero pad row.
     # Every dropped pair writes to column C, which is cut off.
-    tok_idx = torch.arange(N, device=x.device)[:, None].expand(N, K)
-    slot_tok = torch.full((E, C + 1), N, dtype=torch.int64, device=x.device)
+    dev = logits.device
+    tok_idx = torch.arange(N, device=dev)[:, None].expand(N, K)
+    slot_tok = torch.full((E, C + 1), N, dtype=torch.int64, device=dev)
     slot_tok[gate_idx.reshape(-1), c_nk.reshape(-1)] = tok_idx.reshape(-1)
-    xt_pad = torch.cat([xt, xt.new_zeros((1, d))], 0)
-    y = _experts(p, xt_pad[slot_tok[:, :C]])                   # (E, C, d)
-
-    # combine: one (N, d) gather per k, in k order
-    y_pad = torch.cat([y, y.new_zeros((E, 1, d))], 1)
-    out = torch.zeros((N, d), dtype=xt.dtype, device=x.device)
-    for k in range(K):
-        w_k = (gate_vals[:, k] * keep[:, k]).to(xt.dtype)
-        out = out + y_pad[gate_idx[:, k], c_nk[:, k]] * w_k[:, None]
+    w_nk = gate_vals * keep                                    # (N, K) f32
+    ids = torch.arange(E, device=dev)
+    weights = [p[k] for k in ("w_gate", "w_in", "w_out")]
+    if is_dtensor(xt):
+        out = _gather_sharded(xt, weights, ids, slot_tok, gate_idx, c_nk,
+                              w_nk, back, C)
+    else:
+        out = _gather_experts(ids, *weights, xt, slot_tok, gate_idx, c_nk,
+                              w_nk, C=C)
+    out = constrain_token_major(out)
     if cfg.num_shared_experts:
         out = out + _shared(p, xt)
-    return out.reshape(B, S, d), _aux_loss(probs, gate_idx[:, 0], E)
+    return _as_tokens_of(out, x).reshape(B, S, d), \
+        _aux_loss(probs, gate_idx[:, 0], E)
+
+
+def _gather_experts(ids, wg, wi, wo, xt, slot_tok, gate_idx, c_nk, w_nk, *,
+                    C: int) -> torch.Tensor:
+    """The gather dispatch and combine over the experts ``ids`` (a run of
+    consecutive expert ids; all E on one device, this rank's under a mesh),
+    whose weights are ``wg`` / ``wi`` / ``wo``: the experts' (E_loc, C, d)
+    buffers gathered through their rows of the slot map ``slot_tok`` (E,
+    C+1) from ``xt`` (N, d), through the experts, and back, one (N, d)
+    gather per k, in k order, each token weighted by ``w_nk`` (its gate
+    value, 0 where dropped) where its k-th expert is one of ``ids`` and by
+    0 elsewhere.  With all E ids every weight is the gate value as it was,
+    so one device gets the reference's sums bit for bit."""
+    N, d = xt.shape
+    n_loc = wg.shape[0]
+    xt_pad = torch.cat([xt, xt.new_zeros((1, d))], 0)
+    y = _experts({"w_gate": wg, "w_in": wi, "w_out": wo},
+                 xt_pad[slot_tok[ids, :C]])                    # (E_loc, C, d)
+    y_pad = torch.cat([y, y.new_zeros((n_loc, 1, d))], 1)
+    out = torch.zeros((N, d), dtype=xt.dtype, device=xt.device)
+    for k in range(gate_idx.shape[1]):
+        e = gate_idx[:, k] - ids[0]
+        here = (e >= 0) & (e < n_loc)
+        w_k = (w_nk[:, k] * here).to(xt.dtype)
+        out = out + y_pad[e.clamp(0, n_loc - 1), c_nk[:, k]] * w_k[:, None]
+    return out
+
+
+def _gather_sharded(xt, weights, ids, slot_tok, gate_idx, c_nk, w_nk, back,
+                    C: int) -> torch.Tensor:
+    """:func:`_gather_experts` under a mesh, through ``local_map``: the
+    tokens and the routing tables whole on every rank, the expert ids and
+    weights expert-major over the active expert axis (``sharding.
+    expert_sharding``; every rank holds every expert without one), so each
+    rank dispatches to and combines from its own experts, and the (N, d)
+    output is a partial sum over that axis."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = xt.device_mesh
+    axis = expert_axis()
+    e_spec = (axis,)
+    args = [constrain(back(ids), e_spec)] + \
+        [constrain(w, e_spec + (None,) * (w.ndim - 1)) for w in weights] + \
+        [constrain(xt, (None, None))] + \
+        [back(t) for t in (slot_tok, gate_idx, c_nk, w_nk)]
+    out_pl = tuple(Partial() if axis is not None and name == axis
+                   else Replicate() for name in mesh.mesh_dim_names)
+    fn = local_map(functools.partial(_gather_experts, C=C),
+                   out_placements=(out_pl,),
+                   in_placements=tuple(tuple(a.placements) for a in args),
+                   redistribute_inputs=False, device_mesh=mesh)
+    return fn(*args)
 
 
 def _moe_ffn_einsum(p: Dict, x: torch.Tensor, cfg: ArchConfig
@@ -158,7 +258,7 @@ def _moe_ffn_einsum(p: Dict, x: torch.Tensor, cfg: ArchConfig
     if pad:
         xt = torch.cat([xt, xt.new_zeros((pad, d))], 0)
     C = max(int(cfg.capacity_factor * G * K / E), 1)
-    logits_all = _router_logits(p, xt).to(torch.float32)       # (N', E)
+    logits_all, back = _whole(_router_logits(p, xt).to(torch.float32))
 
     outs, auxs = [], []
     for i in range(n_chunks):
@@ -169,14 +269,17 @@ def _moe_ffn_einsum(p: Dict, x: torch.Tensor, cfg: ArchConfig
         oh_e = F.one_hot(gate_idx, E).to(xg.dtype)             # (G, K, E)
         oh_c = F.one_hot(torch.where(keep, pos, torch.full_like(pos, C)),
                          C + 1).to(xg.dtype)[..., :C]          # (G, K, C)
-        disp = torch.einsum("gke,gkc->gec", oh_e, oh_c)        # (G, E, C)
+        disp = constrain_token_major(back(
+            torch.einsum("gke,gkc->gec", oh_e, oh_c)))         # (G, E, C)
         buf = torch.einsum("gec,gd->ecd", disp, xg)            # (E, C, d)
         y = _experts(p, buf)
         wk = (gate_vals * keep).to(xg.dtype)                   # (G, K)
-        comb = torch.einsum("gke,gkc->gec", oh_e * wk[..., None], oh_c)
+        comb = back(torch.einsum("gke,gkc->gec", oh_e * wk[..., None],
+                                 oh_c))
         outs.append(torch.einsum("gec,ecd->gd", comb, y))
         auxs.append(_aux_loss(probs, gate_idx[:, 0], E))
     out = torch.cat(outs, 0)[:N]
     if cfg.num_shared_experts:
         out = out + _shared(p, xt[:N])
-    return out.reshape(B, S, d), torch.mean(torch.stack(auxs))
+    return _as_tokens_of(out, x).reshape(B, S, d), \
+        torch.mean(torch.stack(auxs))

@@ -5,7 +5,9 @@ Chunked SSD for training / prefill: intra-chunk attention-like products
 plus a loop over chunk states, written as explicit broadcasts and batched
 matmuls (``ssd_chunked``), or, with ``cfg.use_ssd_kernel``, the
 hand-written ``ssd_chunk`` kernel through ``kernels.ops.ssd_chunk_scan``
-(forward only).  And an O(1)-per-token recurrent decode step, which
+(forward only; on DTensors through ``kernels.ops.ssd_chunk_scan_sharded``,
+the kernel on this rank's batch rows and heads, its inputs first pinned to
+the policy's layout).  And an O(1)-per-token recurrent decode step, which
 updates the caller's SSM state and conv window in place (the serving
 cache is ~76 MB a sequence at 780M, so no second copy is made).
 
@@ -14,13 +16,17 @@ size N); the scalar-per-head A follows Mamba2.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.ops import ssd_chunk_scan
+from repro_torch.kernels.ops import ssd_chunk_scan, ssd_chunk_scan_sharded
+from repro_torch.models import sharding
 from repro_torch.models.common import ArchConfig, rms_norm, silu, softplus
+
+_mm = sharding.matmul          # ``a @ b``; on DTensors a local-shard einsum
 
 
 def _segsum(a: torch.Tensor) -> torch.Tensor:
@@ -112,6 +118,76 @@ def _conv1d_prefill(xbc: torch.Tensor, w: torch.Tensor,
     return silu(out + bias[None, None])
 
 
+def _conv1d(xbc, w, bias):
+    """:func:`_conv1d_prefill`; on DTensors through ``local_map`` on this
+    rank's batch rows and channels (a depthwise conv is per channel), the
+    sequence whole: the channels as the conv weight splits them, the batch
+    over the data axes where it divides."""
+    if not sharding.is_dtensor(xbc):
+        return _conv1d_prefill(xbc, w, bias)
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = xbc.device_mesh
+    c_ax = "model" if Shard(1) in tuple(w.placements) else None
+    pin = functools.partial(sharding.constrain, mesh=mesh)
+    args = (pin(xbc, (_batch_axes(xbc), None, c_ax)), pin(w, (None, c_ax)),
+            pin(bias, (c_ax,)))
+    fn = local_map(_conv1d_prefill,
+                   out_placements=(tuple(args[0].placements),),
+                   in_placements=tuple(tuple(a.placements) for a in args),
+                   redistribute_inputs=False, device_mesh=mesh)
+    return fn(*args)
+
+
+def _batch_axes(x):
+    """The data axes over which DTensor ``x``'s batch dim splits, or
+    None where it does not divide."""
+    mesh = x.device_mesh
+    return sharding.dp_axes(mesh) \
+        if x.shape[0] % sharding.dp_size(mesh) == 0 else None
+
+
+def _ssd_kernel(xs, dt, A, bmat, cmat, D, chunk: int):
+    """Kernel 5's SSD forward.  On DTensors the inputs are pinned to the
+    policy's layout first — batch over the data axes where it divides,
+    heads over "model" where they divide (a Replicate-to-Shard move is a
+    local slice) — and the kernel runs on the local shards."""
+    if not sharding.is_dtensor(xs):
+        return ssd_chunk_scan(xs, dt, A, bmat, cmat, D, chunk)
+    mesh = xs.device_mesh
+    b_ax = _batch_axes(xs)
+    h_ax = "model" if sharding.divides(xs.shape[2], sharding.tp_size(mesh)) \
+        else None
+    pin = functools.partial(sharding.constrain, mesh=mesh)
+    return ssd_chunk_scan_sharded(
+        pin(xs, (b_ax, None, h_ax, None)), pin(dt, (b_ax, None, h_ax)),
+        pin(A, (h_ax,)), pin(bmat, (b_ax, None, None)),
+        pin(cmat, (b_ax, None, None)), pin(D, (h_ax,)), chunk)
+
+
+def _ssd_decode_sharded(x, dt, A, b, c, D, state):
+    """:func:`ssd_decode` on DTensors, through ``local_map`` on this rank's
+    batch rows and heads (the recurrence is per row and head), the state
+    updated in place in its local shard.  The inputs are pinned to the
+    state's layout, the cache's spec: batch over the data axes where it
+    divides, heads over "model" where they divide."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    b_ax = _batch_axes(x)
+    h_ax = "model" if sharding.divides(x.shape[1], sharding.tp_size(mesh)) \
+        else None
+    pin = functools.partial(sharding.constrain, mesh=mesh)
+    args = (pin(x, (b_ax, h_ax, None)), pin(dt, (b_ax, h_ax)),
+            pin(A, (h_ax,)), pin(b, (b_ax, None)), pin(c, (b_ax, None)),
+            pin(D, (h_ax,)), pin(state, (b_ax, h_ax, None, None)))
+    fn = local_map(ssd_decode,
+                   out_placements=(tuple(args[0].placements),
+                                   tuple(args[-1].placements)),
+                   in_placements=tuple(tuple(a.placements) for a in args),
+                   redistribute_inputs=False, device_mesh=mesh)
+    return fn(*args)
+
+
 def mamba_mixer_prefill(p: Dict, x: torch.Tensor, cfg: ArchConfig,
                         s0: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x: (B,S,d) -> (B,S,d).  The kernel path runs under the reference's
@@ -119,22 +195,25 @@ def mamba_mixer_prefill(p: Dict, x: torch.Tensor, cfg: ArchConfig,
     the chunk."""
     B, S, d = x.shape
     H, P, N = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state
-    z = (x @ p["w_z"].reshape(d, H * P)).reshape(B, S, H, P)
-    xbc = x @ p["w_xbc"]                                   # (B,S,HP+2N)
-    dt = softplus(x @ p["w_dt"] + p["dt_bias"])
-    xbc = _conv1d_prefill(xbc, p["conv_w"], p["conv_b"])
+    z = _mm(x, p["w_z"].reshape(d, H * P)).reshape(B, S, H, P)
+    xbc = _mm(x, p["w_xbc"])                               # (B,S,HP+2N)
+    dt = softplus(_mm(x, p["w_dt"]) + p["dt_bias"])
+    xbc = _conv1d(xbc, p["conv_w"], p["conv_b"])
+    if sharding.is_dtensor(xbc):
+        # the channels whole (x, b and c are slices of them), batch as x's
+        xbc = sharding.constrain(xbc, (_batch_axes(x), None, None))
     xs = xbc[..., :H * P].reshape(B, S, H, P)
     bmat = xbc[..., H * P:H * P + N]
     cmat = xbc[..., H * P + N:]
     A = -torch.exp(p["A_log"].to(torch.float32))
     chunk = min(cfg.ssd_chunk, S)
     if cfg.use_ssd_kernel and s0 is None and S % chunk == 0:
-        y, _ = ssd_chunk_scan(xs, dt, A, bmat, cmat, p["D"], chunk)
+        y, _ = _ssd_kernel(xs, dt, A, bmat, cmat, p["D"], chunk)
     else:
         y, _ = ssd_chunked(xs, dt, A, bmat, cmat, p["D"], chunk, s0)
     y = y * silu(z)
     y = rms_norm(y.reshape(B, S, H * P), p["norm"], cfg.norm_eps)
-    return y @ p["w_out"]
+    return _mm(y, p["w_out"])
 
 
 def mamba_mixer_decode(p: Dict, x: torch.Tensor, cache: Dict,
@@ -144,19 +223,23 @@ def mamba_mixer_decode(p: Dict, x: torch.Tensor, cache: Dict,
     B, _, d = x.shape
     H, P, N = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state
     xt = x[:, 0]
-    z = (xt @ p["w_z"].reshape(d, H * P)).reshape(B, H, P)
-    xbc = xt @ p["w_xbc"]
-    dt = softplus(xt @ p["w_dt"] + p["dt_bias"])          # (B,H)
+    z = _mm(xt, p["w_z"].reshape(d, H * P)).reshape(B, H, P)
+    xbc = _mm(xt, p["w_xbc"])
+    dt = softplus(_mm(xt, p["w_dt"]) + p["dt_bias"])      # (B,H)
     # conv cache: the window of the last W-1 inputs
     conv_in = torch.cat([cache["conv"], xbc[:, None]], 1)   # (B,W,Cd)
-    conv_out = silu(torch.einsum("bwc,wc->bc", conv_in, p["conv_w"])
+    conv_out = silu(sharding.einsum("bwc,wc->bc", conv_in, p["conv_w"])
                     + p["conv_b"])
     cache["conv"].copy_(conv_in[:, 1:])
     xs = conv_out[:, :H * P].reshape(B, H, P)
     bmat = conv_out[:, H * P:H * P + N]
     cmat = conv_out[:, H * P + N:]
     A = -torch.exp(p["A_log"].to(torch.float32))
-    y, _ = ssd_decode(xs, dt, A, bmat, cmat, p["D"], cache["ssm"])
+    if sharding.is_dtensor(xs):
+        y, _ = _ssd_decode_sharded(xs, dt, A, bmat, cmat, p["D"],
+                                   cache["ssm"])
+    else:
+        y, _ = ssd_decode(xs, dt, A, bmat, cmat, p["D"], cache["ssm"])
     y = y * silu(z)
     y = rms_norm(y.reshape(B, 1, H * P), p["norm"], cfg.norm_eps)
     return y @ p["w_out"], cache

@@ -14,9 +14,13 @@ gradients from the loss, compressing through
 ``use_kernel=True`` routes every mode x variant through the fused CUDA
 kernels, with the MVR/SARAH h-update recomputed inside the kernel pass.
 
-The reference's sharding knobs (``seq_shard``, ``fsdp``, ``spmd_axes``)
-belong to its TPU mesh.  They are kept as fields so the config reads the
-same, and must stay at their defaults: the port runs one device.
+The reference's mesh knobs (``seq_shard``: the residual stream's sequence
+dim over "model" between blocks; ``fsdp``: params, g and the server
+optimizer's moments ZeRO-3-sharded over the data axes; ``spmd_axes``: the
+mesh axes the node axis lies on) shape the train specs of
+:func:`repro_torch.launch.specs.train_spec`.  On one device they change
+nothing, as the reference's do on its 1x1 host mesh: the step with them set
+is the step without them, bit for bit.
 """
 from __future__ import annotations
 
@@ -52,16 +56,10 @@ class DashaTrainConfig:
     server_opt: str = "sgd"          # sgd | adam (adam = beyond-paper)
     use_kernel: bool = False         # fused CUDA path (all modes/variants)
     state_dtype: str = "float32"     # h_i/g_i storage: float32 | bfloat16
-    # the reference's TPU mesh knobs: must stay at their defaults here
-    seq_shard: bool = False
-    fsdp: bool = False
-    spmd_axes: Optional[Tuple[str, ...]] = None
-
-    def __post_init__(self):
-        if self.seq_shard or self.fsdp or self.spmd_axes:
-            raise NotImplementedError(
-                "seq_shard / fsdp / spmd_axes shard the reference's TPU "
-                "mesh; repro_torch trains on one device")
+    # mesh knobs: read by launch.specs.train_spec; no-ops on one device
+    seq_shard: bool = False          # Megatron-SP residual-stream sharding
+    fsdp: bool = False               # ZeRO-3 params / g / optimizer moments
+    spmd_axes: Optional[Tuple[str, ...]] = None   # the node axis's axes
 
     @property
     def omega(self) -> float:

@@ -336,7 +336,7 @@ def test_streaming_path_skips_hidden_blocks_bit_for_bit(window):
         for i in range(0, S, tattn.QBLOCK)], 1).reshape(1, S, 4, -1)
     assert torch.equal(got, torch.einsum("bshk,hkd->bsd", every,
                                          tp["wo"]))
-    visible = tattn._visible_blocks(pos[0], pos[0], window)
+    visible = tattn._visible_blocks(S, window)
     n = S // tattn.QBLOCK
     assert sum(map(sum, visible)) < n * n
     assert all(row[i] and not any(row[i + 1:])

@@ -76,7 +76,10 @@ def test_import_scan_covers_the_slice():
                 "configs/whisper_tiny.py", "compress/legacy.py",
                 "core/dasha.py", "core/marina.py", "core/compressors.py",
                 "core/node_compress.py", "core/pytree_util.py",
-                "core/__init__.py"):
+                "core/__init__.py", "launch/mesh.py", "launch/specs.py",
+                "launch/analytic.py", "launch/roofline.py",
+                "launch/collectives.py", "launch/dryrun.py",
+                "models/sharding.py"):
         assert mod in names
     for src in ("dasha_update.cu", "ssd_chunk.cu", "slab_writeback.cu"):
         assert (ROOT / "src/repro_torch/kernels/csrc" / src).exists()
@@ -129,6 +132,8 @@ def _entry_points():
     from repro_torch.bench import fed_async, fed_faults
     from repro_torch.bench import obs_trace, quickstart
     from repro_torch.bench import run as bench_run
+    from repro_torch.launch import dryrun as dryrun_mod
+    from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch import train as train_mod
     from repro_torch.fed import FedSim, VecFedSim, simulate
@@ -227,6 +232,11 @@ def _entry_points():
         "launch.serve": lambda: serve_mod.serve(
             get_smoke_config("mamba2-780m"),
             serve_mod.build_parser().parse_args([])),
+        "launch.dryrun.dryrun_one": lambda: dryrun_mod.dryrun_one(
+            "whisper-tiny", "decode_32k"),
+        "launch.mesh.make_host_mesh": lambda: mesh_mod.make_host_mesh(),
+        "launch.mesh.make_production_mesh": lambda:
+            mesh_mod.make_production_mesh(),
     }
 
 
@@ -243,7 +253,10 @@ ENTRY_POINTS = ["FedSim.init", "Method.init", "StochasticProblem",
                 "convert.cache_from_numpy", "convert.params_from_numpy",
                 "convert.plan_from_numpy", "convert.problem_from_numpy",
                 "convert.state_from_numpy", "convert.tree_state_from_numpy",
-                "dasha_train_init", "init_params", "launch.serve", "launch.train",
+                "dasha_train_init", "init_params",
+                "launch.dryrun.dryrun_one", "launch.mesh.make_host_mesh",
+                "launch.mesh.make_production_mesh", "launch.serve",
+                "launch.train",
                 "lm.init_cache", "make_lm_batch", "make_node_batches",
                 "make_round_compressor", "simulate",
                 "synthetic_classification", "synthetic_quadratic"]

@@ -141,7 +141,7 @@ def test_mla_streaming_path_skips_hidden_blocks_bit_for_bit():
         pos[0], (dn + tcfg.qk_rope_head_dim) ** -0.5)
         for i in range(0, S, Q)], 1)
     assert torch.equal(got, torch.einsum("bshk,hkd->bsd", every, tp["wo"]))
-    visible = tattn._visible_blocks(pos[0], pos[0], 0)
+    visible = tattn._visible_blocks(S, 0)
     assert all(row[i] and not any(row[i + 1:])
                for i, row in enumerate(visible))
 

@@ -272,10 +272,14 @@ def test_trainer_config_matches_reference_and_refuses_mesh_knobs():
             j, t = jdist.DashaTrainConfig(**kw), tdist.DashaTrainConfig(**kw)
             assert (t.omega, t.a) == (j.omega, j.a)
             assert tdist.payload_frac(t) == jdist.payload_frac(j)
+    # the mesh knobs are accepted as the reference's are (they shape the
+    # train specs; the step under them is tests/test_torch_knobs.py's)
     for knob in (dict(seq_shard=True), dict(fsdp=True),
                  dict(spmd_axes=("data",))):
-        with pytest.raises(NotImplementedError):
-            tdist.DashaTrainConfig(gamma=0.1, **knob)
+        t = tdist.DashaTrainConfig(gamma=0.1, **knob)
+        j = jdist.DashaTrainConfig(gamma=0.1, **knob)
+        assert (t.seq_shard, t.fsdp, t.spmd_axes) == \
+            (j.seq_shard, j.fsdp, j.spmd_axes)
 
 
 def test_params_and_state_carry_bit_for_bit():
