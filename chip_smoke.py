@@ -86,7 +86,7 @@ Phases, each fatal on failure:
    (a) ``prefill_logits`` at batch 4 x 32,768 tokens, 1 warm-up + 2 timed
    calls and a profiled one (``ssd_chunk`` launches = 48 a call: the
    kernel's launches on the main path); (b) ``serve`` at batch 128, a
-   64-token prompt stepped through ``decode_step`` and 32 new tokens
+   32-token prompt stepped through ``decode_step`` and 32 new tokens
    (the recurrence, no kernel); (c) ``prefill_logits`` against the 512th
    decode step of ``serve`` on a 512-token prompt at batch 2 in float32;
 9. serve agreement — the smoke Mamba2 in float32 prefilled (kernel on
@@ -154,7 +154,7 @@ Phases, each fatal on failure:
     version at the sweep's (40, 20958) rows on the plan's 5 index rows,
     and the
     port's fig1, fig5 and table1 at the reference's rounds, fig2 at a
-    32nd and fig3 at a 160th of theirs (``FIG_ROUNDS_SCALE``), their
+    64th and fig3 at a 320th of theirs (``FIG_ROUNDS_SCALE``), their
     rows printed
     (gates: fig1's DASHA-over-MARINA speedup > 1, fig5's floor ordering);
 15. faulted campaigns at the real-sim width — ``repro_torch.fed.faults``
@@ -269,7 +269,7 @@ Phases, each fatal on failure:
     of 30 layers at phase 5's n = 4 x 2 x 512, DASHA-MVR with the fused
     kernel and Adam, rounds/s, tokens/s, peak, busy share; gate: kernel 3
     once per parameter leaf a round (16) and nothing else; (b) serving at
-    30 of 30 layers in bf16: ``prefill_logits`` at 4 x 8,192 tokens (the
+    8 of 30 layers in bf16: ``prefill_logits`` at 4 x 8,192 tokens (the
     streaming attention under the 4,096-token window) beside its bf16
     tensor-core bound, ``serve`` at batch 128, and 32 decode steps at
     batch 128 on the 4,096-slot ring across its wrap beside the bound of
@@ -281,20 +281,20 @@ Phases, each fatal on failure:
     smoke trained on the card and the CPU with the same masks and
     batches, dasha / mvr x kernel off / on (planted: the next round's
     masks; the plain route's launches under (a)'s launch gate); (e)
-    Figure 4 (``repro_torch.bench.fig4_dnn``) at 4 of its 120 steps, each
+    Figure 4 (``repro_torch.bench.fig4_dnn``) at 2 of its 120 steps, each
     row with its wall seconds, and dasha_1/32's lowest- and highest-gamma
     lanes against sequential Driver runs (planted: each lane against the
     other's run).  ``DENSE_CUTS`` lists the cuts;
 20. gemma3's grouped local/global stack and the mixture-of-experts family,
     with the card's memory printed first: (a-c) served in bf16 at full
     width through ``prefill_logits`` (4 x 8,192 tokens, the streaming
-    attention), ``serve`` (one request batch) and 8 decode steps on a
+    attention), ``serve`` (one request batch) and 4 decode steps on a
     4,128-slot cache beside their bf16 bounds, each model freed before the
-    next: gemma3-12b at 48 of 48 layers (local layers under the 1,024-token
+    next: gemma3-12b at 12 of 48 layers (local layers under the 1,024-token
     window, every 6th layer global; decode at batch 32 from t = 4,080,
-    the local rings wrapping at 4,096), deepseek-v2-lite-16b at 27 of 27
+    the local rings wrapping at 4,096), deepseek-v2-lite-16b at 7 of 27
     (MLA, 64 experts top-6 and 2 shared; decode at batch 128 on the latent
-    cache, dropless) and phi3.5-moe at 16 of 32 (16 experts top-2, the
+    cache, dropless) and phi3.5-moe at 4 of 32 (16 experts top-2, the
     prefill by both dispatch modes; decode at batch 32); gemma3's prefill
     cut to 2 layers and 2 of its decode steps under the profiler; gate:
     none of the five kernels launches;
@@ -317,7 +317,7 @@ Phases, each fatal on failure:
     cut to 7 layers (two uses of the shared block) under the profiler:
     device ms by kernel, busy share, kernel 5 a layer against its bytes
     bound; (b) ``serve`` for one batch of 128, a 16-token prompt and 16
-    new tokens; (c) 8 decode steps at batch 128 on a 4,128-slot cache
+    new tokens; (c) 4 decode steps at batch 128 on a 4,128-slot cache
     from t = 4,096, the 7 K/V caches and the SSM states holding random
     history, beside the bound of reading the weights and the cache once
     (gate: none of the five kernels launches while serving); (d) kernel
@@ -336,11 +336,11 @@ Phases, each fatal on failure:
     ``HYBRID_CUTS`` lists the cuts;
 22. the cross-attention families, each cross block's gates set to 0.5
     and -0.3 (they start at zero, where a cross block adds nothing): (a)
-    llama-3.2-vision-11b at full width and depth in bf16 (40 layers, 8
+    llama-3.2-vision-11b at full width in bf16, 10 of 40 layers (2 of 8
     gated cross blocks to 1,601 image tokens a row): ``prefill_logits`` at
     4 x 8,192 tokens beside its bf16 tensor-core bound, a prefill cut to 5
     layers (one cross block) under the profiler, ``serve`` for one batch,
-    8 decode steps at batch 32 on 4,128 slots of random self K/V beside
+    4 decode steps at batch 32 on 4,128 slots of random self K/V beside
     the image K/V of each cross block (from ``make_image_kv``), beside the
     bound of reading the weights and both caches once (gate: none of the
     five kernels launches while serving); the smoke trainer, DASHA-MVR with
@@ -413,6 +413,32 @@ Phases, each fatal on failure:
     depth, never its width); (c) the same pairs through ``dryrun_one`` in
     that subprocess (trace seconds, peak GB a device, collectives by
     kind).  ``PHASE24_CUTS`` lists what earlier phases gave up for it.
+25. the sharded DASHA trainer (``launch.specs.train_spec``'s step on
+    DTensors): (a) on a one-rank ``nccl`` host mesh, the smoke configs
+    of ``MESH_TRAIN_ARCHS`` (dense, SSM, MLA/MoE, hybrid), 2 rounds of
+    DASHA-MVR with kernel 3, and the dense one's 2 rounds of DASHA with
+    kernel 1's sparsifier entry (``MESH_TRAIN_CASES``), on injected
+    masks, bit-equal to the same step on plain tensors on the card, the
+    kernel once per parameter leaf a round counted through ``local_map``
+    (planted: a DTensor handed to ``ops.dasha_mvr_update`` without
+    ``local_map``, and a mask whose node axis is laid out otherwise than
+    h's, must raise and launch nothing); then, in one subprocess and one
+    step after the other, nothing else running: (c) each of
+    ``MESH_TRAIN_PAIRS`` through ``dryrun_one`` (host-only traces on
+    ``meta`` tensors: trace seconds, peak GB a device, collectives by
+    kind); (b) rank 0 of the fake 16 x 16 mesh at full width and depth
+    for each pair, DashaTrainConfig(gamma=0.01, compression=1/32,
+    variant="mvr", use_kernel=True), n = 16 nodes, one node of 16 x
+    4,096 tokens a rank, the local state, parameters and batch made on
+    the card at their shards' shapes (bytes equal to the dry run's
+    ``argument_gb``), one warm-up round and ``MESH_TRAIN_TIMED`` timed,
+    the peak above the baseline within ``MESH_PEAK_BAND`` of the dry
+    run's ``peak_gb``, kernel 3 once per leaf a round, ms a round beside
+    the roofline's per-chip terms (a warm-up over ``MESH_CALL_CUT_S``
+    cuts the timed round's depth, never its width), one more round of
+    ``MESH_TRAIN_PROFILED``'s pairs under the profiler (the device's busy
+    share), and kernel 3 against its plain version at the largest leaf's
+    shard.  ``PHASE25_CUTS`` lists what earlier phases gave up for it.
 
 Every phase that drives a main path zeroes the launch counters just before
 it and reads them just after; a kernel of that path that never launched
@@ -525,9 +551,9 @@ OFF_PATH_ENTRIES = {"dasha_update"}
 SPARSIFY_SPEEDUP_MIN = 2.0
 # the trainer: Mamba2-780M's widths, its tied embedding leaf, n = 4 nodes
 TRAIN_NODES, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 4, 16, 2, 512
-# 6 timed rounds and one profiled (PR 26: 10 and 2), to make room for
-# phase 22 (``PHASE22_CUTS``)
-TRAIN_WARMUP, TRAIN_ROUNDS, TRAIN_PROFILED = 2, 6, 1
+# 4 timed rounds and one profiled (PR 26: 10 and 2; 6 and 1 from
+# ``PHASE22_CUTS``, 4 from ``PHASE25_CUTS``)
+TRAIN_WARMUP, TRAIN_ROUNDS, TRAIN_PROFILED = 2, 4, 1
 # the trainers' largest leaves: Mamba2-780M's tied embedding, starcoder2-3b's
 # embedding (its lm_head is as large)
 D_EMBED, D_DENSE_EMBED = 50432 * 1536, 49152 * 3072
@@ -540,9 +566,11 @@ SSD_SHAPES = [(4, 32768, 48, 64, 128, 256), (2, 64, 8, 32, 16, 32),
               (1, 128, 4, 16, 8, 32), (2, 32, 3, 4, 5, 8)]
 SSD_LIMIT = 1e-4
 PREFILL_BATCH, PREFILL_SEQ, PREFILL_TIMED = 4, 32768, 2
-# a 64-token prompt (256, then 128 before phases 22 and 23; a Mamba2
-# step's time does not depend on the position)
-DECODE_BATCH, DECODE_PROMPT, DECODE_NEW, DECODE_PROFILED = 128, 64, 32, 4
+# a 32-token prompt (256, then 128 before phases 22 and 23, 64 before
+# phase 25; a Mamba2 step's time does not depend on the position); the
+# float32 parity prompt is two of the prefill's 256-token chunks, so the
+# check runs at the production chunk and across a chunk boundary
+DECODE_BATCH, DECODE_PROMPT, DECODE_NEW, DECODE_PROFILED = 128, 32, 32, 4
 PARITY_BATCH, PARITY_PROMPT, PARITY_LIMIT = 2, 512, 5e-3
 PROFILE_WARMUP_LAUNCHES, PROFILE_WARMUP_S = 32, 0.2
 PROFILE_RETRIES = 2
@@ -582,8 +610,8 @@ SWEEP_STATE = ("x", "g", "g_local", "h_local")
 # full length; at half and a tenth they took 54 and 53 s on a slow host,
 # at a quarter and a twentieth 17.5 and 20.4 s on a fast one), so that
 # the whole script stays inside its time limit with phases 21 and 22
-FIG_ROUNDS_SCALE = {"fig1_gradient": 1.0, "fig2_finite_sum": 0.03125,
-                    "fig3_stochastic": 0.00625, "fig5_quadratic_pl": 1.0,
+FIG_ROUNDS_SCALE = {"fig1_gradient": 1.0, "fig2_finite_sum": 0.015625,
+                    "fig3_stochastic": 0.003125, "fig5_quadratic_pl": 1.0,
                     "table1_complexity": 1.0}
 # the faulted campaigns (phase 15): benchmarks/fed_faults_bench.py's
 # configuration widened to real-sim's features — n = 20 clients (the
@@ -662,7 +690,7 @@ OBS_SIGMA, OBS_HEAP_ROUNDS, OBS_QDITHER_ROUNDS = 1.0, 120, 40
 OBS_GATE_ROUNDS, OBS_TURNS, OBS_OVERHEAD, OBS_PLANTED = 32, 60, 0.03, 4.0
 OBS_TURN = ("obs", "plain", "obs", "plain", "obs", "plain", "planted",
             "plain")
-OBS_SCALE_ROUNDS, OBS_PEAK_SLACK_GB = 256, 0.05
+OBS_SCALE_ROUNDS, OBS_PEAK_SLACK_GB = 128, 0.05
 OBS_PROFILE_WINDOWS = 3
 OBS_CUTS = {
     "heap_rounds": "17a's campaigns 120 rounds (the async bench: 300)",
@@ -671,13 +699,13 @@ OBS_CUTS = {
     "overhead_rounds": "fed_scale_bench's 1,000 rounds a run cut to one "
                        "chunk of 32, each handle run between two plain "
                        "ones, 180 handle runs",
-    "scale_rounds": "phase 11's 1,000 rounds cut to 256 at n = 100,000, "
-                    "as 16c",
+    "scale_rounds": "phase 11's 1,000 rounds cut to 128 at n = 100,000 "
+                    "(256, as 16c, before PHASE25_CUTS)",
 }
 
 
 # full-state checkpoints (phase 18): (a) phase 5's trainer cut to
-# CKPT_LAYERS of 48 layers (~106.8M parameters, ~48 B each in a file: x,
+# CKPT_LAYERS of 48 layers (~92M parameters, ~48 B each in a file: x,
 # g, 4 g_i, 4 h_i, Adam's mu and nu), CKPT_STEPS rounds uninterrupted
 # against CKPT_CUT, a checkpoint and the rest; the resumed state against
 # the uninterrupted one within the control pair's own worst leaf error
@@ -685,13 +713,13 @@ OBS_CUTS = {
 # repeat itself bit for bit, and never looser than CKPT_RESUME_CAP; (b)
 # phase 12b's campaign killed after chunk CKPT_VEC_KILL; (c) phase 15's
 # faulted heap campaign killed after chunk CKPT_HEAP_KILL
-CKPT_LAYERS, CKPT_STEPS, CKPT_CUT, CKPT_RESUME_CAP = 2, 4, 2, 1e-4
+CKPT_LAYERS, CKPT_STEPS, CKPT_CUT, CKPT_RESUME_CAP = 1, 4, 2, 1e-4
 CKPT_VEC_ROUNDS, CKPT_VEC_CHUNK, CKPT_VEC_KILL = 256, 32, 3
 CKPT_HEAP_ROUNDS, CKPT_HEAP_CHUNK, CKPT_HEAP_KILL = 40, 8, 1
 CKPT_CUTS = {
-    "trainer_layers": "Mamba2-780M's 48 layers cut to 2 (phase 5: 16), so "
-                      "that each of 4 arms and its ~5 GB file stay within "
-                      "the phase's time",
+    "trainer_layers": "Mamba2-780M's 48 layers cut to 1 (2 before PR 30's "
+                      "PHASE25_CUTS; phase 5: 16), so that each of 4 arms "
+                      "and its ~4.4 GB file stay within the phase's time",
     "trainer_steps": "4 rounds, the checkpoint after 2",
 }
 
@@ -699,7 +727,7 @@ CKPT_CUTS = {
 # 3,072, 24 heads, 2 KV heads, d_ff 12,288, vocab 49,152).  (a) the
 # trainer cut to DENSE_TRAIN_LAYERS of 30 layers at phase 5's n = 4 x 2 x
 # 512, DASHA-MVR with kernel 3 once per parameter leaf a round
-# (DENSE_LEAVES) and an Adam server; (b) serving at 30 of 30 layers in
+# (DENSE_LEAVES) and an Adam server; (b) serving at 8 of 30 layers in
 # bf16: a 4 x 8,192 prefill (two 4,096-token windows: the streaming path
 # and its window mask), the serve entry point at batch 128, and
 # DENSE_DECODE_STEPS decode steps at batch 128 on the 4,096-slot ring,
@@ -713,6 +741,7 @@ CKPT_CUTS = {
 # DENSE_PROFILED_LAYERS of its identical layers
 DENSE_LEAVES = 16
 DENSE_TRAIN_LAYERS, DENSE_TRAIN_WARMUP, DENSE_TRAIN_ROUNDS = 3, 2, 6
+DENSE_SERVE_LAYERS = 8             # of 30 (PHASE25_CUTS)
 DENSE_PREFILL_BATCH, DENSE_PREFILL_SEQ, DENSE_PREFILL_TIMED = 4, 8192, 1
 DENSE_SERVE_PROMPT, DENSE_SERVE_NEW = 16, 16
 DENSE_DECODE_BATCH, DENSE_DECODE_STEPS, DENSE_DECODE_PROFILED = 128, 32, 4
@@ -722,7 +751,7 @@ FIG4_LANE_RTOL, FIG4_LOSS_RTOL, FIG4_CHECKED_LANES = 1e-2, 1e-3, (0, 2)
 # Figure 4's 120 host-bound steps took 95-131 s on the card (40 steps
 # 38-51 s, 20 steps 20.3 s); a tenth of them keeps its rows and its lane
 # gate at the same count
-FIG4_STEPS = 4
+FIG4_STEPS = 2
 DENSE_PROFILED_LAYERS = 2
 DENSE_CUTS = {
     "trainer_layers": "starcoder2-3b's 30 layers cut to 3 for the trainer: "
@@ -733,7 +762,7 @@ DENSE_CUTS = {
     "decode_history": "the 4,096-slot ring filled with random K/V in place "
                       "of 4,096 prompt steps (a step's time does not depend "
                       "on the values)",
-    "fig4_steps": "Figure 4 at 4 of its 120 steps (rows and the lane "
+    "fig4_steps": "Figure 4 at 2 of its 120 steps (rows and the lane "
                   "gate at the same count), to make room for phases 21 to "
                   "24",
     "prefill_timed": "one timed prefill call after the warm-up (PR 26: "
@@ -748,9 +777,9 @@ DENSE_CUTS = {
 # configs (FAMILY_LEAVES parameter leaves each), the routed backward at
 # full width cut to FAMILY_GRAD_LAYERS; card vs CPU at the smoke configs
 FAMILY_ARCHS = ("gemma3-12b", "phi3.5-moe-42b-a6.6b", "deepseek-v2-lite-16b")
-FAMILY_RUNS = (("gemma3-12b", None, 32, (None,)),
-               ("deepseek-v2-lite-16b", None, 128, ("gather",)),
-               ("phi3.5-moe-42b-a6.6b", 16, 32, ("gather", "einsum")))
+FAMILY_RUNS = (("gemma3-12b", 12, 32, (None,)),
+               ("deepseek-v2-lite-16b", 7, 128, ("gather",)),
+               ("phi3.5-moe-42b-a6.6b", 4, 32, ("gather", "einsum")))
 FAMILY_LEAVES = {"gemma3-12b": 20, "phi3.5-moe-42b-a6.6b": 13,
                  "deepseek-v2-lite-16b": 18}
 FAMILY_PREFILL_BATCH, FAMILY_PREFILL_SEQ, FAMILY_PREFILL_TIMED = 4, 8192, 1
@@ -758,7 +787,7 @@ FAMILY_SERVE_PROMPT, FAMILY_SERVE_NEW = 8, 8
 FAMILY_DECODE_SLOTS, FAMILY_DECODE_T0 = 4128, 4080
 # two decode steps profiled: the profiler's tables of a 4-step window took
 # 7-13 s a model (~4,800 launches a step), for the same busy share
-FAMILY_DECODE_STEPS, FAMILY_DECODE_PROFILED = 8, 2
+FAMILY_DECODE_STEPS, FAMILY_DECODE_PROFILED = 4, 2
 FAMILY_PROFILED_LAYERS = 2
 # the profiler's windows and tables took ~64 s of phase 20's 111 s of
 # serving with all three models profiled; one model is profiled
@@ -770,7 +799,8 @@ FAMILY_AGREE_CHUNK = 48
 FAMILY_CUTS = {
     "phi_layers": "phi3.5-moe-42b-a6.6b's 32 layers cut to 16 for serving: "
                   "its 41.87B parameters are 83.7 GB in bf16, more than the "
-                  "card's 80 GB; 16 layers are 21.07B, 42.1 GB",
+                  "card's 80 GB; 16 layers are 21.07B, 42.1 GB (4 since PR "
+                  "30, PHASE25_CUTS)",
     "decode_history": "the 4,128-slot caches (gemma3's local rings: 1,024 "
                       "slots) filled with random K/V or latents in place of "
                       "4,080 prompt steps (a step's time does not depend on "
@@ -827,7 +857,7 @@ HYBRID_CUTS = {
 }
 
 # the cross-attention families (phase 22): llama-3.2-vision-11b at full
-# width and depth in bf16 (40 layers, 8 cross blocks, 1,601 image tokens,
+# width in bf16 (CROSS_SERVE_LAYERS of 40 layers, 1,601 image tokens,
 # every cross block's gates at CROSS_GATES: they start at zero, where a
 # cross block adds nothing): a CROSS_PREFILL_BATCH x CROSS_PREFILL_SEQ
 # prefill, a profiled prefill cut to CROSS_PROFILED_LAYERS layers (one
@@ -839,6 +869,7 @@ HYBRID_CUTS = {
 # card vs CPU at both smoke configs (CROSS_AGREE_STEPS decode steps,
 # CROSS_AGREE_ROUNDS trainer rounds)
 CROSS_VLM, CROSS_AUDIO = "llama-3.2-vision-11b", "whisper-tiny"
+CROSS_SERVE_LAYERS = 10            # of 40, 2 cross blocks (PHASE25_CUTS)
 CROSS_GATES = (0.5, -0.3)
 CROSS_LEAVES = {CROSS_VLM: 23, CROSS_AUDIO: 36}
 CROSS_PREFILL_BATCH, CROSS_PREFILL_SEQ, CROSS_PROFILED_LAYERS = 4, 8192, 5
@@ -949,6 +980,73 @@ PHASE24_CUTS = {
                     "phases 21 and 22 read too) for gemma3, deepseek, "
                     "phi3.5-moe, zamba2 and the VLM: 8 x their summed "
                     "~0.6 s a step, ~5 s",
+}
+
+
+# the sharded DASHA trainer (phase 25): 25a the smoke trainers of the
+# dense, SSM, MLA/MoE and hybrid families on a one-rank host mesh,
+# MESH_TRAIN_ROUNDS rounds of DASHA-MVR with kernel 3 through local_map on
+# injected masks, bit for bit the plain-tensor trainer; 25b / 25c rank 0 of
+# the fake 16 x 16 mesh at full width and depth for MESH_TRAIN_PAIRS
+# (one node of 16 x 4,096 tokens a data rank), one warm-up round and
+# MESH_TRAIN_TIMED timed rounds, against the dry run's memory; a pair
+# whose dry run reckons rank 0 above MESH_TRAIN_FIT_GB is recorded and
+# not run
+MESH_TRAIN_ARCHS = ("starcoder2-3b", "mamba2-780m", "deepseek-v2-lite-16b",
+                    "zamba2-1.2b")
+# 25a's trainers: DASHA-MVR on every family above, and DASHA (kernel 1's
+# sparsifier entry on local shards) on the dense one
+MESH_TRAIN_CASES = tuple((a, "mvr") for a in MESH_TRAIN_ARCHS) + \
+    (("starcoder2-3b", "dasha"),)
+MESH_TRAIN_KERNEL = {"mvr": "dasha_mvr_update",
+                     "dasha": "dasha_sparsify_update"}
+MESH_TRAIN_ROUNDS, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ = 2, 2, 64
+MESH_TRAIN_PAIRS = (("mamba2-780m", "train_4k"), ("starcoder2-3b",
+                                                  "train_4k"))
+MESH_TRAIN_TIMED, MESH_TRAIN_FIT_GB = 1, 70.0
+# 25b's pairs with one more round under the profiler (device activity
+# only) after the timed one, for the device's busy share
+MESH_TRAIN_PROFILED = ("mamba2-780m",)
+# what the earlier phases gave up for phase 25, each beside its reckoning
+# from earlier whole runs on H100 80GB HBM3 hosts at 700 W; none removes
+# a counted launch of kernels 1, 2, 4 or 5 (Figure 4's lanes and fig2 /
+# fig3 are not main-path runs, no kernel launches while those models
+# decode, and 17's n = 100,000 comparison is not counted), so those launch
+# as before, kernel 1 adding 25a's DASHA trainer; kernel 3 adds 25a's and
+# 25b's and gives up phase 5's two rounds
+PHASE25_CUTS = {
+    "phase 14": "fig2 at 1/64 of its rounds (1/32: ~5.2 s on the slow "
+                "host) and fig3 at 1/320 (1/160: ~5.6 s): ~5.4 s",
+    "phase 19": "Figure 4 at 2 steps of 4 (the slow host's 4 steps of 12 "
+                "took ~6.5 s, ~1.6 s a step): ~3.2 s; starcoder2-3b served "
+                "at 8 of 30 layers (DENSE_SERVE_LAYERS; its serve step "
+                "took 30.5 s on run 4's host, 20.4 s at 15 on run 7's): "
+                "~18 s",
+    "phases 20-22": "4 decode steps of 8 (FAMILY_DECODE_STEPS) for gemma3, "
+                    "deepseek, phi3.5-moe, zamba2 and the VLM: 4 x their "
+                    "summed ~0.6 s a step, ~2.4 s",
+    "phase 20": "gemma3-12b served at 12 of 48 layers (two of its eight "
+                "groups of five local layers and a global one; its serve "
+                "step took 23.0 s at 48, 17.6 s at 24 on run 7's host), "
+                "deepseek-v2-lite at 7 of 27 (10.6 s at 27) and "
+                "phi3.5-moe at 4 of 32 (14.6 s at 16): ~35 s",
+    "phase 18": "18a's trainer at 1 of 48 layers (CKPT_LAYERS; 2 before: "
+                "a 5.124 GB file saved in 8.62 s and loaded in 15.47 s on "
+                "run 4's host), its 13 leaves and counted rounds "
+                "unchanged: ~6 s",
+    "phase 22": "llama-3.2-vision-11b served at 10 of 40 layers, 2 of 8 "
+                "cross blocks (CROSS_SERVE_LAYERS; its prefill took 7.56 "
+                "s at 40): ~9 s",
+    "phase 5": "4 timed rounds of 6 (TRAIN_ROUNDS; 1.46 s a round on run "
+               "8's host, kernel 3's 26 launches fewer): ~3 s",
+    "phase 8": "a 32-token decode prompt of 64 (DECODE_PROMPT; 68.76 ms "
+               "a prompt step at batch 128 on run 8's host): ~2.2 s",
+    "phase 17": "the n = 100,000 metrics-only comparison at 128 rounds of "
+                "256 (OBS_SCALE_ROUNDS; three runs at ~140 rounds/s, no "
+                "gate, no counted launch): ~2.7 s; and, no cut, 17c's six "
+                "profiled windows of ~10,400 device records each read "
+                "from the profiler's raw records rather than its event "
+                "tree (the same records by name and start)",
 }
 
 
@@ -2291,7 +2389,7 @@ def phase_serve(torch, smi: str):
     del logits, tokens
     torch.cuda.empty_cache()
 
-    # (b) serve: a 64-token prompt stepped through decode_step, 32 new
+    # (b) serve: a 32-token prompt stepped through decode_step, 32 new
     # (the recurrence: no ssd_chunk launch)
     args = S.build_parser().parse_args([
         "--batch", str(DECODE_BATCH), "--prompt-len", str(DECODE_PROMPT),
@@ -5015,14 +5113,18 @@ def _obs_launches_profiled(torch, fn):
         fn()
         torch.cuda._sleep(1000)                          # closing marker
         torch.cuda.synchronize()
-    records = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    marks = sorted((e.time_range for e in records
-                    if "spin_kernel" in e.name), key=lambda r: r.start)
+    # the profiler's raw device records (name, start, end in ns), not its
+    # event tree, which takes seconds to build for a window of ~10^4
+    records = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+               for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA]
+    marks = sorted((start, end) for name, start, end in records
+                   if "spin_kernel" in name)
     if len(marks) < 2:
         return Counter()
-    lo, hi = marks[-2].end, marks[-1].start
-    return Counter(e.name for e in records if "spin_kernel" not in e.name
-                   and lo <= e.time_range.start < hi)
+    lo, hi = marks[-2][1], marks[-1][0]
+    return Counter(name for name, start, _ in records
+                   if "spin_kernel" not in name and lo <= start < hi)
 
 
 def _obs_overhead(torch, smi: str):
@@ -5901,7 +6003,8 @@ def dense_decode_bound(cfg, batch: int, T: int, n_params: int):
 
 
 def _dense_serve(torch, smi: str):
-    """19b: starcoder2-3b at 30 of 30 layers in bf16 through the serving
+    """19b: starcoder2-3b at DENSE_SERVE_LAYERS of 30 layers in bf16 through
+    the serving
     entry points: ``prefill_logits`` of 4 x 8,192 tokens (two windows:
     the streaming path and the window mask), ``serve`` at batch 128, and
     decode steps at batch 128 on the 4,096-slot ring cache, wrapping."""
@@ -5911,11 +6014,12 @@ def _dense_serve(torch, smi: str):
     from repro_torch.launch import serve as S
     from repro_torch.models import init_params, lm
 
-    cfg = get_config("starcoder2-3b")
+    cfg = dataclasses.replace(get_config("starcoder2-3b"),
+                              num_layers=DENSE_SERVE_LAYERS)
     L = cfg.num_layers
     params = init_params(cfg, 0, device="cuda")
     n_params = sum(int(x.numel()) for x in tree.leaves(params))
-    out = {"layers": L, "params": n_params, "card": smi}
+    out = {"layers": L, "of_layers": 30, "params": n_params, "card": smi}
 
     # prefill
     text = SyntheticTextConfig(vocab_size=cfg.vocab_size,
@@ -7614,8 +7718,9 @@ def _cross_prefill(torch, smi: str, cfg, params, n_params: int):
 
 
 def _cross_vlm_serve(torch, smi: str):
-    """22a: llama-3.2-vision-11b at full width and depth in bf16 (40
-    layers, 8 cross blocks, gates at CROSS_GATES): the prefill, ``serve``
+    """22a: llama-3.2-vision-11b at full width in bf16, CROSS_SERVE_LAYERS
+    of its 40 layers (4 of 8 cross blocks), gates at CROSS_GATES: the
+    prefill, ``serve``
     for one request batch, and decode steps at CROSS_DECODE_BATCH on
     FAMILY_DECODE_SLOTS slots of random self K/V beside the image K/V of
     each cross block; no hand-written kernel may launch."""
@@ -7625,7 +7730,8 @@ def _cross_vlm_serve(torch, smi: str):
     from repro_torch.launch import serve as S
     from repro_torch.models import init_params, lm
 
-    cfg = get_config(CROSS_VLM)
+    cfg = dataclasses.replace(get_config(CROSS_VLM),
+                              num_layers=CROSS_SERVE_LAYERS)
     _reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -9216,6 +9322,372 @@ def phase_mesh(torch, smi: str):
             {"mesh_host": host_launches, "mesh_rank0": launches})
 
 
+def _mesh_train_batch(torch, cfg, lead, seq, gen):
+    tokens = torch.randint(1, cfg.vocab_size, lead + (seq,), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    return {"tokens": tokens, "labels": torch.roll(tokens, -1, -1)}
+
+
+def _mesh_train_host(torch, smi: str):
+    """Phase 25a: the smoke trainers of MESH_TRAIN_CASES through
+    ``train_spec``'s step on ``make_host_mesh("cuda")``'s DTensors against
+    the same step on plain tensors on the card, bit for bit, on injected
+    masks; kernel 3 (DASHA-MVR) or kernel 1's sparsifier entry (DASHA)
+    counted through ``local_map``.  Returns (report, each kernel's
+    launches in the sharded rounds)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import tree
+    from repro_torch.core.rng import Draws
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import specs as S
+    from repro_torch.models import init_params
+    from repro_torch.models import sharding as sh
+    from repro_torch.optim.distributed import (DashaTrainConfig,
+                                               dasha_train_init)
+    rows = []
+    launches = {k: 0 for k in MESH_TRAIN_KERNEL.values()}
+    R = MESH_TRAIN_ROUNDS
+    with M.enter_mesh(M.make_host_mesh("cuda")) as mesh:
+        for arch, variant in MESH_TRAIN_CASES:
+            t0 = time.perf_counter()
+            kernel = MESH_TRAIN_KERNEL[variant]
+            cfg = get_smoke_config(arch)
+            spec = S.train_spec(cfg, mesh, seq=MESH_TRAIN_SEQ,
+                                global_batch=MESH_TRAIN_BATCH,
+                                dasha=DashaTrainConfig(
+                                    gamma=0.01, compression=0.5,
+                                    variant=variant, use_kernel=True))
+            dcfg = DashaTrainConfig(**spec.static["dasha"])
+            params = init_params(cfg, 0, device="cuda")
+            gen = torch.Generator(device="cuda").manual_seed(25)
+            batch = _mesh_train_batch(torch, cfg, (1, MESH_TRAIN_BATCH),
+                                      MESH_TRAIN_SEQ, gen)
+            want = dasha_train_init(params, dcfg, 0, device="cuda")
+            draws = [Draws(masks=tree.map_leaves(
+                lambda h: (torch.rand(h.shape, generator=gen, device="cuda")
+                           < 0.5).to(torch.float32), want.h_local))
+                for _ in range(R)]
+            wm = []
+            for d in draws:
+                want, m = spec.fn(want, batch, draws=d)
+                wm.append(m)
+            state = dasha_train_init(params, dcfg, 0, mesh=mesh,
+                                     specs=spec.in_shardings[0])
+            d_batch = sh.distribute_tree(batch, spec.in_shardings[1], mesh)
+            torch.cuda.synchronize()
+            _reset_launch_counts()
+            gm = []
+            with implicit_replication():
+                for d in draws:
+                    state, m = spec.fn(state, d_batch, draws=d)
+                    gm.append(m)
+            torch.cuda.synchronize()
+            counts = _launch_counts()
+            leaves = len(tree.leaves(params))
+            _gate_launches(f"p25a {arch} {variant}", counts,
+                           {kernel: leaves * R})
+            launches[kernel] += leaves * R
+            unequal = [f"{f}/{p}" for f in ("params", "g", "h_local",
+                                             "g_local")
+                       for (p, x), (_, w) in zip(
+                           tree.items(getattr(state, f)),
+                           tree.items(getattr(want, f)))
+                       if not torch.equal(x.full_tensor(), w)]
+            metrics_equal = all(
+                torch.equal(a["g_norm_sq"].full_tensor(), b["g_norm_sq"])
+                and float(a["payload_coords"]) == float(b["payload_coords"])
+                for a, b in zip(gm, wm))
+            if unequal or not metrics_equal:
+                raise AssertionError(f"[p25a] {arch} {variant}: the sharded "
+                                     f"rounds differ from the plain ones: "
+                                     f"{unequal[:8]}, metrics "
+                                     f"{metrics_equal}")
+            rows.append({"arch": arch, "variant": variant, "leaves": leaves,
+                         "rounds": R, "state_leaves_bit_equal": 4 * leaves,
+                         "kernel": kernel, "launches": leaves * R,
+                         "wall_s": time.perf_counter() - t0})
+            log(f"[p25a] {arch} smoke trainer on the 1x1 nccl mesh: {R} "
+                f"rounds of {variant} bit-equal to the plain-tensor "
+                f"trainer ({4 * leaves} state leaves and the metrics), "
+                f"{kernel} {leaves * R} launches through local_map | {smi}")
+        plants = {}
+        # planted: a DTensor at kernel 3 without local_map must raise
+        x = sh.constrain(torch.zeros((1, 8), device="cuda"), (None, None),
+                         mesh)
+        _reset_launch_counts()
+        try:
+            ops.dasha_mvr_update(x, x, x, x, x, 0.1, 0.1, 1.0)
+        except ValueError as e:
+            plants["dtensor_at_kernel"] = str(e)[:200]
+        else:
+            raise AssertionError("[p25a] a DTensor reached kernel 3 without "
+                                 "local_map and did not raise")
+        # planted: a mask laid out otherwise than h (its node axis
+        # replicated where h's lies over "data") must be refused
+        h = sh.distribute_tree(torch.zeros((1, 8), device="cuda"),
+                               sh.P(("data",), None), mesh)
+        mask = sh.distribute_tree(torch.ones((1, 8), dtype=torch.bool,
+                                             device="cuda"),
+                                  sh.P(None, None), mesh)
+        try:
+            ops.dasha_mvr_update_sharded(h, h, h, h, mask, 0.1, 0.1, 1.0)
+        except Exception as e:
+            plants["mask_layout"] = f"{type(e).__name__}: {str(e)[:200]}"
+        else:
+            raise AssertionError("[p25a] a mask laid out otherwise than h "
+                                 "reached kernel 3")
+        torch.cuda.synchronize()
+        if sum(_launch_counts().values()):
+            raise AssertionError(f"[p25a] a planted call launched: "
+                                 f"{_launch_counts()}")
+    return {"rows": rows, "plants": plants}, launches
+
+
+def _cut_train_args(sh, args, layers: int):
+    """The train step's (state, batch) with every stacked layer axis cut
+    to its first ``layers``: dim 0 of the parameters' and g's ``layers``
+    leaves, dim 1 of the per-node ones'."""
+    def cut(path, x):
+        if not sh.is_dtensor(x) or len(path) < 2 or path[1] != "layers":
+            return x
+        if path[0] in ("h_local", "g_local"):
+            return x[:, :layers]
+        return x[:layers]
+    return (sh.map_with_path(cut, args[0]),) + tuple(args[1:])
+
+
+def _mesh_train_config():
+    from repro_torch.optim.distributed import DashaTrainConfig
+    return DashaTrainConfig(gamma=0.01, compression=1 / 32, variant="mvr",
+                            use_kernel=True)
+
+
+def _mesh_train_rank0(torch, out_path: str) -> None:
+    """Phase 25b / 25c, run in its own process after phase 24, one step
+    after the other: the dry run of each of MESH_TRAIN_PAIRS on a fake
+    ``cuda`` 16 x 16 mesh (25c), then rank 0's training rounds of each
+    pair on the card (25b; a pair the dry run reckons above
+    MESH_TRAIN_FIT_GB is recorded and not run); writes the rows to
+    ``out_path``."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import specs as S
+    from repro_torch.models import sharding as sh
+    dc = _mesh_train_config()
+    report = {}
+    for arch, shape in MESH_TRAIN_PAIRS:
+        t0 = time.perf_counter()
+        row = dryrun.dryrun_one(arch, shape, dasha=dc, device="cuda",
+                                verbose=False)
+        row["dryrun_wall_s"] = time.perf_counter() - t0
+        report[f"{arch} x {shape}"] = {"dryrun": row}
+        if row["status"] != "ok":
+            raise AssertionError(f"[p25c] {arch} x {shape}: {row}")
+    for arch, shape in MESH_TRAIN_PAIRS:
+        rec = report[f"{arch} x {shape}"]
+        ref = rec["dryrun"]
+        if ref["peak_gb"] > MESH_TRAIN_FIT_GB:
+            rec["skipped"] = (f"the dry run reckons rank 0's peak at "
+                              f"{ref['peak_gb']:.2f} GB, above "
+                              f"{MESH_TRAIN_FIT_GB} GB")
+            continue
+        cfg = get_config(arch)
+        with M.enter_mesh(M.make_production_mesh(device="cuda")) as mesh:
+            spec = S.input_specs(cfg, shape, mesh, dasha=dc)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            gen = torch.Generator(device="cuda").manual_seed(25)
+
+            def make_local(path, shape_, dtype):
+                if dtype.is_floating_point:
+                    return (0.02 * torch.randn(shape_, generator=gen,
+                                               device="cuda")).to(dtype)
+                return torch.randint(1, cfg.vocab_size, shape_,
+                                     generator=gen, device="cuda",
+                                     dtype=dtype)
+
+            args = sh.distribute_tree(spec.args, spec.in_shardings, mesh,
+                                      make_local=make_local)
+            local = [x.to_local() for _, x in sh.leaves_with_path(args)
+                     if sh.is_dtensor(x)]
+            arg_bytes = sum(t.untyped_storage().nbytes() for t in local)
+            leaves = len(tree.leaves(args[0].params))
+            biggest = max(h.to_local().numel()
+                          for h in tree.leaves(args[0].h_local))
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated() - base
+            torch.cuda.reset_peak_memory_stats()
+            _reset_launch_counts()
+            t0 = time.perf_counter()
+            with implicit_replication():
+                out = spec.fn(*args)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            warm = dict(_launch_counts())
+            peak = torch.cuda.max_memory_allocated() - base
+            del out
+            _gate_launches(f"p25b {arch} warm-up", warm,
+                           {"dasha_mvr_update": leaves})
+            layers, fn, call_args = cfg.num_layers, spec.fn, args
+            if first_s > MESH_CALL_CUT_S:
+                layers = max(1, int(cfg.num_layers * MESH_CALL_CUT_S
+                                    / first_s))
+                cut = dataclasses.replace(cfg, num_layers=layers)
+                fn = S.input_specs(cut, shape, mesh, dasha=dc).fn
+                call_args = _cut_train_args(sh, args, layers)
+            _reset_launch_counts()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(MESH_TRAIN_TIMED):
+                with implicit_replication():
+                    out = fn(*call_args)
+                del out
+            end.record()
+            end.synchronize()
+            ms = start.elapsed_time(end) / MESH_TRAIN_TIMED
+            timed = dict(_launch_counts())
+            _gate_launches(f"p25b {arch} timed", timed,
+                           {"dasha_mvr_update": leaves * MESH_TRAIN_TIMED})
+            busy = None
+            if arch in MESH_TRAIN_PROFILED:
+                # one more round, after the timed one, under the profiler
+                # (device activity only): the device's busy share
+                _reset_launch_counts()
+
+                def one_round():
+                    with implicit_replication():
+                        return fn(*call_args)
+                table, pwall = profiled(torch, one_round, cpu=False)
+                _gate_launches(f"p25b {arch} profiled", _launch_counts(),
+                               {"dasha_mvr_update": leaves})
+                timed["dasha_mvr_update"] += leaves
+                dev_s = sum(t for _, t in table.values()) / 1e6
+                busy = {"wall_s": pwall, "device_busy_s": dev_s,
+                        "busy_share": dev_s / pwall,
+                        "device_launches": sum(c for c, _ in table.values()),
+                        "top": sorted(((round(t / 1e3, 3), c, k[:90])
+                                       for k, (c, t) in table.items()),
+                                      reverse=True)[:8]}
+            del args, call_args, local
+        rec.update({
+            "local_argument_bytes": arg_bytes,
+            "argument_bytes_from_dryrun": ref["argument_gb"] * 1e9,
+            "allocated_for_arguments_bytes": held,
+            "peak_gb_above_baseline": peak / 1e9,
+            "peak_ratio_to_dryrun": peak / 1e9 / ref["peak_gb"],
+            "first_round_s": first_s, "ms_per_round": ms,
+            "timed_rounds": MESH_TRAIN_TIMED,
+            "timed_layers": layers, "layers": cfg.num_layers,
+            "cut": None if layers == cfg.num_layers else
+            f"warm-up round {first_s:.1f} s > {MESH_CALL_CUT_S} s: the "
+            f"timed round at {layers} of {cfg.num_layers} layers, full "
+            "width",
+            "t_compute_ms": ref["t_compute_s"] * 1e3,
+            "t_memory_ms": ref["t_memory_s"] * 1e3,
+            "leaves": leaves, "largest_leaf_shard": biggest,
+            "kernel3_launches": warm["dasha_mvr_update"]
+            + timed["dasha_mvr_update"],
+            "rounds": 1 + MESH_TRAIN_TIMED + (busy is not None),
+            "profile": busy,
+            "note": "fake collectives write nothing: outputs unchecked, no "
+                    "collective term in the time"})
+        gc.collect()
+        torch.cuda.empty_cache()
+    Path(out_path).write_text(json.dumps(report, indent=1))
+
+
+def phase_mesh_train(torch, smi: str):
+    """Phase 25: the sharded DASHA trainer: 25a here, then 25c and 25b one
+    after the other in a subprocess (a process group is global to its
+    process), nothing else running.  Returns (report, kernel 1's and
+    kernel 3's launches by path, kernel 3's rows at the largest leaf shard
+    of each 25b pair)."""
+    from repro_torch.kernels import dasha_update as kern
+    from repro_torch.kernels import ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    host, host_launches = _mesh_train_host(torch, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "mesh_train_rank0.json"
+        run = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                              "--mesh-train-rank0", str(out)],
+                             capture_output=True, text=True, timeout=600)
+        if run.returncode != 0 or not out.exists():
+            raise AssertionError(
+                f"[p25b] rank 0's subprocess failed (rc {run.returncode}): "
+                f"{run.stderr[-3000:]}")
+        rank0_rows = json.loads(out.read_text())
+    launches, rows = 0, []
+    for name, rec in rank0_rows.items():
+        ref_row = rec["dryrun"]
+        log(f"[p25c] {name}: dryrun_one in {ref_row['dryrun_wall_s']:.1f} s "
+            f"(trace {ref_row['trace_s']} s), peak {ref_row['peak_gb']:.3f} "
+            f"GB a device, collectives {ref_row['coll_detail']}")
+        if "skipped" in rec:
+            log(f"[p25b] {name} not run on the card: {rec['skipped']}")
+            continue
+        if rec["local_argument_bytes"] / 1e9 != ref_row["argument_gb"]:
+            raise AssertionError(
+                f"[p25b] {name}: local argument bytes "
+                f"{rec['local_argument_bytes']} != the dry run's "
+                f"{ref_row['argument_gb']} GB")
+        lo, hi = MESH_PEAK_BAND
+        if not lo <= rec["peak_ratio_to_dryrun"] <= hi:
+            raise AssertionError(
+                f"[p25b] {name}: peak {rec['peak_gb_above_baseline']:.3f} GB "
+                f"is {rec['peak_ratio_to_dryrun']:.3f} x the dry run's "
+                f"{ref_row['peak_gb']:.3f} GB, outside {MESH_PEAK_BAND}")
+        launches += rec["kernel3_launches"]
+        log(f"[p25b] {name} rank 0 of 16x16 on the card: args "
+            f"{rec['local_argument_bytes'] / 1e9:.4f} GB (= dry run), peak "
+            f"{rec['peak_gb_above_baseline']:.3f} GB = "
+            f"{rec['peak_ratio_to_dryrun']:.3f} x the dry run's "
+            f"{ref_row['peak_gb']:.3f}; warm-up {rec['first_round_s']:.2f} "
+            f"s, {rec['ms_per_round']:.2f} ms a round "
+            f"({rec['timed_layers']}/{rec['layers']} layers"
+            f"{'; ' + rec['cut'] if rec['cut'] else ''}) vs the roofline's "
+            f"per-chip compute {rec['t_compute_ms']:.3f} ms, memory "
+            f"{rec['t_memory_ms']:.3f} ms (the dry run's DASHA rows); kernel "
+            f"3 {rec['leaves']} a round ({rec['kernel3_launches']} in "
+            f"{rec['rounds']} rounds); {rec['note']} | {smi}")
+        if rec["profile"]:
+            pr = rec["profile"]
+            log(f"[p25b] {name}: a profiled round (device activity only) "
+                f"{pr['wall_s']:.3f} s, device busy {pr['device_busy_s']:.3f}"
+                f" s = {pr['busy_share']:.3f} of it, {pr['device_launches']} "
+                f"kernels; the longest {pr['top'][:4]} | {smi}")
+        shard = (1, rec["largest_leaf_shard"])
+        row = _check_mvr(torch, kern, ref, shard, False, 2500 + len(rows))
+        row.update({"shape": list(shard), "path": f"25b {name}: the "
+                    "largest leaf's rank-0 shard"})
+        rows.append(row)
+        log(f"[p25b] kernel 3 at {name}'s largest leaf shard {shard}: "
+            f"bit-equal to its plain version, {row['ms']:.4f} ms (plain "
+            f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} "
+            f"{row['bound_by']}) | {smi}")
+    wall = time.perf_counter() - t0
+    log(f"[p25] phase 25 in {wall:.1f} s | {smi}")
+    return ({"host_mesh": host, "rank0": rank0_rows, "cuts": PHASE25_CUTS,
+             "wall_s": wall, "nvidia_smi": smi},
+            {"dasha_mvr_update": {
+                "mesh_train_host": host_launches["dasha_mvr_update"],
+                "mesh_train_rank0": launches},
+             "dasha_sparsify_update": {
+                 "mesh_train_host": host_launches["dasha_sparsify_update"]}},
+            rows)
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"{SRC / 'repro_torch'} not found: run from a checkout of the "
@@ -9231,6 +9703,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     if sys.argv[1:2] == ["--mesh-rank0"]:      # phase 24b / 24c's process
         _mesh_rank0(torch, sys.argv[2])
+        return 0
+    if sys.argv[1:2] == ["--mesh-train-rank0"]:   # phase 25b / 25c's
+        _mesh_train_rank0(torch, sys.argv[2])
         return 0
     smi = nvidia_smi_line()
     log(f"[device] {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | "
@@ -9281,15 +9756,20 @@ def main() -> int:
     cross, cross_launches = timed(phase_cross, torch, smi)
     registry, p23_launches, p23_rows = timed(phase_registry, torch, smi)
     mesh, mesh_launches = timed(phase_mesh, torch, smi)
+    mesh_train, mesh_train_launches, mesh_train_rows = timed(
+        phase_mesh_train, torch, smi)
+    per_shape["dasha_mvr_update"].extend(mesh_train_rows)
     sparsify["cases"].append(p23_rows["dasha_sparsify_update"])
     per_shape["dasha_mvr_update"].append(p23_rows["dasha_mvr_update"])
     kernel2["fused"].append(p23_rows["dasha_quantize_update"])
     # kernels 1 to 4 run on several main paths: the flat round, the
     # federated cohort round, the heap oracle, the sweep, the faulted
     # campaigns, the asynchronous ones, the runs with an observability
-    # handle and the checkpoint drills; kernel 3 in the trainers (Mamba2,
+    # handle, the checkpoint drills and phase 25a's sharded DASHA trainer
+    # through local_map; kernel 3 in the trainers (Mamba2,
     # starcoder2, the phase-20 families, zamba2, the VLM's smoke config and
-    # whisper-tiny) and the drill; kernel 5 in the Mamba2 and zamba2
+    # whisper-tiny), the drill and phase 25's sharded trainers through
+    # local_map; kernel 5 in the Mamba2 and zamba2
     # prefills and phase 24's sharded prefills through local_map (each
     # counted from zero around its own run)
     by_path = {
@@ -9302,7 +9782,8 @@ def main() -> int:
             "async": async_launches["dasha_sparsify_update"],
             "obs": obs_launches["dasha_sparsify_update"],
             "ckpt": ckpt_launches["dasha_sparsify_update"],
-            "registry": p23_launches["dasha_sparsify_update"]},
+            "registry": p23_launches["dasha_sparsify_update"],
+            **mesh_train_launches["dasha_sparsify_update"]},
         "dasha_mvr_update": {"trainer": launches["dasha_mvr_update"],
                              "ckpt": ckpt_launches["dasha_mvr_update"],
                              "dense_trainer": dense_launches,
@@ -9310,7 +9791,8 @@ def main() -> int:
                              "hybrid_trainer":
                                  hybrid_launches["dasha_mvr_update"],
                              **cross_launches,
-                             "registry": p23_launches["dasha_mvr_update"]},
+                             "registry": p23_launches["dasha_mvr_update"],
+                             **mesh_train_launches["dasha_mvr_update"]},
         "ssd_chunk": {"mamba2_prefill": launches["ssd_chunk"],
                       "hybrid": hybrid_launches["ssd_chunk"],
                       **mesh_launches},
@@ -9460,8 +9942,10 @@ def main() -> int:
               "obs": obsr, "ckpt": ckpt, "dense": dense,
               "family": family, "hybrid": hybrid, "cross": cross,
               "registry": registry, "mesh": mesh,
+              "mesh_train": mesh_train,
               "phase22_cuts": PHASE22_CUTS, "phase23_cuts": PHASE23_CUTS,
-              "phase24_cuts": PHASE24_CUTS, "phase_walls_s": walls,
+              "phase24_cuts": PHASE24_CUTS, "phase25_cuts": PHASE25_CUTS,
+              "phase_walls_s": walls,
               "nvidia_smi": smi}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

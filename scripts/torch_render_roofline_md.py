@@ -10,8 +10,8 @@ One row per (arch, shape): each mesh's peak GB a device, the 16x16 mesh's
 roofline terms on the H100 (compute, memory, collective: per-chip seconds
 a step), its bottleneck and collectives by kind (GB on a device and
 counts), and the trace seconds of both meshes.  ``skip`` rows (the
-reference's long_500k rule) and ``not_ported`` rows (train_4k) are listed
-as such under the table, and a ``FAIL`` row is printed in place.
+reference's long_500k rule) are listed under the table, and a ``FAIL``
+row is printed in place.
 """
 import argparse
 import json
@@ -38,14 +38,11 @@ def render(rows: list, wall_s=None, host=None) -> str:
            "t_memory s | t_collective s | bottleneck | collectives a "
            "device (16x16) | trace s |",
            "|---|---|---|---|---|---|---|---|---|"]
-    skipped, not_ported = [], []
+    skipped = []
     for (arch, shape), by_mesh in pairs.items():
         one = next(iter(by_mesh.values()))
         if one["status"] == "skip":
             skipped.append(f"{arch} × {shape}")
-            continue
-        if one["status"] == "not_ported":
-            not_ported.append(arch)
             continue
         bad = [r for r in by_mesh.values() if r["status"] != "ok"]
         if bad:
@@ -63,12 +60,8 @@ def render(rows: list, wall_s=None, host=None) -> str:
             f"{single['t_memory_s']:.3g} | {single['t_collective_s']:.3g} | "
             f"{single['bottleneck']} | {_coll(single['coll_detail'])} | "
             f"{trace} |")
-    if not_ported:
-        out.append("")
-        out.append(f"train_4k: `not_ported` for {len(not_ported)} archs "
-                   "(the sharded DASHA trainer under the mesh is ROADMAP "
-                   "queue 1 item 1b).")
     if skipped:
+        out.append("")
         out.append(f"`skip` (the reference's long_500k rule): "
                    f"{', '.join(skipped)}.")
     n_ok = sum(r["status"] == "ok" for r in rows)

@@ -79,6 +79,13 @@ def perm_partition(generator: torch.Generator, d: int, n: int, *,
     return torch.where(c < d, c, torch.full_like(c, PAD))
 
 
+def _permk_shift(generator: torch.Generator, size: int, n: int):
+    """(block, shift) of a PermK ownership map over ``size`` coordinates:
+    one host draw from ``generator``."""
+    blk = -(-size // n)
+    return blk, int(torch.randint(0, n * blk, (), generator=generator))
+
+
 def permk_owner(generator: torch.Generator, shape, n: int, *,
                 device) -> torch.Tensor:
     """PermK ownership map for one leaf of shape ``shape`` (no node axis):
@@ -89,10 +96,30 @@ def permk_owner(generator: torch.Generator, shape, n: int, *,
     size = 1
     for s in shape:
         size *= int(s)
-    blk = -(-size // n)
-    shift = int(torch.randint(0, n * blk, (), generator=generator))
+    blk, shift = _permk_shift(generator, size, n)
     owner = ((torch.arange(size, device=device) + shift) // blk) % n
     return owner.reshape(tuple(shape))
+
+
+def permk_owner_block(generator: torch.Generator, shape, n: int, local,
+                      offsets, *, device) -> torch.Tensor:
+    """The ``local``-shaped block of ``permk_owner(generator, shape, n)``
+    that starts at ``offsets`` (a shard of the leaf), computed from its
+    own coordinates: the same shift, and no full-size map."""
+    size = 1
+    for s in shape:
+        size *= int(s)
+    blk, shift = _permk_shift(generator, size, n)
+    flat = torch.zeros(tuple(local), dtype=torch.int64, device=device)
+    stride = 1
+    for i in reversed(range(len(shape))):
+        view = [1] * len(shape)
+        view[i] = int(local[i])
+        idx = torch.arange(int(offsets[i]), int(offsets[i]) + int(local[i]),
+                           device=device)
+        flat = flat + (idx * stride).reshape(view)
+        stride *= int(shape[i])
+    return ((flat + shift) // blk) % n
 
 
 def indices_to_masks(indices: torch.Tensor, d: int,

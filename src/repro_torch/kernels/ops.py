@@ -14,7 +14,8 @@ A DTensor never reaches a kernel: every entry raises on one.  A sharded
 caller goes through ``torch.distributed.tensor.experimental.local_map``
 with its placements declared, and the entry sees the local shards:
 :func:`ssd_chunk_scan_sharded` runs kernel 5 on the local batch rows and
-heads.
+heads, :func:`dasha_update_sharded` and :func:`dasha_mvr_update_sharded`
+kernels 1 and 3 on this rank's shard of a per-node state leaf.
 """
 from __future__ import annotations
 
@@ -248,3 +249,64 @@ def ssd_chunk_scan_sharded(x, dt, A, b, c, D, chunk: int):
                    in_placements=in_pl, redistribute_inputs=False,
                    device_mesh=x.device_mesh)
     return fn(x, dt, A, b, c, D, chunk)
+
+
+def _state_local_map(fn, state, mask, n_in: int, mask_at: int,
+                     n_other: int):
+    """``fn`` through ``local_map`` for ``n_in`` per-node state DTensors
+    laid out as ``state`` and a mask inserted at ``mask_at``, then
+    ``n_other`` undeclared scalar arguments.  The state arguments and the
+    three outputs are declared with ``state``'s placements, and so is the
+    mask, unless it is one row for every node (``shared_coords``): then
+    with the node axis's mesh dims replicated.  Nothing is moved: an
+    argument laid out otherwise makes ``local_map`` raise."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    pl = tuple(state.placements)
+    mpl = pl
+    if mask.shape[0] == 1 and state.shape[0] != 1:
+        mpl = tuple(Replicate() if p == Shard(0) else p for p in pl)
+    in_pl = [pl] * n_in
+    in_pl.insert(mask_at, mpl)
+    return local_map(fn, out_placements=(pl, pl, pl),
+                     in_placements=tuple(in_pl) + (None,) * n_other,
+                     redistribute_inputs=False,
+                     device_mesh=state.device_mesh)
+
+
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    return t.reshape(t.shape[0], -1)
+
+
+def _sparsify_local(grad, h, g_local, mask, a, scale):
+    """Kernel 1's sparsifier entry on a local (n, *shape) shard as n rows,
+    the mask read row r % its rows; (m, grad, g_new) in the shard's
+    shape."""
+    m, _, g_new = dasha_sparsify_update(_rows(grad), _rows(h),
+                                        _rows(g_local), a, scale,
+                                        mask=_rows(mask))
+    return m.view(grad.shape), grad, g_new.view(grad.shape)
+
+
+def dasha_update_sharded(grad, h, g_local, mask, a, scale):
+    """The DASHA estimator update (kernel 1's sparsifier entry, h_new =
+    grad) on per-node DTensors: through ``local_map``, one launch on this
+    rank's shard.  ``grad``, ``h``, ``g_local`` and ``mask`` must share
+    one layout (a ``shared_coords`` mask is one row, replicated over the
+    node axis); returns (m, h_new, g_local_new) DTensors laid out as
+    ``h``."""
+    fn = _state_local_map(_sparsify_local, h, mask, 3, 3, 2)
+    return fn(grad, h, g_local, mask, a, scale)
+
+
+def dasha_mvr_update_sharded(grad_new, grad_old, h, g_local, mask, a, b,
+                             scale, *, c=None):
+    """:func:`dasha_mvr_update` (kernel 3) on per-node DTensors: through
+    ``local_map``, one launch on this rank's shard.  Both gradients,
+    ``h``, ``g_local`` and ``mask`` must share one layout (a
+    ``shared_coords`` mask is one row, replicated over the node axis);
+    returns (m, h_new, g_local_new) DTensors laid out as ``h``."""
+    def local(gn, go, hh, gl, mk, a_, b_, scale_, c_):
+        return dasha_mvr_update(gn, go, hh, gl, mk, a_, b_, scale_, c=c_)
+    fn = _state_local_map(local, h, mask, 4, 4, 4)
+    return fn(grad_new, grad_old, h, g_local, mask, a, b, scale, c)

@@ -15,7 +15,15 @@ local ops and collectives before it sees them) that also records
   memory_per_device` reads the peak.  Not counted: the global-shape
   ``meta`` stand-ins DTensor's sharding propagation makes, and the outputs
   of the functional collectives' wait / wrap ops, which alias their input
-  on a device.
+  on a device: their input's storage stays counted while they live (on
+  ``meta`` they get storage of their own, which would otherwise let the
+  collective's result go uncounted while the model holds it).
+
+The backward runs under the same mode (the autograd engine carries the
+dispatch modes to its threads), so a traced train step counts its
+backward's collectives and its live bytes: the tensors autograd saves,
+and under ``torch.utils.checkpoint`` the layer inputs it keeps and the
+recomputed activations.
 
 Eager torch runs the model's layer loop as Python, unrolled, so every
 layer's collectives are seen as they are issued: no trip-count walk over
@@ -99,6 +107,12 @@ class CallTrace(CommDebugMode):
         self.peak_bytes = 0
         self.arg_bytes = 0
         self._arg_keys: set = set()
+        # an aliasing op's output storage -> the storage it aliases, held
+        # while the output lives
+        self._held: Dict[int, Any] = {}
+        #: every collective as (kind, process group name, output shape,
+        #: dtype), in issue order
+        self.calls: list = []
 
     # -- memory ------------------------------------------------------------
     def _free(self, key: int) -> None:
@@ -115,6 +129,17 @@ class CallTrace(CommDebugMode):
             self.peak_bytes = max(self.peak_bytes, self.live_bytes)
             weakref.finalize(st, self._free, key)
         return key
+
+    def _alias(self, out: torch.Tensor, src: torch.Tensor) -> None:
+        """``out`` aliases ``src`` on a device (``meta`` gives it storage
+        of its own): keep ``src``'s storage counted while ``out``'s
+        lives, and count ``out``'s nothing."""
+        st_out, st_in = out.untyped_storage(), src.untyped_storage()
+        key = id(st_out)
+        if key == id(st_in) or key in self._held:
+            return
+        self._held[key] = st_in
+        weakref.finalize(st_out, self._held.pop, key, None)
 
     def _locals(self, tree: Any):
         from torch.distributed.tensor import DTensor
@@ -153,16 +178,29 @@ class CallTrace(CommDebugMode):
         if out is NotImplemented:
             return out
         kind = collective_kind(func)
-        track = not func.name().startswith(_ALIASING) \
-            and not _in_propagation()
+        aliasing = func.name().startswith(_ALIASING)
+        track = not aliasing and not _in_propagation()
+        src = next((a for a in tree_leaves(args)
+                    if isinstance(a, torch.Tensor)), None) if aliasing \
+            else None
         for t in tree_leaves(out):
             if isinstance(t, torch.Tensor):
                 if kind is not None:
                     self.coll_bytes[kind] += _nbytes(t)
                 if track:
                     self._track(t)
+                elif src is not None:
+                    self._alias(t, src)
         if kind is not None:
             self.coll_count[kind] += 1
+            # the functional collectives take the group's name last
+            names = [a for a in tree_leaves((args, kwargs or {}))
+                     if isinstance(a, str)]
+            group = names[-1] if names else None
+            for t in tree_leaves(out):
+                if isinstance(t, torch.Tensor):
+                    self.calls.append((kind, group, tuple(t.shape),
+                                       t.dtype))
         return out
 
     def collectives(self) -> Dict[str, int]:

@@ -20,11 +20,17 @@ trace's memory per device and its collectives by kind.  ``trace_s`` takes
 the place of the reference's ``compile_s``; ``hlo_raw_gflops`` is None (no
 compiler cost analysis exists here).
 
-Success criterion: every serving pair traces on both meshes (``ok``), or is
+The train_4k pairs trace the sharded DASHA train step
+(:func:`repro_torch.launch.specs.train_spec`: each rank its own node's
+forward and backward under ``remat``, tensor-parallel over "model", the
+estimator update on its local shards, the aggregate reduced over the data
+axes); their rows carry the reference's train analytics (``model_flops``
+6 x active params x tokens) and a ``peak_gb`` that covers the whole step,
+the backward's saved tensors and recompute included.
+
+Success criterion: every pair traces on both meshes (``ok``), or is
 skipped under the reference's rule (``long_500k`` only for the
-sub-quadratic families).  The train_4k pairs are ``not_ported``: the
-sharded DASHA trainer under the mesh is ROADMAP queue 1 item 1b.  The exit
-code is 1 if any row is ``FAIL``.
+sub-quadratic families).  The exit code is 1 if any row is ``FAIL``.
 
 A process group is global to its process, so the CLI runs in its own
 process; each pair makes the mesh and destroys its group after.
@@ -45,10 +51,6 @@ from repro_torch.configs import all_arch_ids, get_config
 from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.launch.specs import SHAPES, input_specs, shape_supported
 from repro_torch.optim.distributed import DashaTrainConfig
-
-NOT_PORTED_WHY = ("the sharded DASHA trainer under the mesh is ROADMAP "
-                  "queue 1 item 1b (next)")
-
 
 def tree_bytes(tree) -> float:
     from repro_torch.models.sharding import leaves_with_path
@@ -89,9 +91,6 @@ def dryrun_one(arch: str, shape: str, *, multi_pod: bool = False,
     ok, why = shape_supported(cfg, shape)
     if not ok:
         return {"arch": arch, "shape": shape, "status": "skip", "why": why}
-    if SHAPES[shape]["kind"] == "train":
-        return {"arch": arch, "shape": shape, "status": "not_ported",
-                "why": NOT_PORTED_WHY}
 
     from repro_torch.launch import analytic
     from repro_torch.launch.mesh import enter_mesh, make_production_mesh
@@ -118,7 +117,15 @@ def dryrun_one(arch: str, shape: str, *, multi_pod: bool = False,
     kind = spec.static.get("kind")
     tokens = spec.static.get("tokens", 0)
     info = SHAPES[shape]
-    if kind == "prefill":
+    if kind == "train":
+        state = spec.args[0]
+        ana = analytic.train_analytics(
+            cfg, seq=info["seq"], global_batch=info["global_batch"],
+            n_active=n_active, params_bytes=tree_bytes(state.params),
+            state_bytes=(tree_bytes(state.h_local)
+                         + tree_bytes(state.g_local) + tree_bytes(state.g)),
+            state_itemsize=4)
+    elif kind == "prefill":
         ana = analytic.prefill_analytics(
             cfg, seq=info["seq"], global_batch=info["global_batch"],
             n_active=n_active, params_bytes=tree_bytes(spec.args[0]))
@@ -128,7 +135,7 @@ def dryrun_one(arch: str, shape: str, *, multi_pod: bool = False,
             n_active=n_active, params_bytes=tree_bytes(spec.args[0]),
             cache_bytes=tree_bytes(spec.args[1]))
 
-    model_flops = 2.0 * n_active * tokens
+    model_flops = (6.0 if kind == "train" else 2.0) * n_active * tokens
     coll = float(sum(v for k, v in det.items() if not k.endswith("_count")))
     rl = Roofline(flops=ana["flops"], hbm_bytes=ana["hbm_bytes"],
                   coll_bytes=coll, chips=chips, coll_detail=det,
@@ -206,20 +213,17 @@ def main(argv=None) -> int:
                     failures += 1
                     print(f"[dryrun] FAIL {arch} x {shape}: {row['error']}",
                           file=sys.stderr)
-                elif row["status"] in ("skip", "not_ported"):
-                    print(f"[dryrun] {row['status']} {arch} x {shape}: "
-                          f"{row['why']}")
+                elif row["status"] == "skip":
+                    print(f"[dryrun] skip {arch} x {shape}: {row['why']}")
 
     wall = time.perf_counter() - t0
     if args.json:
         with open(args.json, "w") as f:
             json.dump(rows, f, indent=1, default=str)
         print(f"[dryrun] wrote {len(rows)} rows to {args.json}")
-    count = {s: sum(r["status"] == s for r in rows)
-             for s in ("ok", "skip", "not_ported")}
+    count = {s: sum(r["status"] == s for r in rows) for s in ("ok", "skip")}
     print(f"[dryrun] {count['ok']} ok / {count['skip']} skip / "
-          f"{count['not_ported']} not_ported / {failures} FAIL "
-          f"in {wall:.1f} s")
+          f"{failures} FAIL in {wall:.1f} s")
     return 1 if failures else 0
 
 

@@ -102,6 +102,13 @@ def _expert_axis(cfg: ArchConfig, mesh) -> Optional[str]:
 
 def train_spec(cfg: ArchConfig, mesh, *, seq: int, global_batch: int,
                dasha: Optional[DashaTrainConfig] = None) -> LoweredSpec:
+    """The sharded DASHA train step, as the reference's: n = the data
+    ranks' count nodes (the node axis over the data axes), each node's
+    loss under ``remat`` and ``seq_shard``, each node's gradient pinned to
+    the parameters' specs (``grad_specs``), params, g and the server
+    optimizer's moments laid out by the FSDP specs when ``dasha.fsdp``.
+    On DTensors each rank computes its own node's rounds only
+    (:mod:`repro_torch.optim.distributed`)."""
     n = dp_size(mesh)
     dasha = dasha or DashaTrainConfig(gamma=0.01, compression=1 / 32,
                                       n_nodes=n)
@@ -121,14 +128,14 @@ def train_spec(cfg: ArchConfig, mesh, *, seq: int, global_batch: int,
 
     def node_loss(p, b):
         with expert_sharding(exp_axis):
-            return lm.loss_fn(cfg, p, b, seq_shard=seq_axis)[0]
+            return lm.loss_fn(cfg, p, b, seq_shard=seq_axis, remat=True)[0]
 
     # FSDP specs for params / g / opt; plain specs for the per-node state
     # (the node axis already occupies the data axes there)
     p_specs = param_specs(cfg, params_s, mesh)
     p_specs_f = param_specs(cfg, params_s, mesh, fsdp=dasha.fsdp)
 
-    step = make_train_step(dasha, node_loss)
+    step = make_train_step(dasha, node_loss, grad_specs=p_specs)
 
     def node_specs(specs):
         return map_with_path(lambda _, s: P(dp, *tuple(s)), specs,

@@ -29,7 +29,7 @@ Randomness reaches a substrate as the round's
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,7 +41,7 @@ from repro_torch.compress.backends import (RoundCompressor,
                                            estimator_update_with_plan)
 from repro_torch.compress.spec import omega_participation
 from repro_torch.compress.treelevel import (bernoulli_compress,
-                                            fused_leaf_updates,
+                                            fused_leaf_updates, node_mean,
                                             permk_compress)
 from repro_torch.core import rng, tree
 from repro_torch.core.oracles import _lanes_inside
@@ -587,6 +587,27 @@ class LaneSampledFlatSubstrate(SampledFlatSubstrate):
 # tree oracle
 # ---------------------------------------------------------------------------
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _node_rows(data, node_dims):
+    """This rank's rows of a batch tree's node axis: each DTensor leaf's
+    local shard, its node axis on the node dims of its mesh."""
+    from torch.distributed.tensor import Shard
+
+    def one(x):
+        if not _is_dtensor(x) or any(x.placements[j] != Shard(0)
+                                     for j in node_dims):
+            raise ValueError("a sharded step's batch leaves must be "
+                             "DTensors with their node axis on the node "
+                             f"axes, got {type(x).__name__} "
+                             f"{getattr(x, 'placements', '')}")
+        return x.to_local()
+    return tree.map_leaves(one, data)
+
+
 @dataclasses.dataclass(frozen=True)
 class BatchLossOracle:
     """Per-node gradients of ``loss_fn(params, node_batch)`` (training).
@@ -603,13 +624,35 @@ class BatchLossOracle:
     carry a leading (G,) lane axis, and lane j's gradients on every node's
     batch fill row (j, i) of one (G, n, *shape) buffer per leaf; the lanes
     share the round's batch.
+
+    On a mesh (DTensor parameters) the node axis lies on ``spmd_axes``
+    (the reference's vmap ``spmd_axis_name``) and each rank computes only
+    its own nodes' gradients, on its shard of the batch's node axis:
+
+    * each parameter is laid out by its ``grad_specs`` entry (a spec with
+      no node axes; by default its own layout with the node axes
+      replicated) outside autograd, so an FSDP leaf is gathered over the
+      data axes once, forward and backward see no data-axis traffic, and
+      no gradient is reduced over the nodes;
+    * the loss runs on the mesh's other axes (the "model" sub-mesh),
+      tensor-parallel, on the rank's node rows;
+    * the gradient of each leaf comes back as the local shard of its
+      ``grad_specs`` layout (a partial sum over "model" is reduced there)
+      and fills this rank's rows of an (n, *shape) DTensor laid out by
+      ``P(spmd_axes, *grad_spec)``.  No rank builds another node's rows.
     """
 
     loss_fn: Callable[[Any, Any], torch.Tensor]
     state_dtype: torch.dtype = torch.float32
+    spmd_axes: Optional[Tuple[str, ...]] = None
+    grad_specs: Any = None
 
     def per_node_grads(self, params, data, lanes: int = 0):
         paths, leaves = zip(*tree.items(params))
+        if _is_dtensor(leaves[0]):
+            if lanes:
+                raise ValueError("a sweep's lanes have no sharded form")
+            return self._sharded_grads(paths, leaves, data)
         n = tree.leaves(data)[0].shape[0]
         lead = (lanes, n) if lanes else (n,)
         out = [torch.empty(lead + tuple(p.shape[1 if lanes else 0:]),
@@ -627,6 +670,74 @@ class BatchLossOracle:
                 for buf, g in zip(out, grads):
                     (buf[j, i] if lanes else buf[i]).copy_(g)
         return tree.from_items(zip(paths, out))
+
+    def _sharded_grads(self, paths, leaves, data):
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        from repro_torch.models import sharding as sh
+        mesh = leaves[0].device_mesh
+        if not self.spmd_axes:
+            raise ValueError("DTensor parameters need spmd_axes, the mesh "
+                             "axes of the node axis")
+        names = list(mesh.mesh_dim_names)
+        node_dims = sorted(names.index(a) for a in self.spmd_axes)
+        rest = tuple(a for a in names if names.index(a) not in node_dims)
+        sub = mesh[rest] if rest else None
+        n_ranks = 1
+        for j in node_dims:
+            n_ranks *= mesh.size(j)
+
+        def layout(path, p):
+            if self.grad_specs is not None:
+                pl = sh.to_placements(tree.get(self.grad_specs, path), mesh)
+            else:
+                pl = [Replicate() if j in node_dims else q
+                      for j, q in enumerate(p.placements)]
+            if any(not isinstance(pl[j], Replicate) for j in node_dims):
+                raise ValueError(f"the gradient spec of {path!r} shards "
+                                 f"over a node axis {self.spmd_axes}")
+            return pl
+
+        pls = [layout(path, p) for path, p in zip(paths, leaves)]
+        # the FSDP gather, outside autograd: a parameter leaf is the same
+        # on every node, so no gradient flows back over the data axes
+        locs = [p.detach().redistribute(mesh, pl).to_local()
+                for p, pl in zip(leaves, pls)]
+        subs = [[q for j, q in enumerate(pl) if j not in node_dims]
+                for pl in pls]
+        rows = _node_rows(data, node_dims)
+        n_local = tree.leaves(rows)[0].shape[0]
+        n = n_local * n_ranks
+        out = [torch.empty((n_local,) + tuple(x.shape),
+                           dtype=self.state_dtype, device=x.device)
+               for x in locs]
+        for i in range(n_local):
+            ps = [t.detach().requires_grad_(True) for t in locs]
+            node_batch = tree.map_leaves(
+                lambda x: x[i] if sub is None else DTensor.from_local(
+                    x[i], sub, [Replicate()] * sub.ndim, run_check=False),
+                rows)
+            with torch.enable_grad():
+                args = ps if sub is None else [
+                    DTensor.from_local(x, sub, spl, run_check=False,
+                                       shape=p.shape, stride=p.stride())
+                    for x, spl, p in zip(ps, subs, leaves)]
+                loss = self.loss_fn(tree.from_items(zip(paths, args)),
+                                    node_batch)
+                if _is_dtensor(loss):
+                    loss = loss.full_tensor()
+                grads = torch.autograd.grad(loss, ps)
+            for buf, g in zip(out, grads):
+                buf[i].copy_(g)
+        res = []
+        for buf, pl, p in zip(out, pls, leaves):
+            npl = [Shard(0) if j in node_dims else
+                   (Shard(q.dim + 1) if isinstance(q, Shard) else q)
+                   for j, q in enumerate(pl)]
+            shape = (n,) + tuple(p.shape)
+            res.append(DTensor.from_local(buf, mesh, npl, run_check=False,
+                                          shape=torch.Size(shape),
+                                          stride=sh._contiguous(shape)))
+        return tree.from_items(zip(paths, res))
 
     def grad(self, rnd, x, data, size: int = 1, lanes: int = 0):
         return self.per_node_grads(x, data, lanes)
@@ -722,12 +833,17 @@ def _leaf_size(leaf, lanes: bool = False) -> float:
 @dataclasses.dataclass(frozen=True)
 class TreeCompression:
     """Tree-native compression: the trainer's mode knob over
-    :mod:`repro_torch.compress.treelevel` (fused-capable)."""
+    :mod:`repro_torch.compress.treelevel` (fused-capable).  ``specs`` lays
+    a DTensor state's masks out as its leaves (each rank draws its shard;
+    the fused path runs on the local shards through ``local_map``); the
+    aggregate is then a DTensor mean over the node axis, the one
+    reduction over the data axes."""
 
     mode: str = "independent"     # independent | shared_coords | permk
     p: float = 1.0                # Bernoulli-RandP keep probability
     n: int = 1
     use_kernel: bool = False
+    specs: Any = None             # per-node specs P(spmd_axes, *spec)
 
     @property
     def static_frac(self) -> float:
@@ -762,14 +878,16 @@ class TreeCompression:
                 leaves = fused_leaf_updates(
                     rnd, fusion.grads_new, h, g_local, mode=self.mode, a=a,
                     p=self.p, n=self.n, variant="mvr", b=b,
-                    grads_old=fusion.grads_old, lanes=lanes, c=c)
+                    grads_old=fusion.grads_old, lanes=lanes, c=c,
+                    specs=self.specs)
             else:
                 leaves = fused_leaf_updates(
                     rnd, h_new, h, g_local, mode=self.mode, a=a, p=self.p,
-                    n=self.n, variant="dasha", lanes=lanes)
+                    n=self.n, variant="dasha", lanes=lanes,
+                    specs=self.specs)
             aggs, h_outs, gls = [], [], []
             for path, m, hn, gl in leaves:
-                aggs.append((path, torch.mean(m.to(f32), node_axis)))
+                aggs.append((path, node_mean(m, node_axis)))
                 h_outs.append((path, hn))
                 gls.append((path, gl))
                 if fusion is not None:
@@ -781,13 +899,13 @@ class TreeCompression:
         delta = tree.map_leaves(lambda hn, hh, gl_: hn - hh - a * (gl_ - hh),
                                 h_new, h, g_local)
         if self.mode == "permk":
-            m, agg = permk_compress(rnd, delta, self.n, lanes=lanes)
+            m, agg = permk_compress(rnd, delta, self.n, lanes=lanes,
+                                    specs=self.specs)
         else:
             m = bernoulli_compress(rnd, delta, self.p,
                                    shared=self.mode == "shared_coords",
-                                   lanes=lanes)
-            agg = tree.map_leaves(
-                lambda mm: torch.mean(mm.to(f32), node_axis), m)
+                                   lanes=lanes, specs=self.specs)
+            agg = tree.map_leaves(lambda mm: node_mean(mm, node_axis), m)
         gl_new = tree.map_leaves(torch.add, g_local, m)
         return agg, h_new, gl_new, self.payload_per_node(h_new, lanes)
 
@@ -942,8 +1060,7 @@ class TreeSubstrate:
             *trees)
 
     def mean_nodes(self, per_node):
-        return tree.map_leaves(lambda h: torch.mean(h.to(torch.float32), 0),
-                               per_node)
+        return tree.map_leaves(node_mean, per_node)
 
     def add_server(self, g, agg):
         return tree.map_leaves(torch.add, g, agg)

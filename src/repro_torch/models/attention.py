@@ -20,9 +20,14 @@ in the reference's order of casts:
   product.
 
 No (S, T) logits matrix exists on the streaming path: one (B, G, R,
-QBLOCK, KBLOCK) block at a time.  (The reference rematerialises each block
-in its backward pass; the port's autograd keeps each block's
-probabilities, which changes memory, not the numbers.)  The reference
+QBLOCK, KBLOCK) block at a time.  The reference rematerialises each block
+in its backward pass; inside :func:`remat_rows` (which ``lm``'s
+``remat=True`` sets in each checkpointed body) and where autograd
+records, the port checkpoints each query block's row of key blocks
+(``torch.utils.checkpoint``), so the backward keeps one row's
+probabilities at a time and recomputes them from the row's inputs, the
+same floats (a trainer's memory, not its numbers).  Outside it autograd
+keeps every block's probabilities.  The reference
 scans every key block; the port skips the blocks whose every key the mask
 hides from the query block (causally later, or past the window), which
 leaves the carry exactly as it was: such a block adds p = 0 and rescales
@@ -42,7 +47,9 @@ transient at one block's and leaves every row's sums as they were.
 """
 from __future__ import annotations
 
+import contextvars
 import functools
+from contextlib import contextmanager
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -180,8 +187,11 @@ def _on_local_heads(core, heads, shared, k_pos: Optional[torch.Tensor]):
     over the data axes where it divides; heads over "model" where G
     divides (H then does too, in whole groups), or where only H divides,
     the keys and values repeated to H heads first (each query head beside
-    its group's K/V); otherwise every rank holds every head.  Returns the
-    core's (B,S,H,hd') output as a DTensor laid out as the queries are."""
+    its group's K/V); otherwise the batch rows over "model" as well where
+    they divide (a row's attention is its own: the rank computes every
+    head of its rows, not every head of every row), or every rank holds
+    every head of its rows.  Returns the core's (B,S,H,hd') output as a
+    DTensor laid out as the queries are."""
     from repro_torch.models import sharding as sh
     q = heads[0]
     mesh = q.device_mesh
@@ -197,15 +207,14 @@ def _on_local_heads(core, heads, shared, k_pos: Optional[torch.Tensor]):
               for t in kv]
     else:
         h_ax = None
+        if tp > 1 and B % (sh.dp_size(mesh) * tp) == 0:
+            b_ax = tuple(b_ax or ()) + ("model",)
     head_spec, shared_spec = (b_ax, None, h_ax, None), (b_ax, None, None)
     args = [sh.constrain(t, head_spec, mesh) for t in [q] + kv] + \
         [sh.constrain(t, shared_spec, mesh) for t in shared] + \
         ([] if k_pos is None else [sh.constrain(k_pos, (None,), mesh)])
-    from torch.distributed.tensor.experimental import local_map
-    fn = local_map(core,
-                   out_placements=(tuple(sh.to_placements(head_spec, mesh)),),
-                   in_placements=tuple(tuple(a.placements) for a in args),
-                   redistribute_inputs=False, device_mesh=mesh)
+    fn = sh.local_map(core, (tuple(sh.to_placements(head_spec, mesh)),),
+                      tuple(tuple(a.placements) for a in args), mesh)
     return fn(*args)
 
 
@@ -221,35 +230,78 @@ def _gqa_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if S < QBLOCK_THRESHOLD or S % QBLOCK != 0 or S % KBLOCK != 0:
         out = _sdpa(q, k, v, k_pos, k_pos, window, cap, scale)
     else:
-        visible = _stream_rows(q, _visible_blocks(S, window))
+        remat = _records(q)
+        visible = _stream_rows(q, _visible_blocks(S, window), remat)
         out = _cat_rows([
-            _flash_sdpa(q[:, i * QBLOCK:(i + 1) * QBLOCK], k, v,
-                        k_pos[i * QBLOCK:(i + 1) * QBLOCK], k_pos, window,
-                        cap, scale, blocks=row)
+            _row(remat, functools.partial(_flash_sdpa, window=window,
+                                          cap=cap, scale=scale, blocks=row),
+                 q[:, i * QBLOCK:(i + 1) * QBLOCK], k, v,
+                 k_pos[i * QBLOCK:(i + 1) * QBLOCK], k_pos)
             if row is not None else None
             for i, row in enumerate(visible)])
     return out.reshape(B, S, H, hd)
 
 
-def _stream_rows(q: torch.Tensor, visible: list) -> list:
+_REMAT_ROWS: "contextvars.ContextVar" = contextvars.ContextVar(
+    "attention_remat_rows", default=False)
+
+
+@contextmanager
+def remat_rows():
+    """Checkpoint the streaming loop's rows where autograd records (the
+    switch ``lm``'s ``remat=True`` sets inside each checkpointed body, so
+    the backward's recompute sets it too)."""
+    tok = _REMAT_ROWS.set(True)
+    try:
+        yield
+    finally:
+        _REMAT_ROWS.reset(tok)
+
+
+def _records(q: torch.Tensor) -> bool:
+    """True inside :func:`remat_rows` where autograd records the
+    attention (a train step under ``remat``)."""
+    return _REMAT_ROWS.get() and torch.is_grad_enabled() and q.requires_grad
+
+
+def _row(remat: bool, fn, *args):
+    """One query block's row of the streaming loop, ``fn(*args)``; with
+    ``remat`` under ``torch.utils.checkpoint``: its blocks' temporaries
+    are not kept for the backward, which recomputes them."""
+    if not remat:
+        return fn(*args)
+    from torch.utils.checkpoint import checkpoint
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _stream_rows(q: torch.Tensor, visible: list, remat: bool) -> list:
     """The streaming loop's rows of visible key blocks.  On ``meta`` (a dry
-    run's trace: shapes, no values) the first query block keeps one key
-    block and the others none (None): a block's temporaries have the same
-    shapes whichever block it is, so the live-bytes peak is the same, and
-    the trace stays a few ops a layer where every block would be
-    thousands, each a Python-level meta op."""
+    run's trace: shapes, no values) the trace keeps a few ops a layer
+    where every block would be thousands, each a Python-level meta op,
+    and the live-bytes peak stays what every block gives: without
+    ``remat``, the first query block keeps one key block and the
+    others none (None), as a block's temporaries have the same shapes
+    whichever block it is and are freed with it (a forward's count);
+    with ``remat`` (each row checkpointed, its temporaries alive only while
+    the backward recomputes that row, one row at a time), the row with
+    the most visible blocks keeps them all, which is the most the
+    backward holds at once, and the others none."""
     if q.device.type != "meta":
         return visible
+    if remat:
+        top = max(range(len(visible)), key=lambda i: sum(visible[i]))
+        return [row if i == top else None for i, row in enumerate(visible)]
     return [[j == 0 for j in range(len(visible[0]))]] + \
         [None] * (len(visible) - 1)
 
 
 def _cat_rows(outs: list) -> torch.Tensor:
     """Query blocks' outputs joined on the sequence dim, a block that
-    :func:`_stream_rows` left out (None) as an empty block of the first's
-    shape."""
-    first = outs[0]
-    return torch.cat([o if o is not None else torch.empty_like(first)
+    :func:`_stream_rows` left out (None) as an empty block of a computed
+    one's shape."""
+    like = next(o for o in outs if o is not None)
+    return torch.cat([o if o is not None else torch.empty_like(like)
                       for o in outs], 1)
 
 
@@ -406,12 +458,13 @@ def _mla_core(q_nope: torch.Tensor, q_rope: torch.Tensor,
         logits = _masked(_causal_window_mask(k_pos, k_pos, 0), logits)
         probs = torch.softmax(logits, -1).to(q_nope.dtype)
         return _einsum("bhst,bthk->bshk", probs, v)
-    visible = _stream_rows(q_nope, _visible_blocks(S, 0))
+    remat = _records(q_nope)
+    visible = _stream_rows(q_nope, _visible_blocks(S, 0), remat)
     return _cat_rows([
-        _mla_flash(q_nope[:, i * QBLOCK:(i + 1) * QBLOCK],
-                   q_rope[:, i * QBLOCK:(i + 1) * QBLOCK], k_nope,
-                   k_rope, v, k_pos[i * QBLOCK:(i + 1) * QBLOCK], k_pos,
-                   scale, blocks=row)
+        _row(remat, functools.partial(_mla_flash, scale=scale, blocks=row),
+             q_nope[:, i * QBLOCK:(i + 1) * QBLOCK],
+             q_rope[:, i * QBLOCK:(i + 1) * QBLOCK], k_nope, k_rope, v,
+             k_pos[i * QBLOCK:(i + 1) * QBLOCK], k_pos)
         if row is not None else None
         for i, row in enumerate(visible)])
 

@@ -10,18 +10,27 @@ states after every layer): the training / prefill forward and loss, and
 the serving cache and decode step.
 
     forward(cfg, params, tokens, image_embeds=None, frames=None,
-            last_only=False, seq_shard=None) -> (logits, aux)
-    loss_fn(cfg, params, batch, seq_shard=None) -> (scalar, metrics)
+            last_only=False, seq_shard=None, remat=False) -> (logits, aux)
+    loss_fn(cfg, params, batch, seq_shard=None, remat=False)
+            -> (scalar, metrics)
     init_cache(cfg, batch, seq, image_kv=None, enc_kv=None, device=...)
     make_image_kv(cfg, params, image_embeds) / make_enc_kv(cfg, params,
                   frames) -> the cross K/V of every cross block
     decode_step(cfg, params, cache, token, t) -> (logits (B,V), cache)
 
 The reference scans the stacked layers under ``jax.checkpoint``; the port
-loops over them and keeps every activation for the backward pass (no
-rematerialisation, so no ``remat`` argument: it would change memory, not
-the numbers).  Each stacked leaf is ``unbind``-ed once, so its gradient is
-assembled by one stack rather than one full-size scatter per layer; the
+loops over them, and with ``remat=True`` runs each scanned body (a layer,
+with its cross or shared block; one of gemma3's groups; an encoder layer)
+under ``torch.utils.checkpoint``: the backward keeps only each body's
+input and recomputes the rest, the same floats in the same order, so the
+gradients are those of ``remat=False`` bit for bit.  Inside such a body
+the streaming attention also checkpoints each query block's row
+(:func:`attention.remat_rows`), as the reference's blocks remat.  The
+default is ``remat=False`` (every activation kept); the sharded trainer's loss
+(:func:`repro_torch.launch.specs.train_spec`) sets it, as the
+reference's train path does.  Each stacked leaf is ``unbind``-ed once,
+so its gradient is assembled by one stack rather than one full-size
+scatter per layer; the
 hybrid family's shared block is one tree used at every one of its
 positions, so autograd sums its gradient over the uses.  The decode step
 updates the stacked cache in place, layer by layer: the SSM family's conv
@@ -41,6 +50,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import attention as attn_lib
@@ -84,7 +94,6 @@ def _vocab_parallel_embed(table: torch.Tensor,
     vocabulary (Megatron's vocab-parallel embedding; DTensor's own rule
     for a row-split gather is missing in some torch releases)."""
     from torch.distributed.tensor import Partial, Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
     mesh = table.device_mesh
     vocab = [i for i, p in enumerate(table.placements) if p == Shard(0)]
     table = table.redistribute(mesh, [Shard(0) if i in vocab else
@@ -100,11 +109,10 @@ def _vocab_parallel_embed(table: torch.Tensor,
     ids = ids.redistribute(mesh, list(table.placements))
     out = tuple(Partial() if i in vocab else p
                 for i, p in enumerate(tokens.placements))
-    fn = local_map(_lookup, out_placements=(out,),
-                   in_placements=(tuple(ids.placements),
-                                  tuple(table.placements),
-                                  tuple(tokens.placements)),
-                   redistribute_inputs=False, device_mesh=mesh)
+    fn = sharding.local_map(_lookup, (out,), (tuple(ids.placements),
+                                              tuple(table.placements),
+                                              tuple(tokens.placements)),
+                            mesh)
     return fn(ids, table, tokens)
 
 
@@ -155,15 +163,22 @@ def _cross_slot(cfg: ArchConfig, idx: int) -> Optional[int]:
 
 
 def _encoder_forward(cfg: ArchConfig, params: Dict,
-                     frames: torch.Tensor) -> torch.Tensor:
+                     frames: torch.Tensor, *, remat: bool = False
+                     ) -> torch.Tensor:
     """The whisper encoder over the (stubbed) frame embeddings (B,F,d):
     the transformer block with RoPE positions and the causal mask, as the
-    reference's encoder runs it, then ``enc_norm``."""
+    reference's encoder runs it, then ``enc_norm``; ``remat`` checkpoints
+    each layer."""
     B, F, _ = frames.shape
     pos = _positions(B, F, frames.device)
+
+    def body(h, lp):
+        return block_prefill(lp, h, pos, cfg)[0]
+
+    body = _maybe_remat(body, remat)
     x = frames
     for lp in _per_layer(params["enc_layers"], cfg.num_encoder_layers):
-        x, _ = block_prefill(lp, x, pos, cfg)
+        x = body(x, lp)
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -173,11 +188,33 @@ def _require(value, what: str, cfg: ArchConfig):
     return value
 
 
+def _maybe_remat(fn, remat: bool):
+    """``fn`` itself, or ``fn`` whose activations the backward recomputes
+    from its inputs (the reference's ``jax.checkpoint`` of a scanned
+    body).  Nothing in a body draws random numbers, so no RNG state is
+    kept; the expert axis (:func:`sharding.expert_sharding`) the forward
+    ran under is set again for the recompute, which runs in the
+    backward."""
+    if not remat:
+        return fn
+
+    def run(*args):
+        axis = sharding.expert_axis()
+
+        def body(*a):
+            with sharding.expert_sharding(axis), attn_lib.remat_rows():
+                return fn(*a)
+        return checkpoint(body, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return run
+
+
 def forward(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
             image_embeds: Optional[torch.Tensor] = None,
             frames: Optional[torch.Tensor] = None,
             last_only: bool = False,
-            seq_shard: Optional[str] = None
+            seq_shard: Optional[str] = None,
+            remat: bool = False
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (B,S,V_padded), aux_loss scalar).  The ``vlm``
     family needs ``image_embeds`` (B,T_img,d), the ``audio`` family
@@ -185,7 +222,8 @@ def forward(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
     final position BEFORE the vocab projection (serving prefill: no
     (B,S,V) logits).  ``seq_shard`` names the mesh axis the residual
     stream's sequence dim lies on between blocks (Megatron-SP;
-    :func:`sharding.residual`)."""
+    :func:`sharding.residual`).  ``remat`` checkpoints each scanned body
+    (module docstring)."""
     require_ported(cfg)
     B, S = tokens.shape
     # the residual stream's layout between blocks on DTensors (the
@@ -194,55 +232,82 @@ def forward(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
     sc = functools.partial(sharding.residual, seq_axis=seq_shard)
     x = sc(_embed(cfg, params, tokens))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    pos = _positions(B, S, x.device)
     if cfg.arch_type == "vlm":
         image_embeds = _require(image_embeds, "image_embeds", cfg)
-        pos = _positions(B, S, x.device)
         cross = _per_layer(params["cross_layers"],
                            cfg.num_layers // cfg.cross_attn_every)
+
+        def body(h, lp, cp):
+            h, a = block_prefill(lp, sc(h), pos, cfg)
+            if cp is not None:
+                h = cross_block(cp, h, image_embeds, cfg)
+            return h, a
+
+        body = _maybe_remat(body, remat)
         for idx, lp in enumerate(_per_layer(params["layers"],
                                             cfg.num_layers)):
-            x, a = block_prefill(lp, sc(x), pos, cfg)
-            aux = aux + a
             slot = _cross_slot(cfg, idx)
-            if slot is not None:
-                x = cross_block(cross[slot], x, image_embeds, cfg)
+            x, a = body(x, lp, None if slot is None else cross[slot])
+            aux = aux + a
     elif cfg.arch_type == "audio":
-        enc = _encoder_forward(cfg, params, _require(frames, "frames", cfg))
-        pos = _positions(B, S, x.device)
+        # remat passed only when set: the 3-argument form stays the one a
+        # plain forward calls
+        enc = _encoder_forward(cfg, params, _require(frames, "frames", cfg),
+                               **({"remat": True} if remat else {}))
+
+        def body(h, lp, cp):
+            h, a = block_prefill(lp, sc(h), pos, cfg)
+            return cross_block(cp, h, enc, cfg), a
+
+        body = _maybe_remat(body, remat)
         for lp, cp in zip(_per_layer(params["layers"], cfg.num_layers),
                           _per_layer(params["cross_layers"],
                                      cfg.num_layers)):
-            x, a = block_prefill(lp, sc(x), pos, cfg)
+            x, a = body(x, lp, cp)
             aux = aux + a
-            x = cross_block(cp, x, enc, cfg)
     elif cfg.arch_type == "ssm":
+        def body(h, lp):
+            return mamba_block_prefill(lp, sc(h), cfg)
+
+        body = _maybe_remat(body, remat)
         for lp in _per_layer(params["layers"], cfg.num_layers):
-            x = mamba_block_prefill(lp, sc(x), cfg)
+            x = body(x, lp)
     elif cfg.arch_type == "hybrid":   # the shared block: full attention
-        pos = _positions(B, S, x.device)
+        def body(h, lp, shared: bool):
+            h = sc(h)
+            if shared:
+                h, _ = block_prefill(params["shared_attn"], h, pos, cfg)
+            return mamba_block_prefill(lp, h, cfg)
+
+        body = _maybe_remat(body, remat)
         for idx, lp in enumerate(_per_layer(params["layers"],
                                             cfg.num_layers)):
-            x = sc(x)
-            if _hybrid_slot(cfg, idx) is not None:
-                x, _ = block_prefill(params["shared_attn"], x, pos, cfg)
-            x = mamba_block_prefill(lp, x, cfg)
+            x = body(x, lp, _hybrid_slot(cfg, idx) is not None)
     elif cfg.global_every:      # gemma3: groups of local layers + 1 global
-        pos = _positions(B, S, x.device)
-        for local, glob in _groups(cfg, params["local_layers"],
-                                   params["global_layers"]):
-            a1 = torch.zeros((), dtype=torch.float32, device=x.device)
-            x = sc(x)
+        def group(h, local, glob):
+            a1 = torch.zeros((), dtype=torch.float32, device=h.device)
+            h = sc(h)
             for lp in local:
-                x, a = block_prefill(lp, sc(x), pos, cfg,
+                h, a = block_prefill(lp, sc(h), pos, cfg,
                                      window=cfg.sliding_window)
                 a1 = a1 + a
-            x, a2 = block_prefill(glob, x, pos, cfg, window=0)
-            aux = aux + (a1 + a2)
+            h, a2 = block_prefill(glob, h, pos, cfg, window=0)
+            return h, a1 + a2
+
+        group = _maybe_remat(group, remat)
+        for local, glob in _groups(cfg, params["local_layers"],
+                                   params["global_layers"]):
+            x, a = group(x, local, glob)
+            aux = aux + a
     else:                       # the homogeneous stack (uniform window)
-        pos = _positions(B, S, x.device)
-        for lp in _per_layer(params["layers"], cfg.num_layers):
-            x, a = block_prefill(lp, sc(x), pos, cfg,
+        def body(h, lp):
+            return block_prefill(lp, sc(h), pos, cfg,
                                  window=cfg.sliding_window)
+
+        body = _maybe_remat(body, remat)
+        for lp in _per_layer(params["layers"], cfg.num_layers):
+            x, a = body(x, lp)
             aux = aux + a
     if last_only:
         x = x[:, -1:]
@@ -250,21 +315,79 @@ def forward(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
 
 
 def loss_fn(cfg: ArchConfig, params: Dict, batch: Dict, *,
-            seq_shard: Optional[str] = None) -> Tuple[torch.Tensor, Dict]:
+            seq_shard: Optional[str] = None, remat: bool = False
+            ) -> Tuple[torch.Tensor, Dict]:
     logits, aux = forward(cfg, params, batch["tokens"],
                           image_embeds=batch.get("image_embeds"),
-                          frames=batch.get("frames"), seq_shard=seq_shard)
+                          frames=batch.get("frames"), seq_shard=seq_shard,
+                          remat=remat)
     labels = batch["labels"]
-    logp = F.log_softmax(logits.to(torch.float32), -1)
     # out-of-range labels are masked below; clamp them for the gather as
     # the reference's take_along_axis does
-    idx = labels.clamp(0, logp.shape[-1] - 1).to(torch.int64)
-    nll = -torch.gather(logp, -1, idx[..., None])[..., 0]
+    idx = labels.clamp(0, logits.shape[-1] - 1).to(torch.int64)
+    if _vocab_split(logits):
+        nll = _vocab_parallel_nll(logits, idx)
+    else:
+        logp = F.log_softmax(logits.to(torch.float32), -1)
+        nll = -torch.gather(logp, -1, idx[..., None])[..., 0]
     mask = (labels >= 0) & (labels < cfg.vocab_size)
     nll = torch.where(mask, nll, torch.zeros_like(nll))
     loss = torch.sum(nll) / torch.clamp(torch.sum(mask), min=1)
     total = loss + 0.01 * aux
     return total, {"loss": loss, "aux": aux}
+
+
+def _vocab_split(logits) -> bool:
+    """True where DTensor ``logits`` split their vocabulary over a mesh
+    dim of more than one rank."""
+    if not sharding.is_dtensor(logits):
+        return False
+    from torch.distributed.tensor import Shard
+    mesh = logits.device_mesh
+    return any(p == Shard(logits.ndim - 1) and mesh.size(m) > 1
+               for m, p in enumerate(logits.placements))
+
+
+def _pick(ids: torch.Tensor, logits: torch.Tensor,
+          idx: torch.Tensor) -> torch.Tensor:
+    """Each token's logit at ``idx`` from a vocabulary shard holding the
+    ids ``ids`` (consecutive); zero where the label lies elsewhere."""
+    local = idx - ids[0]
+    here = (local >= 0) & (local < logits.shape[-1])
+    val = torch.gather(logits, -1,
+                       local.clamp(0, logits.shape[-1] - 1)[..., None])
+    return torch.where(here, val[..., 0], torch.zeros_like(val[..., 0]))
+
+
+def _vocab_parallel_nll(logits, idx):
+    """-log softmax(logits)[idx] for logits split over the vocabulary
+    (Megatron's vocab-parallel cross entropy, where the reference's
+    compiler partitions the softmax): the max and the sum of exponentials
+    are reduced over the vocabulary's mesh dims (one (B, S) all-reduce
+    each) and each rank picks the labels in its own ids, so the logits are
+    never gathered whole on a rank.  The max is a constant of the
+    backward, as it cancels there."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = logits.device_mesh
+    v = logits.ndim - 1
+    lf = logits.to(torch.float32)
+    m = torch.amax(lf.detach(), -1, keepdim=True)
+    lse = m[..., 0] + torch.log(torch.sum(torch.exp(lf - m), -1))
+    ids = sharding.constrain(
+        torch.arange(logits.shape[-1], device=lf.to_local().device),
+        (None,), mesh)
+    ids = ids.redistribute(mesh, [Shard(0) if p == Shard(v) else Replicate()
+                                  for p in lf.placements])
+    idx = sharding.constrain(idx, (None,) * idx.ndim, mesh) \
+        if not sharding.is_dtensor(idx) else idx
+    idx = idx.redistribute(mesh, [Replicate() if p == Shard(v) else p
+                                  for p in lf.placements])
+    out = tuple(Partial() if p == Shard(v) else q
+                for p, q in zip(lf.placements, idx.placements))
+    fn = sharding.local_map(_pick, (out,), (tuple(ids.placements),
+                                            tuple(lf.placements),
+                                            tuple(idx.placements)), mesh)
+    return lse - fn(ids, lf, idx)
 
 
 def _ssm_cache(cfg: ArchConfig, B: int, dev: torch.device) -> Dict:

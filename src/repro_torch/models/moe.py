@@ -186,8 +186,11 @@ def moe_ffn(p: Dict, x: torch.Tensor, cfg: ArchConfig,
     out = constrain_token_major(out)
     if cfg.num_shared_experts:
         out = out + _shared(p, xt)
+    # the aux loss is computed whole on every rank: it joins the loss as
+    # a replicated DTensor through ``back``, so its gradient flows back
+    # to the router's logits as a plain tensor
     return _as_tokens_of(out, x).reshape(B, S, d), \
-        _aux_loss(probs, gate_idx[:, 0], E)
+        back(_aux_loss(probs, gate_idx[:, 0], E))
 
 
 def _gather_experts(ids, wg, wi, wo, xt, slot_tok, gate_idx, c_nk, w_nk, *,
@@ -225,7 +228,7 @@ def _gather_sharded(xt, weights, ids, slot_tok, gate_idx, c_nk, w_nk, back,
     rank dispatches to and combines from its own experts, and the (N, d)
     output is a partial sum over that axis."""
     from torch.distributed.tensor import Partial, Replicate
-    from torch.distributed.tensor.experimental import local_map
+    from repro_torch.models.sharding import local_map as sharding_local_map
     mesh = xt.device_mesh
     axis = expert_axis()
     e_spec = (axis,)
@@ -235,10 +238,9 @@ def _gather_sharded(xt, weights, ids, slot_tok, gate_idx, c_nk, w_nk, back,
         [back(t) for t in (slot_tok, gate_idx, c_nk, w_nk)]
     out_pl = tuple(Partial() if axis is not None and name == axis
                    else Replicate() for name in mesh.mesh_dim_names)
-    fn = local_map(functools.partial(_gather_experts, C=C),
-                   out_placements=(out_pl,),
-                   in_placements=tuple(tuple(a.placements) for a in args),
-                   redistribute_inputs=False, device_mesh=mesh)
+    fn = sharding_local_map(functools.partial(_gather_experts, C=C),
+                            (out_pl,), tuple(tuple(a.placements)
+                                             for a in args), mesh)
     return fn(*args)
 
 
@@ -282,4 +284,4 @@ def _moe_ffn_einsum(p: Dict, x: torch.Tensor, cfg: ArchConfig
     if cfg.num_shared_experts:
         out = out + _shared(p, xt[:N])
     return _as_tokens_of(out, x).reshape(B, S, d), \
-        torch.mean(torch.stack(auxs))
+        back(torch.mean(torch.stack(auxs)))

@@ -179,10 +179,45 @@ def einsum(eq: str, a, b):
     b = b.redistribute(mesh, pb)
     size = dict(zip(la, a.shape))
     size.update(zip(lb, b.shape))
-    local = torch.einsum(eq, a.to_local(), b.to_local())
+    # an operand replicated over a mesh dim that splits the product gets
+    # only its rank's share of the gradient there: a partial sum
+    cols = [[q] for q in po]
+    ga, gb = _split_grads(pa, cols), _split_grads(pb, cols)
+    local = torch.einsum(eq, a.to_local(grad_placements=ga),
+                         b.to_local(grad_placements=gb))
     shape = torch.Size(size[c] for c in out)
     return DTensor.from_local(local, mesh, po, run_check=False, shape=shape,
                               stride=_contiguous(shape))
+
+
+def _split_grads(inp, cols) -> tuple:
+    """The gradient placements of a local computation's input placed
+    ``inp``: ``Partial`` on each mesh dim ``m`` where it is replicated
+    while a placement in ``cols[m]`` (the other inputs' or the outputs'
+    on that dim) splits the computation, so each rank's local gradient is
+    only its share; its own placement elsewhere."""
+    from torch.distributed.tensor import Partial, Replicate
+    return tuple(Partial() if isinstance(p, Replicate) and any(
+        not isinstance(o, Replicate) for o in col) else p
+        for p, col in zip(inp, cols))
+
+
+def local_map(fn, out_placements, in_placements, mesh):
+    """``torch.distributed.tensor.experimental.local_map`` with the
+    inputs' gradient placements declared (:func:`_split_grads`): an input
+    replicated over a mesh dim where another input or an output is split
+    gets its gradient as a partial sum there, as each rank's local
+    backward computes only its share.  Inputs are never moved: one laid
+    out otherwise than declared raises."""
+    from torch.distributed.tensor.experimental import local_map as _lm
+    every = [pl for pl in tuple(in_placements) + tuple(out_placements)
+             if pl is not None]
+    cols = [[pl[m] for pl in every] for m in range(mesh.ndim)]
+    grads = tuple(None if pl is None else _split_grads(pl, cols)
+                  for pl in in_placements)
+    return _lm(fn, out_placements=out_placements,
+               in_placements=in_placements, in_grad_placements=grads,
+               redistribute_inputs=False, device_mesh=mesh)
 
 
 def matmul(a, b):
@@ -501,6 +536,31 @@ def local_shape(shape, spec: Tuple, mesh) -> Tuple[int, ...]:
                              f"divide over {spec[i]!r} ({k})")
         out.append(n // k)
     return tuple(out)
+
+
+def shard_offsets(shape, spec: Tuple, mesh) -> Tuple[int, ...]:
+    """Where this rank's shard of a ``shape`` tensor laid out by ``spec``
+    starts, dim by dim: a dim split over several mesh axes is split major
+    to minor in mesh-dim order, as :func:`to_placements` lays it out."""
+    sizes = mesh_axes(mesh)
+    names = list(sizes)
+    coord = mesh.get_coordinate()
+    out = []
+    for i, n in enumerate(shape):
+        idx, k = 0, 1
+        for a in sorted(_entry_axes(spec[i] if i < len(spec) else None),
+                        key=names.index):
+            idx = idx * sizes[a] + coord[names.index(a)]
+            k *= sizes[a]
+        out.append(idx * (n // k))
+    return tuple(out)
+
+
+def node_spec(spmd_axes, spec: Tuple) -> "P":
+    """The spec of a per-node leaf (n, *shape): the node axis over
+    ``spmd_axes``, the rest as the parameter's ``spec`` (the reference's
+    ``P(spmd_axes, *spec)``)."""
+    return P(tuple(spmd_axes) if spmd_axes else None, *tuple(spec))
 
 
 def distribute_tree(tree: Any, specs: Any, mesh, *,

@@ -7,9 +7,12 @@ matmuls (``ssd_chunked``), or, with ``cfg.use_ssd_kernel``, the
 hand-written ``ssd_chunk`` kernel through ``kernels.ops.ssd_chunk_scan``
 (forward only; on DTensors through ``kernels.ops.ssd_chunk_scan_sharded``,
 the kernel on this rank's batch rows and heads, its inputs first pinned to
-the policy's layout).  And an O(1)-per-token recurrent decode step, which
-updates the caller's SSM state and conv window in place (the serving
-cache is ~76 MB a sequence at 780M, so no second copy is made).
+the policy's layout).  The training forward takes ``ssd_chunked`` (kernel
+5 has no backward), on DTensors through ``local_map`` on the same local
+rows and heads, so its backward runs on them too.  And an O(1)-per-token
+recurrent decode step, which updates the caller's SSM state and conv
+window in place (the serving cache is ~76 MB a sequence at 780M, so no
+second copy is made).
 
 Layout: d_inner = H * P (heads x headdim); B/C are single-group (state
 size N); the scalar-per-head A follows Mamba2.
@@ -22,7 +25,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.ops import ssd_chunk_scan, ssd_chunk_scan_sharded
+from repro_torch.kernels.ops import (ssd_chunk_scan, ssd_chunk_scan_sharded,
+                                     ssd_placements)
 from repro_torch.models import sharding
 from repro_torch.models.common import ArchConfig, rms_norm, silu, softplus
 
@@ -126,16 +130,13 @@ def _conv1d(xbc, w, bias):
     if not sharding.is_dtensor(xbc):
         return _conv1d_prefill(xbc, w, bias)
     from torch.distributed.tensor import Shard
-    from torch.distributed.tensor.experimental import local_map
     mesh = xbc.device_mesh
     c_ax = "model" if Shard(1) in tuple(w.placements) else None
     pin = functools.partial(sharding.constrain, mesh=mesh)
     args = (pin(xbc, (_batch_axes(xbc), None, c_ax)), pin(w, (None, c_ax)),
             pin(bias, (c_ax,)))
-    fn = local_map(_conv1d_prefill,
-                   out_placements=(tuple(args[0].placements),),
-                   in_placements=tuple(tuple(a.placements) for a in args),
-                   redistribute_inputs=False, device_mesh=mesh)
+    fn = sharding.local_map(_conv1d_prefill, (tuple(args[0].placements),),
+                            tuple(tuple(a.placements) for a in args), mesh)
     return fn(*args)
 
 
@@ -147,6 +148,34 @@ def _batch_axes(x):
         if x.shape[0] % sharding.dp_size(mesh) == 0 else None
 
 
+def _pin_ssd(xs, dt, A, bmat, cmat, D):
+    """The SSD's DTensor inputs laid out as the policy means: batch over
+    the data axes where it divides, heads over "model" where they divide
+    (a Replicate-to-Shard move is a local slice), b and c replicated over
+    the heads."""
+    mesh = xs.device_mesh
+    b_ax = _batch_axes(xs)
+    h_ax = "model" if sharding.divides(xs.shape[2], sharding.tp_size(mesh)) \
+        else None
+    pin = functools.partial(sharding.constrain, mesh=mesh)
+    return (pin(xs, (b_ax, None, h_ax, None)), pin(dt, (b_ax, None, h_ax)),
+            pin(A, (h_ax,)), pin(bmat, (b_ax, None, None)),
+            pin(cmat, (b_ax, None, None)), pin(D, (h_ax,)))
+
+
+def _ssd_plain_sharded(xs, dt, A, bmat, cmat, D, chunk: int):
+    """:func:`ssd_chunked` on DTensors (the training forward: kernel 5 has
+    no backward), through ``local_map`` on this rank's batch rows and
+    heads, as kernel 5 runs: DTensor's own batched matmuls would flatten
+    the sharded heads into a strided shard whose plans take minutes.  The
+    gradients of b and c, which every local head reads, come back as
+    partial sums over the heads' mesh dims."""
+    args = _pin_ssd(xs, dt, A, bmat, cmat, D)
+    in_pl, out_pl = ssd_placements(args[0])
+    fn = sharding.local_map(ssd_chunked, out_pl, in_pl, xs.device_mesh)
+    return fn(*args, chunk)
+
+
 def _ssd_kernel(xs, dt, A, bmat, cmat, D, chunk: int):
     """Kernel 5's SSD forward.  On DTensors the inputs are pinned to the
     policy's layout first — batch over the data axes where it divides,
@@ -154,15 +183,8 @@ def _ssd_kernel(xs, dt, A, bmat, cmat, D, chunk: int):
     local slice) — and the kernel runs on the local shards."""
     if not sharding.is_dtensor(xs):
         return ssd_chunk_scan(xs, dt, A, bmat, cmat, D, chunk)
-    mesh = xs.device_mesh
-    b_ax = _batch_axes(xs)
-    h_ax = "model" if sharding.divides(xs.shape[2], sharding.tp_size(mesh)) \
-        else None
-    pin = functools.partial(sharding.constrain, mesh=mesh)
-    return ssd_chunk_scan_sharded(
-        pin(xs, (b_ax, None, h_ax, None)), pin(dt, (b_ax, None, h_ax)),
-        pin(A, (h_ax,)), pin(bmat, (b_ax, None, None)),
-        pin(cmat, (b_ax, None, None)), pin(D, (h_ax,)), chunk)
+    return ssd_chunk_scan_sharded(*_pin_ssd(xs, dt, A, bmat, cmat, D),
+                                  chunk)
 
 
 def _ssd_decode_sharded(x, dt, A, b, c, D, state):
@@ -209,6 +231,8 @@ def mamba_mixer_prefill(p: Dict, x: torch.Tensor, cfg: ArchConfig,
     chunk = min(cfg.ssd_chunk, S)
     if cfg.use_ssd_kernel and s0 is None and S % chunk == 0:
         y, _ = _ssd_kernel(xs, dt, A, bmat, cmat, p["D"], chunk)
+    elif sharding.is_dtensor(xs) and s0 is None:
+        y, _ = _ssd_plain_sharded(xs, dt, A, bmat, cmat, p["D"], chunk)
     else:
         y, _ = ssd_chunked(xs, dt, A, bmat, cmat, p["D"], chunk, s0)
     y = y * silu(z)

@@ -18,9 +18,17 @@ The reference's mesh knobs (``seq_shard``: the residual stream's sequence
 dim over "model" between blocks; ``fsdp``: params, g and the server
 optimizer's moments ZeRO-3-sharded over the data axes; ``spmd_axes``: the
 mesh axes the node axis lies on) shape the train specs of
-:func:`repro_torch.launch.specs.train_spec`.  On one device they change
-nothing, as the reference's do on its 1x1 host mesh: the step with them set
-is the step without them, bit for bit.
+:func:`repro_torch.launch.specs.train_spec`, and ``grad_specs`` (the
+parameters' specs with no node axis) makes the step sharded: on DTensors
+each rank computes only its own nodes' gradients (the oracle's
+``spmd_axes`` / ``grad_specs``), draws only its shards' masks and runs the
+estimator update on its local shards (the compression's
+``P(spmd_axes, *grad_spec)`` specs), and the aggregate ``mean_i m_i`` is
+the one float32 reduction over the data axes, beside FSDP's gather of the
+parameters and the scalar metrics.  On one device they change nothing, as
+the reference's do on its 1x1 host mesh: the step with them set is the
+step without them, bit for bit, on plain tensors and on a 1x1 mesh's
+DTensors alike.
 """
 from __future__ import annotations
 
@@ -105,11 +113,24 @@ def _server_opt(cfg: DashaTrainConfig):
 
 def dasha_train_init(params: Any, cfg: DashaTrainConfig, seed: int,
                      grads0: Optional[Any] = None, *,
-                     device=DEFAULT_DEVICE) -> DashaTrainState:
+                     device=DEFAULT_DEVICE, mesh=None,
+                     specs: Optional[DashaTrainState] = None
+                     ) -> DashaTrainState:
     """The initial trainer state on ``device`` (the card unless the caller
     asks for the CPU).  ``grads0``: optional (n, *shape) initial per-node
     gradients (the paper's h_i^0 = g_i^0 = grad f_i(x^0)); zeros
-    otherwise.  ``g`` is the float32 mean of the per-node state."""
+    otherwise.  ``g`` is the float32 mean of the per-node state.
+
+    On a ``mesh``, with ``specs`` the state's spec tree (``train_spec``'s
+    ``in_shardings[0]``), every field is a DTensor laid out by its spec on
+    the mesh's device: the parameters as given (or cut to their shards),
+    the zeros made at each shard's shape (``grads0`` is for one
+    device)."""
+    if mesh is not None:
+        if grads0 is not None:
+            raise ValueError("grads0 is for one device: on a mesh, lay a "
+                             "full state out with distribute_tree")
+        return _sharded_init(params, cfg, seed, mesh, specs)
     dev = resolve_device(device)
     n, sdt = cfg.n_nodes, cfg.torch_state_dtype
     params = tree.map_leaves(lambda p: p.to(dev), params)
@@ -128,20 +149,51 @@ def dasha_train_init(params: Any, cfg: DashaTrainConfig, seed: int,
                            seed=int(seed), step=0)
 
 
+def _sharded_init(params, cfg: DashaTrainConfig, seed: int, mesh,
+                  specs: Optional[DashaTrainState]) -> DashaTrainState:
+    from repro_torch.models import sharding as sh
+    if specs is None:
+        raise ValueError("dasha_train_init on a mesh needs the state's "
+                         "specs (train_spec's in_shardings[0])")
+    dev = torch.device(mesh.device_type)
+    meta = tree.map_leaves(lambda p: torch.empty(p.shape, dtype=p.dtype,
+                                                 device="meta"), params)
+    skel = dasha_train_init(meta, cfg, seed, device="meta")
+
+    def zeros(path, shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    state = sh.distribute_tree(skel, specs, mesh, make_local=zeros)
+    if not any(sh.is_dtensor(p) for p in tree.leaves(params)):
+        params = sh.distribute_tree(params, specs.params, mesh)
+    return state._replace(params=params)
+
+
 def make_method(cfg: DashaTrainConfig,
-                loss_fn: Callable[[Any, Any], torch.Tensor]) -> Method:
+                loss_fn: Callable[[Any, Any], torch.Tensor],
+                grad_specs: Optional[Any] = None) -> Method:
     """The trainer's Method (variant rule x TreeCompression x
     TreeSubstrate): ``method.init(params, seed, init_mode="zeros",
     device=...)`` then ``Driver(method, data_fn=...).run(...)``.
 
     ``loss_fn(params, node_batch) -> scalar``; steps take a batch tree with
-    a leading node axis (n, ...)."""
+    a leading node axis (n, ...).  ``grad_specs``: optional per-parameter
+    specs (no node axis), read on DTensors: each node's gradient is laid
+    out by them, and with ``cfg.spmd_axes`` the per-node state's masks by
+    ``P(spmd_axes, *spec)`` (module docstring)."""
+    from repro_torch.models.sharding import is_spec, map_with_path, node_spec
     sdt = cfg.torch_state_dtype
-    oracle = BatchLossOracle(loss_fn=loss_fn, state_dtype=sdt)
+    node_full_specs = None
+    if grad_specs is not None and cfg.spmd_axes:
+        node_full_specs = map_with_path(
+            lambda _, s: node_spec(cfg.spmd_axes, s), grad_specs,
+            is_leaf=is_spec)
+    oracle = BatchLossOracle(loss_fn=loss_fn, state_dtype=sdt,
+                             spmd_axes=cfg.spmd_axes, grad_specs=grad_specs)
     substrate = TreeSubstrate(oracle=oracle, n=cfg.n_nodes,
                               server_opt=_server_opt(cfg), state_dtype=sdt)
     comp = TreeCompression(mode=cfg.mode, p=cfg.compression, n=cfg.n_nodes,
-                           use_kernel=cfg.use_kernel)
+                           use_kernel=cfg.use_kernel, specs=node_full_specs)
     return Method.build(cfg.variant, comp, substrate, cfg.hyper)
 
 
@@ -173,15 +225,19 @@ def train_state(ms: MethodState) -> DashaTrainState:
 
 
 def make_train_step(cfg: DashaTrainConfig,
-                    loss_fn: Callable[[Any, Any], torch.Tensor]
+                    loss_fn: Callable[[Any, Any], torch.Tensor],
+                    grad_specs: Optional[Any] = None
                     ) -> Callable[..., Tuple[DashaTrainState, dict]]:
     """The train step for any registry variant (a thin wrapper over
     :func:`make_method`): ``step(state, batch, draws=None) -> (state,
     {"g_norm_sq", "payload_frac", "payload_coords"})``.  ``g_norm_sq`` is
     ``sum ||g||^2`` over ``state.g``'s leaves before the step, and
     ``payload_coords`` the round's coords sent per node.  ``draws``
-    injects the round's randomness (:meth:`Method.step_full`)."""
-    method = make_method(cfg, loss_fn)
+    injects the round's randomness (:meth:`Method.step_full`).
+    ``grad_specs``: as :func:`make_method`'s.  ``g_norm_sq`` stays a sum
+    of per-leaf squares: no leaf is flattened, so a sharded ``g`` is never
+    gathered for it (on DTensors it is a scalar DTensor)."""
+    method = make_method(cfg, loss_fn, grad_specs)
     frac = np.float32(payload_frac(cfg))
 
     def step(state: DashaTrainState, batch, draws: Optional[Draws] = None
