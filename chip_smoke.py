@@ -164,7 +164,8 @@ Phases, each fatal on failure:
     fused RandK K = 100, uplink 1e6 B/s, downlink 1e8 B/s, 1 ms latency,
     no compute time, p_crash 0.02 for 2 rounds, deadline 3x, fault seed 7.
     (a) ``bench.fed_faults.degradation_sweep`` through VecFedSim: the drop
-    grid {0, 0.05, 0.1, 0.2} x {dasha, marina}, 240 rounds each, with the
+    grid {0, 0.05, 0.1, 0.2} x {dasha, marina}, ``FAULT_ROUNDS`` rounds
+    each (the bench's 240, cut in ``PHASE26_CUTS``), with the
     bench's four gates (MARINA's metric and final x bit-identical across
     the grid, DASHA finite and within 10x of its fault-free metric, DASHA's
     wall-clock inflation <= 3, MARINA paying more time, bytes and > 0
@@ -193,8 +194,9 @@ Phases, each fatal on failure:
     bench's links: uplink 1e6 B/s with a lognormal straggler, downlink
     1e8 B/s, 1 ms latency, no compute time, network seed 7).  (a) its
     severity sweep through VecFedSim: tau = 2, sigma in {0, 1, 2}, dasha
-    and marina (p = 0.15), barrier and async, 300 rounds each, and its
-    tau sweep (0, 1, 2, 4 at sigma = 2, 150 rounds); gates: the bench's
+    and marina (p = 0.15), barrier and async, ``ASYNC_ROUNDS`` rounds
+    each (the bench's 300, cut in ``PHASE26_CUTS``), and its tau sweep
+    (0, 1, 2, 4 at sigma = 2, 150 rounds); gates: the bench's
     five booleans, the tau sweep monotone, kernel 1 once a round, tau = 0
     == the barrier on the card bit for bit (every trace, the final
     state); rounds/s async against barrier and a profiled async chunk's
@@ -214,7 +216,8 @@ Phases, each fatal on failure:
 17. campaign telemetry (``repro_torch.obs``) — (a) the heap oracle on
     phase 16's data and links at sigma = 1 with ``Obs.full()``: dasha and
     marina (p = 0.15) with round barriers, dasha at tau = 2 and under the
-    tests' FM_MIXED faults, 120 rounds each, and dasha with fused QDither
+    tests' FM_MIXED faults, ``OBS_HEAP_ROUNDS`` rounds each, and dasha
+    with fused QDither
     (kernel 2) over 40, each run plain and with the handle in turn; gates:
     the two runs bit-identical with no kernel build and equal launches,
     every timeline valid, its per-round byte sums equal to the traced
@@ -235,11 +238,12 @@ Phases, each fatal on failure:
     every run bit-identical with equal launches, a profiled chunk
     launching as many kernels either way, name for name (the most of
     three windows an arm), the peak within 0.05 GB; then
-    phase 11's n = 100,000 campaign with and without the handle over 256
-    rounds, reported; (d) the build phase inside
+    phase 11's n = 100,000 campaign with and without the handle over
+    ``OBS_SCALE_ROUNDS`` rounds, reported; (d) the build phase inside
     ``Obs.full().compile_spans()``: one ``backend_compile`` span per
     library that was missing (none on the warm cache), then once more
-    into an empty build directory, where every source must be recorded.
+    into a build directory that holds every library but
+    ``OBS_COLD_SOURCE``'s, where exactly that one must be recorded.
     ``OBS_CUTS`` lists the cuts;
 18. full-state checkpoints (``repro_torch.checkpoint``) — kill and
     restore through files written under ``tempfile.mkdtemp()`` (each save
@@ -254,8 +258,8 @@ Phases, each fatal on failure:
     for bit when the control pair is; else within the control pair's own
     worst leaf error, never looser than ``CKPT_RESUME_CAP``); (b)
     ``VecFedSim`` on phase 12b's sampled campaign (n = 10,000, C = 64, d
-    = 20,958, fused RandK, slab store: kernels 1 and 4), 256 rounds in
-    chunks of 32, killed after chunk 3 and restored from disk into a fresh
+    = 20,958, fused RandK, slab store: kernels 1 and 4), 128 rounds in
+    chunks of 32, killed after chunk 1 and restored from disk into a fresh
     simulator; (c) the heap ``FedSim`` on phase 15's data under FM_MIXED
     faults, 40 rounds in chunks of 8, killed after chunk 1; gates for (b)
     and (c): the tail's traces and the final state bit-equal to an
@@ -424,21 +428,41 @@ Phases, each fatal on failure:
     ``local_map``, and a mask whose node axis is laid out otherwise than
     h's, must raise and launch nothing); then, in one subprocess and one
     step after the other, nothing else running: (c) each of
-    ``MESH_TRAIN_PAIRS`` through ``dryrun_one`` (host-only traces on
-    ``meta`` tensors: trace seconds, peak GB a device, collectives by
-    kind); (b) rank 0 of the fake 16 x 16 mesh at full width and depth
-    for each pair, DashaTrainConfig(gamma=0.01, compression=1/32,
+    ``MESH_TRAIN_PAIRS`` through ``dryrun_one`` at ``MESH_TRAIN_LAYERS``'
+    depth (host-only traces on ``meta`` tensors: trace seconds, peak GB a
+    device, collectives by kind); (b) rank 0 of the fake 16 x 16 mesh at
+    full width and the same depth for each pair, DashaTrainConfig(gamma=0.01, compression=1/32,
     variant="mvr", use_kernel=True), n = 16 nodes, one node of 16 x
     4,096 tokens a rank, the local state, parameters and batch made on
     the card at their shards' shapes (bytes equal to the dry run's
     ``argument_gb``), one warm-up round and ``MESH_TRAIN_TIMED`` timed,
     the peak above the baseline within ``MESH_PEAK_BAND`` of the dry
     run's ``peak_gb``, kernel 3 once per leaf a round, ms a round beside
-    the roofline's per-chip terms (a warm-up over ``MESH_CALL_CUT_S``
-    cuts the timed round's depth, never its width), one more round of
+    the roofline's per-chip terms (a warm-up over
+    ``MESH_TRAIN_CALL_CUT_S`` cuts the timed round's depth, never its
+    width), one more round of
     ``MESH_TRAIN_PROFILED``'s pairs under the profiler (the device's busy
     share), and kernel 3 against its plain version at the largest leaf's
     shard.  ``PHASE25_CUTS`` lists what earlier phases gave up for it.
+26. the analysis layer (``repro_torch.analysis``): (a) the port's
+    ``bench/driver_bench.py`` at the reference's full sizes (the 8-gamma
+    smoke-LM tune as per-gamma loops and as one sweep, the single run as
+    ``launch/train.py``'s old loop and as the Driver, the flat d = 1e6
+    case per step and as the Driver's chunk), steps/s beside the card's
+    name and power limit; every warmed region builds no kernel
+    (``analysis.recompile.watch``), and a planted build (a library moved
+    aside and dropped from ``build._LIBS``) must count 1; (b) host syncs
+    under ``torch.cuda.set_sync_debug_mode("warn")`` on one warmed chunk
+    each of the Driver (the flat case), a ``VecFedSim`` slab chunk and a
+    DASHA-MVR trainer chunk (kernel 3, the smoke Mamba2): syncs a round
+    and each site's file:line; every site must lie in a function the
+    lint's loop rules flag on that path, and a planted ``.item()`` in
+    ``Driver._run_chunk`` must fail that gate and be a kept lint finding;
+    (c) ``analysis.dispatch_audit`` on one slab chunk at phase 11's shape
+    (n = 100,000, C = 64, d = 20,958): no (n, d) output, and the audit's
+    live peak over the arguments within ``P26_PEAK_BAND`` of the card's
+    allocation peak over the same chunk.  ``PHASE26_CUTS`` lists what
+    earlier phases gave up for it.
 
 Every phase that drives a main path zeroes the launch counters just before
 it and reads them just after; a kernel of that path that never launched
@@ -565,7 +589,7 @@ MVR_SHAPES = [(TRAIN_NODES, D_REALSIM), (TRAIN_NODES, D_EMBED),
 SSD_SHAPES = [(4, 32768, 48, 64, 128, 256), (2, 64, 8, 32, 16, 32),
               (1, 128, 4, 16, 8, 32), (2, 32, 3, 4, 5, 8)]
 SSD_LIMIT = 1e-4
-PREFILL_BATCH, PREFILL_SEQ, PREFILL_TIMED = 4, 32768, 2
+PREFILL_BATCH, PREFILL_SEQ, PREFILL_TIMED = 4, 32768, 1
 # a 32-token prompt (256, then 128 before phases 22 and 23, 64 before
 # phase 25; a Mamba2 step's time does not depend on the position); the
 # float32 parity prompt is two of the prefill's 256-token chunks, so the
@@ -617,9 +641,10 @@ FIG_ROUNDS_SCALE = {"fig1_gradient": 1.0, "fig2_finite_sum": 0.015625,
 # configuration widened to real-sim's features — n = 20 clients (the
 # bench's N) x m = 3,615 samples (72,300 of real-sim's 72,309 rows), d =
 # 20,958, fused RandK K = 100, the bench's links, crash process and
-# deadline; its drop grid at its 240 rounds, then heap == vec campaigns
+# deadline; its drop grid at FAULT_ROUNDS of its 240 rounds (two chunks of
+# 128, PHASE26_CUTS), then heap == vec campaigns
 # of 40 rounds, and card vs CPU at (n, m, d) = FAULT_SMALL
-FAULT_N, FAULT_M, FAULT_ROUNDS, FAULT_EQ_ROUNDS = 20, 3615, 240, 40
+FAULT_N, FAULT_M, FAULT_ROUNDS, FAULT_EQ_ROUNDS = 20, 3615, 160, 40
 FAULT_PEAK_GB, FAULT_SMALL, FAULT_SMALL_K = 8.0, (5, 32, 40), 6
 # heap against vec: wall clock (the vec's float32 delays) and metric, the
 # reference's tests' tolerances; the reset campaign's server invariant
@@ -632,10 +657,11 @@ FAULT_HAND_LIMIT = 1e-3
 # configuration widened to real-sim's features as phase 15 widens its own
 # (n = 20 clients, the bench's N, x m = 3,615 x d = 20,958), fused RandK K
 # = 100, the bench's links, tau = 2, dasha and marina (p = 0.15), barrier
-# and async, 300 rounds (the bench's); its tau sweep at sigma = 2 over 150
+# and async, ASYNC_ROUNDS of the bench's 300 rounds (two chunks of 128,
+# PHASE26_CUTS); its tau sweep at sigma = 2 over 150
 # rounds; then heap == vec over 40 rounds and phase 11's campaign at tau =
 # 2.  ASYNC_CUTS lists what is cut from the bench and from phase 11.
-ASYNC_N, ASYNC_TAU, ASYNC_SIGMAS, ASYNC_ROUNDS = 20, 2, (0.0, 1.0, 2.0), 300
+ASYNC_N, ASYNC_TAU, ASYNC_SIGMAS, ASYNC_ROUNDS = 20, 2, (0.0, 1.0, 2.0), 160
 ASYNC_CHECK_ROUNDS, ASYNC_EQ_ROUNDS = 24, 40
 # 16b: each round's x against x_t - gamma (g_t - deficit_t), the deficit
 # recomputed in float64 from the ring: each coordinate within
@@ -654,6 +680,8 @@ ASYNC_SCALE_ROUNDS, ASYNC_SS_N, ASYNC_SS_ROUNDS = 256, 10000, 64
 ASYNC_CUTS = {
     "sigmas": "fed_async_bench's (0, 0.5, 1, 1.5, 2) cut to (0, 1, 2), its "
               "quick grid",
+    "rounds": "fed_async_bench's 300 rounds cut to 160, two chunks of 128 "
+              "(its quick grid: 120; PHASE26_CUTS)",
     "equivalence": "fed_async_bench's n = 5, d = 64 replaced by the "
                    "real-sim width, n = 20, 40 rounds",
     "scale_rounds": "phase 11's 1,000 rounds cut to 256 at tau = 2 and "
@@ -686,21 +714,24 @@ ASYNC_CUTS = {
 # name for name (each arm the most of OBS_PROFILE_WINDOWS windows: the
 # profiler can lose records), and phase 11's n = 100,000 over
 # OBS_SCALE_ROUNDS rounds.  OBS_CUTS lists what is cut.
-OBS_SIGMA, OBS_HEAP_ROUNDS, OBS_QDITHER_ROUNDS = 1.0, 120, 40
-OBS_GATE_ROUNDS, OBS_TURNS, OBS_OVERHEAD, OBS_PLANTED = 32, 60, 0.03, 4.0
+OBS_SIGMA, OBS_HEAP_ROUNDS, OBS_QDITHER_ROUNDS = 1.0, 60, 40
+OBS_GATE_ROUNDS, OBS_TURNS, OBS_OVERHEAD, OBS_PLANTED = 32, 24, 0.03, 4.0
 OBS_TURN = ("obs", "plain", "obs", "plain", "obs", "plain", "planted",
             "plain")
-OBS_SCALE_ROUNDS, OBS_PEAK_SLACK_GB = 128, 0.05
+OBS_SCALE_ROUNDS, OBS_PEAK_SLACK_GB = 64, 0.05
 OBS_PROFILE_WINDOWS = 3
+OBS_COLD_SOURCE = "slab_writeback"     # 17d's one cold build (PHASE26_CUTS)
 OBS_CUTS = {
-    "heap_rounds": "17a's campaigns 120 rounds (the async bench: 300)",
+    "heap_rounds": "17a's campaigns 60 rounds (the async bench: 300; 120 "
+                   "before PHASE26_CUTS)",
     "overhead_width": "fed_scale_bench's gated case (d = 64, m = 2, K = 8) "
                       "widened to phase 12b's d = 20,958, m = 1, K = 100",
     "overhead_rounds": "fed_scale_bench's 1,000 rounds a run cut to one "
                        "chunk of 32, each handle run between two plain "
-                       "ones, 180 handle runs",
-    "scale_rounds": "phase 11's 1,000 rounds cut to 128 at n = 100,000 "
-                    "(256, as 16c, before PHASE25_CUTS)",
+                       "ones, 72 handle runs (180 before PHASE26_CUTS)",
+    "scale_rounds": "phase 11's 1,000 rounds cut to 64 at n = 100,000 "
+                    "(256, as 16c, before PHASE25_CUTS; 128 before "
+                    "PHASE26_CUTS)",
 }
 
 
@@ -714,7 +745,7 @@ OBS_CUTS = {
 # phase 12b's campaign killed after chunk CKPT_VEC_KILL; (c) phase 15's
 # faulted heap campaign killed after chunk CKPT_HEAP_KILL
 CKPT_LAYERS, CKPT_STEPS, CKPT_CUT, CKPT_RESUME_CAP = 1, 4, 2, 1e-4
-CKPT_VEC_ROUNDS, CKPT_VEC_CHUNK, CKPT_VEC_KILL = 256, 32, 3
+CKPT_VEC_ROUNDS, CKPT_VEC_CHUNK, CKPT_VEC_KILL = 128, 32, 1
 CKPT_HEAP_ROUNDS, CKPT_HEAP_CHUNK, CKPT_HEAP_KILL = 40, 8, 1
 CKPT_CUTS = {
     "trainer_layers": "Mamba2-780M's 48 layers cut to 1 (2 before PR 30's "
@@ -939,8 +970,8 @@ P23_OMEGA_TRIALS = 256
 # 1,136.4 s of command, phase 23 31.0 and 34.7 s; the later one, "slow
 # host" below, after phase 14's cut): a margin under the 1,200 s limit
 # for slower hosts.  Phase 17d's cold build of all three libraries (17.90
-# s there) is kept whole; phase 23's sweeps pay part of it by running no
-# dense-backend control
+# s there) was kept whole (PHASE26_CUTS later cut it to one library);
+# phase 23's sweeps pay part of it by running no dense-backend control
 PHASE23_CUTS = {
     "phase 8": "a 64-token serve prompt of 128 and 32 new tokens of 64 "
                "(64 x 65.78 + 32 x 60.75 ms = 6.15 s, slow host)",
@@ -987,7 +1018,8 @@ PHASE24_CUTS = {
 # dense, SSM, MLA/MoE and hybrid families on a one-rank host mesh,
 # MESH_TRAIN_ROUNDS rounds of DASHA-MVR with kernel 3 through local_map on
 # injected masks, bit for bit the plain-tensor trainer; 25b / 25c rank 0 of
-# the fake 16 x 16 mesh at full width and depth for MESH_TRAIN_PAIRS
+# the fake 16 x 16 mesh at full width, at MESH_TRAIN_LAYERS' depth
+# (PHASE26_CUTS), for MESH_TRAIN_PAIRS
 # (one node of 16 x 4,096 tokens a data rank), one warm-up round and
 # MESH_TRAIN_TIMED timed rounds, against the dry run's memory; a pair
 # whose dry run reckons rank 0 above MESH_TRAIN_FIT_GB is recorded and
@@ -1004,6 +1036,13 @@ MESH_TRAIN_ROUNDS, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ = 2, 2, 64
 MESH_TRAIN_PAIRS = (("mamba2-780m", "train_4k"), ("starcoder2-3b",
                                                   "train_4k"))
 MESH_TRAIN_TIMED, MESH_TRAIN_FIT_GB = 1, 70.0
+# 25b / 25c's depth, the dry run's and the warm-up round's alike: half of
+# each model's layers (48 and 30 before PHASE26_CUTS)
+MESH_TRAIN_LAYERS = {"mamba2-780m": 24, "starcoder2-3b": 15}
+# a 25b warm-up round over MESH_TRAIN_CALL_CUT_S cuts the timed and the
+# profiled rounds to the depth that would take about that long, at full
+# width (PHASE26_CUTS; MESH_CALL_CUT_S, 20 s, before)
+MESH_TRAIN_CALL_CUT_S = 6.0
 # 25b's pairs with one more round under the profiler (device activity
 # only) after the timed one, for the device's busy share
 MESH_TRAIN_PROFILED = ("mamba2-780m",)
@@ -1108,15 +1147,17 @@ def device_kernels(torch, prof, raw: bool = False):
     return out
 
 
-def profiled(torch, fn, cpu: bool = True):
+def profiled(torch, fn, cpu: bool = False):
     """Run ``fn`` under torch.profiler: (kernel table, wall seconds).  The
     profiler records no launch of its first moments (without a warm-up, a
     window of one call recorded none, and one of 20 short calls 13), so
     a few spin kernels and a pause come first, outside the wall and the
-    table.  ``cpu=False`` records the device activity only and sums its
+    table.  By default it records the device activity only and sums its
     events by name: the host's op events and the profiler's event tree
     are most of what the tables take to build (a window of 20,364
-    launches took 31 s with them, 16 s with the tree alone)."""
+    launches took 31 s with them, 16 s with the tree alone), and tracing
+    the host's ops slows the host the busy share is read against.
+    ``cpu=True`` records the host's ops too and reads the event tree."""
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CUDA]
     if cpu:
@@ -1154,9 +1195,9 @@ def kernel_device_ms(torch, fn, names, reps: int = 20,
         for _ in range(reps):
             fn()
 
-    per_call, _ = matching(profiled(torch, fn)[0])
+    per_call, _ = matching(profiled(torch, fn, cpu=True)[0])
     for attempt in range(1 + retries):
-        table, _ = profiled(torch, run)
+        table, _ = profiled(torch, run, cpu=True)
         n, us = matching(table)
         if per_call > 0 and n == per_call * reps:
             if attempt:
@@ -1169,7 +1210,7 @@ def kernel_device_ms(torch, fn, names, reps: int = 20,
             f"calls; {len(table)} kernels recorded, the longest "
             f"{[(k[:60], c, t) for k, (c, t) in top]}")
         if per_call == 0:
-            per_call, _ = matching(profiled(torch, fn)[0])
+            per_call, _ = matching(profiled(torch, fn, cpu=True)[0])
     log(f"[profile] {names}: no device time after {1 + retries} attempts")
     return None
 
@@ -1831,8 +1872,8 @@ def phase_main_path(torch):
                                  f"{expected_bits}")
         for name in launches:
             launches[name] += counts[name]
-        # where the time goes: 20 more rounds under the profiler (its CPU
-        # tracing slows the host, so the busy share is a lower bound); the
+        # where the time goes: 20 more rounds under the profiler (device
+        # activity only); the
         # QDither round must launch kernel 2's fused entry once a round,
         # no two-pass kernel and no kernel of the plain entry, and the RandK
         # round kernel 1's sparsifier entry once a round, no scatter of a
@@ -2037,8 +2078,8 @@ def phase_trainer(torch):
     numel = res.n_params * TRAIN_NODES
     # kernel 3 on the bool draw: 4 reads, 3 writes and a mask byte
     k3_bound = numel * 29 / HBM_BYTES_PER_S * 1e3
-    # where the time goes: a few more rounds under the profiler (its CPU
-    # tracing slows the host, so the busy share is a lower bound)
+    # where the time goes: a few more rounds under the profiler (device
+    # activity only)
     table, pwall = profiled(torch, lambda: res.driver.run(
         res.state, TRAIN_PROFILED, data_seed=res.data_seed))
     busy_s = sum(t for _, t in table.values()) / 1e6
@@ -2427,7 +2468,7 @@ def phase_serve(torch, smi: str):
         f"{gap:.3e} of max |logit|, greedy tokens agree on {agree:.3f} of "
         "rows")
     # where a decode step's time goes: a few more steps under the profiler
-    # (its CPU tracing slows the host, so the busy share is a lower bound)
+    # (device activity only)
     from repro_torch.models import lm
     state = res.state
 
@@ -3879,7 +3920,7 @@ def _unwatch_faulted_heap(sim):
 def _faults_sweep(torch, smi: str, problem):
     """Phase 15a: fed_faults_bench's degradation sweep through VecFedSim at
     the real-sim width, fused RandK K = 100 (kernel 1): the drop grid
-    {0, 0.05, 0.1, 0.2} x {dasha, marina}, 240 rounds each, ||grad f||^2
+    {0, 0.05, 0.1, 0.2} x {dasha, marina}, FAULT_ROUNDS rounds each, ||grad f||^2
     every round.  Gates: the bench's four, every campaign dropped some
     round, kernel 1 once a round; then a profiled 128-round chunk."""
     from repro_torch.bench import common as bc
@@ -4377,7 +4418,7 @@ def _async_sweep(torch, smi: str, problem):
     """Phase 16a: fed_async_bench's severity sweep and tau sweep through
     VecFedSim at the real-sim width, fused RandK K = 100 (kernel 1): tau =
     2, sigma in {0, 1, 2}, dasha and marina (p = 0.15), barrier and
-    async, 300 rounds each; tau in {0, 1, 2, 4} at sigma = 2 over 150
+    async, ASYNC_ROUNDS rounds each; tau in {0, 1, 2, 4} at sigma = 2 over 150
     rounds.  Gates: the bench's five, the tau sweep monotone, kernel 1
     once a round and nothing else; then tau = 0 against the sweep's
     sigma = 2 barrier runs bit for bit (every trace and the final state)
@@ -5366,9 +5407,10 @@ def _obs_build_spans():
     """Phase 17d: the build phase inside ``Obs.full().compile_spans()``
     records one ``backend_compile`` span (and one ``compiles`` count) for
     each library whose ``.so`` was missing before it: none on the warm
-    cache phase 1 left.  Then the same into an empty build directory under
-    ``build/``, where every source is built again and each must be
-    recorded."""
+    cache phase 1 left.  Then the same into a build directory under
+    ``build/`` that holds the other libraries (copied) but not
+    ``OBS_COLD_SOURCE``'s, which alone must be built and recorded
+    (PHASE26_CUTS: phase 1 builds every source cold on every run)."""
     import shutil
     from repro_torch.kernels import build
     from repro_torch.obs import COMPILER, Obs
@@ -5395,6 +5437,11 @@ def _obs_build_spans():
     out = {"warm": spans_of("warm cache")}
     cold_dir = build.BUILD_DIR.parent / "kernels_obs_check"
     shutil.rmtree(cold_dir, ignore_errors=True)
+    cold_dir.mkdir(parents=True)
+    for src in build.sources():
+        if src != OBS_COLD_SOURCE:
+            lib = build.library_path(src)
+            shutil.copy2(lib, cold_dir / lib.name)
     saved = build.BUILD_DIR
     build.BUILD_DIR = cold_dir
     try:
@@ -5403,8 +5450,9 @@ def _obs_build_spans():
         build.BUILD_DIR = saved
         shutil.rmtree(cold_dir, ignore_errors=True)
     log(f"[obs] build spans: warm cache {out['warm']['spans']} (libraries "
-        f"missing before: {out['warm']['missing_before']}); an empty build "
-        f"directory {out['cold']['spans']} spans for "
+        f"missing before: {out['warm']['missing_before']}); a build "
+        f"directory without {OBS_COLD_SOURCE} {out['cold']['spans']} spans "
+        "for "
         f"{out['cold']['missing_before']}, seconds {out['cold']['span_s']}")
     return out
 
@@ -9480,10 +9528,13 @@ def _mesh_train_rank0(torch, out_path: str) -> None:
     from repro_torch.models import sharding as sh
     dc = _mesh_train_config()
     report = {}
+    cfgs = {arch: dataclasses.replace(get_config(arch),
+                                      num_layers=MESH_TRAIN_LAYERS[arch])
+            for arch, _ in MESH_TRAIN_PAIRS}
     for arch, shape in MESH_TRAIN_PAIRS:
         t0 = time.perf_counter()
         row = dryrun.dryrun_one(arch, shape, dasha=dc, device="cuda",
-                                verbose=False)
+                                verbose=False, config=cfgs[arch])
         row["dryrun_wall_s"] = time.perf_counter() - t0
         report[f"{arch} x {shape}"] = {"dryrun": row}
         if row["status"] != "ok":
@@ -9496,7 +9547,7 @@ def _mesh_train_rank0(torch, out_path: str) -> None:
                               f"{ref['peak_gb']:.2f} GB, above "
                               f"{MESH_TRAIN_FIT_GB} GB")
             continue
-        cfg = get_config(arch)
+        cfg = cfgs[arch]
         with M.enter_mesh(M.make_production_mesh(device="cuda")) as mesh:
             spec = S.input_specs(cfg, shape, mesh, dasha=dc)
             gc.collect()
@@ -9536,8 +9587,8 @@ def _mesh_train_rank0(torch, out_path: str) -> None:
             _gate_launches(f"p25b {arch} warm-up", warm,
                            {"dasha_mvr_update": leaves})
             layers, fn, call_args = cfg.num_layers, spec.fn, args
-            if first_s > MESH_CALL_CUT_S:
-                layers = max(1, int(cfg.num_layers * MESH_CALL_CUT_S
+            if first_s > MESH_TRAIN_CALL_CUT_S:
+                layers = max(1, int(cfg.num_layers * MESH_TRAIN_CALL_CUT_S
                                     / first_s))
                 cut = dataclasses.replace(cfg, num_layers=layers)
                 fn = S.input_specs(cut, shape, mesh, dasha=dc).fn
@@ -9587,7 +9638,7 @@ def _mesh_train_rank0(torch, out_path: str) -> None:
             "timed_rounds": MESH_TRAIN_TIMED,
             "timed_layers": layers, "layers": cfg.num_layers,
             "cut": None if layers == cfg.num_layers else
-            f"warm-up round {first_s:.1f} s > {MESH_CALL_CUT_S} s: the "
+            f"warm-up round {first_s:.1f} s > {MESH_TRAIN_CALL_CUT_S} s: the "
             f"timed round at {layers} of {cfg.num_layers} layers, full "
             "width",
             "t_compute_ms": ref["t_compute_s"] * 1e3,
@@ -9688,6 +9739,618 @@ def phase_mesh_train(torch, smi: str):
             rows)
 
 
+# the analysis layer (phase 26): (a) the port's driver_bench
+# (repro_torch.bench.driver_bench) at the reference's full sizes: every
+# case's warmed loops build no kernel (repro_torch.analysis.recompile), and
+# a planted build (one library moved aside and dropped from build._LIBS)
+# must count 1; (b) host syncs under torch.cuda.set_sync_debug_mode("warn")
+# on one warmed chunk each of the Driver (the bench's flat case), a
+# VecFedSim slab chunk (26c's campaign) and a DASHA-MVR trainer chunk
+# (kernel 3, the smoke Mamba2: a sync site is a property of the code path,
+# not of its width): every site must lie in a function that the lint's
+# loop rules flag on that path (kept or allowlisted), and a planted
+# .item() in Driver._run_chunk must fail that gate and be a kept finding
+# of the lint; (c) repro_torch.analysis.dispatch_audit on one slab chunk
+# at phase 11's shape: no (n, d) output, and the audit's live peak over
+# the arguments within P26_PEAK_BAND of the card's allocation peak over
+# the same chunk's start (max_memory_allocated after
+# reset_peak_memory_stats, less memory_allocated before)
+P26_TRAIN_ROUNDS = 2               # the trainer chunk under the sync watch
+# 26a's depth: the smoke-LM cases are host-bound on the card (~14 steps a
+# second, and the tune's 8 lanes take a forward and backward each: ~0.6 s
+# a sweep step), so at the reference's 30 / 40 steps and best of 3 they
+# took 77.7 s of a 105.3 s phase 26 on an H100 80GB HBM3 at 700 W; the
+# widths stay (8 lanes of the smoke LM, batch and sequence, d = 1e6), and
+# the bench at full size is run by its own CLI (PERF.md)
+P26_TUNE_STEPS, P26_LM_STEPS, P26_LM_REPS = 4, 10, 1
+ANALYSIS_CUTS = {
+    "tune_steps": "driver_bench's smoke_lm_tune at 4 of its 30 steps, its 8 "
+                  "gammas kept (6 before PHASE26_CUTS' phase 26 entry)",
+    "single_steps": "smoke_lm_single at 10 of its 40 steps, best of 1 of "
+                    "3 timings (20 before)",
+    "flat": "none: d = 1e6, 50 steps, best of 3",
+    "trainer_syncs": "26b's trainer chunk on the smoke Mamba2 (the sync "
+                     "sites are the code path's, not the width's)",
+}
+P26_FLAT_CHUNK = 10                # driver_bench's flat Driver chunk
+P26_PEAK_BAND = (0.75, 1.25)       # 24b's and 25b's band
+P26_SYNC_RULES = ("loop-host-sync", "loop-tensor-if")
+P26_PLANTED_LINE = "state = box[0] = self.step(box[0], d)"
+P26_PLANT = "; state.x.sum().item()"
+P26_PLANTED_BUILD = "slab_writeback"
+# each 26b path's roots among rng_lint.LOOP_ROOTS, by qualname
+P26_ROOTS = {"driver": ("Driver._run_chunk",),
+             "vec_slab": ("VecFedSim._chunk_slab",),
+             "trainer": ("Driver._run_chunk", "train.hook",
+                         "make_train_step.step")}
+# what the earlier phases gave up for phase 26, beside its reckoning from
+# whole runs on H100 80GB HBM3 hosts at 700 W.  17d's cut removes no
+# counted launch.  The whole script with phase 26 took 1,059 s on a host
+# that ran the phases of a fast one's 850 s run 1.189 x as long, and more
+# than the 1,200 s limit on a slower one, so the rest (seconds from that
+# 1,059 s run) cut every phase's depth that is not a width and not a
+# gate's own statistic: they take launches of kernels 1 and 4 from the
+# paths named and 48 of kernel 5 (phase 8's one prefill call fewer; the
+# launch gates follow the constants), none of kernels 2 or 3
+PHASE26_CUTS = {
+    "phase 17": "17d's second build into a cold directory builds "
+                "slab_writeback only, the other libraries copied in (which "
+                "must then record no span): the three sources took 14.8 s "
+                "of nvcc on a fast host and 17.90 s on a slower one, "
+                "slab_writeback alone 2.7 s (phase 26's planted build); "
+                "phase 1 builds every source cold on every run: ~12 s; "
+                "17c at 24 turns of 60 (OBS_TURNS: 72 handle runs and 24 "
+                "planted of 180 and 60, the handle's median still over 72 "
+                "ratios, ~1.3% of standard error at run 11's 8.8% spread "
+                "against the 3% gate; 481 runs of ~0.2 s): ~58 s; 17a's "
+                "campaigns at 60 rounds of 120 (OBS_HEAP_ROUNDS; ~14 s): "
+                "~7 s; the ungated n = 100,000 comparison at 64 rounds of "
+                "128: ~1.5 s",
+    "phase 16": "16a's severity sweep and its tau = 0 reruns at 160 of "
+                "the bench's 300 rounds (ASYNC_ROUNDS; two chunks of 128, "
+                "so the ring still crosses a chunk; the quick grid's 120 "
+                "would not), its tau sweep at 150 as before: the sweep "
+                "took 48.4 s: ~20 s",
+    "phase 15": "the drop grid at 160 of the bench's 240 rounds "
+                "(FAULT_ROUNDS; two chunks of 128): its 21.6 s sweep: ~7 s",
+    "phase 25": "25b / 25c at half depth, full width (MESH_TRAIN_LAYERS: "
+                "mamba2-780m 24 of 48 layers, starcoder2-3b 15 of 30; the "
+                "dry runs' traces took 25.3 and 37.0 s, the warm-up rounds "
+                "7.7 and 15.2 s): ~43 s; and the timed and profiled rounds "
+                "cut in depth, never in width, once a warm-up round passes "
+                "6 s (MESH_TRAIN_CALL_CUT_S; 20 s before; starcoder2-3b's "
+                "17.3 s round): ~6 s",
+    "profiles": "every profiled window but a kernel row's records the "
+                "device's activity only (profiled(cpu=False)): the host's "
+                "op events and their event tree took seconds a window "
+                "(phase 5's round of ~40,000 launches most; 21a's prefill "
+                "9.7 s, 20's 4.9 s with their tables): ~25 s",
+    "phase 18": "18b at 128 rounds killed after chunk 1 (CKPT_VEC_ROUNDS, "
+                "CKPT_VEC_KILL; 256 and 3 before: 2 saves of ~3.3 s in "
+                "place of 4): ~9 s",
+    "phase 8": "one timed 4 x 32,768 prefill of two (PREFILL_TIMED; 2.39 "
+               "s a call): ~2.4 s",
+    "phase 26": "26a's tune at 4 of driver_bench's 30 steps (6 before), "
+                "its single run at 10 of 40 (20 before): ~5 s",
+}
+
+
+class _SyncWatch:
+    """Record every synchronizing CUDA operation in the block: each
+    warning of ``torch.cuda.set_sync_debug_mode("warn")``, with the
+    innermost frame of ``src/repro_torch`` that led to it (its site)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.sites = []            # (repo-relative path, line) per sync
+        self.orphans = []          # sync warnings with no site in the port
+
+    def __enter__(self):
+        import traceback
+        import warnings
+        if not hasattr(self.torch.cuda, "set_sync_debug_mode"):
+            raise AssertionError("torch.cuda.set_sync_debug_mode is missing")
+        self._cm = warnings.catch_warnings()
+        self._cm.__enter__()
+        warnings.simplefilter("always")
+        port = str(SRC / "repro_torch") + os.sep
+
+        def show(message, category, filename, lineno, file=None, line=None):
+            if "synchronizing CUDA operation" not in str(message):
+                return             # the mode's own prototype notice
+            for fr in reversed(traceback.extract_stack()[:-1]):
+                if fr.filename.startswith(port):
+                    self.sites.append((os.path.relpath(fr.filename, ROOT),
+                                       fr.lineno))
+                    return
+            self.orphans.append(f"{filename}:{lineno}")
+        warnings.showwarning = show
+        self.torch.cuda.synchronize()
+        self.torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.cuda.set_sync_debug_mode("default")
+        self._cm.__exit__(*exc)
+        return False
+
+    def by_site(self):
+        from repro_torch.analysis.rng_lint import enclosing_function
+        out = {}
+        for path, line in self.sites:
+            key = (path, line, enclosing_function(str(ROOT / path), line))
+            out[key] = out.get(key, 0) + 1
+        return out
+
+
+def _flagged(src_root=None, repo_root=None):
+    """For each path of ``P26_ROOTS``: (path, qualname) of every function
+    on it that the lint's loop rules flag (a finding kept or allowlisted
+    alike); and the lint's kept findings after the port's allowlist."""
+    from repro_torch.analysis import apply_allowlist, load_allowlist
+    from repro_torch.analysis.rng_lint import (LOOP_ROOTS, hot_functions,
+                                               lint_paths)
+    src = [str(src_root or SRC / "repro_torch")]
+    root = str(repo_root or ROOT)
+    raw = lint_paths(src, repo_root=root, loop_roots=LOOP_ROOTS)
+    flagged = {(f.path, f.symbol) for f in raw if f.rule in P26_SYNC_RULES}
+    kept, _ = apply_allowlist(raw, load_allowlist())
+    return {tag: flagged & hot_functions(
+                src, repo_root=root,
+                loop_roots=[r for r in LOOP_ROOTS if r[1] in quals])
+            for tag, quals in P26_ROOTS.items()}, kept
+
+
+def _sync_gate(tag: str, watch, flagged, rounds: int):
+    """The path's sync sites, each with its function and whether the lint
+    flags that function; fails on an orphan warning."""
+    if watch.orphans:
+        raise AssertionError(f"[analysis] {tag}: sync warnings with no site "
+                             f"in src/repro_torch: {watch.orphans}")
+    sites = [{"site": f"{p}:{ln}", "function": fn, "syncs": k,
+              "flagged": (p, fn) in flagged}
+             for (p, ln, fn), k in sorted(watch.by_site().items())]
+    return {"syncs": len(watch.sites), "rounds": rounds,
+            "syncs_per_round": len(watch.sites) / rounds, "sites": sites,
+            "uncovered": [s["site"] + " " + s["function"] for s in sites
+                          if not s["flagged"]]}
+
+
+def _planted_run_chunk():
+    """``Driver._run_chunk`` compiled from its own source with a
+    ``.item()`` appended to the round's step line (same file, same line
+    numbers), and the whole ``methods/driver.py`` so planted."""
+    import ast
+    import inspect
+    import textwrap
+    from repro_torch.methods import driver
+    lines, first = inspect.getsourcelines(driver.Driver._run_chunk)
+    src = textwrap.dedent("".join(lines))
+    if P26_PLANTED_LINE not in src:
+        raise AssertionError("the planted line is gone from _run_chunk")
+    tree = ast.parse(src.replace(P26_PLANTED_LINE,
+                                 P26_PLANTED_LINE + P26_PLANT, 1))
+    ast.increment_lineno(tree, first - 1)
+    scope = dict(vars(driver))
+    exec(compile(tree, driver.__file__, "exec"), scope)
+    text = Path(driver.__file__).read_text()
+    return scope["_run_chunk"], text.replace(
+        P26_PLANTED_LINE, P26_PLANTED_LINE + P26_PLANT, 1)
+
+
+class _KernelCapture:
+    """Keep a copy of the inputs of the largest call (by its first
+    tensor's size) of one kernel wrapper of ``module`` in the block: the
+    tensors a path handed the kernel, to hold it against its plain version
+    on them once the path's launches are counted.  The wrapper runs, and
+    counts, as before."""
+
+    def __init__(self, torch, module, name: str):
+        self.torch, self.module, self.name = torch, module, name
+        self.args, self.kw = None, None
+
+    def __enter__(self):
+        self.orig = orig = getattr(self.module, self.name)
+
+        def copy(v):
+            return v.clone() if isinstance(v, self.torch.Tensor) else v
+
+        def spy(*args, **kw):
+            if self.args is None or args[0].numel() > self.args[0].numel():
+                self.args = tuple(copy(v) for v in args)
+                self.kw = {k: copy(v) for k, v in kw.items()}
+            return orig(*args, **kw)
+        setattr(self.module, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+        if exc[0] is None and self.args is None:
+            raise AssertionError(f"[analysis] {self.name} was not called")
+        return False
+
+
+def _mvr_row(torch, kern, ref, tag: str, args, kw):
+    """Kernel 3 against its plain version on the inputs a path handed it:
+    bit-equal and repeatable, timed beside its bound (28 bytes an element
+    and the mask's own)."""
+    def launch():
+        return kern.dasha_mvr_update(*args, **kw)
+    out, again = launch(), launch()
+    plain = ref.dasha_mvr_update_ref(*args, **kw)
+    torch.cuda.synchronize()
+    err = max(float((o - p).abs().max()) for o, p in zip(out, plain))
+    if not all(torch.equal(o, p) for o, p in zip(out, plain)) or \
+            not all(torch.equal(o, p) for o, p in zip(out, again)):
+        raise AssertionError(f"dasha_mvr_update {tag}: max_abs_err {err} "
+                             "(must be bit-equal and repeatable)")
+    del out, again, plain
+    gn, mask = args[0], args[4]
+    numel = gn.numel()
+    b, by = bound(28 * numel + mask.numel() * mask.element_size(),
+                  9 * numel)
+    return {"case": tag, "shape": list(gn.shape),
+            "mask": f"{str(mask.dtype).split('.')[-1]} {list(mask.shape)}",
+            "max_abs_err": err, "ms": time_ms(torch, launch),
+            "plain_ms": time_ms(torch, lambda: ref.dasha_mvr_update_ref(
+                *args, **kw)),
+            "device_ms": kernel_device_ms(torch, launch,
+                                          ["dasha_mvr_update_"]),
+            "bound_ms": b, "bound_by": by}
+
+
+def _busy(torch, fn):
+    """One profiled window of ``fn`` (device activity only): its wall, the
+    device's busy seconds and their share, and the launches recorded."""
+    table, wall = profiled(torch, fn, cpu=False)
+    busy = sum(t for _, t in table.values()) / 1e6
+    return {"wall_s": wall, "device_busy_s": busy, "busy_share": busy / wall,
+            "device_launches": sum(c for c, _ in table.values())}
+
+
+def _p26_bench(torch, smi: str):
+    """26a: driver_bench's three cases at full size, the build watch, and
+    the planted build."""
+    from repro_torch.analysis import recompile
+    from repro_torch.bench import driver_bench as DB
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import tree
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import dasha_update as kern
+    from repro_torch.models import init_params
+    dev = torch.device("cuda")
+    leaves = len(tree.leaves(init_params(get_smoke_config("starcoder2-3b"),
+                                         0, device="meta")))
+    t0 = time.perf_counter()
+    _reset_launch_counts()
+    cases, caps = [], []
+    for run in (lambda: DB.bench_smoke_lm_tune(dev, steps=P26_TUNE_STEPS),
+                lambda: DB.bench_smoke_lm_single(dev, steps=P26_LM_STEPS,
+                                                 reps=P26_LM_REPS),
+                lambda: DB.bench_flat(DB.D_FLAT, dev)):
+        with _KernelCapture(torch, kern, "dasha_sparsify_update") as cap:
+            cases.append(run())
+        caps.append(cap)
+    torch.cuda.synchronize()
+    counts = _launch_counts()
+    wall = time.perf_counter() - t0
+    # kernel 1 once a leaf a round on the LM cases (a sweep round once for
+    # all lanes), once a round on the flat one: each loop's warm-up, its
+    # timed runs and the run its final state is read from
+    G, R, S = DB.N_GAMMAS, P26_LM_REPS, P26_LM_STEPS
+    tune = G * P26_TUNE_STEPS + 2 * P26_TUNE_STEPS
+    single = (2 + (R + 1) * S) + (R + 2) * S
+    R, S = DB.REPS, DB.STEPS_FLAT
+    flat = (2 + (R + 1) * S) + (R + 2) * S
+    want = {"dasha_sparsify_update": (tune + single) * leaves + flat}
+    _gate_launches("analysis 26a", counts, want)
+    bad = [c["case"] for c in cases if c["steady_state_builds"] != 0]
+    if bad:
+        raise AssertionError(f"[analysis] warmed loops built kernels: {bad}")
+    # each case's two loops run the same ops on the same draws
+    bad = [c["case"] for c in cases if c["final_state_max_abs_diff"] != 0.0]
+    if bad:
+        raise AssertionError(f"[analysis] the two loops differ: {bad}")
+    for c in cases:
+        log(f"[analysis] 26a {c['case']}: python loop "
+            f"{c['python_loop_steps_per_s']} steps/s, driver "
+            f"{c['driver_steps_per_s']} steps/s (x{c['speedup']}), "
+            f"steady-state builds {c['steady_state_builds']}, final states "
+            f"bit-equal | {smi}")
+    # kernel 1 against its plain version on the largest call each case's
+    # loops made (the flat (4, 1e6) RandK round, the sweep's and the single
+    # run's largest leaf), after the count
+    rows = []
+    for c, cap in zip(cases, caps):
+        grad, h, gl, a, scale = cap.args
+        tag = f"analysis {c['case']}"
+        row = _sparsify_row(torch, kern, ref, tag, grad, h, gl, a, scale,
+                            cap.kw["indices"], cap.kw["mask"])
+        rows.append({"case": tag, "shape": list(grad.shape),
+                     "path": "26a: the case's largest call", **row})
+        log(f"[analysis] 26a kernel 1 at {c['case']}'s largest call "
+            f"{tuple(grad.shape)} ({row['form']}): bit-equal to its plain "
+            f"version, {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, "
+            f"bound {row['bound_ms']:.4f} {row['bound_by']}) | {smi}")
+        cap.args = cap.kw = None
+
+    # planted: a library moved aside and forgotten must build once
+    lib = build.library_path(P26_PLANTED_BUILD)
+    aside = lib.with_name(lib.name + ".aside")
+    os.replace(lib, aside)
+    build._LIBS.pop(P26_PLANTED_BUILD, None)
+    t0 = time.perf_counter()
+    try:
+        full = torch.zeros((64, 8), device="cuda")
+        with recompile.watch("planted build") as region:
+            ops.slab_writeback(full, torch.arange(4, dtype=torch.int32,
+                                                  device="cuda"),
+                               torch.ones((4, 8), device="cuda"))
+            torch.cuda.synchronize()
+    finally:
+        os.replace(aside, lib)
+    planted_s = time.perf_counter() - t0
+    if region.count != 1 or region.builds != (P26_PLANTED_BUILD,):
+        raise AssertionError(f"[analysis] the build watch missed the planted "
+                             f"build: {region}")
+    _reset_launch_counts()
+    log(f"[analysis] 26a planted build of {P26_PLANTED_BUILD}: the watch "
+        f"counted {region.count} ({region.builds}) in {planted_s:.1f} s; "
+        f"{wall:.1f} s for the three cases")
+    return {"cases": cases, "launches": counts, "wall_s": wall,
+            "planted_build_count": region.count,
+            "planted_build_s": planted_s}, counts, rows
+
+
+def _p26_syncs_flat(torch, smi: str, flagged):
+    """26b on the Driver: driver_bench's flat case, one warmed chunk, then
+    the planted .item()."""
+    from repro_torch.analysis import apply_allowlist, load_allowlist
+    from repro_torch.analysis.rng_lint import LOOP_ROOTS, lint_paths
+    from repro_torch.bench import driver_bench as DB
+    from repro_torch.methods import Driver
+    dev = torch.device("cuda")
+    m = DB.flat_method(DB.D_FLAT, dev)
+    st0 = m.init(torch.zeros(DB.D_FLAT, device=dev), DB.STATE_SEED,
+                 init_mode="stoch", device=dev)
+    drv = Driver(m, metrics={"metric": lambda s, d_: DB.flat_metric(s)},
+                 chunk=P26_FLAT_CHUNK)
+    drv.run(st0, P26_FLAT_CHUNK)                 # warm
+    with _SyncWatch(torch) as w:
+        drv.run(st0, P26_FLAT_CHUNK)
+    out = _sync_gate("driver", w, flagged["driver"], P26_FLAT_CHUNK)
+    out["profile"] = _busy(torch, lambda: drv.run(st0, P26_FLAT_CHUNK))
+
+    # planted: the round's step line reads the iterate on the host
+    planted, text = _planted_run_chunk()
+    orig = Driver._run_chunk
+    Driver._run_chunk = planted
+    try:
+        with _SyncWatch(torch) as pw:
+            drv.run(st0, P26_FLAT_CHUNK)
+    finally:
+        Driver._run_chunk = orig
+    caught = _sync_gate("driver planted", pw, flagged["driver"],
+                        P26_FLAT_CHUNK)
+    with tempfile.TemporaryDirectory() as tmp:
+        dst = Path(tmp) / "src" / "repro_torch"
+        shutil.copytree(SRC / "repro_torch", dst, ignore=shutil.ignore_patterns(
+            "__pycache__", "csrc"))
+        (dst / "methods" / "driver.py").write_text(text)
+        kept, _ = apply_allowlist(lint_paths([str(dst)], repo_root=tmp,
+                                             loop_roots=LOOP_ROOTS),
+                                  load_allowlist())
+    lint_caught = [f.render() for f in kept if f.rule == "loop-host-sync"
+                   and f.symbol == "Driver._run_chunk"]
+    if not caught["uncovered"] or not lint_caught:
+        raise AssertionError(f"[analysis] the planted .item() went unseen: "
+                             f"runtime {caught['uncovered']}, lint "
+                             f"{lint_caught}")
+    out["planted"] = {"runtime_uncovered": caught["uncovered"],
+                      "lint_kept": lint_caught}
+    return out
+
+
+def _p26_syncs_trainer(torch, smi: str, flagged):
+    """26b on the trainer: a DASHA-MVR chunk with kernel 3 at the smoke
+    Mamba2, after a warm run through ``launch.train.train``."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import dasha_update as kern
+    from repro_torch.kernels import ref
+    from repro_torch.launch.train import build_parser, train
+    args = build_parser().parse_args([
+        "--steps", str(P26_TRAIN_ROUNDS), "--log-every",
+        str(P26_TRAIN_ROUNDS), "--variant", "mvr", "--use-kernel",
+        "--seq", "64"])
+    with _KernelCapture(torch, kern, "dasha_mvr_update") as cap:
+        res = train(get_smoke_config("mamba2-780m"), args, device="cuda",
+                    log=lambda s: None)
+    with _SyncWatch(torch) as w:
+        res.driver.run(res.state, P26_TRAIN_ROUNDS, data_seed=res.data_seed)
+    out = _sync_gate("trainer", w, flagged["trainer"], P26_TRAIN_ROUNDS)
+    del res
+    # the capture of kernel 3's largest call: phase_analysis holds it
+    # against its plain version once it has read the count
+    return out, cap
+
+
+def _p26_fed(torch, smi: str, flagged):
+    """26b on a VecFedSim slab chunk and 26c's audit of one, at phase
+    11's shape."""
+    import numpy as np
+    from repro_torch.analysis import dispatch_audit
+    from repro_torch.core.oracles import FiniteSumProblem
+    from repro_torch.data.pipeline import synthetic_classification
+    from repro_torch.fed.net import campaign_streams
+    from repro_torch.fed.sim import snapshot
+    n, d, c, R = FED_N, D_REALSIM, FED_C, FED_CHUNK
+    torch.cuda.empty_cache()
+    feats, labels = synthetic_classification(0, n, 1, d, device="cuda")
+    problem = FiniteSumProblem(_glm_loss(torch), feats, labels)
+    L = float((feats.norm(dim=-1) ** 2).mean() * 2)
+    sim = _fed_sim(problem, n, d, c, hyper_kw=dict(L=L), chunk=R)
+    state = sim.init(torch.zeros(d, device="cuda"), 1, device="cuda")
+
+    def metric(s):
+        return torch.sum(s.g ** 2)
+
+    sim.run(state, R, metric_fn=metric)              # warm
+    md, mu = sim._chunk_multipliers(
+        campaign_streams(np.random.default_rng(5), R), 0, R)
+    own = snapshot(state)
+    torch.cuda.synchronize()
+    with _SyncWatch(torch) as w:
+        sim._chunk_slab(own, R, md, mu, metric, None)
+    syncs = _sync_gate("vec_slab", w, flagged["vec_slab"], R)
+    del own
+
+    # the card's peak over one chunk from the campaign's start
+    own = snapshot(state)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sim._chunk_slab(own, R, md, mu, metric, None)
+    torch.cuda.synchronize()
+    card = torch.cuda.max_memory_allocated() - base
+    del own
+    # the same chunk under the audit
+    own = snapshot(state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, rep = dispatch_audit.audit(sim._chunk_slab, own, R, md, mu, metric,
+                                  None, min_bytes=n * d * 4)
+    torch.cuda.synchronize()
+    audit_s = time.perf_counter() - t0
+    ratio = rep.peak_over_args / card
+    big = [o.render() for o in rep.large]
+    out = {"n": n, "d": d, "C": c, "chunk": R,
+           "large_outputs": big, "min_bytes": n * d * 4,
+           "audit_peak_over_args_gb": rep.peak_over_args / 1e9,
+           "audit_temp_gb": rep.temp_bytes / 1e9,
+           "audit_arg_gb": rep.arg_bytes / 1e9,
+           "card_peak_over_start_gb": card / 1e9, "peak_ratio": ratio,
+           "audit_chunk_s": audit_s, "nvidia_smi": smi}
+    log(f"[analysis] 26c slab chunk at n={n} d={d} C={c} R={R}: "
+        f"{len(big)} outputs >= {n * d * 4 / 1e9:.2f} GB; audit peak over "
+        f"the arguments {rep.peak_over_args / 1e9:.3f} GB against the "
+        f"card's {card / 1e9:.3f} GB (x{ratio:.3f}), temps "
+        f"{rep.temp_bytes / 1e9:.3f} GB; audited chunk {audit_s:.2f} s | "
+        f"{smi}")
+    if big:
+        raise AssertionError(f"[analysis] (n, d) outputs in the slab chunk: "
+                             f"{big}")
+    if not P26_PEAK_BAND[0] <= ratio <= P26_PEAK_BAND[1]:
+        raise AssertionError(f"[analysis] audit peak x{ratio:.3f} of the "
+                             f"card's, outside {P26_PEAK_BAND}")
+    del own, sim, state, problem, feats, labels
+    torch.cuda.empty_cache()
+    return syncs, out
+
+
+def _p26_busy_lm(torch):
+    """The device's busy share over one warmed chunk of driver_bench's
+    smoke_lm_single Driver."""
+    from repro_torch.bench import driver_bench as DB
+    drv, ms0 = DB.lm_single_driver(torch.device("cuda"))
+    drv.run(ms0, DB.LOG_EVERY, data_seed=DB.DATA_SEED)       # warm
+    return _busy(torch, lambda: drv.run(ms0, DB.LOG_EVERY,
+                                        data_seed=DB.DATA_SEED))
+
+
+def phase_analysis(torch, smi: str):
+    """Phase 26: the analysis layer against the card (see the comment at
+    ``P26_TRAIN_ROUNDS``).  Returns the report, the launches and kernel 1's
+    and kernel 3's rows at the shapes the phase's paths gave them."""
+    from repro_torch.bench import driver_bench as DB
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import tree
+    from repro_torch.kernels import dasha_update as kern
+    from repro_torch.kernels import ref
+    from repro_torch.models import init_params
+    walls = {}
+    t0 = time.perf_counter()
+    bench, bench_counts, sparsify_rows = _p26_bench(torch, smi)
+    walls["26a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _reset_launch_counts()
+    busy = {"smoke_lm_single": _p26_busy_lm(torch)}
+    lm_counts = _launch_counts()
+    walls["26a_busy_lm"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    flagged, kept = _flagged()
+    if kept:
+        raise AssertionError("[analysis] the lint keeps findings: "
+                             + "; ".join(f.render() for f in kept))
+    walls["lint"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _reset_launch_counts()
+    syncs = {"driver": _p26_syncs_flat(torch, smi, flagged)}
+    flat_counts = _launch_counts()
+    busy["flat_driver"] = syncs["driver"].pop("profile")
+    walls["26b_driver"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _reset_launch_counts()
+    syncs["trainer"], cap = _p26_syncs_trainer(torch, smi, flagged)
+    train_counts = _launch_counts()
+    mvr_row = _mvr_row(torch, kern, ref, "analysis trainer", cap.args,
+                       cap.kw)
+    mvr_row["path"] = "26b: the smoke Mamba2 trainer's largest leaf"
+    del cap
+    log(f"[analysis] 26b kernel 3 at the trainer's largest leaf "
+        f"{tuple(mvr_row['shape'])} (mask {mvr_row['mask']}): bit-equal to "
+        f"its plain version, {mvr_row['ms']:.4f} ms (plain "
+        f"{mvr_row['plain_ms']:.4f}, bound {mvr_row['bound_ms']:.4f} "
+        f"{mvr_row['bound_by']}) | {smi}")
+    walls["26b_trainer"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _reset_launch_counts()
+    syncs["vec_slab"], audit = _p26_fed(torch, smi, flagged)
+    fed_counts = _launch_counts()
+    walls["26bc_fed"] = time.perf_counter() - t0
+    # kernel 1 once a leaf a round on the smoke LM's busy window (a warm
+    # chunk and the profiled one) and once a round on the flat Driver (a
+    # warm chunk, the watched one, the profiled one, the planted one),
+    # kernel 3 once a leaf a round on the trainer (train's rounds and the
+    # watched chunk), kernels 1 and 4 on the slab chunks (the warm run and
+    # three chunks, two writebacks each)
+    lm_leaves = len(tree.leaves(init_params(
+        get_smoke_config("starcoder2-3b"), 0, device="meta")))
+    leaves = len(tree.leaves(init_params(get_smoke_config("mamba2-780m"),
+                                         0, device="meta")))
+    _gate_launches("analysis busy lm", lm_counts,
+                   {"dasha_sparsify_update": 2 * DB.LOG_EVERY * lm_leaves})
+    _gate_launches("analysis flat", flat_counts,
+                   {"dasha_sparsify_update": 4 * P26_FLAT_CHUNK})
+    _gate_launches("analysis trainer", train_counts,
+                   {"dasha_mvr_update": 2 * P26_TRAIN_ROUNDS * leaves})
+    _gate_launches("analysis fed", fed_counts,
+                   {"dasha_sparsify_update": 4 * FED_CHUNK,
+                    "slab_writeback": 8})
+    for tag, b in busy.items():
+        log(f"[analysis] 26a {tag}: one warmed chunk profiled (device "
+            f"activity only) {b['wall_s']:.4f} s, device busy "
+            f"{b['device_busy_s']:.4f} s = {b['busy_share']:.3f} of it, "
+            f"{b['device_launches']} kernels | {smi}")
+    for tag, s in syncs.items():
+        log(f"[analysis] 26b {tag}: {s['syncs']} syncs in {s['rounds']} "
+            f"rounds ({s['syncs_per_round']:.3f} a round)")
+        for site in s["sites"]:
+            log(f"[analysis]   {site['syncs']:4d} x {site['site']} "
+                f"{site['function']} (lint: "
+                f"{'flagged' if site['flagged'] else 'MISSED'})")
+        if s["uncovered"]:
+            raise AssertionError(f"[analysis] {tag}: runtime sync sites the "
+                                 f"lint does not flag: {s['uncovered']}")
+    parts = (bench_counts, lm_counts, flat_counts, train_counts, fed_counts)
+    counts = {k: sum(c.get(k, 0) for c in parts)
+              for k in set().union(*parts)}
+    log(f"[analysis] phase 26 walls {walls} | {smi}")
+    return ({"bench": bench, "busy": busy, "syncs": syncs, "audit": audit,
+             "walls": walls, "cuts": ANALYSIS_CUTS, "launches": counts},
+            counts, {"dasha_sparsify_update": sparsify_rows,
+                     "dasha_mvr_update": mvr_row})
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"{SRC / 'repro_torch'} not found: run from a checkout of the "
@@ -9759,6 +10422,10 @@ def main() -> int:
     mesh_train, mesh_train_launches, mesh_train_rows = timed(
         phase_mesh_train, torch, smi)
     per_shape["dasha_mvr_update"].extend(mesh_train_rows)
+    analysis, analysis_launches, analysis_rows = timed(phase_analysis,
+                                                       torch, smi)
+    sparsify["cases"].extend(analysis_rows["dasha_sparsify_update"])
+    per_shape["dasha_mvr_update"].append(analysis_rows["dasha_mvr_update"])
     sparsify["cases"].append(p23_rows["dasha_sparsify_update"])
     per_shape["dasha_mvr_update"].append(p23_rows["dasha_mvr_update"])
     kernel2["fused"].append(p23_rows["dasha_quantize_update"])
@@ -9783,7 +10450,8 @@ def main() -> int:
             "obs": obs_launches["dasha_sparsify_update"],
             "ckpt": ckpt_launches["dasha_sparsify_update"],
             "registry": p23_launches["dasha_sparsify_update"],
-            **mesh_train_launches["dasha_sparsify_update"]},
+            **mesh_train_launches["dasha_sparsify_update"],
+            "analysis": analysis_launches["dasha_sparsify_update"]},
         "dasha_mvr_update": {"trainer": launches["dasha_mvr_update"],
                              "ckpt": ckpt_launches["dasha_mvr_update"],
                              "dense_trainer": dense_launches,
@@ -9792,7 +10460,9 @@ def main() -> int:
                                  hybrid_launches["dasha_mvr_update"],
                              **cross_launches,
                              "registry": p23_launches["dasha_mvr_update"],
-                             **mesh_train_launches["dasha_mvr_update"]},
+                             **mesh_train_launches["dasha_mvr_update"],
+                             "analysis":
+                                 analysis_launches["dasha_mvr_update"]},
         "ssd_chunk": {"mamba2_prefill": launches["ssd_chunk"],
                       "hybrid": hybrid_launches["ssd_chunk"],
                       **mesh_launches},
@@ -9806,7 +10476,8 @@ def main() -> int:
                            "heap": heap_launches["slab_writeback"],
                            "async": async_launches["slab_writeback"],
                            "obs": obs_launches["slab_writeback"],
-                           "ckpt": ckpt_launches["slab_writeback"]}}
+                           "ckpt": ckpt_launches["slab_writeback"],
+                           "analysis": analysis_launches["slab_writeback"]}}
     for name, paths in by_path.items():
         launches[name] = sum(paths.values())
 
@@ -9942,9 +10613,10 @@ def main() -> int:
               "obs": obsr, "ckpt": ckpt, "dense": dense,
               "family": family, "hybrid": hybrid, "cross": cross,
               "registry": registry, "mesh": mesh,
-              "mesh_train": mesh_train,
+              "mesh_train": mesh_train, "analysis": analysis,
               "phase22_cuts": PHASE22_CUTS, "phase23_cuts": PHASE23_CUTS,
               "phase24_cuts": PHASE24_CUTS, "phase25_cuts": PHASE25_CUTS,
+              "phase26_cuts": PHASE26_CUTS,
               "phase_walls_s": walls,
               "nvidia_smi": smi}
     out = ROOT / "chiprun_out"

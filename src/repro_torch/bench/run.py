@@ -1,6 +1,6 @@
 """Harness of the port's paper benchmarks (port of ``benchmarks/run.py``
-over the figures, the table, the fault bench and the async bench
-ported so far).
+over the figures, the table, the fault bench, the async bench and the
+driver bench ported so far).
 
     PYTHONPATH=src python -m repro_torch.bench.run [--only fig1,table1]
         [--device cpu] [--rounds-scale 0.1]
@@ -21,7 +21,7 @@ from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
 
 BENCHES = ["fig1_gradient", "fig2_finite_sum", "fig3_stochastic",
            "fig4_dnn", "fig5_quadratic_pl", "table1_complexity",
-           "fed_faults", "fed_async"]
+           "fed_faults", "fed_async", "driver_bench"]
 
 
 def select(only) -> list:

@@ -30,9 +30,12 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 _LISTENERS: List[Callable[[str, float], None]] = []
 
 
-def subscribe(fn: Callable[[str, float], None]) -> None:
-    """Call ``fn(name, seconds)`` after each library this process builds."""
+def subscribe(fn: Callable[[str, float], None]
+              ) -> Callable[[str, float], None]:
+    """Call ``fn(name, seconds)`` after each library this process builds;
+    returns ``fn`` (pass it to :func:`unsubscribe`)."""
     _LISTENERS.append(fn)
+    return fn
 
 
 def unsubscribe(fn: Callable[[str, float], None]) -> None:

@@ -1,7 +1,9 @@
 """The port stands alone and never falls back to the CPU.
 
-* an AST scan: no file of ``src/repro_torch`` and not ``chip_smoke.py``
-  imports ``jax``, ``jaxlib`` or ``repro``;
+* an AST scan: no file of ``src/repro_torch``, not ``chip_smoke.py`` and
+  not ``scripts/torch_lint.py`` imports ``jax``, ``jaxlib`` or ``repro``;
+* the lint's layers (``repro_torch.analysis``' ``tags``, ``findings``,
+  ``rng_lint`` and the CLI) import no torch, so the CLI stays fast;
 * every entry point that creates tensors defaults to the card and raises
   without one;
 * ``chip_smoke.py`` exits non-zero, printing no result, without a card
@@ -18,8 +20,9 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+SRC_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+PORT_FILES = SRC_FILES + [ROOT / "chip_smoke.py",
+                          ROOT / "scripts" / "torch_lint.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -42,7 +45,7 @@ def test_port_never_imports_the_reference(path):
 
 def test_import_scan_covers_the_slice():
     names = {str(p.relative_to(ROOT / "src" / "repro_torch"))
-             for p in PORT_FILES[:-1]}
+             for p in SRC_FILES}
     for mod in ("compress/spec.py", "compress/plan.py",
                 "compress/backends.py", "kernels/ref.py", "kernels/build.py",
                 "kernels/dasha_update.py", "kernels/ops.py",
@@ -79,7 +82,10 @@ def test_import_scan_covers_the_slice():
                 "core/__init__.py", "launch/mesh.py", "launch/specs.py",
                 "launch/analytic.py", "launch/roofline.py",
                 "launch/collectives.py", "launch/dryrun.py",
-                "models/sharding.py"):
+                "models/sharding.py", "analysis/__init__.py",
+                "analysis/findings.py", "analysis/tags.py",
+                "analysis/rng_lint.py", "analysis/dispatch_audit.py",
+                "analysis/recompile.py", "bench/driver_bench.py"):
         assert mod in names
     for src in ("dasha_update.cu", "ssd_chunk.cu", "slab_writeback.cu"):
         assert (ROOT / "src/repro_torch/kernels/csrc" / src).exists()
@@ -94,6 +100,23 @@ def test_fed_package_imports_neither_jax_nor_the_reference():
             "sys.exit(1 if bad else 0)")
     run = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert run.returncode == 0, run.stdout + run.stderr
+
+
+def test_lint_layers_import_no_torch():
+    """The static lint (its registry, findings, AST rules and the CLI)
+    loads no module of torch, JAX or the reference package: the CLI stays
+    fast, as the reference's does."""
+    code = ("import sys; sys.path.insert(0, 'scripts'); import torch_lint; "
+            "import repro_torch.analysis.tags, "
+            "repro_torch.analysis.findings, repro_torch.analysis.rng_lint; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('torch', 'jax', 'jaxlib', 'repro')); print(bad); "
+            "sys.exit(1 if bad else 0)")
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=ROOT,
                          env={"PYTHONPATH": str(ROOT / "src"),
                               "PATH": "/usr/bin:/bin"})
     assert run.returncode == 0, run.stdout + run.stderr
@@ -130,7 +153,7 @@ def _entry_points():
                                            make_node_batches)
     from repro_torch.bench import common as bench_common
     from repro_torch.bench import fed_async, fed_faults
-    from repro_torch.bench import obs_trace, quickstart
+    from repro_torch.bench import driver_bench, obs_trace, quickstart
     from repro_torch.bench import run as bench_run
     from repro_torch.launch import dryrun as dryrun_mod
     from repro_torch.launch import mesh as mesh_mod
@@ -196,6 +219,7 @@ def _entry_points():
         "bench.fed_faults.obs_compile_check": lambda:
             fed_faults.obs_compile_check(d=64, rounds=1),
         "bench.obs_trace": lambda: obs_trace.main([]),
+        "bench.driver_bench": lambda: driver_bench.main([]),
         "bench.run": lambda: bench_run.main(["--only", "table1"]),
         "VecFedSim.init": vecsim_init,
         "FedSim.init": fedsim_init,
@@ -241,7 +265,7 @@ def _entry_points():
 
 
 ENTRY_POINTS = ["FedSim.init", "Method.init", "StochasticProblem",
-                "Sweeper.run", "VecFedSim.init",
+                "Sweeper.run", "VecFedSim.init", "bench.driver_bench",
                 "bench.fed_async.equivalence_check",
                 "bench.fed_async.severity_sweep", "bench.fed_async.tau_sweep",
                 "bench.fed_faults.degradation_sweep",
